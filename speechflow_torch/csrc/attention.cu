@@ -10,31 +10,42 @@
 // 4 * T^2 * dh operations per (batch, head) against 4 * T * dh elements moved, about
 // 1000 operations per element: it is bound by operations, not bytes. The TPU kernel
 // keeps all of K/V of one (batch, head) in VMEM; Hopper's 227 KB of shared memory cannot
-// hold that at T = 1024, so both paths below are flash forwards instead: one block per
-// (64-row query tile, batch * head); K/V stream through shared memory in tiles, and an
-// online softmax (running max and sum per row, in f32) keeps the T x T logits out of
-// device memory.
+// hold that at T = 1024, so both paths below are flash forwards instead: K/V stream
+// through shared memory in tiles past a tile of query rows, and an online softmax
+// (running max and sum per row, in f32) keeps the T x T logits out of device memory.
 //
-// - bfloat16 (the serving path): both products run on the tensor cores through
-//   `mma.sync` m16n8k16 (bf16 in, f32 accumulation). Four warps own 16 query rows each;
-//   per 64-key tile a warp computes its 16 x 64 logits into registers, applies the mask
-//   and the online softmax in f32 there, rounds the probabilities to bf16 (as the TPU
-//   kernel casts them to v's type before its second product) and feeds them, still in
-//   registers, as the A operand of P V into an f32 accumulator that also stays in
-//   registers. K/V tiles are double-buffered with cp.async, so the next tile loads
-//   while this one is multiplied. It stays far below the bf16 peak (PERF.md); wgmma,
-//   TMA and a deeper pipeline are later work.
-// - float32: the arithmetic runs on the CUDA cores in f32 (FMA), which caps it at the
-//   f32 rate (67 TFLOP/s) but keeps full f32 logits.
+// - bfloat16 (the serving path): a warp-specialised, persistent flash forward on `wgmma`
+//   and TMA. One block an SM walks over work tiles of 128 query rows of one (batch,
+//   head): one producer thread issues TMA loads of each work tile's Q and of its 128-key
+//   K/V tiles into a two-stage ring (full and empty mbarriers per stage), running ahead
+//   into the next work tile while the consumers finish this one, and three more warps
+//   count the next work tile's valid keys; two consumer warpgroups of 64 rows each compute
+//   S = Q K^T with `wgmma` from shared memory, the masked online softmax in f32
+//   registers (base 2), and O += P V with P, rounded to bf16 as the TPU kernel casts its
+//   weights to v's type, fed from registers as wgmma's A operand. `setmaxnreg` moves
+//   registers from the producer to the consumers. Key tiles whose keys are all padded
+//   are neither loaded nor multiplied, and a query tile whose rows are all padded
+//   is written as zeros; both are exact (module note below). The output leaves
+//   through its own shared buffer and a TMA store, which clips rows past T, while the
+//   next work tile starts. Persistence hides each work tile's first loads and last
+//   store, which a block an SM (its shared memory allows one) would otherwise expose.
+//   Needs dh % 8 == 0 and 16-byte aligned pointers (TMA strides and addresses).
+// - float32: the arithmetic runs on the CUDA cores in f32 (FMA), one block per (64-row
+//   query tile, batch * head), which caps it at the f32 rate (67 TFLOP/s) but keeps
+//   full f32 logits.
 //
 // Layout: q, k, v and out are (B, T, H, dh), contiguous, the layout the projections
 // produce, so no transpose is needed; valid is (B, T) f32 0/1. Any T (the tail tile is
 // masked) and 1 <= dh <= 128.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -205,80 +216,173 @@ int launch(const void* q, const void* k, const void* v, const void* valid, void*
 
 }  // namespace f32
 
-// -- bfloat16: tensor cores through mma.sync ------------------------------------------
+// -- bfloat16: wgmma + TMA, warp-specialised --------------------------------------------
+//
+// Why skipping padded tiles is exact: a padded key's logit is -1e30, so in a row with at
+// least one valid key its weight exp(-1e30 - m) is exactly 0 once the running max m is a
+// real logit, which it is from the first tile that holds a valid key on (every tile this
+// kernel multiplies holds one). A row with no valid key is a padded query row, written
+// as zero. So dropping an all-padded tile changes no bit of any valid row.
 
 namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;             // query rows per block, 16 per warp
-constexpr int BK = 64;             // keys per shared-memory tile
-constexpr int WARPS = BQ / 16;
-constexpr int THREADS = 32 * WARPS;
-constexpr int ND = MAX_DH / 16;    // 16-wide head-dim chunks at most
-constexpr int NT = BK / 8;         // 8-key column tiles of the logits
-// row stride of the Q/K/V tiles in bf16: 272 bytes, so the 8 rows that one fragment
-// load or one ldmatrix touches start on 8 different 4-bank groups (no bank conflicts),
-// and every row start stays 16-byte aligned, as ldmatrix and the 16-byte copies require
-constexpr int LDH = MAX_DH + 8;
+constexpr int BM = 128;              // query rows per block (two warpgroups of 64)
+constexpr int BN = 128;              // keys per K/V tile
+constexpr int THREADS = 384;         // producer warpgroup + two consumer warpgroups
+constexpr uint32_t BOX = 64 * 128 * sizeof(bf16);  // one TMA box: 128 rows x 64 columns
+constexpr int BAR_BYTES = 128;  // q_full, q_empty, then k_full, v_full, kv_empty,
+                                 // cnt_full, cnt_empty two each
+static_assert(BM == BN, "a query tile is also a key tile: its mask state is shared");
 
-// two stages of (K tile, V tile, key mask); Q is staged in stage 1's K tile before the
-// loop, since it is read once into registers
-constexpr size_t TILE = sizeof(bf16) * BK * LDH;
-constexpr size_t OFF_F = 4 * TILE;
-constexpr size_t SMEM = OFF_F + 2 * sizeof(float) * BK;
-static_assert(BQ == BK, "Q is staged in a K tile");
+// shared memory of a block for padded head dim dhp (64 or 128): Q, the outgoing output,
+// two stages of K and V, the barriers, and two buffers of one valid-key count a key tile
+__host__ __device__ constexpr uint32_t tile_bytes(int dhp) { return (dhp / 64) * BOX; }
+size_t smem_bytes(int dhp, int n_tiles) {
+  return 1024 + 6 * size_t(tile_bytes(dhp)) + BAR_BYTES + 2 * sizeof(int) * size_t(n_tiles);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// asynchronous copies to shared memory; with pred false nothing is read and the
-// destination is zero-filled (src must still be a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+// -- mbarriers --
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0));
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
 }
 
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
 }
 
-// rows x dhp tile of (B, T, H, dh) starting at time t0, zero outside [0, seq) x [0, dh):
-// asynchronous 16-byte copies where dh % 8 == 0 and the pointers are aligned, else
-// plain loads
-__device__ __forceinline__ void load_tile(bf16* __restrict__ dst, const bf16* __restrict__ src,
-                                          int t0, int rows, int seq, long long row_stride,
-                                          int dh, int dhp, bool vec) {
-  if (vec) {
-    const int per_row = dhp / 8;
-    for (int idx = threadIdx.x; idx < rows * per_row; idx += THREADS) {
-      const int r = idx / per_row, c = (idx - r * per_row) * 8;
-      const int t = t0 + r;
-      const bool in = t < seq && c < dh;
-      cp_async16(dst + r * LDH + c, in ? src + t * row_stride + c : src, in);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * dhp; idx += THREADS) {
-      const int r = idx / dhp, c = idx - r * dhp;
-      const int t = t0 + r;
-      dst[r * LDH + c] = (t < seq && c < dh) ? src[t * row_stride + c] : __float2bfloat16(0.f);
-    }
-  }
+// wait for the completion of the barrier's phase of the given parity; a wait that lasts
+// seconds is a fault of the pipeline, so it traps (a launch error) instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1ll << 33)) __trap();
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// -- TMA: 4-D boxes of (dh, H, T, B); coordinates innermost first --
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// -- wgmma --
+
+// Shared-memory matrix descriptor, 128-byte swizzle (the layout TMA's SWIZZLE_128B
+// writes: 8 rows x 128 bytes form one 1024-byte atom, 16-byte chunk c of row r stored at
+// chunk c ^ (r % 8)). Offsets in bytes. K-major operands: sbo = 1024 between 8-row
+// groups, lbo unused. MN-major operands: lbo between 64-element groups along MN (the two
+// boxes of a 128-wide head), sbo = 1024 between 8-row groups along K.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving register reads or writes across a wgmma fence or wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define ACC8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define REGS32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+#define REGS64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
+  "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, " \
+  "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+
+// D (64 x 128, f32) (+)= A (64 x 16, shared, K-major) B (16 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x N, f32) += A (64 x 16, bf16 registers) B (16 x N, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef ACC8
+#undef REGS32
+#undef REGS64
+
+__device__ __forceinline__ float fast_exp2(float x) {  // 2^x; -inf -> +0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -286,209 +390,354 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// D (16x8, f32) += A (16x16, bf16, row-major) * B (16x8, bf16, column-major)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices, transposed on the way: lane L gives the row address of
-// matrix L / 8, row L % 8
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// Fragment layout of m16n8k16 (g = lane / 4, q = lane % 4): the accumulator holds
-// rows g and g + 8, columns 2q and 2q + 1 of its 16 x 8 tile; an A fragment holds rows
-// g and g + 8, columns 2q, 2q + 1 and 2q + 8, 2q + 9 of its 16 x 16 tile. So the
-// probabilities of two neighbouring 8-key logit tiles are, once rounded to bf16, the A
-// fragment of the next product as they stand: P never leaves the registers.
-__global__ void __launch_bounds__(THREADS)
-attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const float* __restrict__ valid,
-                bf16* __restrict__ out, int seq, int heads, int dh, float scale_log2,
-                int vec) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  // stage s: K tile at 2s, V tile at 2s + 1, and the keys' valid flags
-  auto k_tile = [&](int s) { return reinterpret_cast<bf16*>(smem + 2 * s * TILE); };
-  auto v_tile = [&](int s) { return reinterpret_cast<bf16*>(smem + (2 * s + 1) * TILE); };
-  auto flags = [&](int s) { return reinterpret_cast<float*>(smem + OFF_F) + s * BK; };
+// Fragment layouts (warpgroup of 4 warps, warp w owns rows 16w .. 16w + 15; g = lane / 4,
+// qd = lane % 4): accumulator register 4j + e of an m64nN product holds row
+// 16w + g + 8 (e / 2), column 8j + 2qd + (e % 2). The A register fragment of an m64k16
+// product holds rows g and g + 8, columns 2qd, 2qd + 1, 2qd + 8, 2qd + 9 of its 16-wide
+// chunk: so two neighbouring 8-column blocks of S, rounded to bf16 and paired, are the
+// A operand of P V as they stand.
+template <int DHP>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                const float* __restrict__ valid, bf16* __restrict__ out, int seq, int heads,
+                int dh, int n_work, float scale_log2) {
+  constexpr int HALVES = DHP / 64;                 // TMA boxes across the head dim
+  constexpr uint32_t TILE = tile_bytes(DHP);
+  constexpr int NO = DHP / 2;                      // output accumulator registers
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled boxes must start on 1024-byte boundaries
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_q = smem_addr(smem);            // Q of the current work tile
+  const uint32_t s_o = s_q + TILE;                 // the previous output, on its way out
+  const uint32_t s_k = s_o + TILE;                 // K stage s at s_k + s * TILE
+  const uint32_t s_v = s_k + 2 * TILE;             // V stage s at s_v + s * TILE
+  const uint32_t bar = s_v + 2 * TILE;
+  const uint32_t q_full = bar, q_empty = bar + 8;
+  auto k_full = [&](int s) { return bar + 16 + 8 * s; };
+  auto v_full = [&](int s) { return bar + 32 + 8 * s; };
+  auto kv_empty = [&](int s) { return bar + 48 + 8 * s; };
+  auto cnt_full = [&](int s) { return bar + 64 + 8 * s; };
+  auto cnt_empty = [&](int s) { return bar + 80 + 8 * s; };
+  const int n_tiles = (seq + BN - 1) / BN;         // key tiles, and query tiles (BM == BN)
+  // valid keys of each key tile, two buffers (work tiles k and k + 1)
+  int* counts = reinterpret_cast<int*>(smem + 6 * TILE + BAR_BYTES);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, qd = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / heads;
-  const int h = bh - b * heads;
-  const int q0 = blockIdx.x * BQ;
-  const long long row_stride = (long long)heads * dh;
-  const long long base = (long long)b * seq * row_stride + (long long)h * dh;
-  const float* valid_b = valid + (long long)b * seq;
-  const int dhp = (dh + 15) & ~15;  // head dim padded with zeros to whole chunks
-  const int nd = dhp / 16;
-  const int w0 = warp * 16;         // the warp's first row in the tile
-
-  auto load_stage = [&](int stage, int k0) {
-    load_tile(k_tile(stage), k + base, k0, BK, seq, row_stride, dh, dhp, vec);
-    load_tile(v_tile(stage), v + base, k0, BK, seq, row_stride, dh, dhp, vec);
-    if (tid < BK) {
-      const bool in = k0 + tid < seq;
-      cp_async4(flags(stage) + tid, in ? valid_b + k0 + tid : valid_b, in);
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);  // one arrival per consumer warp
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(kv_empty(s), 8);
+      mbar_init(cnt_full(s), 3);   // the three counting warps
+      mbar_init(cnt_empty(s), 9);  // the loading thread and the consumer warps
     }
-  };
-
-  const bf16* Qs = k_tile(1);
-  load_tile(k_tile(1), q + base, q0, BQ, seq, row_stride, dh, dhp, vec);
-  cp_async_commit();
-  load_stage(0, 0);
-  cp_async_commit();
-  cp_async_wait_one();  // Q has landed; K/V tile 0 may still be in flight
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  uint32_t qf[ND][4];
+
+  // Persistent: block i takes work tiles i, i + gridDim.x, ...; work tile w is query tile
+  // w % n_tiles of (batch, head) w / n_tiles, so the blocks in flight share K/V in L2.
+  // While the consumers finish one work tile, the producer already loads the next one's
+  // Q and K/V, and three warps count its valid keys.
+  if (tid < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int warp = tid / 32, lane = tid % 32;
+    if (warp == 0) {
+      // -- one thread issues every TMA load --
+      if (lane != 0) return;
+      int n = 0, nq = 0;  // K/V tiles and Q tiles loaded so far
+      for (int w = blockIdx.x, k = 0; w < n_work; w += gridDim.x, ++k) {
+        const int bh = w / n_tiles, qt = w - bh * n_tiles;
+        const int b = bh / heads, h = bh - b * heads;
+        mbar_wait(cnt_full(k & 1), (k >> 1) & 1);
+        const int* cnt = counts + (k & 1) * n_tiles;
+        if (cnt[qt] != 0) {  // else every query row is padded: nothing to load
+          if (nq > 0) mbar_wait(q_empty, (nq - 1) & 1);
+          mbar_expect_tx(q_full, TILE);
+          for (int x = 0; x < HALVES; ++x)
+            tma_load(s_q + x * BOX, &tm_q, q_full, 64 * x, h, qt * BM, b);
+          for (int j = 0; j < n_tiles; ++j) {
+            if (cnt[j] == 0) continue;  // all keys padded: never loaded
+            const int s = n & 1;
+            if (n >= 2) mbar_wait(kv_empty(s), ((n >> 1) - 1) & 1);
+            mbar_expect_tx(k_full(s), TILE);
+            for (int x = 0; x < HALVES; ++x)
+              tma_load(s_k + s * TILE + x * BOX, &tm_k, k_full(s), 64 * x, h, j * BN, b);
+            mbar_expect_tx(v_full(s), TILE);
+            for (int x = 0; x < HALVES; ++x)
+              tma_load(s_v + s * TILE + x * BOX, &tm_v, v_full(s), 64 * x, h, j * BN, b);
+            ++n;
+          }
+          ++nq;
+        }
+        mbar_arrive(cnt_empty(k & 1));
+      }
+    } else {
+      // -- warps 1-3 count the valid keys of each key tile of the next work tiles --
+      for (int w = blockIdx.x, k = 0; w < n_work; w += gridDim.x, ++k) {
+        if (k >= 2) mbar_wait(cnt_empty(k & 1), ((k >> 1) - 1) & 1);
+        const float* valid_b = valid + (long long)(w / n_tiles / heads) * seq;
+        int* cnt = counts + (k & 1) * n_tiles;
+        for (int j = warp - 1; j < n_tiles; j += 3) {
+          int c = 0;
 #pragma unroll
-  for (int kk = 0; kk < ND; ++kk) {
-    if (kk < nd) {
-      const bf16* p = Qs + (w0 + g) * LDH + kk * 16 + 2 * qd;
-      qf[kk][0] = ld32(p);
-      qf[kk][1] = ld32(p + 8 * LDH);
-      qf[kk][2] = ld32(p + 8);
-      qf[kk][3] = ld32(p + 8 * LDH + 8);
+          for (int i = 0; i < BN / 32; ++i) {
+            const int t = j * BN + 32 * i + lane;
+            c += t < seq && valid_b[t] > 0.f;
+          }
+          c = __reduce_add_sync(0xffffffffu, c);
+          if (lane == 0) cnt[j] = c;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(cnt_full(k & 1));
+      }
     }
-  }
-  __syncthreads();  // stage 1 is free for the next tile
+  } else {
+    // -- consumer warpgroups: 64 query rows each --
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = tid / 128 - 1;
+    const int wtid = tid % 128;
+    const int warp = wtid / 32, lane = tid % 32;
+    const int g = lane / 4, qd = lane % 4;
+    const uint32_t q_rows = s_q + cw * 64 * 128;   // this warpgroup's 64 rows of Q
+    int n = 0, nq = 0;
 
-  float o[2 * ND][4];  // output rows g, g + 8 of the warp; 8-wide head-dim tiles
-#pragma unroll
-  for (int j = 0; j < 2 * ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8 (base 2)
-  float l[2] = {0.f, 0.f};              // this lane's share of the running sums
+    for (int w = blockIdx.x, k = 0; w < n_work; w += gridDim.x, ++k) {
+      const int bh = w / n_tiles, qt = w - bh * n_tiles;
+      const int b = bh / heads, h = bh - b * heads;
+      const int q0 = qt * BM;
+      const float* valid_b = valid + (long long)b * seq;
+      mbar_wait(cnt_full(k & 1), (k >> 1) & 1);
+      const int* cnt = counts + (k & 1) * n_tiles;
 
-  for (int k0 = 0, stage = 0; k0 < seq; k0 += BK, stage ^= 1) {
-    if (k0 + BK < seq) load_stage(stage ^ 1, k0 + BK);  // prefetch the next tile
-    cp_async_commit();
-    cp_async_wait_one();  // this tile has landed
-    __syncthreads();
-    const bf16* Kt = k_tile(stage);
-    const bf16* Vt = v_tile(stage);
-    const float* vf = flags(stage);
+      if (cnt[qt] == 0) {  // every query row of this tile is padded: zeros
+        const long long row_stride = (long long)heads * dh;
+        bf16* o_b = out + (long long)b * seq * row_stride + (long long)h * dh;
+        const int r0 = q0 + cw * 64;
+        const int rows = max(0, min(64, seq - r0));
+        for (int i = wtid; i < rows * dh; i += 128) {
+          const int r = i / dh;
+          o_b[(r0 + r) * row_stride + i - r * dh] = __float2bfloat16(0.f);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(cnt_empty(k & 1));
+        continue;
+      }
+      int last = n_tiles - 1;  // the last key tile multiplied (this query tile's own is one)
+      while (cnt[last] == 0) --last;
 
-    // S (16 x BK) = Q K^T; K stored (keys x d) row-major is B column-major
-    float s[NT][4];
+      float o[NO];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+      for (int i = 0; i < NO; ++i) o[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8 (raw logits)
+      float l[2] = {0.f, 0.f};              // this thread's share of the running sums
+
+      mbar_wait(q_full, nq & 1);
+      for (int j = 0; j <= last; ++j) {
+        const int count = cnt[j];
+        if (count == 0) continue;
+        const int s = n & 1;
+        const uint32_t parity = (n >> 1) & 1;
+        const int k0 = j * BN;
+
+        // S (64 x 128) = Q K^T, both K-major; 16-wide steps along the head dim advance
+        // 32 bytes inside a 128-byte row, and the second box holds dims 64 .. 127
+        float sc[64];
+        mbar_wait(k_full(s), parity);
+        wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+        for (int kk = 0; kk < DHP / 16; ++kk) {
+          const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+          wgmma_ss_n128(sc, desc_sw128(q_rows + off, 16, 1024),
+                        desc_sw128(s_k + s * TILE + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(sc);
+        if (j == last && lane == 0) mbar_arrive(q_empty);  // this warp is done with Q
+
+        // the key mask, only where the tile has padded keys or runs past T: a padded
+        // key gets -1e30, far below any logit, as the TPU's additive mask gives; a key
+        // past the end gets -inf
+        if (count != BN) {
 #pragma unroll
-      for (int kk = 0; kk < ND; ++kk) {
-        if (kk < nd) {
-          const bf16* p = Kt + (n * 8 + g) * LDH + kk * 16 + 2 * qd;
-          mma16816(s[n], qf[kk], ld32(p), ld32(p + 8));
+          for (int jb = 0; jb < 16; ++jb) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = k0 + 8 * jb + 2 * qd + e;
+              const float fill = key >= seq ? -INFINITY : (valid_b[key] > 0.f ? 0.f : -1e30f);
+              if (fill != 0.f) {
+                sc[4 * jb + e] = fill;
+                sc[4 * jb + 2 + e] = fill;
+              }
+            }
+          }
+        }
+
+        // online softmax in f32, base 2: p = 2^((s - m) log2(e) / sqrt(dh))
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < 64; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+        float alpha[2], ms[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r]);  // finite: the tile holds a valid key
+          alpha[r] = fast_exp2((m[r] - m_new) * scale_log2);
+          m[r] = m_new;
+          ms[r] = m_new * scale_log2;
+          l[r] *= alpha[r];
+        }
+        uint32_t pa[32];
+#pragma unroll
+        for (int i = 0; i < 64; i += 2) {
+          const int r = (i / 2) % 2;
+          const float p0 = fast_exp2(fmaf(sc[i], scale_log2, -ms[r]));
+          const float p1 = fast_exp2(fmaf(sc[i + 1], scale_log2, -ms[r]));
+          l[r] += p0 + p1;
+          pa[i / 2] = pack_bf16(p0, p1);
+        }
+#pragma unroll
+        for (int i = 0; i < NO; ++i) o[i] *= alpha[(i / 2) % 2];
+
+        // O (64 x DHP) += P V; V is MN-major (keys x dims, dims contiguous): 16 keys are
+        // 2048 bytes, the second box of dims sits one box further (lbo)
+        mbar_wait(v_full(s), parity);
+        reg_fence(o);
+        reg_fence(pa);
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < BN / 16; ++kc)
+          wgmma_rs(o, pa + 4 * kc, desc_sw128(s_v + s * TILE + kc * 2048, BOX, 1024));
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(o);
+        reg_fence(pa);  // P stays in its registers until the product has read it
+        if (lane == 0) mbar_arrive(kv_empty(s));  // this warp is done with the stage
+        ++n;
+      }
+      if (lane == 0) mbar_arrive(cnt_empty(k & 1));
+      ++nq;
+
+      // epilogue: O / l (zero in padded query rows), as bf16, into this warpgroup's rows
+      // of the output buffer in the swizzled layout, once the previous store has read
+      // them, then one TMA store per box (rows past T and dims past dh are clipped)
+      if (wtid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const int row = cw * 64 + warp * 16 + g + 8 * r;   // row in the block's tile
+        const int t = q0 + row;
+        const float keep = (t < seq && valid_b[t] > 0.f) ? 1.f / l[r] : 0.f;
+#pragma unroll
+        for (int jb = 0; jb < DHP / 8; ++jb) {
+          const uint32_t addr =
+              TILE + (jb / 8) * BOX + row * 128 + (((jb % 8) ^ (row % 8)) * 16) + 4 * qd;
+          *reinterpret_cast<uint32_t*>(smem + addr) =
+              pack_bf16(o[4 * jb + 2 * r] * keep, o[4 * jb + 2 * r + 1] * keep);
         }
       }
-    }
-
-    // online softmax in f32, base 2; the four lanes of a quad share a row
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * qd + (e & 1);
-        // a padded key gets -1e30, far below any logit, as the TPU's additive mask
-        // gives; a key past the end gets -inf and weight 0
-        s[n][e] = k0 + c >= seq ? -INFINITY : (vf[c] > 0.f ? s[n][e] * scale_log2 : -1e30f);
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s[n][e]);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
+      if (wtid == 0 && q0 + cw * 64 < seq) {
+        for (int x = 0; x < HALVES; ++x)
+          tma_store(&tm_o, s_o + cw * 64 * 128 + x * BOX, 64 * x, h, q0 + cw * 64, b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       }
     }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      const float m_new = fmaxf(m[r], tile_max[r]);  // finite: key k0 is never past the end
-      alpha[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - m[e >> 1]);
-        l[e >> 1] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2 * ND; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-
-    // O (16 x dhp) += P V, P rounded to bf16 (as the TPU kernel casts it to v's type)
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-      // matrices: keys +0..7 / +8..15 of head-dim tile 2j, then the same of tile 2j + 1
-      const bf16* vrow = Vt + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH +
-                         (lane >> 4) * 8;
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        if (j < nd) {
-          uint32_t vb[4];
-          ldsm_x4_trans(vb, vrow + j * 16);
-          mma16816(o[2 * j], pa, vb[0], vb[1]);
-          mma16816(o[2 * j + 1], pa, vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    if (wtid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int t = q0 + w0 + g + 8 * r;
-    if (t >= seq) continue;
-    const float keep = valid_b[t] > 0.f ? 1.f / l[r] : 0.f;  // padded query rows -> 0
-    bf16* orow = out + base + t * row_stride;
-#pragma unroll
-    for (int j = 0; j < 2 * ND; ++j) {
-      const int d = j * 8 + 2 * qd;
-      if (d < dh) orow[d] = __float2bfloat16(o[j][2 * r] * keep);
-      if (d + 1 < dh) orow[d + 1] = __float2bfloat16(o[j][2 * r + 1] * keep);
-    }
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, which the CUDA runtime has already loaded
+// into the process: looked up there, so this library links only the runtime
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib == nullptr) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
   }
+  return fn;
+}
+
+// (B, T, H, dh) bf16 as a 4-D tensor map, boxes of 64 dims x 1 head x rows x 1 batch,
+// 128-byte swizzle; reads outside the tensor are zero-filled, writes outside are dropped
+bool encode(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int dh,
+            int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t es = sizeof(bf16);
+  const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(heads), cuuint64_t(seq),
+                              cuuint64_t(batch)};
+  const cuuint64_t strides[3] = {dh * es, cuuint64_t(heads) * dh * es,
+                                 cuuint64_t(seq) * heads * dh * es};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int DHP>
+int launch_dhp(const void* q, const void* k, const void* v, const void* valid, void* out,
+               int batch, int seq, int heads, int dh, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to;
+  if (!encode(&tq, q, batch, seq, heads, dh, BM) || !encode(&tk, k, batch, seq, heads, dh, BN) ||
+      !encode(&tv, v, batch, seq, heads, dh, BN) || !encode(&to, out, batch, seq, heads, dh, 64))
+    return (int)cudaErrorInvalidValue;
+  // the SM count and the largest shared memory granted so far, per device, asked once
+  // and not at every launch: at the encoder's shape the kernel itself is shorter than
+  // the host's work around a launch
+  constexpr int MAX_DEVICES = 64;
+  static int sms[MAX_DEVICES] = {};
+  static size_t granted[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (sms[device] == 0 &&
+      (err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess)
+    return (int)err;
+  const int n_tiles = (seq + BN - 1) / BN;
+  const size_t smem = smem_bytes(DHP, n_tiles);
+  if (smem > granted[device]) {
+    err = cudaFuncSetAttribute(attn_fwd_kernel<DHP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    granted[device] = smem;
+  }
+  const long long n_work = (long long)n_tiles * batch * heads;
+  if (n_work > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const int grid = (int)std::min<long long>(n_work, sms[device]);  // a persistent block an SM
+  attn_fwd_kernel<DHP><<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, to, static_cast<const float*>(valid), static_cast<bf16*>(out), seq, heads,
+      dh, (int)n_work, 1.4426950408889634f / sqrtf((float)dh));  // log2(e) / sqrt(dh)
+  return (int)cudaGetLastError();
 }
 
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out,
            int batch, int seq, int heads, int dh, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v)) & 15u) == 0;
-  const int vec = (dh % 8 == 0) && aligned;
-  const dim3 grid((seq + BQ - 1) / BQ, batch * heads);
-  attn_fwd_kernel<<<grid, THREADS, SMEM, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(valid), static_cast<bf16*>(out), seq, heads, dh,
-      1.4426950408889634f / sqrtf((float)dh), vec);  // log2(e) / sqrt(dh)
-  return (int)cudaGetLastError();
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (dh % 8 != 0 || (ptrs & 15u) != 0) return (int)cudaErrorInvalidValue;
+  if (dh <= 64) return launch_dhp<64>(q, k, v, valid, out, batch, seq, heads, dh, stream);
+  return launch_dhp<128>(q, k, v, valid, out, batch, seq, heads, dh, stream);
 }
 
 }  // namespace tc

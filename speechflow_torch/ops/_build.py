@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,8 +25,8 @@ import time
 import typing as tp
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "nvcc_command", "build_all", "load_library", "function",
-           "check"]
+__all__ = ["CSRC", "BUILD_DIR", "nvcc_command", "build_all", "library_path", "load_library",
+           "function", "check", "sass_counts"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -50,7 +51,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built (its name carries a hash
+    of the source and the flags)."""
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -75,7 +78,7 @@ def build_all() -> tp.Dict[str, dict]:
     jobs = {}
     report = {}
     for name in sources():
-        out = _target(name)
+        out = library_path(name)
         if out.exists():
             report[name] = {"cmd": None, "seconds": 0.0, "log": "cached"}
             continue
@@ -106,9 +109,9 @@ def load_library(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            if not _target(name).exists():
+            if not library_path(name).exists():
                 build_all()
-            lib = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
 
@@ -122,6 +125,17 @@ def function(lib_name: str, fn_name: str, argtypes: tp.Sequence) -> tp.Any:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return fn
+
+
+def sass_counts(name: str, opcodes: tp.Sequence[str]) -> tp.Dict[str, int]:
+    """How often each SASS opcode (e.g. ``HGMMA``, ``UTMALDG``) occurs in the
+    built library of ``csrc/<name>.cu``, from ``cuobjdump -sass``."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(library_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed for {name}: {out.stderr.strip()}")
+    return {op: len(re.findall(rf"\b{op}\b", out.stdout)) for op in opcodes}
 
 
 def check(err: int, what: str) -> None:

@@ -59,7 +59,12 @@ def _launch(q, k, v, valid):
     devs = {x.device for x in (q, k, v, valid)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
+    if q.dtype == torch.bfloat16 and dh % 8:
+        raise ValueError(f"bf16 head dim must be a multiple of 8 (TMA's 16-byte "
+                         f"strides), got {dh}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("bf16 q/k/v must start on 16-byte aligned addresses (TMA)")
     valid = valid.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     fn = _build.function("attention", "sf_attention_fwd",
@@ -75,7 +80,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid: torch.Tensor) -> torch.Tensor:
     """softmax(q kᵀ/√dh with padded keys masked) v, padded query rows zeroed.
 
-    q/k/v: (B, T, H, dh) float32 or bfloat16; valid: (B, T). CPU tensors run
+    q/k/v: (B, T, H, dh) float32 or bfloat16 (bf16: dh a multiple of 8 and
+    16-byte aligned data, else ``ValueError``); valid: (B, T). CPU tensors run
     the plain version; CUDA tensors launch the kernel (counted in
     ``fused_attention.launches``).
     """

@@ -42,6 +42,43 @@ def test_plain_matches_pallas_kernel(rng, t_len, dh):
     assert np.abs(out[~m[..., 0]]).max() == 0.0  # padded query rows are zero
 
 
+def test_padded_keys_do_not_reach_valid_rows(rng):
+    """The semantics that let the CUDA kernel skip all-padded key tiles: with the
+    K/V rows of padded keys replaced by 1e4-scale noise, in a mask with holes (a
+    whole 128-key tile, a ragged stretch, a ragged end), every valid row comes out
+    bit for bit as before, in the port and in the TPU kernel (Pallas interpreter),
+    and the two agree."""
+    from speechflow_tpu.ops.attention import _fused_attn_fwd_impl
+
+    bh, t_len, dh = 3, 384, 16
+    q, k, v = _qkv(rng, bh, t_len, dh)
+    valid = np.ones((bh, t_len), np.float32)
+    valid[0, 128:256] = 0.0
+    valid[1, 40:77] = 0.0
+    valid[1, 300:] = 0.0
+    valid[2, 1:] = 0.0
+    pad = valid == 0
+    noisy_k, noisy_v = k.copy(), v.copy()
+    noisy_k[pad] = 1e4 * rng.normal(size=(pad.sum(), dh))
+    noisy_v[pad] = 1e4 * rng.normal(size=(pad.sum(), dh))
+
+    def port(kk, vv):
+        return n(A.fused_attention(t(q)[:, :, None], t(kk)[:, :, None], t(vv)[:, :, None],
+                                   t(valid)))[:, :, 0]
+
+    def tpu(kk, vv):
+        return n(_fused_attn_fwd_impl(jnp.asarray(q), jnp.asarray(kk), jnp.asarray(vv),
+                                      jnp.asarray(valid), interpret=True))
+
+    keep = ~pad
+    out, out_noisy = port(k, v), port(noisy_k, noisy_v)
+    ref, ref_noisy = tpu(k, v), tpu(noisy_k, noisy_v)
+    np.testing.assert_array_equal(out_noisy[keep], out[keep])
+    np.testing.assert_array_equal(ref_noisy[keep], ref[keep])
+    np.testing.assert_allclose(out_noisy[keep], ref_noisy[keep], atol=TOL, rtol=TOL)
+    assert np.abs(out_noisy[pad]).max() == 0.0
+
+
 def test_wrapper_matches_jax_flash_attention_fn(rng, monkeypatch):
     """Mask recovery from the blocks' 4-D mask, head handling and padded-query
     zeroing, against the JAX wrapper forced onto the Pallas interpreter."""

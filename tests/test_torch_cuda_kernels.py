@@ -55,10 +55,59 @@ def test_attention_kernel_matches_plain(cuda_device, rng, dtype, tol, shape):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _check_attention(device, rng, dtype, tol, shape, valid):
+    q, k, v = (_normal(rng, *shape).to(device, dtype) for _ in range(3))
+    out = A.fused_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    ref = A.attention_reference(q, k, v, valid)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("t_len", [1, 127, 128, 129, 1000])
+@pytest.mark.parametrize("dh", [40, 64, 128])
+def test_attention_kernel_lengths_and_head_dims(cuda_device, rng, dtype, tol, t_len, dh):
+    """T below, at and past one 128-row tile, and ragged; the bf16 kernel pads dh 40
+    and 64 < dh < 128 with zeros through TMA; the second row has length 1."""
+    valid = torch.arange(t_len, device=cuda_device)[None] < torch.tensor(
+        [t_len, 1], device=cuda_device)[:, None]
+    _check_attention(cuda_device, rng, dtype, tol, (2, t_len, 2, dh), valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("holes", [[(256, 384)], [(0, 128)], [(0, 128), (512, 700)]],
+                         ids=["middle-tile", "first-tile", "first-and-ragged"])
+def test_attention_kernel_masks_with_holes(cuda_device, rng, dtype, tol, holes):
+    """Whole padded key tiles (skipped by the bf16 kernel) in the middle and first,
+    and a hole that is not tile-aligned; row 1 has length 1."""
+    t_len = 1000
+    valid = torch.ones(2, t_len, dtype=torch.bool, device=cuda_device)
+    for start, stop in holes:
+        valid[0, start:stop] = False
+    valid[1, 1:] = False
+    _check_attention(cuda_device, rng, dtype, tol, (2, t_len, 3, 128), valid)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_rejects_what_tma_cannot_take(cuda_device):
+    valid = torch.ones(1, 16, dtype=torch.bool, device=cuda_device)
+    q = torch.zeros(1, 16, 1, 12, device=cuda_device, dtype=torch.bfloat16)
+    before = A.fused_attention.launches
+    with pytest.raises(ValueError):
+        A.fused_attention(q, q, q, valid)  # dh 12: rows are not 16-byte strided
+    flat = torch.zeros(1 + 16 * 64, device=cuda_device, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 16, 1, 64)  # contiguous, but 2 bytes off a 16-byte boundary
+    with pytest.raises(ValueError):
+        A.fused_attention(q, q, q, valid)
+    assert A.fused_attention.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3.2e-2)])
 @pytest.mark.parametrize("taps", [8, 12])
-@pytest.mark.parametrize("shape", [(2, 300, 24), (1, 1000, 70)])
+@pytest.mark.parametrize("shape", [(2, 300, 24), (1, 1000, 70), (2, 333, 33), (1, 517, 48)])
 def test_anti_alias_kernels_match_plain(cuda_device, rng, dtype, tol, taps, shape):
     """bf16 tolerance: both sides compute in f32 and round once (the split
     path also rounds the phases); |out| <= ~8, one bf16 ulp there is 3.2e-2."""
@@ -77,3 +126,28 @@ def test_anti_alias_kernels_match_plain(cuda_device, rng, dtype, tol, taps, shap
     assert (fused.float() - ref.float()).abs().max().item() <= tol
     ref_split = AA.aa_snake_downsample_reference(pe, po, a, b, taps)
     assert (split.float() - ref_split.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [5, 12, 16])
+def test_anti_alias_large_snake_arguments(cuda_device, rng, taps):
+    """x * 30 and log alpha up to 1.5 put the sine's argument near 1000: the kernel's
+    range reduction holds the f32 result to 1e-5 of the output's scale (|out| ~130,
+    where one f32 ulp is 7.6e-6 and the two sides sum in other orders). Taps 5 and 16
+    run the 16-tap kernel with a placed and a full filter."""
+    b, t_len, c = 2, 700, 48
+    x = (30.0 * _normal(rng, b, t_len, c)).to(cuda_device)
+    a = torch.linspace(-0.5, 1.5, c, device=cuda_device)
+    beta = (0.3 * _normal(rng, c)).to(cuda_device)
+    out = AA.anti_alias_snake(x, a, beta, taps)
+    ye, yo = AA.aa_upsample_fir(x, taps)
+    split = AA.aa_snake_downsample(ye, yo, a, beta, taps)
+    torch.cuda.synchronize()
+    ref = AA.anti_alias_snake_reference(x, a, beta, taps)
+    pe, po = AA.aa_upsample_fir_reference(x, taps)
+    ref_split = AA.aa_snake_downsample_reference(ye, yo, a, beta, taps)
+    scale = ref.abs().max().item()
+    assert scale > 50.0
+    assert (out - ref).abs().max().item() <= 1e-5 * scale
+    assert (split - ref_split).abs().max().item() <= 1e-5 * scale
+    assert max((ye - pe).abs().max().item(), (yo - po).abs().max().item()) <= 1e-5 * scale
