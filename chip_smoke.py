@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                    # build, kernels, slice
+    python3 chip_smoke.py                    # build, kernels, slice, toy, interface
     python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -14,26 +15,59 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    and each library's count of ``HGMMA`` (wgmma), ``UTMALDG`` and
    ``UTMASTG`` (TMA load and store) instructions in its SASS; the attention
    library must have wgmma and TMA loads.
-3. ``kernels``: each kernel wrapper on the card at the shapes the flagship
-   path gives it, held against its plain PyTorch version on the same inputs
-   (f32 and bf16, ragged lengths, T not a multiple of the tile, masks with
-   whole padded key tiles, narrow heads, odd C, large snake arguments, two
-   tap counts), then timed beside its plain version, the library call that
-   computes the same function where there is one (SDPA for attention, a
-   depthwise ``conv1d`` for stage 1 of the anti-alias filter), and the bound
-   (the least time the card could take, from bytes and operations).
-4. ``slice``: the flagship serving path (``speechflow_torch.serving``) at
-   full width with seeded random weights: request batches at bench shape
-   (B=32, 128 tokens, 1024 frames) with launch counts per batch; one small
-   f32 batch run through the kernels and through the plain versions.
-5. ``profile`` (only when asked for): one flagship batch timed model by
-   model, and one under ``torch.profiler``, with device time by kernel
-   family and the device's busy share.
+3. ``kernels``: each kernel wrapper on the card at the shapes the serving
+   paths give it (flagship: attention H6 dh128, the anti-alias entries at
+   the six head stages; toy: attention H4 dh64, B32 T128 and B32 T1024),
+   held against its plain PyTorch version on the same inputs (f32 and bf16,
+   ragged lengths, T not a multiple of the tile, masks with whole padded key
+   tiles, narrow heads, odd C, large snake arguments, two tap counts), then
+   timed beside its plain version, the library call that computes the same
+   function where there is one (SDPA for attention, a depthwise ``conv1d``
+   for stage 1 of the anti-alias filter), and the bound (the least time the
+   card could take, from bytes and operations). Tolerances: attention f32
+   5e-5, bf16 1.6e-2; anti-alias f32 1e-5 (of the output's scale for large
+   snake arguments), bf16 3.2e-2.
+4. ``slice``: the flagship serving path (``serving.build_flagship``, its
+   BigVGAN head folded as served) at full width with seeded random weights:
+   3 request batches at bench shape (B=32, 128 tokens, 1024 frames, bf16),
+   each with 186 attention, 37 fused anti-alias, 6 stage-1 and 18
+   snake-downsample launches; the vocoder alone, folded and unfolded, ms a
+   batch; one f32 batch of 2 through the kernels and through the plain
+   versions (equal durations, then mel and waveform within ``TOL_F32_REL``),
+   and its mel through the folded and the unfolded head (within
+   ``TOL_F32_REL``); the same gate must reject two planted faults of the
+   fold (one dilated conv's folded taps shifted by one, in the first and in
+   the last folded stage).
+5. ``toy``: the toy serving path (``serving.build_toy``: CFM acoustic model
+   256 wide, Vocos with the ISTFT head) at bench shape, bf16: 3 batches (the
+   first a warm-up), 124 attention launches each (4 encoder + 30 steps x 4
+   layers), waveform finite, non-silent, (1024 - 1)·256 samples; one f32
+   batch of 2 through the kernels and the plain versions (equal durations,
+   then mel and waveform within ``TOL_F32_REL``).
+6. ``interface``: ``VocoderEvaluationInterface`` over the flagship BigVGAN
+   vocoder (log-mel features, seeded weights, folded as served, f32):
+   ``synthesize`` of a (1024, 100) mel and ``resynthesize`` of a 10.9 s
+   seeded waveform at 24 kHz (mel on the card; output as long as the input),
+   each with 37 / 6 / 18 anti-alias launches; the resynthesis again through
+   the plain versions, within ``TOL_F32_REL``.
+7. ``profile`` (only when asked for): for the flagship and the toy program,
+   one batch timed model by model, and one under ``torch.profiler``, with
+   device time by kernel family and the device's busy share.
 
-The line before the last is one JSON object with a record per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
-rest of the repository beside this file, it exits non-zero and prints no
-result.
+``TOL_F32_REL`` is relative: an f32 output through the kernels may differ
+from the plain versions' by 1e-4 of the plain output's largest magnitude
+(the flagship waveform's per-utterance std is ~1e-3, so an absolute limit
+would not see a fault of the head).
+
+Each path's launch counts are set to 0 just before it runs and read just
+after, and every kernel of the path must have launched. The line before the
+last is one JSON object with a record per kernel: ``launches`` sums the
+paths' runs (``launches_by_path`` splits them); ``ms``, ``plain_ms``,
+``library_ms`` and ``bound_ms`` are those of one flagship batch of launches,
+and attention, which the toy program also launches, has each program's
+beside them (``ms_by_path``, ``bound_ms_by_path``, ...). The last line is
+``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
+repository beside this file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -53,13 +87,20 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"f32": 67e12, "bf16": 989e12}
 SR, HOP = 24000, 256
 BATCH, T_FRAMES = 32, 1024  # the bench request shape (serving.bench_inputs: 128 tokens)
-N_BATCHES = 3  # request batches in the slice; the first is timed apart as warm-up
+N_BATCHES = 3  # request batches of a serving path; the first is timed apart as warm-up
+# f32 outputs of a path through the kernels against the plain versions (and the folded
+# head against the unfolded one): a share of the reference's largest magnitude
+TOL_F32_REL = 1e-4
 
 # flagship per-batch launches (encoder 6 + CFM 30 steps x 6 layers; BigVGAN head:
 # 6 stages x 3 MRF branches x 3 activations, first of each branch from the shared
 # stage-1 FIR, plus the post activation)
-EXPECTED_LAUNCHES = {"fused_attention": 6 + 30 * 6, "anti_alias_snake": 6 * 3 * 2 + 1,
-                     "aa_upsample_fir": 6, "aa_snake_downsample": 6 * 3}
+HEAD_LAUNCHES = {"anti_alias_snake": 6 * 3 * 2 + 1, "aa_upsample_fir": 6,
+                 "aa_snake_downsample": 6 * 3}
+EXPECTED_LAUNCHES = {"fused_attention": 6 + 30 * 6, **HEAD_LAUNCHES}
+# toy per-batch launches: encoder 4 + CFM 30 steps x 4 layers (no CFG); ISTFT head
+TOY_LAUNCHES = {"fused_attention": 4 + 30 * 4, "anti_alias_snake": 0, "aa_upsample_fir": 0,
+                "aa_snake_downsample": 0}
 SASS_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG")  # wgmma, TMA load, TMA store
 HEAD_STAGES = [(4096, 768), (16384, 384), (32768, 192), (65536, 96), (131072, 48),
                (262144, 24)]
@@ -150,6 +191,9 @@ def _attention_cases():
     yield "ragged-T", 4, 1000, 6, 128, [1000, 999, 513, 1], []
     yield "masked-tiles", 2, 1000, 2, 64, [1000, 1000], [(0, 256, 384), (1, 0, 128)]
     yield "dh40", 2, 129, 3, 40, [129, 1], []
+    # the toy program's shapes: 4 heads of 64
+    yield "toy-encoder", 32, 128, 4, 64, [128] * 30 + [77, 5], []
+    yield "toy-cfm", 32, 1024, 4, 64, [1024 - 37 * (i % 9) for i in range(32)], []
 
 
 def check_attention(torch, A) -> dict:
@@ -174,16 +218,23 @@ def check_attention(torch, A) -> dict:
     return {"max_abs_err": worst}
 
 
+TIMES = ("ms", "plain_ms", "library_ms", "bound_ms")
+# per batch of each serving path: (program, label, B, T, H, dh, lengths, launches)
+ATTENTION_TIMED = (
+    ("flagship", "encoder", 32, 128, 6, 128, [128] * 32, 6),
+    ("flagship", "cfm", 64, 1024, 6, 128, [1024 - 37 * (i % 9) for i in range(64)], 180),
+    ("toy", "encoder", 32, 128, 4, 64, [128] * 32, 4),
+    ("toy", "cfm", 32, 1024, 4, 64, [1024 - 37 * (i % 9) for i in range(32)], 120),
+)
+
+
 def time_attention(torch, A) -> dict:
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    kinds = {}
-    # per flagship batch: 6 encoder launches, 180 CFM launches (bf16 serving)
-    for label, b, t, h, dh, lens, calls in (
-            ("encoder", 32, 128, 6, 128, [128] * 32, 6),
-            ("cfm", 64, 1024, 6, 128, [1024 - 37 * (i % 9) for i in range(64)], 180)):
+    by_path, kinds = {}, {}
+    for program, label, b, t, h, dh, lens, calls in ATTENTION_TIMED:
+        total = by_path.setdefault(program, dict.fromkeys(TIMES, 0.0))
         q, k, v = (torch.randn(b, t, h, dh, generator=gen, device="cuda",
                                dtype=torch.bfloat16) for _ in range(3))
         lt = torch.tensor(lens, device="cuda")
@@ -196,15 +247,19 @@ def time_attention(torch, A) -> dict:
         nbytes = 4 * b * t * h * dh * q.element_size() + b * t * 4
         ops = 4.0 * h * dh * float((lt.double() ** 2).sum().item())  # valid rows x keys
         bms, kind = bound_ms(nbytes, ops, "bf16")
-        kinds[kind] = kinds.get(kind, 0.0) + calls * bms
-        print(f"[kernels] fused_attention {label} B{b} T{t} bf16: kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms ({kind}); "
-              f"{calls} launches per batch", flush=True)
-        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bound_ms", bms)):
+        kinds.setdefault(program, {})
+        kinds[program][kind] = kinds[program].get(kind, 0.0) + calls * bms
+        print(f"[kernels] fused_attention {program} {label} B{b} T{t} H{h} dh{dh} bf16: "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+              f"{bms:.4f} ms ({kind}); {calls} launches per batch", flush=True)
+        for key, val in zip(TIMES, (ms, plain, lib, bms)):
             total[key] += calls * val
-    total["bound_by"] = max(kinds, key=kinds.get)  # the bound of most of the time
-    return total
+    # the top-level numbers are one flagship batch's, as for the anti-alias entries;
+    # bound_by names the bound of most of that time
+    res = dict(by_path["flagship"], bound_by=max(kinds["flagship"], key=kinds["flagship"].get))
+    for key in TIMES:
+        res[f"{key}_by_path"] = {p: t[key] for p, t in by_path.items()}
+    return res
 
 
 def upsample_conv(torch, AA, x, taps: int):
@@ -364,15 +419,14 @@ def plain_versions():
     from speechflow_torch.models.vocoder import heads
     from speechflow_torch.ops import anti_alias as AA
     from speechflow_torch.ops import attention as A
+    from speechflow_torch.ops import folded
 
-    saved = [(A, "fused_attention", A.fused_attention),
-             (heads, "anti_alias_snake", heads.anti_alias_snake),
-             (heads, "aa_upsample_fir", heads.aa_upsample_fir),
-             (heads, "aa_snake_downsample", heads.aa_snake_downsample)]
+    saved = [(A, "fused_attention", A.fused_attention)]
     A.fused_attention = A.attention_reference
-    heads.anti_alias_snake = AA.anti_alias_snake_reference
-    heads.aa_upsample_fir = AA.aa_upsample_fir_reference
-    heads.aa_snake_downsample = AA.aa_snake_downsample_reference
+    for mod in (heads, folded):  # the unfolded head and the folded one
+        for name in ("anti_alias_snake", "aa_upsample_fir", "aa_snake_downsample"):
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, getattr(AA, name + "_reference"))
     try:
         yield
     finally:
@@ -380,25 +434,21 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def phase_slice(torch, gpu_line: str) -> dict:
+def run_batches(torch, am, vm, label: str, expected: dict, features: bool,
+                gpu_line: str) -> dict:
+    """N_BATCHES request batches at bench shape through ``serving.synthesize``:
+    waveform shape, finiteness, loudness and launch counts per batch checked;
+    ms a batch and x realtime over the batches after the first."""
     import numpy as np
 
     from speechflow_torch import serving
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    am, vm = serving.build_flagship("default", device="cuda", dtype=torch.bfloat16, seed=0)
-    print(f"[slice] flagship built (bf16, seeded random weights) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(0)
     n_samples = (T_FRAMES - 1) * HOP
     gen = torch.Generator(device="cuda").manual_seed(0)
-
-    reset_counts()
     times = []
     for i in range(N_BATCHES):
-        inputs = serving.bench_inputs(rng, batch=BATCH)
+        inputs = serving.bench_inputs(rng, batch=BATCH, features=features)
         before = read_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -408,28 +458,38 @@ def phase_slice(torch, gpu_line: str) -> dict:
         after = read_counts()
         per_batch = {k: after[k] - before[k] for k in after}
         check(tuple(wav.shape) == (BATCH, n_samples),
-              f"waveform shape {tuple(wav.shape)} != {(BATCH, n_samples)}")
+              f"{label}: waveform shape {tuple(wav.shape)} != {(BATCH, n_samples)}")
         w = wav.float()
-        check(bool(torch.isfinite(w).all()), "non-finite waveform")
+        check(bool(torch.isfinite(w).all()), f"{label}: non-finite waveform")
         std = w.std(dim=-1).min().item()
-        check(std > 1e-4, f"silent waveform (min per-utterance std {std:.3g})")
-        check(per_batch == EXPECTED_LAUNCHES,
-              f"launches per batch {per_batch} != {EXPECTED_LAUNCHES}")
-        print(f"[slice] batch {i}: {dt * 1e3:.1f} ms, wave {tuple(wav.shape)}, "
+        check(std > 1e-4, f"{label}: silent waveform (min per-utterance std {std:.3g})")
+        check(per_batch == expected, f"{label}: launches per batch {per_batch} != {expected}")
+        print(f"[{label}] batch {i}: {dt * 1e3:.1f} ms, wave {tuple(wav.shape)}, "
               f"min std {std:.4f}, launches {per_batch}", flush=True)
         if i > 0:  # the first batch also selects cuDNN algorithms and fills caches
             times.append(dt)
-    launches = read_counts()
     ms = 1e3 * sum(times) / len(times)
     xrt = BATCH * n_samples / SR / (ms / 1e3)
-    print(f"[slice] end to end: {ms:.1f} ms per batch of {BATCH} x {n_samples / SR:.2f} s "
+    print(f"[{label}] end to end: {ms:.1f} ms per batch of {BATCH} x {n_samples / SR:.2f} s "
           f"= {xrt:.1f}x realtime (bf16, batches after the first, {gpu_line})", flush=True)
-    del am, vm, wav
-    torch.cuda.empty_cache()
+    return {"ms_per_batch": ms, "xrt": xrt}
 
-    # one small f32 batch through the kernels and through the plain versions
-    am, vm = serving.build_flagship("default", device="cuda", dtype=torch.float32, seed=0)
-    inputs = serving.bench_inputs(np.random.default_rng(1), batch=2)
+
+def rel_limit(ref) -> float:
+    """The f32 gate for an output whose plain reference is ``ref``."""
+    return TOL_F32_REL * ref.abs().max().item()
+
+
+def kernels_vs_plain(torch, am, vm, label: str, features: bool):
+    """One f32 batch of 2 through the kernels and through the plain versions:
+    equal integer durations, then mel (valid frames) and waveform within
+    ``rel_limit``. Returns the kernels' mel."""
+    import numpy as np
+
+    from speechflow_torch import serving
+
+    inputs = serving.bench_inputs(np.random.default_rng(1), batch=2, features=features)
+    gen = torch.Generator(device="cuda").manual_seed(1)
     noise = torch.randn(am.noise_shape(inputs, T_FRAMES), generator=gen,
                         device="cuda") * am.decoder.temperature
     outs = []
@@ -441,15 +501,190 @@ def phase_slice(torch, gpu_line: str) -> dict:
             outs.append((out.attention.sum(1), out.spectrogram_lengths, mel,
                          vm.from_features(mel)))
     (d_k, len_k, mel_k, wav_k), (d_p, _, mel_p, wav_p) = outs
-    check(torch.equal(d_k, d_p), "predicted durations differ between kernels and plain")
+    check(torch.equal(d_k, d_p), f"{label}: predicted durations differ (kernels, plain)")
     valid = (torch.arange(T_FRAMES, device="cuda")[None] < len_k[:, None])[..., None]
     mel_err = ((mel_k - mel_p).abs() * valid).max().item()
+    mel_lim = rel_limit(mel_p * valid)
     wav_err = (wav_k - wav_p).abs().max().item()
-    print(f"[slice] f32 B2 kernels vs plain: durations equal ({int(d_k.sum())} frames), "
-          f"mel max_abs_err {mel_err:.3g} (tol 2e-3), wave max_abs_err {wav_err:.3g} "
-          f"(tol 2e-3)", flush=True)
-    check(mel_err <= 2e-3 and wav_err <= 2e-3, "f32 slice: kernels disagree with plain")
-    return {"launches": launches, "ms_per_batch": ms, "xrt": xrt}
+    wav_lim = rel_limit(wav_p)
+    print(f"[{label}] f32 B2 kernels vs plain: durations equal ({int(d_k.sum())} frames), "
+          f"mel max_abs_err {mel_err:.3g} (tol {mel_lim:.3g}), wave max_abs_err "
+          f"{wav_err:.3g} (tol {wav_lim:.3g} = {TOL_F32_REL:g} x max|wave| "
+          f"{wav_lim / TOL_F32_REL:.3g})", flush=True)
+    check(mel_err <= mel_lim and wav_err <= wav_lim, f"{label} f32: kernels disagree with plain")
+    return mel_k
+
+
+@contextlib.contextmanager
+def unfolded_head(vm):
+    """The vocoder with its folded head's inner, unfolded head (same weights)."""
+    folded_head = vm.head
+    vm.head = folded_head.inner
+    try:
+        yield vm
+    finally:
+        vm.head = folded_head
+
+
+def vocoder_ms(torch, vm, mel) -> dict:
+    """The vocoder alone on one batch's mel, folded and unfolded, in turns
+    (unfolded, folded, folded, unfolded) after a warm-up of each."""
+    times = {"folded": [], "unfolded": []}
+
+    def once(kind):
+        ctx = unfolded_head(vm) if kind == "unfolded" else contextlib.nullcontext()
+        with ctx, torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vm.from_features(mel)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+    once("unfolded")
+    once("folded")
+    for kind in ("unfolded", "folded", "folded", "unfolded"):
+        times[kind].append(once(kind))
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def planted_fold_faults(torch, vm, mel, wav_u) -> dict:
+    """The folded head's waveform error against the unfolded one with one
+    fault planted at a time: the first dilated conv of the first MRF branch
+    with its folded taps shifted by one, in the first and in the last folded
+    stage."""
+    geom = [(i, c, f) for i, (_, c, f) in enumerate(vm.head.geom) if f > 1]
+    errs = {}
+    for k in (0, len(geom) - 1):
+        w = vm.head.res_f[k][0].convs[0].w_f
+        saved = w.data
+        w.data = saved.roll(1, 0)
+        with torch.inference_mode():
+            wav = vm.from_features(mel)
+        w.data = saved
+        i, c, f = geom[k]
+        errs[f"stage {i + 1} (C{c} F{f}) taps shifted"] = (wav - wav_u).abs().max().item()
+    return errs
+
+
+def phase_slice(torch, gpu_line: str) -> dict:
+    import numpy as np
+
+    from speechflow_torch import serving
+    from speechflow_torch.models.vocoder.folded_head import FoldedSnakeHead
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    am, vm = serving.build_flagship("default", device="cuda", dtype=torch.bfloat16, seed=0)
+    check(isinstance(vm.head, FoldedSnakeHead), "the flagship vocoder's head is not folded")
+    print(f"[slice] flagship built (bf16, seeded random weights, head folded: per stage "
+          f"(rate, C, F) {vm.head.geom}) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    reset_counts()
+    res = run_batches(torch, am, vm, "slice", EXPECTED_LAUNCHES, True, gpu_line)
+    res["launches"] = read_counts()
+    mel = torch.randn(BATCH, T_FRAMES, 100, generator=torch.Generator(device="cuda")
+                      .manual_seed(3), device="cuda", dtype=torch.bfloat16) - 4.0
+    voc = vocoder_ms(torch, vm, mel)
+    res["vocoder_ms"] = voc
+    print(f"[slice] vocoder alone, bf16 B{BATCH} T{T_FRAMES}: folded head {voc['folded']:.1f} ms, "
+          f"unfolded head {voc['unfolded']:.1f} ms per batch (two calls each, in turns; "
+          f"{gpu_line})", flush=True)
+    del am, vm, mel
+    torch.cuda.empty_cache()
+
+    am, vm = serving.build_flagship("default", device="cuda", dtype=torch.float32, seed=0)
+    mel = kernels_vs_plain(torch, am, vm, "slice", True)
+    with torch.inference_mode():
+        wav_f = vm.from_features(mel)
+        with unfolded_head(vm):
+            wav_u = vm.from_features(mel)
+    err, lim = (wav_f - wav_u).abs().max().item(), rel_limit(wav_u)
+    print(f"[slice] f32 B2 folded vs unfolded head: wave max_abs_err {err:.3g} "
+          f"(tol {lim:.3g})", flush=True)
+    check(err <= lim, "f32: the folded head disagrees with the unfolded one")
+    for stage, fault_err in planted_fold_faults(torch, vm, mel, wav_u).items():
+        print(f"[slice] f32 B2 planted fault, {stage}: wave max_abs_err {fault_err:.3g} "
+              f"(the gate {lim:.3g} must reject it)", flush=True)
+        check(fault_err > lim, f"the folded-head gate passes a planted fault ({stage})")
+    del am, vm
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_toy(torch, gpu_line: str) -> dict:
+    from speechflow_torch import serving
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    am, vm = serving.build_toy(device="cuda", dtype=torch.bfloat16, seed=0)
+    print(f"[toy] toy program built (bf16, seeded random weights) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    reset_counts()
+    res = run_batches(torch, am, vm, "toy", TOY_LAUNCHES, False, gpu_line)
+    res["launches"] = read_counts()
+    del am, vm
+    torch.cuda.empty_cache()
+    am, vm = serving.build_toy(device="cuda", dtype=torch.float32, seed=0)
+    kernels_vs_plain(torch, am, vm, "toy", False)
+    del am, vm
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_interface(torch, gpu_line: str) -> dict:
+    """The vocoder eval interface over the flagship BigVGAN vocoder, f32."""
+    import numpy as np
+
+    from speechflow_torch import serving
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.models.vocoder import Vocos, VocosParams
+    from speechflow_torch.models.vocoder.folded_head import FoldedSnakeHead
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = VocosParams.create(serving.VOCODER_BIGVGAN_PRESETS["default"])
+    vm = serving.init_random_(Vocos(params), torch.Generator().manual_seed(0))
+    vi = VocoderEvaluationInterface(vm.to("cuda"))
+    check(isinstance(vi.model.head, FoldedSnakeHead), "the interface's head is not folded")
+    rng = np.random.default_rng(5)
+    mel = (rng.normal(size=(T_FRAMES, params.n_mels)) - 4.0).astype(np.float32)
+    # 1022 hops = 10.90 s: a whole number of hops, so the resynthesis is as long
+    n = (T_FRAMES - 2) * HOP
+    tt = np.arange(n) / SR
+    wav = (0.3 * np.sin(2 * np.pi * 220.0 * tt * (1 + 0.1 * np.sin(2 * np.pi * 0.5 * tt)))
+           + 0.05 * rng.normal(size=n)).astype(np.float32)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    syn = vi.synthesize(mel)
+    t1 = time.perf_counter()
+    out = vi.resynthesize(AudioChunk(data=wav, sr=SR))
+    t2 = time.perf_counter()
+    launches = read_counts()
+    expected = {"fused_attention": 0, **{k: 2 * v for k, v in HEAD_LAUNCHES.items()}}
+    check(launches == expected, f"interface: launches {launches} != {expected}")
+    for what, chunk, length in (("synthesize", syn, (T_FRAMES - 1) * HOP),
+                                ("resynthesize", out, n)):
+        check(chunk.data.shape == (length,), f"{what}: {chunk.data.shape} != ({length},)")
+        check(bool(np.isfinite(chunk.data).all()), f"{what}: non-finite waveform")
+        check(float(chunk.data.std()) > 1e-4, f"{what}: silent waveform")
+    print(f"[interface] f32, folded head: synthesize (1024, 100) mel -> {syn.data.shape[0]} "
+          f"samples in {1e3 * (t1 - t0):.1f} ms; resynthesize {n / SR:.2f} s "
+          f"(mel on the card) -> {len(out)} samples in {1e3 * (t2 - t1):.1f} ms "
+          f"(first calls, {gpu_line}); launches {launches}", flush=True)
+    with plain_versions():
+        ref = vi.resynthesize(AudioChunk(data=wav, sr=SR))
+    err = float(np.abs(out.data - ref.data).max())
+    lim = TOL_F32_REL * float(np.abs(ref.data).max())
+    print(f"[interface] f32 resynthesis kernels vs plain: max_abs_err {err:.3g} "
+          f"(tol {lim:.3g})", flush=True)
+    check(err <= lim, "interface: the kernels disagree with the plain versions")
+    del vi, vm
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 # -- profile (opt-in) ----------------------------------------------------------------
@@ -477,19 +712,29 @@ def _family(name: str) -> str:
 
 
 def phase_profile(torch, gpu_line: str) -> None:
-    """One flagship batch split into its two models (host clock around each,
-    synchronised), then one batch under ``torch.profiler``: device time by
-    kernel family, the device's busy share and the slowest convolutions by
-    shape. The full per-kernel table goes to ``chiprun_out/profile_slice.txt``, the
-    run's git-ignored output directory."""
+    """For each serving program (flagship, toy): one batch split into its two
+    models (host clock around each, synchronised), then one batch under
+    ``torch.profiler``: device time by kernel family, the device's busy share
+    and the slowest convolutions by shape. The full per-kernel tables go to
+    ``profile_<program>.txt`` in the run's git-ignored output directory."""
+    from speechflow_torch import serving
+
+    for label, build, features in (("flagship", serving.build_flagship, True),
+                                   ("toy", serving.build_toy, False)):
+        am, vm = build(device="cuda", dtype=torch.bfloat16, seed=0)
+        profile_program(torch, label, am, vm, features, gpu_line)
+        del am, vm
+        torch.cuda.empty_cache()
+
+
+def profile_program(torch, label: str, am, vm, features: bool, gpu_line: str) -> None:
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from speechflow_torch import serving
 
-    am, vm = serving.build_flagship("default", device="cuda", dtype=torch.bfloat16, seed=0)
-    inputs = serving.bench_inputs(np.random.default_rng(2), batch=BATCH)
+    inputs = serving.bench_inputs(np.random.default_rng(2), batch=BATCH, features=features)
     gen = torch.Generator(device="cuda").manual_seed(2)
     serving.synthesize(am, vm, inputs, t_out=T_FRAMES, generator=gen)  # warm-up
     with torch.inference_mode():
@@ -502,8 +747,8 @@ def phase_profile(torch, gpu_line: str) -> None:
         vm.from_features(mel)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    print(f"[profile] acoustic model {1e3 * (t1 - t0):.1f} ms, vocoder {1e3 * (t2 - t1):.1f} ms "
-          f"per batch of {BATCH} (bf16, {gpu_line})", flush=True)
+    print(f"[profile {label}] acoustic model {1e3 * (t1 - t0):.1f} ms, vocoder "
+          f"{1e3 * (t2 - t1):.1f} ms per batch of {BATCH} (bf16, {gpu_line})", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -523,30 +768,30 @@ def phase_profile(torch, gpu_line: str) -> None:
     busy = sum(r[0] for r in rows)
     check(busy > 0, "the profiler recorded no device time")
     if queue_full:
-        print(f"[profile] launch queue full {queue_full[0]} times, "
+        print(f"[profile {label}] launch queue full {queue_full[0]} times, "
               f"{queue_full[1] / 1e3:.1f} ms in all", flush=True)
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    with open(out_dir / "profile_slice.txt", "w") as f:
-        f.write(f"# one flagship batch (B={BATCH}, bf16), {gpu_line}; wall {wall_us:.0f} us\n")
+    with open(out_dir / f"profile_{label}.txt", "w") as f:
+        f.write(f"# one {label} batch (B={BATCH}, bf16), {gpu_line}; wall {wall_us:.0f} us\n")
         f.write("# self device us, calls, share, family, name\n")
         for dev, count, key in rows:
             f.write(f"{dev:.0f}\t{count}\t{dev / busy:.4f}\t{_family(key)}\t{key}\n")
     by_family = {}
     for dev, _, key in rows:
         by_family[_family(key)] = by_family.get(_family(key), 0.0) + dev
-    print(f"[profile] device busy {busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall "
+    print(f"[profile {label}] device busy {busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall "
           f"({busy / wall_us:.3f} busy share, the profiler on)", flush=True)
     for fam, dev in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {fam}: {dev / 1e3:.1f} ms ({dev / busy:.3f} of device time)")
+        print(f"[profile {label}]   {fam}: {dev / 1e3:.1f} ms ({dev / busy:.3f} of device time)")
     for dev, count, key in rows[:12]:
-        print(f"[profile]   {dev / 1e3:9.2f} ms {count:6d}x  {key[:90]}")
+        print(f"[profile {label}]   {dev / 1e3:9.2f} ms {count:6d}x  {key[:90]}")
     # which layers the convolution time belongs to: (input, weight) shapes, slowest first
     convs = sorted(((_self_device_us(e), e.count, e.input_shapes[:2])
                     for e in prof.key_averages(group_by_input_shape=True)
                     if e.key == "aten::cudnn_convolution"), reverse=True)
     for dev, count, shapes in convs[:8]:
-        print(f"[profile]   conv {dev / 1e3:9.2f} ms {count:4d}x  input, weight {shapes}")
+        print(f"[profile {label}]   conv {dev / 1e3:9.2f} ms {count:4d}x  input, weight {shapes}")
 
 
 # -- main --------------------------------------------------------------------------
@@ -554,9 +799,9 @@ def phase_profile(torch, gpu_line: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,slice",
-                    help="comma-separated subset of build,kernels,slice,profile "
-                         "(profile is not in the default run)")
+    ap.add_argument("--phases", default="build,kernels,slice,toy,interface",
+                    help="comma-separated subset of build,kernels,slice,toy,interface,"
+                         "profile (the last is not in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -578,12 +823,22 @@ def main(argv=None) -> int:
     phase_build()
     if "kernels" in phases:
         records = phase_kernels(torch)
-    if "slice" in phases:
-        slice_res = phase_slice(torch, gpu_line)
-        check(all(v > 0 for v in slice_res["launches"].values()),
-              f"a kernel of the path was never launched: {slice_res['launches']}")
-        for name, n in slice_res["launches"].items():
-            records.setdefault(name, {})["launches"] = n
+    # each serving path with the kernels it must launch
+    paths = (("slice", phase_slice, tuple(EXPECTED_LAUNCHES)),
+             ("toy", phase_toy, ("fused_attention",)),
+             ("interface", phase_interface, tuple(HEAD_LAUNCHES)))
+    by_path = {}
+    for label, phase, kernels_of_path in paths:
+        if label not in phases:
+            continue
+        counts = phase(torch, gpu_line)["launches"]
+        check(all(counts[k] > 0 for k in kernels_of_path),
+              f"{label}: a kernel of the path was never launched: {counts}")
+        by_path[label] = counts
+    for name in KERNEL_META:
+        if by_path:
+            records.setdefault(name, {})["launches"] = sum(c[name] for c in by_path.values())
+            records[name]["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
     if "profile" in phases:
         phase_profile(torch, gpu_line)
 
@@ -594,7 +849,8 @@ def main(argv=None) -> int:
                         "launches": r.get("launches"), "max_abs_err": r.get("max_abs_err"),
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
-                        "library_ms": r.get("library_ms")})
+                        "library_ms": r.get("library_ms"),
+                        **{k: v for k, v in r.items() if k.endswith("_by_path")}})
     print(json.dumps({"kernels": kernels}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

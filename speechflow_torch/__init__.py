@@ -6,6 +6,14 @@ The port mirrors the JAX package's layout module for module
 never ``jax``, ``flax`` or ``speechflow_tpu``; the only bridge between the two
 packages is ``speechflow_torch.convert``, which takes plain numpy arrays.
 
+Ported so far: the two serving programs of ``bench.py`` (``serving``: the
+flagship CFM-DiT acoustic model with the BigVGAN vocoder, its head folded as
+served, and the toy CFM model with the ISTFT vocoder), the STFT / ISTFT and
+mel ops, the vocoder's ``mel`` and ``audio`` feature extractors, and the
+vocoder eval interface (``interface.vocoder_interface``) with the plain-dict
+half of checkpoint loading (``training.saver``, ``utils.state_io``). Training,
+the TTS eval interface and the rest of the zoo are not ported yet.
+
 Every TPU kernel on the ported path is a hand-written CUDA kernel for Hopper
 (``speechflow_torch/csrc``), built with ``nvcc`` at first use. On a CPU tensor
 each kernel wrapper runs its plain PyTorch version instead.

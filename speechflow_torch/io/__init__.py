@@ -1,0 +1,1 @@
+"""Host-side IO of the port: the audio container."""

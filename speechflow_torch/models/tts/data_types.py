@@ -51,3 +51,8 @@ class TTSOutput:
     variance_predictions: tp.Optional[tp.Dict[str, torch.Tensor]] = None
     attention: Tensor = None              # (B, T, N) length-regulator alignment
     additional_content: tp.Optional[tp.Dict[str, torch.Tensor]] = None
+
+    @property
+    def after_postnet_spectrogram(self) -> Tensor:
+        """The last stage's mel (B, T, n_mels), what a vocoder is fed."""
+        return None if self.spectrogram is None else self.spectrogram[-1]

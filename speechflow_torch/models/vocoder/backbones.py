@@ -1,7 +1,10 @@
 """Vocos backbone (counterpart of ``speechflow_tpu/models/vocoder/backbones.py``):
-embedding conv (k=7) -> N ConvNeXt blocks -> LayerNorm, channels-last."""
+embedding conv (k=7) -> LayerNorm (+ a projected speaker embedding when
+``cond_dim`` is set) -> N ConvNeXt blocks -> LayerNorm, channels-last."""
 
 from __future__ import annotations
+
+import typing as tp
 
 import torch
 import torch.nn as nn
@@ -33,21 +36,23 @@ class ConvNeXtBlock(nn.Module):
 
 
 class VocosBackbone(nn.Module):
-    """The slice's backbone has no speaker conditioning (``cond_dim=None``)."""
-
     def __init__(self, dim_in: int = 100, dim: int = 512, n_layers: int = 8,
-                 mlp_ratio: int = 3, kernel_size: int = 7):
+                 mlp_ratio: int = 3, kernel_size: int = 7,
+                 cond_dim: tp.Optional[int] = None):
         super().__init__()
         self.embed = Conv1d(dim_in, dim, 7)
         self.norm_in = layer_norm(dim)
         self.blocks = nn.ModuleList(ConvNeXtBlock(dim, mlp_ratio, kernel_size)
                                     for _ in range(n_layers))
         self.norm_out = layer_norm(dim)
+        self.cond_proj = nn.Linear(cond_dim, dim) if cond_dim is not None else None
         self.dim = dim
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T, dim_in) -> (B, T, dim)."""
+    def forward(self, x: torch.Tensor, cond: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, T, dim_in) [, cond (B, cond_dim)] -> (B, T, dim)."""
         x = self.norm_in(self.embed(x))
+        if self.cond_proj is not None and cond is not None:
+            x = x + self.cond_proj(cond)[:, None, :]
         for blk in self.blocks:
             x = blk(x)
         return self.norm_out(x)

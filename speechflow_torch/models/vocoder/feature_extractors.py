@@ -1,13 +1,43 @@
 """Vocoder feature extractors (counterpart of
-``speechflow_tpu/models/vocoder/feature_extractors.py``; the slice needs
-``AudioFeatures``, the pass-through of precomputed features)."""
+``speechflow_tpu/models/vocoder/feature_extractors.py``): ``MelFeatures``,
+log-mel computed on the device from the waveform, and ``AudioFeatures``, the
+pass-through of precomputed features."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-__all__ = ["AudioFeatures"]
+from speechflow_torch.ops import mel as M
+from speechflow_torch.ops import stft as S
+
+__all__ = ["MelFeatures", "AudioFeatures"]
+
+
+class MelFeatures(nn.Module):
+    """``inputs["waveform"]`` (B, N) -> log-mel (B, N//hop + 1, n_mels): all
+    centered frames, so the generator's (T-1)·hop crop gives back N samples
+    when hop divides N. Computed in float32 (the log of a magnitude clipped
+    at 1e-5); the caller casts the features to the model's dtype."""
+
+    def __init__(self, sample_rate: int = 24000, n_fft: int = 1024, hop_length: int = 256,
+                 n_mels: int = 100, normalize: bool = False):
+        super().__init__()
+        self.sample_rate = sample_rate
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.n_mels = n_mels
+        self.normalize = normalize
+
+    @property
+    def dim(self) -> int:
+        return self.n_mels
+
+    def forward(self, inputs) -> torch.Tensor:
+        wav = inputs["waveform"] if isinstance(inputs, dict) else inputs.waveform
+        mag = S.magnitude(wav.float(), self.n_fft, self.hop_length)
+        mel = M.amp_to_db(M.linear_to_mel(mag, self.sample_rate, self.n_mels))
+        return M.normalize_mel(mel) if self.normalize else mel
 
 
 class AudioFeatures(nn.Module):

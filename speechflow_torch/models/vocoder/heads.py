@@ -1,6 +1,7 @@
-"""BigVGAN-class upsampling head (counterpart of
-``speechflow_tpu/models/vocoder/heads.py``; the slice needs
-``AntiAliasedSnake``, ``ResBlock`` and ``SnakeUpsampleHead``).
+"""Vocoder heads (counterpart of ``speechflow_tpu/models/vocoder/heads.py``):
+``ISTFTHead`` (per-frame magnitude and phase, inverted by ``ops.stft.istft``)
+and the BigVGAN-class ``SnakeUpsampleHead`` with its ``AntiAliasedSnake`` and
+``ResBlock``.
 
 Every activation goes through the hand-written anti-alias kernel
 (``speechflow_torch.ops.anti_alias``) on the GPU. Within a
@@ -24,8 +25,30 @@ from speechflow_torch.ops.anti_alias import (
     aa_upsample_fir,
     anti_alias_snake,
 )
+from speechflow_torch.ops.stft import istft
 
-__all__ = ["AntiAliasedSnake", "ResBlock", "SnakeUpsampleHead"]
+__all__ = ["ISTFTHead", "AntiAliasedSnake", "ResBlock", "SnakeUpsampleHead"]
+
+
+class ISTFTHead(nn.Module):
+    """Linear to n_fft + 2 -> magnitude exp(min(m, 10)) and phase -> ISTFT.
+
+    The spectrum is built in complex64 from the projection cast to float32
+    (cuFFT has no bf16 transform of this kind), as the JAX head builds
+    complex64 from its projection; the waveform comes out in float32.
+    """
+
+    def __init__(self, dim: int = 512, n_fft: int = 1024, hop_length: int = 256):
+        super().__init__()
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.out = nn.Linear(dim, n_fft + 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, dim) -> (B, (T-1)·hop) waveform (a centered ISTFT of T frames)."""
+        mag, phase = self.out(x).float().chunk(2, dim=-1)
+        spec = torch.polar(torch.exp(torch.clamp(mag, max=10.0)), phase)
+        return istft(spec, self.n_fft, self.hop_length)
 
 
 class AntiAliasedSnake(nn.Module):
@@ -91,11 +114,14 @@ class SnakeUpsampleHead(nn.Module):
         """(B, T, dim) -> (B, T·prod(rates)) waveform."""
         x = self.pre(x)
         for up, group in zip(self.ups, self.resblocks):
-            x = up(x)
-            s1 = aa_upsample_fir(x, self.taps) if len(group) > 1 else None
-            acc = group[0](x, shared_stage1=s1)
-            for res in group[1:]:
-                acc = acc + res(x, shared_stage1=s1)
-            x = acc / len(group)
+            x = self.mrf(group, up(x))
         x = self.post(self.post_act(x))
         return torch.tanh(x)[..., 0]
+
+    def mrf(self, group: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+        """The mean of an MRF group's branches over one stage's input."""
+        s1 = aa_upsample_fir(x, self.taps) if len(group) > 1 else None
+        acc = group[0](x, shared_stage1=s1)
+        for res in group[1:]:
+            acc = acc + res(x, shared_stage1=s1)
+        return acc / len(group)

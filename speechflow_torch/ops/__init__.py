@@ -1,2 +1,3 @@
 """Tensor ops of the port: attention, the anti-aliased snake, length
-regulation and depthwise convolution. Import the submodules directly."""
+regulation, depthwise convolution, STFT / ISTFT, mel, and folded (space-to-
+depth) convolution. Import the submodules directly."""

@@ -1,17 +1,23 @@
-"""The flagship text -> waveform serving program on the port.
+"""The text -> waveform serving programs on the port.
 
-The counterpart of the ``e2e`` program of ``bench.build_flagship_stages``:
-the acoustic model of ``configs/tts_model.yml`` (encoder and CFM-DiT
-decoder, 768 wide, 6 layers, 6 heads; 30 Euler steps with batched CFG;
-ling/LM/XPBERT features; two languages; gate) and the BigVGAN vocoder of
-``configs/vocoder_bigvgan.yml`` (Vocos backbone, 512 wide, 8 layers; the
-unfolded ``snake_upsample`` head, rates 4·4·2·2·2·2, 1536 channels, MRF
-kernels 3/7/11), fed the mel through ``from_features``.
+- ``build_flagship``: the counterpart of the ``e2e`` program of
+  ``bench.build_flagship_stages``: the acoustic model of
+  ``configs/tts_model.yml`` (encoder and CFM-DiT decoder, 768 wide, 6
+  layers, 6 heads; 30 Euler steps with batched CFG; ling/LM/XPBERT features;
+  two languages; gate) and the BigVGAN vocoder of
+  ``configs/vocoder_bigvgan.yml`` (Vocos backbone, 512 wide, 8 layers;
+  ``snake_upsample`` head, rates 4·4·2·2·2·2, 1536 channels, MRF kernels
+  3/7/11), its head folded as the bench folds it (the unfolded head, same
+  weights, stays reachable as ``vm.head.inner``).
+- ``build_toy``: the toy program of ``bench.build_toy``: a CFM acoustic model
+  256 wide (4 encoder and 4 decoder layers, 4 heads, no CFG) and a Vocos
+  vocoder 512 wide, 8 layers, with the ISTFT head.
 
-The machine with the GPU has no YAML reader, so the two configs' model
-sections are carried here as presets, transcribed field for field (a CPU
-test holds them equal to the YAML files). ``FLAGSHIP_OVERRIDES`` are the
-bench's overrides.
+``synthesize`` serves either: the acoustic model's postnet mel goes to
+``vm.from_features``. The machine with the GPU has no YAML reader, so the
+configs' model sections are carried here as presets, transcribed field for
+field, and the bench's literals likewise (CPU tests hold them equal to the
+YAML files and to ``bench.py``).
 """
 
 from __future__ import annotations
@@ -27,9 +33,9 @@ from speechflow_torch.models.tts import ParallelTTSModel, ParallelTTSParams, TTS
 from speechflow_torch.models.vocoder import Vocos, VocosParams
 from speechflow_torch.utils.device import resolve_device
 
-__all__ = ["TTS_MODEL_PRESETS", "VOCODER_BIGVGAN_PRESETS", "FLAGSHIP_OVERRIDES",
-           "flagship_params", "init_random_", "build_flagship", "synthesize",
-           "bench_inputs"]
+__all__ = ["TTS_MODEL_PRESETS", "VOCODER_BIGVGAN_PRESETS", "VOCODER_MODEL_PRESETS",
+           "FLAGSHIP_OVERRIDES", "TOY_TTS_PARAMS", "TOY_VOCODER_PARAMS", "flagship_params",
+           "init_random_", "build_flagship", "build_toy", "synthesize", "bench_inputs"]
 
 _VARIANCES = [{"name": "aggregate_pitch"}, {"name": "aggregate_energy"},
               {"name": "durations"}]
@@ -74,6 +80,20 @@ VOCODER_BIGVGAN_PRESETS: tp.Dict[str, dict] = {
     },
 }
 
+# configs/vocoder_model.yml, section "model", per value_select (Vocos, ISTFT head)
+VOCODER_MODEL_PRESETS: tp.Dict[str, dict] = {
+    "default": {
+        "sample_rate": 24000, "n_fft": 1024, "hop_length": 256, "n_mels": 100,
+        "feature_extractor": "mel", "backbone": "vocos", "head": "istft", "dim": 512,
+        "n_layers": 8,
+    },
+    "debug": {
+        "sample_rate": 24000, "n_fft": 1024, "hop_length": 256, "n_mels": 80,
+        "feature_extractor": "mel", "backbone": "vocos", "head": "istft", "dim": 64,
+        "n_layers": 2,
+    },
+}
+
 T_FRAMES = 1024  # bench.T_FRAMES: 1024 frames * 256 hop / 24 kHz = 10.92 s
 N_TOKENS = 128   # bench.N_TOKENS
 FRAMES_PER_TOKEN = T_FRAMES / N_TOKENS  # the bench's utterances: 128 tokens in 1024 frames
@@ -84,6 +104,19 @@ FLAGSHIP_OVERRIDES = {
                 max_output_length=T_FRAMES, dropout=0.0, cfm_cfg_scale=1.0),
     "vocoder": dict(feature_extractor="audio", input_feature="mel", n_mels=100),
 }
+
+
+# bench.build_toy's literals (CFM_STEPS = 30, T_FRAMES = 1024, HOP = 256, SR = 24000)
+TOY_TTS_PARAMS = dict(
+    n_symbols=100, n_speakers=8, n_mels=100, token_emb_dim=256, encoder_dim=256,
+    encoder_layers=4, decoder_type="cfm", decoder_dim=256, decoder_layers=4,
+    cfm_n_timesteps=30, speaker_emb_dim=128, postnet_dim=256, max_output_length=T_FRAMES,
+    dropout=0.0,
+)
+TOY_VOCODER_PARAMS = dict(
+    feature_extractor="audio", input_feature="mel", n_mels=100, backbone="vocos", dim=512,
+    n_layers=8, head="istft", n_fft=1024, hop_length=256, sample_rate=24000,
+)
 
 
 def flagship_params(value_select: str = "default"
@@ -109,25 +142,46 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
-def build_flagship(value_select: str = "default",
-                   device: tp.Union[str, torch.device, None] = None,
-                   dtype: torch.dtype = torch.bfloat16, seed: int = 0
+def _random_models(tts_p: ParallelTTSParams, voc_p: VocosParams, seed: int
                    ) -> tp.Tuple[ParallelTTSModel, Vocos]:
-    """The flagship acoustic model and vocoder with random weights from a
-    seeded ``torch.Generator``, in eval mode, on ``device`` (the GPU unless
-    ``device="cpu"``) in ``dtype``.
-
-    The duration predictor's output bias is set to log(1 + FRAMES_PER_TOKEN),
-    so that random weights predict utterances of a realistic length.
-    """
-    dev = resolve_device(device)
-    tts_p, voc_p = flagship_params(value_select)
+    """Both models with random weights from one seeded ``torch.Generator`` (on
+    the CPU, float32). The duration predictor's output bias is set to
+    log(1 + FRAMES_PER_TOKEN), so that random weights predict utterances of a
+    realistic length. The vocoder is folded for inference after the weights
+    are drawn (``Vocos.fold_inference``: a BigVGAN head is folded, scattered in
+    float32 before any cast; an ISTFT head is left as it is)."""
     gen = torch.Generator().manual_seed(seed)
     am = init_random_(ParallelTTSModel(tts_p), gen)
     vm = init_random_(Vocos(voc_p), gen)
     with torch.no_grad():
         am.variance_adaptor.predictors["durations"].out.bias.fill_(
             math.log1p(FRAMES_PER_TOKEN))
+    vm.fold_inference()
+    return am, vm
+
+
+def build_flagship(value_select: str = "default",
+                   device: tp.Union[str, torch.device, None] = None,
+                   dtype: torch.dtype = torch.bfloat16, seed: int = 0
+                   ) -> tp.Tuple[ParallelTTSModel, Vocos]:
+    """The flagship acoustic model and vocoder with seeded random weights, in
+    eval mode, on ``device`` (the GPU unless ``device="cpu"``) in ``dtype``.
+    The vocoder's head is folded, as the bench serves it; ``vm.head.inner`` is
+    the unfolded head with the same weights."""
+    dev = resolve_device(device)
+    am, vm = _random_models(*flagship_params(value_select), seed)
+    return am.to(dev, dtype).eval(), vm.to(dev, dtype).eval()
+
+
+def build_toy(device: tp.Union[str, torch.device, None] = None,
+              dtype: torch.dtype = torch.bfloat16, seed: int = 0
+              ) -> tp.Tuple[ParallelTTSModel, Vocos]:
+    """The toy acoustic model and ISTFT vocoder of ``bench.build_toy``
+    (``TOY_TTS_PARAMS``, ``TOY_VOCODER_PARAMS``) with seeded random weights,
+    in eval mode, on ``device`` (the GPU unless ``device="cpu"``) in ``dtype``."""
+    dev = resolve_device(device)
+    am, vm = _random_models(ParallelTTSParams.create(TOY_TTS_PARAMS),
+                            VocosParams.create(TOY_VOCODER_PARAMS), seed)
     return am.to(dev, dtype).eval(), vm.to(dev, dtype).eval()
 
 
@@ -147,20 +201,22 @@ def synthesize(am: ParallelTTSModel, vm: Vocos, inputs: TTSForwardInput,
 
 
 def bench_inputs(rng: np.random.Generator, batch: int = 32, n_tokens: int = N_TOKENS,
-                 t_frames: int = T_FRAMES) -> TTSForwardInput:
-    """Request batch made as ``bench._tts_inputs(flagship=True)`` makes it (CPU
-    tensors): tokens, speakers, language 0, lognormal teacher durations
-    filling ``t_frames`` (read only when teacher-forced) and the
-    ling/LM/XPBERT features."""
+                 t_frames: int = T_FRAMES, features: bool = True) -> TTSForwardInput:
+    """Request batch made as ``bench._tts_inputs(flagship=features)`` makes it
+    (CPU tensors): tokens, speakers, language 0, lognormal teacher durations
+    filling ``t_frames`` (read only when teacher-forced) and, for the
+    flagship, the ling/LM/XPBERT features."""
     tts = FLAGSHIP_OVERRIDES["tts"]
     raw = rng.lognormal(mean=1.8, sigma=0.5, size=(batch, n_tokens))
     durs = np.maximum(np.round(raw / raw.sum(-1, keepdims=True) * t_frames), 1.0)
     durs[:, -1] = np.maximum(durs[:, -1] + (t_frames - durs.sum(-1)), 1.0)
-    feats = dict(  # drawn in the bench's order
-        ling_feat=torch.from_numpy(rng.uniform(0, 1, (batch, n_tokens, 56))).float(),
-        lm_feat=torch.from_numpy(rng.normal(size=(batch, n_tokens, 32))).float(),
-        xpbert_feat=torch.from_numpy(rng.normal(size=(batch, n_tokens, 32))).float(),
-    )
+    feats = {}
+    if features:  # drawn in the bench's order
+        feats = dict(
+            ling_feat=torch.from_numpy(rng.uniform(0, 1, (batch, n_tokens, 56))).float(),
+            lm_feat=torch.from_numpy(rng.normal(size=(batch, n_tokens, 32))).float(),
+            xpbert_feat=torch.from_numpy(rng.normal(size=(batch, n_tokens, 32))).float(),
+        )
     return TTSForwardInput(
         transcription=torch.from_numpy(rng.integers(1, tts["n_symbols"], (batch, n_tokens))),
         transcription_lengths=torch.full((batch,), n_tokens, dtype=torch.int32),

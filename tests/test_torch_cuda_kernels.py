@@ -151,3 +151,31 @@ def test_anti_alias_large_snake_arguments(cuda_device, rng, taps):
     assert (out - ref).abs().max().item() <= 1e-5 * scale
     assert (split - ref_split).abs().max().item() <= 1e-5 * scale
     assert max((ye - pe).abs().max().item(), (yo - po).abs().max().item()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [64, 16])
+def test_folded_head_on_the_kernels_matches_plain(cuda_device, threshold):
+    """The folded BigVGAN head on the card (kernels on the unfolded view, folded
+    convs as channels-last conv2d) against the same head on the CPU (plain
+    versions), f32; threshold 64 folds every stage, 16 leaves the first
+    unfolded. Per call: the same launches as the unfolded head."""
+    from speechflow_torch.models.vocoder.folded_head import FoldedSnakeHead
+    from speechflow_torch.models.vocoder.heads import SnakeUpsampleHead
+    from speechflow_torch.serving import init_random_
+
+    head = init_random_(SnakeUpsampleHead(dim=12, upsample_rates=(2, 2, 2), channels=32,
+                                          resblock_kernel_sizes=(3, 7)),
+                        torch.Generator().manual_seed(0)).eval()
+    x = torch.randn(2, 40, 12, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        ref = FoldedSnakeHead(head, target=48, threshold=threshold)(x)
+        folded = FoldedSnakeHead(head.to(cuda_device), target=48, threshold=threshold)
+        before = (AA.anti_alias_snake.launches, AA.aa_upsample_fir.launches,
+                  AA.aa_snake_downsample.launches)
+        out = folded(x.to(cuda_device))
+        torch.cuda.synchronize()
+    after = (AA.anti_alias_snake.launches, AA.aa_upsample_fir.launches,
+             AA.aa_snake_downsample.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (3 * 2 * 2 + 1, 3, 3 * 2)
+    assert (out.cpu() - ref).abs().max().item() <= 1e-4

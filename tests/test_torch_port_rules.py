@@ -41,6 +41,21 @@ def test_port_sources_import_no_jax():
     assert not {k: v for k, v in bad.items() if v}
 
 
+# modules added with the folded head, the DSP ops, the ISTFT vocoder and the
+# vocoder eval interface: each must exist and be held to the rules above
+NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
+               "models/vocoder/folded_head.py", "models/vocoder/feature_extractors.py",
+               "io/audio.py", "training/saver.py", "utils/state_io.py",
+               "interface/vocoder_interface.py")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_new_modules_import_no_jax(module):
+    path = REPO / "speechflow_torch" / module
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+
+
 def test_importing_the_port_loads_no_jax():
     """Every module of the package, imported in a fresh interpreter."""
     mods = [".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
@@ -61,6 +76,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serving.build_flagship("debug")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serving.build_toy()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -68,6 +85,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 @pytest.mark.parametrize("config,presets", [
     ("tts_model.yml", serving.TTS_MODEL_PRESETS),
     ("vocoder_bigvgan.yml", serving.VOCODER_BIGVGAN_PRESETS),
+    ("vocoder_model.yml", serving.VOCODER_MODEL_PRESETS),
 ])
 def test_presets_equal_the_yaml_configs(config, presets, value_select):
     from speechflow_tpu.io import Config
