@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                    # build, kernels, slice, toy, interface
+    python3 chip_smoke.py            # build, kernels, slice, toy, interface, tts_interface
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
+    python3 chip_smoke.py --phases tts_interface
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -50,7 +51,25 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    seeded waveform at 24 kHz (mel on the card; output as long as the input),
    each with 37 / 6 / 18 anti-alias launches; the resynthesis again through
    the plain versions, within ``TOL_F32_REL``.
-7. ``profile`` (only when asked for): for the flagship and the toy program,
+7. ``tts_interface``: text -> speech at flagship width through the eval
+   interfaces: ``TTSEvaluationInterface`` rebuilt from the payload a trainer of
+   the flagship stores (``serving.flagship_payload``: the pipeline sections of
+   ``configs/tts_data_24khz.yml``, an alphabet of the char fallback's symbols,
+   8 speakers, EN/RU) over the seeded acoustic model, and
+   ``VocoderEvaluationInterface`` over its BigVGAN vocoder, built once. In
+   f32, a request of 2 sentences through the kernels and the plain versions
+   (equal durations, then mel and waveform within ``TOL_F32_REL``), and
+   ``evaluate`` against the serving program's acoustic model on the same
+   inputs and noise (within 1e-6). Then in bf16, a request is a paragraph of
+   32 English sentences (a batch of 32, ``t_out`` 1024), composed as the
+   export chain composes it: the first speaker, the sentences' valid mel
+   frames concatenated, one vocoder call. 4 requests (the first timed apart):
+   each with 186 attention and 37 / 6 / 18 anti-alias launches, every
+   utterance's stretch of the waveform finite with std > 1e-4; host frontend,
+   acoustic, vocoder and total ms and x realtime over the audio produced. In
+   one batch, an SSML sentence with a ``rate="x-slow"`` span must get more
+   frames than the same words plain. The phase prints its wall time.
+8. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -687,6 +706,202 @@ def phase_interface(torch, gpu_line: str) -> dict:
     return {"launches": launches}
 
 
+# the text request of the tts_interface phase: one paragraph of 32 English sentences
+# (punctuation, numbers, years, ordinals, a price, times of day, several lengths); the
+# interface splits it at . ! ? ; followed by a space, so no sentence holds one inside
+REQUEST_SENTENCES = (
+    "The quick brown fox jumps over the lazy dog.",
+    "On June 3rd, 1998, the bridge finally opened to traffic.",
+    "Please call me back before 5:30 tomorrow.",
+    "It rained.",
+    "We sold 2,500 tickets in the first week alone!",
+    "Is this the 21st time you have asked me that question?",
+    "The museum was founded in 1874 by a group of local merchants.",
+    "Yes.",
+    "The doctor will see you now, so please take a seat.",
+    "A ticket costs $12.50, but children travel for free.",
+    "The results, however, were far better than anyone expected.",
+    "She finished in 2nd place, just behind her older brother.",
+    "Turn left at the next corner, then walk 200 meters.",
+    "Why would anyone leave the door open in the middle of winter?",
+    "Our train leaves at 7:45 sharp.",
+    "Around 45% of the voters stayed at home.",
+    "He read the letter twice, folded it, and put it in his pocket.",
+    "Good morning, everyone!",
+    "The company was founded in 2005 and now employs 340 people.",
+    "Keep calm and carry on.",
+    "The 19th century saw rapid growth in the city's population.",
+    "I can't believe it's already October.",
+    "Mix 3 cups of flour with 2 eggs and a pinch of salt.",
+    "Where did you put the keys?",
+    "The meeting has been moved to Thursday, the 14th of March.",
+    "Thank you for waiting.",
+    "In 1969, two astronauts walked on the Moon for the first time.",
+    "The river is about 1,200 kilometers long.",
+    "My brother and his wife live on the same quiet street.",
+    "Stop!",
+    "After a long pause, the old man smiled and nodded slowly.",
+    "That will be all for today, see you next week.",
+)
+SSML_REQUEST = ('Please speak <prosody rate="x-slow">these few words very slowly</prosody> '
+                'and then go on as usual.')
+TTS_REQUESTS = 3  # timed requests after the first
+
+
+def _valid_mel(out):
+    """The export chain's vocoder input: the sentences' valid postnet frames, in order."""
+    import torch
+
+    mels, lens = out.after_postnet_spectrogram, out.spectrogram_lengths.tolist()
+    return torch.cat([mels[j, :n] for j, n in enumerate(lens)]), lens
+
+
+def tts_request(torch, ti, vi, sentences, ctx, opts, gen=None, noise=None) -> dict:
+    """One request as the export chain serves it: the sentences' batch (host
+    frontend), the acoustic model, the valid frames concatenated, one vocoder call;
+    the host clock around each part, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inputs = ti.prepare_batch(sentences, ctx, opts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = ti.evaluate(inputs, opts, noise=noise, generator=gen)
+    mel, lens = _valid_mel(out)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    audio = vi.synthesize(mel)
+    t3 = time.perf_counter()
+    return {"inputs": inputs, "out": out, "mel": mel, "lens": lens, "wave": audio.data,
+            "ms": {"frontend": 1e3 * (t1 - t0), "acoustic": 1e3 * (t2 - t1),
+                   "vocoder": 1e3 * (t3 - t2), "total": 1e3 * (t3 - t0)}}
+
+
+def phase_tts_interface(torch, gpu_line: str) -> dict:
+    """Text -> speech through the eval interfaces at flagship width: the payload
+    a trainer of the flagship stores (``serving.flagship_payload``: the text pipe of
+    ``configs/tts_data_24khz.yml``, an alphabet of the char fallback's symbols of the
+    request, 8 speakers, EN/RU), ``TTSEvaluationInterface`` over the seeded acoustic
+    model and ``VocoderEvaluationInterface`` over the BigVGAN vocoder. The models are
+    built once, in f32 for the gates, then cast to bf16 for the timed requests (the
+    weights ``build_flagship`` gives in bf16: both round the same f32 draw)."""
+    import numpy as np
+
+    from speechflow_torch import serving
+    from speechflow_torch.data.processors.ssml import parse_ssml
+    from speechflow_torch.data.processors.text import TextParserHook
+    from speechflow_torch.interface.tts_interface import TTSEvaluationInterface, TTSOptions
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    text = " ".join(REQUEST_SENTENCES)
+    plain_ssml = parse_ssml(SSML_REQUEST)[0]
+    payload = serving.flagship_payload(TextParserHook()(text + " " + plain_ssml))
+    opts = TTSOptions(t_out=T_FRAMES)
+
+    am, vm = serving.build_flagship("default", device="cuda", dtype=torch.float32, seed=0)
+    ti, vi = TTSEvaluationInterface(am, payload), VocoderEvaluationInterface(vm)
+    speaker = ti.get_speakers()[0]  # the export chain's default speaker
+    ctx = ti.prepare_embeddings(ti.create_context("EN", speaker))
+    sentences = ti.split_sentences(text)
+    check(len(sentences) == len(REQUEST_SENTENCES),
+          f"tts_interface: {len(sentences)} sentences, not {len(REQUEST_SENTENCES)}")
+    print(f"[tts_interface] built (f32, seeded weights; alphabet of {len(ti.alphabet)} "
+          f"symbols, char fallback; pipe {ti.pipeline.handler_names}; speaker {speaker}) in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # f32: a request of 2 sentences through the kernels and the plain versions, and the
+    # interface's acoustic output against serving.synthesize's on the same inputs
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    two = [REQUEST_SENTENCES[1], REQUEST_SENTENCES[3]]
+    inputs = ti.prepare_batch(two, ctx, opts)
+    noise = torch.randn(am.noise_shape(inputs, T_FRAMES), generator=gen,
+                        device="cuda") * am.decoder.temperature
+    res = []
+    for mode in (contextlib.nullcontext(), plain_versions()):
+        with mode:
+            res.append(tts_request(torch, ti, vi, two, ctx, opts, noise=noise))
+    (d_k, mel_k, wav_k), (d_p, mel_p, wav_p) = (
+        (r["out"].attention.sum(1), r["mel"], r["wave"]) for r in res)
+    check(torch.equal(d_k, d_p), "tts_interface f32: durations differ (kernels, plain)")
+    mel_err, mel_lim = (mel_k - mel_p).abs().max().item(), rel_limit(mel_p)
+    wav_err = float(np.abs(wav_k - wav_p).max())
+    wav_lim = TOL_F32_REL * float(np.abs(wav_p).max())
+    print(f"[tts_interface] f32 2 sentences kernels vs plain: durations equal "
+          f"({int(d_k.sum())} frames), mel max_abs_err {mel_err:.3g} (tol {mel_lim:.3g}), "
+          f"wave max_abs_err {wav_err:.3g} (tol {wav_lim:.3g})", flush=True)
+    check(mel_err <= mel_lim and wav_err <= wav_lim,
+          "tts_interface f32: kernels disagree with plain")
+    out = res[0]["out"]  # interface.evaluate on these inputs and this noise
+    with torch.inference_mode():
+        ref = am(inputs.to("cuda", torch.float32), t_out=T_FRAMES, noise=noise)
+        wav_s = serving.synthesize(am, vm, inputs, t_out=T_FRAMES, noise=noise)
+        err = (out.spectrogram - ref.spectrogram).abs().max().item()
+        err_w = (vm.from_features(out.spectrogram[-1]) - wav_s).abs().max().item()
+    print(f"[tts_interface] f32 interface.evaluate vs the serving program's acoustic model: "
+          f"mel max_abs_err {err:.3g}, wave {err_w:.3g} (tol 1e-6)", flush=True)
+    check(err <= 1e-6 and err_w <= 1e-6, "tts_interface: evaluate differs from serving")
+    del res, out, ref, wav_s
+
+    # bf16: the timed requests of 32 sentences
+    ti = TTSEvaluationInterface(am.to(torch.bfloat16), payload)
+    vm.to(torch.bfloat16)
+    reset_counts()
+    runs = []
+    for i in range(1 + TTS_REQUESTS):
+        before = read_counts()
+        r = tts_request(torch, ti, vi, sentences, ctx, opts, gen=gen)
+        after = read_counts()
+        per_request = {k: after[k] - before[k] for k in after}
+        check(per_request == EXPECTED_LAUNCHES,
+              f"tts_interface: launches per request {per_request} != {EXPECTED_LAUNCHES}")
+        wave, lens = r["wave"], r["lens"]
+        check(wave.shape == ((sum(lens) - 1) * HOP,) and bool(np.isfinite(wave).all()),
+              f"tts_interface: waveform {wave.shape}, finite {np.isfinite(wave).all()}")
+        bounds = np.cumsum([0] + lens) * HOP
+        std = min(float(wave[a:b].std()) for a, b in zip(bounds[:-1], bounds[1:]))
+        check(std > 1e-4, f"tts_interface: silent utterance (min std {std:.3g})")
+        r["audio_s"] = len(wave) / SR
+        ms = r["ms"]
+        print(f"[tts_interface] request {i}: {len(sentences)} sentences, tokens "
+              f"{tuple(r['inputs'].transcription.shape)}, frames {min(lens)}..{max(lens)} "
+              f"(sum {sum(lens)}, {sum(n == T_FRAMES for n in lens)} at t_out) -> "
+              f"{r['audio_s']:.2f} s audio, min std {std:.4f}; frontend {ms['frontend']:.1f} "
+              f"ms, acoustic {ms['acoustic']:.1f} ms, vocoder {ms['vocoder']:.1f} ms, total "
+              f"{ms['total']:.1f} ms; launches {per_request}", flush=True)
+        runs.append(r)
+    launches = read_counts()
+    steady = runs[1:]
+    med = {k: float(np.median([r["ms"][k] for r in steady])) for k in steady[0]["ms"]}
+    audio_s = float(np.median([r["audio_s"] for r in steady]))
+    first = runs[0]["ms"]
+    print(f"[tts_interface] per request (bf16, {gpu_line}): first call frontend "
+          f"{first['frontend']:.1f} / acoustic {first['acoustic']:.1f} / vocoder "
+          f"{first['vocoder']:.1f} / total {first['total']:.1f} ms; median of the next "
+          f"{TTS_REQUESTS}: frontend {med['frontend']:.1f} / acoustic {med['acoustic']:.1f} / "
+          f"vocoder {med['vocoder']:.1f} / total {med['total']:.1f} ms, host frontend share "
+          f"{med['frontend'] / med['total']:.3f}, {audio_s:.2f} s of audio = "
+          f"{audio_s / (med['total'] / 1e3):.1f}x realtime", flush=True)
+
+    # SSML: in one batch, the x-slow span must lengthen its utterance against the same
+    # words plain (the plain row's modifiers are 1.0); neither may be cut at t_out
+    both = ti.prepare_batch([SSML_REQUEST, plain_ssml], ctx, opts)
+    check(both.rate_modifier is not None and bool((both.rate_modifier[1] == 1).all()),
+          "tts_interface: the SSML batch lost its modifiers")
+    frames = ti.evaluate(both, opts, generator=gen).spectrogram_lengths.tolist()
+    print(f"[tts_interface] SSML rate=x-slow: {frames[0]} frames, the same words plain "
+          f"{frames[1]} frames (one batch)", flush=True)
+    check(frames[0] > frames[1] and max(frames) < T_FRAMES,
+          f"tts_interface: x-slow did not slow: {frames}")
+    del am, vm, ti, vi
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[tts_interface] phase wall time {phase_s:.1f} s", flush=True)
+    return {"launches": launches, "ms": med, "first_ms": first, "audio_s": audio_s,
+            "phase_s": phase_s}
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -799,9 +1014,9 @@ def profile_program(torch, label: str, am, vm, features: bool, gpu_line: str) ->
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,slice,toy,interface",
+    ap.add_argument("--phases", default="build,kernels,slice,toy,interface,tts_interface",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
-                         "profile (the last is not in the default run)")
+                         "tts_interface,profile (the last is not in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -826,7 +1041,8 @@ def main(argv=None) -> int:
     # each serving path with the kernels it must launch
     paths = (("slice", phase_slice, tuple(EXPECTED_LAUNCHES)),
              ("toy", phase_toy, ("fused_attention",)),
-             ("interface", phase_interface, tuple(HEAD_LAUNCHES)))
+             ("interface", phase_interface, tuple(HEAD_LAUNCHES)),
+             ("tts_interface", phase_tts_interface, tuple(EXPECTED_LAUNCHES)))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:

@@ -9,10 +9,14 @@ packages is ``speechflow_torch.convert``, which takes plain numpy arrays.
 Ported so far: the two serving programs of ``bench.py`` (``serving``: the
 flagship CFM-DiT acoustic model with the BigVGAN vocoder, its head folded as
 served, and the toy CFM model with the ISTFT vocoder), the STFT / ISTFT and
-mel ops, the vocoder's ``mel`` and ``audio`` feature extractors, and the
-vocoder eval interface (``interface.vocoder_interface``) with the plain-dict
-half of checkpoint loading (``training.saver``, ``utils.state_io``). Training,
-the TTS eval interface and the rest of the zoo are not ported yet.
+mel ops, the vocoder's ``mel`` and ``audio`` feature extractors, the vocoder eval
+interface (``interface.vocoder_interface``) with the plain-dict half of
+checkpoint loading (``training.saver``, ``utils.state_io``), and the TTS eval
+interface (``interface.tts_interface``) with the host-side text path it
+rebuilds from a checkpoint's payload (``data``: text normalisation, the char
+fallback and G2P hooks, linguistic and LM features, SSML, collation, the
+pipeline; ``models.g2p``). Training and the rest of the zoo are not ported
+yet.
 
 Every TPU kernel on the ported path is a hand-written CUDA kernel for Hopper
 (``speechflow_torch/csrc``), built with ``nvcc`` at first use. On a CPU tensor

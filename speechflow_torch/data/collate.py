@@ -1,0 +1,90 @@
+"""Collation of text-path samples (counterpart of
+``speechflow_tpu/data/collate.py``, the token-level half of ``TTSCollate``).
+
+Tokens are padded to a multiple of ``token_multiple``, token-level features
+to the same length, prosody classes with -1 (undefined), and the SSML
+modifiers of ``ds.additional`` with 1.0; where only some samples carry a
+modifier, the others get 1.0 on every token (the JAX collate drops the
+modifier for the whole batch then). The frame- and sample-level fields
+(mel, pitch, waveform, gate) wait for the audio pipeline.
+"""
+
+from __future__ import annotations
+
+import typing as tp
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from speechflow_torch.data.core.datasample import TTSDataSample
+from speechflow_torch.utils.pad import stack_and_pad
+
+__all__ = ["CollatedTTS", "TTSCollate", "COLLATES"]
+
+Array = tp.Optional[np.ndarray]
+TOKEN_FIELDS = ("durations", "aggregate_pitch", "aggregate_energy", "ling_feat", "lm_feat",
+                "xpbert_feat")
+MODIFIER_KEYS = ("pitch_modifier", "volume_modifier", "rate_modifier")
+
+
+@dataclass
+class CollatedTTS:
+    speaker_id: Array = None               # (B,)
+    lang_id: Array = None
+    speaker_emb: Array = None              # (B, D)
+    transcription: Array = None            # (B, N)
+    transcription_lengths: Array = None
+    durations: Array = None
+    aggregate_pitch: Array = None
+    aggregate_energy: Array = None
+    ling_feat: Array = None
+    lm_feat: Array = None
+    xpbert_feat: Array = None
+    prosody: Array = None
+    additional: tp.Dict[str, np.ndarray] = field(default_factory=dict)
+
+
+def _ids(samples, attr: str) -> np.ndarray:
+    return np.asarray([-1 if getattr(s, attr) is None else getattr(s, attr) for s in samples],
+                      dtype=np.int32)
+
+
+class TTSCollate:
+    def __init__(self, token_multiple: int = 16, frame_multiple: int = 64,
+                 sample_multiple: int = 256):
+        self.token_multiple = token_multiple
+        self.frame_multiple = frame_multiple    # for the audio fields, not ported yet
+        self.sample_multiple = sample_multiple
+
+    def __call__(self, samples: tp.List[TTSDataSample]) -> CollatedTTS:
+        out = CollatedTTS(speaker_id=_ids(samples, "speaker_id"),
+                          lang_id=_ids(samples, "lang_id"))
+        embs = [s.speaker_emb for s in samples]
+        if all(e is not None for e in embs):
+            out.speaker_emb = np.stack(embs).astype(np.float32)
+        out.transcription, out.transcription_lengths = stack_and_pad(
+            [s.transcription for s in samples], multiple=self.token_multiple)
+        out.transcription = out.transcription.astype(np.int32)
+        n_tok = out.transcription.shape[1]
+
+        def stacked(values, pad_value=0.0):
+            if any(v is None for v in values):
+                return None
+            return stack_and_pad(values, pad_value=pad_value, target_len=n_tok)[0]
+
+        for attr in TOKEN_FIELDS:
+            setattr(out, attr, stacked([getattr(s, attr) for s in samples]))
+        pros = stacked([s.prosody for s in samples], pad_value=-1)
+        out.prosody = None if pros is None else pros.astype(np.int32)
+        for key in MODIFIER_KEYS:
+            mods = [s.additional.get(key) for s in samples]
+            if all(m is None for m in mods):
+                continue
+            # a plain sample in a batch with SSML ones keeps its neutral 1.0
+            mods = [np.ones(len(s.transcription), np.float32) if m is None else m
+                    for m, s in zip(mods, samples)]
+            out.additional[key] = stacked(mods, pad_value=1.0)
+        return out
+
+
+COLLATES = {"TTSCollate": TTSCollate}

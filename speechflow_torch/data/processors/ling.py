@@ -1,0 +1,297 @@
+"""Linguistic features of raw text (counterpart of
+``speechflow_tpu/data/processors/ling.py``, its inference path).
+
+Raw text has no parser tiers: ``RuleBasedTagger`` gives the POS (closed-class
+lexicon + suffix rules, EN) and punctuation comes from the text itself.
+``word_ling_features`` makes the word-level block of ``ling_feat``, ``_expand``
+spreads it over the phonemes; ``lm_feat_for_words`` gives hashed char-n-gram
+word embeddings through a fixed random projection; ``add_xpbert_feat`` the
+phoneme-level embeddings with the service-row constants.
+
+Features are one dense float32 matrix (N, LING_FEAT_DIM): [sil, word_begin,
+word_end, syntagma_end, pos(17), punct(8), emphasis, intonation(3), rel(21),
+importance, breath].
+
+The training-path handlers (features from TextGrid tiers and timestamps) and
+the WordLM checkpoint branches wait for the audio pipeline and
+``models/prosody/lm.py``; a ``model_ckpt`` raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import typing as tp
+
+import numpy as np
+
+from speechflow_torch.data.core.datasample import TTSDataSample
+from speechflow_torch.data.processors.text import SIL
+
+__all__ = [
+    "LING_FEAT_DIM", "LM_FEAT_DIM", "XPBERT_FEAT_DIM", "UPOS", "UD_RELS", "PUNCT_CLASSES",
+    "RuleBasedTagger", "word_ling_features", "ling_feat_from_text", "lm_feat_for_words",
+    "add_xpbert_feat",
+]
+
+UPOS = ("ADJ", "ADP", "ADV", "AUX", "CCONJ", "DET", "INTJ", "NOUN", "NUM",
+        "PART", "PRON", "PROPN", "PUNCT", "SCONJ", "SYM", "VERB", "X")
+UD_RELS = ("root", "nsubj", "obj", "iobj", "obl", "amod", "advmod", "nmod",
+           "case", "det", "cop", "mark", "cc", "conj", "aux", "compound",
+           "acl", "xcomp", "ccomp", "punct", "other")
+PUNCT_CLASSES = ("", ",", ".", "?", "!", ":", ";", "-")
+INTONATIONS = (".", "?", "!")
+
+_POS0 = 4
+_PUNCT0 = _POS0 + len(UPOS)
+_EMPH = _PUNCT0 + len(PUNCT_CLASSES)
+_INT0 = _EMPH + 1
+_REL0 = _INT0 + len(INTONATIONS)
+_IMPORTANCE = _REL0 + len(UD_RELS)
+_BREATH = _IMPORTANCE + 1
+
+LING_FEAT_DIM = _BREATH + 1
+LM_FEAT_DIM = 32
+XPBERT_FEAT_DIM = 32
+
+
+class RuleBasedTagger:
+    """Closed-class lexicon + suffix heuristics for English UPOS tagging:
+    function words are exact; open-class words fall back to suffix rules
+    with NOUN as the default."""
+
+    LEXICON: tp.Dict[str, str] = {}
+    for w in ("the", "a", "an", "this", "that", "these", "those", "each",
+              "every", "either", "neither", "some", "any", "no", "all", "both"):
+        LEXICON[w] = "DET"
+    for w in ("in", "on", "at", "by", "for", "with", "from", "to", "of",
+              "into", "onto", "over", "under", "about", "against", "between",
+              "through", "during", "before", "after", "above", "below", "up",
+              "down", "out", "off", "near", "without", "within", "upon"):
+        LEXICON[w] = "ADP"
+    for w in ("i", "you", "he", "she", "it", "we", "they", "me", "him", "her",
+              "us", "them", "my", "your", "his", "its", "our", "their", "mine",
+              "yours", "hers", "ours", "theirs", "myself", "yourself", "who",
+              "whom", "whose", "which", "what", "something", "anything",
+              "nothing", "everything", "someone", "anyone", "everyone"):
+        LEXICON[w] = "PRON"
+    for w in ("and", "or", "but", "nor", "yet", "so"):
+        LEXICON[w] = "CCONJ"
+    for w in ("if", "because", "although", "though", "while", "whereas",
+              "unless", "until", "since", "when", "whenever", "where", "as",
+              "that", "whether"):
+        LEXICON.setdefault(w, "SCONJ")
+    for w in ("be", "am", "is", "are", "was", "were", "been", "being", "have",
+              "has", "had", "having", "do", "does", "did", "will", "would",
+              "shall", "should", "may", "might", "must", "can", "could"):
+        LEXICON[w] = "AUX"
+    for w in ("not", "n't", "'s", "to"):
+        LEXICON.setdefault(w, "PART")
+    for w in ("very", "too", "quite", "rather", "almost", "also", "just",
+              "only", "even", "still", "already", "always", "never", "often",
+              "sometimes", "now", "then", "here", "there", "again", "soon",
+              "perhaps", "maybe", "however", "moreover", "instead", "indeed",
+              "most", "more", "less", "least", "well"):
+        LEXICON.setdefault(w, "ADV")
+    for w in ("oh", "ah", "wow", "hey", "ouch", "hello", "hi", "yes", "yeah"):
+        LEXICON[w] = "INTJ"
+
+    SUFFIX_RULES = (
+        ("ly", "ADV"), ("ing", "VERB"), ("ed", "VERB"), ("tion", "NOUN"),
+        ("sion", "NOUN"), ("ness", "NOUN"), ("ment", "NOUN"), ("ity", "NOUN"),
+        ("ism", "NOUN"), ("ous", "ADJ"), ("ful", "ADJ"), ("ive", "ADJ"),
+        ("ical", "ADJ"), ("able", "ADJ"), ("ible", "ADJ"), ("less", "ADJ"),
+        ("est", "ADJ"), ("ize", "VERB"), ("ise", "VERB"), ("ify", "VERB"),
+    )
+
+    def __call__(self, word: str) -> str:
+        w = word.strip().lower().strip("".join(PUNCT_CLASSES[1:]) + "\"'()")
+        if not w:
+            return "PUNCT"
+        if any(c.isdigit() for c in w):
+            return "NUM"
+        if w in self.LEXICON:
+            return self.LEXICON[w]
+        for suf, tag in self.SUFFIX_RULES:
+            if len(w) > len(suf) + 2 and w.endswith(suf):
+                return tag
+        if word[:1].isupper():
+            return "PROPN"
+        return "NOUN"
+
+
+def _one_hot_index(vocab: tp.Sequence[str], value: tp.Optional[str]) -> int:
+    if value is None:
+        return len(vocab) - 1
+    v = value.strip()
+    if v in vocab:
+        return vocab.index(v)
+    # UD subtypes like "acl:relcl" map to their base relation
+    base = v.split(":")[0]
+    return vocab.index(base) if base in vocab else len(vocab) - 1
+
+
+def _trailing_punct(word: str) -> str:
+    for ch in reversed(word.strip().strip("\"'")):
+        if ch.isalnum():
+            return ""
+        if ch in PUNCT_CLASSES:
+            return ch
+        if ch in "—–":
+            return "-"
+    return ""
+
+
+def _head_counts(word_ids: tp.Optional[tp.Sequence[str]],
+                 head_ids: tp.Optional[tp.Sequence[str]], n: int) -> np.ndarray:
+    counts = np.zeros(n, np.float32)
+    if not word_ids or not head_ids:
+        return counts
+    tally: tp.Dict[str, int] = {}
+    for h in head_ids:
+        if h:
+            tally[h] = tally.get(h, 0) + 1
+    for i, wid in enumerate(word_ids):
+        counts[i] = tally.get(wid, 0)
+    return counts
+
+
+def word_ling_features(
+    words: tp.Sequence[str],
+    pos_tags: tp.Optional[tp.Sequence[str]] = None,
+    syntax_rels: tp.Optional[tp.Sequence[str]] = None,
+    word_ids: tp.Optional[tp.Sequence[str]] = None,
+    head_ids: tp.Optional[tp.Sequence[str]] = None,
+    emphasis_labels: tp.Optional[tp.Sequence[str]] = None,
+    intonation: str = ".",
+    tagger: tp.Optional[RuleBasedTagger] = None,
+) -> np.ndarray:
+    """(n_words, LING_FEAT_DIM) word-level block; positional flags stay zero
+    here and are set during phoneme expansion."""
+    n = len(words)
+    feats = np.zeros((n, LING_FEAT_DIM), np.float32)
+    if pos_tags is None:
+        tagger = tagger or RuleBasedTagger()
+        pos_tags = [tagger(w) for w in words]
+    importance = _head_counts(word_ids, head_ids, n)
+    for i, w in enumerate(words):
+        feats[i, _POS0 + _one_hot_index(UPOS, pos_tags[i] if i < len(pos_tags) else None)] = 1.0
+        punct = _trailing_punct(w)
+        feats[i, _PUNCT0 + (PUNCT_CLASSES.index(punct) if punct in PUNCT_CLASSES else 0)] = 1.0
+        if emphasis_labels is not None and i < len(emphasis_labels):
+            feats[i, _EMPH] = 1.0 if emphasis_labels[i] == "accent" else 0.0
+        if syntax_rels is not None and i < len(syntax_rels):
+            feats[i, _REL0 + _one_hot_index(UD_RELS, syntax_rels[i])] = 1.0
+        feats[i, _IMPORTANCE] = min(importance[i], 8.0) / 8.0
+    intonation = intonation if intonation in INTONATIONS else "."
+    feats[:, _INT0 + INTONATIONS.index(intonation)] = 1.0
+    return feats
+
+
+def _expand(word_feats: np.ndarray, word_map: np.ndarray,
+            phonemes: tp.Sequence[str],
+            syntagma_last_words: tp.Optional[tp.Set[int]] = None) -> np.ndarray:
+    """Word rows spread over the phonemes (``word_map``: word index per
+    phoneme, -1 for pauses), with word begin/end flags and pause rows."""
+    n = len(phonemes)
+    out = np.zeros((n, LING_FEAT_DIM), np.float32)
+    for i, w in enumerate(word_map):
+        if phonemes[i] in (SIL, "", None):
+            out[i, 0] = 1.0
+            out[i, _BREATH] = -3.0 / 10.0
+            continue
+        if w >= 0 and w < len(word_feats):
+            out[i] = word_feats[w]
+            if i == 0 or word_map[i - 1] != w:
+                out[i, 1] = 1.0  # word_begin
+            if i == n - 1 or word_map[i + 1] != w:
+                out[i, 2] = 1.0  # word_end
+                if syntagma_last_words and int(w) in syntagma_last_words:
+                    out[i, 3] = 1.0
+        else:
+            out[i, 0] = 1.0  # sil_mask
+            out[i, _BREATH] = -3.0 / 10.0  # breath prior at pauses
+    return out
+
+
+def ling_feat_from_text(words: tp.Sequence[str],
+                        phonemes_per_word: tp.Sequence[int],
+                        add_service_tokens: bool = True,
+                        intonation: str = ".") -> np.ndarray:
+    """(N, LING_FEAT_DIM) for raw-text synthesis: rule-tagged POS + text
+    punctuation, expanded by the per-word phoneme counts (pauses are passed
+    as 'words' with an empty label or SIL)."""
+    word_feats = word_ling_features(list(words), intonation=intonation)
+    rows = []
+    for i, (w, cnt) in enumerate(zip(words, phonemes_per_word)):
+        for j in range(cnt):
+            row = word_feats[i].copy()
+            if not w or w == SIL:
+                row[:] = 0.0
+                row[0] = 1.0
+                row[_BREATH] = -0.3
+            else:
+                row[1] = 1.0 if j == 0 else 0.0
+                row[2] = 1.0 if j == cnt - 1 else 0.0
+            rows.append(row)
+    mat = np.stack(rows) if rows else np.zeros((0, LING_FEAT_DIM), np.float32)
+    if add_service_tokens:
+        row = np.zeros((1, LING_FEAT_DIM), np.float32)
+        row[0, 0] = 1.0
+        mat = np.concatenate([row, mat, row.copy()], axis=0)
+    return mat.astype(np.float32)
+
+
+# the JAX package draws this projection at import from the same seed
+_LM_PROJ = np.random.default_rng(0x5F3C).normal(
+    0, 1.0 / np.sqrt(64), size=(4096, LM_FEAT_DIM)).astype(np.float32)
+
+
+def _char_ngrams(word: str, n_lo: int = 2, n_hi: int = 4) -> tp.List[str]:
+    w = f"<{word.strip().lower()}>"
+    out = []
+    for n in range(n_lo, n_hi + 1):
+        out += [w[i:i + n] for i in range(max(len(w) - n + 1, 1))]
+    return out
+
+
+def _no_word_lm(model_ckpt: tp.Optional[str]) -> None:
+    if model_ckpt:
+        raise NotImplementedError(
+            "WordLM checkpoints (models/prosody/lm.py) are not ported yet")
+
+
+def lm_feat_for_words(words: tp.Sequence[str],
+                      model_ckpt: tp.Optional[str] = None) -> np.ndarray:
+    """(n_words, LM_FEAT_DIM) word embeddings: hashed char n-grams (blake2s)
+    through a fixed random projection, each word's sum over sqrt(#grams)."""
+    _no_word_lm(model_ckpt)
+    out = np.zeros((len(words), LM_FEAT_DIM), np.float32)
+    for i, w in enumerate(words):
+        grams = _char_ngrams(w)
+        for g in grams:
+            h = int.from_bytes(hashlib.blake2s(g.encode(), digest_size=4).digest(), "little")
+            out[i] += _LM_PROJ[h % len(_LM_PROJ)]
+        if grams:
+            out[i] /= np.sqrt(len(grams))
+    return out
+
+
+def add_xpbert_feat(ds: TTSDataSample, model_ckpt: tp.Optional[str] = None) -> TTSDataSample:
+    """Per-phoneme embeddings (the char-n-gram embeddings of the phoneme
+    symbols); rows of SIL are 0.1, and BOS/EOS rows 0.01 / -0.01 when the
+    transcription has service tokens."""
+    _no_word_lm(model_ckpt)
+    if ds.phonemes is None:
+        return ds
+    phonemes = list(ds.phonemes)
+    mat = lm_feat_for_words(phonemes)[:, :XPBERT_FEAT_DIM].astype(np.float32)
+    for i, p in enumerate(phonemes):
+        if p == SIL:
+            mat[i] = 0.1
+    n_tokens = ds.n_tokens
+    if n_tokens and n_tokens == mat.shape[0] + 2:  # BOS/EOS service rows
+        bos = np.full((1, XPBERT_FEAT_DIM), 0.01, np.float32)
+        eos = np.full((1, XPBERT_FEAT_DIM), -0.01, np.float32)
+        mat = np.concatenate([bos, mat, eos], axis=0)
+    ds.xpbert_feat = mat
+    return ds

@@ -1,0 +1,148 @@
+"""Text frontend: alphabet, phoneme tokenization, service tokens
+(counterpart of ``speechflow_tpu/data/processors/text.py``).
+
+An ``Alphabet`` maps tokens to stable ids with the service tokens first; a
+``TextParserHook`` turns raw text into phonemes for inference (built in: the
+character-level fallback, after ``text_norm.normalize_text``);
+``G2PParserHook`` runs a trained G2P instead; ``TTSTextProcessor`` encodes
+phonemes with BOS/EOS into the transcription.
+"""
+
+from __future__ import annotations
+
+import re
+import typing as tp
+
+import numpy as np
+
+from speechflow_torch.data.core.datasample import TTSDataSample
+
+__all__ = ["Alphabet", "TTSTextProcessor", "TextParserHook", "G2PParserHook",
+           "text_to_transcription", "PAD", "BOS", "EOS", "SIL", "UNK", "SERVICE_TOKENS"]
+
+PAD, BOS, EOS, SIL, UNK = "<PAD>", "<BOS>", "<EOS>", "<SIL>", "<UNK>"
+SERVICE_TOKENS = (PAD, BOS, EOS, SIL, UNK)
+
+
+class Alphabet:
+    """Stable token<->id mapping with service tokens at fixed low ids."""
+
+    def __init__(self, symbols: tp.Sequence[str]):
+        self.symbols: tp.List[str] = list(SERVICE_TOKENS) + [
+            s for s in sorted(set(symbols)) if s not in SERVICE_TOKENS
+        ]
+        self.index: tp.Dict[str, int] = {s: i for i, s in enumerate(self.symbols)}
+
+    def __len__(self) -> int:
+        return len(self.symbols)
+
+    def __contains__(self, s: str) -> bool:
+        return s in self.index
+
+    def encode(self, tokens: tp.Sequence[str]) -> np.ndarray:
+        unk = self.index[UNK]
+        return np.asarray([self.index.get(t, unk) for t in tokens], dtype=np.int32)
+
+    def decode(self, ids: tp.Sequence[int]) -> tp.List[str]:
+        return [self.symbols[i] for i in ids]
+
+    def to_dict(self) -> dict:
+        return {"symbols": self.symbols}
+
+    @staticmethod
+    def from_dict(d: dict) -> "Alphabet":
+        a = Alphabet([])
+        a.symbols = list(d["symbols"])
+        a.index = {s: i for i, s in enumerate(a.symbols)}
+        return a
+
+
+class TextParserHook:
+    """Raw text -> phoneme sequence. The built-in fallback is a character
+    tokenizer (lowercased, punctuation as pauses); every hook first expands
+    digits and abbreviations through ``text_norm.normalize_text``."""
+
+    PAUSE_CHARS = ".,;:!?—–-"
+
+    @staticmethod
+    def normalize(text: str, lang: str = "EN") -> str:
+        from speechflow_torch.data.processors.text_norm import normalize_text
+
+        return normalize_text(text, lang)
+
+    def __call__(self, text: str, lang: str = "EN") -> tp.List[str]:
+        out: tp.List[str] = []
+        for ch in self.normalize(text, lang).strip().lower():
+            if ch.isspace():
+                continue
+            out.append(SIL if ch in self.PAUSE_CHARS else ch)
+        return out
+
+
+class G2PParserHook(TextParserHook):
+    """Raw text -> phonemes through a trained G2P (``models.g2p``: the mined
+    lexicon first, the tagger for other words), pauses at punctuation."""
+
+    _WORD_OR_PAUSE = re.compile(r"[\w']+|[" + re.escape(TextParserHook.PAUSE_CHARS) + r"]+")
+
+    def __init__(self, g2p: tp.Any, device: tp.Any = None):
+        """``g2p`` is a ``G2P`` or the path of a ``g2p.pkl``, loaded onto
+        ``device`` (the GPU unless ``device="cpu"``)."""
+        from speechflow_torch.models.g2p import G2P
+
+        self.g2p = g2p if isinstance(g2p, G2P) else G2P.load(g2p, device=device)
+
+    def __call__(self, text: str, lang: str = "EN") -> tp.List[str]:
+        pieces = self._WORD_OR_PAUSE.findall(self.normalize(text, lang).strip().lower())
+        words = [p for p in pieces if p[0] not in self.PAUSE_CHARS]
+        prons = dict(zip(words, self.g2p.predict(words, lang)))
+        out: tp.List[str] = []
+        for p in pieces:
+            if p[0] in self.PAUSE_CHARS:
+                if not out or out[-1] != SIL:
+                    out.append(SIL)
+            else:
+                out.extend(prons.get(p, ()))
+        return out
+
+
+class TTSTextProcessor:
+    """Stateful text frontend bound to an Alphabet."""
+
+    def __init__(self, alphabet: tp.Optional[Alphabet] = None,
+                 parser: tp.Optional[TextParserHook] = None,
+                 add_service_tokens: bool = True):
+        self.alphabet = alphabet
+        self.parser = parser or TextParserHook()
+        self.add_service_tokens = add_service_tokens
+
+    def encode_phonemes(self, phonemes: tp.Sequence[str]) -> np.ndarray:
+        toks = ["" if p is None else p for p in phonemes]
+        toks = [SIL if t in ("", "undefined_sil") else t for t in toks]
+        if self.add_service_tokens:
+            toks = [BOS] + toks + [EOS]
+        return self.alphabet.encode(toks)
+
+    def encode_text(self, text: str, lang: str = "EN") -> np.ndarray:
+        return self.encode_phonemes(self.parser(text, lang))
+
+    def __call__(self, ds: TTSDataSample) -> TTSDataSample:
+        return self.process(ds)
+
+    def process(self, ds: TTSDataSample) -> TTSDataSample:
+        if ds.phonemes is not None:
+            ds.transcription = self.encode_phonemes(ds.phonemes)
+        elif ds.text is not None:
+            ds.transcription = self.encode_text(ds.text, ds.lang or "EN")
+        ds.transform_params.setdefault("text", {}).update(
+            alphabet_size=len(self.alphabet), add_service_tokens=self.add_service_tokens)
+        return ds
+
+
+def text_to_transcription(ds: TTSDataSample,
+                          processor: tp.Optional[TTSTextProcessor] = None) -> TTSDataSample:
+    """Pipe-level wrapper; the pipeline binds ``processor``."""
+    if processor is None:
+        raise ValueError("text_to_transcription needs the pipeline's text processor "
+                         "(the payload has no alphabet)")
+    return processor.process(ds)

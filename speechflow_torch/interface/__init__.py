@@ -1,1 +1,1 @@
-"""Inference interfaces of the port: the vocoder eval interface."""
+"""Inference interfaces of the port: the TTS and vocoder eval interfaces."""

@@ -19,27 +19,35 @@ class TTSForwardInput:
     transcription_lengths: Tensor = None  # (B,)
     speaker_id: Tensor = None             # (B,)
     lang_id: Tensor = None                # (B,)
+    speaker_emb: Tensor = None            # (B, D) catalog mean embedding (read by no ported mode)
     durations: Tensor = None              # (B, N) teacher durations (teacher-forced only)
     aggregate_pitch: Tensor = None        # (B, N)
     aggregate_energy: Tensor = None
     ling_feat: Tensor = None              # (B, N, F)
     lm_feat: Tensor = None
     xpbert_feat: Tensor = None
+    prosody: Tensor = None                # (B, N) int, -1 undefined
     mel: Tensor = None                    # (B, T, n_mels)
     mel_lengths: Tensor = None
+    pitch_modifier: Tensor = None         # (B, N) SSML factors, 1.0 outside a span
+    volume_modifier: Tensor = None
+    rate_modifier: Tensor = None
 
     def get(self, name: str, default=None):
         return getattr(self, name, default)
 
     def to(self, device, dtype: tp.Optional[torch.dtype] = None) -> "TTSForwardInput":
-        """Move every tensor to ``device``; floating tensors also to ``dtype``."""
-        def move(v):
+        """Move every tensor to ``device``; floating tensors also to ``dtype``,
+        except the SSML modifiers, which stay float32 (the rate divides the
+        float32 durations; the variance adaptor casts pitch and volume where
+        it multiplies)."""
+        def move(name, v):
             if not isinstance(v, torch.Tensor):
                 return v
-            if dtype is not None and v.is_floating_point():
+            if dtype is not None and v.is_floating_point() and not name.endswith("_modifier"):
                 return v.to(device=device, dtype=dtype)
             return v.to(device=device)
-        return TTSForwardInput(**{f.name: move(getattr(self, f.name))
+        return TTSForwardInput(**{f.name: move(f.name, getattr(self, f.name))
                                   for f in dataclasses.fields(self)})
 
 

@@ -164,10 +164,12 @@ class ParallelTTSModel(nn.Module):
     def forward(self, inputs: TTSForwardInput, training: bool = False,
                 t_out: tp.Optional[int] = None,
                 noise: tp.Optional[torch.Tensor] = None,
-                generator: tp.Optional[torch.Generator] = None) -> TTSOutput:
+                generator: tp.Optional[torch.Generator] = None,
+                cfm_timesteps: tp.Optional[int] = None) -> TTSOutput:
         """Inference. ``noise`` is the CFM's initial state (already scaled by
         the temperature); when None it is drawn from ``generator`` and scaled
-        by ``decoder.temperature``."""
+        by ``decoder.temperature``. ``cfm_timesteps`` overrides the CFM's
+        number of Euler steps."""
         if training:
             raise NotImplementedError("training is not ported yet")
         p = self.p
@@ -201,7 +203,8 @@ class ParallelTTSModel(nn.Module):
                 noise = torch.randn(self.noise_shape(inputs, t_out), generator=generator,
                                     device=x.device, dtype=torch.float32)
                 noise = noise * self.decoder.temperature
-            mu, dec_out = self.decoder.generate(x, out_lengths, cond, noise.to(x.dtype))
+            mu, dec_out = self.decoder.generate(x, out_lengths, cond, noise.to(x.dtype),
+                                                n_timesteps=cfm_timesteps)
             extra["cfm_prior"] = mu
         else:
             dec_out = self.decoder(x, out_lengths, cond)

@@ -5,7 +5,10 @@ The slice's form: raw-value variances (pitch, energy, ...) are predicted per
 token and concatenated to the content in order; ``durations`` drive hard
 length regulation. At inference (``training=False``) durations are predicted
 and rounded; with ``training=True`` and given targets, the targets are used
-(the teacher-forced branch). Variance embeddings, discriminators, the
+(the teacher-forced branch). The SSML modifiers of the inputs multiply the
+pitch and energy values (``pitch_modifier``, ``volume_modifier``), and
+predicted durations are divided by ``max(rate_modifier, 1e-3)`` before they
+are rounded. Variance embeddings, discriminators, the
 in-model aligner, multi-stream routing and the soft regulator wait for a
 later slice; their config flags raise here.
 """
@@ -73,6 +76,9 @@ class HierarchicalVarianceAdaptor(nn.Module):
                 t_out: int, training: bool = False):
         """Returns (content (B, t_out, dim_out), out_lengths, predictions, attn)."""
         predictions: tp.Dict[str, torch.Tensor] = {}
+        # SSML modifiers multiply the conditioning values
+        modifiers = {"aggregate_pitch": inputs.get("pitch_modifier"),
+                     "aggregate_energy": inputs.get("volume_modifier")}
         x = content
         for v in self.variances:
             if v.name == "durations":
@@ -81,6 +87,9 @@ class HierarchicalVarianceAdaptor(nn.Module):
             predictions[v.name] = pred
             target = inputs.get(v.target or v.name)
             value = target if (training and v.use_target and target is not None) else pred
+            mod = modifiers.get(v.name)
+            if mod is not None:
+                value = value * mod.to(value.dtype)
             if v.cat_to_content:
                 x = torch.cat([x, value[..., None].to(x.dtype)], dim=-1)
 
@@ -94,8 +103,11 @@ class HierarchicalVarianceAdaptor(nn.Module):
             if training and dur_cfg.use_target and target_d is not None:
                 durations = target_d
             else:
-                durations = torch.round(
-                    TokenLevelDP.to_durations(log_d.float(), token_lengths))
+                durations = TokenLevelDP.to_durations(log_d.float(), token_lengths)
+                rate = inputs.get("rate_modifier")
+                if rate is not None:  # SSML rate: slower speech, longer tokens
+                    durations = durations / torch.clamp(rate.float(), min=1e-3)
+                durations = torch.round(durations)
             x, attn = length_regulate_hard(x, durations, t_out)
             out_lengths = torch.clamp(durations.sum(dim=-1), 1, t_out).to(torch.int32)
         return x, out_lengths, predictions, attn

@@ -14,7 +14,10 @@
   vocoder 512 wide, 8 layers, with the ISTFT head.
 
 ``synthesize`` serves either: the acoustic model's postnet mel goes to
-``vm.from_features``. The machine with the GPU has no YAML reader, so the
+``vm.from_features``. ``flagship_payload`` makes the checkpoint payload a
+trainer of the flagship would store (model params, and the pipeline info of
+``configs/tts_data_24khz.yml`` with a seeded speaker catalog), from which
+``interface.tts_interface.TTSEvaluationInterface`` rebuilds the text path. The machine with the GPU has no YAML reader, so the
 configs' model sections are carried here as presets, transcribed field for
 field, and the bench's literals likewise (CPU tests hold them equal to the
 YAML files and to ``bench.py``).
@@ -35,7 +38,8 @@ from speechflow_torch.utils.device import resolve_device
 
 __all__ = ["TTS_MODEL_PRESETS", "VOCODER_BIGVGAN_PRESETS", "VOCODER_MODEL_PRESETS",
            "FLAGSHIP_OVERRIDES", "TOY_TTS_PARAMS", "TOY_VOCODER_PARAMS", "flagship_params",
-           "init_random_", "build_flagship", "build_toy", "synthesize", "bench_inputs"]
+           "init_random_", "build_flagship", "build_toy", "synthesize", "bench_inputs",
+           "TTS_DATA_CONFIG", "flagship_payload"]
 
 _VARIANCES = [{"name": "aggregate_pitch"}, {"name": "aggregate_energy"},
               {"name": "durations"}]
@@ -94,6 +98,25 @@ VOCODER_MODEL_PRESETS: tp.Dict[str, dict] = {
     },
 }
 
+# configs/tts_data_24khz.yml (default), the sections a pipeline rebuilt for inference reads
+TTS_DATA_CONFIG: dict = {
+    "preproc": {
+        "pipe": ["load_audio", "volume_normalize", "multiple_audio", "magnitude",
+                 "linear_to_mel", "amp_to_db", "normalize_mel", "energy", "pitch",
+                 "add_pauses_from_timestamps", "text_to_transcription", "add_ling_feat",
+                 "add_lm_feat", "add_xpbert_feat", "calc_durations", "aggregate_pitch",
+                 "aggregate_energy", "gate_target"],
+        "pipe_cfg": {"load_audio": {"sample_rate": 24000}, "multiple_audio": {"hop": 256},
+                     "magnitude": {"n_fft": 1024, "hop_len": 256},
+                     "linear_to_mel": {"n_mels": 100},
+                     "pitch": {"f0_min": 80.0, "f0_max": 880.0}},
+    },
+    "collate": {"type": "TTSCollate", "token_multiple": 16, "frame_multiple": 64,
+                "sample_multiple": 256},
+    "singleton_handlers": ["SpeakerIDSetter", "StatisticsRange", "DatasetStatistics",
+                           "PhonemeStatistics"],
+}
+
 T_FRAMES = 1024  # bench.T_FRAMES: 1024 frames * 256 hop / 24 kHz = 10.92 s
 N_TOKENS = 128   # bench.N_TOKENS
 FRAMES_PER_TOKEN = T_FRAMES / N_TOKENS  # the bench's utterances: 128 tokens in 1024 frames
@@ -124,6 +147,37 @@ def flagship_params(value_select: str = "default"
     tts = dict(TTS_MODEL_PRESETS[value_select], **FLAGSHIP_OVERRIDES["tts"])
     voc = dict(VOCODER_BIGVGAN_PRESETS[value_select], **FLAGSHIP_OVERRIDES["vocoder"])
     return ParallelTTSParams.create(tts), VocosParams.create(voc)
+
+
+def flagship_payload(symbols: tp.Sequence[str]) -> dict:
+    """The payload a trainer of the flagship stores beside its weights
+    (``model_params``, ``pipeline_info``): the data config's pipeline
+    sections, an alphabet of ``symbols`` plus the service tokens, and the
+    singleton states of a catalog of ``n_speakers`` speakers (``speaker_<i>``,
+    i + 1 hours of audio each) in EN and RU."""
+    import dataclasses
+
+    from speechflow_torch.data.processors.text import Alphabet
+
+    tts, _ = flagship_params()
+    alphabet = Alphabet(symbols)
+    if len(alphabet) > tts.n_symbols:
+        raise ValueError(f"{len(alphabet)} symbols > the model's n_symbols {tts.n_symbols}")
+    speakers = [f"speaker_{i}" for i in range(tts.n_speakers)]
+    info = {
+        "config": TTS_DATA_CONFIG,
+        "subsets": ["train", "test"],
+        "alphabet": alphabet.to_dict(),
+        "singletons": {
+            "SpeakerIDSetter": {"speaker2id": {s: i for i, s in enumerate(speakers)},
+                                "lang2id": {"EN": 0, "RU": 1}},
+            "StatisticsRange": {"ranges": {}},
+            "DatasetStatistics": {"speaker_durations": {
+                s: 3600.0 * (i + 1) for i, s in enumerate(speakers)}},
+            "PhonemeStatistics": {"counts": {s: 1 for s in alphabet.symbols[5:]}},
+        },
+    }
+    return {"model_params": dataclasses.asdict(tts), "pipeline_info": info}
 
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:

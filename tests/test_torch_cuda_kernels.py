@@ -179,3 +179,39 @@ def test_folded_head_on_the_kernels_matches_plain(cuda_device, threshold):
              AA.aa_snake_downsample.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (3 * 2 * 2 + 1, 3, 3 * 2)
     assert (out.cpu() - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mlp", "gru"])
+def test_g2p_on_the_gpu_matches_the_cpu(cuda_device, arch):
+    """The G2P taggers run on the interface's device: an ensemble of 2 with
+    seeded weights gives the same phonemes on the GPU as on the CPU."""
+    from speechflow_torch.models.g2p import G2P
+
+    rng = np.random.default_rng(5)
+    chars = list("abcdefghijklmnopqrstuvwxyz'") + ["<", ">", "\0"]
+    chunks = [(), ("AH0",), ("B",), ("K", "S"), ("IY1",), ("T",), ("N",), ("EH1",)]
+    d, h, nch = 8, 6, len(chunks)
+
+    def mat(*shape):
+        return (rng.standard_normal(shape) * 2.0 / np.sqrt(shape[0])).astype(np.float32)
+
+    def member():
+        p = {"ce": mat(len(chars), d), "le": mat(2, d)}
+        if arch == "gru":
+            p.update(w1=mat(2 * h, 2 * h), b1=mat(2 * h), wo=mat(2 * h, nch), bo=mat(nch))
+            for side in ("f_", "b_"):
+                for g in "zrn":
+                    p.update({side + "W" + g: mat(d, h), side + "U" + g: mat(h, h),
+                              side + "b" + g: mat(h)})
+        else:
+            p.update(w1=mat(8 * d, 16), b1=mat(16), w2=mat(16, 16), b2=mat(16),
+                     wo=mat(16, nch), bo=mat(nch))
+        return p
+
+    args = ({c: i for i, c in enumerate(chars)}, {"EN": 0, "RU": 1}, chunks,
+            [member(), member()])
+    words = ["zebra", "a", "xylophonic", "quick-silver", "don't", "supercalifragilistic"]
+    on_gpu = G2P(*args, arch=arch, device=cuda_device)
+    assert next(on_gpu.members.parameters()).is_cuda
+    assert on_gpu.predict(words) == G2P(*args, arch=arch, device="cpu").predict(words)

@@ -41,12 +41,18 @@ def test_port_sources_import_no_jax():
     assert not {k: v for k, v in bad.items() if v}
 
 
-# modules added with the folded head, the DSP ops, the ISTFT vocoder and the
-# vocoder eval interface: each must exist and be held to the rules above
+# modules added with the folded head, the DSP ops, the ISTFT vocoder, the
+# vocoder eval interface, and the TTS eval interface with its text path: each
+# must exist and be held to the rules above
 NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "models/vocoder/folded_head.py", "models/vocoder/feature_extractors.py",
                "io/audio.py", "training/saver.py", "utils/state_io.py",
-               "interface/vocoder_interface.py")
+               "interface/vocoder_interface.py",
+               "data/processors/text.py", "data/processors/text_norm.py",
+               "data/processors/ling.py", "data/processors/ssml.py",
+               "data/core/datasample.py", "data/core/components.py", "data/collate.py",
+               "utils/pad.py", "models/tts/batch_processor.py", "models/g2p/model.py",
+               "interface/tts_interface.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -79,6 +85,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serving.build_toy()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_tts_data_preset_equals_the_yaml_config():
+    """The data config's pipeline sections, as ``flagship_payload`` carries them."""
+    from speechflow_tpu.io import Config
+
+    yml = Config.create_from_file(REPO / "configs" / "tts_data_24khz.yml",
+                                  value_select=["default"]).to_dict()
+    preset = serving.TTS_DATA_CONFIG
+    assert preset == {k: yml[k] for k in preset}
 
 
 @pytest.mark.parametrize("value_select", ["default", "debug"])

@@ -1,0 +1,286 @@
+"""The port's TTS eval interface against the JAX one (f32, CPU), from a
+checkpoint the JAX ``ExperimentSaver`` wrote: a narrow flagship-shaped CFM
+acoustic model with seeded weights (``tests/torch_parity.py``), the pipeline
+info of ``configs/tts_data_24khz.yml`` with a speaker catalog, and a
+``g2p.pkl`` beside it that both interfaces find. For plain multi-sentence
+text and for SSML, ``prepare_batch`` must give identical inputs; ``evaluate``
+with the JAX decoder's own noise equal integer durations, then the mel within
+``MODEL_TOL``; ``cfm_timesteps`` is honoured; the unported paths raise."""
+
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from flax import nnx
+
+from speechflow_torch import serving
+from speechflow_torch.data.processors.text import TextParserHook
+from speechflow_torch.interface.tts_interface import (
+    TTSEvaluationInterface,
+    TTSOptions,
+)
+from speechflow_torch.models.g2p import G2P
+from speechflow_torch.utils.masks import sequence_mask
+from tests.test_torch_g2p import CHARS, _jax_g2p
+from tests.torch_parity import cfm_noise, jax_tts_model, n, t, tts_params
+
+torch.set_num_threads(1)
+MODEL_TOL = 2e-4  # the whole acoustic model in f32 (as test_torch_tts_model)
+LANGS = ("EN", "RU")
+SPEAKERS = {"amy": 0, "bob": 1, "cyd": 2}
+PLAIN = ("Hello world, a zebra dozed. Was it 3 bees?  Dr. Bob ate 2,000 deer; "
+         "sure! ok")
+SSML = 'hello <prosody rate="x-slow" pitch="+20%">zebra world</prosody> did, again'
+OPTS = [TTSOptions(t_out=96), TTSOptions(t_out=96, pause_level="words", begin_pause=False),
+        TTSOptions(t_out=96, pause_level="none", end_pause=False)]
+
+
+def _symbols(g2p) -> list:
+    """The G2P's phonemes and the char fallback's symbols."""
+    return sorted(set(g2p.phoneme_inventory) | set(CHARS))
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    """(checkpoint dir, JAX model): the model's state under ``model``, the
+    payload a trainer stores, ``g2p.pkl`` in the experiment directory."""
+    from speechflow_tpu.data.processors.text import Alphabet
+    from speechflow_tpu.io import Config
+    from speechflow_tpu.training import ExperimentSaver as JS
+
+    params = tts_params(n_symbols=64)
+    jm = jax_tts_model(params)
+    saver = JS(tmp_path_factory.mktemp("tts"), expr_suffix="tts")
+    g2p = _jax_g2p("gru", 2, 0.0)
+    g2p.save(saver.expr_path / "g2p.pkl")
+    cfg = Config.create_from_file(Path(__file__).parent.parent / "configs" /
+                                  "tts_data_24khz.yml", value_select=["default"]).to_dict()
+    rng = np.random.default_rng(4)
+    saver.to_save["model_params"] = dict(params)
+    saver.to_save["pipeline_info"] = {
+        "config": cfg, "subsets": ["train", "test"],
+        "alphabet": Alphabet(_symbols(g2p)).to_dict(),
+        "singletons": {
+            "SpeakerIDSetter": {"speaker2id": SPEAKERS, "lang2id": {"EN": 0, "RU": 1}},
+            "DatasetStatistics": {"speaker_durations": {"amy": 1800.0, "bob": 9000.0,
+                                                        "cyd": 30000.0}},
+            "MeanBioEmbeddings": {"mean_emb": {"amy": rng.normal(size=6).tolist(),
+                                               "bob": rng.normal(size=6).tolist()}},
+        },
+    }
+    saver.save(3, nnx.to_pure_dict(nnx.state(jm, nnx.Not(nnx.RngState))))
+    return JS.get_last_checkpoint(saver.expr_path)
+
+
+@pytest.fixture(scope="module")
+def interfaces(checkpoint):
+    """(port interface, JAX interface) from the same checkpoint. The JAX
+    pipeline's feature cache is off: it keys a sample by its file, and raw
+    text samples have none, so every sentence would share one entry."""
+    from speechflow_tpu.interface import TTSEvaluationInterface as J
+    from speechflow_tpu.training import ExperimentSaver as JS
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("SFTPU_DUMP_CACHE", raising=False)
+        ref = J(checkpoint)
+    ours = TTSEvaluationInterface.from_checkpoint(*JS.load_checkpoint(checkpoint),
+                                                  ckpt_path=checkpoint, device="cpu")
+    return ours, ref
+
+
+def _jax_opts(opts):
+    from speechflow_tpu.interface import TTSOptions as JO
+
+    return JO(**dataclasses.asdict(opts))
+
+
+def _assert_inputs_equal(ours, ref, skip=()):
+    checked = []
+    for f in dataclasses.fields(ours):
+        if f.name in skip:
+            continue
+        a, b = getattr(ours, f.name), getattr(ref, f.name)
+        assert (a is None) == (b is None), f.name
+        if a is not None:
+            np.testing.assert_array_equal(n(a), np.asarray(b), err_msg=f.name)
+            checked.append(f.name)
+    return checked
+
+
+def test_catalog_and_frontend(interfaces):
+    ours, ref = interfaces
+    assert isinstance(ours.text_processor.parser.g2p, G2P)
+    assert ours.get_languages() == ref.get_languages() == list(LANGS)
+    for hours in (None, 1.0, (0.4, 3.0), (3.0, 100.0)):
+        assert ours.get_speakers(hours) == ref.get_speakers(hours)
+    assert ours.get_speakers(1.0) == ["bob", "cyd"]
+    assert ours.split_sentences(PLAIN) == ref.split_sentences(PLAIN)
+    for w in ("Hello,", "zebra", "3", "Dr.", "...", "did!"):
+        assert ours.prepare_text(w) == ref.prepare_text(w)
+    words = PLAIN.split()
+    for opts in OPTS:
+        assert ours.predict_pauses(words, opts) == ref.predict_pauses(words,
+                                                                 _jax_opts(opts))
+    for speaker in (None, "amy", "cyd", "nobody"):
+        a = ours.prepare_embeddings(ours.create_context("RU", speaker))
+        b = ref.prepare_embeddings(ref.create_context("RU", speaker))
+        assert (a.lang_id, a.speaker_id, a.speaker_name) == (b.lang_id, b.speaker_id,
+                                                             b.speaker_name)
+        assert (a.speaker_emb is None) == (b.speaker_emb is None)
+        if a.speaker_emb is not None:
+            np.testing.assert_array_equal(a.speaker_emb, b.speaker_emb)
+
+
+MODIFIERS = ("pitch_modifier", "volume_modifier", "rate_modifier")
+
+
+@pytest.mark.parametrize("opts", range(len(OPTS)))
+@pytest.mark.parametrize("kind", ["plain", "ssml", "mixed"])
+def test_prepare_batch_matches_jax(interfaces, kind, opts):
+    """Identical inputs, but for the known divergence of a batch that mixes
+    SSML and plain sentences: the JAX collate drops the SSML modifiers of
+    the whole batch (ROADMAP §3), the port keeps them and gives the plain
+    rows 1.0."""
+    ours, ref = interfaces
+    opts = OPTS[opts]
+    sentences = {"plain": ours.split_sentences(PLAIN), "ssml": [SSML],
+                 "mixed": [SSML, "A zebra."]}[kind]
+    skip = MODIFIERS if kind == "mixed" else ()
+    for speaker in ("bob", "amy"):
+        a = ours.prepare_batch(sentences, ours.create_context("EN", speaker), opts)
+        b = ref.prepare_batch(sentences, ref.create_context("EN", speaker), _jax_opts(opts))
+        checked = _assert_inputs_equal(a, b, skip)
+        expected = {"transcription", "transcription_lengths", "speaker_id", "lang_id",
+                    "xpbert_feat"}
+        if kind == "plain":
+            expected |= {"ling_feat", "lm_feat"}
+        if kind == "ssml":
+            expected |= set(MODIFIERS)
+        assert set(checked) == expected
+    assert a.transcription.shape[1] % 16 == 0 and len(set(n(a.transcription_lengths))) > 1 \
+        or kind != "plain"
+    if kind == "ssml":
+        rate = n(a.rate_modifier)[0]
+        assert (rate == np.float32(0.6)).sum() == len(ours.prepare_text("zebra world"))
+    if kind == "mixed":
+        assert all(getattr(b, k) is None for k in MODIFIERS)
+        alone = ours.prepare_batch([SSML], ours.create_context("EN", "amy"), opts)
+        width = int(alone.transcription_lengths[0])
+        for k in MODIFIERS:
+            mixed = n(getattr(a, k))
+            np.testing.assert_array_equal(mixed[0, :width], n(getattr(alone, k))[0, :width])
+            np.testing.assert_array_equal(mixed[1], np.ones_like(mixed[1]))
+        assert (n(a.rate_modifier)[0] == np.float32(0.6)).any()
+
+
+def _evaluate_both(ours, ref, inputs_ours, inputs_ref, opts):
+    b, t_out = inputs_ours.transcription.shape[0], opts.t_out
+    noise = cfm_noise(ref.model, (b, t_out, ours.params.n_mels))
+    out_ref = ref.evaluate(inputs_ref, _jax_opts(opts))
+    out = ours.evaluate(inputs_ours, opts, noise=t(noise))
+    return out, out_ref
+
+
+def _assert_outputs_close(out, ref, t_out):
+    durs, ref_durs = n(out.attention).sum(1), n(ref.attention).sum(1)
+    np.testing.assert_array_equal(durs, ref_durs)  # integer durations first
+    np.testing.assert_array_equal(n(out.spectrogram_lengths), n(ref.spectrogram_lengths))
+    assert durs.sum(1).max() < t_out  # no frame cut off
+    frames = n(sequence_mask(out.spectrogram_lengths, t_out)).astype(bool)
+    for stage in range(2):
+        np.testing.assert_allclose(n(out.spectrogram[stage])[frames],
+                                   np.asarray(ref.spectrogram[stage])[frames],
+                                   atol=MODEL_TOL, rtol=MODEL_TOL)
+
+
+@pytest.mark.parametrize("cfm_timesteps", [None, 2])
+@pytest.mark.parametrize("kind", ["plain", "ssml"])
+def test_evaluate_matches_jax(interfaces, kind, cfm_timesteps):
+    ours, ref = interfaces
+    opts = TTSOptions(t_out=128, cfm_timesteps=cfm_timesteps)
+    sentences = ours.split_sentences(PLAIN) if kind == "plain" else [SSML]
+    a = ours.prepare_batch(sentences, ours.create_context("EN", "cyd"), opts)
+    b = ref.prepare_batch(sentences, ref.create_context("EN", "cyd"), _jax_opts(opts))
+    out, out_ref = _evaluate_both(ours, ref, a, b, opts)
+    _assert_outputs_close(out, out_ref, opts.t_out)
+    if cfm_timesteps is not None:  # fewer Euler steps: another mel from the same noise
+        default = ours.evaluate(a, TTSOptions(t_out=128), noise=out.additional_content[
+            "cfm_prior"].new_zeros(out.spectrogram[1].shape))
+        steps = ours.evaluate(a, opts, noise=default.spectrogram[1].new_zeros(
+            out.spectrogram[1].shape))
+        assert (n(default.spectrogram[0]) != n(steps.spectrogram[0])).any()
+
+
+def test_synthesize_matches_jax_and_ssml_rate_slows(interfaces):
+    ours, ref = interfaces
+    opts = TTSOptions(t_out=96)
+    b = len(ours.split_sentences(PLAIN))
+    noise = cfm_noise(ref.model, (b, 96, ours.params.n_mels))
+    out_ref = ref.synthesize(PLAIN, lang="EN", speaker="bob", opts=_jax_opts(opts))
+    out = ours.synthesize(PLAIN, lang="EN", speaker="bob", opts=opts, noise=t(noise))
+    assert out.spectrogram.shape[1] == b == 6
+    assert out.spectrogram_lengths.shape == (6,) and ours.get_speakers()[1] == "bob"
+    _assert_outputs_close(out, out_ref, 96)
+    gen = torch.Generator().manual_seed(0)
+    slow = ours.synthesize(SSML, opts=opts, generator=gen)
+    plain = ours.synthesize(SSML.replace('rate="x-slow" ', ""), opts=opts, generator=gen)
+    assert int(slow.spectrogram_lengths.sum()) > int(plain.spectrogram_lengths.sum())
+
+
+def test_char_fallback_matches_jax(checkpoint, interfaces):
+    """Without a G2P both interfaces spell raw text as characters."""
+    from speechflow_tpu.data.processors.text import TextParserHook as JH
+    from speechflow_tpu.interface import TTSEvaluationInterface as J
+    from speechflow_tpu.training import ExperimentSaver as JS
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("SFTPU_DUMP_CACHE", raising=False)
+        ref = J(checkpoint, text_parser=JH())
+    tree, payload = JS.load_checkpoint(checkpoint)
+    ours = TTSEvaluationInterface.from_checkpoint(tree, payload, device="cpu")
+    assert type(ours.text_processor.parser) is TextParserHook  # nothing found: no ckpt_path
+    ctx_a, ctx_b = ours.create_context("EN", "amy"), ref.create_context("EN", "amy")
+    sentences = ours.split_sentences(PLAIN)
+    _assert_inputs_equal(ours.prepare_batch(sentences, ctx_a, TTSOptions()),
+                         ref.prepare_batch(sentences, ctx_b, _jax_opts(TTSOptions())))
+
+
+def test_unported_paths_raise(checkpoint, interfaces, monkeypatch):
+    from speechflow_tpu.training import ExperimentSaver as JS
+
+    ours, _ = interfaces
+    tree, payload = JS.load_checkpoint(checkpoint)
+    with pytest.raises(NotImplementedError, match="biometrics"):
+        ours.synthesize("hello", ref_audio="ref.wav")
+    with pytest.raises(NotImplementedError, match="prosody"):
+        TTSEvaluationInterface.from_checkpoint(tree, payload, device="cpu",
+                                               prosody_ckpt="prosody")
+    with pytest.raises(NotImplementedError, match="audio pipeline"):
+        ours.resynthesize("utterance.TextGridStage3")
+    bad = dict(payload, model_params=dict(payload["model_params"], use_prosody=True))
+    with pytest.raises(NotImplementedError, match="use_prosody"):
+        TTSEvaluationInterface.from_checkpoint(tree, bad, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TTSEvaluationInterface.from_checkpoint(tree, payload)
+
+
+def test_flagship_payload_builds_the_interface():
+    """The payload ``chip_smoke.py`` serves the flagship from, on a narrow
+    model: the text pipe of the data config, 16-token tiles, the catalog."""
+    payload = serving.flagship_payload(list("abcdefghijklmnopqrstuvwxyz'"))
+    model = serving.ParallelTTSModel(serving.ParallelTTSParams.create(
+        tts_params(n_symbols=100, n_speakers=8)))
+    iface = TTSEvaluationInterface(model, payload)
+    assert iface.pipeline.handler_names == ["text_to_transcription", "add_xpbert_feat"]
+    assert iface.get_speakers(4.5) == ["speaker_4", "speaker_5", "speaker_6", "speaker_7"]
+    assert iface.get_languages() == ["EN", "RU"]
+    x = iface.prepare_batch(["One sentence, here.", "And 2 more!"], iface.create_context(),
+                            TTSOptions(t_out=64))
+    assert x.transcription.shape == (2, 32) and x.xpbert_feat.shape == (2, 32, 32)
+    out = iface.evaluate(x, TTSOptions(t_out=64), generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(out.spectrogram).all()
+    with pytest.raises(ValueError, match="n_symbols"):
+        serving.flagship_payload([chr(0x400 + i) for i in range(100)])

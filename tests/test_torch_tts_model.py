@@ -187,6 +187,43 @@ def test_variance_adaptor(rng, training):
         np.testing.assert_allclose(n(out[2][name]), n(pred), atol=TOL)
 
 
+@pytest.mark.parametrize("modifiers", ["pitch", "volume", "rate", "all"])
+def test_variance_adaptor_ssml_modifiers(rng, modifiers):
+    """Inference under SSML factors: pitch and energy multiplied, predicted
+    durations divided by the rate before rounding (1.0 in padded tokens, as
+    the collate pads them)."""
+    from speechflow_tpu.models.tts import variance_adaptor as J
+
+    jm = randomize(J.HierarchicalVarianceAdaptor(
+        D, [J.VarianceConfig(**v) for v in VARIANCES], rngs=nnx.Rngs(0)))
+    jm.predictors["durations"].out.bias[...] = jnp.full((1,), math.log(4.0))
+    tm = port(HierarchicalVarianceAdaptor(D, [VarianceConfig(**v) for v in VARIANCES]), jm)
+    x = _x(rng, B, N, D) * VALID[..., None]
+    arrays = tts_arrays(rng, B, N, LENS)
+    names = ("pitch", "volume", "rate") if modifiers == "all" else (modifiers,)
+    for name in names:
+        # SSML's named rates and percentages among the factors
+        f = rng.choice(np.float32([0.6, 0.8, 1.25, 1.5, 0.5, 1.7, 1.2]), (B, N))
+        arrays[f"{name}_modifier"] = np.where(VALID, f, 1.0).astype(np.float32)
+    t_out = 120
+    ref = jm(jnp.asarray(x), jnp.asarray(LENS), jax_tts_input(arrays), t_out, training=False)
+    out = tm(t(x), t(LENS), torch_tts_input(arrays), t_out, training=False)
+    plain = tm(t(x), t(LENS), torch_tts_input({k: v for k, v in arrays.items()
+                                               if not k.endswith("_modifier")}),
+               t_out, training=False)
+    np.testing.assert_array_equal(n(out[3]), n(ref[3]))   # the alignment: durations
+    np.testing.assert_array_equal(n(out[1]), n(ref[1]))
+    assert n(out[1]).max() < t_out
+    np.testing.assert_allclose(n(out[0]), n(ref[0]), atol=TOL)
+    for name, pred in ref[2].items():
+        np.testing.assert_allclose(n(out[2][name]), n(pred), atol=TOL)
+    if "rate" in names:   # the factors moved the frames
+        assert not np.array_equal(n(out[3]).sum(1), n(plain[3]).sum(1))
+    else:                 # the factors moved the pitch / energy columns only
+        np.testing.assert_array_equal(n(out[3]), n(plain[3]))
+        assert not np.allclose(n(out[0]), n(plain[0]))
+
+
 @pytest.mark.parametrize("cfg_scale", [0.0, 1.0])
 def test_cfm_generate_with_injected_noise(rng, cfg_scale):
     from speechflow_tpu.models.tts.decoders import CFMDecoder as J
