@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # build, kernels, slice, toy, interface, tts_interface
+    python3 chip_smoke.py            # build, kernels, slice, toy, interface, tts_interface, train
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
+    python3 chip_smoke.py --phases build,train   # GAN training of the flagship vocoder
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -69,7 +70,33 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    acoustic, vocoder and total ms and x realtime over the audio produced. In
    one batch, an SSML sentence with a ``rate="x-slow"`` span must get more
    frames than the same words plain. The phase prints its wall time.
-8. ``profile`` (only when asked for): for the flagship and the toy program,
+8. ``train``: GAN training of the flagship BigVGAN vocoder
+   (``configs/vocoder_bigvgan.yml`` default: the unfolded head, 1536 channels,
+   MPD + sub-band CQT discriminators, batch 32 of 1.0 s chunks, grad_accum 8,
+   bf16 autocast, AdamW on WarmupCosine) through the port's entry point
+   ``scripts.train_vocoder.train`` on ``tests/data/SEGS``. First the
+   anti-alias VJPs (the autograd Functions) against PyTorch autograd of the
+   plain versions at the head's training stage shapes, f32 (``TOL_F32_REL``)
+   and bf16 (1.6e-2 of the plain gradient's largest magnitude), and their time
+   at B=32 beside the forward kernels'. Then one f32 GAN micro-batch at
+   flagship width (B=2, 8192 samples) through the kernels and the plain
+   versions: generator losses, discriminator loss and every parameter's
+   gradient within ``TOL_F32_REL``; the same gate must reject a planted fault
+   (dβ negated in one snake). Then 16 micro-batches (2 optimizer steps) into a
+   temporary experiment directory: finite losses; the generator unchanged
+   after micro-batches 1-15 and changed after the 16th (the first optimizer
+   step, at the 8th, runs at the schedule's lr of 0 at count 0, as optax's
+   warmup does: it must advance the optimizer's count and moments and leave
+   the weights); the discriminator untouched by every generator step; 37 / 43
+   / 18 anti-alias launches per micro-batch (the VJP of each fused entry
+   recomputes stage 1 with the stage-1 kernel). Prints ms per micro-batch and
+   per optimizer step, seconds of audio trained per second, peak device
+   memory, the VJPs' share and the phase's wall time. Last, the checkpoint it
+   wrote goes through ``ExperimentSaver.load_checkpoint`` ->
+   ``VocoderEvaluationInterface.from_checkpoint`` -> ``resynthesize`` of a
+   SEGS utterance: finite, as long as the input, and within ``TOL_F32_REL`` of
+   the trained generator's own f32 output.
+9. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -97,6 +124,7 @@ import json
 import subprocess
 import sys
 import time
+import typing as tp
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -120,6 +148,17 @@ EXPECTED_LAUNCHES = {"fused_attention": 6 + 30 * 6, **HEAD_LAUNCHES}
 # toy per-batch launches: encoder 4 + CFM 30 steps x 4 layers (no CFG); ISTFT head
 TOY_LAUNCHES = {"fused_attention": 4 + 30 * 4, "anti_alias_snake": 0, "aa_upsample_fir": 0,
                 "aa_snake_downsample": 0}
+# a training micro-batch of the flagship vocoder recipe: the forward's 37 / 6 / 18, and the
+# VJP of each fused entry recomputes its stage 1 with the stage-1 kernel (37 more)
+TRAIN_LAUNCHES = {"fused_attention": 0, "anti_alias_snake": 37, "aa_upsample_fir": 6 + 37,
+                  "aa_snake_downsample": 18}
+TRAIN_PRESET = "default"
+TRAIN_MICRO_BATCHES = 16  # 2 optimizer steps at grad_accum 8
+TRAIN_FRAMES = 24064 // HOP + 1  # a 1.0 s chunk padded to 94 hops: 95 mel frames
+TRAIN_STAGES = [(TRAIN_FRAMES * r, c) for r, c in
+                ((4, 768), (16, 384), (32, 192), (64, 96), (128, 48), (256, 24))]
+TOL_BF16_GRAD = 1.6e-2  # bf16 gradients: of the plain gradient's largest magnitude
+TOL_GAN_GRAD = 1e-2  # a whole f32 GAN micro-batch's gradients (see gan_gate)
 SASS_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG")  # wgmma, TMA load, TMA store
 HEAD_STAGES = [(4096, 768), (16384, 384), (32768, 192), (65536, 96), (131072, 48),
                (262144, 24)]
@@ -902,6 +941,377 @@ def phase_tts_interface(torch, gpu_line: str) -> dict:
             "phase_s": phase_s}
 
 
+# -- phase 8: training ---------------------------------------------------------------
+
+
+def _aa_grads(torch, fn, inputs, cotangents):
+    """``fn(*inputs)``'s outputs and the gradients of every input under ``cotangents``."""
+    xs = [x.detach().requires_grad_() for x in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, xs, cotangents)
+
+
+def check_vjps(torch, AA) -> dict:
+    """Each entry's autograd Function against PyTorch autograd of its plain version,
+    at the head's training stage shapes (B=2), f32 and bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {}
+    for t, c in TRAIN_STAGES + [(1000, 33)]:
+        x32 = torch.randn(2, t, c, generator=gen, device="cuda")
+        a = 0.3 * torch.randn(c, generator=gen, device="cuda")
+        b = 0.3 * torch.randn(c, generator=gen, device="cuda")
+        g32 = torch.randn(2, t, c, generator=gen, device="cuda")
+        g2 = torch.randn(2, t, c, generator=gen, device="cuda")
+        for dtype, tol in ((torch.float32, TOL_F32_REL), (torch.bfloat16, TOL_BF16_GRAD)):
+            x, g, h = x32.to(dtype), g32.to(dtype), g2.to(dtype)
+            ye, yo = AA.aa_upsample_fir_reference(x, 12)
+            cases = {
+                "anti_alias_snake": ((AA.anti_alias_snake, AA.anti_alias_snake_reference),
+                                     (x, a, b), (g,)),
+                "aa_upsample_fir": ((AA.aa_upsample_fir, AA.aa_upsample_fir_reference),
+                                    (x,), (g, h)),
+                "aa_snake_downsample": ((AA.aa_snake_downsample,
+                                         AA.aa_snake_downsample_reference),
+                                        (ye, yo, a, b), (g,)),
+            }
+            errs = []
+            for name, ((kern, plain), inputs, cots) in cases.items():
+                got = _aa_grads(torch, kern, inputs, cots)
+                ref = _aa_grads(torch, plain, inputs, cots)
+                torch.cuda.synchronize()
+                for i, (u, v) in enumerate(zip(got, ref)):
+                    err = (u.float() - v.float()).abs().max().item()
+                    lim = tol * v.float().abs().max().item()
+                    check(u.dtype == v.dtype and err <= lim,
+                          f"{name} VJP input {i} T{t} C{c} {dtype}: {err} > {lim}")
+                    worst[name] = max(worst.get(name, 0.0), err / max(lim, 1e-30) * tol)
+                    errs.append(f"{name}[{i}] {err:.3g}/{lim:.3g}")
+            print(f"[train] VJP vs plain autograd B2 T{t} C{c} {dtype}: " + ", ".join(errs),
+                  flush=True)
+    return worst
+
+
+def time_vjps(torch, AA) -> dict:
+    """Forward kernel and VJP times of each entry at B=32, bf16, summed over one
+    training micro-batch's calls (per stage: 6 fused, +1 post at the last; 1 stage-1;
+    3 snake + stage 2)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    res = {n: {"train_fwd_ms": 0.0, "vjp_ms": 0.0}
+           for n in ("anti_alias_snake", "aa_upsample_fir", "aa_snake_downsample")}
+    for i, (t, c) in enumerate(TRAIN_STAGES):
+        x = torch.randn(BATCH, t, c, generator=gen, device="cuda", dtype=torch.bfloat16)
+        g = torch.randn_like(x)
+        a = 0.3 * torch.randn(c, generator=gen, device="cuda")
+        b = 0.3 * torch.randn(c, generator=gen, device="cuda")
+        with torch.no_grad():
+            ye, yo = AA.aa_upsample_fir(x)
+        calls = {"anti_alias_snake": 6 + (i == len(TRAIN_STAGES) - 1), "aa_upsample_fir": 1,
+                 "aa_snake_downsample": 3}
+        runs = {
+            "anti_alias_snake": (lambda: AA.anti_alias_snake(x, a, b),
+                                 lambda: AA.anti_alias_snake_vjp(x, a, b, g)),
+            "aa_upsample_fir": (lambda: AA.aa_upsample_fir(x),
+                                lambda: AA.aa_upsample_fir_vjp(g, g).to(x.dtype)),
+            "aa_snake_downsample": (lambda: AA.aa_snake_downsample(ye, yo, a, b),
+                                    lambda: AA.aa_snake_downsample_vjp(ye, yo, a, b, g)),
+        }
+        for name, (fwd, vjp) in runs.items():
+            with torch.no_grad():
+                f_ms, v_ms = cuda_ms(fwd, 5), cuda_ms(vjp, 3, warmup=1)
+            res[name]["train_fwd_ms"] += calls[name] * f_ms
+            res[name]["vjp_ms"] += calls[name] * v_ms
+            print(f"[train] {name} B{BATCH} T{t} C{c} bf16: forward kernel {f_ms:.4f} ms, "
+                  f"VJP {v_ms:.4f} ms; {calls[name]} calls per micro-batch", flush=True)
+        del x, g, ye, yo
+        torch.cuda.empty_cache()
+    return res
+
+
+def _seg_waves(n: int, length: int, offset: int = 24000):
+    """``n`` SEGS utterances at 24 kHz, ``length`` samples each from ``offset``."""
+    import numpy as np
+
+    from speechflow_torch.io.audio import AudioChunk
+
+    files = sorted((REPO / "tests" / "data" / "SEGS").rglob("*.wav"))[:n]
+    return np.stack([AudioChunk(file_path=f).load(sr=SR).waveform[offset:offset + length]
+                     for f in files]).astype(np.float32)
+
+
+def gan_grads(torch, gen, disc, gen_crit, disc_crit, wav) -> tuple:
+    """One f32 GAN micro-batch without the optimizers: the generator's losses and
+    gradients (discriminator frozen), then the discriminator's on the detached
+    output. Returns ({loss: value}, {parameter: gradient})."""
+    from speechflow_torch.training.gan_trainer import frozen
+
+    for p in (*gen.parameters(), *disc.parameters()):
+        p.grad = None
+    inputs = {"waveform": wav}
+    with frozen(disc):
+        out = gen(inputs)
+        g_losses = gen_crit(out, disc, inputs, inputs, 0)
+        sum(g_losses.values()).backward()
+    d_losses = disc_crit(out.detach(), disc, inputs, inputs, 0)
+    sum(d_losses.values()).backward()
+    losses = {**{f"gen/{k}": v.item() for k, v in g_losses.items()},
+              **{f"disc/{k}": v.item() for k, v in d_losses.items()}}
+    grads = {f"{tag}.{n}": p.grad.detach().clone()
+             for tag, m in (("gen", gen), ("disc", disc)) for n, p in m.named_parameters()}
+    return losses, grads
+
+
+def worst_relative(ref: dict, got: dict) -> tuple:
+    """(largest max|got - ref| / max|ref| over the tensors, its name)."""
+    return max(((got[n] - v).abs().max().item() / max(v.abs().max().item(), 1e-30), n)
+               for n, v in ref.items())
+
+
+def gan_disagreement(ref: tuple, got: tuple, grad_tol: float) -> tp.List[str]:
+    """Losses outside ``TOL_F32_REL`` and gradients outside ``grad_tol`` of the
+    reference's magnitude."""
+    bad = [f"{k}: {got[0][k]} vs {v}" for k, v in ref[0].items()
+           if abs(got[0][k] - v) > TOL_F32_REL * abs(v)]
+    for name, v in ref[1].items():
+        err = (got[1][name] - v).abs().max().item()
+        if err > grad_tol * v.abs().max().item():
+            bad.append(f"{name}: max_abs_err {err:.3g} (max |grad| {v.abs().max().item():.3g})")
+    return bad
+
+
+def gen_vjp(torch, gen, wav, cot) -> dict:
+    """The generator's parameter gradients under the cotangent ``cot`` of its output."""
+    for p in gen.parameters():
+        p.grad = None
+    gen({"waveform": wav}).backward(cot)
+    return {f"gen.{n}": p.grad.detach().clone() for n, p in gen.named_parameters()}
+
+
+@contextlib.contextmanager
+def planted_dbeta_fault(beta):
+    """The fused entry's VJP with dβ negated for the snake whose β is ``beta``."""
+    from speechflow_torch.ops import anti_alias as AA
+
+    real = AA.anti_alias_snake_vjp
+
+    def faulty(x, alpha, b, g, taps=12):
+        dx, d_alpha, d_beta = real(x, alpha, b, g, taps)
+        return dx, d_alpha, (-d_beta if b.data_ptr() == beta.data_ptr() else d_beta)
+
+    AA.anti_alias_snake_vjp = faulty
+    try:
+        yield
+    finally:
+        AA.anti_alias_snake_vjp = real
+
+
+def gan_gate(torch) -> None:
+    """The full-width f32 gate, cuDNN deterministic, kernels against the plain versions:
+
+    A. the generator's backward from one cotangent (the plain run's gradient of its
+       losses with respect to its output): every parameter's gradient within
+       ``TOL_F32_REL`` of the plain one's largest magnitude;
+    B. one whole GAN micro-batch: losses within ``TOL_F32_REL``, every gradient of
+       both models within ``TOL_GAN_GRAD``: the losses' kinks (hinge, leaky ReLU, the
+       log-mel's clip, log|X|) turn the two implementations' ~1e-6 forward difference
+       into larger gradient differences, which the plain path run twice shows as 0;
+    and a planted fault (dβ negated in one snake's VJP) that both must reject."""
+    from speechflow_torch.models.vocoder import Vocos, VocosParams
+    from speechflow_torch.models.vocoder.criterion import (
+        vocoder_disc_criterion,
+        vocoder_gen_criterion,
+    )
+    from speechflow_torch.models.vocoder.discriminators import VocoderDiscriminator
+    from speechflow_torch.scripts import train_vocoder as TV
+    from speechflow_torch.training.gan_trainer import frozen
+
+    model_cfg, _ = TV.configs(TRAIN_PRESET)
+    params = VocosParams.create(model_cfg["model"])
+    torch.manual_seed(0)
+    gen = Vocos(params).to("cuda")
+    disc = VocoderDiscriminator(**model_cfg["discriminator"]).to("cuda")
+    gen_crit = vocoder_gen_criterion(sample_rate=params.sample_rate, n_mels=params.n_mels,
+                                     **model_cfg["loss"])
+    disc_crit = vocoder_disc_criterion()
+    wav = torch.from_numpy(_seg_waves(2, 8192)).to("cuda")
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with plain_versions():
+            ref = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
+            again = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
+            with frozen(disc):
+                out = gen({"waveform": wav})
+                total = sum(gen_crit(out, disc, {"waveform": wav}, {"waveform": wav},
+                                     0).values())
+                cot = torch.autograd.grad(total, out)[0].detach()
+            ref_vjp = gen_vjp(torch, gen, wav, cot)
+        got_vjp = gen_vjp(torch, gen, wav, cot)
+        got = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
+        with planted_dbeta_fault(gen.head.post_act.beta):
+            bad_vjp = gen_vjp(torch, gen, wav, cot)
+            bad = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    wa, wb, w0 = worst_relative(ref_vjp, got_vjp), worst_relative(ref[1], got[1]), \
+        worst_relative(ref[1], again[1])
+    print(f"[train] f32 GAN micro-batch B2 x 8192, cuDNN deterministic; losses "
+          + ", ".join(f"{k} {v:.6g}" for k, v in got[0].items())
+          + f". A (generator backward, one cotangent): {len(ref_vjp)} gradients, worst "
+          f"relative {wa[0]:.3g} ({wa[1]}; tol {TOL_F32_REL:g}). B (the micro-batch): "
+          f"{len(ref[1])} gradients, worst relative {wb[0]:.3g} ({wb[1]}; tol "
+          f"{TOL_GAN_GRAD:g}), plain run twice {w0[0]:.3g}", flush=True)
+    check(wa[0] <= TOL_F32_REL, f"train f32 A: generator gradients disagree: {wa}")
+    fails = gan_disagreement(ref, got, TOL_GAN_GRAD)
+    check(not fails, "train f32 B: kernels disagree with plain: " + "; ".join(fails[:5]))
+    fa, fb = worst_relative(ref_vjp, bad_vjp), gan_disagreement(ref, bad, TOL_GAN_GRAD)
+    print(f"[train] planted fault (dβ negated in the post snake's VJP): A worst relative "
+          f"{fa[0]:.3g} ({fa[1]}), B rejects with {len(fb)} disagreement(s): {fb[:2]}",
+          flush=True)
+    check(fa[0] > TOL_F32_REL and bool(fb), "the training gate passes a planted dβ fault")
+    del gen, disc, got, ref, again, bad
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, gpu_line: str) -> dict:
+    """GAN training of the flagship vocoder through the port's entry point."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.ops import anti_alias as AA
+    from speechflow_torch.scripts import train_vocoder as TV
+    from speechflow_torch.scripts.common import experiment_saver
+    from speechflow_torch.training import gan_trainer as GT
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"vjp": check_vjps(torch, AA), "times": time_vjps(torch, AA)}
+    gan_gate(torch)
+
+    model_cfg, data_cfg = TV.configs(TRAIN_PRESET)
+    data_cfg["dirs"]["data_root"] = str(REPO / "tests" / "data" / "SEGS")
+    model_cfg["trainer"]["max_steps"] = TRAIN_MICRO_BATCHES
+    k = model_cfg["optimizer"]["grad_accum"]
+    st = {"gen_ref": None, "sizes": [], "times": [], "launches": [], "trainer": None,
+          "losses": []}
+    real_gen_step = GT.GANTrainer._generator_step
+
+    def gen_step(self, inputs, targets, step):
+        """The trainer's generator step, checked: the discriminator's weights and
+        gradients are as they were."""
+        if st["gen_ref"] is None:
+            st["gen_ref"] = [p.detach().clone() for p in self.generator.parameters()]
+        d_ref = [p.detach().clone() for p in self.discriminator.parameters()]
+        out = real_gen_step(self, inputs, targets, step)
+        same = all(torch.equal(p, q) and p.grad is None
+                   for p, q in zip(self.discriminator.parameters(), d_ref))
+        check(same, f"train: the generator step at micro-batch {step + 1} touched the "
+                    "discriminator")
+        st["sizes"].append(tuple(inputs["waveform"].shape))
+        return out
+
+    def callback(trainer, last):
+        torch.cuda.synchronize()
+        st["times"].append(time.perf_counter())
+        st["trainer"] = trainer
+        counts = read_counts()
+        st["launches"].append(counts)
+        reset_counts()
+        i = trainer.global_step
+        vals = {key: float(v) for key, v in last.items()}
+        st["losses"].append(vals)
+        check(all(np.isfinite(v) for v in vals.values()), f"train: non-finite loss {vals}")
+        check(counts == TRAIN_LAUNCHES,
+              f"train: launches at micro-batch {i}: {counts} != {TRAIN_LAUNCHES}")
+        changed = any(not torch.equal(p, r) for p, r in
+                      zip(trainer.generator.parameters(), st["gen_ref"]))
+        opt = trainer.gen_opt
+        check(opt.count == i // k and opt.mini_step == i % k,
+              f"train: optimizer count {opt.count}, mini-step {opt.mini_step} after {i}")
+        check(changed == (i >= 2 * k),
+              f"train: generator {'changed' if changed else 'unchanged'} after micro-batch {i}")
+        if i == k:  # the first optimizer step: lr 0 at count 0, moments taken
+            moments = [s["exp_avg"] for s in opt.base.state.values()]
+            check(len(moments) == len(opt.params) and any(bool(m.abs().max() > 0)
+                                                          for m in moments),
+                  "train: the first optimizer step left no Adam moments")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = experiment_saver(model_cfg, data_cfg, tmp)
+        GT.GANTrainer._generator_step = gen_step
+        try:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            expr = TV.train(model_cfg, data_cfg, saver, device="cuda",
+                            callbacks=[callback])
+            t_fit = time.perf_counter() - t0
+        finally:
+            GT.GANTrainer._generator_step = real_gen_step
+        peak = torch.cuda.max_memory_allocated()
+        launches = {key: sum(c[key] for c in st["launches"]) for key in TRAIN_LAUNCHES}
+        ends = [t0] + st["times"]
+        step_ms = [1e3 * (b - a) for a, b in zip(ends[:-1], ends[1:])]
+        audio_s = [b * n / SR for b, n in st["sizes"]]
+        ms = statistics.median(step_ms[1:])
+        by_size = {b: statistics.median(t for t, (bb, _) in zip(step_ms[1:], st["sizes"][1:])
+                                        if bb == b)
+                   for b in sorted({b for b, _ in st["sizes"][1:]})}
+        opt_ms = sum(step_ms[k:2 * k])
+        rate = sum(audio_s[1:]) / (sum(step_ms[1:]) / 1e3)
+        for i, (dt, size, vals) in enumerate(zip(step_ms, st["sizes"], st["losses"])):
+            print(f"[train] micro-batch {i + 1}: {dt:.1f} ms, wave {size}, gen/total "
+                  f"{vals['gen/total']:.4f}, disc/total {vals.get('disc/total', 0.0):.4f}",
+                  flush=True)
+        vjp = sum(r["vjp_ms"] for r in res["times"].values())
+        fwd = sum(r["train_fwd_ms"] for r in res["times"].values())
+        print(f"[train] {TRAIN_MICRO_BATCHES} micro-batches ({TRAIN_MICRO_BATCHES // k} "
+              f"optimizer steps) in {t_fit:.1f} s with set-up; per micro-batch {ms:.1f} ms "
+              f"(median of 2..{TRAIN_MICRO_BATCHES}; by batch size "
+              + ", ".join(f"B{b} {t:.1f} ms" for b, t in by_size.items())
+              + f"), second optimizer step "
+              f"{opt_ms:.1f} ms, {rate:.2f} s of audio trained per s, peak device memory "
+              f"{peak / 2**30:.2f} GiB; anti-alias at B{BATCH}: VJPs {vjp:.1f} ms against "
+              f"the forward kernels' {fwd:.1f} ms per micro-batch ({vjp / ms:.3f} of a "
+              f"micro-batch; {gpu_line})", flush=True)
+
+        # the checkpoint the run wrote, through the vocoder interface
+        ckpt = ExperimentSaver.get_last_checkpoint(expr)
+        check(ckpt is not None and ckpt.name == f"step_{TRAIN_MICRO_BATCHES:09d}",
+              f"train: last checkpoint {ckpt}")
+        tree, payload = ExperimentSaver.load_checkpoint(ckpt)
+        vi = VocoderEvaluationInterface.from_checkpoint(tree, payload, device="cuda")
+        wav = _seg_waves(1, 64 * HOP * 4, offset=0)[0]
+        out = vi.resynthesize(AudioChunk(data=wav, sr=SR)).data
+        gen = st["trainer"].generator.eval()
+        with torch.no_grad():
+            ref = gen({"waveform": torch.from_numpy(wav)[None].to("cuda")})[0]
+        ref = np.clip(ref.float().cpu().numpy(), -1.0, 1.0)
+        err = float(np.abs(out - ref).max())
+        lim = TOL_F32_REL * float(np.abs(ref).max())
+        print(f"[train] {ckpt.name} -> load_checkpoint -> VocoderEvaluationInterface "
+              f"(folded) -> resynthesize {len(wav) / SR:.2f} s: {out.shape[0]} samples, "
+              f"max_abs_err {err:.3g} against the trained generator's f32 output "
+              f"(tol {lim:.3g})", flush=True)
+        check(out.shape == wav.shape and bool(np.isfinite(out).all()) and err <= lim,
+              "train: the reloaded checkpoint does not resynthesize as trained")
+        del vi, tree, gen, st["trainer"]
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[train] phase wall time {phase_s:.1f} s", flush=True)
+    res.update(launches=launches, ms=ms, ms_by_batch=by_size, opt_ms=opt_ms,
+               audio_rate=rate, peak=peak, phase_s=phase_s)
+    return res
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -1014,9 +1424,9 @@ def profile_program(torch, label: str, am, vm, features: bool, gpu_line: str) ->
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,slice,toy,interface,tts_interface",
+    ap.add_argument("--phases", default="build,kernels,slice,toy,interface,tts_interface,train",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
-                         "tts_interface,profile (the last is not in the default run)")
+                         "tts_interface,train,profile (the last is not in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1042,15 +1452,20 @@ def main(argv=None) -> int:
     paths = (("slice", phase_slice, tuple(EXPECTED_LAUNCHES)),
              ("toy", phase_toy, ("fused_attention",)),
              ("interface", phase_interface, tuple(HEAD_LAUNCHES)),
-             ("tts_interface", phase_tts_interface, tuple(EXPECTED_LAUNCHES)))
+             ("tts_interface", phase_tts_interface, tuple(EXPECTED_LAUNCHES)),
+             ("train", phase_train, tuple(HEAD_LAUNCHES)))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:
             continue
-        counts = phase(torch, gpu_line)["launches"]
+        out = phase(torch, gpu_line)
+        counts = out["launches"]
         check(all(counts[k] > 0 for k in kernels_of_path),
               f"{label}: a kernel of the path was never launched: {counts}")
         by_path[label] = counts
+        if label == "train":  # the anti-alias entries' training forward and VJP times
+            for name, times in out["times"].items():
+                records.setdefault(name, {}).update(times)
     for name in KERNEL_META:
         if by_path:
             records.setdefault(name, {})["launches"] = sum(c[name] for c in by_path.values())
@@ -1066,7 +1481,8 @@ def main(argv=None) -> int:
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
                         "library_ms": r.get("library_ms"),
-                        **{k: v for k, v in r.items() if k.endswith("_by_path")}})
+                        **{k: v for k, v in r.items()
+                           if k.endswith("_by_path") or k in ("train_fwd_ms", "vjp_ms")}})
     print(json.dumps({"kernels": kernels}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,7 @@ flax leaf                  flax layout                 port layout
 =========================  ==========================  ===========================
 ``Linear.kernel``          (in, out)                   ``Linear.weight`` (out, in)
 ``Conv.kernel``            (K, Cin/groups, Cout)       ``Conv1d.weight`` (Cout, Cin/groups, K)
+``Conv.kernel`` (2-D)      (kh, kw, Cin, Cout)         ``Conv2d.weight`` (Cout, Cin, kh, kw)
 ``ConvTranspose.kernel``   (K, Cin, Cout)              correlation weight (Cout, Cin, K), unflipped
 ``MultiHeadAttention``     q/k/v kernel (in, H, dh),   ``Linear.weight`` (H·dh, in), bias (H·dh,);
                            bias (H, dh); out kernel    out weight (out, H·dh)
@@ -20,8 +21,11 @@ bare ``Param``             any                         same name, same shape
 =========================  ==========================  ===========================
 
 The copy is strict both ways: every parameter of the port must be filled
-and every parameter of the JAX state used. This module is the only bridge
-between the packages, and it takes plain arrays: it imports neither.
+and every parameter of the JAX state used. ``nnx_from_module`` is the
+inverse: the port's parameters as the JAX package's pure dict (nested dicts
+of float32 numpy, list indices as ints), which ``nnx.replace_by_pure_dict``
+takes. This module is the only bridge between the packages, and it takes
+plain arrays: it imports neither.
 """
 
 from __future__ import annotations
@@ -32,9 +36,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from speechflow_torch.models.layers import Conv1d, ConvTranspose1d, MultiHeadAttention
+from speechflow_torch.models.layers import Conv1d, Conv2d, ConvTranspose1d, MultiHeadAttention
 
-__all__ = ["flatten_nnx", "state_dict_from_nnx", "load_nnx_state"]
+__all__ = ["flatten_nnx", "state_dict_from_nnx", "load_nnx_state", "nnx_path",
+           "nnx_from_module"]
 
 
 def flatten_nnx(pure: tp.Mapping, prefix: str = "") -> tp.Dict[str, np.ndarray]:
@@ -54,45 +59,81 @@ def flatten_nnx(pure: tp.Mapping, prefix: str = "") -> tp.Dict[str, np.ndarray]:
     return out
 
 
+Layout = tp.Callable[[np.ndarray], np.ndarray]
+
+
 def _mapping(parent: nn.Module, child_name: str, module: nn.Module, leaf: str,
-             path: str) -> tp.Tuple[str, tp.Callable[[np.ndarray], np.ndarray]]:
-    """(flax leaf path, layout transform) for one port parameter."""
+             path: str) -> tp.Tuple[str, Layout, Layout]:
+    """(flax leaf path, flax -> port layout, port -> flax layout) for one port
+    parameter."""
     ident = (lambda a: a)
 
     def at(name: str) -> str:
         return f"{path}.{name}" if path else name
 
     if isinstance(module, nn.Embedding):
-        return at("embedding"), ident
+        return at("embedding"), ident, ident
     if isinstance(module, nn.LayerNorm):
-        return at("scale" if leaf == "weight" else "bias"), ident
+        return at("scale" if leaf == "weight" else "bias"), ident, ident
     if isinstance(module, nn.Linear):
         if isinstance(parent, MultiHeadAttention):
+            h, dh = parent.n_heads, parent.head_dim
             if child_name == "out":
                 if leaf == "weight":
-                    return at("kernel"), lambda a: a.reshape(-1, a.shape[-1]).T
-                return at("bias"), ident
+                    return (at("kernel"), lambda a: a.reshape(-1, a.shape[-1]).T,
+                            lambda w: w.T.reshape(h, dh, -1))
+                return at("bias"), ident, ident
             if leaf == "weight":
-                return at("kernel"), lambda a: a.reshape(a.shape[0], -1).T
-            return at("bias"), lambda a: a.reshape(-1)
-        return (at("kernel"), lambda a: a.T) if leaf == "weight" \
-            else (at("bias"), ident)
+                return (at("kernel"), lambda a: a.reshape(a.shape[0], -1).T,
+                        lambda w: w.T.reshape(-1, h, dh))
+            return at("bias"), lambda a: a.reshape(-1), lambda w: w.reshape(h, dh)
+        return (at("kernel"), lambda a: a.T, lambda w: w.T) if leaf == "weight" \
+            else (at("bias"), ident, ident)
     if isinstance(module, (Conv1d, ConvTranspose1d)):
-        return (at("kernel"), lambda a: a.transpose(2, 1, 0)) if leaf == "weight" \
-            else (at("bias"), ident)
-    return at(leaf), ident
+        t = (lambda a: a.transpose(2, 1, 0))
+        return (at("kernel"), t, t) if leaf == "weight" else (at("bias"), ident, ident)
+    if isinstance(module, Conv2d):
+        return (at("kernel"), lambda a: a.transpose(3, 2, 0, 1),
+                lambda w: w.transpose(2, 3, 1, 0)) if leaf == "weight" \
+            else (at("bias"), ident, ident)
+    return at(leaf), ident, ident
+
+
+def _mappings(module: nn.Module):
+    """(port name, parameter, flax path, to port, to flax) for every parameter."""
+    mods = dict(module.named_modules())
+    for name, param in module.named_parameters():
+        path, _, leaf = name.rpartition(".")
+        parent_path, _, child = path.rpartition(".")
+        yield (name, param, *_mapping(mods.get(parent_path), child, mods[path], leaf, path))
+
+
+def nnx_path(module: nn.Module) -> tp.Dict[str, str]:
+    """Port parameter name -> its path in the JAX layout, ``/``-joined (the path
+    optax's param-group labels match)."""
+    return {name: src.replace(".", "/") for name, _, src, _, _ in _mappings(module)}
+
+
+def nnx_from_module(module: nn.Module) -> dict:
+    """The inverse of ``state_dict_from_nnx``: the port module's parameters as
+    the JAX package's pure dict, float32 numpy leaves."""
+    out: dict = {}
+    for _, param, src, _, to_flax in _mappings(module):
+        node = out
+        keys = [int(k) if k.isdigit() else k for k in src.split(".")]
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        arr = param.detach().to("cpu", torch.float32).numpy()
+        node[keys[-1]] = np.ascontiguousarray(to_flax(arr))
+    return out
 
 
 def state_dict_from_nnx(module: nn.Module, pure: tp.Mapping) -> tp.Dict[str, torch.Tensor]:
     """The port module's ``state_dict`` (f32 tensors) built from a flax state."""
     flat = flatten_nnx(pure)
-    mods = dict(module.named_modules())
     used = set()
     sd: tp.Dict[str, torch.Tensor] = {}
-    for name, param in module.named_parameters():
-        path, _, leaf = name.rpartition(".")
-        parent_path, _, child = path.rpartition(".")
-        src, fn = _mapping(mods.get(parent_path), child, mods[path], leaf, path)
+    for name, param, src, fn, _ in _mappings(module):
         if src not in flat:
             raise KeyError(f"{name}: no flax parameter {src!r}")
         arr = np.ascontiguousarray(fn(flat[src]))

@@ -1,2 +1,3 @@
-"""Data path of the port: samples, text handlers, collate, the pipeline
-rebuilt from a checkpoint payload."""
+"""Data path of the port: samples, text and audio handlers, parsers,
+samplers, collate, and the pipeline built from a data config or rebuilt
+from a checkpoint payload."""

@@ -1,5 +1,6 @@
-"""Collation of text-path samples (counterpart of
-``speechflow_tpu/data/collate.py``, the token-level half of ``TTSCollate``).
+"""Collation (counterpart of ``speechflow_tpu/data/collate.py``):
+``AudioCollate`` (waveforms padded to a multiple of ``sample_multiple``, ids,
+speaker embeddings) and the token-level half of ``TTSCollate``.
 
 Tokens are padded to a multiple of ``token_multiple``, token-level features
 to the same length, prosody classes with -1 (undefined), and the SSML
@@ -16,15 +17,24 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from speechflow_torch.data.core.datasample import TTSDataSample
+from speechflow_torch.data.core.datasample import AudioDataSample, TTSDataSample
 from speechflow_torch.utils.pad import stack_and_pad
 
-__all__ = ["CollatedTTS", "TTSCollate", "COLLATES"]
+__all__ = ["CollatedAudio", "AudioCollate", "CollatedTTS", "TTSCollate", "COLLATES"]
 
 Array = tp.Optional[np.ndarray]
 TOKEN_FIELDS = ("durations", "aggregate_pitch", "aggregate_energy", "ling_feat", "lm_feat",
                 "xpbert_feat")
 MODIFIER_KEYS = ("pitch_modifier", "volume_modifier", "rate_modifier")
+
+
+@dataclass
+class CollatedAudio:
+    waveform: Array = None                 # (B, T) float32
+    waveform_lengths: Array = None         # (B,)
+    speaker_id: Array = None
+    lang_id: Array = None
+    speaker_emb: Array = None
 
 
 @dataclass
@@ -47,6 +57,22 @@ class CollatedTTS:
 def _ids(samples, attr: str) -> np.ndarray:
     return np.asarray([-1 if getattr(s, attr) is None else getattr(s, attr) for s in samples],
                       dtype=np.int32)
+
+
+class AudioCollate:
+    def __init__(self, sample_multiple: int = 256):
+        self.sample_multiple = sample_multiple
+
+    def __call__(self, samples: tp.List[AudioDataSample]) -> CollatedAudio:
+        waveform, lens = stack_and_pad([s.audio_chunk.waveform for s in samples],
+                                       multiple=self.sample_multiple)
+        out = CollatedAudio(waveform=waveform.astype(np.float32), waveform_lengths=lens,
+                            speaker_id=_ids(samples, "speaker_id"),
+                            lang_id=_ids(samples, "lang_id"))
+        embs = [s.speaker_emb for s in samples]
+        if all(e is not None for e in embs):
+            out.speaker_emb = np.stack(embs).astype(np.float32)
+        return out
 
 
 class TTSCollate:
@@ -87,4 +113,4 @@ class TTSCollate:
         return out
 
 
-COLLATES = {"TTSCollate": TTSCollate}
+COLLATES = {"AudioCollate": AudioCollate, "TTSCollate": TTSCollate}

@@ -1,29 +1,48 @@
-"""The data pipeline rebuilt from a checkpoint's payload (counterpart of
-``DataPipeline.from_info`` in ``speechflow_tpu/data/core/components.py``).
+"""Data pipelines (counterpart of ``DataPipeline`` in
+``speechflow_tpu/data/core/components.py``).
 
-``from_info(payload["pipeline_info"], ignored_handlers)`` takes the plain
-dict a trainer stores (the resolved data config, the alphabet and each
-singleton handler's state) and builds the handler chain of ``preproc.pipe``
-and the collate of ``collate``. Handlers in ``ignored_handlers`` are left
-out; any other handler that is not ported raises ``NotImplementedError``
-with its name. Singletons stay as their state dicts
-(``pipeline.singletons[name]``): the eval interface reads the speaker and
-language maps from them. Inference runs one chain, so the per-subset copies
-the JAX pipeline builds for training are not made; the dataset, parser and
-sampler sections are for training and are not read.
+Two ways in:
+
+- ``from_info(payload["pipeline_info"], ignored_handlers)`` rebuilds the
+  handler chain of ``preproc.pipe`` and the collate from the plain dict a
+  trainer stores (the resolved data config, the alphabet and each singleton
+  handler's state), for inference. Handlers in ``ignored_handlers`` are left
+  out; any other handler that is not ported raises ``NotImplementedError``
+  with its name. Singletons stay as their state dicts
+  (``pipeline.singletons[name]``).
+- ``from_config(data_config)`` builds the training pipeline from a data
+  config (the sections of ``configs/vocoder_data_24khz.yml``): the files of
+  ``dirs.data_root`` with ``file_search.ext``, split by
+  ``dataset.split_ratio`` (seeded), cut to ``max_num_samples``, parsed
+  (``parser.type``), the singleton handlers fitted on the first subset and
+  applied to every subset, and a sampler per subset (``sampler``).
+  ``get_info()`` is what a checkpoint carries; ``sample_batch`` draws and
+  collates one batch in this process; ``loader`` serves batches from PyTorch
+  DataLoader worker processes (``n_workers``, ``prefetch_factor``), the one-host
+  counterpart of the JAX data server.
+
+In training a sample whose handlers fail is dropped with a warning, as the
+JAX data processor drops it; ``datasample_to_batch`` (inference) raises.
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
 import logging
 import typing as tp
 
-from speechflow_torch.data.collate import COLLATES
-from speechflow_torch.data.processors import get_handler
-from speechflow_torch.data.processors.text import Alphabet, TTSTextProcessor
+import torch
 
-__all__ = ["DataPipeline"]
+from speechflow_torch.data.collate import COLLATES
+from speechflow_torch.data.parsers import PARSERS
+from speechflow_torch.data.processors import get_handler
+from speechflow_torch.data.processors.singletons import SINGLETON_HANDLERS
+from speechflow_torch.data.processors.text import Alphabet, TTSTextProcessor
+from speechflow_torch.data.samplers import SAMPLERS
+from speechflow_torch.io.flist import construct_file_list, split_file_list
+
+__all__ = ["DataPipeline", "AudioLoader"]
 
 LOGGER = logging.getLogger("speechflow_torch")
 
@@ -70,14 +89,84 @@ class DataPipeline:
                 params.pop("add_service_tokens", None)
                 params["processor"] = self.text_processor
             params = _known_kwargs(fn, params, name)
-            self.preproc_fns.append(lambda ds, fn=fn, params=params: fn(ds, **params))
+            self.preproc_fns.append(functools.partial(fn, **params))
             self.handler_names.append(name)
+        self.info = dict(info)
+        self.datasets: tp.Dict[str, list] = {}
+        self.samplers: tp.Dict[str, tp.Any] = {}
 
     @staticmethod
     def from_info(info: tp.Mapping,
                   ignored_handlers: tp.Optional[tp.Iterable[str]] = None) -> "DataPipeline":
         """Rebuild a pipeline from a ``get_info()`` payload."""
         return DataPipeline(info, ignored_handlers or ())
+
+    @staticmethod
+    def from_config(cfg: tp.Mapping) -> "DataPipeline":
+        """The training pipeline of a data config; see the module docstring."""
+        cfg = dict(cfg)
+        ds_cfg = cfg.get("dataset") or {}
+        subsets = list(ds_cfg.get("subsets", ["train", "test"]))
+        root = (cfg.get("dirs") or {}).get("data_root", ".")
+        ext = (cfg.get("file_search") or {}).get("ext", ".TextGridStage3")
+        files = construct_file_list(root, ext=ext)
+        train, test = split_file_list(files, float(ds_cfg.get("split_ratio", 0.9)),
+                                      int(ds_cfg.get("seed", 0)))
+        by_subset = {"train": train, "test": test}
+        parser_cfg = dict(cfg.get("parser") or {})
+        ptype = parser_cfg.pop("type", "SimpleDSParser")
+        if ptype not in PARSERS:
+            raise NotImplementedError(f"parser '{ptype}' is not ported")
+        parser = PARSERS[ptype](**_known_kwargs(PARSERS[ptype], parser_cfg, ptype))
+        maxn = ds_cfg.get("max_num_samples")
+        datasets = {s: parser.read_datasamples(list(by_subset.get(s, files))[:maxn or None])
+                    for s in subsets}
+        if not datasets[subsets[0]]:
+            raise ValueError(f"subset '{subsets[0]}' is empty (data_root={root}, ext={ext})")
+
+        spec = cfg.get("singleton_handlers") or []
+        items = spec.items() if isinstance(spec, dict) else [(n, {}) for n in spec]
+        singletons = {}
+        for name, kwargs in items:
+            if name not in SINGLETON_HANDLERS:
+                raise NotImplementedError(f"singleton handler '{name}' is not ported")
+            singletons[name] = SINGLETON_HANDLERS[name](**dict(kwargs or {}))
+            singletons[name].fit(datasets[subsets[0]])
+        for inst in singletons.values():
+            if hasattr(inst, "apply"):
+                for samples in datasets.values():
+                    for ds in samples:
+                        inst.apply(ds)
+
+        info = {"config": cfg, "subsets": subsets, "alphabet": None,
+                "singletons": {n: inst.state_dict() for n, inst in singletons.items()},
+                "dataset_sizes": {s: len(d) for s, d in datasets.items()}}
+        dp = DataPipeline(info)
+        dp.datasets = datasets
+        section = cfg.get("sampler") or {}
+        for s in subsets:
+            s_cfg = dict(section[s] if isinstance(section.get(s), dict) else section)
+            stype = s_cfg.pop("type", "SimpleSampler")
+            if stype not in SAMPLERS:
+                raise NotImplementedError(f"sampler '{stype}' is not ported")
+            sampler = SAMPLERS[stype](**_known_kwargs(SAMPLERS[stype], s_cfg, stype))
+            dp.samplers[s] = sampler.set_dataset(datasets[s])
+        return dp
+
+    def get_info(self) -> dict:
+        """The config, subsets, alphabet, singleton states and dataset sizes."""
+        return dict(self.info)
+
+    def sample_batch(self, subset: str, batch_size: int) -> tp.Any:
+        """The next batch of ``subset``'s sampler, processed and collated here
+        (None if every sample of it failed)."""
+        samples, _ = self.samplers[subset].sampling(batch_size)
+        return _Process(self.preproc_fns, self.collate_fn).batch(samples)
+
+    def loader(self, subset: str, batch_size: int, n_workers: int = 0,
+               prefetch_factor: int = 2) -> "AudioLoader":
+        """Endless batches of ``subset`` from ``n_workers`` worker processes."""
+        return AudioLoader(self, subset, batch_size, n_workers, prefetch_factor)
 
     def datasample_to_batch(self, samples: tp.Sequence) -> tp.Any:
         """Every handler over every sample, then the collate. A failing
@@ -88,3 +177,93 @@ class DataPipeline:
                 ds = fn(ds)
             processed.append(ds)
         return self.collate_fn(processed)
+
+
+class _Process:
+    """Copy a sample and run the handlers over it; drop it with a warning if
+    one fails. Picklable, for the loader's worker processes."""
+
+    def __init__(self, preproc_fns: tp.Sequence[tp.Callable], collate_fn: tp.Callable):
+        self.preproc_fns = list(preproc_fns)
+        self.collate_fn = collate_fn
+
+    def sample(self, ds):
+        try:
+            ds = ds.copy()
+            for fn in self.preproc_fns:
+                ds = fn(ds)
+            return ds
+        except (OSError, ValueError) as e:
+            LOGGER.warning("sample %s failed in preproc: %r", getattr(ds, "file_path", None), e)
+            return None
+
+    def batch(self, samples: tp.Sequence) -> tp.Any:
+        kept = [d for d in (self.sample(s) for s in samples) if d is not None]
+        return self.collate_fn(kept) if kept else None
+
+
+class _SubsetSamples(torch.utils.data.Dataset):
+    """Index in a subset -> the processed sample (or None)."""
+
+    def __init__(self, samples: tp.Sequence, process: _Process):
+        self.samples = samples
+        self.process = process
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, i: int):
+        return self.process.sample(self.samples[i])
+
+
+class _Collate:
+    def __init__(self, collate_fn: tp.Callable):
+        self.collate_fn = collate_fn
+
+    def __call__(self, samples: tp.Sequence):
+        kept = [s for s in samples if s is not None]
+        return self.collate_fn(kept) if kept else None
+
+
+class _SamplerBatches:
+    """The sampler's batches as index lists, epoch after epoch."""
+
+    def __init__(self, sampler, batch_size: int):
+        self.sampler = sampler
+        self.batch_size = batch_size
+
+    def __iter__(self):
+        while True:
+            samples, _ = self.sampler.sampling(self.batch_size)
+            yield [s.index for s in samples]
+
+
+class AudioLoader:
+    """Batches of one subset from a ``torch.utils.data.DataLoader``: the
+    sampler runs here, the handlers and the collate in ``n_workers`` spawned
+    worker processes with ``prefetch_factor`` batches each in flight (in this
+    process when ``n_workers`` is 0). ``next_batch()`` skips a batch whose
+    samples all failed; ``close()`` stops the workers."""
+
+    def __init__(self, pipeline: DataPipeline, subset: str, batch_size: int,
+                 n_workers: int = 0, prefetch_factor: int = 2):
+        process = _Process(pipeline.preproc_fns, pipeline.collate_fn)
+        kwargs = dict(num_workers=n_workers)
+        if n_workers > 0:
+            kwargs.update(prefetch_factor=prefetch_factor, multiprocessing_context="spawn")
+        self._loader = torch.utils.data.DataLoader(
+            _SubsetSamples(pipeline.datasets[subset], process),
+            batch_sampler=_SamplerBatches(pipeline.samplers[subset], batch_size),
+            collate_fn=_Collate(pipeline.collate_fn), **kwargs)
+        self._it = iter(self._loader)
+
+    def next_batch(self):
+        while True:
+            batch = next(self._it)
+            if batch is not None:
+                return batch
+
+    def close(self) -> None:
+        """Stop the worker processes (the iterator's shutdown runs on release)."""
+        self._it = None
+        self._loader = None

@@ -1,1 +1,1 @@
-"""Host-side IO of the port: the audio container."""
+"""Host-side IO of the port: the audio container and corpus file lists."""

@@ -1,5 +1,5 @@
 """Host-side audio container (counterpart of ``speechflow_tpu/io/audio.py``;
-the part the eval interfaces use).
+the part the eval interfaces and the audio handlers use).
 
 An ``AudioChunk`` holds a float32 waveform and its rate, or the path of a
 ``.wav`` file read (and downmixed to mono) on ``load``; ``load(sr)`` and
@@ -55,7 +55,10 @@ class AudioChunk:
 
     @property
     def duration(self) -> float:
-        """Seconds of audio (the waveform is read from the file if needed)."""
+        """Seconds of audio (a file not yet read is mapped, not read)."""
+        if self.data is None and self.file_path is not None:
+            sr, data = wavfile.read(str(self.file_path), mmap=True)
+            return data.shape[0] / sr
         return self.waveform.shape[-1] / self.sr
 
     @property
@@ -88,4 +91,35 @@ class AudioChunk:
             self.data = resample_poly(self.waveform, sr // g, self.sr // g,
                                       axis=-1).astype(np.float32)
             self.sr = sr
+        return self
+
+    # -- in-place transforms of a mono waveform (the audio handlers') -------------
+
+    def trim(self, begin: float = 0.0, end: tp.Optional[float] = None) -> "AudioChunk":
+        """Keep [begin, end) seconds (samples rounded to the nearest)."""
+        wav = self.waveform
+        b = int(round(begin * self.sr))
+        e = len(wav) if end is None else int(round(end * self.sr))
+        self.data = wav[b:e]
+        return self
+
+    def pad(self, left_s: float = 0.0, right_s: float = 0.0) -> "AudioChunk":
+        """Zeros before and after, in seconds (rounded to samples)."""
+        self.data = np.pad(self.waveform, (int(round(left_s * self.sr)),
+                                           int(round(right_s * self.sr))))
+        return self
+
+    def multiple(self, hop: int, pad_value: float = 0.0) -> "AudioChunk":
+        """Pad at the end to a multiple of ``hop`` samples."""
+        rem = (-len(self.waveform)) % hop
+        if rem:
+            self.data = np.pad(self.data, (0, rem), constant_values=pad_value)
+        return self
+
+    def normalize(self, peak: float = 0.95) -> "AudioChunk":
+        """Scale the peak magnitude to ``peak`` (silence is left as it is)."""
+        wav = self.waveform
+        m = np.abs(wav).max()
+        if m > 0:
+            self.data = (wav * (peak / m)).astype(np.float32)
         return self

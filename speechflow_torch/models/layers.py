@@ -7,6 +7,9 @@ PyTorch's layout (``speechflow_torch.convert`` maps flax's onto them):
 - ``Conv1d``: ``nnx.Conv(..., padding="SAME")`` — XLA SAME padding,
   pad_lo = (K_eff-1)//2 with K_eff = (K-1)·dilation + 1 (even kernels put the
   extra zero on the right), optional groups.
+- ``Conv2d``: a 2-D ``nnx.Conv(..., padding="SAME")`` over (B, H, W, C) with
+  strides and dilation: XLA SAME gives ceil(n/stride) outputs and puts the odd
+  pad on the high side (torch's ``padding="same"`` refuses a stride above 1).
 - ``ConvTranspose1d``: ``nnx.ConvTranspose(..., strides=(r,), padding="SAME")``
   with flax's default ``transpose_kernel=False``, defined as
   ``lax.conv_transpose`` defines it: dilate the input by r, pad as lax pads
@@ -26,7 +29,7 @@ import torch.nn.functional as F
 
 from speechflow_torch.ops.attention import flash_attention_fn
 
-__all__ = ["Conv1d", "ConvTranspose1d", "MultiHeadAttention", "layer_norm"]
+__all__ = ["Conv1d", "Conv2d", "ConvTranspose1d", "MultiHeadAttention", "layer_norm"]
 
 
 def layer_norm(dim: int, affine: bool = True) -> nn.LayerNorm:
@@ -51,6 +54,31 @@ class Conv1d(nn.Conv1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.pad(x.transpose(1, 2), self.pads)
         return super().forward(h).transpose(1, 2)
+
+
+def _same_pads_strided(n: int, kernel_size: int, stride: int, dilation: int
+                        ) -> tp.Tuple[int, int]:
+    """XLA SAME along one axis of length n: ceil(n / stride) outputs."""
+    k_eff = (kernel_size - 1) * dilation + 1
+    total = max((-(-n // stride) - 1) * stride + k_eff - n, 0)
+    return total // 2, total - total // 2
+
+
+class Conv2d(nn.Conv2d):
+    """(B, H, W, Cin) -> (B, ceil(H/sh), ceil(W/sw), Cout), XLA SAME padding."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_size: tp.Tuple[int, int],
+                 stride: tp.Tuple[int, int] = (1, 1), dilation: tp.Tuple[int, int] = (1, 1)):
+        super().__init__(dim_in, dim_out, tuple(kernel_size), stride=tuple(stride),
+                         dilation=tuple(dilation))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.permute(0, 3, 1, 2)
+        (ph0, ph1), (pw0, pw1) = (
+            _same_pads_strided(n, k, s, d) for n, k, s, d in
+            zip(h.shape[2:], self.kernel_size, self.stride, self.dilation))
+        h = F.pad(h, (pw0, pw1, ph0, ph1))
+        return super().forward(h).permute(0, 2, 3, 1)
 
 
 class ConvTranspose1d(nn.Module):

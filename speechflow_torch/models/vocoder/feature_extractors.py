@@ -35,9 +35,11 @@ class MelFeatures(nn.Module):
 
     def forward(self, inputs) -> torch.Tensor:
         wav = inputs["waveform"] if isinstance(inputs, dict) else inputs.waveform
-        mag = S.magnitude(wav.float(), self.n_fft, self.hop_length)
-        mel = M.amp_to_db(M.linear_to_mel(mag, self.sample_rate, self.n_mels))
-        return M.normalize_mel(mel) if self.normalize else mel
+        # f32 under a training autocast too, as the JAX package computes it
+        with torch.autocast(device_type=wav.device.type, enabled=False):
+            mag = S.magnitude(wav.float(), self.n_fft, self.hop_length)
+            mel = M.amp_to_db(M.linear_to_mel(mag, self.sample_rate, self.n_mels))
+            return M.normalize_mel(mel) if self.normalize else mel
 
 
 class AudioFeatures(nn.Module):

@@ -20,6 +20,18 @@ XLA SAME anchoring pad_left p = (K-1)//2):
            y_odd[i]  = sum_{k-p odd}  2 f[k] x[i + (k-p+1)/2]
   stage 2: out[i] = sum_{k-p even} f[k] z_even[i + (k-p)/2]
                   + sum_{k-p odd}  f[k] z_odd[i + (k-p-1)/2],  z = snake(y)
+
+Gradients. On the GPU each entry is a ``torch.autograd.Function``: the
+forward is the kernel launch, the backward a closed-form VJP in PyTorch ops
+(``*_vjp``), as the JAX package's custom VJP differentiates the XLA
+composition in its backward (``_make_anti_alias_snake``); no backward kernel.
+Each Function saves its inputs only; the fused entry's VJP recomputes stage 1
+with the ``aa_upsample_fir`` kernel (counted as a launch of it). Every FIR is
+a sum of shifted copies with zeros outside [0, T), so its transpose is the
+same sum with the shifts negated; the edge rules follow. The VJPs compute in
+f32 (α and β reduced over (B, T) in f32) and return each gradient in its
+input's dtype. On CPU tensors the plain versions run under PyTorch's own
+autograd.
 """
 
 from __future__ import annotations
@@ -36,7 +48,8 @@ from speechflow_torch.ops import _build
 
 __all__ = ["kaiser_sinc_filter", "anti_alias_snake", "aa_upsample_fir",
            "aa_snake_downsample", "anti_alias_snake_reference",
-           "aa_upsample_fir_reference", "aa_snake_downsample_reference"]
+           "aa_upsample_fir_reference", "aa_snake_downsample_reference",
+           "anti_alias_snake_vjp", "aa_upsample_fir_vjp", "aa_snake_downsample_vjp"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_TAPS = 16
@@ -130,6 +143,7 @@ def anti_alias_snake_reference(x: torch.Tensor, alpha: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)  # cached: a normal tensor even when first built in inference
 def _filter_on(taps: int, device: str) -> torch.Tensor:
     return torch.as_tensor(kaiser_sinc_filter(taps=taps), device=device)
 
@@ -165,12 +179,7 @@ _P5 = [ctypes.c_void_p] * 5
 _I5 = [ctypes.c_int] * 5
 
 
-def anti_alias_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
-                     taps: int = 12) -> torch.Tensor:
-    """x (B, T, C) float32/bfloat16; alpha/beta (C,) log-scale -> (B, T, C).
-    CUDA launches are counted in ``anti_alias_snake.launches``."""
-    if x.device.type == "cpu":
-        return anti_alias_snake_reference(x, alpha, beta, taps)
+def _launch_fused(x, alpha, beta, taps: int) -> torch.Tensor:
     _check("anti_alias_snake", taps, x)
     b, t, c = x.shape
     x = x.contiguous()
@@ -185,12 +194,7 @@ def anti_alias_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
     return out
 
 
-def aa_upsample_fir(x: torch.Tensor, taps: int = 12
-                    ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """Stage 1 as (even, odd) phase signals at input rate, in x's dtype.
-    CUDA launches are counted in ``aa_upsample_fir.launches``."""
-    if x.device.type == "cpu":
-        return aa_upsample_fir_reference(x, taps)
+def _launch_upsample(x, taps: int) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     _check("aa_upsample_fir", taps, x)
     b, t, c = x.shape
     x = x.contiguous()
@@ -205,13 +209,7 @@ def aa_upsample_fir(x: torch.Tensor, taps: int = 12
     return y_even, y_odd
 
 
-def aa_snake_downsample(y_even: torch.Tensor, y_odd: torch.Tensor,
-                        alpha: torch.Tensor, beta: torch.Tensor,
-                        taps: int = 12) -> torch.Tensor:
-    """Snake + stage 2 on a stage-1 pair. CUDA launches are counted in
-    ``aa_snake_downsample.launches``."""
-    if y_even.device.type == "cpu":
-        return aa_snake_downsample_reference(y_even, y_odd, alpha, beta, taps)
+def _launch_downsample(y_even, y_odd, alpha, beta, taps: int) -> torch.Tensor:
     _check("aa_snake_downsample", taps, y_even, y_odd)
     b, t, c = y_even.shape
     y_even, y_odd = y_even.contiguous(), y_odd.contiguous()
@@ -225,6 +223,158 @@ def aa_snake_downsample(y_even: torch.Tensor, y_odd: torch.Tensor,
     _build.check(err, "sf_aa_snake_downsample")
     aa_snake_downsample.launches += 1
     return out
+
+
+# -- the VJPs (torch ops; the backward of the Functions below) -------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _fir_terms(taps: int) -> tp.Dict[str, tp.Tuple[tp.Tuple[float, int], ...]]:
+    """(weight, shift) of every term of the four polyphase FIRs:
+    ``out[i] = sum w * v[i + shift]``, v zero outside [0, T)."""
+    filt = kaiser_sinc_filter(taps=taps)
+    p = (taps - 1) // 2
+    even = [k for k in range(taps) if (k - p) % 2 == 0]
+    odd = [k for k in range(taps) if (k - p) % 2 != 0]
+    return {"up_even": tuple((2.0 * float(filt[k]), (k - p) // 2) for k in even),
+            "up_odd": tuple((2.0 * float(filt[k]), (k - p + 1) // 2) for k in odd),
+            "down_even": tuple((float(filt[k]), (k - p) // 2) for k in even),
+            "down_odd": tuple((float(filt[k]), (k - p - 1) // 2) for k in odd)}
+
+
+def _fir_transposed(g: torch.Tensor, terms, out: tp.Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """The transpose of ``out[i] = sum w * v[i + s]`` applied to ``g`` (B, T, C):
+    ``dv[j] = sum w * g[j - s]``, zeros outside [0, T); added into ``out``."""
+    t = g.shape[1]
+    out = torch.zeros_like(g) if out is None else out
+    for w, s in terms:
+        lo, hi = max(0, s), min(t, t + s)  # j with 0 <= j - s < T
+        if lo < hi:
+            out[:, lo:hi].add_(g[:, lo - s:hi - s], alpha=w)
+    return out
+
+
+def _snake_vjp(y: torch.Tensor, dz: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor
+               ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Through z = y + sin²(a·y)/(e^β + 1e-9), a = e^α (f32): dy, and the
+    (C,) sums over (B, T) of dα and dβ."""
+    a = torch.exp(alpha.float())
+    e_b = torch.exp(beta.float())
+    inv_b = 1.0 / (e_b + 1e-9)
+    s2 = torch.sin(2.0 * a * y)
+    dy = dz * (1.0 + a * inv_b * s2)
+    d_alpha = (dz * y * s2).sum((0, 1)) * (a * inv_b)
+    d_beta = (dz * torch.sin(a * y) ** 2).sum((0, 1)) * (-e_b * inv_b * inv_b)
+    return dy, d_alpha, d_beta
+
+
+@torch.no_grad()
+def aa_upsample_fir_vjp(g_even: tp.Optional[torch.Tensor], g_odd: tp.Optional[torch.Tensor],
+                        taps: int = 12) -> torch.Tensor:
+    """dx of stage 1 from the cotangents of its (even, odd) outputs (either may
+    be None, i.e. zero), in f32."""
+    terms = _fir_terms(taps)
+    dx = None
+    for g, key in ((g_even, "up_even"), (g_odd, "up_odd")):
+        if g is not None:
+            dx = _fir_transposed(g.float(), terms[key], dx)
+    return dx
+
+
+@torch.no_grad()
+def aa_snake_downsample_vjp(y_even: torch.Tensor, y_odd: torch.Tensor, alpha: torch.Tensor,
+                            beta: torch.Tensor, g: torch.Tensor, taps: int = 12
+                            ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """(dy_even, dy_odd, dα, dβ) of the snake and stage 2, each in its input's dtype."""
+    terms = _fir_terms(taps)
+    g = g.float()
+    dy_e, da_e, db_e = _snake_vjp(y_even.float(), _fir_transposed(g, terms["down_even"]),
+                                  alpha, beta)
+    dy_o, da_o, db_o = _snake_vjp(y_odd.float(), _fir_transposed(g, terms["down_odd"]),
+                                  alpha, beta)
+    return (dy_e.to(y_even.dtype), dy_o.to(y_odd.dtype), (da_e + da_o).to(alpha.dtype),
+            (db_e + db_o).to(beta.dtype))
+
+
+@torch.no_grad()
+def anti_alias_snake_vjp(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                         g: torch.Tensor, taps: int = 12
+                         ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dα, dβ) of the fused entry: stage 1 recomputed in f32 through
+    ``aa_upsample_fir`` (the kernel on the GPU), then the two VJPs above."""
+    y_even, y_odd = aa_upsample_fir(x.float(), taps)
+    dy_e, dy_o, d_alpha, d_beta = aa_snake_downsample_vjp(y_even, y_odd, alpha, beta, g, taps)
+    return aa_upsample_fir_vjp(dy_e, dy_o, taps).to(x.dtype), d_alpha, d_beta
+
+
+class _AntiAliasSnakeFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, alpha, beta, taps):
+        ctx.save_for_backward(x, alpha, beta)
+        ctx.taps = taps
+        return _launch_fused(x, alpha, beta, taps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, alpha, beta = ctx.saved_tensors
+        return (*anti_alias_snake_vjp(x, alpha, beta, g, ctx.taps), None)
+
+
+class _UpsampleFirFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, taps):
+        ctx.taps, ctx.dtype = taps, x.dtype
+        return _launch_upsample(x, taps)
+
+    @staticmethod
+    def backward(ctx, g_even, g_odd):
+        return aa_upsample_fir_vjp(g_even, g_odd, ctx.taps).to(ctx.dtype), None
+
+
+class _SnakeDownsampleFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y_even, y_odd, alpha, beta, taps):
+        ctx.save_for_backward(y_even, y_odd, alpha, beta)
+        ctx.taps = taps
+        return _launch_downsample(y_even, y_odd, alpha, beta, taps)
+
+    @staticmethod
+    def backward(ctx, g):
+        y_even, y_odd, alpha, beta = ctx.saved_tensors
+        return (*aa_snake_downsample_vjp(y_even, y_odd, alpha, beta, g, ctx.taps), None)
+
+
+# -- entries --------------------------------------------------------------------
+
+
+def anti_alias_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                     taps: int = 12) -> torch.Tensor:
+    """x (B, T, C) float32/bfloat16; alpha/beta (C,) log-scale -> (B, T, C).
+    CUDA launches are counted in ``anti_alias_snake.launches``."""
+    if x.device.type == "cpu":
+        return anti_alias_snake_reference(x, alpha, beta, taps)
+    return _AntiAliasSnakeFn.apply(x, alpha, beta, taps)
+
+
+def aa_upsample_fir(x: torch.Tensor, taps: int = 12
+                    ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1 as (even, odd) phase signals at input rate, in x's dtype.
+    CUDA launches are counted in ``aa_upsample_fir.launches``."""
+    if x.device.type == "cpu":
+        return aa_upsample_fir_reference(x, taps)
+    return _UpsampleFirFn.apply(x, taps)
+
+
+def aa_snake_downsample(y_even: torch.Tensor, y_odd: torch.Tensor,
+                        alpha: torch.Tensor, beta: torch.Tensor,
+                        taps: int = 12) -> torch.Tensor:
+    """Snake + stage 2 on a stage-1 pair. CUDA launches are counted in
+    ``aa_snake_downsample.launches``."""
+    if y_even.device.type == "cpu":
+        return aa_snake_downsample_reference(y_even, y_odd, alpha, beta, taps)
+    return _SnakeDownsampleFn.apply(y_even, y_odd, alpha, beta, taps)
 
 
 anti_alias_snake.launches = 0

@@ -83,12 +83,18 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q/k/v: (B, T, H, dh) float32 or bfloat16 (bf16: dh a multiple of 8 and
     16-byte aligned data, else ``ValueError``); valid: (B, T). CPU tensors run
     the plain version; CUDA tensors launch the kernel (counted in
-    ``fused_attention.launches``).
+    ``fused_attention.launches``). The kernel has no backward, as the TPU
+    kernel's caller trains with plain attention: a CUDA call that would need
+    one (grad enabled and an input requiring grad) raises ``RuntimeError``
+    rather than return a tensor cut from the graph.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, valid)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("fused_attention has no backward; training takes the plain "
+                           "attention path (attention_reference)")
     out = _launch(q, k, v, valid)
     fused_attention.launches += 1
     return out

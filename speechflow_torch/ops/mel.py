@@ -73,6 +73,7 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int = 80, fmin: float = 0.0,
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)  # cached: a normal tensor even when first built in inference
 def _matrix_on(key: tuple, inverse: bool, rcond: float, device: str) -> torch.Tensor:
     """The filterbank's transpose (or its pseudo-inverse's), on ``device``."""
     fb = mel_filterbank(*key)
@@ -99,7 +100,13 @@ def mel_to_linear(mel: torch.Tensor, sr: int, n_fft: int, fmin: float = 0.0,
 
 def amp_to_db(x: torch.Tensor, multiplier: float = 1.0, a_min: float = 1e-5,
               a_max: tp.Optional[float] = None) -> torch.Tensor:
-    out = torch.log(torch.clamp(x, min=a_min, max=a_max))
+    """log(clip(x, a_min, a_max)) · multiplier. The clip is ``maximum`` /
+    ``minimum`` against a scalar, whose gradient at a tie is split in half as
+    ``jnp.clip``'s is (``torch.clamp`` passes all of it)."""
+    out = torch.maximum(x, x.new_tensor(a_min))
+    if a_max is not None:
+        out = torch.minimum(out, out.new_tensor(a_max))
+    out = torch.log(out)
     return out * multiplier if multiplier != 1.0 else out
 
 

@@ -36,6 +36,7 @@ def hann_window(win_len: int, dtype: torch.dtype = torch.float32,
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)  # cached: a normal tensor even when first built in inference
 def _default_window(n_fft: int, win_length: int, device: str) -> torch.Tensor:
     return _window(n_fft, win_length, hann_window(win_length), device)
 
@@ -112,6 +113,7 @@ def _window_sum(w: torch.Tensor, hop_length: int, n_frames: int) -> torch.Tensor
 
 
 @functools.lru_cache(maxsize=64)
+@torch.inference_mode(False)
 def _default_window_sum(n_fft: int, win_length: int, hop_length: int, n_frames: int,
                         device: str) -> torch.Tensor:
     return _window_sum(_default_window(n_fft, win_length, device), hop_length, n_frames)

@@ -1,0 +1,71 @@
+"""What the training entry points share (counterpart of the parts of
+``speechflow_tpu/scripts/common.py`` the vocoder script uses): the
+experiment directory with its configs, the data pipeline and its loaders,
+and the optimizer and trainer configs read from a model config.
+
+Configs are plain nested dicts (the sections of the YAML files, one
+``value_select`` resolved): the machine with the GPU has no YAML reader, so
+the port's scripts carry them as presets. A config's text is written as
+JSON, which YAML readers also read.
+"""
+
+from __future__ import annotations
+
+import json
+import typing as tp
+from pathlib import Path
+
+from speechflow_torch.data.core.components import AudioLoader, DataPipeline
+from speechflow_torch.training.optimizer import OptimizerConfig
+from speechflow_torch.training.saver import ExperimentSaver
+from speechflow_torch.training.trainer import TrainerConfig
+
+__all__ = ["experiment_saver", "build_data", "trainer_config", "optimizer_config"]
+
+
+def experiment_saver(model_cfg: tp.Mapping, data_cfg: tp.Mapping,
+                     base_dir: tp.Optional[tp.Union[str, Path]] = None) -> ExperimentSaver:
+    """A new experiment directory under ``base_dir`` (else the config's
+    ``experiment.base_dir``), named after ``experiment.name``, with both
+    configs' text written beside the checkpoints and into the payload."""
+    exp = model_cfg.get("experiment") or {}
+    saver = ExperimentSaver(base_dir or exp.get("base_dir", "experiments"),
+                            expr_suffix=exp.get("name", "run"))
+    saver.save_configs(data_cfg_text=json.dumps(data_cfg, indent=2),
+                       model_cfg_text=json.dumps(model_cfg, indent=2))
+    return saver
+
+
+def build_data(data_cfg: tp.Mapping, model_cfg: tp.Mapping
+               ) -> tp.Tuple[DataPipeline, tp.Dict[str, AudioLoader]]:
+    """The pipeline of the data config and a loader per subset at the model
+    config's ``batch.size``, with ``data_loaders.n_workers`` and
+    ``prefetch_factor``."""
+    dl = model_cfg.get("data_loaders") or {}
+    batch_size = int((model_cfg.get("batch") or {}).get("size", 8))
+    pipeline = DataPipeline.from_config(data_cfg)
+    loaders = {}
+    try:
+        for subset in pipeline.samplers:
+            loaders[subset] = pipeline.loader(subset, batch_size,
+                                              n_workers=int(dl.get("n_workers", 2)),
+                                              prefetch_factor=int(dl.get("prefetch_factor", 8)))
+    except BaseException:
+        for ld in loaders.values():
+            ld.close()
+        raise
+    return pipeline, loaders
+
+
+def trainer_config(model_cfg: tp.Mapping) -> TrainerConfig:
+    t = dict(model_cfg.get("trainer") or {})
+    known = {"max_steps", "log_every", "val_every", "ckpt_every", "val_batches", "seed"}
+    kwargs: tp.Dict[str, tp.Any] = {k: int(v) for k, v in t.items() if k in known}
+    for flag in ("use_mesh", "mixed_precision"):
+        if flag in t:
+            kwargs[flag] = bool(t[flag])
+    return TrainerConfig(**kwargs)
+
+
+def optimizer_config(model_cfg: tp.Mapping, section: str = "optimizer") -> OptimizerConfig:
+    return OptimizerConfig.from_config(model_cfg.get(section) or {})

@@ -1,1 +1,2 @@
-"""Model-parameter base shared by the port's models."""
+"""Training of the port: model params, the optimizer chain and schedules,
+``Trainer`` and ``GANTrainer``, and experiment checkpoints."""

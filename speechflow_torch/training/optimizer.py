@@ -1,0 +1,212 @@
+"""The optimizer of the trainers (counterpart of
+``speechflow_tpu/training/optimizer.py``).
+
+The JAX package builds the optax chain
+
+    MultiSteps(apply_if_finite(clip_by_global_norm -> base -> windows), k)
+
+and ``build_optimizer`` gives the same semantics over ``torch.optim``:
+
+- ``MultiSteps``: the k micro-batch gradients are averaged (optax's running
+  mean, ``acc += (g - acc) / (n + 1)``); the rest of the chain runs once per k,
+  and the parameters do not move in between.
+- ``apply_if_finite``: an optimizer step whose (averaged) gradient is not
+  finite is dropped whole, moments and counts untouched; after more than 100
+  such steps in a row it is applied anyway.
+- ``clip_by_global_norm``: the gradient is scaled by max/norm when its global
+  norm is not below max.
+- the base step: ``adamw`` (decoupled decay: ``-lr·(adam + wd·p)``), ``adam``,
+  ``sgd`` (momentum = betas[0]) or ``lamb`` (torch has no LAMB: ``Lamb``
+  below). ``adafactor`` raises ``NotImplementedError``.
+- the schedule is read at the count of applied steps, from 0;
+- parameter-group windows gate the *updates*: a parameter whose path in the
+  JAX layout (``convert.nnx_path``) contains a group's pattern (first match
+  wins) moves by ``lr_scale`` times the update inside [begin_iter, end_iter)
+  and not at all outside it, weight decay included. Here that is the torch
+  param group's learning rate: schedule × scale × window.
+
+``step()`` is called after each micro-batch's backward: it takes the
+parameters' ``.grad`` and clears them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing as tp
+
+import torch
+import torch.nn as nn
+
+from speechflow_torch.convert import nnx_path
+from speechflow_torch.training.lr_schedulers import build_lr_schedule
+
+__all__ = ["OptimizerConfig", "ParamGroup", "Lamb", "Optimizer", "build_optimizer"]
+
+MAX_CONSECUTIVE_ERRORS = 100
+
+
+@dataclasses.dataclass
+class ParamGroup:
+    pattern: str                      # substring of the parameter's JAX path
+    lr_scale: float = 1.0
+    begin_iter: int = 0
+    end_iter: tp.Optional[int] = None  # None = forever
+
+
+@dataclasses.dataclass
+class OptimizerConfig:
+    method: str = "adamw"             # adam | adamw | sgd | lamb | adafactor
+    lr: float = 1e-4
+    lr_schedule: str = "ConstLR"
+    lr_schedule_kwargs: tp.Dict[str, tp.Any] = dataclasses.field(default_factory=dict)
+    weight_decay: float = 1e-6
+    betas: tp.Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    grad_clip: tp.Optional[float] = 1.0
+    grad_accum: int = 1               # micro-batches per optimizer step
+    param_groups: tp.List[ParamGroup] = dataclasses.field(default_factory=list)
+
+    @staticmethod
+    def from_config(cfg: tp.Mapping) -> "OptimizerConfig":
+        cfg = dict(cfg)
+        groups = [ParamGroup(**g) for g in cfg.pop("param_groups", [])]
+        known = {f.name for f in dataclasses.fields(OptimizerConfig)}
+        return OptimizerConfig(**{k: v for k, v in cfg.items() if k in known},
+                               param_groups=groups)
+
+
+class Lamb(torch.optim.Optimizer):
+    """optax.lamb: Adam's direction plus decoupled decay, scaled per parameter
+    by the trust ratio ||p|| / ||update|| (1 where either norm is 0)."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-6,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                st["step"] += 1
+                g = p.grad
+                st["mu"].mul_(b1).add_(g, alpha=1 - b1)
+                st["nu"].mul_(b2).addcmul_(g, g, value=1 - b2)
+                u = (st["mu"] / (1 - b1 ** st["step"])) / (
+                    torch.sqrt(st["nu"] / (1 - b2 ** st["step"])) + group["eps"])
+                u = u + group["weight_decay"] * p
+                p_norm, u_norm = torch.linalg.norm(p), torch.linalg.norm(u)
+                ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                                    p_norm / u_norm)
+                p.add_(u * ratio, alpha=-group["lr"])
+
+
+def _base(cfg: OptimizerConfig, groups: list) -> torch.optim.Optimizer:
+    b1, b2 = cfg.betas
+    if cfg.method == "adamw":
+        return torch.optim.AdamW(groups, lr=cfg.lr, betas=(b1, b2), eps=cfg.eps,
+                                 weight_decay=cfg.weight_decay)
+    if cfg.method == "adam":
+        return torch.optim.Adam(groups, lr=cfg.lr, betas=(b1, b2), eps=cfg.eps)
+    if cfg.method == "sgd":
+        return torch.optim.SGD(groups, lr=cfg.lr, momentum=b1)
+    if cfg.method == "lamb":
+        return Lamb(groups, lr=cfg.lr, betas=(b1, b2), eps=cfg.eps,
+                    weight_decay=cfg.weight_decay)
+    if cfg.method == "adafactor":
+        raise NotImplementedError("adafactor: torch has none, and the port's is not "
+                                  "written yet")
+    raise ValueError(f"unknown optimizer method: {cfg.method}")
+
+
+class Optimizer:
+    """The JAX package's optax chain over a ``torch.optim`` optimizer; see the
+    module docstring. ``count`` is the number of applied optimizer steps."""
+
+    def __init__(self, cfg: OptimizerConfig, module: nn.Module):
+        self.cfg = cfg
+        self.schedule = build_lr_schedule(cfg.lr_schedule, cfg.lr, **cfg.lr_schedule_kwargs)
+        paths = nnx_path(module)
+        by_group: tp.Dict[tp.Optional[int], list] = {}
+        for name, p in module.named_parameters():
+            if p.requires_grad:
+                g = next((i for i, pg in enumerate(cfg.param_groups)
+                          if pg.pattern in paths[name]), None)
+                by_group.setdefault(g, []).append(p)
+        self.params = [p for ps in by_group.values() for p in ps]
+        self.base = _base(cfg, [{"params": ps, "sf_group": g} for g, ps in by_group.items()])
+        self.count = 0
+        self.mini_step = 0
+        self.notfinite_count = 0
+        self.acc: tp.Optional[tp.List[torch.Tensor]] = None
+
+    def _grads(self) -> tp.List[torch.Tensor]:
+        return [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+
+    def _gate(self, group: tp.Optional[int]) -> float:
+        if group is None:
+            return 1.0
+        pg = self.cfg.param_groups[group]
+        on = self.count >= pg.begin_iter and (pg.end_iter is None or self.count < pg.end_iter)
+        return pg.lr_scale if on else 0.0
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """Take this micro-batch's gradients; returns whether the parameters
+        were updated."""
+        grads = self._grads()
+        for p in self.params:
+            p.grad = None
+        k = self.cfg.grad_accum
+        if k > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(p) for p in self.params]
+            n = self.mini_step
+            for a, g in zip(self.acc, grads):
+                a.add_((g - a) / (n + 1))
+            self.mini_step = (n + 1) % k
+            if self.mini_step:
+                return False
+            grads, self.acc = self.acc, None
+        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        self.notfinite_count = 0 if finite else self.notfinite_count + 1
+        if not (finite or self.notfinite_count > MAX_CONSECUTIVE_ERRORS):
+            return False
+        if self.cfg.grad_clip:
+            norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+            if not bool(norm < self.cfg.grad_clip):
+                grads = [g / norm * self.cfg.grad_clip for g in grads]
+        lr = self.schedule(self.count)
+        for group in self.base.param_groups:
+            group["lr"] = lr * self._gate(group["sf_group"])
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.base.step()
+        for p in self.params:
+            p.grad = None
+        self.count += 1
+        return True
+
+    def state_dict(self) -> dict:
+        return {"base": self.base.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "notfinite_count": self.notfinite_count,
+                "acc": self.acc}
+
+    def load_state_dict(self, state: tp.Mapping) -> None:
+        self.base.load_state_dict(state["base"])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        self.notfinite_count = int(state["notfinite_count"])
+        dev = self.params[0].device if self.params else None
+        self.acc = None if state["acc"] is None else [a.to(dev) for a in state["acc"]]
+
+
+def build_optimizer(cfg: OptimizerConfig, module: nn.Module) -> Optimizer:
+    return Optimizer(cfg, module)

@@ -1,28 +1,152 @@
-"""Experiment checkpoints, the half after the restore (counterpart of
-``speechflow_tpu/training/saver.py:114-187``).
+"""Experiment directories and checkpoints (counterpart of
+``speechflow_tpu/training/saver.py``).
 
-The JAX trainer writes a checkpoint directory ``step_<N>`` holding the
-state tree (orbax, OCDBT with zstd-compressed chunks) and ``payload.pkl``
-(the params, pipeline info and versions an eval interface rebuilds from).
-The port cannot read the tree files: that needs an OCDBT reader in the
-repository. It starts from what the JAX loader returns, ``(tree, payload)``,
-and keeps the plain-dict and pickle work that follows: finding the last
-checkpoint, reading the payload, and migrating legacy state layouts.
+An experiment directory (``<base>/<stamp>_<name>``) holds the data and model
+config text and ``checkpoints/step_<N:09d>/``, as the JAX saver lays it out.
+The JAX saver writes the state tree with orbax (OCDBT, zstd chunks), which
+the port cannot write or read. The port's checkpoint directory holds:
+
+- ``model.npz``: the model tree in the JAX package's pure-dict layout
+  (``convert.nnx_from_module``), one array per leaf under its ``/``-joined
+  path, and the step;
+- ``opt.pt``: the port's optimizer states (``torch.save``), if any;
+- ``payload.pkl``: the same payload the JAX saver pickles (versions, the
+  configs' text, pipeline info, model params, anything in ``to_save``).
+
+``load_checkpoint`` returns ``(tree, payload)`` as the JAX loader does
+(``tree = {"model", "step", "opt"}``), so the eval interfaces load a
+port-written checkpoint through their ``from_checkpoint``. A JAX-written
+checkpoint has no ``model.npz``: the port still starts from what the JAX
+loader returns for those (``remap_legacy_keys`` migrates old layouts).
 """
 
 from __future__ import annotations
 
+import os
 import pickle
 import re
+import shutil
+import subprocess
+import sys
+import time
 import typing as tp
 from pathlib import Path
+
+import numpy as np
 
 __all__ = ["ExperimentSaver"]
 
 _DECODER_KEYS = ("dec_pre", "dec", "dec_post")
 
 
+def _flatten(tree: tp.Mapping, prefix: str = "") -> tp.Dict[str, np.ndarray]:
+    out: tp.Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, tp.Mapping):
+            out.update(_flatten(v, key + "/"))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def _unflatten(flat: tp.Mapping[str, np.ndarray]) -> dict:
+    """``/``-joined keys -> nested dicts; digit keys become ints, as list
+    indices are in an nnx pure dict."""
+    out: dict = {}
+    for key, v in flat.items():
+        parts = [int(k) if k.isdigit() else k for k in key.split("/")]
+        node = out
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+        node[parts[-1]] = v
+    return out
+
+
 class ExperimentSaver:
+    def __init__(self, experiment_path: tp.Union[str, Path], expr_suffix: str = ""):
+        stamp = time.strftime("%Y%m%d_%H%M%S")
+        self.expr_path = Path(experiment_path) / f"{stamp}{'_' + expr_suffix if expr_suffix else ''}"
+        self.ckpt_dir = self.expr_path / "checkpoints"
+        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        self.to_save: tp.Dict[str, tp.Any] = {"versions": self._versions(),
+                                              "git_commit": self._git_commit()}
+
+    @staticmethod
+    def _versions() -> dict:
+        import torch
+
+        return {"python": sys.version.split()[0], "torch": torch.__version__,
+                "numpy": np.__version__}
+
+    @staticmethod
+    def _git_commit() -> tp.Optional[str]:
+        """HEAD of the checkout this module lies in, or None outside a git tree."""
+        try:
+            out = subprocess.run(["git", "rev-parse", "HEAD"], capture_output=True,
+                                 text=True, timeout=5, cwd=Path(__file__).resolve().parent)
+        except (OSError, subprocess.SubprocessError):
+            return None
+        if out.returncode != 0:
+            return None
+        return out.stdout.strip() or None
+
+    def save_configs(self, data_cfg_text: tp.Optional[str] = None,
+                     model_cfg_text: tp.Optional[str] = None) -> None:
+        """Write the configs' text beside the checkpoints and into the payload."""
+        if data_cfg_text is not None:
+            (self.expr_path / "data.yml").write_text(data_cfg_text)
+            self.to_save["data_config_text"] = data_cfg_text
+        if model_cfg_text is not None:
+            (self.expr_path / "model.yml").write_text(model_cfg_text)
+            self.to_save["model_config_text"] = model_cfg_text
+
+    def save(self, step: int, model_state: tp.Mapping, opt_state: tp.Any = None,
+             extra: tp.Optional[dict] = None) -> Path:
+        """Write ``step_<N>``; a step already saved is left as it is (the same
+        step is the same state). Written into a temporary directory first, so
+        a checkpoint directory is whole or absent."""
+        import torch
+
+        path = self.ckpt_dir / f"step_{step:09d}"
+        if path.exists():
+            return path
+        tmp = path.with_name(path.name + f".tmp{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        flat = {f"model/{k}": v for k, v in _flatten(model_state).items()}
+        np.savez(tmp / "model.npz", step=np.asarray(step), **flat)
+        if opt_state is not None:
+            torch.save(opt_state, tmp / "opt.pt")
+        payload = dict(self.to_save)
+        payload.update(extra or {})
+        (tmp / "payload.pkl").write_bytes(pickle.dumps(payload, protocol=5))
+        os.replace(tmp, path)
+        return path
+
+    @staticmethod
+    def load_checkpoint(path: tp.Union[str, Path]) -> tp.Tuple[dict, dict]:
+        """``(tree, payload)`` of a checkpoint the port wrote: ``tree["model"]``
+        is the pure-dict model tree (legacy layouts migrated), ``tree["step"]``
+        an int, ``tree["opt"]`` the optimizer states or None. Unpickling runs
+        code: load only checkpoints this project's trainers wrote."""
+        import torch
+
+        path = Path(path)
+        if not (path / "model.npz").exists():
+            raise FileNotFoundError(
+                f"{path}: no model.npz; an orbax checkpoint of the JAX trainer is read "
+                "with the JAX package's ExperimentSaver.load_checkpoint")
+        with np.load(path / "model.npz") as z:
+            flat = {k[len("model/"):]: z[k] for k in z.files if k.startswith("model/")}
+            step = int(z["step"])
+        opt_file = path / "opt.pt"
+        opt = torch.load(opt_file, map_location="cpu", weights_only=False) \
+            if opt_file.exists() else None
+        tree = {"model": ExperimentSaver.remap_legacy_keys(_unflatten(flat)), "step": step,
+                "opt": opt}
+        return tree, ExperimentSaver.load_payload(path)
+
     @staticmethod
     def get_last_checkpoint(expr_or_ckpt_dir: tp.Union[str, Path]) -> tp.Optional[Path]:
         """The ``step_*`` directory with the highest step, under an experiment
@@ -30,7 +154,8 @@ class ExperimentSaver:
         d = Path(expr_or_ckpt_dir)
         if (d / "checkpoints").is_dir():
             d = d / "checkpoints"
-        cands = [p for p in d.glob("step_*") if p.is_dir()]
+        cands = [p for p in d.glob("step_*") if p.is_dir()
+                 and re.fullmatch(r"step_\d+", p.name)]  # not a save in progress
 
         def step_of(p: Path) -> int:
             m = re.match(r"step_(\d+)", p.name)

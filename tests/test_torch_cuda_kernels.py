@@ -215,3 +215,52 @@ def test_g2p_on_the_gpu_matches_the_cpu(cuda_device, arch):
     on_gpu = G2P(*args, arch=arch, device=cuda_device)
     assert next(on_gpu.members.parameters()).is_cuda
     assert on_gpu.predict(words) == G2P(*args, arch=arch, device="cpu").predict(words)
+
+
+def _grads(fn, inputs, cotangents):
+    xs = [x.detach().requires_grad_() for x in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert all(o.grad_fn is not None for o in outs)  # the result carries a gradient
+    return torch.autograd.grad(outs, xs, cotangents)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("taps", [6, 8, 12])
+@pytest.mark.parametrize("shape", [(2, 300, 24), (1, 1000, 33), (2, 130, 70)])
+def test_anti_alias_vjps_match_plain_autograd(cuda_device, rng, dtype, tol, taps, shape):
+    """The three entries' autograd Functions (kernel forward, VJP in torch ops)
+    against PyTorch autograd of the plain versions: every input's gradient
+    within ``tol`` of the plain gradient's largest magnitude (f32: sums in
+    another order; bf16: one ulp of the gradient's scale), in the input's dtype."""
+    c = shape[-1]
+    x = _normal(rng, *shape).to(cuda_device, dtype)
+    a, b = (0.3 * _normal(rng, c)).to(cuda_device), (0.3 * _normal(rng, c)).to(cuda_device)
+    g, h = (_normal(rng, *shape).to(cuda_device, dtype) for _ in range(2))
+    ye, yo = AA.aa_upsample_fir_reference(x, taps)
+    cases = [
+        (lambda *v: AA.anti_alias_snake(*v, taps), lambda *v: AA.anti_alias_snake_reference(
+            *v, taps), (x, a, b), (g,)),
+        (lambda v: AA.aa_upsample_fir(v, taps), lambda v: AA.aa_upsample_fir_reference(
+            v, taps), (x,), (g, h)),
+        (lambda *v: AA.aa_snake_downsample(*v, taps),
+         lambda *v: AA.aa_snake_downsample_reference(*v, taps), (ye, yo, a, b), (g,)),
+    ]
+    for kern, plain, inputs, cots in cases:
+        got, ref = _grads(kern, inputs, cots), _grads(plain, inputs, cots)
+        for u, v in zip(got, ref):
+            assert u.dtype == v.dtype
+            assert (u.float() - v.float()).abs().max().item() <= tol * v.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_fused_attention_refuses_to_cut_the_graph(cuda_device, rng):
+    """No backward kernel: with grad enabled and an input that requires grad
+    the wrapper raises; under no_grad it launches."""
+    q, k, v = (_normal(rng, 1, 64, 2, 64).to(cuda_device) for _ in range(3))
+    valid = torch.ones(1, 64, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        A.fused_attention(q.requires_grad_(), k, v, valid)
+    with torch.no_grad():
+        assert A.fused_attention(q, k, v, valid).shape == q.shape

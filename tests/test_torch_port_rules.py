@@ -42,8 +42,8 @@ def test_port_sources_import_no_jax():
 
 
 # modules added with the folded head, the DSP ops, the ISTFT vocoder, the
-# vocoder eval interface, and the TTS eval interface with its text path: each
-# must exist and be held to the rules above
+# vocoder eval interface, the TTS eval interface with its text path, and the
+# vocoder's GAN training: each must exist and be held to the rules above
 NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "models/vocoder/folded_head.py", "models/vocoder/feature_extractors.py",
                "io/audio.py", "training/saver.py", "utils/state_io.py",
@@ -52,7 +52,15 @@ NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "data/processors/ling.py", "data/processors/ssml.py",
                "data/core/datasample.py", "data/core/components.py", "data/collate.py",
                "utils/pad.py", "models/tts/batch_processor.py", "models/g2p/model.py",
-               "interface/tts_interface.py")
+               "interface/tts_interface.py",
+               "ops/cqt.py", "ops/pitch.py", "models/vocoder/discriminators.py",
+               "models/vocoder/extra_discriminators.py", "models/vocoder/criterion.py",
+               "models/vocoder/batch_processor.py", "models/vocoder/metrics.py",
+               "models/vocoder/pesq.py", "training/lr_schedulers.py", "training/optimizer.py",
+               "training/trainer.py", "training/gan_trainer.py", "data/parsers.py",
+               "data/processors/audio.py", "data/processors/singletons.py",
+               "data/samplers.py", "io/flist.py", "utils/init.py", "scripts/common.py",
+               "scripts/train_vocoder.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -109,6 +117,39 @@ def test_presets_equal_the_yaml_configs(config, presets, value_select):
     yml = Config.create_from_file(REPO / "configs" / config,
                                   value_select=[value_select]).section("model").to_dict()
     assert presets[value_select] == yml
+
+
+@pytest.mark.parametrize("value_select", ["default", "debug"])
+def test_training_presets_equal_the_yaml_configs(value_select):
+    """Every section of ``vocoder_bigvgan.yml`` (the model section through
+    ``serving``) and of ``vocoder_data_24khz.yml``, as the training script carries them."""
+    from speechflow_tpu.io import Config
+
+    from speechflow_torch.scripts.train_vocoder import configs
+
+    model_cfg, data_cfg = configs(value_select)
+    for name, ours in (("vocoder_bigvgan.yml", model_cfg), ("vocoder_data_24khz.yml", data_cfg)):
+        yml = Config.create_from_file(REPO / "configs" / name,
+                                      value_select=[value_select]).to_dict()
+        assert ours == yml, name
+
+
+def test_train_entry_point_runs_on_the_cpu_only_when_asked(monkeypatch, tmp_path):
+    """``train_vocoder.main`` at the debug presets on the CPU writes a checkpoint
+    the port loads; without CUDA and without ``--device cpu`` it raises."""
+    from speechflow_torch.scripts import train_vocoder
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_vocoder.main(["-vs", "debug", "--experiment_dir", str(tmp_path / "gpu")])
+    expr = train_vocoder.main(["-vs", "debug", "--max_steps", "2", "--device", "cpu",
+                               "--experiment_dir", str(tmp_path)])
+    ckpt = ExperimentSaver.get_last_checkpoint(expr)
+    tree, payload = ExperimentSaver.load_checkpoint(ckpt)
+    assert ckpt.name == "step_000000002" and set(tree["model"]) == {"generator",
+                                                                    "discriminator"}
+    assert payload["pipeline_info"]["dataset_sizes"] == {"train": 6, "test": 6}
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

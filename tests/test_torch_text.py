@@ -240,15 +240,15 @@ def test_collate_gives_plain_samples_neutral_modifiers():
 
 
 def test_pipeline_rejects_unported_handlers():
-    info = {"config": {"preproc": {"pipe": ["text_to_transcription", "load_audio",
+    info = {"config": {"preproc": {"pipe": ["text_to_transcription", "magnitude",
                                             "add_xpbert_feat"]},
                        "collate": {"type": "TTSCollate", "token_multiple": 8}},
             "subsets": ["train"], "alphabet": text.Alphabet(["a"]).to_dict()}
-    with pytest.raises(NotImplementedError, match="load_audio"):
+    with pytest.raises(NotImplementedError, match="magnitude"):
         DataPipeline.from_info(info)
-    dp = DataPipeline.from_info(info, ignored_handlers={"load_audio"})
+    dp = DataPipeline.from_info(info, ignored_handlers={"magnitude"})
     assert dp.handler_names == ["text_to_transcription", "add_xpbert_feat"]
     assert dp.collate_fn.token_multiple == 8
-    info["config"]["collate"]["type"] = "AudioCollate"
-    with pytest.raises(NotImplementedError, match="AudioCollate"):
-        DataPipeline.from_info(info, ignored_handlers={"load_audio"})
+    info["config"]["collate"]["type"] = "SpectrogramCollate"
+    with pytest.raises(NotImplementedError, match="SpectrogramCollate"):
+        DataPipeline.from_info(info, ignored_handlers={"magnitude"})
