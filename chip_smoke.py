@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # build, kernels, slice, toy, interface, tts_interface, train
+    python3 chip_smoke.py            # build, kernels, slice, toy, interface, tts_interface,
+                                     # train, tts_train
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
     python3 chip_smoke.py --phases build,train   # GAN training of the flagship vocoder
+    python3 chip_smoke.py --phases build,tts_train   # training of the acoustic model
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -96,7 +98,32 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    ``VocoderEvaluationInterface.from_checkpoint`` -> ``resynthesize`` of a
    SEGS utterance: finite, as long as the input, and within ``TOL_F32_REL`` of
    the trained generator's own f32 output.
-9. ``profile`` (only when asked for): for the flagship and the toy program,
+9. ``tts_train``: training of the flagship acoustic model
+   (``configs/tts_model.yml`` default: 768 x 6 x 6, CFM decoder, dropout 0.1,
+   AdamW on WarmupCosine, clip 1.0, f32 with TF32 off) through the port's
+   entry point ``scripts.train_tts.train`` on ``tests/data/SEGS``
+   (``configs/tts_data_24khz.yml``: 40 train utterances, so the batch of 48
+   is the whole split, 4 DataLoader workers). First one f32 step at full
+   width on the card and on the CPU (the same seeded random weights, dropout
+   0, two utterances, injected u, z and CFG masks, the CPU's ReLU masks): no
+   reference gradient all zero but the attention key biases', losses within
+   ``TOL_F32_REL``, every gradient within ``TOL_TTS_GRAD`` of its scale; the
+   same gate must reject a planted fault (the CFM prior ``mu`` not
+   detached). Then 8 steps
+   into a temporary experiment directory: finite losses; the weights
+   unchanged after step 1 (lr 0 at count 0) and changed after step 2; no
+   fused-attention launch (training takes the plain attention). Prints ms
+   per step inside the step and between steps, mel frames trained per
+   second, peak device memory and the step's FLOP bound. Last, the
+   checkpoint through ``ExperimentSaver.load_checkpoint`` ->
+   ``TTSEvaluationInterface.from_checkpoint``: in f32, through the kernels,
+   within ``TOL_F32_REL`` of the trained model through the plain versions on
+   a text request (mel and waveform), and the vocoder's kernels within it of
+   its plain versions on a training utterance; then in bf16 a
+   request of 4 sentences with 186 / 37 / 6 / 18 launches through the
+   seeded flagship vocoder's interface, the waveform finite and as long as
+   its frames.
+10. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -120,6 +147,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -1312,6 +1340,406 @@ def phase_train(torch, gpu_line: str) -> dict:
     return res
 
 
+# -- phase 9: acoustic-model training ------------------------------------------------
+
+TTS_TRAIN_PRESET = "default"
+TTS_TRAIN_STEPS = 8
+# card against CPU, one f32 step (TF32 off): each gradient within this share of its
+# tensor's largest magnitude, or of 1e-3 of the model's largest gradient where that is
+# more (the attention key biases' true gradient is 0, softmax being shift-invariant, so
+# both sides hold only rounding there); each loss within TOL_F32_REL. Both sides take
+# the same side of every ReLU kink (``pinned_relus``): a pre-activation within f32
+# rounding of 0 that fell the other way on the card moved the next conv's gradient by
+# 3.5e-3 of its scale at full width, a kink and not a fault
+TOL_TTS_GRAD = 1e-3
+ZERO_GRAD_OK = ".attn.key.bias"  # the only parameters whose true gradient is 0
+TTS_TRAIN_REQUEST = REQUEST_SENTENCES[:4]  # the reloaded checkpoint's text request
+
+
+def no_dropout(model) -> None:
+    """Every dropout rate of the port's acoustic model to 0."""
+    for m in model.modules():
+        if isinstance(getattr(m, "dropout", None), float):
+            m.dropout = 0.0
+
+
+def _on(obj, device):
+    """A dataclass of tensors (``TTSForwardInput``, ``TTSTarget``) on ``device``."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device) for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+@contextlib.contextmanager
+def pinned_relus(model, pins: dict):
+    """Every ``ConvBlock`` of ``model`` (the training path's only ReLUs) with its ReLU
+    as ``pre * mask``: the same values and gradient as ``F.relu`` where ``mask`` is
+    ``pre > 0``. With ``pins["masks"]`` None, the masks are recorded in call order;
+    else they are replayed, and ``pins["flips"]`` counts the pre-activations that took
+    the other side of 0 here."""
+    from speechflow_torch.models.tts.common import ConvBlock, dropout
+
+    record = pins.get("masks") is None
+    if record:
+        pins["masks"] = []
+    pins["flips"], calls = 0, iter(range(len(pins["masks"])))
+
+    def forward(block, x, deterministic=True):
+        pre = block.norm(block.conv(x))
+        if record:
+            mask = pre > 0
+            pins["masks"].append(mask.cpu())
+        else:
+            mask = pins["masks"][next(calls)].to(pre.device)
+            pins["flips"] += int((mask != (pre > 0)).sum())
+        return dropout(pre * mask, block.dropout, deterministic)
+
+    blocks = [m for m in model.modules() if isinstance(m, ConvBlock)]
+    for b in blocks:
+        b.forward = functools.partial(forward, b)
+    try:
+        yield
+    finally:
+        for b in blocks:
+            del b.forward
+
+
+def tts_step_grads(torch, model, crit, inputs, targets, draws) -> tuple:
+    """One teacher-forced step without the optimizer: ({loss: value}, {parameter:
+    gradient on the CPU})."""
+    for p in model.parameters():
+        p.grad = None
+    losses = crit(model(inputs, training=True, cfm_draws=draws), targets, 0)
+    sum(losses.values()).backward()
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+             for n, p in model.named_parameters()})
+
+
+def worst_rel(got: dict, ref: dict) -> float:
+    """The largest error of ``got``'s tensors against ``ref``'s, each relative to the
+    reference tensor's largest magnitude."""
+    return max((got[k] - v).abs().max().item() / max(v.abs().max().item(), 1e-30)
+               for k, v in ref.items())
+
+
+def tts_disagreement(ref: tuple, got: tuple) -> tuple:
+    """(worst loss error relative to the loss, worst gradient error relative to
+    ``TOL_TTS_GRAD``'s scale, the parameter it is in)."""
+    loss = max(abs(got[0][k] - v) / max(abs(v), 1e-30) for k, v in ref[0].items())
+    model_scale = max(v.abs().max().item() for v in ref[1].values())
+    grad = max(((got[1][n] - v).abs().max().item()
+                / max(v.abs().max().item(), 1e-3 * model_scale), n)
+               for n, v in ref[1].items())
+    return loss, grad[0], grad[1]
+
+
+@contextlib.contextmanager
+def planted_mu_fault(decoder):
+    """``CFMDecoder.forward_train`` with the prior ``mu`` not detached where it enters
+    the estimator: the same value, with its graph kept, so the flow-matching loss also
+    trains the prior and everything upstream of it."""
+    seen = {}
+    prior, dphi = decoder.prior.forward, decoder._dphi
+
+    def keep(x):
+        seen["content"] = x
+        return prior(x)
+
+    def attached(x_t, mu, *args, **kwargs):
+        return dphi(x_t, prior(seen["content"]).to(mu.dtype), *args, **kwargs)
+
+    decoder.prior.forward, decoder._dphi = keep, attached
+    try:
+        yield
+    finally:
+        del decoder.prior.forward, decoder._dphi
+
+
+def tts_gate(torch, model_cfg: dict, data_cfg: dict) -> dict:
+    """One f32 training step at full width on the card and on the CPU: the same
+    seeded random weights (``serving.init_random_``: the DiT modulations, zero at
+    initialisation, would leave the DiT trunk's gradients 0), every dropout rate 0,
+    the first two train utterances, the same injected u, z and CFG masks (one row's
+    content and the other's condition replaced by the learned fake ones), the CPU's
+    ReLU masks (``pinned_relus``); TF32 off. No reference gradient is all zero apart
+    from ``ZERO_GRAD_OK``'s; losses within ``TOL_F32_REL``, every gradient within
+    ``TOL_TTS_GRAD``; the same gate must reject a planted fault (``mu`` not
+    detached)."""
+    import copy
+
+    from speechflow_torch import serving
+    from speechflow_torch.data.core.components import DataPipeline
+    from speechflow_torch.models.tts import ParallelTTSModel, ParallelTTSParams, TTSCriterion
+    from speechflow_torch.models.tts.batch_processor import TTSBatchProcessor
+    from speechflow_torch.models.tts.decoders import CFMDraws
+    from speechflow_torch.scripts.common import model_config_from_info
+    from speechflow_torch.utils.init import filter_kwargs
+
+    t0 = time.perf_counter()
+    pipeline = DataPipeline.from_config(data_cfg)
+    params = ParallelTTSParams.create(model_config_from_info(model_cfg, pipeline))
+    cpu = serving.init_random_(ParallelTTSModel(params), torch.Generator().manual_seed(0))
+    no_dropout(cpu)
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = pipeline.datasample_to_batch([s.copy() for s in pipeline.datasets["train"][:2]])
+    inputs, targets = TTSBatchProcessor()(batch)
+    draws = cpu.decoder.draw(2, inputs.mel.shape, torch.device("cpu"),
+                             torch.Generator().manual_seed(0))._replace(
+        drop_content=torch.tensor([True, False]).view(2, 1, 1),
+        drop_condition=torch.tensor([False, True]).view(2, 1))
+    crit = TTSCriterion(**filter_kwargs(TTSCriterion.__init__, dict(model_cfg["loss"])))
+    pins = {}
+    with pinned_relus(cpu, pins):
+        ref = tts_step_grads(torch, cpu, crit, inputs, targets, draws)
+    zero = [k for k, v in ref[1].items() if not v.any() and not k.endswith(ZERO_GRAD_OK)]
+    check(not zero, f"tts_train: reference gradients all zero: {zero}")
+    args = (crit, _on(inputs, "cuda"), _on(targets, "cuda"),
+            CFMDraws(*(a.to("cuda") for a in draws)))
+    with pinned_relus(card, pins):
+        got = tts_step_grads(torch, card, *args)
+    flips = pins["flips"]
+    with pinned_relus(card, pins), planted_mu_fault(card.decoder):
+        bad = tts_step_grads(torch, card, *args)
+    loss_err, grad_err, where = tts_disagreement(ref, got)
+    f_loss, f_grad, f_where = tts_disagreement(ref, bad)
+    print(f"[tts_train] f32 step at full width, card vs CPU (random weights, B2, mel {tuple(inputs.mel.shape)}, "
+          f"tokens {tuple(inputs.transcription.shape)}, TF32 off, dropout 0, injected u, z "
+          f"and CFG masks; {time.perf_counter() - t0:.1f} s): losses "
+          + ", ".join(f"{k} {v:.6g}" for k, v in got[0].items())
+          + f"; worst loss error {loss_err:.3g} of the loss (tol {TOL_F32_REL:g}); "
+          f"{len(ref[1])} gradients, worst {grad_err:.3g} of scale ({where}; tol "
+          f"{TOL_TTS_GRAD:g}); ReLU pre-activations on the other side of 0 on the card, "
+          f"pinned to the CPU's: {flips} of {sum(m.numel() for m in pins['masks'])}",
+          flush=True)
+    check(loss_err <= TOL_F32_REL and grad_err <= TOL_TTS_GRAD,
+          f"tts_train f32: the card disagrees with the CPU: loss {loss_err}, {where} {grad_err}")
+    print(f"[tts_train] planted fault (mu not detached into the CFM estimator): worst loss "
+          f"error {f_loss:.3g}, worst gradient {f_grad:.3g} of scale ({f_where})", flush=True)
+    check(f_grad > TOL_TTS_GRAD, "the tts_train gate passes a planted fault (mu not detached)")
+    del cpu, card, got, ref, bad
+    torch.cuda.empty_cache()
+    return {"grad_err": grad_err, "loss_err": loss_err, "fault_grad_err": f_grad,
+            "relu_flips": flips}
+
+
+def train_step_flops(torch, trainer, batch) -> float:
+    """FLOPs of one training call's forward and backward on ``batch`` (the padded
+    shapes the program computes; matmuls, attention's products and convolutions),
+    counted by ``torch.utils.flop_counter``. The weights are left as they are."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from speechflow_torch.training.trainer import _place
+
+    inputs, targets = _place(trainer.batch_processor(batch), trainer.device)
+    counter = FlopCounterMode(display=False)
+    with counter:
+        losses = trainer.criterion(trainer.model(inputs), targets, trainer.global_step)
+        sum(losses.values()).backward()
+    trainer.model.zero_grad(set_to_none=True)
+    return float(counter.get_total_flops())
+
+
+def phase_tts_train(torch, gpu_line: str) -> dict:
+    """Acoustic-model training through the port's entry point, then the checkpoint
+    served through the eval interfaces."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from speechflow_torch import serving
+    from speechflow_torch.interface.tts_interface import TTSEvaluationInterface, TTSOptions
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.models.tts.batch_processor import TTSBatchProcessor
+    from speechflow_torch.models.vocoder import Vocos
+    from speechflow_torch.ops import attention as A
+    from speechflow_torch.scripts import train_tts as TT
+    from speechflow_torch.scripts.common import experiment_saver
+    from speechflow_torch.training.saver import ExperimentSaver
+    from speechflow_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model_cfg, data_cfg = TT.configs(TTS_TRAIN_PRESET)
+    data_cfg["dirs"]["data_root"] = str(REPO / "tests" / "data" / "SEGS")
+    model_cfg["trainer"]["max_steps"] = TTS_TRAIN_STEPS
+    res = {"gate": tts_gate(torch, model_cfg, data_cfg)}
+
+    st = {"ref": None, "steps": [], "ends": [], "losses": [], "trainer": None, "batch": None}
+    real_step = Trainer.training_step
+
+    def step(self, batch):
+        """The trainer's step, timed (synchronised) with its batch's shape."""
+        if st["ref"] is None:
+            st["ref"] = [p.detach().clone() for p in self.model.parameters()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(self, batch)
+        torch.cuda.synchronize()
+        st["steps"].append((1e3 * (time.perf_counter() - t0), int(batch.mel_lengths.sum()),
+                            tuple(batch.mel.shape), tuple(batch.transcription.shape)))
+        st["batch"] = batch
+        return out
+
+    def callback(trainer, last):
+        torch.cuda.synchronize()
+        st["ends"].append(time.perf_counter())
+        st["trainer"] = trainer
+        i = trainer.global_step
+        vals = {k: float(v) for k, v in last.items()}
+        st["losses"].append(vals)
+        check(all(np.isfinite(v) for v in vals.values()), f"tts_train: non-finite loss {vals}")
+        check(A.fused_attention.launches == 0,
+              f"tts_train: {A.fused_attention.launches} fused attention launches in training")
+        changed = any(not torch.equal(p, r)
+                      for p, r in zip(trainer.model.parameters(), st["ref"]))
+        check(changed == (i >= 2), f"tts_train: weights {'changed' if changed else 'unchanged'} "
+                                   f"after step {i} (lr 0 at count 0, then the warmup's)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = experiment_saver(model_cfg, data_cfg, tmp)
+        Trainer.training_step = step
+        try:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            expr = TT.train(model_cfg, data_cfg, saver, device="cuda", callbacks=[callback])
+            t_fit = time.perf_counter() - t0
+        finally:
+            Trainer.training_step = real_step
+        peak = torch.cuda.max_memory_allocated()
+        train_counts = read_counts()
+        trainer = st["trainer"]
+        flops = train_step_flops(torch, trainer, st["batch"])
+        ends = [t0] + st["ends"]
+        wall_ms = [1e3 * (b - a) for a, b in zip(ends[:-1], ends[1:])]
+        step_ms = [s[0] for s in st["steps"]]
+        frames = [s[1] for s in st["steps"]]
+        for i, ((ms, n, mel, tok), wall, vals) in enumerate(zip(st["steps"], wall_ms,
+                                                                 st["losses"])):
+            print(f"[tts_train] step {i + 1}: {ms:.1f} ms in the step, {wall:.1f} ms since the "
+                  f"last (data included); mel {mel}, tokens {tok}, {n} valid frames; losses "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()), flush=True)
+        ms, wall = statistics.median(step_ms[1:]), statistics.median(wall_ms[1:])
+        rate = sum(frames[1:]) / (sum(step_ms[1:]) / 1e3)
+        wall_rate = sum(frames[1:]) / (sum(wall_ms[1:]) / 1e3)
+        bound = flops / PEAK_OPS["f32"] * 1e3
+        print(f"[tts_train] {TTS_TRAIN_STEPS} steps in {t_fit:.1f} s with set-up; per step "
+              f"{ms:.1f} ms in the step (median of 2..{TTS_TRAIN_STEPS}), {wall:.1f} ms "
+              f"between steps with the data wait; {rate:.0f} mel frames trained per second "
+              f"({wall_rate:.0f} with the data wait); peak device memory {peak / 2**30:.2f} GiB; "
+              f"step bound {bound:.1f} ms ({flops / 1e12:.2f} TFLOP forward and backward on "
+              f"the padded shapes over {PEAK_OPS['f32'] / 1e12:g} TFLOP/s f32), "
+              f"{bound / ms:.3f} of it reached; fused attention launches in training "
+              f"{train_counts['fused_attention']} ({gpu_line})", flush=True)
+
+        # the checkpoint the run wrote, through the eval interfaces
+        ckpt = ExperimentSaver.get_last_checkpoint(expr)
+        check(ckpt is not None and ckpt.name == f"step_{TTS_TRAIN_STEPS:09d}",
+              f"tts_train: last checkpoint {ckpt}")
+        tree, payload = ExperimentSaver.load_checkpoint(ckpt)
+        ti = TTSEvaluationInterface.from_checkpoint(tree, payload, ckpt_path=ckpt,
+                                                    device="cuda")
+        speaker = ti.get_speakers()[0]
+        ctx = ti.prepare_embeddings(ti.create_context("EN", speaker))
+        opts = TTSOptions(t_out=T_FRAMES)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        sentences = list(TTS_TRAIN_REQUEST)
+        inputs = ti.prepare_batch(sentences, ctx, opts)
+        noise = torch.randn(ti.model.noise_shape(inputs, T_FRAMES), generator=gen,
+                            device="cuda") * ti.model.decoder.temperature
+        _, voc_params = serving.flagship_params()
+        vm = serving.init_random_(Vocos(voc_params), torch.Generator().manual_seed(0))
+        vi = VocoderEvaluationInterface(vm.to("cuda"))
+        # f32: the reloaded checkpoint through the kernels against the trained model in
+        # memory through the plain versions, on the same request and noise, each one's
+        # valid frames then through the vocoder, with its kernels and with its plain versions
+        trained = TTSEvaluationInterface(trainer.model, payload)
+        got = tts_request(torch, ti, vi, sentences, ctx, opts, noise=noise)
+        with plain_versions():
+            ref = tts_request(torch, trained, vi, sentences, ctx, opts, noise=noise)
+        check(torch.equal(got["out"].attention.sum(1), ref["out"].attention.sum(1)),
+              "tts_train f32: durations differ (reloaded with kernels, trained with plain)")
+        spec_k, spec_p = got["out"].spectrogram, ref["out"].spectrogram
+        mel_err, mel_lim = (spec_k - spec_p).abs().max().item(), rel_limit(spec_p)
+        var_err = worst_rel(got["out"].variance_predictions, ref["out"].variance_predictions)
+        wav_err = float(np.abs(got["wave"] - ref["wave"]).max())
+        wav_lim = TOL_F32_REL * float(np.abs(ref["wave"]).max())
+        # a model this young predicts no frame for a token (each utterance is floored at
+        # one empty frame), so its mel does not see the encoder and the CFM attends to
+        # one key: the last training batch, teacher-forced and deterministic under
+        # inference mode, holds the fused attention at that batch's masks (encoder
+        # 40 x 128 tokens, the CFM estimator once over 40 x 960 frames), and the
+        # vocoder its first utterance's valid frames
+        last = st["batch"]
+        tf_in = _on(TTSBatchProcessor()(last)[0], "cuda")
+        tf_draws = ti.model.decoder.draw(tf_in.mel.shape[0], tf_in.mel.shape, torch.device("cuda"),
+                                         torch.Generator(device="cuda").manual_seed(1))
+        tf = []
+        for mode, model in ((contextlib.nullcontext(), ti.model),
+                            (plain_versions(), trained.model)):
+            with mode, torch.inference_mode():
+                o = model(tf_in, training=True, deterministic=True, cfm_draws=tf_draws)
+            tf.append(dict(spectrogram=o.spectrogram, gate=o.gate, **o.variance_predictions,
+                           **o.additional_losses))
+        tf_err = worst_rel(*tf)
+        target = torch.as_tensor(last.mel[0, :int(last.mel_lengths[0])], device="cuda")
+        utt_k = vi.synthesize(target).data
+        with plain_versions():
+            utt_p = vi.synthesize(target).data
+        utt_err = float(np.abs(utt_k - utt_p).max())
+        utt_lim = TOL_F32_REL * float(np.abs(utt_p).max())
+        print(f"[tts_train] {ckpt.name} -> load_checkpoint -> TTSEvaluationInterface, f32: "
+              f"{len(sentences)} sentences, {sum(got['lens'])} frames; the reloaded model "
+              f"with the kernels against the trained model in memory with the plain "
+              f"versions: mel max_abs_err {mel_err:.3g} (tol {mel_lim:.3g}), variance "
+              f"predictions {var_err:.3g} of scale, wave max_abs_err {wav_err:.3g} (tol "
+              f"{wav_lim:.3g}); the training batch {tuple(tf_in.mel.shape)} teacher-forced: "
+              f"outputs and cfm loss {tf_err:.3g} of scale (tol {TOL_F32_REL:g}); the "
+              f"vocoder on a training utterance's {target.shape[0]} frames, kernels vs "
+              f"plain: max_abs_err {utt_err:.3g} (tol {utt_lim:.3g})", flush=True)
+        check(mel_err <= mel_lim and wav_err <= wav_lim and utt_err <= utt_lim
+              and max(var_err, tf_err) <= TOL_F32_REL,
+              "tts_train f32: the reloaded checkpoint with the kernels disagrees with the "
+              "trained model with the plain versions")
+        del got, ref, spec_k, spec_p, trained, trainer, st["trainer"], st["batch"], last, target
+        del tf_in, tf_draws, tf, o
+
+        ti = TTSEvaluationInterface(ti.model.to(torch.bfloat16), payload)
+        vm.to(torch.bfloat16)
+        reset_counts()
+        r = tts_request(torch, ti, vi, sentences, ctx, opts, gen=gen)
+        request_counts = read_counts()
+        check(request_counts == EXPECTED_LAUNCHES,
+              f"tts_train: the reloaded request's launches {request_counts} != "
+              f"{EXPECTED_LAUNCHES}")
+        wave, lens = r["wave"], r["lens"]
+        check(wave.shape == ((sum(lens) - 1) * HOP,) and bool(np.isfinite(wave).all()),
+              f"tts_train: waveform {wave.shape}, finite {np.isfinite(wave).all()}")
+        ms_r = r["ms"]
+        print(f"[tts_train] the reloaded checkpoint serves (bf16, first call): "
+              f"{len(TTS_TRAIN_REQUEST)} sentences, tokens "
+              f"{tuple(r['inputs'].transcription.shape)}, frames {lens} -> "
+              f"{len(wave) / SR:.3f} s audio (std {float(wave.std()):.3g}); frontend "
+              f"{ms_r['frontend']:.1f} ms, acoustic {ms_r['acoustic']:.1f} ms, vocoder "
+              f"{ms_r['vocoder']:.1f} ms; launches {request_counts}", flush=True)
+        del ti, vi, vm, r
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[tts_train] phase wall time {phase_s:.1f} s", flush=True)
+    launches = {k: train_counts[k] + request_counts[k] for k in train_counts}
+    res.update(launches=launches, ms=ms, wall_ms=wall, frame_rate=rate,
+               wall_frame_rate=wall_rate, peak=peak, bound_ms=bound, phase_s=phase_s)
+    return res
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -1424,9 +1852,11 @@ def profile_program(torch, label: str, am, vm, features: bool, gpu_line: str) ->
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,slice,toy,interface,tts_interface,train",
+    ap.add_argument("--phases",
+                    default="build,kernels,slice,toy,interface,tts_interface,train,tts_train",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
-                         "tts_interface,train,profile (the last is not in the default run)")
+                         "tts_interface,train,tts_train,profile (the last is not in the "
+                         "default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1453,7 +1883,8 @@ def main(argv=None) -> int:
              ("toy", phase_toy, ("fused_attention",)),
              ("interface", phase_interface, tuple(HEAD_LAUNCHES)),
              ("tts_interface", phase_tts_interface, tuple(EXPECTED_LAUNCHES)),
-             ("train", phase_train, tuple(HEAD_LAUNCHES)))
+             ("train", phase_train, tuple(HEAD_LAUNCHES)),
+             ("tts_train", phase_tts_train, tuple(EXPECTED_LAUNCHES)))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:

@@ -1,13 +1,17 @@
 """Collation (counterpart of ``speechflow_tpu/data/collate.py``):
 ``AudioCollate`` (waveforms padded to a multiple of ``sample_multiple``, ids,
-speaker embeddings) and the token-level half of ``TTSCollate``.
+speaker embeddings) and ``TTSCollate``.
 
-Tokens are padded to a multiple of ``token_multiple``, token-level features
-to the same length, prosody classes with -1 (undefined), and the SSML
-modifiers of ``ds.additional`` with 1.0; where only some samples carry a
-modifier, the others get 1.0 on every token (the JAX collate drops the
-modifier for the whole batch then). The frame- and sample-level fields
-(mel, pitch, waveform, gate) wait for the audio pipeline.
+``TTSCollate`` pads tokens to a multiple of ``token_multiple``, token-level
+features (durations, aggregate pitch and energy, ling/LM/XPBERT features)
+to the same length with 0, prosody classes with -1 (undefined), and the
+SSML modifiers of ``ds.additional`` with 1.0; where only some samples carry
+a modifier, the others get 1.0 on every token (the JAX collate drops the
+modifier for the whole batch then). The frame-level fields (mel, magnitude,
+pitch, energy) are padded to a multiple of ``frame_multiple``, the gate to
+the mel's frames with 1 from each sample's last frame on, and loaded
+waveforms to a multiple of ``sample_multiple``. A raw-text batch has only
+the token-level fields.
 """
 
 from __future__ import annotations
@@ -42,6 +46,14 @@ class CollatedTTS:
     speaker_id: Array = None               # (B,)
     lang_id: Array = None
     speaker_emb: Array = None              # (B, D)
+    waveform: Array = None                 # (B, S) float32
+    waveform_lengths: Array = None
+    mel: Array = None                      # (B, T, n_mels)
+    mel_lengths: Array = None
+    magnitude: Array = None                # (B, T, n_fft // 2 + 1)
+    energy: Array = None                   # (B, T)
+    pitch: Array = None
+    gate: Array = None                     # (B, T)
     transcription: Array = None            # (B, N)
     transcription_lengths: Array = None
     durations: Array = None
@@ -79,8 +91,30 @@ class TTSCollate:
     def __init__(self, token_multiple: int = 16, frame_multiple: int = 64,
                  sample_multiple: int = 256):
         self.token_multiple = token_multiple
-        self.frame_multiple = frame_multiple    # for the audio fields, not ported yet
+        self.frame_multiple = frame_multiple
         self.sample_multiple = sample_multiple
+
+    def _frames(self, samples: tp.List[TTSDataSample], out: CollatedTTS) -> None:
+        """The sample- and frame-level fields (``SpectrogramCollate``'s)."""
+        if samples[0].audio_chunk is not None and samples[0].audio_chunk.data is not None:
+            out.waveform, out.waveform_lengths = stack_and_pad(
+                [s.audio_chunk.waveform for s in samples], multiple=self.sample_multiple)
+        t_mel = None
+        if samples[0].mel is not None:
+            out.mel, out.mel_lengths = stack_and_pad([s.mel for s in samples],
+                                                     multiple=self.frame_multiple)
+            t_mel = out.mel.shape[1]
+        for attr in ("magnitude", "energy", "pitch"):
+            values = [getattr(s, attr) for s in samples]
+            if all(v is not None for v in values):
+                setattr(out, attr, stack_and_pad(values, multiple=self.frame_multiple,
+                                                 target_len=t_mel)[0])
+        gates = [s.gate for s in samples]
+        if t_mel is not None and all(g is not None for g in gates):
+            # padding frames keep gate 1, so the stop head trains on them too
+            gate = stack_and_pad(gates, target_len=t_mel)[0]
+            pos = np.arange(t_mel)[None, :]
+            out.gate = np.where(pos >= out.mel_lengths[:, None] - 1, 1.0, gate)
 
     def __call__(self, samples: tp.List[TTSDataSample]) -> CollatedTTS:
         out = CollatedTTS(speaker_id=_ids(samples, "speaker_id"),
@@ -88,6 +122,7 @@ class TTSCollate:
         embs = [s.speaker_emb for s in samples]
         if all(e is not None for e in embs):
             out.speaker_emb = np.stack(embs).astype(np.float32)
+        self._frames(samples, out)
         out.transcription, out.transcription_lengths = stack_and_pad(
             [s.transcription for s in samples], multiple=self.token_multiple)
         out.transcription = out.transcription.astype(np.int32)

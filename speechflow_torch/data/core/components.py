@@ -138,7 +138,13 @@ class DataPipeline:
                     for ds in samples:
                         inst.apply(ds)
 
-        info = {"config": cfg, "subsets": subsets, "alphabet": None,
+        alphabet = None
+        if singletons.get("PhonemeStatistics") is not None \
+                and singletons["PhonemeStatistics"].counts:
+            alphabet = Alphabet(singletons["PhonemeStatistics"].symbols).to_dict()
+        elif "text_to_transcription" in ((cfg.get("preproc") or {}).get("pipe") or []):
+            alphabet = Alphabet([]).to_dict()
+        info = {"config": cfg, "subsets": subsets, "alphabet": alphabet,
                 "singletons": {n: inst.state_dict() for n, inst in singletons.items()},
                 "dataset_sizes": {s: len(d) for s, d in datasets.items()}}
         dp = DataPipeline(info)
@@ -242,8 +248,10 @@ class AudioLoader:
     """Batches of one subset from a ``torch.utils.data.DataLoader``: the
     sampler runs here, the handlers and the collate in ``n_workers`` spawned
     worker processes with ``prefetch_factor`` batches each in flight (in this
-    process when ``n_workers`` is 0). ``next_batch()`` skips a batch whose
-    samples all failed; ``close()`` stops the workers."""
+    process when ``n_workers`` is 0). The workers start at the first
+    ``next_batch()``, so a loader never read (a validation subset before its
+    first validation) takes no host time from the others. ``next_batch()``
+    skips a batch whose samples all failed; ``close()`` stops the workers."""
 
     def __init__(self, pipeline: DataPipeline, subset: str, batch_size: int,
                  n_workers: int = 0, prefetch_factor: int = 2):
@@ -255,9 +263,11 @@ class AudioLoader:
             _SubsetSamples(pipeline.datasets[subset], process),
             batch_sampler=_SamplerBatches(pipeline.samplers[subset], batch_size),
             collate_fn=_Collate(pipeline.collate_fn), **kwargs)
-        self._it = iter(self._loader)
+        self._it = None
 
     def next_batch(self):
+        if self._it is None:
+            self._it = iter(self._loader)
         while True:
             batch = next(self._it)
             if batch is not None:

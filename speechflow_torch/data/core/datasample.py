@@ -1,9 +1,15 @@
 """Sample records (counterpart of ``speechflow_tpu/data/core/datasample.py``):
 ``AudioDataSample``, what the audio handlers read and write (the vocoder's
-training data), and ``TTSDataSample``, the fields a raw-text request fills
-and the collate reads. Samples hold numpy on the host; the batch processors
-make tensors of the collated batch. The spectral and parser-tier fields of
-the JAX classes wait for the TTS data path."""
+training data); ``SpectrogramDataSample``, which adds the spectral handlers'
+fields; and ``TTSDataSample``, which adds what ``TTSDSParser`` reads from a
+TextGrid (phonemes, timestamps, the word tiers) and the token- and
+frame-level targets the acoustic model trains on. A raw-text request fills
+only its text fields. Samples hold numpy on the host; the batch processors
+make tensors of the collated batch.
+
+``len(sample)`` is 1, as in the JAX package: a sampler with ``comb_by_len``
+sorts by it, so the sort keeps the file order.
+"""
 
 from __future__ import annotations
 
@@ -14,10 +20,12 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from speechflow_torch.io.audio import AudioChunk
+from speechflow_torch.io.timestamps import Timestamps
 
-__all__ = ["AudioDataSample", "TTSDataSample"]
+__all__ = ["AudioDataSample", "SpectrogramDataSample", "TTSDataSample"]
 
 Array = tp.Optional[np.ndarray]
+Labels = tp.Optional[tp.List[str]]
 
 
 @dataclass
@@ -34,27 +42,50 @@ class AudioDataSample:
     speaker_emb: Array = None
     #: each handler's parameters, by handler
     transform_params: tp.Dict[str, dict] = field(default_factory=dict)
+    #: fields without a slot of their own (SSML words and modifiers)
     additional: tp.Dict[str, tp.Any] = field(default_factory=dict)
 
-    def copy(self) -> "AudioDataSample":
+    def copy(self):
         """A deep copy: the handlers change a sample in place."""
         return copy.deepcopy(self)
+
+    def get_param_val(self, name: str, default=None):
+        """A parameter an earlier handler recorded in ``transform_params``."""
+        for params in self.transform_params.values():
+            if name in params:
+                return params[name]
+        return default
 
     def __len__(self) -> int:
         return 1
 
 
 @dataclass
-class TTSDataSample:
+class SpectrogramDataSample(AudioDataSample):
+    magnitude: Array = None             # (T, n_fft // 2 + 1)
+    mel: Array = None                   # (T, n_mels)
+    energy: Array = None                # (T,)
+    pitch: Array = None                 # (T,)
+    hop_len: tp.Optional[int] = None
+
+    @property
+    def n_frames(self) -> int:
+        for feat in (self.mel, self.magnitude, self.energy, self.pitch):
+            if feat is not None:
+                return feat.shape[0]
+        return 0
+
+
+@dataclass
+class TTSDataSample(SpectrogramDataSample):
+    sega_path: tp.Optional[str] = None
     text: tp.Optional[str] = None
-    lang: tp.Optional[str] = None
-    speaker_name: tp.Optional[str] = None
-    speaker_id: tp.Optional[int] = None
-    lang_id: tp.Optional[int] = None
-    speaker_emb: Array = None
-    phonemes: tp.Optional[tp.List[str]] = None
+    phonemes: Labels = None
     transcription: Array = None         # (N,) token ids
+    phoneme_timestamps: tp.Optional[Timestamps] = None
+    word_timestamps: tp.Optional[Timestamps] = None
     durations: Array = None             # (N,) frames per token
+    gate: Array = None                  # (T,) stop target
     aggregate_pitch: Array = None       # (N,)
     aggregate_energy: Array = None      # (N,)
     ling_feat: Array = None             # (N, F) linguistic features
@@ -62,10 +93,15 @@ class TTSDataSample:
     xpbert_feat: Array = None           # (N, D) phoneme-level LM embeddings
     word_lengths: Array = None          # tokens per word
     prosody: Array = None               # (N,) prosody class per token
-    #: each handler's parameters, by handler
-    transform_params: tp.Dict[str, dict] = field(default_factory=dict)
-    #: fields without a slot of their own (SSML words and modifiers)
-    additional: tp.Dict[str, tp.Any] = field(default_factory=dict)
+    intonation_type: tp.Optional[str] = None
+    # word-level parser tiers of a TextGridStage3 file (add_ling_feat reads them)
+    pos_tags: Labels = None
+    syntax_rels: Labels = None
+    word_ids: Labels = None
+    head_ids: Labels = None
+    emphasis_labels: Labels = None
+    prosody_labels: Labels = None
+    syntagma_ids: tp.Optional[tp.List[int]] = None
 
     @property
     def n_tokens(self) -> int:

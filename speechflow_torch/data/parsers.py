@@ -1,17 +1,32 @@
-"""Dataset parsers (counterpart of ``speechflow_tpu/data/parsers.py``): the
-``AudioDSParser`` of the vocoder's data config, a file list -> audio samples
-whose speaker is read from the path. Files are listed, not read: the audio is
-loaded by the ``load_audio`` handler."""
+"""Dataset parsers (counterpart of ``speechflow_tpu/data/parsers.py``):
+
+- ``AudioDSParser``, the vocoder's: a file list -> audio samples whose
+  speaker is read from the path;
+- ``TTSDSParser``, the acoustic model's: TextGrid files (``AudioSeg``) ->
+  samples with the text, the phonemes and their timestamps, the word tiers
+  of the text parser and the utterance's audio window, after the duration,
+  language and speaker filters.
+
+The audio is loaded by the ``load_audio`` handler, not here. A file that
+fails to parse is skipped with a warning, as the JAX parser skips it.
+"""
 
 from __future__ import annotations
 
+import logging
 import typing as tp
 from pathlib import Path
 
-from speechflow_torch.data.core.datasample import AudioDataSample
-from speechflow_torch.io.audio import AudioChunk
+import numpy as np
 
-__all__ = ["AudioDSParser", "PARSERS"]
+from speechflow_torch.data.core.datasample import AudioDataSample, TTSDataSample
+from speechflow_torch.io.audio import AudioChunk
+from speechflow_torch.io.seg import AudioSeg
+from speechflow_torch.io.timestamps import Timestamps
+
+__all__ = ["AudioDSParser", "TTSDSParser", "PARSERS"]
+
+LOGGER = logging.getLogger("speechflow_torch")
 
 
 class AudioDSParser:
@@ -39,4 +54,84 @@ class AudioDSParser:
         return samples
 
 
-PARSERS = {"AudioDSParser": AudioDSParser}
+class TTSDSParser:
+    def __init__(self, max_duration: tp.Optional[float] = None,
+                 min_duration: tp.Optional[float] = None,
+                 max_phoneme_length: tp.Optional[float] = None,
+                 audio_strip: bool = False, audio_strip_pad: float = 0.0,
+                 languages: tp.Optional[tp.Sequence[str]] = None,
+                 speakers: tp.Optional[tp.Sequence[str]] = None):
+        self.max_duration = max_duration
+        self.min_duration = min_duration
+        self.max_phoneme_length = max_phoneme_length
+        self.audio_strip = audio_strip
+        self.audio_strip_pad = audio_strip_pad
+        self.languages = set(languages) if languages else None
+        self.speakers = set(speakers) if speakers else None
+
+    def keep(self, seg: AudioSeg) -> bool:
+        """The filters: language, speaker, duration bounds, and no phoneme
+        (pauses aside) longer than ``max_phoneme_length``."""
+        if self.languages and seg.lang not in self.languages:
+            return False
+        if self.speakers and seg.speaker_name not in self.speakers:
+            return False
+        if self.max_duration and seg.duration > self.max_duration:
+            return False
+        if self.min_duration and seg.duration < self.min_duration:
+            return False
+        if self.max_phoneme_length:
+            lens = [e - b for b, e, lab in seg.phonemes()
+                    if lab and lab not in ("<SIL>", "undefined_sil")]
+            if lens and max(lens) > self.max_phoneme_length:
+                return False
+        return True
+
+    def to_datasample(self, path: tp.Union[str, Path], seg: AudioSeg) -> TTSDataSample:
+        phs, words = seg.phonemes(), seg.words()
+        chunk = seg.audio_chunk
+        if self.audio_strip and words:
+            # keep audio_strip_pad seconds of context on each side of the words
+            b, e = seg.bos_eos_bounds()
+            b = max(b - self.audio_strip_pad, 0.0)
+            e = min(e + self.audio_strip_pad, seg.duration)
+            chunk = AudioChunk(file_path=chunk.file_path, begin=chunk.begin + b,
+                               end=chunk.begin + e)
+            phs = [(pb - b, pe - b, lab) for pb, pe, lab in phs if pe > b and pb < e]
+            words = [(wb - b, we - b, lab) for wb, we, lab in words]
+        return TTSDataSample(
+            file_path=str(path), sega_path=str(path), label=seg.speaker_name,
+            audio_chunk=chunk, lang=seg.lang, speaker_name=seg.speaker_name,
+            text=" ".join(lab for _, _, lab in words),
+            phonemes=[lab for _, _, lab in phs],
+            phoneme_timestamps=Timestamps(np.asarray([[b, e] for b, e, _ in phs]))
+            if phs else None,
+            word_timestamps=Timestamps(np.asarray([[b, e] for b, e, _ in words]))
+            if words else None,
+            intonation_type="?" if seg.text_ends_with("?") else ".",
+            pos_tags=seg.word_tier_labels("pos"),
+            syntax_rels=seg.word_tier_labels("rel"),
+            word_ids=seg.word_tier_labels("id"),
+            head_ids=seg.word_tier_labels("head_id"),
+            emphasis_labels=seg.word_tier_labels("emphasis"),
+            prosody_labels=seg.word_tier_labels("prosody"),
+            syntagma_ids=seg.word_syntagma_ids(),
+        )
+
+    def read_datasamples(self, files: tp.Sequence[tp.Union[str, Path]]
+                         ) -> tp.List[TTSDataSample]:
+        samples = []
+        for f in files:
+            try:
+                seg = AudioSeg.load(f)
+            except (OSError, ValueError) as e:
+                LOGGER.warning("parser failed on %s: %r", f, e)
+                continue
+            if self.keep(seg):
+                samples.append(self.to_datasample(f, seg))
+        for i, s in enumerate(samples):
+            s.index = i
+        return samples
+
+
+PARSERS = {"AudioDSParser": AudioDSParser, "TTSDSParser": TTSDSParser}

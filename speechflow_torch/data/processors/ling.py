@@ -1,8 +1,13 @@
-"""Linguistic features of raw text (counterpart of
-``speechflow_tpu/data/processors/ling.py``, its inference path).
+"""Linguistic features (counterpart of ``speechflow_tpu/data/processors/ling.py``).
 
-Raw text has no parser tiers: ``RuleBasedTagger`` gives the POS (closed-class
-lexicon + suffix rules, EN) and punctuation comes from the text itself.
+Two producers. Training: ``add_ling_feat`` and ``add_lm_feat`` read a parsed
+TextGridStage3 sample (the text parser's word tiers: POS, syntax relations
+and heads, emphasis, prosody; the word and phoneme timestamps) and spread
+the word-level features over its phonemes, a phoneme's word found by its
+midpoint, with rows for the service tokens. Raw text (inference) has no
+tiers: ``RuleBasedTagger`` gives the POS (closed-class lexicon + suffix
+rules, EN) and punctuation comes from the text itself; the eval interface
+builds the features inline and these two handlers leave such a sample as it is.
 ``word_ling_features`` makes the word-level block of ``ling_feat``, ``_expand``
 spreads it over the phonemes; ``lm_feat_for_words`` gives hashed char-n-gram
 word embeddings through a fixed random projection; ``add_xpbert_feat`` the
@@ -12,9 +17,8 @@ Features are one dense float32 matrix (N, LING_FEAT_DIM): [sil, word_begin,
 word_end, syntagma_end, pos(17), punct(8), emphasis, intonation(3), rel(21),
 importance, breath].
 
-The training-path handlers (features from TextGrid tiers and timestamps) and
-the WordLM checkpoint branches wait for the audio pipeline and
-``models/prosody/lm.py``; a ``model_ckpt`` raises ``NotImplementedError``.
+The WordLM checkpoint branches wait for ``models/prosody/lm.py``: a
+``model_ckpt`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from speechflow_torch.data.processors.text import SIL
 __all__ = [
     "LING_FEAT_DIM", "LM_FEAT_DIM", "XPBERT_FEAT_DIM", "UPOS", "UD_RELS", "PUNCT_CLASSES",
     "RuleBasedTagger", "word_ling_features", "ling_feat_from_text", "lm_feat_for_words",
-    "add_xpbert_feat",
+    "add_ling_feat", "add_lm_feat", "add_xpbert_feat",
 ]
 
 UPOS = ("ADJ", "ADP", "ADV", "AUX", "CCONJ", "DET", "INTJ", "NOUN", "NUM",
@@ -211,6 +215,100 @@ def _expand(word_feats: np.ndarray, word_map: np.ndarray,
             out[i, 0] = 1.0  # sil_mask
             out[i, _BREATH] = -3.0 / 10.0  # breath prior at pauses
     return out
+
+
+def _phoneme_word_map(ds: TTSDataSample) -> np.ndarray:
+    """Word index per phoneme (-1 for pauses): the first word whose interval
+    holds the phoneme's midpoint."""
+    out = np.full(len(ds.phonemes), -1, np.int64)
+    if ds.word_timestamps is None or ds.phoneme_timestamps is None:
+        return out
+    wts = np.asarray(ds.word_timestamps.intervals, np.float64)
+    for i, ((b, e), lab) in enumerate(zip(ds.phoneme_timestamps, ds.phonemes)):
+        if lab in (SIL, "", None):
+            continue
+        mid = 0.5 * (b + e)
+        hits = np.nonzero((wts[:, 0] - 1e-6 <= mid) & (mid <= wts[:, 1] + 1e-6))[0]
+        if len(hits):
+            out[i] = int(hits[0])
+    return out
+
+
+def _with_service_rows(mat: np.ndarray, ds: TTSDataSample, sil: bool) -> np.ndarray:
+    """BOS/EOS rows (sil-marked when ``sil``) where the transcription has
+    service tokens."""
+    if ds.n_tokens and ds.n_tokens == mat.shape[0] + 2:
+        row = np.zeros((1, mat.shape[1]), mat.dtype)
+        if sil:
+            row[0, 0] = 1.0
+        mat = np.concatenate([row, mat, row], axis=0)
+    return mat
+
+
+def _syntagma_last_words(ds: TTSDataSample) -> tp.Optional[tp.Set[int]]:
+    ids = ds.syntagma_ids
+    if not ids:
+        return None
+    return {i for i in range(len(ids)) if i + 1 == len(ids) or ids[i + 1] != ids[i]}
+
+
+def add_ling_feat(ds: TTSDataSample, use_rule_tagger_fallback: bool = True) -> TTSDataSample:
+    """Per-phoneme linguistic features, prosody class ids (the word's
+    prosody label + 1, -1 undefined) and word lengths (runs of one word;
+    pauses and service tokens are runs of one) of a parsed sample."""
+    if ds.phoneme_timestamps is None or ds.word_timestamps is None:
+        return ds  # raw text: the eval interface computes the features inline
+    words = ds.text.split() if ds.text else []
+    if ds.pos_tags is None and not use_rule_tagger_fallback:
+        return ds
+    text = (ds.text or "").rstrip()
+    word_feats = word_ling_features(
+        words, pos_tags=ds.pos_tags, syntax_rels=ds.syntax_rels, word_ids=ds.word_ids,
+        head_ids=ds.head_ids, emphasis_labels=ds.emphasis_labels,
+        intonation="?" if text.endswith("?") else ("!" if text.endswith("!") else "."))
+    word_map = _phoneme_word_map(ds)
+    ds.ling_feat = _with_service_rows(
+        _expand(word_feats, word_map, ds.phonemes, _syntagma_last_words(ds)), ds, sil=True)
+
+    pros = np.full(len(ds.phonemes), -1, np.int32)
+    if ds.prosody_labels:
+        for i, w in enumerate(word_map):
+            if 0 <= w < len(ds.prosody_labels):
+                lab = str(ds.prosody_labels[w]).strip()
+                if lab and lab not in ("undefined", "-1"):
+                    try:
+                        pros[i] = int(float(lab)) + 1
+                    except ValueError:
+                        pass
+    if ds.n_tokens == len(pros) + 2:
+        pros = np.concatenate([[-1], pros, [-1]]).astype(np.int32)
+    ds.prosody = pros
+
+    wm = list(word_map)
+    if ds.n_tokens == len(wm) + 2:
+        wm = [-2] + wm + [-3]
+    groups, run = [], 0
+    for i in range(len(wm)):
+        run += 1
+        nxt = wm[i + 1] if i + 1 < len(wm) else None
+        if nxt is None or nxt != wm[i] or wm[i] < 0:
+            groups.append(run)
+            run = 0
+    ds.word_lengths = np.asarray(groups, np.int32)
+    return ds
+
+
+def add_lm_feat(ds: TTSDataSample, model_ckpt: tp.Optional[str] = None) -> TTSDataSample:
+    """Each phoneme gets its word's embedding (pauses and service tokens 0)."""
+    if ds.phoneme_timestamps is None or ds.word_timestamps is None:
+        return ds  # raw text: the eval interface computes the features inline
+    wf = lm_feat_for_words(ds.text.split() if ds.text else [], model_ckpt=model_ckpt)
+    mat = np.zeros((len(ds.phonemes), LM_FEAT_DIM), np.float32)
+    for i, w in enumerate(_phoneme_word_map(ds)):
+        if 0 <= w < len(wf):
+            mat[i] = wf[w]
+    ds.lm_feat = _with_service_rows(mat, ds, sil=False)
+    return ds
 
 
 def ling_feat_from_text(words: tp.Sequence[str],

@@ -1,0 +1,140 @@
+"""Host-side (numpy) DSP of the spectral handlers (counterpart of the
+functions of ``speechflow_tpu/data/processors/np_dsp.py`` that the TTS data
+config's handlers use): the same framing, windows, filterbank and
+normalisation as the device ops, so features made by the data workers on
+the host match the ones the port computes on the card. The filterbank is
+the port's own ``ops.mel.mel_filterbank``."""
+
+from __future__ import annotations
+
+import typing as tp
+
+import numpy as np
+
+from speechflow_torch.ops.mel import MIN_LEVEL_DB, mel_filterbank
+
+__all__ = ["hann_window_np", "stft_np", "magnitude_np", "linear_to_mel_np",
+           "amp_to_db_np", "normalize_mel_np", "energy_np",
+           "yin_f0_np", "MIN_LEVEL_DB"]
+
+
+def hann_window_np(win_len: int) -> np.ndarray:
+    n = np.arange(win_len)
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_len)).astype(np.float64)
+
+
+def _frame_np(x: np.ndarray, frame_length: int, hop: int) -> np.ndarray:
+    n_frames = 1 + (len(x) - frame_length) // hop
+    idx = np.arange(n_frames)[:, None] * hop + np.arange(frame_length)[None, :]
+    return x[idx]
+
+
+def stft_np(
+    x: np.ndarray,
+    n_fft: int = 1024,
+    hop_length: int = 256,
+    win_length: tp.Optional[int] = None,
+    center: bool = True,
+) -> np.ndarray:
+    win_length = win_length or n_fft
+    window = hann_window_np(win_length)
+    if win_length < n_fft:
+        lp = (n_fft - win_length) // 2
+        window = np.pad(window, (lp, n_fft - win_length - lp))
+    if center:
+        pad = n_fft // 2
+        x = np.pad(x, (pad, pad), mode="reflect")
+    frames = _frame_np(x.astype(np.float64), n_fft, hop_length) * window
+    return np.fft.rfft(frames, n=n_fft, axis=-1)  # (n_frames, n_bins)
+
+
+def magnitude_np(x: np.ndarray, n_fft: int = 1024, hop_length: int = 256,
+                 win_length: tp.Optional[int] = None, center: bool = True) -> np.ndarray:
+    return np.abs(stft_np(x, n_fft, hop_length, win_length, center)).astype(np.float32)
+
+
+def linear_to_mel_np(mag: np.ndarray, sr: int, n_mels: int = 80,
+                     fmin: float = 0.0, fmax: tp.Optional[float] = None,
+                     htk: bool = False) -> np.ndarray:
+    n_fft = (mag.shape[-1] - 1) * 2
+    fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax, htk)
+    return (mag @ fb.T).astype(np.float32)
+
+
+def amp_to_db_np(x: np.ndarray, multiplier: float = 1.0, a_min: float = 1e-5,
+                 a_max: tp.Optional[float] = None) -> np.ndarray:
+    out = np.log(np.clip(x, a_min, a_max))
+    if multiplier != 1.0:
+        out = out * multiplier
+    return out.astype(np.float32)
+
+
+def normalize_mel_np(mel_db: np.ndarray, max_abs_value: float = 4.0,
+                     min_level_db: float = MIN_LEVEL_DB) -> np.ndarray:
+    out = (2 * max_abs_value) * ((mel_db - min_level_db) / (-min_level_db)) - max_abs_value
+    return np.clip(out, -max_abs_value, None).astype(np.float32)
+
+
+def energy_np(mag: np.ndarray) -> np.ndarray:
+    return np.linalg.norm(mag, axis=-1).astype(np.float32)
+
+
+def yin_f0_np(
+    x: np.ndarray,
+    sr: int,
+    hop_length: int = 256,
+    frame_length: int = 2048,
+    f0_min: float = 80.0,
+    f0_max: float = 880.0,
+    threshold: float = 0.2,
+) -> np.ndarray:
+    """Numpy mirror of ops.yin_f0 (same framing/CMNDF/trough logic)."""
+    tau_min = max(2, int(np.floor(sr / f0_max)))
+    tau_max = int(np.ceil(sr / f0_min))
+    w = frame_length
+    pad = w // 2
+    xp = np.pad(x, (pad, pad), mode="reflect")
+    frames = _frame_np(xp.astype(np.float64), w, hop_length)
+    half = w // 2
+    nfft = int(2 ** np.ceil(np.log2(w + tau_max)))
+
+    taus = np.arange(tau_max + 1)
+    sq = frames * frames
+    csum = np.concatenate([np.zeros_like(sq[:, :1]), np.cumsum(sq, axis=-1)], axis=-1)
+    e_tau = csum[:, taus + half] - csum[:, taus]
+    e0 = e_tau[:, :1]
+
+    spec_h = np.fft.rfft(frames[:, :half], n=nfft, axis=-1)
+    cross = np.fft.irfft(np.conj(spec_h) * np.fft.rfft(frames, n=nfft, axis=-1), n=nfft, axis=-1)
+    acf_h = cross[:, : tau_max + 1]
+
+    d = np.maximum(e0 + e_tau - 2.0 * acf_h, 0.0)
+    cum = np.cumsum(d[:, 1:], axis=-1)
+    dprime = d[:, 1:] * taus[1:] / np.maximum(cum, 1e-12)
+    dprime = np.concatenate([np.ones_like(d[:, :1]), dprime], axis=-1)
+
+    lag_mask = (taus >= tau_min) & (taus <= tau_max)
+    dp = np.where(lag_mask, dprime, np.inf)
+
+    left = np.concatenate([np.full_like(dp[:, :1], np.inf), dp[:, :-1]], axis=-1)
+    right = np.concatenate([dp[:, 1:], np.full_like(dp[:, :1], np.inf)], axis=-1)
+    cand = (dp <= left) & (dp <= right) & (dp < threshold)
+    first_cand = np.argmax(cand, axis=-1)
+    any_cand = cand.any(axis=-1)
+    tau_star = np.where(any_cand, first_cand, np.argmin(dp, axis=-1))
+
+    tm1 = np.clip(tau_star - 1, 0, tau_max)
+    tp1 = np.clip(tau_star + 1, 0, tau_max)
+    rows = np.arange(len(tau_star))
+    y0, y1, y2 = dprime[rows, tm1], dprime[rows, tau_star], dprime[rows, tp1]
+    denom = y0 - 2 * y1 + y2
+    delta = np.where(np.abs(denom) > 1e-12, 0.5 * (y0 - y2) / denom, 0.0)
+    tau_ref = tau_star + np.clip(delta, -0.5, 0.5)
+
+    f0 = sr / np.maximum(tau_ref, 1.0)
+    dp_min = dp[rows, tau_star]
+    frame_rms = np.sqrt(np.mean(frames * frames, axis=-1))
+    voiced = (dp_min < max(threshold, 0.35)) & (frame_rms > 1e-4)
+    f0 = np.where(voiced, f0, 0.0)
+    f0 = np.where((f0 >= f0_min) & (f0 <= f0_max), f0, 0.0)
+    return f0.astype(np.float32)

@@ -1,14 +1,20 @@
 """Dataset-level handlers fitted once on the training subset (counterpart of
-``SpeakerIDSetter`` and ``DatasetStatistics`` in
-``speechflow_tpu/data/processors/singletons.py``, the two the vocoder's data
-config lists). Their ``state_dict`` goes into the pipeline info a checkpoint
-carries."""
+``SpeakerIDSetter``, ``StatisticsRange``, ``DatasetStatistics`` and
+``PhonemeStatistics`` in ``speechflow_tpu/data/processors/singletons.py``,
+the ones the vocoder's and the TTS data configs list). Their ``state_dict``
+goes into the pipeline info a checkpoint carries; ``PhonemeStatistics``'
+symbols make the training pipeline's alphabet."""
 
 from __future__ import annotations
 
+import json
 import typing as tp
+from pathlib import Path
 
-__all__ = ["SpeakerIDSetter", "DatasetStatistics", "SINGLETON_HANDLERS"]
+import numpy as np
+
+__all__ = ["SpeakerIDSetter", "StatisticsRange", "DatasetStatistics", "PhonemeStatistics",
+           "SINGLETON_HANDLERS"]
 
 
 class SpeakerIDSetter:
@@ -45,6 +51,44 @@ class SpeakerIDSetter:
         return {"speaker2id": dict(self.speaker2id), "lang2id": dict(self.lang2id)}
 
 
+class StatisticsRange:
+    """Per speaker, per feature (pitch, energy and their token aggregates):
+    the 1% and 99% quantiles, mean and std of the values (pitch's voiced
+    ones). Fitted at parse time, before any handler ran, it usually sees no
+    feature and stays empty, as in the JAX package; a ``ranges_file`` (the
+    ``ranges.json`` a dump writes) is loaded instead when it exists."""
+
+    FEATURES = ("pitch", "energy", "aggregate_pitch", "aggregate_energy")
+
+    def __init__(self, ranges_file: tp.Optional[str] = None):
+        self.ranges: tp.Dict[str, tp.Dict[str, tp.Tuple[float, float, float, float]]] = {}
+        if ranges_file and Path(ranges_file).exists():
+            self.ranges = json.loads(Path(ranges_file).read_text())
+
+    def fit(self, dataset: tp.Iterable) -> "StatisticsRange":
+        if self.ranges:
+            return self
+        acc: tp.Dict[tp.Tuple[str, str], tp.List[np.ndarray]] = {}
+        for ds in dataset:
+            spk = getattr(ds, "speaker_name", None) or "__all__"
+            for feat in self.FEATURES:
+                val = getattr(ds, feat, None)
+                if val is not None:
+                    v = np.asarray(val).ravel()
+                    v = v[v != 0] if "pitch" in feat else v
+                    if len(v):
+                        acc.setdefault((spk, feat), []).append(v)
+        for (spk, feat), chunks in acc.items():
+            v = np.concatenate(chunks)
+            self.ranges.setdefault(spk, {})[feat] = (
+                float(np.quantile(v, 0.01)), float(np.quantile(v, 0.99)),
+                float(v.mean()), float(v.std()))
+        return self
+
+    def state_dict(self) -> dict:
+        return {"ranges": self.ranges}
+
+
 class DatasetStatistics:
     """Sample count, durations (total, longest, per speaker) and lengths."""
 
@@ -76,5 +120,33 @@ class DatasetStatistics:
         return dict(self.__dict__)
 
 
+class PhonemeStatistics:
+    """How often each phoneme occurs (an empty label counts as ``<SIL>``)."""
+
+    def __init__(self):
+        self.counts: tp.Dict[str, int] = {}
+
+    def fit(self, dataset: tp.Iterable) -> "PhonemeStatistics":
+        for ds in dataset:
+            phs = getattr(ds, "phonemes", None)
+            if not phs and getattr(ds, "text", None):
+                raise NotImplementedError(
+                    "PhonemeStatistics of a text-only corpus needs the phonemizer "
+                    "(speechflow_tpu/data/processors/text.py phonemize_words), not ported yet")
+            for p in phs or ():
+                key = p if p else "<SIL>"
+                self.counts[key] = self.counts.get(key, 0) + 1
+        return self
+
+    @property
+    def symbols(self) -> tp.List[str]:
+        return sorted(self.counts)
+
+    def state_dict(self) -> dict:
+        return {"counts": dict(self.counts)}
+
+
 SINGLETON_HANDLERS = {"SpeakerIDSetter": SpeakerIDSetter,
-                      "DatasetStatistics": DatasetStatistics}
+                      "StatisticsRange": StatisticsRange,
+                      "DatasetStatistics": DatasetStatistics,
+                      "PhonemeStatistics": PhonemeStatistics}

@@ -1,0 +1,96 @@
+"""Alignment-derived handlers (counterpart of the handlers of
+``speechflow_tpu/data/processors/tts.py`` that the TTS data config lists):
+pauses from the timestamps' gaps, per-token frame durations that sum to the
+mel's length, token-level pitch and energy, and the stop-gate target."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from speechflow_torch.data.core.datasample import TTSDataSample
+from speechflow_torch.data.processors.text import SIL
+from speechflow_torch.io.timestamps import Timestamps
+
+__all__ = ["add_pauses_from_timestamps", "calc_durations", "aggregate_pitch",
+           "aggregate_energy", "gate_target"]
+
+
+def add_pauses_from_timestamps(ds: TTSDataSample, min_len: float = 0.03,
+                               merge_short: bool = True) -> TTSDataSample:
+    """Empty-label intervals (gaps) become SIL tokens; with ``merge_short`` a
+    gap shorter than ``min_len`` is merged into the token before it. A sample
+    without timestamps (raw text) is left as it is."""
+    if ds.phoneme_timestamps is None:
+        return ds
+    phs, ts = [], []
+    for label, (b, e) in zip(ds.phonemes, ds.phoneme_timestamps):
+        if label in ("", SIL, "undefined_sil", None):
+            if e - b >= min_len or not ts or not merge_short:
+                phs.append(SIL)
+                ts.append([b, e])
+            else:
+                ts[-1][1] = e  # absorbed by the previous token
+        else:
+            phs.append(label)
+            ts.append([b, e])
+    ds.phonemes = phs
+    ds.phoneme_timestamps = Timestamps(np.asarray(ts))
+    return ds
+
+
+def calc_durations(ds: TTSDataSample) -> TTSDataSample:
+    """Frames per token of the transcription, summing exactly to the mel's
+    length; with service tokens, BOS spans [0, first phoneme) and EOS [last
+    phoneme, audio end)."""
+    hop = ds.get_param_val("hop_len", ds.hop_len or 256)
+    sr = ds.audio_chunk.sr if ds.audio_chunk is not None else ds.get_param_val("sample_rate")
+    ts = ds.phoneme_timestamps
+    if ds.n_tokens == len(ts) + 2:
+        total = ds.audio_chunk.duration if ds.audio_chunk is not None else ts.end
+        ts = Timestamps(np.concatenate([np.asarray([[0.0, ts.begin]]), ts.intervals,
+                                        np.asarray([[ts.end, max(total, ts.end)]])], axis=0))
+    ds.durations = ts.to_frames(hop, int(sr), n_frames=ds.n_frames or None).astype(np.float32)
+    if len(ds.durations) != ds.n_tokens:
+        raise ValueError(f"{len(ds.durations)} durations for {ds.n_tokens} tokens")
+    return ds
+
+
+_REDUCE = {"mean": np.mean, "median": np.median, "min": np.min, "max": np.max,
+           "range": np.ptp}
+
+
+def _aggregate(feat: np.ndarray, durations: np.ndarray, mode: str = "mean",
+               voiced_only: bool = False) -> np.ndarray:
+    """Frame-level ``feat`` (T,) reduced over each token's frames (N,); a
+    token without frames (or without voiced frames) gets 0."""
+    edges = np.concatenate([[0], np.cumsum(durations.astype(np.int64))])
+    out = np.zeros(len(durations), dtype=np.float32)
+    for i in range(len(durations)):
+        seg = feat[edges[i]:edges[i + 1]]
+        if voiced_only:
+            seg = seg[seg > 0]
+        out[i] = _REDUCE[mode](seg) if len(seg) else 0.0
+    return out
+
+
+def aggregate_pitch(ds: TTSDataSample, mode: str = "mean",
+                    voiced_only: bool = True) -> TTSDataSample:
+    """Token-level pitch; with ``voiced_only`` the mean of each token's voiced
+    frames, whatever ``mode`` says (as the JAX handler)."""
+    ds.aggregate_pitch = _aggregate(ds.pitch, ds.durations,
+                                    "mean" if voiced_only else mode, voiced_only)
+    return ds
+
+
+def aggregate_energy(ds: TTSDataSample, mode: str = "mean") -> TTSDataSample:
+    ds.aggregate_energy = _aggregate(ds.energy, ds.durations, mode)
+    return ds
+
+
+def gate_target(ds: TTSDataSample, last_frames: int = 1) -> TTSDataSample:
+    """1 on the last ``last_frames`` frames, 0 before."""
+    t = ds.n_frames
+    gate = np.zeros(t, dtype=np.float32)
+    gate[max(0, t - last_frames):] = 1.0
+    ds.gate = gate
+    return ds

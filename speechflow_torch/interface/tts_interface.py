@@ -335,7 +335,7 @@ class TTSEvaluationInterface:
         device, floats in its dtype (the SSML modifiers stay float32)."""
         samples = [self._build_ssml_sample(s, ctx) if "<prosody" in s
                    else self._build_plain_sample(s, ctx, opts) for s in sentences]
-        inputs = self.batch_processor(self.pipeline.datasample_to_batch(samples))
+        inputs, _ = self.batch_processor(self.pipeline.datasample_to_batch(samples))
         return inputs.to(self.device, self.dtype)
 
     # -- inference ----------------------------------------------------------------

@@ -2,7 +2,8 @@
 the part the eval interfaces and the audio handlers use).
 
 An ``AudioChunk`` holds a float32 waveform and its rate, or the path of a
-``.wav`` file read (and downmixed to mono) on ``load``; ``load(sr)`` and
+``.wav`` file read (and downmixed to mono) on ``load``, cut to the window
+[``begin``, ``end``) seconds when one is given; ``load(sr)`` and
 ``resample`` go through ``scipy.signal.resample_poly``. Numpy and scipy
 only: audio files are host artifacts.
 
@@ -41,11 +42,13 @@ def _to_float32(data: np.ndarray) -> np.ndarray:
 @dataclasses.dataclass
 class AudioChunk:
     """A waveform (``data`` at rate ``sr``: (N,), or (B, N) for a batch) or a
-    ``.wav`` file to read."""
+    ``.wav`` file to read, from ``begin`` to ``end`` seconds (None: its end)."""
 
     file_path: tp.Optional[tp.Union[str, Path]] = None
     data: tp.Optional[np.ndarray] = None
     sr: tp.Optional[int] = None
+    begin: float = 0.0
+    end: tp.Optional[float] = None
 
     def __post_init__(self):
         if self.file_path is not None:
@@ -55,10 +58,13 @@ class AudioChunk:
 
     @property
     def duration(self) -> float:
-        """Seconds of audio (a file not yet read is mapped, not read)."""
+        """Seconds of audio (a file not yet read: its window, else the file's
+        length, mapped, not read)."""
+        if self.data is None and self.end is not None:
+            return self.end - self.begin
         if self.data is None and self.file_path is not None:
             sr, data = wavfile.read(str(self.file_path), mmap=True)
-            return data.shape[0] / sr
+            return data.shape[0] / sr - self.begin
         return self.waveform.shape[-1] / self.sr
 
     @property
@@ -80,7 +86,9 @@ class AudioChunk:
             data = _to_float32(np.atleast_1d(data))
             if data.ndim > 1:  # (N, channels) -> mono
                 data = data.mean(axis=-1).astype(np.float32)
-            self.data, self.sr = np.ascontiguousarray(data), file_sr
+            b = int(round(self.begin * file_sr))
+            e = len(data) if self.end is None else int(round(self.end * file_sr))
+            self.data, self.sr = np.ascontiguousarray(data[b:e]), file_sr
         if sr is not None and sr != self.sr:
             self.resample(sr)
         return self

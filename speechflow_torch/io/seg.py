@@ -1,0 +1,241 @@
+"""Praat TextGrids and annotated utterances (counterpart of the reading half
+of ``speechflow_tpu/io/seg.py``): short-form ``ooTextFile`` TextGrids with
+interval tiers (the ``.TextGridStage3`` files of ``tests/data/SEGS``:
+orig/syntagmas/text/stress/phonemes/pos/rel/id/head_id/emphasis/prosody/meta),
+read from the Praat file-format spec, and ``AudioSeg``, an utterance's audio
+window, tiers and ``meta`` dict (lang, speaker_name, audio_chunk), as the
+TTS parser reads them. Writing TextGrids waits for the annotation tools that
+write them. Text only.
+"""
+
+from __future__ import annotations
+
+import ast
+import typing as tp
+from dataclasses import dataclass, field
+from pathlib import Path
+
+from speechflow_torch.io.audio import AudioChunk
+
+__all__ = ["Tier", "TextGrid", "AudioSeg"]
+
+Interval = tp.Tuple[float, float, str]
+
+
+@dataclass
+class Tier:
+    name: str
+    intervals: tp.List[Interval] = field(default_factory=list)
+
+    def non_empty(self) -> "Tier":
+        return Tier(self.name, [iv for iv in self.intervals if iv[2] != ""])
+
+class TextGrid:
+    """Short-form ooTextFile TextGrid with interval tiers only."""
+
+    def __init__(self, xmin: float = 0.0, xmax: float = 0.0,
+                 tiers: tp.Optional[tp.List[Tier]] = None):
+        self.xmin = xmin
+        self.xmax = xmax
+        self.tiers: tp.List[Tier] = tiers or []
+
+    def __getitem__(self, name: str) -> Tier:
+        for t in self.tiers:
+            if t.name == name:
+                return t
+        raise KeyError(name)
+
+    def __contains__(self, name: str) -> bool:
+        return any(t.name == name for t in self.tiers)
+
+    # -- parsing ---------------------------------------------------------------
+
+    @staticmethod
+    def load(path: tp.Union[str, Path]) -> "TextGrid":
+        return TextGrid.loads(Path(path).read_text(encoding="utf-8"))
+
+    @staticmethod
+    def loads(text: str) -> "TextGrid":
+        toks = _tokenize(text)
+        it = iter(toks)
+
+        def nxt():
+            return next(it)
+
+        header = nxt()  # File type
+        if "ooTextFile" not in str(header):
+            raise ValueError("not an ooTextFile TextGrid")
+        nxt()  # Object class
+        xmin = float(nxt())
+        xmax = float(nxt())
+        exists = nxt()
+        tiers: tp.List[Tier] = []
+        if str(exists) == "<exists>":
+            n_tiers = int(nxt())
+            for _ in range(n_tiers):
+                klass = str(nxt())
+                name = str(nxt())
+                nxt()  # tier xmin
+                nxt()  # tier xmax
+                n = int(nxt())
+                intervals = []
+                if klass == "IntervalTier":
+                    for _ in range(n):
+                        b = float(nxt()); e = float(nxt()); lab = str(nxt())
+                        intervals.append((b, e, lab))
+                else:  # TextTier (points): store as zero-width intervals
+                    for _ in range(n):
+                        t = float(nxt()); lab = str(nxt())
+                        intervals.append((t, t, lab))
+                tiers.append(Tier(name, intervals))
+        return TextGrid(xmin, xmax, tiers)
+
+def _tokenize(text: str) -> tp.List[str]:
+    """Yield TextGrid tokens: quoted strings (with '""' escapes) or bare words."""
+    toks: tp.List[str] = []
+    i, n = 0, len(text)
+    # skip the two header lines verbatim
+    lines = text.split("\n")
+    body_start = 0
+    hdr = []
+    for li, line in enumerate(lines):
+        if line.startswith("File type") or line.startswith("Object class"):
+            hdr.append(line)
+            body_start = li + 1
+        if len(hdr) == 2:
+            break
+    toks.extend(hdr)
+    body = "\n".join(lines[body_start:])
+    i, n = 0, len(body)
+    while i < n:
+        c = body[i]
+        if c.isspace():
+            i += 1
+        elif c == '"':
+            j = i + 1
+            buf = []
+            while j < n:
+                if body[j] == '"':
+                    if j + 1 < n and body[j + 1] == '"':
+                        buf.append('"'); j += 2
+                    else:
+                        j += 1
+                        break
+                else:
+                    buf.append(body[j]); j += 1
+            toks.append("".join(buf))
+            i = j
+        else:
+            j = i
+            while j < n and not body[j].isspace():
+                j += 1
+            toks.append(body[i:j])
+            i = j
+    return toks
+
+
+class AudioSeg:
+    """One annotated utterance: audio window + tier annotations + meta dict.
+
+    The ``meta`` tier carries a python-literal dict (lang, speaker_name,
+    audio_chunk, ...); the ``text``/``phonemes``/``syntagmas`` tiers carry the
+    aligned annotation; BOS/EOS are the leading/trailing empty intervals.
+    """
+
+    def __init__(self, audio_chunk: AudioChunk, grid: tp.Optional[TextGrid] = None):
+        self.audio_chunk = audio_chunk
+        self.grid = grid or TextGrid()
+        self.meta: tp.Dict[str, tp.Any] = {}
+        if grid is not None and "meta" in grid:
+            labels = [iv[2] for iv in grid["meta"].intervals if iv[2]]
+            if labels:
+                try:
+                    self.meta = ast.literal_eval(labels[0])
+                except (ValueError, SyntaxError):
+                    self.meta = {"raw": labels[0]}
+
+    # -- loading -------------------------------------------------------------
+
+    @staticmethod
+    def load(path: tp.Union[str, Path]) -> "AudioSeg":
+        """The TextGrid at ``path`` and the window of its sibling wav with the
+        same stem ("0.TextGridStage3" -> "0.wav"), not read yet."""
+        path = Path(path)
+        grid = TextGrid.load(path)
+        seg = AudioSeg(AudioChunk(file_path=path), grid)  # placeholder chunk
+        chunk = seg.meta.get("audio_chunk", [grid.xmin, grid.xmax])
+        seg.audio_chunk = AudioChunk(file_path=path.parent / f"{path.name.split('.')[0]}.wav",
+                                     begin=chunk[0], end=chunk[1])
+        return seg
+
+    # -- views -----------------------------------------------------------------
+
+    @property
+    def lang(self) -> str:
+        return self.meta.get("lang", "")
+
+    @property
+    def speaker_name(self) -> str:
+        return self.meta.get("speaker_name", "")
+
+    @property
+    def duration(self) -> float:
+        return self.grid.xmax - self.grid.xmin
+
+    def words(self) -> tp.List[Interval]:
+        return self.grid["text"].non_empty().intervals if "text" in self.grid else []
+
+    def phonemes(self) -> tp.List[Interval]:
+        return self.grid["phonemes"].intervals if "phonemes" in self.grid else []
+
+    def word_tier_labels(self, name: str) -> tp.Optional[tp.List[str]]:
+        """Labels of a word-aligned tier (pos/rel/id/head_id/emphasis/prosody)
+        at the word positions — the indices where the ``text`` tier is
+        non-empty (all word-level tiers share the text tier's segmentation in
+        reference segas)."""
+        if name not in self.grid or "text" not in self.grid:
+            return None
+        text_ivs = self.grid["text"].intervals
+        tier_ivs = self.grid[name].intervals
+        if len(tier_ivs) != len(text_ivs):
+            # fall back to timestamp matching against the word midpoints
+            words = self.words()
+            out = []
+            for b, e, _ in words:
+                mid = 0.5 * (b + e)
+                lab = ""
+                for tb, te, tl in tier_ivs:
+                    if tb - 1e-6 <= mid <= te + 1e-6:
+                        lab = tl
+                        break
+                out.append(lab)
+            return out
+        return [tier_ivs[i][2] for i, iv in enumerate(text_ivs) if iv[2]]
+
+    def word_syntagma_ids(self) -> tp.Optional[tp.List[int]]:
+        """Syntagma index per word (by word midpoint containment)."""
+        if "syntagmas" not in self.grid:
+            return None
+        synt = self.grid["syntagmas"].non_empty().intervals
+        out = []
+        for b, e, _ in self.words():
+            mid = 0.5 * (b + e)
+            idx = 0
+            for j, (sb, se, _) in enumerate(synt):
+                if sb - 1e-6 <= mid <= se + 1e-6:
+                    idx = j
+                    break
+            out.append(idx)
+        return out
+
+    def bos_eos_bounds(self) -> tp.Tuple[float, float]:
+        """(leading silence end, trailing silence begin) from the text tier."""
+        words = self.words()
+        if not words:
+            return (self.grid.xmin, self.grid.xmax)
+        return (words[0][0], words[-1][1])
+
+    def text_ends_with(self, suffix: str) -> bool:
+        """Whether the last word's label ends with ``suffix``."""
+        words = self.words()
+        return bool(words) and words[-1][2].strip().endswith(suffix)

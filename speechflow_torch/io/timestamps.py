@@ -1,0 +1,62 @@
+"""Interval timestamps in seconds with frame conversion (counterpart of the
+part of ``speechflow_tpu/io/timestamps.py`` the TTS data plane uses): an
+(N, 2) array of [begin, end) intervals and ``to_frames``, the bridge between
+TextGrid annotations and mel-frame durations. Numpy only."""
+
+from __future__ import annotations
+
+import typing as tp
+
+import numpy as np
+
+__all__ = ["Timestamps"]
+
+
+class Timestamps:
+    def __init__(self, intervals: tp.Union[np.ndarray, tp.Sequence[tp.Sequence[float]]]):
+        arr = np.asarray(intervals, dtype=np.float64)
+        if arr.size == 0:
+            arr = arr.reshape(0, 2)
+        if arr.ndim != 2 or arr.shape[1] != 2:
+            raise ValueError(f"Timestamps expects (N, 2), got {arr.shape}")
+        self.intervals = arr
+
+    def __len__(self) -> int:
+        return len(self.intervals)
+
+    def __iter__(self):
+        return iter(self.intervals)
+
+    @property
+    def begin(self) -> float:
+        return float(self.intervals[0, 0]) if len(self) else 0.0
+
+    @property
+    def end(self) -> float:
+        return float(self.intervals[-1, 1]) if len(self) else 0.0
+
+    def to_frames(self, hop_len: int, sr: int, n_frames: tp.Optional[int] = None) -> np.ndarray:
+        """Convert intervals to integer per-interval frame counts.
+
+        Boundaries are rounded to the nearest frame; counts therefore sum to
+        the (rounded) total span. If ``n_frames`` is given, the last interval
+        absorbs the residual so counts sum exactly to ``n_frames`` (matching
+        the reference's duration/mel-length reconciliation).
+        """
+        fps = sr / hop_len
+        edges = np.round((self.intervals - self.begin) * fps).astype(np.int64)
+        counts = edges[:, 1] - edges[:, 0]
+        counts = np.maximum(counts, 0)
+        if n_frames is not None and len(counts):
+            diff = n_frames - counts.sum()
+            counts[-1] += diff
+            if counts[-1] < 0:
+                # push deficit backwards through earlier intervals
+                for i in range(len(counts) - 1, 0, -1):
+                    if counts[i] < 0:
+                        counts[i - 1] += counts[i]
+                        counts[i] = 0
+                counts[0] = max(counts[0], 0)
+                # final fixup to guarantee the exact total
+                counts[-1] += n_frames - counts.sum()
+        return counts

@@ -16,11 +16,16 @@ PyTorch's layout (``speechflow_torch.convert`` maps flax's onto them):
   SAME, and correlate with the kernel unflipped. (``nn.ConvTranspose1d`` with
   a permuted kernel is a different function.)
 - ``MultiHeadAttention``: ``nnx.MultiHeadAttention`` self-attention with
-  q/k/v/out projections, through ``flash_attention_fn``.
+  q/k/v/out projections, through ``flash_attention_fn`` (``dropout`` on the
+  attention weights when ``deterministic`` is False, flax's ``dropout_rate``).
+
+``flax_init_`` draws a module's weights from flax's default initialisers, so a
+model trained from scratch starts where the JAX one does.
 """
 
 from __future__ import annotations
 
+import math
 import typing as tp
 
 import torch
@@ -29,7 +34,12 @@ import torch.nn.functional as F
 
 from speechflow_torch.ops.attention import flash_attention_fn
 
-__all__ = ["Conv1d", "Conv2d", "ConvTranspose1d", "MultiHeadAttention", "layer_norm"]
+__all__ = ["Conv1d", "Conv2d", "ConvTranspose1d", "MultiHeadAttention", "flax_init_",
+           "layer_norm"]
+
+# the standard deviation of a unit normal truncated to ±2 (``variance_scaling``'s
+# "truncated_normal" divides by it)
+_TRUNC_STD = 0.87962566103423978
 
 
 def layer_norm(dim: int, affine: bool = True) -> nn.LayerNorm:
@@ -110,10 +120,11 @@ class ConvTranspose1d(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Self-attention with flax's projections: (B, T, D) -> (B, T, D)."""
 
-    def __init__(self, dim: int, n_heads: int):
+    def __init__(self, dim: int, n_heads: int, dropout: float = 0.0):
         super().__init__()
         if dim % n_heads:
             raise ValueError(f"dim {dim} not divisible by {n_heads} heads")
+        self.dropout = dropout
         self.n_heads = n_heads
         self.head_dim = dim // n_heads
         self.query = nn.Linear(dim, dim)
@@ -121,12 +132,42 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor,
-                valid: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid: tp.Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
         b, t, _ = x.shape
         shape = (b, t, self.n_heads, self.head_dim)
         q = self.query(x).view(shape)
         k = self.key(x).view(shape)
         v = self.value(x).view(shape)
-        o = flash_attention_fn(q, k, v, valid)
+        o = flash_attention_fn(q, k, v, valid, dropout_rate=self.dropout,
+                               deterministic=deterministic)
         return self.out(o.reshape(b, t, -1))
+
+
+def flax_init_(module: nn.Module) -> nn.Module:
+    """Flax's default initialisers over every layer of ``module``, in place, from
+    torch's global generator: the kernels of ``nnx.Linear``, ``nnx.Conv`` and
+    ``nnx.ConvTranspose`` lecun-normal (std 1/sqrt(fan_in), fan_in = all but the
+    output axis, truncated at two of the normal's deviations), their biases zero;
+    ``nnx.Embed`` normal with std 1/sqrt(features); ``nnx.LayerNorm`` scale 1,
+    bias 0. The layers a module names in its ``zero_init`` start at zero, as flax's
+    ``zeros_init`` kernels with zero biases. Other parameters keep their
+    constructed values."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, ConvTranspose1d)):
+                std = math.prod(m.weight.shape[1:]) ** -0.5 / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                nn.init.normal_(m.weight, std=m.embedding_dim ** -0.5)
+            elif isinstance(m, nn.LayerNorm) and m.elementwise_affine:
+                m.weight.fill_(1.0)
+                if m.bias is not None:
+                    m.bias.zero_()
+        for m in module.modules():
+            for name in getattr(m, "zero_init", ()):
+                for p in getattr(m, name).parameters():
+                    p.zero_()
+    return module

@@ -1,6 +1,8 @@
 """Acoustic model (counterpart of ``speechflow_tpu.models.tts``)."""
 
-from speechflow_torch.models.tts.data_types import TTSForwardInput, TTSOutput
+from speechflow_torch.models.tts.criterion import TTSCriterion
+from speechflow_torch.models.tts.data_types import TTSForwardInput, TTSOutput, TTSTarget
 from speechflow_torch.models.tts.model import ParallelTTSModel, ParallelTTSParams
 
-__all__ = ["ParallelTTSModel", "ParallelTTSParams", "TTSForwardInput", "TTSOutput"]
+__all__ = ["ParallelTTSModel", "ParallelTTSParams", "TTSCriterion", "TTSForwardInput",
+           "TTSOutput", "TTSTarget"]

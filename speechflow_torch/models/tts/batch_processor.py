@@ -1,8 +1,13 @@
-"""Collated batch -> ``TTSForwardInput`` (counterpart of
-``speechflow_tpu/models/tts/batch_processor.py``, its inference half): the
-collated numpy arrays become CPU tensors of the same dtypes, the SSML
-modifiers of ``additional`` included. The training targets and the speaker
-range table wait for the trainer."""
+"""Collated batch -> the acoustic model's inputs (counterpart of
+``speechflow_tpu/models/tts/batch_processor.py``): the collated numpy arrays
+become CPU tensors of the same dtypes, the SSML modifiers of ``additional``
+included.
+
+``TTSBatchProcessor()`` returns ``(TTSForwardInput, TTSTarget)``, as the JAX
+processor does; a raw-text batch (the eval interface's) has no mel, so its
+target holds only the token fields. The speaker range table of the JAX
+processor waits for a model that reads it.
+"""
 
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ import numpy as np
 import torch
 
 from speechflow_torch.data.collate import CollatedTTS
-from speechflow_torch.models.tts.data_types import TTSForwardInput
+from speechflow_torch.models.tts.data_types import TTSForwardInput, TTSTarget
 
 __all__ = ["TTSBatchProcessor"]
 
@@ -22,10 +27,14 @@ def _tensor(x) -> tp.Optional[torch.Tensor]:
     return None if x is None else torch.from_numpy(np.ascontiguousarray(x))
 
 
+def _fields(cls, c: CollatedTTS, extra: tp.Mapping) -> dict:
+    names = [f.name for f in dataclasses.fields(cls)]
+    values = {name: getattr(c, name, None) for name in names}
+    values.update({k: extra.get(k) for k in names if k in extra})
+    return {k: _tensor(v) for k, v in values.items()}
+
+
 class TTSBatchProcessor:
-    def __call__(self, c: CollatedTTS) -> TTSForwardInput:
-        extra = c.additional or {}
-        fields = {f.name for f in dataclasses.fields(TTSForwardInput)}
-        values = {name: getattr(c, name, None) for name in fields}
-        values.update({k: extra.get(k) for k in fields if k in extra})
-        return TTSForwardInput(**{k: _tensor(v) for k, v in values.items()})
+    def __call__(self, c: CollatedTTS) -> tp.Tuple[TTSForwardInput, TTSTarget]:
+        inputs = TTSForwardInput(**_fields(TTSForwardInput, c, c.additional or {}))
+        return inputs, TTSTarget(**_fields(TTSTarget, c, {}))

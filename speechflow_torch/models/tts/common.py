@@ -1,6 +1,12 @@
 """Acoustic-model building blocks (counterpart of
-``speechflow_tpu/models/tts/common.py``), inference only: channels-last,
-masked, dropout-free (the JAX blocks' dropout is the identity at inference).
+``speechflow_tpu/models/tts/common.py``): channels-last and masked.
+
+Dropout follows the JAX blocks: each block takes ``deterministic`` (True by
+default, the inference call) and drops at its rate only when it is False,
+at the sites the JAX blocks drop (after a conv block's activation, a
+transformer block's attention weights and both residual branches, a DiT
+block's attention weights). The JAX ``PreNet`` has no caller in either
+package and is not ported.
 """
 
 from __future__ import annotations
@@ -14,13 +20,21 @@ import torch.nn.functional as F
 
 from speechflow_torch.models.layers import Conv1d, MultiHeadAttention, layer_norm
 
-__all__ = ["sinusoidal_embedding", "rope_rotate", "gelu", "ConvBlock", "ConvStack",
-           "AdaLayerNorm", "FiLM", "ConditionalLayer", "TransformerBlock", "DiTBlock"]
+__all__ = ["sinusoidal_embedding", "rope_rotate", "gelu", "dropout", "ConvBlock", "ConvStack",
+           "AdaLayerNorm", "FiLM", "ConditionalLayer", "TransformerBlock",
+           "DiTBlock"]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``nnx.gelu``: the tanh approximation (torch's default is erf)."""
     return F.gelu(x, approximate="tanh")
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
+    """``nnx.Dropout``: the identity when ``deterministic`` or at rate 0."""
+    if deterministic or rate == 0.0:
+        return x
+    return F.dropout(x, rate, training=True)
 
 
 def _freqs(half: int, max_period: float, device) -> torch.Tensor:
@@ -52,28 +66,31 @@ def rope_rotate(x: torch.Tensor, max_period: float = 10000.0) -> torch.Tensor:
 
 
 class ConvBlock(nn.Module):
-    """SAME conv -> LayerNorm -> ReLU (the activation every stack of the slice uses)."""
+    """SAME conv -> LayerNorm -> ReLU (the activation every stack of the slice
+    uses) -> dropout."""
 
-    def __init__(self, dim_in: int, dim_out: int, kernel_size: int = 5):
+    def __init__(self, dim_in: int, dim_out: int, kernel_size: int = 5,
+                 dropout: float = 0.1):
         super().__init__()
         self.conv = Conv1d(dim_in, dim_out, kernel_size)
         self.norm = layer_norm(dim_out)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.norm(self.conv(x)))
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        return dropout(F.relu(self.norm(self.conv(x))), self.dropout, deterministic)
 
 
 class ConvStack(nn.Module):
     def __init__(self, dim_in: int, dim: int, dim_out: int, n_layers: int = 3,
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, dropout: float = 0.1):
         super().__init__()
         dims = [dim_in] + [dim] * (n_layers - 1) + [dim_out]
         self.blocks = nn.ModuleList(
-            ConvBlock(dims[i], dims[i + 1], kernel_size) for i in range(n_layers))
+            ConvBlock(dims[i], dims[i + 1], kernel_size, dropout) for i in range(n_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, deterministic)
         return x
 
 
@@ -85,7 +102,10 @@ def _modulation(proj: nn.Linear, cond: torch.Tensor, ndim: int):
 
 
 class AdaLayerNorm(nn.Module):
-    """LayerNorm (no affine) with condition-predicted scale and shift."""
+    """LayerNorm (no affine) with condition-predicted scale and shift (the
+    projection zero under ``flax_init_``, as JAX's: the identity modulation)."""
+
+    zero_init = ("proj",)
 
     def __init__(self, dim: int, cond_dim: int):
         super().__init__()
@@ -138,43 +158,52 @@ class ConditionalLayer(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN MHA + FFN with RoPE on the normed hidden state before q/k/v."""
+    """Pre-LN MHA + FFN with RoPE on the normed hidden state before q/k/v;
+    ``dropout`` on the attention weights and on both residual branches."""
 
     def __init__(self, dim: int, n_heads: int = 4, ffn_mult: int = 4,
-                 use_rope: bool = True):
+                 dropout: float = 0.1, use_rope: bool = True):
         super().__init__()
         self.norm1 = layer_norm(dim)
-        self.attn = MultiHeadAttention(dim, n_heads)
+        self.attn = MultiHeadAttention(dim, n_heads, dropout)
         self.norm2 = layer_norm(dim)
         self.ffn1 = nn.Linear(dim, ffn_mult * dim)
         self.ffn2 = nn.Linear(ffn_mult * dim, dim)
+        self.dropout = dropout
         self.use_rope = use_rope
 
-    def forward(self, x: torch.Tensor,
-                valid: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid: tp.Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
         h = self.norm1(x)
         if self.use_rope:
             h = rope_rotate(h)
-        x = x + self.attn(h, valid)
-        return x + self.ffn2(gelu(self.ffn1(self.norm2(x))))
+        x = x + dropout(self.attn(h, valid, deterministic), self.dropout, deterministic)
+        h = self.ffn2(gelu(self.ffn1(self.norm2(x))))
+        return x + dropout(h, self.dropout, deterministic)
 
 
 class DiTBlock(nn.Module):
-    """AdaNorm-modulated attention + MLP with gated residuals."""
+    """AdaNorm-modulated attention + MLP with gated residuals; ``dropout`` on
+    the attention weights only. The modulation is zero under ``flax_init_``, as
+    JAX's."""
 
-    def __init__(self, dim: int, cond_dim: int, n_heads: int = 4, ffn_mult: int = 4):
+    zero_init = ("mod",)
+
+    def __init__(self, dim: int, cond_dim: int, n_heads: int = 4, ffn_mult: int = 4,
+                 dropout: float = 0.0):
         super().__init__()
         self.mod = nn.Linear(cond_dim, 6 * dim)
         self.norm1 = layer_norm(dim, affine=False)
-        self.attn = MultiHeadAttention(dim, n_heads)
+        self.attn = MultiHeadAttention(dim, n_heads, dropout)
         self.norm2 = layer_norm(dim, affine=False)
         self.ffn1 = nn.Linear(dim, ffn_mult * dim)
         self.ffn2 = nn.Linear(ffn_mult * dim, dim)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
-                valid: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+                valid: tp.Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
         sh1, sc1, g1, sh2, sc2, g2 = self.mod(cond)[:, None, :].chunk(6, dim=-1)
         h = rope_rotate(self.norm1(x) * (1 + sc1) + sh1)
-        x = x + g1 * self.attn(h, valid)
+        x = x + g1 * self.attn(h, valid, deterministic)
         h = self.norm2(x) * (1 + sc2) + sh2
         return x + g2 * self.ffn2(gelu(self.ffn1(h)))

@@ -1,5 +1,6 @@
 """Acoustic-model IO (counterpart of ``speechflow_tpu/models/tts/data_types.py``;
-the fields the slice reads and writes)."""
+the fields the ported paths read and write): the model's inputs, the
+criterion's targets and the model's output."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import typing as tp
 
 import torch
 
-__all__ = ["TTSForwardInput", "TTSOutput"]
+__all__ = ["TTSForwardInput", "TTSTarget", "TTSOutput"]
 
 Tensor = tp.Optional[torch.Tensor]
 
@@ -29,6 +30,8 @@ class TTSForwardInput:
     prosody: Tensor = None                # (B, N) int, -1 undefined
     mel: Tensor = None                    # (B, T, n_mels)
     mel_lengths: Tensor = None
+    pitch: Tensor = None                  # (B, T) frame-level
+    energy: Tensor = None
     pitch_modifier: Tensor = None         # (B, N) SSML factors, 1.0 outside a span
     volume_modifier: Tensor = None
     rate_modifier: Tensor = None
@@ -52,6 +55,18 @@ class TTSForwardInput:
 
 
 @dataclasses.dataclass
+class TTSTarget:
+    mel: Tensor = None                    # (B, T, n_mels)
+    mel_lengths: Tensor = None
+    gate: Tensor = None                   # (B, T) stop target, 1 from the last frame on
+    durations: Tensor = None              # (B, N)
+    aggregate_pitch: Tensor = None
+    aggregate_energy: Tensor = None
+    transcription_lengths: Tensor = None
+    speaker_id: Tensor = None
+
+
+@dataclasses.dataclass
 class TTSOutput:
     spectrogram: Tensor = None            # (S, B, T, n_mels): decoder, postnet
     spectrogram_lengths: Tensor = None
@@ -59,6 +74,7 @@ class TTSOutput:
     variance_predictions: tp.Optional[tp.Dict[str, torch.Tensor]] = None
     attention: Tensor = None              # (B, T, N) length-regulator alignment
     additional_content: tp.Optional[tp.Dict[str, torch.Tensor]] = None
+    additional_losses: tp.Optional[tp.Dict[str, torch.Tensor]] = None
 
     @property
     def after_postnet_spectrogram(self) -> Tensor:

@@ -1,11 +1,26 @@
-"""ParallelTTSModel, inference path (counterpart of
-``speechflow_tpu/models/tts/model.py``).
+"""ParallelTTSModel (counterpart of ``speechflow_tpu/models/tts/model.py``).
 
 Embedding (+ ling/LM/XPBERT projections) -> cond0 -> encoder -> cond1 ->
-variance adaptor (predicted, rounded durations; hard length regulation) ->
-cond2 -> decoder (CFM with batched CFG, or the wrapper decoder) -> postnet,
-and the gate head. Training, style/prosody/average conditioning, the other
-encoders and decoders wait for later slices: their flags raise here.
+variance adaptor (hard length regulation) -> cond2 -> decoder (CFM with
+batched CFG, or the wrapper decoder) -> postnet, and the gate head.
+
+Two calls, chosen by ``training`` (by default the module's mode: a model in
+``train()`` mode trains, one in ``eval()`` mode infers, so the generic
+``Trainer``'s ``model(inputs)`` gets the training call and every serving
+caller, which holds the model in eval mode, gets inference):
+
+- inference: predicted, rounded durations over ``t_out`` frames, the CFM's
+  Euler solve from the given or drawn noise;
+- training (teacher-forced): the target durations, ``t_out`` = the mel's
+  frames and the mel lengths as output lengths, the CFM's flow-matching loss
+  (``CFMDecoder.forward_train``) in ``additional_losses`` and its prior as
+  the decoder output.
+
+``deterministic`` (default: not ``training``) switches dropout off apart from
+teacher forcing, as the JAX model's argument does. The weights start from
+flax's default initialisers (``flax_init_``), as the JAX model's do.
+Style/prosody/average conditioning, the other encoders and decoders wait for
+later slices: their flags raise here.
 """
 
 from __future__ import annotations
@@ -16,9 +31,10 @@ import typing as tp
 import torch
 import torch.nn as nn
 
+from speechflow_torch.models.layers import flax_init_
 from speechflow_torch.models.tts.common import ConditionalLayer, ConvStack
 from speechflow_torch.models.tts.data_types import TTSForwardInput, TTSOutput
-from speechflow_torch.models.tts.decoders import TTS_DECODERS, CFMDecoder
+from speechflow_torch.models.tts.decoders import TTS_DECODERS, CFMDecoder, CFMDraws
 from speechflow_torch.models.tts.encoders import TTS_ENCODERS
 from speechflow_torch.models.tts.variance_adaptor import (
     HierarchicalVarianceAdaptor,
@@ -129,7 +145,8 @@ class ParallelTTSModel(nn.Module):
         make_cond(0, content_dim)
         self.encoder = TTS_ENCODERS[p.encoder_type](
             dim_in=content_dim, dim_out=p.encoder_dim, dim=p.encoder_dim,
-            n_layers=p.encoder_layers, n_heads=p.encoder_heads, cond_dim=cond_dim)
+            n_layers=p.encoder_layers, n_heads=p.encoder_heads, cond_dim=cond_dim,
+            dropout=p.dropout)
         make_cond(1, p.encoder_dim)
 
         self.variance_adaptor = HierarchicalVarianceAdaptor(
@@ -150,9 +167,10 @@ class ParallelTTSModel(nn.Module):
         make_cond(3, p.n_mels)
 
         self.postnet = ConvStack(p.n_mels, p.postnet_dim, p.n_mels,
-                                 n_layers=p.postnet_layers, kernel_size=5)
+                                 n_layers=p.postnet_layers, kernel_size=5, dropout=p.dropout)
         if p.use_gate:
             self.gate_head = nn.Linear(p.n_mels, 1)
+        flax_init_(self)
 
     def _cond(self, level: int, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         layer = self.conds[f"level{level}"] if f"level{level}" in self.conds else None
@@ -161,18 +179,26 @@ class ParallelTTSModel(nn.Module):
     def noise_shape(self, inputs: TTSForwardInput, t_out: int) -> tp.Tuple[int, int, int]:
         return (inputs.transcription.shape[0], t_out, self.p.n_mels)
 
-    def forward(self, inputs: TTSForwardInput, training: bool = False,
+    def forward(self, inputs: TTSForwardInput, training: tp.Optional[bool] = None,
                 t_out: tp.Optional[int] = None,
                 noise: tp.Optional[torch.Tensor] = None,
                 generator: tp.Optional[torch.Generator] = None,
-                cfm_timesteps: tp.Optional[int] = None) -> TTSOutput:
-        """Inference. ``noise`` is the CFM's initial state (already scaled by
-        the temperature); when None it is drawn from ``generator`` and scaled
-        by ``decoder.temperature``. ``cfm_timesteps`` overrides the CFM's
-        number of Euler steps."""
-        if training:
-            raise NotImplementedError("training is not ported yet")
+                cfm_timesteps: tp.Optional[int] = None,
+                deterministic: tp.Optional[bool] = None,
+                cfm_draws: tp.Optional[CFMDraws] = None) -> TTSOutput:
+        """``training``: the teacher-forced call (None: ``self.training``),
+        which needs ``inputs.mel``, ``mel_lengths`` and ``durations``.
+        Inference: ``noise`` is the CFM's initial state (already scaled by the
+        temperature); when None it is drawn from ``generator`` and scaled by
+        ``decoder.temperature``; ``cfm_timesteps`` overrides the CFM's number
+        of Euler steps. Training: ``cfm_draws`` are the CFM's u, z and CFG
+        masks, else drawn from ``generator``."""
+        training = self.training if training is None else training
+        det = (not training) if deterministic is None else deterministic
         p = self.p
+        if training and (inputs.mel is None or inputs.mel_lengths is None):
+            raise ValueError("the training call needs inputs.mel and mel_lengths "
+                             "(a model in train() mode trains: call eval() to infer)")
         tok_lens = inputs.transcription_lengths
         x = self.token_emb(inputs.transcription)
         if p.use_ling_feat and inputs.ling_feat is not None:
@@ -188,31 +214,40 @@ class ParallelTTSModel(nn.Module):
         cond = torch.cat(parts, dim=-1)
 
         x = self._cond(0, x, cond)
-        x = self.encoder(x, tok_lens, cond)
+        x = self.encoder(x, tok_lens, cond, deterministic=det)
         x = self._cond(1, x, cond)
 
         if t_out is None:
             t_out = inputs.mel.shape[1] if inputs.mel is not None else p.max_output_length
         x, out_lengths, var_preds, attn = self.variance_adaptor(
-            x, tok_lens, inputs, t_out, training=False)
+            x, tok_lens, inputs, t_out, training=training, deterministic=det)
+        if training:
+            out_lengths = inputs.mel_lengths
         x = self._cond(2, x, cond)
 
         extra: tp.Dict[str, torch.Tensor] = {}
+        losses: tp.Dict[str, torch.Tensor] = {}
         if isinstance(self.decoder, CFMDecoder):
-            if noise is None:
-                noise = torch.randn(self.noise_shape(inputs, t_out), generator=generator,
-                                    device=x.device, dtype=torch.float32)
-                noise = noise * self.decoder.temperature
-            mu, dec_out = self.decoder.generate(x, out_lengths, cond, noise.to(x.dtype),
-                                                n_timesteps=cfm_timesteps)
-            extra["cfm_prior"] = mu
+            if training:
+                dec_out, cfm_losses = self.decoder.forward_train(
+                    x, out_lengths, inputs.mel.to(x.dtype), cond, draws=cfm_draws,
+                    generator=generator)
+                losses.update(cfm_losses)
+            else:
+                if noise is None:
+                    noise = torch.randn(self.noise_shape(inputs, t_out), generator=generator,
+                                        device=x.device, dtype=torch.float32)
+                    noise = noise * self.decoder.temperature
+                mu, dec_out = self.decoder.generate(x, out_lengths, cond, noise.to(x.dtype),
+                                                    n_timesteps=cfm_timesteps)
+                extra["cfm_prior"] = mu
         else:
-            dec_out = self.decoder(x, out_lengths, cond)
+            dec_out = self.decoder(x, out_lengths, cond, deterministic=det)
 
-        post = dec_out + self.postnet(dec_out)
+        post = dec_out + self.postnet(dec_out, det)
         post = apply_mask(post, sequence_mask(out_lengths, post.shape[1]))
         gate = self.gate_head(dec_out)[..., 0] if p.use_gate else None
         return TTSOutput(spectrogram=torch.stack([dec_out, post]),
                          spectrogram_lengths=out_lengths, gate=gate,
                          variance_predictions=var_preds, attention=attn,
-                         additional_content=extra)
+                         additional_content=extra, additional_losses=losses)

@@ -19,14 +19,14 @@ class VariancePredictor(nn.Module):
     """Conv stack -> per-position scalar."""
 
     def __init__(self, dim_in: int, dim: int = 256, n_layers: int = 3,
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, dropout: float = 0.1):
         super().__init__()
-        self.stack = ConvStack(dim_in, dim, dim, n_layers, kernel_size)
+        self.stack = ConvStack(dim_in, dim, dim, n_layers, kernel_size, dropout)
         self.out = nn.Linear(dim, 1)
 
-    def forward(self, x: torch.Tensor,
-                lengths: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
-        v = self.out(self.stack(x))[..., 0]
+    def forward(self, x: torch.Tensor, lengths: tp.Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        v = self.out(self.stack(x, deterministic))[..., 0]
         if lengths is not None:
             v = apply_mask(v, sequence_mask(lengths, v.shape[1]))
         return v
@@ -36,14 +36,14 @@ class TokenLevelDP(nn.Module):
     """Duration predictor in the log(1 + d) domain."""
 
     def __init__(self, dim_in: int, dim: int = 256, n_layers: int = 2,
-                 kernel_size: int = 3):
+                 kernel_size: int = 3, dropout: float = 0.1):
         super().__init__()
-        self.stack = ConvStack(dim_in, dim, dim, n_layers, kernel_size)
+        self.stack = ConvStack(dim_in, dim, dim, n_layers, kernel_size, dropout)
         self.out = nn.Linear(dim, 1)
 
-    def forward(self, x: torch.Tensor,
-                lengths: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
-        v = self.out(self.stack(x))[..., 0]
+    def forward(self, x: torch.Tensor, lengths: tp.Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        v = self.out(self.stack(x, deterministic))[..., 0]
         if lengths is not None:
             v = apply_mask(v, sequence_mask(lengths, v.shape[1]))
         return v

@@ -4,13 +4,17 @@
 The slice's form: raw-value variances (pitch, energy, ...) are predicted per
 token and concatenated to the content in order; ``durations`` drive hard
 length regulation. At inference (``training=False``) durations are predicted
-and rounded; with ``training=True`` and given targets, the targets are used
-(the teacher-forced branch). The SSML modifiers of the inputs multiply the
-pitch and energy values (``pitch_modifier``, ``volume_modifier``), and
-predicted durations are divided by ``max(rate_modifier, 1e-3)`` before they
-are rounded. Variance embeddings, discriminators, the
-in-model aligner, multi-stream routing and the soft regulator wait for a
-later slice; their config flags raise here.
+and rounded, and a predicted value conditions the content detached from the
+graph; with ``training=True`` and given targets, the targets are used as
+they are (the teacher-forced branch). A variance with ``detach_input`` feeds
+its predictor the content detached. Each predictor drops at its own
+``VarianceConfig.dropout`` (the duration predictor at its default 0.1, as
+the JAX adaptor builds it) when ``deterministic`` is False. The SSML
+modifiers of the inputs multiply the pitch and energy values
+(``pitch_modifier``, ``volume_modifier``), and predicted durations are
+divided by ``max(rate_modifier, 1e-3)`` before they are rounded. Variance
+embeddings, discriminators, the in-model aligner, multi-stream routing and
+the soft regulator wait for a later slice; their config flags raise here.
 """
 
 from __future__ import annotations
@@ -34,9 +38,9 @@ class VarianceConfig:
     dim: int = 256
     n_layers: int = 3
     kernel_size: int = 5
-    dropout: float = 0.1          # training only
+    dropout: float = 0.1          # the variance predictor's, not the duration predictor's
     use_target: bool = True
-    detach_input: bool = False    # training only
+    detach_input: bool = False
     cat_to_content: bool = True
     # not ported yet: each raises when set
     as_embedding: bool = False
@@ -67,13 +71,13 @@ class HierarchicalVarianceAdaptor(nn.Module):
                 self.predictors[v.name] = TokenLevelDP(cur, v.dim)
             else:
                 self.predictors[v.name] = VariancePredictor(cur, v.dim, v.n_layers,
-                                                            v.kernel_size)
+                                                            v.kernel_size, v.dropout)
                 if v.cat_to_content:
                     cur += 1
         self.dim_out = cur
 
     def forward(self, content: torch.Tensor, token_lengths: torch.Tensor, inputs,
-                t_out: int, training: bool = False):
+                t_out: int, training: bool = False, deterministic: bool = True):
         """Returns (content (B, t_out, dim_out), out_lengths, predictions, attn)."""
         predictions: tp.Dict[str, torch.Tensor] = {}
         # SSML modifiers multiply the conditioning values
@@ -83,10 +87,12 @@ class HierarchicalVarianceAdaptor(nn.Module):
         for v in self.variances:
             if v.name == "durations":
                 continue
-            pred = self.predictors[v.name](x, token_lengths)
+            inp = x.detach() if v.detach_input else x
+            pred = self.predictors[v.name](inp, token_lengths, deterministic)
             predictions[v.name] = pred
             target = inputs.get(v.target or v.name)
-            value = target if (training and v.use_target and target is not None) else pred
+            value = target if (training and v.use_target and target is not None) \
+                else pred.detach()
             mod = modifiers.get(v.name)
             if mod is not None:
                 value = value * mod.to(value.dtype)
@@ -97,7 +103,8 @@ class HierarchicalVarianceAdaptor(nn.Module):
         attn = None
         out_lengths = token_lengths
         if dur_cfg is not None:
-            log_d = self.predictors["durations"](x, token_lengths)
+            dur_in = x.detach() if dur_cfg.detach_input else x
+            log_d = self.predictors["durations"](dur_in, token_lengths, deterministic)
             predictions["durations"] = log_d
             target_d = inputs.get("durations")
             if training and dur_cfg.use_target and target_d is not None:

@@ -9,7 +9,10 @@ the kernel or raises.
 ``flash_attention_fn`` keeps the JAX wrapper's contract: q/k/v are
 (B, T, H, dh), padded keys are masked out of every softmax row and padded
 query rows come out as zeros (flax's CPU fallback leaves a uniform average
-there instead; compare valid rows only).
+there instead; compare valid rows only). As the JAX wrapper's ``_flash_ok``
+does, it sends only the deterministic call to the kernel: a training call
+(``deterministic=False``) takes the plain version, with dropout on the
+attention weights, and gets autograd's backward.
 """
 
 from __future__ import annotations
@@ -29,17 +32,23 @@ MAX_HEAD_DIM = 128
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        valid: torch.Tensor) -> torch.Tensor:
+                        valid: torch.Tensor, dropout_rate: float = 0.0) -> torch.Tensor:
     """Plain version: einsum, masked softmax, einsum; f32 logits and sums.
 
     q/k/v: (B, T, H, dh); valid: (B, T) bool or 0/1. Returns (B, T, H, dh) in
-    q's dtype with padded query rows zeroed.
+    q's dtype with padded query rows zeroed. ``dropout_rate`` > 0 drops
+    attention weights with one (T, T) mask shared by the batch and the heads,
+    scaling the kept ones by 1 / (1 - rate), as flax's ``broadcast_dropout``.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
     keep = valid.to(torch.bool)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     logits = logits.masked_fill(~keep[:, None, None, :], -1e30)
     w = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        t_q, t_k = w.shape[-2:]
+        kept = torch.rand((1, 1, t_q, t_k), device=w.device) >= dropout_rate
+        w = w * kept / (1.0 - dropout_rate)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
     return (out * keep[:, :, None, None].float()).to(q.dtype)
 
@@ -104,12 +113,16 @@ fused_attention.launches = 0
 
 
 def flash_attention_fn(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
-                       mask: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+                       mask: tp.Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+                       deterministic: bool = True) -> torch.Tensor:
     """q/k/v (B, T, H, dh) -> (B, T, H, dh).
 
     ``mask`` is the blocks' 4-D mask ``valid[:,None,None,:] & valid[:,None,:,None]``
     (the key validity is recovered as ``mask[:, 0, 0, :]``; row 0 is always
     valid since lengths >= 1), a (B, T) validity vector, or None (all valid).
+    ``deterministic=False`` (training) runs ``attention_reference`` with
+    ``dropout_rate`` on the weights; ``deterministic=True`` runs
+    ``fused_attention`` (the kernel on a CUDA tensor).
     """
     b, t = query.shape[:2]
     if mask is None:
@@ -120,4 +133,6 @@ def flash_attention_fn(query: torch.Tensor, key: torch.Tensor, value: torch.Tens
         valid = mask
     else:
         raise ValueError(f"mask must be 4-D or (B, T), got {tuple(mask.shape)}")
+    if not deterministic:
+        return attention_reference(query, key, value, valid, dropout_rate)
     return fused_attention(query, key, value, valid)

@@ -1,7 +1,8 @@
 """What the training entry points share (counterpart of the parts of
-``speechflow_tpu/scripts/common.py`` the vocoder script uses): the
+``speechflow_tpu/scripts/common.py`` the vocoder and TTS scripts use): the
 experiment directory with its configs, the data pipeline and its loaders,
-and the optimizer and trainer configs read from a model config.
+the optimizer and trainer configs read from a model config, and the model
+params sized from the pipeline (``model_config_from_info``).
 
 Configs are plain nested dicts (the sections of the YAML files, one
 ``value_select`` resolved): the machine with the GPU has no YAML reader, so
@@ -11,6 +12,7 @@ JSON, which YAML readers also read.
 
 from __future__ import annotations
 
+import copy
 import json
 import typing as tp
 from pathlib import Path
@@ -20,7 +22,8 @@ from speechflow_torch.training.optimizer import OptimizerConfig
 from speechflow_torch.training.saver import ExperimentSaver
 from speechflow_torch.training.trainer import TrainerConfig
 
-__all__ = ["experiment_saver", "build_data", "trainer_config", "optimizer_config"]
+__all__ = ["experiment_saver", "build_data", "model_config_from_info", "trainer_config",
+           "optimizer_config"]
 
 
 def experiment_saver(model_cfg: tp.Mapping, data_cfg: tp.Mapping,
@@ -55,6 +58,24 @@ def build_data(data_cfg: tp.Mapping, model_cfg: tp.Mapping
             ld.close()
         raise
     return pipeline, loaders
+
+
+def model_config_from_info(model_cfg: tp.Mapping, pipeline: DataPipeline) -> dict:
+    """The model section with the dimensions the data decides: ``n_symbols``
+    (the alphabet), ``n_speakers`` and ``n_langs`` (``SpeakerIDSetter``, at
+    least 1 each) and ``n_mels`` (the ``linear_to_mel`` handler's)."""
+    info = pipeline.get_info()
+    m = copy.deepcopy(dict(model_cfg.get("model") or {}))
+    if pipeline.alphabet is not None:
+        m["n_symbols"] = len(pipeline.alphabet)
+    spk = (info.get("singletons") or {}).get("SpeakerIDSetter", {})
+    m["n_speakers"] = max(len(spk.get("speaker2id", {})), 1)
+    m["n_langs"] = max(len(spk.get("lang2id", {})), 1)
+    pipe_cfg = (info["config"].get("preproc") or {}).get("pipe_cfg") or {}
+    n_mels = (pipe_cfg.get("linear_to_mel") or {}).get("n_mels")
+    if n_mels:
+        m["n_mels"] = int(n_mels)
+    return m
 
 
 def trainer_config(model_cfg: tp.Mapping) -> TrainerConfig:

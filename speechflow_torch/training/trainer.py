@@ -5,7 +5,10 @@
 names that contain ``constant`` (logged only); one ``Optimizer.step`` per
 micro-batch (``training.optimizer``: NaN guard, clip, accumulation, windows);
 periodic validation, TensorBoard scalars and checkpoints through
-``ExperimentSaver``.
+``ExperimentSaver``. The model runs in ``train()`` mode in both steps: the
+JAX trainer validates with the model's training call too (``_val_step``
+calls ``model(inputs)``), which for the acoustic model is the teacher-forced
+call with dropout; validation only runs it without gradients.
 
 Mixed precision is ``torch.autocast(bfloat16)`` over the model's call with
 float32 master weights, optimizer state and gradients; the outputs are cast
@@ -68,11 +71,14 @@ def _sum_losses(losses: tp.Mapping[str, torch.Tensor]):
 
 
 def _place(tree, device: torch.device):
-    """Numpy arrays and tensors of a nested dict/list onto ``device``."""
+    """Numpy arrays and tensors of a nested dict/list/dataclass onto ``device``."""
     if isinstance(tree, np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: _place(getattr(tree, f.name), device)
+                                            for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
         return {k: _place(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -149,7 +155,7 @@ class Trainer:
 
     @torch.no_grad()
     def validation_step(self, batch) -> tp.Dict[str, float]:
-        self.model.eval()
+        self.model.train()  # the training call, as the JAX trainer validates
         inputs, targets = _place(self.batch_processor(batch), self.device)
         losses = self.criterion(self._forward(inputs), targets, self.global_step)
         out = {k: float(v) for k, v in losses.items()}

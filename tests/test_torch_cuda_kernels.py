@@ -8,6 +8,8 @@ conftest (which imports JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -264,3 +266,110 @@ def test_fused_attention_refuses_to_cut_the_graph(cuda_device, rng):
         A.fused_attention(q.requires_grad_(), k, v, valid)
     with torch.no_grad():
         assert A.fused_attention(q, k, v, valid).shape == q.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", ["transformer", "dit"])
+def test_training_blocks_take_the_plain_attention_on_the_gpu(cuda_device, block):
+    """A training call (``deterministic=False``) of a transformer or DiT block on
+    the card takes the plain attention, launches no kernel, and its output and
+    gradients (input and every parameter) equal the CPU's within 1e-4 of their
+    scale at dropout 0 (or of 1e-3 of the largest gradient where that is more:
+    the key bias's true gradient is 0, softmax being shift-invariant, so both
+    sides hold only rounding there); at dropout 0.1 it also runs without a
+    launch; the inference call under ``no_grad`` launches the kernel once."""
+    from speechflow_torch.models.tts.common import DiTBlock, TransformerBlock
+
+    gen = torch.Generator().manual_seed(0)
+    if block == "dit":
+        cpu = DiTBlock(64, 16, n_heads=4)
+        with torch.no_grad():  # zero at init
+            cpu.mod.weight.copy_(0.1 * torch.randn(cpu.mod.weight.shape, generator=gen))
+        cond = torch.randn(2, 16, generator=gen)
+    else:
+        cpu, cond = TransformerBlock(64, n_heads=4, dropout=0.0), None
+    card = copy.deepcopy(cpu).to(cuda_device)
+    x = torch.randn(2, 100, 64, generator=gen)
+    valid = torch.arange(100)[None] < torch.tensor([[100], [57]])
+    mask = valid[:, None, None, :] & valid[:, None, :, None]
+
+    def run(module, dev):
+        xs = x.to(dev).detach().requires_grad_()  # a leaf of its own on every call
+        args = (xs,) if cond is None else (xs, cond.to(dev))
+        out = module(*args, mask.to(dev), deterministic=False)
+        out.backward(torch.ones_like(out))
+        grads = [xs.grad] + [p.grad for p in module.parameters()]
+        return [out.detach()] + [g.detach() for g in grads]
+
+    before = A.fused_attention.launches
+    got, ref = run(card, cuda_device), run(cpu, "cpu")
+    torch.cuda.synchronize()
+    assert A.fused_attention.launches == before
+    floor = 1e-3 * max(v.abs().max().item() for v in ref[1:])
+    for u, v in zip(got, ref):
+        assert (u.cpu() - v).abs().max().item() <= 1e-4 * max(v.abs().max().item(), floor)
+    card.attn.dropout = 0.1
+    run(card, cuda_device)
+    assert A.fused_attention.launches == before
+    with torch.no_grad():
+        args = (x.to(cuda_device),) if cond is None else (x.to(cuda_device), cond.to(cuda_device))
+        card(*args, mask.to(cuda_device))
+    assert A.fused_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_tts_training_step_on_the_gpu_matches_the_cpu(cuda_device):
+    """One ``Trainer`` step of a small CFM acoustic model (the debug recipe's
+    widths with the CFM decoder, seeded random weights so that the DiT
+    modulations, zero at initialisation, let the DiT trunk's gradients through,
+    every dropout rate 0) on two utterances of the repo's corpus through the
+    debug data pipeline, with the same injected u, z and CFG masks, on the card
+    and on the CPU: no parameter's reference update is all zero but the attention
+    key biases' (their true gradient is 0), the losses within 1e-4 of each loss,
+    the updates of an SGD step at lr 1 (the clipped gradient) within 1e-3 of the
+    largest update."""
+    from speechflow_torch import serving
+    from speechflow_torch.data.core.components import DataPipeline
+    from speechflow_torch.models.tts import ParallelTTSModel, ParallelTTSParams, TTSCriterion
+    from speechflow_torch.models.tts.batch_processor import TTSBatchProcessor
+    from speechflow_torch.models.tts.decoders import CFMDraws
+    from speechflow_torch.scripts.common import model_config_from_info
+    from speechflow_torch.scripts.train_tts import configs
+    from speechflow_torch.training.optimizer import OptimizerConfig
+    from speechflow_torch.training.trainer import Trainer, TrainerConfig
+
+    model_cfg, data_cfg = configs("debug")
+    model_cfg["model"]["decoder_type"] = "cfm"
+    pipeline = DataPipeline.from_config(data_cfg)
+    batch = pipeline.datasample_to_batch([s.copy() for s in pipeline.datasets["train"][:2]])
+    cpu = serving.init_random_(
+        ParallelTTSModel(ParallelTTSParams.create(model_config_from_info(model_cfg, pipeline))),
+        torch.Generator().manual_seed(0))
+    for m in cpu.modules():
+        if isinstance(getattr(m, "dropout", None), float):
+            m.dropout = 0.0
+    card = copy.deepcopy(cpu).to(cuda_device)
+    draws = cpu.decoder.draw(2, batch.mel.shape, torch.device("cpu"),
+                             torch.Generator().manual_seed(1))._replace(
+        drop_content=torch.tensor([True, False]).view(2, 1, 1),
+        drop_condition=torch.tensor([False, True]).view(2, 1))
+    sgd = OptimizerConfig.from_config(dict(method="sgd", lr=1.0, lr_schedule="ConstLR",
+                                           grad_clip=1.0, betas=(0.0, 0.999)))
+    results = []
+    for model in (cpu, card):
+        dev = next(model.parameters()).device
+        model.decoder.draw = lambda *a, dev=dev, **k: CFMDraws(*(d.to(dev) for d in draws))
+        before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        trainer = Trainer(model, TTSCriterion(**model_cfg["loss"]),
+                          TTSBatchProcessor(), sgd, TrainerConfig(max_steps=1))
+        losses = {k: float(v) for k, v in trainer.training_step(batch).items()}
+        results.append((losses, {n: p.detach().cpu() - before[n]
+                                 for n, p in model.named_parameters()}))
+    (ref_l, ref_u), (got_l, got_u) = results
+    assert set(got_l) == set(ref_l) and "cfm" in got_l
+    for k, v in ref_l.items():
+        assert abs(got_l[k] - v) <= 1e-4 * abs(v), k
+    assert not [n for n, u in ref_u.items() if not u.any() and not n.endswith(".attn.key.bias")]
+    scale = max(u.abs().max().item() for u in ref_u.values())
+    assert scale > 0
+    assert max((got_u[n] - u).abs().max().item() for n, u in ref_u.items()) <= 1e-3 * scale

@@ -42,8 +42,9 @@ def test_port_sources_import_no_jax():
 
 
 # modules added with the folded head, the DSP ops, the ISTFT vocoder, the
-# vocoder eval interface, the TTS eval interface with its text path, and the
-# vocoder's GAN training: each must exist and be held to the rules above
+# vocoder eval interface, the TTS eval interface with its text path, the
+# vocoder's GAN training, and the acoustic model's training with its data
+# plane: each must exist and be held to the rules above
 NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "models/vocoder/folded_head.py", "models/vocoder/feature_extractors.py",
                "io/audio.py", "training/saver.py", "utils/state_io.py",
@@ -60,7 +61,15 @@ NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "training/trainer.py", "training/gan_trainer.py", "data/parsers.py",
                "data/processors/audio.py", "data/processors/singletons.py",
                "data/samplers.py", "io/flist.py", "utils/init.py", "scripts/common.py",
-               "scripts/train_vocoder.py")
+               "scripts/train_vocoder.py",
+               "io/seg.py", "io/timestamps.py", "data/processors/np_dsp.py",
+               "data/processors/spectral.py", "data/processors/tts.py",
+               "data/processors/__init__.py", "models/tts/criterion.py",
+               "models/tts/model.py", "models/tts/decoders.py", "models/tts/common.py",
+               "models/tts/encoders.py", "models/tts/predictors.py",
+               "models/tts/variance_adaptor.py", "models/tts/data_types.py",
+               "models/layers.py", "ops/attention.py", "training/losses/__init__.py",
+               "training/losses/base.py", "training/losses/zoo.py", "scripts/train_tts.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -134,6 +143,27 @@ def test_training_presets_equal_the_yaml_configs(value_select):
         assert ours == yml, name
 
 
+@pytest.mark.parametrize("value_select", ["default", "debug"])
+@pytest.mark.parametrize("section", ["experiment", "batch", "trainer", "data_loaders",
+                                     "optimizer", "loss", "model", "data"])
+def test_tts_training_presets_equal_the_yaml_configs(value_select, section):
+    """Each section of ``tts_model.yml`` (the model section through
+    ``serving``) and the whole of ``tts_data_24khz.yml``, as ``train_tts``
+    carries them."""
+    from speechflow_tpu.io import Config
+
+    from speechflow_torch.scripts.train_tts import configs
+
+    model_cfg, data_cfg = configs(value_select)
+    name = "tts_data_24khz.yml" if section == "data" else "tts_model.yml"
+    yml = Config.create_from_file(REPO / "configs" / name,
+                                  value_select=[value_select]).to_dict()
+    if section == "data":
+        assert data_cfg == yml
+    else:
+        assert set(model_cfg) == set(yml) and model_cfg[section] == yml[section]
+
+
 def test_train_entry_point_runs_on_the_cpu_only_when_asked(monkeypatch, tmp_path):
     """``train_vocoder.main`` at the debug presets on the CPU writes a checkpoint
     the port loads; without CUDA and without ``--device cpu`` it raises."""
@@ -150,6 +180,32 @@ def test_train_entry_point_runs_on_the_cpu_only_when_asked(monkeypatch, tmp_path
     assert ckpt.name == "step_000000002" and set(tree["model"]) == {"generator",
                                                                     "discriminator"}
     assert payload["pipeline_info"]["dataset_sizes"] == {"train": 6, "test": 6}
+
+
+def test_tts_train_entry_point_runs_on_the_cpu_only_when_asked(monkeypatch, tmp_path):
+    """``train_tts.main`` at the debug presets on the CPU writes a checkpoint
+    (with the pipeline info and model params) that
+    ``TTSEvaluationInterface.from_checkpoint`` loads and synthesizes text
+    with; without CUDA and without ``--device cpu`` it raises."""
+    from speechflow_torch.interface.tts_interface import TTSEvaluationInterface
+    from speechflow_torch.scripts import train_tts
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_tts.main(["-vs", "debug", "--experiment_dir", str(tmp_path / "gpu")])
+    expr = train_tts.main(["-vs", "debug", "--max_steps", "2", "--device", "cpu",
+                           "--experiment_dir", str(tmp_path)])
+    ckpt = ExperimentSaver.get_last_checkpoint(expr)
+    tree, payload = ExperimentSaver.load_checkpoint(ckpt)
+    assert ckpt.name == "step_000000002" and tree["opt"] is not None
+    assert payload["pipeline_info"]["dataset_sizes"] == {"train": 6, "test": 6}
+    assert payload["model_params"]["n_symbols"] == len(
+        payload["pipeline_info"]["alphabet"]["symbols"])
+    ti = TTSEvaluationInterface.from_checkpoint(tree, payload, ckpt_path=ckpt, device="cpu")
+    out = ti.synthesize("It rained. Stop!", generator=torch.Generator().manual_seed(0))
+    assert out.spectrogram.shape[:2] == (2, 2) and bool(torch.isfinite(out.spectrogram).all())
+    assert ti.pipeline.handler_names == ["text_to_transcription", "add_xpbert_feat"]
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

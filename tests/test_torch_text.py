@@ -206,7 +206,7 @@ def test_collate_and_batch_processor(with_mods, multiple):
     theirs = _samples(np.random.default_rng(3), JDS, with_mods)
     c = TTSCollate(token_multiple=multiple)(ours)
     jc = JC(token_multiple=multiple)(theirs)
-    inputs, (ref, _) = TTSBatchProcessor()(c), JB()(jc)
+    (inputs, _), (ref, _) = TTSBatchProcessor()(c), JB()(jc)
     checked = 0
     for f in dataclasses.fields(inputs):
         ours_v, ref_v = getattr(inputs, f.name), getattr(ref, f.name, None)
@@ -235,20 +235,20 @@ def test_collate_gives_plain_samples_neutral_modifiers():
         np.testing.assert_array_equal(got[0, :7], samples[0].additional[key])
         np.testing.assert_array_equal(got[0, 7:], 1.0)
         assert not np.array_equal(got[1, :19], row)
-    inputs = TTSBatchProcessor()(c)
+    inputs, _ = TTSBatchProcessor()(c)
     np.testing.assert_array_equal(n(inputs.rate_modifier), c.additional["rate_modifier"])
 
 
 def test_pipeline_rejects_unported_handlers():
-    info = {"config": {"preproc": {"pipe": ["text_to_transcription", "magnitude",
+    info = {"config": {"preproc": {"pipe": ["text_to_transcription", "spectral_flatness",
                                             "add_xpbert_feat"]},
                        "collate": {"type": "TTSCollate", "token_multiple": 8}},
             "subsets": ["train"], "alphabet": text.Alphabet(["a"]).to_dict()}
-    with pytest.raises(NotImplementedError, match="magnitude"):
+    with pytest.raises(NotImplementedError, match="spectral_flatness"):
         DataPipeline.from_info(info)
-    dp = DataPipeline.from_info(info, ignored_handlers={"magnitude"})
+    dp = DataPipeline.from_info(info, ignored_handlers={"spectral_flatness"})
     assert dp.handler_names == ["text_to_transcription", "add_xpbert_feat"]
     assert dp.collate_fn.token_multiple == 8
     info["config"]["collate"]["type"] = "SpectrogramCollate"
     with pytest.raises(NotImplementedError, match="SpectrogramCollate"):
-        DataPipeline.from_info(info, ignored_handlers={"magnitude"})
+        DataPipeline.from_info(info, ignored_handlers={"spectral_flatness"})

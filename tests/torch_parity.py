@@ -146,3 +146,36 @@ def cfm_noise(jax_model, shape) -> np.ndarray:
     key = dec.rngs.params()
     return np.asarray(jax.random.normal(key, shape, jnp.float32) * dec.temperature)
 
+
+
+def cfm_train_draws(jax_model, batch: int, target_shape, n: int = 1) -> list:
+    """The u, z and CFG drop masks of the JAX model's next ``n`` training calls
+    (``CFMDecoder.forward_train`` splits each key 4 ways: u, z, content mask,
+    condition mask), from a clone of its decoder's rng stream, as CPU tensors
+    for the port's ``CFMDraws`` (None for each call of a model without a CFM)."""
+    from speechflow_torch.models.tts.decoders import CFMDraws
+
+    dec = nnx.clone(jax_model).decoder
+    if not hasattr(dec, "cfg_dropout"):
+        return [None] * n
+    out = []
+    for _ in range(n):
+        k1, k2, k3, k4 = jax.random.split(dec.rngs.params(), 4)
+        out.append(CFMDraws(
+            t(jax.random.uniform(k1, (batch,))), t(jax.random.normal(k2, tuple(target_shape))),
+            t(jax.random.bernoulli(k3, dec.cfg_dropout, (batch, 1, 1))),
+            t(jax.random.bernoulli(k4, dec.cfg_dropout, (batch, 1)))))
+    return out
+
+
+def no_dropout(jax_model: nnx.Module, module: torch.nn.Module) -> None:
+    """Every dropout rate of both models to 0 (flax's ``Dropout.rate`` and
+    ``MultiHeadAttention.dropout_rate``; the port's ``dropout`` attributes)."""
+    for _, node in nnx.iter_graph(jax_model):
+        if isinstance(node, nnx.Dropout):
+            node.rate = 0.0
+        elif isinstance(node, nnx.MultiHeadAttention):
+            node.dropout_rate = 0.0
+    for m in module.modules():
+        if isinstance(getattr(m, "dropout", None), float):
+            m.dropout = 0.0
