@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # build, kernels, slice, toy, interface, tts_interface,
-                                     # train, tts_train
+                                     # xtts, bundle, train, tts_train
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
+    python3 chip_smoke.py --phases build,kernels,xtts,bundle   # XTTS and the entry points
     python3 chip_smoke.py --phases build,train   # GAN training of the flagship vocoder
     python3 chip_smoke.py --phases build,tts_train   # training of the acoustic model
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
@@ -21,7 +22,8 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    library must have wgmma and TMA loads.
 3. ``kernels``: each kernel wrapper on the card at the shapes the serving
    paths give it (flagship: attention H6 dh128, the anti-alias entries at
-   the six head stages; toy: attention H4 dh64, B32 T128 and B32 T1024),
+   the six head stages; toy: attention H4 dh64, B32 T128 and B32 T1024; the
+   XTTS prompt encoder: attention H4 dh256, B 1 and 8, T 1, 17, 112, 128),
    held against its plain PyTorch version on the same inputs (f32 and bf16,
    ragged lengths, T not a multiple of the tile, masks with whole padded key
    tiles, narrow heads, odd C, large snake arguments, two tap counts), then
@@ -72,7 +74,36 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    acoustic, vocoder and total ms and x realtime over the audio produced. In
    one batch, an SSML sentence with a ``rate="x-slow"`` span must get more
    frames than the same words plain. The phase prints its wall time.
-8. ``train``: GAN training of the flagship BigVGAN vocoder
+8. ``xtts``: XTTS serving at the recipe's full width (``configs/xtts_model.yml``
+   default: GPT 1024 x 12 x 8, prompt encoder 4 blocks of 4 heads of 256, codec
+   32 channels at strides 4·8·8, 4 quantizers of 1024), f32, seeded weights (flax's
+   initialisers) written by the port's saver with the text pipe of
+   ``configs/tts_data_24khz.yml`` and loaded by ``XTTSEvaluationInterface``: one
+   greedy request of 128 tokens through the kernels and the plain versions
+   (prompt embeddings and prefill logits within ``TOL_F32_REL``, then the first
+   differing token, if any, with its top-2 logit margin); 4 text requests of 512
+   tokens at temperature 0.8 behind a 448-frame synthetic reference prompt (4
+   attention launches each, finite waveforms of 512 hops); ms a request (first,
+   median), x realtime, the ms a decoded token (a 512-token and a 1-token
+   generate on the same inputs and seed, the difference over 511) beside the
+   per-token bound (trunk weights and KV cache over HBM), the request's stages
+   (host frontend, prompt encoder, prefill, decode, codec decode) against the
+   median request, a 17-token request under ``torch.profiler`` (busy share, kernels a
+   decode step), peak memory, and a batch of 8 through ``XTTSModel.synthesize``
+   (tokens a second).
+9. ``bundle``: the serving entry points. Port checkpoints of the flagship acoustic
+   model and BigVGAN vocoder (seeded) and the XTTS model above, ``pack``ed
+   and ``InferenceBundle.load``ed on the card (f32): ``bundle.synthesize`` of a
+   sentence and ``bundle.xtts.synthesize`` of one (128 tokens, with the prompt),
+   then ``app.demo_server.make_server`` on a free port in a thread answers ``/``,
+   ``/info``, two ``/synthesize`` (a WAV at 24 kHz, mono, 16 bit, as long as each
+   sentence's frames through the vocoder) and a 404; the attention and the three
+   anti-alias entries must launch. Then, at the shapes these paths give the
+   kernels, through the kernels and the plain versions from one seed:
+   ``bundle.synthesize`` of that sentence (``t_out`` 1024, one vocoder call) and
+   the demo server's chain on its first request (``t_out`` 512, a vocoder call a
+   sentence): equal lengths, mel and waveforms within ``TOL_F32_REL``.
+10. ``train``: GAN training of the flagship BigVGAN vocoder
    (``configs/vocoder_bigvgan.yml`` default: the unfolded head, 1536 channels,
    MPD + sub-band CQT discriminators, batch 32 of 1.0 s chunks, grad_accum 8,
    bf16 autocast, AdamW on WarmupCosine) through the port's entry point
@@ -98,7 +129,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    ``VocoderEvaluationInterface.from_checkpoint`` -> ``resynthesize`` of a
    SEGS utterance: finite, as long as the input, and within ``TOL_F32_REL`` of
    the trained generator's own f32 output.
-9. ``tts_train``: training of the flagship acoustic model
+11. ``tts_train``: training of the flagship acoustic model
    (``configs/tts_model.yml`` default: 768 x 6 x 6, CFM decoder, dropout 0.1,
    AdamW on WarmupCosine, clip 1.0, f32 with TF32 off) through the port's
    entry point ``scripts.train_tts.train`` on ``tests/data/SEGS``
@@ -123,7 +154,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    request of 4 sentences with 186 / 37 / 6 / 18 launches through the
    seeded flagship vocoder's interface, the waveform finite and as long as
    its frames.
-10. ``profile`` (only when asked for): for the flagship and the toy program,
+12. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -149,10 +180,12 @@ import argparse
 import contextlib
 import functools
 import json
+import shutil
 import subprocess
 import sys
 import time
 import typing as tp
+import urllib.parse
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -190,6 +223,18 @@ TOL_GAN_GRAD = 1e-2  # a whole f32 GAN micro-batch's gradients (see gan_gate)
 SASS_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG")  # wgmma, TMA load, TMA store
 HEAD_STAGES = [(4096, 768), (16384, 384), (32768, 192), (65536, 96), (131072, 48),
                (262144, 24)]
+# XTTS (configs/xtts_model.yml default): a request decodes 512 tokens (256 samples each,
+# 5.46 s at 24 kHz) behind a reference prompt of 448 mel frames, which the prompt
+# encoder's stride 4 makes 112; its 4 blocks attend with 4 heads of 256
+XTTS_MAX_TOKENS, XTTS_PROMPT_FRAMES, XTTS_REQUESTS, XTTS_BATCH = 512, 448, 4, 8
+XTTS_GREEDY_TOKENS = 128  # the kernels-vs-plain request (two of them: keep it short)
+XTTS_DECODE_RUNS = 3  # generates of 512 and of 1 token that time the decode
+# the kernel's dh-256 cases: (B, T, lengths) at B 1 and 8, ragged
+XTTS_PROMPT_CASES = [(b, t, [max(1, t - 13 * i) for i in range(b)])
+                     for t in (1, 17, 112, 128) for b in (1, 8)]
+XTTS_LAUNCHES = {"fused_attention": 4, "anti_alias_snake": 0, "aa_upsample_fir": 0,
+                 "aa_snake_downsample": 0}
+BUNDLE_XTTS_TOKENS = 128
 KERNEL_META = {
     "fused_attention": ("speechflow_torch/csrc/attention.cu",
                         "speechflow_tpu/ops/attention.py:111"),
@@ -280,6 +325,9 @@ def _attention_cases():
     # the toy program's shapes: 4 heads of 64
     yield "toy-encoder", 32, 128, 4, 64, [128] * 30 + [77, 5], []
     yield "toy-cfm", 32, 1024, 4, 64, [1024 - 37 * (i % 9) for i in range(32)], []
+    # the XTTS prompt encoder: 4 heads of 256 (the CUDA-core kernel), B 1 and 8, ragged
+    for b, t, lens in XTTS_PROMPT_CASES:
+        yield f"xtts-prompt-T{t}", b, t, 4, 256, lens, []
 
 
 def check_attention(torch, A) -> dict:
@@ -305,39 +353,57 @@ def check_attention(torch, A) -> dict:
 
 
 TIMES = ("ms", "plain_ms", "library_ms", "bound_ms")
-# per batch of each serving path: (program, label, B, T, H, dh, lengths, launches)
+# per batch (request) of each serving path: (program, label, B, T, H, dh, lengths,
+# launches, type); the XTTS request runs in f32, its prompt of 448 frames at T 112
 ATTENTION_TIMED = (
-    ("flagship", "encoder", 32, 128, 6, 128, [128] * 32, 6),
-    ("flagship", "cfm", 64, 1024, 6, 128, [1024 - 37 * (i % 9) for i in range(64)], 180),
-    ("toy", "encoder", 32, 128, 4, 64, [128] * 32, 4),
-    ("toy", "cfm", 32, 1024, 4, 64, [1024 - 37 * (i % 9) for i in range(32)], 120),
+    ("flagship", "encoder", 32, 128, 6, 128, [128] * 32, 6, "bf16"),
+    ("flagship", "cfm", 64, 1024, 6, 128, [1024 - 37 * (i % 9) for i in range(64)], 180,
+     "bf16"),
+    ("toy", "encoder", 32, 128, 4, 64, [128] * 32, 4, "bf16"),
+    ("toy", "cfm", 32, 1024, 4, 64, [1024 - 37 * (i % 9) for i in range(32)], 120, "bf16"),
+    ("xtts", "prompt", 1, 112, 4, 256, [112], 4, "f32"),
 )
 
 
-def time_attention(torch, A) -> dict:
+def attention_times(torch, A, b, t, h, dh, lens, dtype, gen) -> tuple:
+    """(kernel, plain, SDPA, bound) ms and the bound's kind for one call."""
     import torch.nn.functional as F
 
+    q, k, v = (torch.randn(b, t, h, dh, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    lt = torch.tensor(lens, device="cuda")
+    valid = torch.arange(t, device="cuda")[None] < lt[:, None]
+    ms = cuda_ms(lambda: A.fused_attention(q, k, v, valid), 10)
+    plain = cuda_ms(lambda: A.attention_reference(q, k, v, valid), 5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = valid[:, None, None, :]
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 10)
+    nbytes = 4 * b * t * h * dh * q.element_size() + b * t * 4
+    ops = 4.0 * h * dh * float((lt.double() ** 2).sum().item())  # valid rows x keys
+    # the card's peak for the inputs' type, whichever implementation the kernel chose
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    return (ms, plain, lib, *bound_ms(nbytes, ops, kind))
+
+
+def time_attention(torch, A) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for b, t, lens in XTTS_PROMPT_CASES:  # timed beside the paths' shapes, both types
+        for name, dtype in types.items():
+            ms, plain, lib, bms, kind = attention_times(torch, A, b, t, 4, 256, lens, dtype, gen)
+            print(f"[kernels] fused_attention xtts-prompt-T{t} B{b} T{t} H4 dh256 {name}: kernel "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.5f} ms "
+                  f"({kind})", flush=True)
     by_path, kinds = {}, {}
-    for program, label, b, t, h, dh, lens, calls in ATTENTION_TIMED:
+    for program, label, b, t, h, dh, lens, calls, type_name in ATTENTION_TIMED:
         total = by_path.setdefault(program, dict.fromkeys(TIMES, 0.0))
-        q, k, v = (torch.randn(b, t, h, dh, generator=gen, device="cuda",
-                               dtype=torch.bfloat16) for _ in range(3))
-        lt = torch.tensor(lens, device="cuda")
-        valid = torch.arange(t, device="cuda")[None] < lt[:, None]
-        ms = cuda_ms(lambda: A.fused_attention(q, k, v, valid), 10)
-        plain = cuda_ms(lambda: A.attention_reference(q, k, v, valid), 5)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        mask = valid[:, None, None, :]
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 10)
-        nbytes = 4 * b * t * h * dh * q.element_size() + b * t * 4
-        ops = 4.0 * h * dh * float((lt.double() ** 2).sum().item())  # valid rows x keys
-        bms, kind = bound_ms(nbytes, ops, "bf16")
+        ms, plain, lib, bms, kind = attention_times(torch, A, b, t, h, dh, lens,
+                                                    types[type_name], gen)
         kinds.setdefault(program, {})
         kinds[program][kind] = kinds[program].get(kind, 0.0) + calls * bms
-        print(f"[kernels] fused_attention {program} {label} B{b} T{t} H{h} dh{dh} bf16: "
+        print(f"[kernels] fused_attention {program} {label} B{b} T{t} H{h} dh{dh} {type_name}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-              f"{bms:.4f} ms ({kind}); {calls} launches per batch", flush=True)
+              f"{bms:.5f} ms ({kind}); {calls} launches per batch", flush=True)
         for key, val in zip(TIMES, (ms, plain, lib, bms)):
             total[key] += calls * val
     # the top-level numbers are one flagship batch's, as for the anti-alias entries;
@@ -969,7 +1035,480 @@ def phase_tts_interface(torch, gpu_line: str) -> dict:
             "phase_s": phase_s}
 
 
-# -- phase 8: training ---------------------------------------------------------------
+# -- phases 8 and 9: XTTS serving, the bundle and the demo server ---------------------
+
+_WORK: tp.Dict[str, tp.Any] = {}
+
+
+def workdir() -> Path:
+    """A temporary directory for the run's checkpoints and bundle, removed at exit."""
+    if "dir" not in _WORK:
+        import tempfile
+
+        _WORK["dir"] = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    return _WORK["dir"]
+
+
+def request_symbols() -> list:
+    """The char fallback's symbols of the request sentences: the alphabet of the
+    payloads of the XTTS and bundle phases."""
+    from speechflow_torch.data.processors.ssml import parse_ssml
+    from speechflow_torch.data.processors.text import TextParserHook
+
+    return TextParserHook()(" ".join(REQUEST_SENTENCES) + " " + parse_ssml(SSML_REQUEST)[0])
+
+
+def xtts_checkpoint(torch) -> Path:
+    """A port checkpoint of the XTTS recipe at full width (``configs/xtts_model.yml``
+    default: 1024 x 12 x 8 GPT, 4 prompt blocks of 4 heads, the codec 32 channels at
+    strides 4·8·8, 4 quantizers of 1024) with weights from flax's initialisers under
+    ``torch.manual_seed(0)``, written by the port's saver with the payload a trainer
+    stores (the text pipe of ``configs/tts_data_24khz.yml``, the request's char
+    alphabet, 8 speakers). Built once a run."""
+    if "xtts" in _WORK:
+        return _WORK["xtts"]
+    import dataclasses
+
+    from speechflow_torch import serving
+    from speechflow_torch.convert import nnx_from_module
+    from speechflow_torch.models.tts import XTTSModel, XTTSParams
+    from speechflow_torch.scripts.common import XTTS_MODEL_PRESETS
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    payload = serving.flagship_payload(request_symbols())
+    info = payload["pipeline_info"]
+    params = XTTSParams.create(dict(
+        XTTS_MODEL_PRESETS["default"], n_symbols=len(info["alphabet"]["symbols"]),
+        n_speakers=len(info["singletons"]["SpeakerIDSetter"]["speaker2id"]),
+        prompt_dim=serving.TTS_DATA_CONFIG["preproc"]["pipe_cfg"]["linear_to_mel"]["n_mels"]))
+    torch.manual_seed(0)
+    with torch.device("cuda"):  # the initialisers run on the card
+        model = XTTSModel(params)
+    saver = ExperimentSaver(workdir(), expr_suffix="xtts")
+    saver.to_save.update({"model_params": dataclasses.asdict(params), "pipeline_info": info})
+    _WORK["xtts"] = saver.save(0, nnx_from_module(model))
+    return _WORK["xtts"]
+
+
+def prompt_wave():
+    """A synthetic reference utterance of XTTS_PROMPT_FRAMES mel frames at 24 kHz: a
+    vibrato tone with a formant-like second partial and noise, from a seed."""
+    import numpy as np
+
+    n = (XTTS_PROMPT_FRAMES - 1) * HOP
+    tt = np.arange(n) / SR
+    f0 = 140.0 * (1 + 0.05 * np.sin(2 * np.pi * 5.0 * tt))
+    phase = 2 * np.pi * np.cumsum(f0) / SR
+    wav = 0.3 * np.sin(phase) + 0.1 * np.sin(3 * phase)
+    return (wav + 0.01 * np.random.default_rng(6).normal(size=n)).astype(np.float32)
+
+
+def xtts_request_inputs(torch, xi, sentences, wave):
+    """Text ids padded to the interface's multiple (id 0), prompt mels and speakers
+    of a batch, on the card, as ``XTTSEvaluationInterface.synthesize`` builds one row."""
+    import numpy as np
+
+    from speechflow_torch.interface.xtts_interface import TOKEN_MULTIPLE
+    from speechflow_torch.io.audio import AudioChunk
+
+    ids = [xi.prepare_text(s) for s in sentences]
+    width = max(len(i) for i in ids)
+    width += (-width) % TOKEN_MULTIPLE
+    ids = np.stack([np.pad(i, (0, width - len(i))) for i in ids])
+    mel = xi.prompt_mel_from_audio(AudioChunk(data=wave, sr=SR))
+    b = len(sentences)
+    return (torch.from_numpy(ids).to("cuda"),
+            torch.from_numpy(np.repeat(mel[None], b, 0)).to("cuda"),
+            torch.full((b,), mel.shape[0], dtype=torch.int32, device="cuda"),
+            torch.arange(b, device="cuda") % len(xi.speaker2id))
+
+
+def xtts_kernels_vs_plain(torch, xi, wave) -> None:
+    """One greedy request through the kernels and through the plain versions (f32):
+    the prompt embeddings and the prefill logits within ``rel_limit``; then the
+    first decoded step where the tokens differ, if one does, with the kernels'
+    top-2 logit margin there."""
+    model, gpt = xi.model, xi.model.gpt
+    ids, mel, lens, sid = xtts_request_inputs(torch, xi, REQUEST_SENTENCES[:1], wave)
+    runs = []
+    for mode in (contextlib.nullcontext(), plain_versions()):
+        with mode, torch.inference_mode():
+            emb, elen = model._encode_prompt(mel, lens)
+            cond = model._cond(sid)
+            bos = torch.full((1, 1), gpt.bos, dtype=torch.long, device="cuda")
+            prefill = gpt._trunk(ids, bos, cond, emb, elen)[:, -1]
+            toks = gpt.generate(ids, max_tokens=XTTS_GREEDY_TOKENS, temperature=0.0,
+                                cond=cond, prompt_emb=emb, prompt_lengths=elen)
+        runs.append((emb, prefill, toks))
+    (emb_k, pre_k, tok_k), (emb_p, pre_p, tok_p) = runs
+    emb_err, emb_lim = (emb_k - emb_p).abs().max().item(), rel_limit(emb_p)
+    pre_err, pre_lim = (pre_k - pre_p).abs().max().item(), rel_limit(pre_p)
+    differ = (tok_k != tok_p)[0].nonzero()
+    where = f"none of the {XTTS_GREEDY_TOKENS} tokens differ"
+    if len(differ):
+        i = int(differ[0])
+        with torch.inference_mode():
+            logits = gpt(ids, tok_k, cond, prompt_emb=emb_k, prompt_lengths=elen)[0, i]
+        top = logits.topk(2).values
+        where = (f"first differing token at step {i} (kernels' top-2 logit margin there "
+                 f"{(top[0] - top[1]).item():.3g})")
+    print(f"[xtts] f32 greedy request kernels vs plain: prompt embeddings max_abs_err "
+          f"{emb_err:.3g} (tol {emb_lim:.3g}), prefill logits max_abs_err {pre_err:.3g} "
+          f"(tol {pre_lim:.3g}); {where}", flush=True)
+    check(emb_err <= emb_lim and pre_err <= pre_lim, "xtts f32: kernels disagree with plain")
+
+
+def xtts_breakdown(torch, xi, wave, request_ms: float, gpu_line: str) -> dict:
+    """The ms a decoded token: a ``XTTS_MAX_TOKENS``-token and a 1-token generate on
+    the same ids, prompt and seed (``XTTS_DECODE_RUNS`` of each, alternating; the
+    medians' difference over the 511 steps between them). Then one request's stages
+    (host clock, synchronised): the host frontend (text ids, prompt mel), the
+    prompt encoder, the prefill (the 1-token generate), the decode and the codec's
+    decode, against ``request_ms`` (a whole request). Then a 17-token and a 1-token
+    request under ``torch.profiler``: the device's busy share over the first, and
+    the kernels a decode step launches from their difference (the profiler's
+    post-processing takes seconds a thousand kernels, so the window is short)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model, gpt = xi.model, xi.model.gpt
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    with torch.inference_mode():
+        (ids, mel, lens, sid), host = clock(
+            lambda: xtts_request_inputs(torch, xi, REQUEST_SENTENCES[:1], wave))
+        (emb, elen), enc = clock(lambda: model._encode_prompt(mel, lens))
+        cond = model._cond(sid)
+        run = functools.partial(gpt.generate, ids, temperature=0.8, generator=gen, cond=cond,
+                                prompt_emb=emb, prompt_lengths=elen)
+        walls = {1: [], XTTS_MAX_TOKENS: []}
+        for _ in range(XTTS_DECODE_RUNS):
+            for n in walls:
+                gen.manual_seed(0)
+                walls[n].append(clock(lambda: run(max_tokens=n))[1])
+        prefill, full = (float(np.median(walls[n])) for n in (1, XTTS_MAX_TOKENS))
+        per_token = (full - prefill) / (XTTS_MAX_TOKENS - 1)
+        decode = per_token * (XTTS_MAX_TOKENS - 1)
+        codes = torch.randint(0, model.n_codes, (1, XTTS_MAX_TOKENS), generator=gen,
+                              device="cuda")
+        _, codec = clock(lambda: model.codec.decode(codes[..., None]))
+        rest = request_ms - host - enc - prefill - decode - codec
+        # the weights every decode step reads, and the KV cache at the mean position
+        t_prefix = ids.shape[1] + 1 + emb.shape[1] + 1
+        trunk = sum(p.numel() * p.element_size() for m in (gpt.blocks, gpt.norm, gpt.head)
+                    for p in m.parameters())
+        kv = (2 * len(gpt.blocks) * (t_prefix + XTTS_MAX_TOKENS / 2) * gpt.head.in_features
+              * emb.element_size())
+        token_bound = (trunk + kv) / HBM_BYTES_PER_S * 1e3
+        n_prof = 16  # decode steps after the prefill's token
+        profiled = {}
+        for n in (1, 1 + n_prof):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, wall = clock(lambda: run(max_tokens=n))
+            busy, kernels = 0.0, 0
+            for e in prof.key_averages():
+                if (e.device_type == DeviceType.CUDA and _self_device_us(e) > 0
+                        and not e.key.startswith(HOST_ROWS)):
+                    busy += _self_device_us(e)
+                    kernels += e.count
+            profiled[n] = (busy, kernels, wall)
+    busy, kernels, wall = profiled[1 + n_prof]
+    check(busy > 0, "xtts: the profiler recorded no device time")
+    share = busy / 1e3 / wall
+    per_step = (kernels - profiled[1][1]) / n_prof
+    runs = {n: ", ".join(f"{w:.2f}" for w in ws) for n, ws in walls.items()}
+    print(f"[xtts] decode (f32, B1, {gpu_line}): {per_token:.3f} ms per token = generate of "
+          f"{XTTS_MAX_TOKENS} tokens {full:.1f} ms (runs {runs[XTTS_MAX_TOKENS]}) minus of 1 "
+          f"token {prefill:.2f} ms (runs {runs[1]}), over {XTTS_MAX_TOKENS - 1}; per-token "
+          f"bound {token_bound:.4f} ms (GPT trunk {trunk / 1e6:.1f} MB + KV cache "
+          f"{kv / 1e6:.1f} MB at the mean position, over HBM)",
+          flush=True)
+    print(f"[xtts] one request's stages (f32, B1): host frontend {host:.1f} ms, prompt "
+          f"encoder {enc:.2f} ms, prefill {prefill:.2f} ms (prefix of {t_prefix} positions), "
+          f"decode {decode:.1f} ms, codec decode {codec:.2f} ms; the median request "
+          f"{request_ms:.1f} ms leaves {rest:.1f} ms", flush=True)
+    print(f"[xtts] a {1 + n_prof}-token request under torch.profiler: device busy "
+          f"{busy / 1e3:.1f} ms of {wall:.1f} ms wall ({share:.3f} busy share), {kernels} "
+          f"kernels, {per_step:.0f} a decode step", flush=True)
+    return {"host_ms": host, "prompt_encoder_ms": enc, "prefill_ms": prefill,
+            "ms_per_token": per_token, "codec_ms": codec, "rest_ms": rest,
+            "token_bound_ms": token_bound, "busy_share": share, "kernels_per_token": per_step}
+
+
+def phase_xtts(torch, gpu_line: str) -> dict:
+    """XTTS text requests through ``XTTSEvaluationInterface`` at the recipe's full
+    width, f32 (as the JAX interface serves it), from a port checkpoint."""
+    import numpy as np
+
+    from speechflow_torch.interface.xtts_interface import XTTSEvaluationInterface
+    from speechflow_torch.io.audio import AudioChunk
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ckpt = xtts_checkpoint(torch)
+    t_built = time.perf_counter()
+    xi = XTTSEvaluationInterface(ckpt, device="cuda")
+    n_params = sum(p.numel() for p in xi.model.parameters())
+    wave = prompt_wave()
+    mel = xi.prompt_mel_from_audio(AudioChunk(data=wave, sr=SR))
+    check(mel.shape == (XTTS_PROMPT_FRAMES, xi.params.prompt_dim),
+          f"xtts: prompt mel {mel.shape}")
+    print(f"[xtts] checkpoint written in {t_built - t_phase:.1f} s, loaded in "
+          f"{time.perf_counter() - t_built:.1f} s ({n_params / 1e6:.1f} M parameters, f32; "
+          f"prompt {mel.shape[0]} frames)", flush=True)
+    xtts_kernels_vs_plain(torch, xi, wave)
+
+    audio_s = XTTS_MAX_TOKENS * HOP / SR
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    speaker = xi.get_speakers()[0]
+    for i in range(XTTS_REQUESTS):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = xi.synthesize(REQUEST_SENTENCES[i], speaker=speaker, max_tokens=XTTS_MAX_TOKENS,
+                            temperature=0.8, seed=i, ref_audio=AudioChunk(data=wave, sr=SR))
+        times.append(1e3 * (time.perf_counter() - t0))
+        after = read_counts()
+        per_request = {k: after[k] - before[k] for k in after}
+        check(per_request == XTTS_LAUNCHES,
+              f"xtts: launches per request {per_request} != {XTTS_LAUNCHES}")
+        check(out.data.shape == (XTTS_MAX_TOKENS * HOP,) and out.sr == SR
+              and bool(np.isfinite(out.data).all()),
+              f"xtts: waveform {out.data.shape} at {out.sr} Hz, finite "
+              f"{np.isfinite(out.data).all()}")
+        print(f"[xtts] request {i}: {times[-1]:.1f} ms, {audio_s:.2f} s of audio, std "
+              f"{out.data.std():.4f}; launches {per_request}", flush=True)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(times[1:]))
+    print(f"[xtts] per request (f32, {XTTS_MAX_TOKENS} tokens, {gpu_line}): first "
+          f"{times[0]:.1f} ms, median of the next {XTTS_REQUESTS - 1} {med:.1f} ms = "
+          f"{audio_s / (med / 1e3):.2f}x realtime; peak device memory {peak:.2f} GiB",
+          flush=True)
+    res = {"launches": launches, "first_ms": times[0], "ms": med, "xrt": audio_s / (med / 1e3),
+           "peak_gib": peak}
+    res.update(xtts_breakdown(torch, xi, wave, med, gpu_line))
+
+    ids, mels, lens, sid = xtts_request_inputs(torch, xi, REQUEST_SENTENCES[:XTTS_BATCH], wave)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav = xi.model.synthesize(ids, sid, max_tokens=XTTS_MAX_TOKENS, temperature=0.8,
+                              generator=gen, prompt_mel=mels, prompt_mel_lengths=lens)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(tuple(wav.shape) == (XTTS_BATCH, XTTS_MAX_TOKENS * HOP)
+          and bool(torch.isfinite(wav).all()), f"xtts batch: waveform {tuple(wav.shape)}")
+    res["batch_tokens_per_s"] = XTTS_BATCH * XTTS_MAX_TOKENS / dt
+    print(f"[xtts] batch of {XTTS_BATCH} through XTTSModel.synthesize: {1e3 * dt:.1f} ms, "
+          f"{res['batch_tokens_per_s']:.1f} tokens/s ({XTTS_BATCH * audio_s / dt:.2f}x "
+          f"realtime)", flush=True)
+    del xi, wav
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[xtts] phase wall time {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
+def bundle_checkpoints(torch) -> dict:
+    """Port checkpoints of the flagship acoustic model and BigVGAN vocoder (seeded
+    weights, as ``serving.build_flagship`` draws them; the vocoder unfolded, as a
+    trainer saves it) and the XTTS one: {kind: step directory}."""
+    import dataclasses
+    import math
+
+    from speechflow_torch import serving
+    from speechflow_torch.convert import nnx_from_module
+    from speechflow_torch.models.tts import ParallelTTSModel
+    from speechflow_torch.models.vocoder import Vocos
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    tts_p, voc_p = serving.flagship_params()
+    gen = torch.Generator().manual_seed(0)
+    am = serving.init_random_(ParallelTTSModel(tts_p), gen)
+    vm = serving.init_random_(Vocos(voc_p), gen)
+    with torch.no_grad():
+        am.variance_adaptor.predictors["durations"].out.bias.fill_(
+            math.log1p(serving.FRAMES_PER_TOKEN))
+    out = {"xtts": xtts_checkpoint(torch)}
+    for kind, model, payload in (
+            ("tts", am, serving.flagship_payload(request_symbols())),
+            ("vocoder", vm, {"model_params": dataclasses.asdict(voc_p)})):
+        saver = ExperimentSaver(workdir(), expr_suffix=kind)
+        saver.to_save.update(payload)
+        out[kind] = saver.save(0, nnx_from_module(model))
+    return out
+
+
+def http_get(url: str) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=300) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, None, b""
+
+
+DEMO_REQUESTS = (" ".join(REQUEST_SENTENCES[:2]), REQUEST_SENTENCES[20])
+BUNDLE_SENTENCE = REQUEST_SENTENCES[4]
+
+
+def bundle_vs_plain(torch, bundle, tts, voc) -> None:
+    """The bundle's serving paths at the shapes they give the kernels (f32), through
+    the kernels and through the plain versions from one seed: ``bundle.synthesize``
+    of ``BUNDLE_SENTENCE`` (``t_out`` 1024, one vocoder call over its frames) and the
+    demo server's chain on its first request (``t_out`` ``T_OUT``, a vocoder call a
+    sentence). Equal lengths, then each mel (valid frames) and waveform within
+    ``rel_limit``."""
+    import numpy as np
+
+    from speechflow_torch.app.demo_server import T_OUT
+    from speechflow_torch.interface.tts_interface import TTSOptions
+
+    runs = []
+    for mode in (contextlib.nullcontext(), plain_versions()):
+        with mode:
+            torch.manual_seed(3)  # the acoustic model's noise: torch's generator
+            chain = bundle.synthesize(BUNDLE_SENTENCE).data
+            torch.manual_seed(4)
+            out = tts.synthesize(DEMO_REQUESTS[0], speaker=tts.get_speakers()[0],
+                                 opts=TTSOptions(t_out=T_OUT))
+            lens = out.spectrogram_lengths.tolist()
+            mels = [out.after_postnet_spectrogram[j, :n] for j, n in enumerate(lens)]
+            runs.append((chain, lens, [m.float().cpu().numpy() for m in mels],
+                         [voc.synthesize(m).data for m in mels]))
+    (chain_k, lens_k, mels_k, waves_k), (chain_p, lens_p, mels_p, waves_p) = runs
+    check(chain_k.shape == chain_p.shape and lens_k == lens_p,
+          f"bundle f32: lengths differ (kernels, plain): {chain_k.shape} {chain_p.shape}, "
+          f"{lens_k} {lens_p}")
+    pairs = [("bundle.synthesize wave", chain_k, chain_p)]
+    for j in range(len(lens_k)):
+        pairs += [(f"demo sentence {j} mel", mels_k[j], mels_p[j]),
+                  (f"demo sentence {j} wave", waves_k[j], waves_p[j])]
+    worst = []
+    for what, got, ref in pairs:
+        err = float(np.abs(got - ref).max())
+        lim = TOL_F32_REL * float(np.abs(ref).max())
+        worst.append(f"{what} {err:.3g} (tol {lim:.3g})")
+        check(err <= lim, f"bundle f32: {what} kernels disagree with plain: {err} > {lim}")
+    print(f"[bundle] f32 kernels vs plain at the bundle's and the demo's shapes "
+          f"({len(chain_k)} samples; demo frames {lens_k}): max_abs_err "
+          + ", ".join(worst), flush=True)
+
+
+def phase_bundle(torch, gpu_line: str) -> dict:
+    """The serving entry points: ``pack`` the three checkpoints,
+    ``InferenceBundle.load`` the archive on the card (f32), serve
+    ``bundle.synthesize`` and ``bundle.xtts.synthesize``, then the demo server
+    on a free port in a thread answers /, /info, two /synthesize and a 404."""
+    import io
+    import threading
+    import wave as wavefile
+
+    import numpy as np
+
+    from speechflow_torch.app.demo_server import T_OUT, make_server
+    from speechflow_torch.interface.tts_interface import TTSOptions
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.scripts.export import InferenceBundle, pack
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ckpts = bundle_checkpoints(torch)
+    t0 = time.perf_counter()
+    archive = pack(workdir() / "bundle.sftpu.tar.gz", **ckpts)
+    t1 = time.perf_counter()
+    bundle = InferenceBundle.load(archive, device="cuda")
+    t2 = time.perf_counter()
+    tts, voc, xi = bundle.tts, bundle.vocoder, bundle.xtts
+    t3 = time.perf_counter()
+    print(f"[bundle] checkpoints written in {t0 - t_phase:.1f} s; packed "
+          f"{archive.stat().st_size / 2**30:.2f} GiB in {t1 - t0:.1f} s, extracted in "
+          f"{t2 - t1:.1f} s, interfaces built on the card in {t3 - t2:.1f} s", flush=True)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio = bundle.synthesize(REQUEST_SENTENCES[4])
+    t1 = time.perf_counter()
+    check(audio.sr == SR and len(audio.data) > 0 and len(audio.data) % HOP == 0
+          and bool(np.isfinite(audio.data).all()) and float(audio.data.std()) > 1e-4,
+          f"bundle.synthesize: {audio.data.shape} at {audio.sr} Hz")
+    xa = xi.synthesize(REQUEST_SENTENCES[5], speaker=xi.get_speakers()[1],
+                       max_tokens=BUNDLE_XTTS_TOKENS, ref_audio=AudioChunk(data=prompt_wave(),
+                                                                           sr=SR))
+    t2 = time.perf_counter()
+    check(xa.data.shape == (BUNDLE_XTTS_TOKENS * HOP,) and bool(np.isfinite(xa.data).all()),
+          f"bundle.xtts.synthesize: {xa.data.shape}")
+    print(f"[bundle] bundle.synthesize (one sentence, t_out 1024, f32): {len(audio.data)} "
+          f"samples in {1e3 * (t1 - t0):.1f} ms; bundle.xtts.synthesize ({BUNDLE_XTTS_TOKENS} "
+          f"tokens, a prompt): {1e3 * (t2 - t1):.1f} ms", flush=True)
+
+    srv = make_server(tts, voc, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        code, ctype, body = http_get(base + "/")
+        check(code == 200 and ctype == "text/html" and b"<form" in body, f"GET /: {code}")
+        code, ctype, body = http_get(base + "/info")
+        info = json.loads(body) if code == 200 else {}
+        check(info.get("speakers") == tts.get_speakers()
+              and info.get("languages") == tts.get_languages(), f"GET /info: {code} {info}")
+        wavs = []
+        for text in DEMO_REQUESTS:
+            query = "/synthesize?" + urllib.parse.urlencode({"text": text, "lang": "EN"})
+            t0 = time.perf_counter()
+            code, ctype, body = http_get(base + query)
+            ms = 1e3 * (time.perf_counter() - t0)
+            check(code == 200 and ctype == "audio/wav" and body[:4] == b"RIFF"
+                  and body[8:12] == b"WAVE", f"GET /synthesize: {code} {ctype} {body[:12]}")
+            with wavefile.open(io.BytesIO(body)) as w:
+                fmt = (w.getframerate(), w.getnchannels(), w.getsampwidth(), w.getnframes())
+                pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+            wavs.append((text, fmt, ms, pcm))
+        check(http_get(base + "/nothing")[0] == 404, "GET /nothing: not 404")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    launches = read_counts()
+    bundle_vs_plain(torch, bundle, tts, voc)
+    for text, (sr, ch, width, frames), ms, pcm in wavs:
+        # the expected length: each sentence's frames (the durations do not depend on
+        # the noise) through the vocoder, (frames - 1) hops each
+        out = tts.synthesize(text, lang="EN", speaker=tts.get_speakers()[0],
+                             opts=TTSOptions(t_out=T_OUT))
+        want = sum(n - 1 for n in out.spectrogram_lengths.tolist()) * HOP
+        print(f"[bundle] GET /synthesize ({len(tts.split_sentences(text))} sentences): "
+              f"{ms:.1f} ms, WAV {sr} Hz x {ch} ch x {8 * width} bit, {frames} frames "
+              f"(expected {want}), pcm std {pcm.std():.1f}", flush=True)
+        check((sr, ch, width) == (SR, 1, 2) and frames == want and pcm.std() > 0,
+              "GET /synthesize: WAV header or length")
+    print(f"[bundle] demo server answered GET /, /info, 2 x /synthesize, 404; launches "
+          f"{launches}", flush=True)
+    del bundle, tts, voc, xi
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[bundle] phase wall time {phase_s:.1f} s", flush=True)
+    return {"launches": launches, "phase_s": phase_s}
+
+
+# -- phase 10: training ---------------------------------------------------------------
 
 
 def _aa_grads(torch, fn, inputs, cotangents):
@@ -1340,7 +1879,7 @@ def phase_train(torch, gpu_line: str) -> dict:
     return res
 
 
-# -- phase 9: acoustic-model training ------------------------------------------------
+# -- phase 11: acoustic-model training -----------------------------------------------
 
 TTS_TRAIN_PRESET = "default"
 TTS_TRAIN_STEPS = 8
@@ -1853,10 +2392,11 @@ def profile_program(torch, label: str, am, vm, features: bool, gpu_line: str) ->
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,slice,toy,interface,tts_interface,train,tts_train",
+                    default="build,kernels,slice,toy,interface,tts_interface,xtts,bundle,"
+                            "train,tts_train",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
-                         "tts_interface,train,tts_train,profile (the last is not in the "
-                         "default run)")
+                         "tts_interface,xtts,bundle,train,tts_train,profile (the last is not "
+                         "in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1873,6 +2413,14 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(REPO))
 
+    try:
+        return run(torch, phases)
+    finally:
+        if "dir" in _WORK:
+            shutil.rmtree(_WORK["dir"], ignore_errors=True)
+
+
+def run(torch, phases: set) -> int:
     gpu_line = phase_gpu()
     records = {}
     phase_build()
@@ -1883,6 +2431,8 @@ def main(argv=None) -> int:
              ("toy", phase_toy, ("fused_attention",)),
              ("interface", phase_interface, tuple(HEAD_LAUNCHES)),
              ("tts_interface", phase_tts_interface, tuple(EXPECTED_LAUNCHES)),
+             ("xtts", phase_xtts, ("fused_attention",)),
+             ("bundle", phase_bundle, tuple(EXPECTED_LAUNCHES)),
              ("train", phase_train, tuple(HEAD_LAUNCHES)),
              ("tts_train", phase_tts_train, tuple(EXPECTED_LAUNCHES)))
     by_path = {}

@@ -17,6 +17,7 @@ flax leaf                  flax layout                 port layout
                            (H, dh, out)
 ``Embed.embedding``        (N, D)                      ``Embedding.weight`` (N, D)
 ``LayerNorm.scale/bias``   (D,)                        ``LayerNorm.weight/bias``
+``GroupNorm.scale/bias``   (D,)                        ``GroupNorm.weight/bias``
 bare ``Param``             any                         same name, same shape
 =========================  ==========================  ===========================
 
@@ -73,7 +74,7 @@ def _mapping(parent: nn.Module, child_name: str, module: nn.Module, leaf: str,
 
     if isinstance(module, nn.Embedding):
         return at("embedding"), ident, ident
-    if isinstance(module, nn.LayerNorm):
+    if isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
         return at("scale" if leaf == "weight" else "bias"), ident, ident
     if isinstance(module, nn.Linear):
         if isinstance(parent, MultiHeadAttention):

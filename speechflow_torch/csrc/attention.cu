@@ -33,10 +33,17 @@
 // - float32: the arithmetic runs on the CUDA cores in f32 (FMA), one block per (64-row
 //   query tile, batch * head), which caps it at the f32 rate (67 TFLOP/s) but keeps
 //   full f32 logits.
+// - 128 < dh <= 256, float32 and bfloat16 (the XTTS prompt encoder: 4 heads of 256 at
+//   width 1024, T <= 112): the same CUDA-core kernel with 16 output columns a thread.
+//   A bf16 input is widened to f32 as it is loaded and the output rounded once, so
+//   P stays f32 (the plain version's order). Why not the wgmma kernel: at dh 128 its
+//   consumers already hold 232 registers a thread, and a 64 x 256 f32 output tile
+//   would add 128 more. At the prompt encoder's shapes the work is a few MFLOP a
+//   launch, so the launch, not the arithmetic, is what the card waits for.
 //
 // Layout: q, k, v and out are (B, T, H, dh), contiguous, the layout the projections
 // produce, so no transpose is needed; valid is (B, T) f32 0/1. Any T (the tail tile is
-// masked) and 1 <= dh <= 128.
+// masked) and 1 <= dh <= 256.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -49,18 +56,26 @@
 
 namespace {
 
-constexpr int MAX_DH = 128;
+constexpr int MAX_DH = 128;       // the wgmma kernel's and the f32 kernel's widest head
+constexpr int MAX_DH_WIDE = 256;  // the wide CUDA-core kernel's
 
-// -- float32: CUDA cores ----------------------------------------------------------------
+// -- CUDA cores: float32 at dh <= 128, both types at 128 < dh <= 256 --------------------
 
-namespace f32 {
+namespace simt {
 
 constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 32;       // keys per shared-memory tile
 constexpr int THREADS = 256; // 16 row groups x 16 lanes
 constexpr int ROWS = BQ / 16;          // query rows per thread (4)
 constexpr int SCOLS = BK / 16;         // logits columns per thread (2)
-constexpr int OCOLS = MAX_DH / 16;     // output columns per thread (8)
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 size_t smem_bytes(int dh) {
   const int ld = dh + 1;  // +1 float of padding: rows land on different banks
@@ -68,10 +83,14 @@ size_t smem_bytes(int dh) {
                           size_t(BQ) * (BK + 1) + BK);
 }
 
+// MAXD: the widest head a thread's OCOLS = MAXD / 16 output columns cover; T: the type
+// of q, k, v and out (shared memory and all arithmetic are f32)
+template <int MAXD, typename T>
 __global__ void __launch_bounds__(THREADS)
-attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ valid,
-                float* __restrict__ out, int seq, int heads, int dh, float scale) {
+attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const float* __restrict__ valid,
+                T* __restrict__ out, int seq, int heads, int dh, float scale) {
+  constexpr int OCOLS = MAXD / 16;  // output columns per thread
   extern __shared__ float smem[];
   const int ld = dh + 1;
   float* Qs = smem;                     // BQ x ld, pre-scaled by 1/sqrt(dh)
@@ -94,7 +113,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int idx = tid; idx < BQ * dh; idx += THREADS) {
     const int r = idx / dh, d = idx - r * dh;
     const int t = q0 + r;
-    Qs[r * ld + d] = t < seq ? q[base + t * row_stride + d] * scale : 0.f;
+    Qs[r * ld + d] = t < seq ? to_f32(q[base + t * row_stride + d]) * scale : 0.f;
   }
 
   float m[ROWS], l[ROWS], acc[ROWS][OCOLS];
@@ -112,8 +131,8 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = idx / dh, d = idx - r * dh;
       const int t = k0 + r;
       const bool in = t < seq;
-      Ks[r * ld + d] = in ? k[base + t * row_stride + d] : 0.f;
-      Vs[r * dh + d] = in ? v[base + t * row_stride + d] : 0.f;
+      Ks[r * ld + d] = in ? to_f32(k[base + t * row_stride + d]) : 0.f;
+      Vs[r * dh + d] = in ? to_f32(v[base + t * row_stride + d]) : 0.f;
     }
     if (tid < BK) {
       const int t = k0 + tid;
@@ -194,27 +213,43 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < OCOLS; ++j) {
       const int d = tx + 16 * j;
-      if (d < dh) out[base + t * row_stride + d] = acc[i][j] * keep;
+      if (d < dh) out[base + t * row_stride + d] = from_f32<T>(acc[i][j] * keep);
     }
   }
 }
 
-int launch(const void* q, const void* k, const void* v, const void* valid, void* out,
-           int batch, int seq, int heads, int dh, cudaStream_t stream) {
-  const size_t smem = smem_bytes(dh);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel,
+template <int MAXD, typename T>
+int launch_t(const void* q, const void* k, const void* v, const void* valid, void* out,
+             int batch, int seq, int heads, int dh, cudaStream_t stream) {
+  const size_t smem = smem_bytes(dh);  // 140 KB at dh 256
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<MAXD, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((seq + BQ - 1) / BQ, batch * heads);
-  attn_fwd_kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(valid),
-      static_cast<float*>(out), seq, heads, dh, 1.0f / sqrtf((float)dh));
+  attn_fwd_kernel<MAXD, T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(valid), static_cast<T*>(out), seq, heads, dh,
+      1.0f / sqrtf((float)dh));
   return (int)cudaGetLastError();
 }
 
-}  // namespace f32
+// float32 at dh <= 128
+int launch(const void* q, const void* k, const void* v, const void* valid, void* out,
+           int batch, int seq, int heads, int dh, cudaStream_t stream) {
+  return launch_t<MAX_DH, float>(q, k, v, valid, out, batch, seq, heads, dh, stream);
+}
+
+// 128 < dh <= 256: dtype 0 float32, 1 bfloat16
+int launch_wide(const void* q, const void* k, const void* v, const void* valid, void* out,
+                int batch, int seq, int heads, int dh, int dtype, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_t<MAX_DH_WIDE, float>(q, k, v, valid, out, batch, seq, heads, dh, stream);
+  return launch_t<MAX_DH_WIDE, __nv_bfloat16>(q, k, v, valid, out, batch, seq, heads, dh,
+                                              stream);
+}
+
+}  // namespace simt
 
 // -- bfloat16: wgmma + TMA, warp-specialised --------------------------------------------
 //
@@ -748,11 +783,14 @@ int launch(const void* q, const void* k, const void* v, const void* valid, void*
 extern "C" int sf_attention_fwd(const void* q, const void* k, const void* v,
                                 const void* valid, void* out, int batch, int seq,
                                 int heads, int dh, int dtype, void* stream) {
-  if (dh < 1 || dh > MAX_DH || seq < 1 || batch < 1 || heads < 1)
+  if (dh < 1 || dh > MAX_DH_WIDE || seq < 1 || batch < 1 || heads < 1 || dtype < 0 ||
+      dtype > 1)
     return (int)cudaErrorInvalidValue;
   if (batch * heads > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return f32::launch(q, k, v, valid, out, batch, seq, heads, dh, s);
+  if (dh > MAX_DH)
+    return simt::launch_wide(q, k, v, valid, out, batch, seq, heads, dh, dtype, s);
+  if (dtype == 0) return simt::launch(q, k, v, valid, out, batch, seq, heads, dh, s);
   if (dtype == 1) return tc::launch(q, k, v, valid, out, batch, seq, heads, dh, s);
   return (int)cudaErrorInvalidValue;
 }

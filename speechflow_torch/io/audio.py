@@ -15,8 +15,10 @@ is, so a batch of waveforms (B, N) stays one; the JAX class averages any 2-D
 from __future__ import annotations
 
 import dataclasses
+import io
 import math
 import typing as tp
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -131,3 +133,14 @@ class AudioChunk:
         if m > 0:
             self.data = (wav * (peak / m)).astype(np.float32)
         return self
+
+    def to_bytes(self) -> bytes:
+        """The waveform as a mono 16-bit PCM WAV file, clipped to [-1, 1]."""
+        buf = io.BytesIO()
+        pcm = (np.clip(self.waveform, -1.0, 1.0) * 32767.0).astype(np.int16)
+        with wave.open(buf, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(int(self.sr))
+            w.writeframes(pcm.tobytes())
+        return buf.getvalue()

@@ -6,7 +6,8 @@ PyTorch's layout (``speechflow_torch.convert`` maps flax's onto them):
 
 - ``Conv1d``: ``nnx.Conv(..., padding="SAME")`` — XLA SAME padding,
   pad_lo = (K_eff-1)//2 with K_eff = (K-1)·dilation + 1 (even kernels put the
-  extra zero on the right), optional groups.
+  extra zero on the right), optional groups; at a stride s, ceil(T/s) outputs
+  with the pads XLA takes for that T.
 - ``Conv2d``: a 2-D ``nnx.Conv(..., padding="SAME")`` over (B, H, W, C) with
   strides and dilation: XLA SAME gives ceil(n/stride) outputs and puts the odd
   pad on the high side (torch's ``padding="same"`` refuses a stride above 1).
@@ -47,31 +48,28 @@ def layer_norm(dim: int, affine: bool = True) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=1e-6, elementwise_affine=affine)
 
 
-def _same_pads(kernel_size: int, dilation: int = 1) -> tp.Tuple[int, int]:
-    total = (kernel_size - 1) * dilation
-    return total // 2, total - total // 2
-
-
-class Conv1d(nn.Conv1d):
-    """(B, T, Cin) -> (B, T, Cout), stride 1, XLA SAME padding."""
-
-    def __init__(self, dim_in: int, dim_out: int, kernel_size: int,
-                 dilation: int = 1, groups: int = 1, bias: bool = True):
-        super().__init__(dim_in, dim_out, kernel_size, dilation=dilation,
-                         groups=groups, bias=bias)
-        self.pads = _same_pads(kernel_size, dilation)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.pad(x.transpose(1, 2), self.pads)
-        return super().forward(h).transpose(1, 2)
-
-
 def _same_pads_strided(n: int, kernel_size: int, stride: int, dilation: int
                         ) -> tp.Tuple[int, int]:
     """XLA SAME along one axis of length n: ceil(n / stride) outputs."""
     k_eff = (kernel_size - 1) * dilation + 1
     total = max((-(-n // stride) - 1) * stride + k_eff - n, 0)
     return total // 2, total - total // 2
+
+
+class Conv1d(nn.Conv1d):
+    """(B, T, Cin) -> (B, ceil(T/stride), Cout), XLA SAME padding (at a stride
+    above 1 the pads depend on T, and an odd pad goes on the high side)."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_size: int,
+                 dilation: int = 1, groups: int = 1, bias: bool = True, stride: int = 1):
+        super().__init__(dim_in, dim_out, kernel_size, stride=stride, dilation=dilation,
+                         groups=groups, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = _same_pads_strided(x.shape[1], self.kernel_size[0], self.stride[0],
+                                  self.dilation[0])
+        h = F.pad(x.transpose(1, 2), pads)
+        return super().forward(h).transpose(1, 2)
 
 
 class Conv2d(nn.Conv2d):

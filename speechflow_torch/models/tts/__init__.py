@@ -3,6 +3,7 @@
 from speechflow_torch.models.tts.criterion import TTSCriterion
 from speechflow_torch.models.tts.data_types import TTSForwardInput, TTSOutput, TTSTarget
 from speechflow_torch.models.tts.model import ParallelTTSModel, ParallelTTSParams
+from speechflow_torch.models.tts.xtts import PromptEncoder, XTTSModel, XTTSParams
 
 __all__ = ["ParallelTTSModel", "ParallelTTSParams", "TTSCriterion", "TTSForwardInput",
-           "TTSOutput", "TTSTarget"]
+           "TTSOutput", "TTSTarget", "XTTSModel", "XTTSParams", "PromptEncoder"]

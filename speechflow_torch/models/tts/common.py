@@ -22,7 +22,7 @@ from speechflow_torch.models.layers import Conv1d, MultiHeadAttention, layer_nor
 
 __all__ = ["sinusoidal_embedding", "rope_rotate", "gelu", "dropout", "ConvBlock", "ConvStack",
            "AdaLayerNorm", "FiLM", "ConditionalLayer", "TransformerBlock",
-           "DiTBlock"]
+           "DiTBlock", "VectorQuantizer"]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -49,12 +49,15 @@ def sinusoidal_embedding(positions: torch.Tensor, dim: int,
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
-def rope_rotate(x: torch.Tensor, max_period: float = 10000.0) -> torch.Tensor:
-    """Half-split rotary embedding over (..., T, D) at positions 0..T-1,
+def rope_rotate(x: torch.Tensor, max_period: float = 10000.0,
+                positions: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Half-split rotary embedding over (..., T, D) at ``positions`` (shape
+    (T,); 0..T-1 by default, a decode step passes its absolute position),
     computed in f32 and returned in x's dtype."""
     t, d = x.shape[-2], x.shape[-1]
     half = d // 2
-    pos = torch.arange(t, dtype=torch.float32, device=x.device)
+    pos = (torch.arange(t, dtype=torch.float32, device=x.device) if positions is None
+           else positions.to(x.device, torch.float32))
     angles = pos[:, None] * _freqs(half, max_period, x.device)[None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)
     xf = x.float()
@@ -207,3 +210,27 @@ class DiTBlock(nn.Module):
         x = x + g1 * self.attn(h, valid, deterministic)
         h = self.norm2(x) * (1 + sc2) + sh2
         return x + g2 * self.ffn2(gelu(self.ffn1(h)))
+
+
+class VectorQuantizer(nn.Module):
+    """Nearest-codeword quantizer: argmin of squared distances, the
+    straight-through estimator, and the codebook loss plus ``beta`` times the
+    commitment loss. The codebook starts N(0, 1), as JAX's (``flax_init_``
+    leaves a bare parameter as constructed)."""
+
+    def __init__(self, codebook_size: int = 256, dim: int = 256, beta: float = 0.25):
+        super().__init__()
+        self.codebook = nn.Parameter(torch.randn(codebook_size, dim))
+        self.beta = beta
+
+    def forward(self, x: torch.Tensor
+                ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(..., D) -> (quantized (..., D), codes (...), loss)."""
+        cb = self.codebook
+        d = ((x ** 2).sum(-1, keepdim=True) - 2 * torch.einsum("...d,kd->...k", x, cb)
+             + (cb ** 2).sum(-1))
+        idx = d.argmin(-1)
+        q = cb[idx]
+        commit = ((q.detach() - x) ** 2).mean()
+        codebook_loss = ((q - x.detach()) ** 2).mean()
+        return x + (q - x).detach(), idx, codebook_loss + self.beta * commit

@@ -6,6 +6,11 @@
 the plain PyTorch version of the same function; on a CUDA tensor it launches
 the kernel or raises.
 
+Head dims up to 128 go to the persistent kernel (``wgmma`` and TMA in
+bf16, CUDA cores in f32); 128 < dh <= 256 (the XTTS prompt encoder) to a
+CUDA-core kernel of the same file, in both types. Nothing else serves a CUDA
+tensor.
+
 ``flash_attention_fn`` keeps the JAX wrapper's contract: q/k/v are
 (B, T, H, dh), padded keys are masked out of every softmax row and padded
 query rows come out as zeros (flax's CPU fallback leaves a uniform average
@@ -28,7 +33,8 @@ from speechflow_torch.ops import _build
 __all__ = ["attention_reference", "fused_attention", "flash_attention_fn"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+WGMMA_MAX_HEAD_DIM = 128  # above it, bf16 takes the CUDA-core kernel (no TMA rules)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,11 +74,12 @@ def _launch(q, k, v, valid):
     devs = {x.device for x in (q, k, v, valid)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
-    if q.dtype == torch.bfloat16 and dh % 8:
+    tma = q.dtype == torch.bfloat16 and dh <= WGMMA_MAX_HEAD_DIM
+    if tma and dh % 8:
         raise ValueError(f"bf16 head dim must be a multiple of 8 (TMA's 16-byte "
                          f"strides), got {dh}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+    if tma and any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("bf16 q/k/v must start on 16-byte aligned addresses (TMA)")
     valid = valid.to(torch.float32).contiguous()
     out = torch.empty_like(q)
@@ -89,8 +96,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid: torch.Tensor) -> torch.Tensor:
     """softmax(q kᵀ/√dh with padded keys masked) v, padded query rows zeroed.
 
-    q/k/v: (B, T, H, dh) float32 or bfloat16 (bf16: dh a multiple of 8 and
-    16-byte aligned data, else ``ValueError``); valid: (B, T). CPU tensors run
+    q/k/v: (B, T, H, dh) float32 or bfloat16, dh <= 256 (bf16 at dh <= 128:
+    dh a multiple of 8 and 16-byte aligned data, else ``ValueError``);
+    valid: (B, T). CPU tensors run
     the plain version; CUDA tensors launch the kernel (counted in
     ``fused_attention.launches``). The kernel has no backward, as the TPU
     kernel's caller trains with plain attention: a CUDA call that would need

@@ -23,7 +23,29 @@ from speechflow_torch.training.saver import ExperimentSaver
 from speechflow_torch.training.trainer import TrainerConfig
 
 __all__ = ["experiment_saver", "build_data", "model_config_from_info", "trainer_config",
-           "optimizer_config"]
+           "optimizer_config", "XTTS_MODEL_PRESETS"]
+
+
+def _xtts_model(debug: bool) -> dict:
+    def pick(default, dbg):
+        return dbg if debug else default
+
+    return {
+        "type": "xtts", "dim": pick(1024, 48), "n_layers": pick(12, 1),
+        "n_heads": pick(8, 2), "block_type": "attention",
+        "speaker_emb_dim": pick(128, 16), "use_prompt": True,
+        "prompt_layers": pick(4, 1), "prompt_downsample": 4,
+        "prompt_max_frames": pick(448, 64), "freeze_codec": False,
+        "codec": {"sample_rate": 24000, "channels": pick(32, 8),
+                  "latent_dim": pick(64, 16), "strides": [4, 8, 8],
+                  "n_quantizers": pick(4, 2), "codebook_size": pick(1024, 64)},
+    }
+
+
+# configs/xtts_model.yml, section "model", per value_select (``XTTSParams``; the
+# prompt encoder's heads are XTTSParams' default 4, 256 wide at dim 1024)
+XTTS_MODEL_PRESETS: tp.Dict[str, dict] = {"default": _xtts_model(False),
+                                          "debug": _xtts_model(True)}
 
 
 def experiment_saver(model_cfg: tp.Mapping, data_cfg: tp.Mapping,

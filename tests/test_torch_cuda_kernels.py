@@ -93,6 +93,65 @@ def test_attention_kernel_masks_with_holes(cuda_device, rng, dtype, tol, holes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("shape", [(1, 1, 4, 256), (8, 17, 4, 256), (1, 112, 4, 256),
+                                   (8, 128, 4, 256), (2, 70, 3, 136), (2, 129, 2, 200)])
+def test_attention_kernel_head_dims_above_128(cuda_device, rng, dtype, tol, shape):
+    """128 < dh <= 256 (the XTTS prompt encoder: 4 heads of 256) through the
+    CUDA-core kernel, ragged: row 1 holds a third of T, row 0 all of it."""
+    b, t_len = shape[:2]
+    lens = torch.tensor([t_len] + [max(1, t_len // 3)] * (b - 1), device=cuda_device)
+    valid = torch.arange(t_len, device=cuda_device)[None] < lens[:, None]
+    before = A.fused_attention.launches
+    _check_attention(cuda_device, rng, dtype, tol, shape, valid)
+    assert A.fused_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_attention_kernel_refuses_head_dims_above_256(cuda_device):
+    valid = torch.ones(1, 4, dtype=torch.bool, device=cuda_device)
+    q = torch.zeros(1, 4, 1, 264, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        A.fused_attention(q, q, q, valid)
+
+
+@pytest.mark.cuda
+def test_xtts_synthesize_on_the_gpu_matches_the_cpu(cuda_device):
+    """The XTTS debug recipe (a 2-layer GPT, a prompt of 70 frames) at temperature 0:
+    the same tokens on the card (the prompt encoder's attention on the kernel)
+    as on the CPU, and the waveform within 1e-4 of its scale."""
+    from speechflow_torch.models.tts import XTTSModel, XTTSParams
+    from speechflow_torch.scripts.common import XTTS_MODEL_PRESETS
+
+    torch.manual_seed(0)
+    cpu = XTTSModel(XTTSParams.create(dict(XTTS_MODEL_PRESETS["debug"], n_layers=2,
+                                           n_symbols=40, n_speakers=2, prompt_dim=80)))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(3)
+    text = torch.from_numpy(rng.integers(1, 40, (2, 16)))
+    mel = _normal(rng, 2, 70, 80)
+    lens = torch.tensor([70, 41])
+    sid = torch.tensor([0, 1])
+    outs, tokens = [], []
+    for model in (cpu, card):  # inference: the kernel has no backward
+        dev = next(model.parameters()).device
+        before = A.fused_attention.launches
+        args = (text.to(dev), sid.to(dev))
+        kw = dict(max_tokens=24, temperature=0.0, prompt_mel=mel.to(dev),
+                  prompt_mel_lengths=lens.to(dev))
+        with torch.no_grad():
+            p_emb, p_len = model._encode_prompt(mel.to(dev), lens.to(dev))
+        tokens.append(model.gpt.generate(args[0], max_tokens=24, temperature=0.0,
+                                         cond=model._cond(args[1]), prompt_emb=p_emb,
+                                         prompt_lengths=p_len).cpu())
+        outs.append(model.synthesize(*args, **kw).cpu())
+        launched = A.fused_attention.launches - before
+        assert launched == (0 if dev.type == "cpu" else 2)  # one prompt block, twice
+    assert torch.equal(*tokens)
+    assert (outs[1] - outs[0]).abs().max().item() <= 1e-4 * outs[0].abs().max().item()
+
+
+@pytest.mark.cuda
 def test_attention_kernel_rejects_what_tma_cannot_take(cuda_device):
     valid = torch.ones(1, 16, dtype=torch.bool, device=cuda_device)
     q = torch.zeros(1, 16, 1, 12, device=cuda_device, dtype=torch.bfloat16)

@@ -43,8 +43,9 @@ def test_port_sources_import_no_jax():
 
 # modules added with the folded head, the DSP ops, the ISTFT vocoder, the
 # vocoder eval interface, the TTS eval interface with its text path, the
-# vocoder's GAN training, and the acoustic model's training with its data
-# plane: each must exist and be held to the rules above
+# vocoder's GAN training, the acoustic model's training with its data
+# plane, and XTTS serving with the serving entry points: each must exist and
+# be held to the rules above
 NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "models/vocoder/folded_head.py", "models/vocoder/feature_extractors.py",
                "io/audio.py", "training/saver.py", "utils/state_io.py",
@@ -69,7 +70,10 @@ NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "models/tts/encoders.py", "models/tts/predictors.py",
                "models/tts/variance_adaptor.py", "models/tts/data_types.py",
                "models/layers.py", "ops/attention.py", "training/losses/__init__.py",
-               "training/losses/base.py", "training/losses/zoo.py", "scripts/train_tts.py")
+               "training/losses/base.py", "training/losses/zoo.py", "scripts/train_tts.py",
+               "models/tts/ar_decoders.py", "models/tts/xtts.py", "models/codec/__init__.py",
+               "models/codec/rvq.py", "interface/xtts_interface.py", "interface/__init__.py",
+               "scripts/export.py", "app/__init__.py", "app/demo_server.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -126,6 +130,32 @@ def test_presets_equal_the_yaml_configs(config, presets, value_select):
     yml = Config.create_from_file(REPO / "configs" / config,
                                   value_select=[value_select]).section("model").to_dict()
     assert presets[value_select] == yml
+
+
+@pytest.mark.parametrize("value_select", ["default", "debug"])
+def test_xtts_preset_equals_the_yaml_config(value_select):
+    """The model section of ``xtts_model.yml``, as ``scripts.common`` carries it."""
+    from speechflow_tpu.io import Config
+
+    from speechflow_torch.scripts.common import XTTS_MODEL_PRESETS
+
+    yml = Config.create_from_file(REPO / "configs" / "xtts_model.yml",
+                                  value_select=[value_select]).section("model").to_dict()
+    assert XTTS_MODEL_PRESETS[value_select] == yml
+
+
+def test_serving_entry_points_run_on_the_gpu_unless_asked(monkeypatch, tmp_path):
+    """The XTTS interface and the demo server's CLI raise without CUDA and
+    without ``device="cpu"``, before they read a checkpoint."""
+    from speechflow_torch.app import demo_server
+    from speechflow_torch.interface.xtts_interface import XTTSEvaluationInterface
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        XTTSEvaluationInterface(tmp_path)
+    monkeypatch.setattr(demo_server, "make_server", lambda *a, **k: pytest.fail("served"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        demo_server.main(["--tts_ckpt", str(tmp_path), "--vocoder_ckpt", str(tmp_path)])
 
 
 @pytest.mark.parametrize("value_select", ["default", "debug"])
