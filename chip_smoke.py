@@ -18,21 +18,29 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    ``nvcc`` for sm_90a from this checkout (one process per source, in
    parallel), with each command, its time and ``ptxas``' register report,
    and each library's count of ``HGMMA`` (wgmma), ``UTMALDG`` and
-   ``UTMASTG`` (TMA load and store) instructions in its SASS; the attention
-   library must have wgmma and TMA loads.
+   ``UTMASTG`` (TMA load and store) and TF32 tensor-core product
+   (``HMMA....F32.TF32``) instructions in its SASS; the attention library
+   must have wgmma, TMA loads (its bf16 kernel) and TF32 products (its f32
+   kernel).
 3. ``kernels``: each kernel wrapper on the card at the shapes the serving
    paths give it (flagship: attention H6 dh128, the anti-alias entries at
    the six head stages; toy: attention H4 dh64, B32 T128 and B32 T1024; the
    XTTS prompt encoder: attention H4 dh256, B 1 and 8, T 1, 17, 112, 128),
    held against its plain PyTorch version on the same inputs (f32 and bf16,
    ragged lengths, T not a multiple of the tile, masks with whole padded key
-   tiles, narrow heads, odd C, large snake arguments, two tap counts), then
+   and query tiles, narrow heads, f32 rows that are not 16-byte aligned (dh 1
+   and 5 at odd H), the validity as the blocks' strided ``mask[:, 0, 0, :]``,
+   odd C, large snake arguments, two tap counts), then
    timed beside its plain version, the library call that computes the same
    function where there is one (SDPA for attention, a depthwise ``conv1d``
    for stage 1 of the anti-alias filter), and the bound (the least time the
-   card could take, from bytes and operations). Tolerances: attention f32
-   5e-5, bf16 1.6e-2; anti-alias f32 1e-5 (of the output's scale for large
-   snake arguments), bf16 3.2e-2.
+   card could take, from bytes and operations; f32 attention as three TF32
+   products at 495 TFLOP/s). Attention is timed at the rows of
+   ``speechflow_torch.tools.attention_times``: the flagship and toy batches
+   (bf16), the f32 TTS interface at 32 sentences and the bundle's sentence
+   (the serving entry points' f32 default) and the XTTS prompt. Tolerances:
+   attention f32 5e-5, bf16 1.6e-2; anti-alias f32 1e-5 (of the output's
+   scale for large snake arguments), bf16 3.2e-2.
 4. ``slice``: the flagship serving path (``serving.build_flagship``, its
    BigVGAN head folded as served) at full width with seeded random weights:
    3 request batches at bench shape (B=32, 128 tokens, 1024 frames, bf16),
@@ -94,7 +102,8 @@ Phases, in order (any failure ends the run with a non-zero exit code):
 9. ``bundle``: the serving entry points. Port checkpoints of the flagship acoustic
    model and BigVGAN vocoder (seeded) and the XTTS model above, ``pack``ed
    and ``InferenceBundle.load``ed on the card (f32): ``bundle.synthesize`` of a
-   sentence and ``bundle.xtts.synthesize`` of one (128 tokens, with the prompt),
+   sentence (the first call, then three warm ones after the path's launch counts
+   are read) and ``bundle.xtts.synthesize`` of one (128 tokens, with the prompt),
    then ``app.demo_server.make_server`` on a free port in a thread answers ``/``,
    ``/info``, two ``/synthesize`` (a WAV at 24 kHz, mono, 16 bit, as long as each
    sentence's frames through the vocoder) and a 404; the attention and the three
@@ -192,7 +201,7 @@ REPO = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet; dense): HBM bytes/s and operations/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_OPS = {"f32": 67e12}
 SR, HOP = 24000, 256
 BATCH, T_FRAMES = 32, 1024  # the bench request shape (serving.bench_inputs: 128 tokens)
 N_BATCHES = 3  # request batches of a serving path; the first is timed apart as warm-up
@@ -220,7 +229,10 @@ TRAIN_STAGES = [(TRAIN_FRAMES * r, c) for r, c in
                 ((4, 768), (16, 384), (32, 192), (64, 96), (128, 48), (256, 24))]
 TOL_BF16_GRAD = 1.6e-2  # bf16 gradients: of the plain gradient's largest magnitude
 TOL_GAN_GRAD = 1e-2  # a whole f32 GAN micro-batch's gradients (see gan_gate)
-SASS_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG")  # wgmma, TMA load, TMA store
+# wgmma, TMA load and store (the bf16 attention, the anti-alias kernels), and TF32
+# tensor-core products (mma.sync or wgmma: the f32 attention)
+SASS_OPCODES = {"HGMMA": "HGMMA", "UTMALDG": "UTMALDG", "UTMASTG": "UTMASTG",
+                "TF32 MMA": r"H(?:G)?MMA\.\w+\.F32\.TF32"}
 HEAD_STAGES = [(4096, 768), (16384, 384), (32768, 192), (65536, 96), (131072, 48),
                (262144, 24)]
 # XTTS (configs/xtts_model.yml default): a request decodes 512 tokens (256 samples each,
@@ -306,8 +318,9 @@ def phase_build() -> None:
         print(f"[build] {name} SASS: " + ", ".join(f"{op} {n}" for op, n in counts.items()),
               flush=True)
         if name == "attention":
-            check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
-                  f"the attention library has no wgmma or TMA load in its SASS: {counts}")
+            check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["TF32 MMA"] > 0,
+                  f"the attention library lacks wgmma, TMA loads or TF32 tensor-core "
+                  f"products in its SASS: {counts}")
 
 
 # -- phase 3 ---------------------------------------------------------------------
@@ -316,18 +329,35 @@ def phase_build() -> None:
 def _attention_cases():
     # (label, B, T, H, dh, lengths, masked key ranges (row, start, stop)): encoder and
     # CFM (CFG-doubled) shapes of the flagship path, T not a multiple of the 128-row
-    # tile, masks with whole padded key tiles (in the middle, first), narrow heads
+    # tile, masks with whole padded key tiles (in the middle, first), the bundle's one
+    # sentence (most key and query tiles padded), narrow heads, f32 rows that are not
+    # 16-byte aligned (dh 1 and 5 at odd H: no bf16 case, which needs dh % 8 == 0)
     yield "encoder", 32, 128, 6, 128, [128] * 31 + [77], []
     yield "cfm", 64, 1024, 6, 128, [1024 - 37 * (i % 9) for i in range(64)], []
     yield "ragged-T", 4, 1000, 6, 128, [1000, 999, 513, 1], []
     yield "masked-tiles", 2, 1000, 2, 64, [1000, 1000], [(0, 256, 384), (1, 0, 128)]
+    yield "bundle-cfm", 2, 1024, 6, 128, [297, 297], [(0, 64, 192)]
     yield "dh40", 2, 129, 3, 40, [129, 1], []
+    yield "dh5", 2, 77, 3, 5, [77, 30], []
+    yield "dh1", 2, 33, 5, 1, [33, 2], []
     # the toy program's shapes: 4 heads of 64
     yield "toy-encoder", 32, 128, 4, 64, [128] * 30 + [77, 5], []
     yield "toy-cfm", 32, 1024, 4, 64, [1024 - 37 * (i % 9) for i in range(32)], []
-    # the XTTS prompt encoder: 4 heads of 256 (the CUDA-core kernel), B 1 and 8, ragged
+    # the XTTS prompt encoder: 4 heads of 256 (the TF32 kernel), B 1 and 8, ragged
     for b, t, lens in XTTS_PROMPT_CASES:
         yield f"xtts-prompt-T{t}", b, t, 4, 256, lens, []
+
+
+def _strided(torch, valid):
+    """The key validity as a strided view, which the kernels read in place: the blocks'
+    ``mask[:, 0, 0, :]`` (row stride T * T) where every row's first key is valid, as on
+    the paths, else the first T columns of a wider tensor."""
+    if bool(valid[:, 0].all()):
+        return (valid[:, None, None, :] & valid[:, None, :, None])[:, 0, 0, :]
+    wide = torch.zeros(valid.shape[0], valid.shape[1] + 5, dtype=torch.bool,
+                       device=valid.device)
+    wide[:, :valid.shape[1]] = valid
+    return wide[:, :valid.shape[1]]
 
 
 def check_attention(torch, A) -> dict:
@@ -335,12 +365,14 @@ def check_attention(torch, A) -> dict:
     worst = 0.0
     for label, b, t, h, dh, lens, holes in _attention_cases():
         for dtype, tol in ((torch.float32, 5e-5), (torch.bfloat16, 1.6e-2)):
+            if dtype == torch.bfloat16 and dh % 8:
+                continue
             q, k, v = (torch.randn(b, t, h, dh, generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
             valid = torch.arange(t, device="cuda")[None] < torch.tensor(lens, device="cuda")[:, None]
             for row, start, stop in holes:
                 valid[row, start:stop] = False
-            out = A.fused_attention(q, k, v, valid)
+            out = A.fused_attention(q, k, v, _strided(torch, valid))
             ref = A.attention_reference(q, k, v, valid)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
@@ -353,57 +385,41 @@ def check_attention(torch, A) -> dict:
 
 
 TIMES = ("ms", "plain_ms", "library_ms", "bound_ms")
-# per batch (request) of each serving path: (program, label, B, T, H, dh, lengths,
-# launches, type); the XTTS request runs in f32, its prompt of 448 frames at T 112
-ATTENTION_TIMED = (
-    ("flagship", "encoder", 32, 128, 6, 128, [128] * 32, 6, "bf16"),
-    ("flagship", "cfm", 64, 1024, 6, 128, [1024 - 37 * (i % 9) for i in range(64)], 180,
-     "bf16"),
-    ("toy", "encoder", 32, 128, 4, 64, [128] * 32, 4, "bf16"),
-    ("toy", "cfm", 32, 1024, 4, 64, [1024 - 37 * (i % 9) for i in range(32)], 120, "bf16"),
-    ("xtts", "prompt", 1, 112, 4, 256, [112], 4, "f32"),
-)
 
 
 def attention_times(torch, A, b, t, h, dh, lens, dtype, gen) -> tuple:
-    """(kernel, plain, SDPA, bound) ms and the bound's kind for one call."""
-    import torch.nn.functional as F
+    """(kernel, plain, SDPA, bound) ms, the bound's kind and the f32 bound at the CUDA
+    cores' rate (None for bf16) for one call."""
+    from speechflow_torch.tools import attention_times as AT
 
-    q, k, v = (torch.randn(b, t, h, dh, generator=gen, device="cuda").to(dtype)
-               for _ in range(3))
-    lt = torch.tensor(lens, device="cuda")
-    valid = torch.arange(t, device="cuda")[None] < lt[:, None]
-    ms = cuda_ms(lambda: A.fused_attention(q, k, v, valid), 10)
-    plain = cuda_ms(lambda: A.attention_reference(q, k, v, valid), 5)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    mask = valid[:, None, None, :]
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 10)
-    nbytes = 4 * b * t * h * dh * q.element_size() + b * t * 4
-    ops = 4.0 * h * dh * float((lt.double() ** 2).sum().item())  # valid rows x keys
-    # the card's peak for the inputs' type, whichever implementation the kernel chose
-    kind = "bf16" if dtype == torch.bfloat16 else "f32"
-    return (ms, plain, lib, *bound_ms(nbytes, ops, kind))
+    r = AT.times(A, *AT.inputs(b, t, h, dh, lens, dtype, gen))
+    return (r["ms"], r["plain_ms"], r["library_ms"], *AT.bound_ms(b, t, h, dh, lens, dtype))
 
 
 def time_attention(torch, A) -> dict:
+    from speechflow_torch.tools.attention_times import ROWS, TYPES
+
     gen = torch.Generator(device="cuda").manual_seed(2)
-    types = {"bf16": torch.bfloat16, "f32": torch.float32}
     for b, t, lens in XTTS_PROMPT_CASES:  # timed beside the paths' shapes, both types
-        for name, dtype in types.items():
-            ms, plain, lib, bms, kind = attention_times(torch, A, b, t, 4, 256, lens, dtype, gen)
+        for name, dtype in TYPES.items():
+            ms, plain, lib, bms, kind, _ = attention_times(torch, A, b, t, 4, 256, lens, dtype,
+                                                           gen)
             print(f"[kernels] fused_attention xtts-prompt-T{t} B{b} T{t} H4 dh256 {name}: kernel "
                   f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.5f} ms "
                   f"({kind})", flush=True)
+    # per batch (request) of each serving path (the tool's rows)
     by_path, kinds = {}, {}
-    for program, label, b, t, h, dh, lens, calls, type_name in ATTENTION_TIMED:
+    for program, label, b, t, h, dh, lens, calls, type_name in ROWS:
         total = by_path.setdefault(program, dict.fromkeys(TIMES, 0.0))
-        ms, plain, lib, bms, kind = attention_times(torch, A, b, t, h, dh, lens,
-                                                    types[type_name], gen)
+        ms, plain, lib, bms, kind, cores = attention_times(torch, A, b, t, h, dh, lens,
+                                                           TYPES[type_name], gen)
         kinds.setdefault(program, {})
         kinds[program][kind] = kinds[program].get(kind, 0.0) + calls * bms
+        cores = f", CUDA-core bound {cores:.5f} ms" if cores is not None else ""
         print(f"[kernels] fused_attention {program} {label} B{b} T{t} H{h} dh{dh} {type_name}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-              f"{bms:.5f} ms ({kind}); {calls} launches per batch", flush=True)
+              f"{bms:.5f} ms ({kind}{cores}), {bms / ms:.3f} of it; {calls} launches per "
+              f"batch", flush=True)
         for key, val in zip(TIMES, (ms, plain, lib, bms)):
             total[key] += calls * val
     # the top-level numbers are one flagship batch's, as for the anti-alias entries;
@@ -1443,7 +1459,7 @@ def phase_bundle(torch, gpu_line: str) -> dict:
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    audio = bundle.synthesize(REQUEST_SENTENCES[4])
+    audio = bundle.synthesize(BUNDLE_SENTENCE)
     t1 = time.perf_counter()
     check(audio.sr == SR and len(audio.data) > 0 and len(audio.data) % HOP == 0
           and bool(np.isfinite(audio.data).all()) and float(audio.data.std()) > 1e-4,
@@ -1487,6 +1503,14 @@ def phase_bundle(torch, gpu_line: str) -> dict:
         srv.server_close()
         thread.join(timeout=30)
     launches = read_counts()
+    # again, warm (the first call above also paid one-time costs: library loads, plans)
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        bundle.synthesize(BUNDLE_SENTENCE)  # returns the waveform on the host: synchronised
+        warm.append(1e3 * (time.perf_counter() - t0))
+    print(f"[bundle] bundle.synthesize warm: median {sorted(warm)[1]:.1f} ms (runs "
+          f"{', '.join(f'{x:.1f}' for x in warm)})", flush=True)
     bundle_vs_plain(torch, bundle, tts, voc)
     for text, (sr, ch, width, frames), ms, pcm in wavs:
         # the expected length: each sentence's frames (the durations do not depend on
@@ -2282,6 +2306,7 @@ def phase_tts_train(torch, gpu_line: str) -> dict:
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
+# (attention: tc::attn_fwd_kernel, bf16; mma::attn_fwd_tf32_kernel, f32 and dh > 128)
 FAMILIES = (("fused_attention", ("attn_fwd",)), ("anti_alias", ("aa_kernel",)),
             ("convolution", ("conv", "cudnn", "implicit", "winograd", "fft")),
             ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "wgmma", "nvjet")),

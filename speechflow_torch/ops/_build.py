@@ -127,15 +127,17 @@ def function(lib_name: str, fn_name: str, argtypes: tp.Sequence) -> tp.Any:
     return fn
 
 
-def sass_counts(name: str, opcodes: tp.Sequence[str]) -> tp.Dict[str, int]:
-    """How often each SASS opcode (e.g. ``HGMMA``, ``UTMALDG``) occurs in the
-    built library of ``csrc/<name>.cu``, from ``cuobjdump -sass``."""
+def sass_counts(name: str, opcodes: tp.Mapping[str, str]) -> tp.Dict[str, int]:
+    """How often each SASS instruction occurs in the built library of
+    ``csrc/<name>.cu``, from ``cuobjdump -sass``: ``opcodes`` maps a label to a
+    regular expression of the instruction (e.g. ``HGMMA``, or
+    ``HMMA\\.\\w+\\.F32\\.TF32`` for TF32 tensor-core products)."""
     cuobjdump = Path(_nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(cuobjdump), "-sass", str(library_path(name))],
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise RuntimeError(f"cuobjdump failed for {name}: {out.stderr.strip()}")
-    return {op: len(re.findall(rf"\b{op}\b", out.stdout)) for op in opcodes}
+    return {label: len(re.findall(rf"\b{op}\b", out.stdout)) for label, op in opcodes.items()}
 
 
 def check(err: int, what: str) -> None:

@@ -6,10 +6,14 @@
 the plain PyTorch version of the same function; on a CUDA tensor it launches
 the kernel or raises.
 
-Head dims up to 128 go to the persistent kernel (``wgmma`` and TMA in
-bf16, CUDA cores in f32); 128 < dh <= 256 (the XTTS prompt encoder) to a
-CUDA-core kernel of the same file, in both types. Nothing else serves a CUDA
-tensor.
+Two kernels of that file serve a CUDA tensor, and nothing else does:
+bfloat16 at dh <= 128 goes to the persistent ``wgmma`` + TMA kernel; float32
+at any dh <= 256, and bfloat16 at 128 < dh <= 256 (the XTTS prompt encoder),
+to a flash forward on the tensor cores in TF32 (``mma.sync``) that splits
+each f32 operand into two TF32 parts and takes three products, at f32
+accuracy. Both read the key validity in place as bytes with its strides, so
+a bool view such as ``mask[:, 0, 0, :]`` costs no cast and no copy, and a
+call launches one device kernel.
 
 ``flash_attention_fn`` keeps the JAX wrapper's contract: q/k/v are
 (B, T, H, dh), padded keys are masked out of every softmax row and padded
@@ -34,7 +38,7 @@ __all__ = ["attention_reference", "fused_attention", "flash_attention_fn"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-WGMMA_MAX_HEAD_DIM = 128  # above it, bf16 takes the CUDA-core kernel (no TMA rules)
+WGMMA_MAX_HEAD_DIM = 128  # above it, bf16 takes the TF32 kernel (no TMA rules)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -81,12 +85,14 @@ def _launch(q, k, v, valid):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if tma and any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("bf16 q/k/v must start on 16-byte aligned addresses (TMA)")
-    valid = valid.to(torch.float32).contiguous()
+    if valid.dtype != torch.bool:  # the kernels read bytes: 0 is padded
+        valid = valid != 0
     out = torch.empty_like(q)
     fn = _build.function("attention", "sf_attention_fwd",
-                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-             out.data_ptr(), b, t, h, dh, _DTYPES[q.dtype],
+                         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+                         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), valid.stride(0),
+             valid.stride(1), out.data_ptr(), b, t, h, dh, _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "sf_attention_fwd")
     return out
@@ -98,9 +104,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q/k/v: (B, T, H, dh) float32 or bfloat16, dh <= 256 (bf16 at dh <= 128:
     dh a multiple of 8 and 16-byte aligned data, else ``ValueError``);
-    valid: (B, T). CPU tensors run
-    the plain version; CUDA tensors launch the kernel (counted in
-    ``fused_attention.launches``). The kernel has no backward, as the TPU
+    valid: (B, T), bool (read in place, any strides) or 0/1 (compared with 0
+    first). CPU tensors run the plain version; CUDA tensors launch the kernel
+    (counted in ``fused_attention.launches``). The kernel has no backward, as the TPU
     kernel's caller trains with plain attention: a CUDA call that would need
     one (grad enabled and an input requiring grad) raises ``RuntimeError``
     rather than return a tensor cut from the graph.

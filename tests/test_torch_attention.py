@@ -7,6 +7,7 @@ plain version in ``test_torch_cuda_kernels.py``, on the GPU.
 """
 
 import functools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +25,7 @@ def _qkv(rng, *shape):
     return [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
 
 
-@pytest.mark.parametrize("t_len,dh", [(128, 64), (100, 16), (72, 128)])
+@pytest.mark.parametrize("t_len,dh", [(128, 64), (100, 16), (72, 128), (112, 256), (17, 200)])
 def test_plain_matches_pallas_kernel(rng, t_len, dh):
     from speechflow_tpu.ops.attention import _fused_attn_fwd_impl
 
@@ -106,3 +107,81 @@ def test_wrapper_has_no_fallback_off_the_cpu():
         A.fused_attention(q, q, q, torch.ones(1, 4, device="meta"))
     assert A.fused_attention.launches == 0
 
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` and the CUDA kernel's split do: add half of the 13 dropped
+    bits to the magnitude, clear them."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor core reads of an f32 given as a TF32 operand: its top 19 bits."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
+    """a @ b as the tensor cores take it in TF32 with f32 sums: one product of the
+    rounded operands, or three of their splits as the CUDA kernel takes them (hi =
+    tf32(x), lo = x - hi read truncated; hi*hi + hi*lo + lo*hi). A TF32 product is
+    exact in f32, so a f32 matmul of the parts models it."""
+    ah, bh = _tf32(a), _tf32(b)
+    if products == 1:
+        return ah @ bh
+    al, bl = _tf32_truncated(a - ah), _tf32_truncated(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32_attention(q, k, v, valid, products: int) -> torch.Tensor:
+    """The CUDA kernel's f32 arithmetic on the CPU: logits and P V through
+    ``_tf32_matmul``, the masked softmax in f32. q/k/v (BH, T, dh), valid (BH, T)."""
+    keep = valid.bool()
+    s = _tf32_matmul(q, k.transpose(1, 2), products) / math.sqrt(q.shape[-1])
+    s = s.masked_fill(~keep[:, None, :], -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = _tf32_matmul(p, v, products) / p.sum(-1, keepdim=True)
+    return out * keep[..., None]
+
+
+@pytest.mark.parametrize("t_len,dh", [(112, 256), (72, 128)])
+def test_three_tf32_products_reach_f32_accuracy(rng, t_len, dh):
+    """The numeric design of the f32 CUDA kernel, which runs its products on the tensor
+    cores in TF32: with each operand split into two TF32 parts and three products, the
+    attention agrees with the TPU kernel (Pallas interpreter) within the card's f32
+    tolerance of 5e-5; with one TF32 product it does not."""
+    from speechflow_tpu.ops.attention import _fused_attn_fwd_impl
+
+    bh = 4
+    q, k, v = _qkv(rng, bh, t_len, dh)
+    lens = np.array([t_len, t_len - 29, 40, 1])
+    valid = (np.arange(t_len)[None] < lens[:, None]).astype(np.float32)
+    ref = n(_fused_attn_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 jnp.asarray(valid), interpret=True)) * valid[..., None]
+    three = n(_tf32_attention(t(q), t(k), t(v), t(valid), 3))
+    one = n(_tf32_attention(t(q), t(k), t(v), t(valid), 1))
+    assert np.abs(three - ref).max() <= 5e-5
+    assert np.abs(one - ref).max() > 5e-5
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 + 2.0 ** -20, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12, 3.0], dtype=torch.float32)
+    want = [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0]
+    assert _tf32(x).tolist() == want
+
+
+def test_wrapper_takes_strided_and_float_validity(rng):
+    """The key validity as the strided bool view ``mask[:, 0, 0, :]`` (what the
+    blocks' 4-D mask gives, read in place by the CUDA kernels) and as 0/1 floats:
+    the same output as a contiguous bool vector."""
+    b, t_len, h, dh = 3, 50, 2, 8
+    q, k, v = (t(x) for x in _qkv(rng, b, t_len, h, dh))
+    valid = torch.arange(t_len)[None, :] < torch.tensor([50, 31, 1])[:, None]
+    mask = valid[:, None, None, :] & valid[:, None, :, None]
+    strided = mask[:, 0, 0, :]
+    assert not strided.is_contiguous() and strided.stride() == (t_len * t_len, 1)
+    want = A.fused_attention(q, k, v, valid)
+    torch.testing.assert_close(A.fused_attention(q, k, v, strided), want, rtol=0, atol=0)
+    torch.testing.assert_close(A.fused_attention(q, k, v, valid.float()), want, rtol=0, atol=0)
+    torch.testing.assert_close(A.flash_attention_fn(q, k, v, mask=mask), want, rtol=0, atol=0)

@@ -82,7 +82,7 @@ def test_attention_kernel_lengths_and_head_dims(cuda_device, rng, dtype, tol, t_
 @pytest.mark.parametrize("holes", [[(256, 384)], [(0, 128)], [(0, 128), (512, 700)]],
                          ids=["middle-tile", "first-tile", "first-and-ragged"])
 def test_attention_kernel_masks_with_holes(cuda_device, rng, dtype, tol, holes):
-    """Whole padded key tiles (skipped by the bf16 kernel) in the middle and first,
+    """Whole padded key tiles (skipped by both kernels) in the middle and first,
     and a hole that is not tile-aligned; row 1 has length 1."""
     t_len = 1000
     valid = torch.ones(2, t_len, dtype=torch.bool, device=cuda_device)
@@ -98,13 +98,119 @@ def test_attention_kernel_masks_with_holes(cuda_device, rng, dtype, tol, holes):
                                    (8, 128, 4, 256), (2, 70, 3, 136), (2, 129, 2, 200)])
 def test_attention_kernel_head_dims_above_128(cuda_device, rng, dtype, tol, shape):
     """128 < dh <= 256 (the XTTS prompt encoder: 4 heads of 256) through the
-    CUDA-core kernel, ragged: row 1 holds a third of T, row 0 all of it."""
+    TF32 kernel, ragged: row 1 holds a third of T, row 0 all of it."""
     b, t_len = shape[:2]
     lens = torch.tensor([t_len] + [max(1, t_len // 3)] * (b - 1), device=cuda_device)
     valid = torch.arange(t_len, device=cuda_device)[None] < lens[:, None]
     before = A.fused_attention.launches
     _check_attention(cuda_device, rng, dtype, tol, shape, valid)
     assert A.fused_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 1.6e-2)])
+def test_attention_kernel_skips_padded_tiles_exactly(cuda_device, rng, dtype, tol):
+    """At the CFM's T and width, with whole padded key tiles and query tiles (a hole of
+    128 rows, a sentence of 297 frames in 1024, a row of length 1): with the K/V rows of
+    every padded key replaced by 1e4-scale noise, every valid row comes out bit for
+    bit as before (a padded key tile is skipped; a partly padded one gets weight 0
+    exactly), within the tolerance of the plain version, and padded rows are zero."""
+    b, t_len, h, dh = 3, 1024, 6, 128
+    valid = torch.arange(t_len)[None] < torch.tensor([1024, 297, 1])[:, None]
+    valid[0, 128:256] = False
+    q, k, v = (_normal(rng, b, t_len, h, dh) for _ in range(3))
+    pad = ~valid
+    noisy_k, noisy_v = k.clone(), v.clone()
+    noisy_k[pad] = 1e4 * _normal(rng, int(pad.sum()), h, dh)
+    noisy_v[pad] = 1e4 * _normal(rng, int(pad.sum()), h, dh)
+    valid = valid.to(cuda_device)
+    q, k, v, noisy_k, noisy_v = (x.to(cuda_device, dtype) for x in (q, k, v, noisy_k, noisy_v))
+    out = A.fused_attention(q, k, v, valid)
+    out_noisy = A.fused_attention(q, noisy_k, noisy_v, valid)
+    torch.cuda.synchronize()
+    keep = valid.cpu()
+    assert torch.equal(out_noisy.cpu()[keep], out.cpu()[keep])
+    assert out_noisy.cpu()[~keep].abs().max().item() == 0.0
+    ref = A.attention_reference(q, k, v, valid)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 33, 3, 1), (2, 77, 3, 5), (2, 129, 3, 40),
+                                   (2, 100, 5, 17)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_attention_kernel_f32_rows_not_16_byte_aligned(cuda_device, rng, shape, offset):
+    """f32 takes any dh and H: rows of dh 1, 5, 17 or 40 at odd H are not 16-byte
+    strided, and ``offset`` 1 starts q/k/v one float past a 16-byte boundary, so the
+    kernel copies 4 bytes at a time."""
+    b, t_len = shape[:2]
+    n = int(np.prod(shape))
+    flat = [_normal(rng, n + offset).to(cuda_device) for _ in range(3)]
+    q, k, v = (x[offset:].view(shape) for x in flat)
+    valid = torch.arange(t_len, device=cuda_device)[None] < torch.tensor(
+        [t_len, max(1, t_len // 3)], device=cuda_device)[:, None]
+    out = A.fused_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    ref = A.attention_reference(q, k, v, valid)
+    assert (out - ref).abs().max().item() <= 5e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("t_len", [1, 17, 112, 1000])
+@pytest.mark.parametrize("dh", [136, 200, 256])
+def test_attention_kernel_wide_heads_at_lengths(cuda_device, rng, dtype, tol, t_len, dh):
+    """128 < dh <= 256 in both types (the TF32 kernel), from one key to past 30 key
+    tiles, ragged (row 1 holds a third of T), at 3 heads."""
+    valid = torch.arange(t_len, device=cuda_device)[None] < torch.tensor(
+        [t_len, max(1, t_len // 3)], device=cuda_device)[:, None]
+    _check_attention(cuda_device, rng, dtype, tol, (2, t_len, 3, dh), valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,dh", [(torch.float32, 5e-5, 128), (torch.bfloat16, 1.6e-2, 128),
+                                          (torch.float32, 5e-5, 256)])
+def test_attention_kernel_reads_the_strided_mask(cuda_device, rng, dtype, tol, dh):
+    """The key validity as the blocks pass it, ``mask[:, 0, 0, :]`` of their 4-D bool
+    mask (row stride T * T), read in place by both kernels: the same output as the
+    contiguous vector, and within the tolerance of the plain version."""
+    b, t_len, h = 3, 200, 2
+    valid = torch.arange(t_len, device=cuda_device)[None] < torch.tensor(
+        [200, 77, 1], device=cuda_device)[:, None]
+    mask = valid[:, None, None, :] & valid[:, None, :, None]
+    q, k, v = (_normal(rng, b, t_len, h, dh).to(cuda_device, dtype) for _ in range(3))
+    out = A.flash_attention_fn(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out, A.fused_attention(q, k, v, valid))
+    ref = A.attention_reference(q, k, v, valid)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 128), (torch.bfloat16, 128),
+                                      (torch.float32, 256), (torch.bfloat16, 256)])
+def test_fused_attention_launches_one_device_kernel(cuda_device, rng, dtype, dh):
+    """A call, with the validity as a bool vector or as the strided view of the
+    blocks' mask, runs exactly one device kernel (no cast or copy of the validity),
+    and after the first call no shared-memory attribute is set again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b, t_len, h = 2, 160, 3
+    valid = torch.arange(t_len, device=cuda_device)[None] < torch.tensor(
+        [160, 50], device=cuda_device)[:, None]
+    mask = valid[:, None, None, :] & valid[:, None, :, None]
+    q, k, v = (_normal(rng, b, t_len, h, dh).to(cuda_device, dtype) for _ in range(3))
+    for vv in (valid, mask[:, 0, 0, :]):
+        A.fused_attention(q, k, v, vv)  # the library is loaded, attributes granted
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            A.fused_attention(q, k, v, vv)
+            torch.cuda.synchronize()
+        events = prof.events()
+        kernels = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == 1 and "attn_fwd" in kernels[0], kernels
+        assert not any("FuncSetAttribute" in e.name for e in events)
 
 
 @pytest.mark.cuda
