@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # build, kernels, slice, toy, interface, tts_interface,
-                                     # xtts, bundle, train, tts_train
+                                     # xtts, bundle, train, tts_train, xtts_train
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
     python3 chip_smoke.py --phases build,kernels,xtts,bundle   # XTTS and the entry points
     python3 chip_smoke.py --phases build,train   # GAN training of the flagship vocoder
     python3 chip_smoke.py --phases build,tts_train   # training of the acoustic model
+    python3 chip_smoke.py --phases build,xtts_train  # training of XTTS
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -163,7 +164,29 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    request of 4 sentences with 186 / 37 / 6 / 18 launches through the
    seeded flagship vocoder's interface, the waveform finite and as long as
    its frames.
-12. ``profile`` (only when asked for): for the flagship and the toy program,
+12. ``xtts_train``: training of XTTS (``configs/xtts_model.yml`` default: GPT 1024 x
+   12 x 8, a prompt encoder of 4 blocks of 4 heads of 256, the codec 32 channels at
+   strides 4·8·8 with 4 quantizers of 1024, batch 32, AdamW on WarmupCosine, clip 1.0,
+   f32 with TF32 off, flax's initialisers) through the port's entry point
+   ``scripts.train_tts.train`` on ``tests/data/SEGS`` (``configs/tts_data_24khz.yml``,
+   the collate swapped to ``TTSCollateWithPrompt``, the recipe's 2 DataLoader
+   workers). First the fused-attention autograd Function at the path's shape (B32 T112
+   H4 dh256, f32, ragged, 1e4 in padded rows): one forward launch, the VJP's gradients
+   against PyTorch autograd of the plain version within ``TOL_VJP_F32``, and the
+   forward's, the VJP's and the plain backward's ms. Then one f32 step at full width on
+   the card and on the CPU (the same weights, the first two train utterances, the
+   CPU's codes given to both, the card's own code flips counted): no reference
+   gradient all zero but the codec's, ``gpt_ce`` within ``TOL_F32_REL``, every
+   gradient within ``TOL_TTS_GRAD`` of its scale; the same gate must reject a planted
+   fault (the VJP's dq and dk exchanged). Then 8 steps into a
+   temporary experiment directory: lr 0 at count 0, finite losses, the weights
+   unchanged after step 1 and changed after step 2, 4 fused-attention launches a
+   step. Prints ms per step inside the step and between steps, audio tokens trained
+   per second, peak device memory, the step's FLOP bound, the attention's forward and
+   VJP ms a step and the phase's wall time. Last, the checkpoint through ``XTTSEvaluationInterface``: a
+   greedy request kernels vs plain (as in ``xtts``), then a request of 128 tokens
+   with 4 attention launches and a finite waveform.
+13. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -2303,6 +2326,313 @@ def phase_tts_train(torch, gpu_line: str) -> dict:
     return res
 
 
+# -- phase 12: XTTS training --------------------------------------------------------
+
+XTTS_TRAIN_PRESET = "default"
+XTTS_TRAIN_STEPS = 8
+# a training step: the prompt encoder's 4 blocks, each one fused-attention forward (its
+# backward is the torch-op VJP, no launch); the GPT's causal attention is plain einsum
+XTTS_TRAIN_LAUNCHES = {"fused_attention": 4, "anti_alias_snake": 0, "aa_upsample_fir": 0,
+                       "aa_snake_downsample": 0}
+XTTS_VJP_SHAPE = (32, 112, 4, 256)  # B32 of 448-frame prompts at stride 4, 4 heads of 256
+TOL_VJP_F32 = 5e-5  # the kernels phase's f32 attention tolerance, on the forward and the VJP
+
+
+def check_attention_vjp(torch, A, gpu_line: str) -> dict:
+    """The fused-attention autograd Function at the training path's shape (f32): one
+    forward launch, its output and q, k and v's gradients against PyTorch autograd of
+    the plain version within ``TOL_VJP_F32`` (the padded query rows' outputs are zeros
+    on both sides); then the forward kernel's and the VJP's ms a call (CUDA events),
+    and the plain version's backward for comparison."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, t, h, dh = XTTS_VJP_SHAPE
+    # ragged rows (112, then 13 fewer a row), 1e4-scale values in the padded ones
+    lens = torch.tensor([max(1, t - 13 * (i % 9)) for i in range(b)], device="cuda")
+    valid = torch.arange(t, device="cuda")[None] < lens[:, None]
+    q, k, v, g = (torch.randn(XTTS_VJP_SHAPE, generator=gen, device="cuda") for _ in range(4))
+    for x in (q, k, v):
+        x[~valid] *= 1e4
+    outs, grads = [], []
+    before = A.fused_attention.launches
+    # the kernel reads the blocks' mask[:, 0, 0, :] view, as on the path
+    for fn, mask in ((A.fused_attention, _strided(torch, valid)), (A.attention_reference, valid)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, mask)
+        out.backward(g)
+        outs.append(out.detach())
+        grads.append([x.grad for x in leaves])
+    torch.cuda.synchronize()
+    check(A.fused_attention.launches == before + 1, "attention VJP: the forward did not launch "
+                                                    "the kernel once")
+    fwd_err = (outs[0] - outs[1]).abs().max().item()
+    padded_max = outs[0][~valid].abs().max().item()
+    err = max((u - w).abs().max().item() for u, w in zip(*grads))
+    scale = max(w.abs().max().item() for w in grads[1])
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: A.fused_attention(q, k, v, valid), 20)
+        vjp_ms = cuda_ms(lambda: A.fused_attention_vjp(q, k, v, valid, g), 20)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = A.attention_reference(*leaves, valid)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 20)
+    print(f"[xtts_train] attention VJP B{b} T{t} H{h} dh{dh} f32 (ragged, 1e4 in padded rows): "
+          f"forward vs plain max_abs_err {fwd_err:.3g} (largest in padded query rows "
+          f"{padded_max:.3g}), q, k, v gradients vs plain autograd max_abs_err {err:.3g} "
+          f"(tol {TOL_VJP_F32:g}; largest gradient {scale:.3g}); forward kernel {fwd_ms:.4f} ms, "
+          f"VJP {vjp_ms:.4f} ms, plain backward {plain_ms:.4f} ms a call ({gpu_line})", flush=True)
+    check(fwd_err <= TOL_VJP_F32, f"attention forward f32 B{b}: {fwd_err} > {TOL_VJP_F32}")
+    check(padded_max == 0.0, f"attention forward f32 B{b}: padded query rows not zero "
+                             f"({padded_max})")
+    check(err <= TOL_VJP_F32, f"attention VJP f32: {err} > {TOL_VJP_F32}")
+    n = XTTS_TRAIN_LAUNCHES["fused_attention"]
+    return {"vjp_err": err, "train_fwd_err": fwd_err, "train_fwd_ms": n * fwd_ms,
+            "vjp_ms": n * vjp_ms, "vjp_plain_ms": n * plain_ms}
+
+
+@contextlib.contextmanager
+def pinned_codes(model, codes):
+    """``model.codec.encode`` returning ``codes`` (on the model's device): both sides
+    of a comparison train on the same targets."""
+    model.codec.encode = lambda wav: codes.to(wav.device)
+    try:
+        yield
+    finally:
+        del model.codec.encode
+
+
+@contextlib.contextmanager
+def planted_vjp_fault(A):
+    """``fused_attention_vjp`` with dq and dk exchanged (an einsum's operands swapped),
+    a fault that keeps every shape and the dv gradient."""
+    real = A.fused_attention_vjp
+    A.fused_attention_vjp = lambda *args: (lambda dq, dk, dv: (dk, dq, dv))(*real(*args))
+    try:
+        yield
+    finally:
+        A.fused_attention_vjp = real
+
+
+def xtts_step_grads(torch, model, inputs) -> tuple:
+    """``gpt_ce`` and its gradients on the CPU: ({loss: value}, {parameter: gradient})."""
+    for p in model.parameters():
+        p.grad = None
+    loss = model(inputs)["gpt_ce"]
+    loss.backward()
+    return ({"gpt_ce": loss.item()},
+            {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+             for n, p in model.named_parameters()})
+
+
+def xtts_gate(torch, model_cfg: dict, data_cfg: dict) -> dict:
+    """One f32 XTTS step at the recipe's full width on the card and on the CPU: the
+    same weights (flax's initialisers from ``torch.manual_seed(0)``), the first two
+    train utterances through the prompt collate, the codes the CPU's codec encodes
+    given to both sides (``pinned_codes``; a code is an argmin, and the card's own
+    codes are counted where they differ); TF32 off. No reference gradient is all zero
+    but the codec's (it is reached through integer codes only); ``gpt_ce`` within
+    ``TOL_F32_REL``, every gradient within ``TOL_TTS_GRAD`` (``tts_disagreement``);
+    the same gate must reject a planted fault of the attention VJP (``planted_vjp_fault``)."""
+    import copy
+
+    from speechflow_torch.data.core.components import DataPipeline
+    from speechflow_torch.ops import attention as A
+    from speechflow_torch.scripts import train_tts as TT
+    from speechflow_torch.training.trainer import _place
+
+    t0 = time.perf_counter()
+    pipeline = DataPipeline.from_config(TT.data_config_of(model_cfg, data_cfg))
+    torch.manual_seed(0)
+    _, cpu, _, bp = TT.build_model(model_cfg, pipeline)
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = pipeline.datasample_to_batch([s.copy() for s in pipeline.datasets["train"][:2]])
+    inputs, _ = bp(batch)
+    with torch.no_grad():
+        codes = cpu.codec.encode(inputs["waveform"])
+        own = card.codec.encode(inputs["waveform"].to("cuda")).cpu()
+    flips = int((own != codes).sum())
+    with pinned_codes(cpu, codes):
+        ref = xtts_step_grads(torch, cpu, inputs)
+    zero = [k for k, v in ref[1].items() if not v.any()]
+    check(zero and all(k.startswith("codec.") for k in zero)
+          and all(not v.any() for k, v in ref[1].items() if k.startswith("codec.")),
+          f"xtts_train: reference gradients all zero beyond the codec's: "
+          f"{[k for k in zero if not k.startswith('codec.')]}")
+    card_in = _place(inputs, torch.device("cuda"))
+    before = A.fused_attention.launches
+    with pinned_codes(card, codes):
+        got = xtts_step_grads(torch, card, card_in)
+        launched = A.fused_attention.launches - before
+        with planted_vjp_fault(A):
+            bad = xtts_step_grads(torch, card, card_in)
+    check(launched == XTTS_TRAIN_LAUNCHES["fused_attention"],
+          f"xtts_train gate: {launched} fused attention launches in one step")
+    loss_err, grad_err, where = tts_disagreement(ref, got)
+    f_loss, f_grad, f_where = tts_disagreement(ref, bad)
+    prompt = tuple(inputs["prompt_mel"].shape)
+    print(f"[xtts_train] f32 step at full width, card vs CPU (flax's initialisers, B2, "
+          f"waveform {tuple(inputs['waveform'].shape)}, codes {tuple(codes.shape)}, tokens "
+          f"{tuple(inputs['transcription'].shape)}, prompt mel {prompt}, TF32 off, codes "
+          f"pinned to the CPU's; {time.perf_counter() - t0:.1f} s): gpt_ce "
+          f"{got[0]['gpt_ce']:.6g} (CPU {ref[0]['gpt_ce']:.6g}), error {loss_err:.3g} of it "
+          f"(tol {TOL_F32_REL:g}); {len(ref[1])} gradients, worst {grad_err:.3g} of scale "
+          f"({where}; tol {TOL_TTS_GRAD:g}); codes the card's own encode would have "
+          f"flipped: {flips} of {codes.numel()}; {len(zero)} codec gradients all zero on "
+          f"the CPU; fused attention launches {launched}", flush=True)
+    check(loss_err <= TOL_F32_REL and grad_err <= TOL_TTS_GRAD,
+          f"xtts_train f32: the card disagrees with the CPU: loss {loss_err}, {where} {grad_err}")
+    print(f"[xtts_train] planted fault (the attention VJP's dq and dk exchanged): worst loss error {f_loss:.3g}, worst gradient {f_grad:.3g} of scale "
+          f"({f_where})", flush=True)
+    check(f_grad > TOL_TTS_GRAD, "the xtts_train gate passes a planted fault of the VJP")
+    del cpu, card, got, ref, bad
+    torch.cuda.empty_cache()
+    return {"loss_err": loss_err, "grad_err": grad_err, "fault_grad_err": f_grad,
+            "code_flips": flips}
+
+
+def phase_xtts_train(torch, gpu_line: str) -> dict:
+    """XTTS training through the port's entry point, then the checkpoint served through
+    ``XTTSEvaluationInterface``."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from speechflow_torch.interface.xtts_interface import XTTSEvaluationInterface
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.ops import attention as A
+    from speechflow_torch.scripts import train_tts as TT
+    from speechflow_torch.scripts.common import experiment_saver
+    from speechflow_torch.training.lr_schedulers import build_lr_schedule
+    from speechflow_torch.training.saver import ExperimentSaver
+    from speechflow_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model_cfg, data_cfg = TT.configs(XTTS_TRAIN_PRESET, "configs/xtts_model.yml")
+    data_cfg["dirs"]["data_root"] = str(REPO / "tests" / "data" / "SEGS")
+    model_cfg["trainer"]["max_steps"] = XTTS_TRAIN_STEPS
+    opt = model_cfg["optimizer"]
+    lr0 = build_lr_schedule(opt["lr_schedule"], opt["lr"], **opt["lr_schedule_kwargs"])(0)
+    check(lr0 == 0.0, f"xtts_train: the schedule's lr at count 0 is {lr0}, not 0")
+    res = {"times": {"fused_attention": check_attention_vjp(torch, A, gpu_line)},
+           "gate": xtts_gate(torch, model_cfg, data_cfg)}
+
+    st = {"ref": None, "steps": [], "ends": [], "losses": [], "trainer": None, "batch": None}
+    real_step = Trainer.training_step
+
+    def step(self, batch):
+        """The trainer's step, timed (synchronised), with its fused-attention launches;
+        the last full batch is kept for the FLOP count."""
+        if st["ref"] is None:
+            st["ref"] = [p.detach().clone() for p in self.model.parameters()]
+        torch.cuda.synchronize()
+        n0 = A.fused_attention.launches
+        t0 = time.perf_counter()
+        out = real_step(self, batch)
+        torch.cuda.synchronize()
+        st["steps"].append((1e3 * (time.perf_counter() - t0), A.fused_attention.launches - n0,
+                            int((batch.waveform_lengths // HOP).sum()),
+                            tuple(batch.waveform.shape), tuple(batch.transcription.shape),
+                            tuple(batch.additional["prompt_mel"].shape)))
+        if batch.waveform.shape[0] == model_cfg["batch"]["size"]:
+            st["batch"] = batch
+        return out
+
+    def callback(trainer, last):
+        torch.cuda.synchronize()
+        st["ends"].append(time.perf_counter())
+        st["trainer"] = trainer
+        i = trainer.global_step
+        vals = {k: float(v) for k, v in last.items()}
+        st["losses"].append(vals)
+        check(all(np.isfinite(v) for v in vals.values()), f"xtts_train: non-finite loss {vals}")
+        check(st["steps"][-1][1] == XTTS_TRAIN_LAUNCHES["fused_attention"],
+              f"xtts_train: {st['steps'][-1][1]} fused attention launches in step {i}")
+        changed = any(not torch.equal(p, r)
+                      for p, r in zip(trainer.model.parameters(), st["ref"]))
+        check(changed == (i >= 2), f"xtts_train: weights {'changed' if changed else 'unchanged'} "
+                                   f"after step {i} (lr 0 at count 0, then the warmup's)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = experiment_saver(model_cfg, data_cfg, tmp)
+        Trainer.training_step = step
+        try:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            expr = TT.train(model_cfg, data_cfg, saver, device="cuda", callbacks=[callback])
+            t_fit = time.perf_counter() - t0
+        finally:
+            Trainer.training_step = real_step
+        peak = torch.cuda.max_memory_allocated()
+        train_counts = read_counts()
+        ends = [t0] + st["ends"]
+        wall_ms = [1e3 * (b - a) for a, b in zip(ends[:-1], ends[1:])]
+        step_ms = [s[0] for s in st["steps"]]
+        tokens = [s[2] for s in st["steps"]]
+        for i, ((ms, n, tok, wav, text, prompt), wall, vals) in enumerate(
+                zip(st["steps"], wall_ms, st["losses"])):
+            print(f"[xtts_train] step {i + 1}: {ms:.1f} ms in the step, {wall:.1f} ms since the "
+                  f"last (data included); waveform {wav}, tokens {text}, prompt mel {prompt}, "
+                  f"{tok} audio tokens; {n} fused attention launches; losses "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()), flush=True)
+        # the sampler serves the 40 train utterances as a batch of 32, then one of 8
+        full = [i for i, s in enumerate(st["steps"]) if i and s[3][0] == model_cfg["batch"]["size"]]
+        check(full, "xtts_train: no full batch after the first step")
+        ms = statistics.median(step_ms[i] for i in full)
+        wall = statistics.median(wall_ms[i] for i in full)
+        ms_all = statistics.median(step_ms[1:])
+        rate = sum(tokens[1:]) / (sum(step_ms[1:]) / 1e3)
+        wall_rate = sum(tokens[1:]) / (sum(wall_ms[1:]) / 1e3)
+        vjp = res["times"]["fused_attention"]
+        flops = train_step_flops(torch, st["trainer"], st["batch"])
+        bound = flops / PEAK_OPS["f32"] * 1e3
+        print(f"[xtts_train] {XTTS_TRAIN_STEPS} steps in {t_fit:.1f} s with set-up; a step of "
+              f"B{model_cfg['batch']['size']} {ms:.1f} ms in the step (median of steps "
+              f"{[i + 1 for i in full]}), {wall:.1f} ms since the step before it (data "
+              f"wait included); every step of 2..{XTTS_TRAIN_STEPS} {ms_all:.1f} ms (median); "
+              f"{rate:.0f} audio tokens trained per second in the steps 2..{XTTS_TRAIN_STEPS} "
+              f"({wall_rate:.0f} with the data wait); peak device memory {peak / 2**30:.2f} GiB; "
+              f"B{model_cfg['batch']['size']} step bound {bound:.1f} ms ({flops / 1e12:.2f} TFLOP "
+              f"forward and backward on the padded shapes over {PEAK_OPS['f32'] / 1e12:g} "
+              f"TFLOP/s f32), {bound / ms:.3f} of it reached; "
+              f"fused attention launches per step {XTTS_TRAIN_LAUNCHES['fused_attention']} "
+              f"(forward {vjp['train_fwd_ms']:.3f} ms, VJP {vjp['vjp_ms']:.3f} ms, plain "
+              f"backward {vjp['vjp_plain_ms']:.3f} ms a step); {gpu_line}", flush=True)
+
+        # the checkpoint the run wrote, through the XTTS interface
+        ckpt = ExperimentSaver.get_last_checkpoint(expr)
+        check(ckpt is not None and ckpt.name == f"step_{XTTS_TRAIN_STEPS:09d}",
+              f"xtts_train: last checkpoint {ckpt}")
+        del st["trainer"], st["batch"]
+        xi = XTTSEvaluationInterface(ckpt, device="cuda")
+        wave = prompt_wave()
+        xtts_kernels_vs_plain(torch, xi, wave)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = xi.synthesize(REQUEST_SENTENCES[0], speaker=xi.get_speakers()[0],
+                            max_tokens=XTTS_GREEDY_TOKENS, temperature=0.8, seed=0,
+                            ref_audio=AudioChunk(data=wave, sr=SR))
+        request_ms = 1e3 * (time.perf_counter() - t0)
+        request_counts = read_counts()
+        check(request_counts == XTTS_LAUNCHES,
+              f"xtts_train: the reloaded request's launches {request_counts} != {XTTS_LAUNCHES}")
+        check(out.data.shape == (XTTS_GREEDY_TOKENS * HOP,) and bool(np.isfinite(out.data).all()),
+              f"xtts_train: waveform {out.data.shape}, finite {np.isfinite(out.data).all()}")
+        print(f"[xtts_train] {ckpt.name} -> XTTSEvaluationInterface serves a request of "
+              f"{XTTS_GREEDY_TOKENS} tokens (f32, first call) in {request_ms:.1f} ms; "
+              f"launches {request_counts}", flush=True)
+        del xi
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[xtts_train] phase wall time {phase_s:.1f} s ({gpu_line})", flush=True)
+    launches = {k: train_counts[k] + request_counts[k] for k in train_counts}
+    res.update(launches=launches, ms=ms, ms_all=ms_all, wall_ms=wall, token_rate=rate,
+               wall_token_rate=wall_rate, peak=peak, bound_ms=bound, phase_s=phase_s)
+    return res
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -2418,10 +2748,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,slice,toy,interface,tts_interface,xtts,bundle,"
-                            "train,tts_train",
+                            "train,tts_train,xtts_train",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
-                         "tts_interface,xtts,bundle,train,tts_train,profile (the last is not "
-                         "in the default run)")
+                         "tts_interface,xtts,bundle,train,tts_train,xtts_train,profile (the "
+                         "last is not in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2459,7 +2789,8 @@ def run(torch, phases: set) -> int:
              ("xtts", phase_xtts, ("fused_attention",)),
              ("bundle", phase_bundle, tuple(EXPECTED_LAUNCHES)),
              ("train", phase_train, tuple(HEAD_LAUNCHES)),
-             ("tts_train", phase_tts_train, tuple(EXPECTED_LAUNCHES)))
+             ("tts_train", phase_tts_train, tuple(EXPECTED_LAUNCHES)),
+             ("xtts_train", phase_xtts_train, ("fused_attention",)))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:
@@ -2469,9 +2800,10 @@ def run(torch, phases: set) -> int:
         check(all(counts[k] > 0 for k in kernels_of_path),
               f"{label}: a kernel of the path was never launched: {counts}")
         by_path[label] = counts
-        if label == "train":  # the anti-alias entries' training forward and VJP times
-            for name, times in out["times"].items():
-                records.setdefault(name, {}).update(times)
+        # the training forward and VJP times: the anti-alias entries' (train), attention's
+        # (xtts_train)
+        for name, times in out.get("times", {}).items():
+            records.setdefault(name, {}).update(times)
     for name in KERNEL_META:
         if by_path:
             records.setdefault(name, {})["launches"] = sum(c[name] for c in by_path.values())
@@ -2488,7 +2820,9 @@ def run(torch, phases: set) -> int:
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
                         "library_ms": r.get("library_ms"),
                         **{k: v for k, v in r.items()
-                           if k.endswith("_by_path") or k in ("train_fwd_ms", "vjp_ms")}})
+                           if k.endswith("_by_path")
+                           or k in ("train_fwd_ms", "train_fwd_err", "vjp_ms", "vjp_plain_ms",
+                                     "vjp_err")}})
     print(json.dumps({"kernels": kernels}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

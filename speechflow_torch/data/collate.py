@@ -12,6 +12,11 @@ pitch, energy) are padded to a multiple of ``frame_multiple``, the gate to
 the mel's frames with 1 from each sample's last frame on, and loaded
 waveforms to a multiple of ``sample_multiple``. A raw-text batch has only
 the token-level fields.
+
+``TTSCollateWithPrompt`` (the XTTS recipes' collate) also pairs each row with
+a prompt row of the same speaker from the batch (``additional``'s
+``prompt_index``, ``prompt_mel``, ``prompt_mel_lengths`` and
+``prompt_transcription``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import numpy as np
 from speechflow_torch.data.core.datasample import AudioDataSample, TTSDataSample
 from speechflow_torch.utils.pad import stack_and_pad
 
-__all__ = ["CollatedAudio", "AudioCollate", "CollatedTTS", "TTSCollate", "COLLATES"]
+__all__ = ["CollatedAudio", "AudioCollate", "CollatedTTS", "TTSCollate", "TTSCollateWithPrompt",
+           "COLLATES"]
 
 Array = tp.Optional[np.ndarray]
 TOKEN_FIELDS = ("durations", "aggregate_pitch", "aggregate_energy", "ling_feat", "lm_feat",
@@ -148,4 +154,22 @@ class TTSCollate:
         return out
 
 
-COLLATES = {"AudioCollate": AudioCollate, "TTSCollate": TTSCollate}
+class TTSCollateWithPrompt(TTSCollate):
+    """``TTSCollate`` with a prompt for each row: the first other row of the batch
+    with the same ``speaker_id``, else the row itself."""
+
+    def __call__(self, samples: tp.List[TTSDataSample]) -> CollatedTTS:
+        out = super().__call__(samples)
+        spk = [getattr(s, "speaker_id", None) for s in samples]
+        idx = np.asarray([next((j for j, sj in enumerate(spk) if sj == sid and j != i), i)
+                          for i, sid in enumerate(spk)], np.int64)
+        out.additional["prompt_index"] = idx.astype(np.int32)
+        if out.mel is not None:
+            out.additional["prompt_mel"] = out.mel[idx]
+            out.additional["prompt_mel_lengths"] = out.mel_lengths[idx]
+        out.additional["prompt_transcription"] = out.transcription[idx]
+        return out
+
+
+COLLATES = {"AudioCollate": AudioCollate, "TTSCollate": TTSCollate,
+            "TTSCollateWithPrompt": TTSCollateWithPrompt}

@@ -102,8 +102,13 @@ class DataPipeline:
         return DataPipeline(info, ignored_handlers or ())
 
     @staticmethod
-    def from_config(cfg: tp.Mapping) -> "DataPipeline":
-        """The training pipeline of a data config; see the module docstring."""
+    def from_config(cfg: tp.Mapping,
+                    seed_singletons: tp.Optional[tp.Mapping[str, dict]] = None
+                    ) -> "DataPipeline":
+        """The training pipeline of a data config; see the module docstring.
+        ``seed_singletons`` maps a singleton handler's name to the state it
+        loads before it is fitted (a checkpoint's ``pipeline_info["singletons"]``):
+        the checkpoint's speaker and language ids stay, new ones are appended."""
         cfg = dict(cfg)
         ds_cfg = cfg.get("dataset") or {}
         subsets = list(ds_cfg.get("subsets", ["train", "test"]))
@@ -131,6 +136,8 @@ class DataPipeline:
             if name not in SINGLETON_HANDLERS:
                 raise NotImplementedError(f"singleton handler '{name}' is not ported")
             singletons[name] = SINGLETON_HANDLERS[name](**dict(kwargs or {}))
+            if seed_singletons and name in seed_singletons:
+                singletons[name].load_state_dict(seed_singletons[name])
             singletons[name].fit(datasets[subsets[0]])
         for inst in singletons.values():
             if hasattr(inst, "apply"):

@@ -2,8 +2,10 @@
 ``SpeakerIDSetter``, ``StatisticsRange``, ``DatasetStatistics`` and
 ``PhonemeStatistics`` in ``speechflow_tpu/data/processors/singletons.py``,
 the ones the vocoder's and the TTS data configs list). Their ``state_dict``
-goes into the pipeline info a checkpoint carries; ``PhonemeStatistics``'
-symbols make the training pipeline's alphabet."""
+goes into the pipeline info a checkpoint carries, and ``load_state_dict``
+seeds a handler from one before it is fitted (a resumed, fine-tuned or
+warm-started run keeps its checkpoint's speaker and language ids);
+``PhonemeStatistics``' symbols make the training pipeline's alphabet."""
 
 from __future__ import annotations
 
@@ -50,6 +52,10 @@ class SpeakerIDSetter:
     def state_dict(self) -> dict:
         return {"speaker2id": dict(self.speaker2id), "lang2id": dict(self.lang2id)}
 
+    def load_state_dict(self, d: dict) -> None:
+        self.speaker2id = dict(d["speaker2id"])
+        self.lang2id = dict(d["lang2id"])
+
 
 class StatisticsRange:
     """Per speaker, per feature (pitch, energy and their token aggregates):
@@ -88,6 +94,9 @@ class StatisticsRange:
     def state_dict(self) -> dict:
         return {"ranges": self.ranges}
 
+    def load_state_dict(self, d: dict) -> None:
+        self.ranges = d["ranges"]
+
 
 class DatasetStatistics:
     """Sample count, durations (total, longest, per speaker) and lengths."""
@@ -119,6 +128,9 @@ class DatasetStatistics:
     def state_dict(self) -> dict:
         return dict(self.__dict__)
 
+    def load_state_dict(self, d: dict) -> None:
+        self.__dict__.update(d)
+
 
 class PhonemeStatistics:
     """How often each phoneme occurs (an empty label counts as ``<SIL>``)."""
@@ -144,6 +156,9 @@ class PhonemeStatistics:
 
     def state_dict(self) -> dict:
         return {"counts": dict(self.counts)}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.counts = dict(d["counts"])
 
 
 SINGLETON_HANDLERS = {"SpeakerIDSetter": SpeakerIDSetter,

@@ -6,8 +6,8 @@ Channels-last, as the JAX modules: a waveform (B, N) encodes to latents
 padding (``models.layers.Conv1d``), ``ResidualVQ`` turns them into a code
 grid (B, T', n_q), and the decoder mirrors the encoder with
 ``nnx.ConvTranspose`` of kernel 2s at stride s (``models.layers.ConvTranspose1d``:
-SAME, the kernel unflipped, T·s outputs). The codec's training criterion is
-not ported yet.
+SAME, the kernel unflipped, T·s outputs). ``codec_criterion`` is its
+training loss: L1 + multi-resolution STFT + the RVQ's commitment loss.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from speechflow_torch.models.layers import Conv1d, ConvTranspose1d, layer_norm
 from speechflow_torch.models.tts.common import VectorQuantizer
 from speechflow_torch.training.base_model import BaseModelParams
 
-__all__ = ["CodecParams", "ResidualVQ", "NeuralCodec", "CodecDecoder"]
+__all__ = ["CodecParams", "ResidualVQ", "NeuralCodec", "CodecDecoder", "codec_criterion"]
 
 
 @dataclasses.dataclass
@@ -132,3 +132,23 @@ class NeuralCodec(nn.Module):
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         return self.decode_latent(self.rvq.lookup(codes))
+
+
+def codec_criterion(sample_rate: int = 24000, vq_weight: float = 1.0,
+                    stft_weight: float = 1.0) -> tp.Callable:
+    """The codec's losses for ``Trainer``: ``criterion(outputs, targets, step)``
+    with ``outputs`` the training forward's (reconstruction, codes, vq loss) and
+    ``targets["waveform"]`` cut to the reconstruction's length -> {"l1", "stft"
+    (at resolutions (512, 128) and (1024, 256)), "vq"}. ``sample_rate`` is
+    accepted and unused, as in the JAX criterion."""
+    from speechflow_torch.models.vocoder.criterion import multires_stft_loss
+
+    def criterion(outputs, targets, step):
+        recon, _, vq_loss = outputs
+        real = targets["waveform"][..., : recon.shape[-1]]
+        return {"l1": torch.mean(torch.abs(recon - real)),
+                "stft": stft_weight * multires_stft_loss(
+                    recon, real, resolutions=((512, 128), (1024, 256))),
+                "vq": vq_weight * vq_loss}
+
+    return criterion

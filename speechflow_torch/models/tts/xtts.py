@@ -5,10 +5,15 @@
 ``GPTDecoder`` from text ids (plus a speaker and, with ``use_prompt``, a
 reference-audio mel encoded by ``PromptEncoder``) and decodes them with the
 codec. The teacher-forced call computes the GPT's cross-entropy on codes the
-codec encodes from the target waveform. The constructor ends in
+codec encodes from the target waveform; ``XTTSBatchProcessor`` and
+``xtts_criterion`` put it under ``Trainer``. The constructor ends in
 ``flax_init_``, so a fresh model starts from flax's initialisers; ``boa_tok``
-(N(0, 0.02)) and the codebooks (N(0, 1)) keep their own. The XTTS training
-branch (batch processor, criterion, prompt collate) is not ported yet.
+(N(0, 0.02)) and the codebooks (N(0, 1)) keep their own.
+
+The codes are an argmin, so the loss reaches the codec through integers only
+and its gradient is zero, ``freeze_codec`` or not, as in JAX (whose
+``jax.grad`` returns zeros there; AdamW's decay still moves the codec). The
+port encodes under ``no_grad``: the same codes, without the encoder's graph.
 """
 
 from __future__ import annotations
@@ -19,13 +24,14 @@ import typing as tp
 import torch
 import torch.nn as nn
 
-from speechflow_torch.models.codec import CodecParams, NeuralCodec
 from speechflow_torch.models.layers import Conv1d, flax_init_, layer_norm
 from speechflow_torch.models.tts.ar_decoders import GPTDecoder
+from speechflow_torch.models.tts.batch_processor import _tensor
 from speechflow_torch.models.tts.common import TransformerBlock, gelu
 from speechflow_torch.training.base_model import BaseModelParams
 
-__all__ = ["XTTSParams", "XTTSModel", "PromptEncoder"]
+__all__ = ["XTTSParams", "XTTSModel", "PromptEncoder", "XTTSBatchProcessor",
+           "xtts_criterion"]
 
 
 @dataclasses.dataclass
@@ -76,6 +82,10 @@ class PromptEncoder(nn.Module):
 
 class XTTSModel(nn.Module):
     def __init__(self, params: XTTSParams):
+        # imported here: models/codec/rvq.py imports this package's common.py, so a
+        # module-level import would be circular when the codec is imported first
+        from speechflow_torch.models.codec import CodecParams, NeuralCodec
+
         super().__init__()
         self.p = params
         self.codec = NeuralCodec(CodecParams.create(params.codec))
@@ -117,9 +127,8 @@ class XTTSModel(nn.Module):
         Returns the teacher-forced GPT cross-entropy, {'gpt_ce': loss}."""
         get = inputs.get if isinstance(inputs, tp.Mapping) else (
             lambda k, d=None: getattr(inputs, k, d))
-        codes = self.codec.encode(get("waveform"))[..., 0]  # the first quantizer stream
-        if self.p.freeze_codec:
-            codes = codes.detach()
+        with torch.no_grad():  # integer codes: no gradient flows back through them
+            codes = self.codec.encode(get("waveform"))[..., 0]  # the first quantizer stream
         lens = torch.full((codes.shape[0],), codes.shape[1], dtype=torch.int32,
                           device=codes.device)
         wl = get("waveform_lengths")
@@ -145,3 +154,26 @@ class XTTSModel(nn.Module):
                                   generator=generator, cond=self._cond(speaker_id),
                                   prompt_emb=p_emb, prompt_lengths=p_len, gumbel=gumbel)
         return self.codec.decode(codes.clamp(0, self.n_codes - 1)[..., None])
+
+
+class XTTSBatchProcessor:
+    """Collated TTS batch -> (inputs, {}): the text ids, the waveform with its
+    lengths, the speaker ids and, from a ``TTSCollateWithPrompt`` batch, the
+    prompt mel with its lengths, as CPU tensors (None where the batch has none)."""
+
+    def __call__(self, c) -> tp.Tuple[tp.Dict[str, tp.Optional[torch.Tensor]], dict]:
+        additional = getattr(c, "additional", None) or {}
+        inputs = {k: _tensor(getattr(c, k, None)) for k in
+                  ("transcription", "waveform", "waveform_lengths", "speaker_id")}
+        for k in ("prompt_mel", "prompt_mel_lengths"):
+            inputs[k] = _tensor(additional.get(k))
+        return inputs, {}
+
+
+def xtts_criterion() -> tp.Callable:
+    """``XTTSModel`` returns its loss dict; the criterion passes it through."""
+
+    def criterion(outputs, targets, step):
+        return outputs
+
+    return criterion

@@ -22,6 +22,17 @@ there instead; compare valid rows only). As the JAX wrapper's ``_flash_ok``
 does, it sends only the deterministic call to the kernel: a training call
 (``deterministic=False``) takes the plain version, with dropout on the
 attention weights, and gets autograd's backward.
+
+Gradients. On a CUDA tensor ``fused_attention`` is a ``torch.autograd.Function``
+(the counterpart of the ``jax.custom_vjp`` ``_fused_attention``): the kernel
+is the forward, and the backward is ``fused_attention_vjp``, JAX's
+``_fused_attention_bwd`` in PyTorch ops (the softmax recomputed in f32 from
+q, k and the key validity; no backward kernel, as JAX has none). The kernel
+zeroes padded query rows itself, where JAX zeroes them after
+``_fused_attention`` (``flash_attention_fn``), so the VJP first zeroes the
+cotangent there: the same function, the same gradient. This is how a
+deterministic call under autograd trains, as the XTTS prompt encoder's
+blocks do.
 """
 
 from __future__ import annotations
@@ -34,7 +45,8 @@ import torch
 
 from speechflow_torch.ops import _build
 
-__all__ = ["attention_reference", "fused_attention", "flash_attention_fn"]
+__all__ = ["attention_reference", "fused_attention", "fused_attention_vjp",
+           "flash_attention_fn"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -98,6 +110,42 @@ def _launch(q, k, v, valid):
     return out
 
 
+def fused_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        valid: torch.Tensor, g: torch.Tensor
+                        ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``fused_attention`` at cotangent ``g``, each in its input's
+    dtype: JAX's ``_fused_attention_bwd`` in PyTorch ops, with ``g`` zeroed at
+    padded query rows first (the forward wrote zeros there). The softmax
+    w is recomputed in f32; dv = wᵀg, dw = g vᵀ, dlog = w·(dw − Σ dw·w),
+    dq = dlog k/√dh, dk = dlogᵀ q/√dh. The validity gets no gradient.
+    Shapes as ``fused_attention``'s."""
+    keep = valid.to(torch.bool)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf = q.float(), k.float(), v.float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    w = torch.softmax(logits.masked_fill(~keep[:, None, None, :], -1e30), dim=-1)
+    gf = g.float() * keep[:, :, None, None]
+    dv = torch.einsum("bhqk,bqhd->bkhd", w, gf)
+    dw = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    dlog = w * (dw - (dw * w).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", dlog, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dlog, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FusedAttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, valid):
+        ctx.save_for_backward(q, k, v, valid)
+        out = _launch(q, k, v, valid)
+        fused_attention.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*fused_attention_vjp(*ctx.saved_tensors, g), None)
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid: torch.Tensor) -> torch.Tensor:
     """softmax(q kᵀ/√dh with padded keys masked) v, padded query rows zeroed.
@@ -105,22 +153,15 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q/k/v: (B, T, H, dh) float32 or bfloat16, dh <= 256 (bf16 at dh <= 128:
     dh a multiple of 8 and 16-byte aligned data, else ``ValueError``);
     valid: (B, T), bool (read in place, any strides) or 0/1 (compared with 0
-    first). CPU tensors run the plain version; CUDA tensors launch the kernel
-    (counted in ``fused_attention.launches``). The kernel has no backward, as the TPU
-    kernel's caller trains with plain attention: a CUDA call that would need
-    one (grad enabled and an input requiring grad) raises ``RuntimeError``
-    rather than return a tensor cut from the graph.
+    first). CPU tensors run the plain version under PyTorch's autograd; CUDA
+    tensors launch the kernel (counted in ``fused_attention.launches``), with
+    ``fused_attention_vjp`` as the backward.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, valid)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise RuntimeError("fused_attention has no backward; training takes the plain "
-                           "attention path (attention_reference)")
-    out = _launch(q, k, v, valid)
-    fused_attention.launches += 1
-    return out
+    return _FusedAttentionFn.apply(q, k, v, valid)
 
 
 fused_attention.launches = 0

@@ -18,6 +18,11 @@ the port cannot write or read. The port's checkpoint directory holds:
 port-written checkpoint through their ``from_checkpoint``. A JAX-written
 checkpoint has no ``model.npz``: the port still starts from what the JAX
 loader returns for those (``remap_legacy_keys`` migrates old layouts).
+
+``filter_state_by_prefix`` and ``merge_states`` serve finetuning and
+warm starts (``scripts.common.apply_resume_warmstart``): they work on that
+pure-dict tree and match the ``/``-joined JAX paths, so a recipe's
+``warmstart.include`` selects the same tensors in both packages.
 """
 
 from __future__ import annotations
@@ -205,3 +210,40 @@ class ExperimentSaver:
             return node
 
         return fix_resblocks(fix_codec(model))
+
+    # -- warmstart / finetune ---------------------------------------------------
+
+    @staticmethod
+    def filter_state_by_prefix(state: tp.Mapping, include: tp.Sequence[str] = (),
+                               exclude: tp.Sequence[str] = ()) -> dict:
+        """The tree with each leaf kept or set to None: a leaf is kept when
+        ``include`` is empty or one of its entries starts or occurs in the leaf's
+        ``/``-joined path, unless an entry of ``exclude`` does."""
+
+        def hit(path: str, entries) -> bool:
+            return any(path.startswith(p) or p in path for p in entries)
+
+        def walk(node, path=""):
+            if isinstance(node, tp.Mapping):
+                return {k: walk(v, f"{path}/{k}" if path else str(k)) for k, v in node.items()}
+            keep = (not include or hit(path, include)) and not (exclude and hit(path, exclude))
+            return node if keep else None
+
+        return walk(state)
+
+    @staticmethod
+    def merge_states(target: tp.Mapping, source: tp.Mapping) -> dict:
+        """``target`` with each leaf that ``source`` holds (not None) and of the
+        same shape replaced by the source's; a leaf of another shape keeps the
+        target's."""
+
+        def merge(t, s):
+            if isinstance(t, tp.Mapping) and isinstance(s, tp.Mapping):
+                return {k: merge(v, s[k]) if k in s else v for k, v in t.items()}
+            if s is None:
+                return t
+            if hasattr(t, "shape") and hasattr(s, "shape") and tuple(t.shape) != tuple(s.shape):
+                return t
+            return s
+
+        return merge(target, source)

@@ -239,7 +239,7 @@ def test_xtts_synthesize_on_the_gpu_matches_the_cpu(cuda_device):
     lens = torch.tensor([70, 41])
     sid = torch.tensor([0, 1])
     outs, tokens = [], []
-    for model in (cpu, card):  # inference: the kernel has no backward
+    for model in (cpu, card):
         dev = next(model.parameters()).device
         before = A.fused_attention.launches
         args = (text.to(dev), sid.to(dev))
@@ -422,15 +422,40 @@ def test_anti_alias_vjps_match_plain_autograd(cuda_device, rng, dtype, tol, taps
 
 
 @pytest.mark.cuda
-def test_fused_attention_refuses_to_cut_the_graph(cuda_device, rng):
-    """No backward kernel: with grad enabled and an input that requires grad
-    the wrapper raises; under no_grad it launches."""
-    q, k, v = (_normal(rng, 1, 64, 2, 64).to(cuda_device) for _ in range(3))
-    valid = torch.ones(1, 64, dtype=torch.bool, device=cuda_device)
-    with pytest.raises(RuntimeError, match="no backward"):
-        A.fused_attention(q.requires_grad_(), k, v, valid)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("shape", [(2, 100, 3, 128), (4, 112, 4, 256)])
+def test_fused_attention_vjp_matches_plain_autograd(cuda_device, rng, dtype, tol, shape):
+    """Under autograd the wrapper launches the kernel once (its output as without
+    autograd) and its backward is ``fused_attention_vjp``: q, k and v's gradients
+    against PyTorch autograd of the plain version, each within ``tol`` of the plain
+    gradient's largest magnitude (f32: sums in another order; bf16: one ulp of the
+    gradient's scale), in the input's dtype. Keys and queries are padded, with
+    1e4-scale values in the padded rows: their gradients are 0, and nothing of them
+    may reach another row's."""
+    b, t_len = shape[:2]
+    lens = torch.tensor([t_len - 7 * i for i in range(b)], device=cuda_device)
+    valid = torch.arange(t_len, device=cuda_device)[None] < lens[:, None]
+    q, k, v, g = (_normal(rng, *shape).to(cuda_device) for _ in range(4))
+    for x in (q, k, v):
+        x[~valid] = 1e4 * _normal(rng, int((~valid).sum()), shape[2], shape[3]).to(cuda_device)
+    q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
     with torch.no_grad():
-        assert A.fused_attention(q, k, v, valid).shape == q.shape
+        plain_out = A.fused_attention(q, k, v, valid)
+    before = A.fused_attention.launches
+    got, ref = [], []
+    for fn, grads in ((A.fused_attention, got), (A.attention_reference, ref)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, valid)
+        out.backward(g)
+        if fn is A.fused_attention:
+            assert torch.equal(out, plain_out)
+        grads.extend(x.grad for x in leaves)
+    torch.cuda.synchronize()
+    assert A.fused_attention.launches == before + 1
+    for u, w in zip(got, ref):
+        assert u.dtype == w.dtype == dtype
+        assert (u.float() - w.float()).abs().max().item() <= tol * w.float().abs().max().item()
+        assert not u[~valid].float().any()  # padded keys and queries get no gradient
 
 
 @pytest.mark.cuda
@@ -538,3 +563,50 @@ def test_tts_training_step_on_the_gpu_matches_the_cpu(cuda_device):
     scale = max(u.abs().max().item() for u in ref_u.values())
     assert scale > 0
     assert max((got_u[n] - u).abs().max().item() for n, u in ref_u.items()) <= 1e-3 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_type", ["attention", "retention"])
+def test_xtts_training_step_on_the_gpu_matches_the_cpu(cuda_device, block_type):
+    """The XTTS debug recipe (2 GPT layers, a prompt encoder block of 4 heads) on a
+    batch of 2 with ragged waveforms and prompts, on the card and on the CPU from
+    the same weights, with the codes the CPU's codec encodes given to both (a code
+    is an argmin: a rounding-level difference may flip one and change the target):
+    the prompt encoder's attention launches the kernel under autograd;
+    ``gpt_ce`` within 1e-5 relative; every gradient within 1e-3 of its tensor's
+    scale, or of 1e-3 of the model's largest gradient where that is more (the
+    attention key biases' true gradient is 0); the codec's gradient is 0 on both."""
+    from speechflow_torch.models.tts import XTTSModel, XTTSParams
+    from speechflow_torch.scripts.common import XTTS_MODEL_PRESETS
+
+    torch.manual_seed(0)
+    cpu = XTTSModel(XTTSParams.create(dict(XTTS_MODEL_PRESETS["debug"], n_layers=2,
+                                           n_symbols=40, n_speakers=2, prompt_dim=80,
+                                           block_type=block_type)))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(4)
+    inputs = {"transcription": torch.from_numpy(rng.integers(1, 40, (2, 16))),
+              "waveform": 0.3 * _normal(rng, 2, 4096),
+              "waveform_lengths": torch.tensor([4096, 2560]),
+              "speaker_id": torch.tensor([0, 1]),
+              "prompt_mel": _normal(rng, 2, 70, 80), "prompt_mel_lengths": torch.tensor([70, 41])}
+    with torch.no_grad():
+        codes = cpu.codec.encode(inputs["waveform"])
+    results = []
+    for model in (cpu, card):
+        dev = next(model.parameters()).device
+        model.codec.encode = lambda wav, dev=dev: codes.to(dev)
+        before = A.fused_attention.launches
+        loss = model({k: v.to(dev) for k, v in inputs.items()})["gpt_ce"]
+        loss.backward()
+        torch.cuda.synchronize()
+        assert A.fused_attention.launches - before == (0 if dev.type == "cpu" else 1)
+        results.append((loss.item(), {n: torch.zeros_like(p).cpu() if p.grad is None
+                                      else p.grad.cpu() for n, p in model.named_parameters()}))
+    (ref_l, ref_g), (got_l, got_g) = results
+    assert abs(got_l - ref_l) <= 1e-5 * abs(ref_l)
+    model_scale = max(g.abs().max().item() for g in ref_g.values())
+    for name, r in ref_g.items():
+        scale = max(r.abs().max().item(), 1e-3 * model_scale)
+        assert (got_g[name] - r).abs().max().item() <= 1e-3 * scale, name
+        assert r.any() != name.startswith("codec."), name
