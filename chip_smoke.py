@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # build, kernels, slice, toy, interface, tts_interface,
-                                     # xtts, bundle, train, tts_train, xtts_train
+                                     # xtts, bundle, train, tts_train, xtts_train,
+                                     # prosody_train, conditioned
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
@@ -10,6 +11,7 @@
     python3 chip_smoke.py --phases build,train   # GAN training of the flagship vocoder
     python3 chip_smoke.py --phases build,tts_train   # training of the acoustic model
     python3 chip_smoke.py --phases build,xtts_train  # training of XTTS
+    python3 chip_smoke.py --phases build,prosody_train,conditioned  # the inference chain
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -26,7 +28,8 @@ Phases, in order (any failure ends the run with a non-zero exit code):
 3. ``kernels``: each kernel wrapper on the card at the shapes the serving
    paths give it (flagship: attention H6 dh128, the anti-alias entries at
    the six head stages; toy: attention H4 dh64, B32 T128 and B32 T1024; the
-   XTTS prompt encoder: attention H4 dh256, B 1 and 8, T 1, 17, 112, 128),
+   XTTS prompt encoder: attention H4 dh256, B 1 and 8, T 1, 17, 112, 128; the prosody
+   model: attention H4 dh64, a sentence of 1 to 37 words, a B64 T64 training batch),
    held against its plain PyTorch version on the same inputs (f32 and bf16,
    ragged lengths, T not a multiple of the tile, masks with whole padded key
    and query tiles, narrow heads, f32 rows that are not 16-byte aligned (dh 1
@@ -39,7 +42,8 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    products at 495 TFLOP/s). Attention is timed at the rows of
    ``speechflow_torch.tools.attention_times``: the flagship and toy batches
    (bf16), the f32 TTS interface at 32 sentences and the bundle's sentence
-   (the serving entry points' f32 default) and the XTTS prompt. Tolerances:
+   (the serving entry points' f32 default), the XTTS prompt (serving, and the B32
+   training batch) and the prosody model (a sentence, a training batch). Tolerances:
    attention f32 5e-5, bf16 1.6e-2; anti-alias f32 1e-5 (of the output's
    scale for large snake arguments), bf16 3.2e-2.
 4. ``slice``: the flagship serving path (``serving.build_flagship``, its
@@ -186,7 +190,39 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    VJP ms a step and the phase's wall time. Last, the checkpoint through ``XTTSEvaluationInterface``: a
    greedy request kernels vs plain (as in ``xtts``), then a request of 128 tokens
    with 4 attention launches and a finite waveform.
-13. ``profile`` (only when asked for): for the flagship and the toy program,
+13. ``prosody_train``: the prosody model (``configs/prosody_model.yml`` default: 256
+   x 4 layers x 4 heads, vocab 8000, batch 64, ``tokenizer: word_lm``) through the
+   port's ``scripts.train_prosody.train`` on ``tests/data/SEGS`` for
+   ``PROSODY_TRAIN_STEPS`` steps. First one f32 step of the preset's model (seeded,
+   dropout 0) on the card and on the CPU on one SEGS batch: losses within
+   ``TOL_F32_REL``, every gradient within ``TOL_PROSODY_GRAD`` of its scale. Then
+   the run: the WordLM trained on the card, finite losses, 4 attention launches a step
+   (the JAX trainer's call is the model's deterministic one, so the blocks attend
+   through the kernel and its VJP). Prints the WordLM's seconds, ms a step, words
+   trained a second and peak memory. Last, the checkpoint through
+   ``ProsodyPredictionInterface`` on the card: 8 request sentences through the
+   kernels and the plain versions, logits within ``TOL_F32_REL`` and the same
+   classes, 4 launches a sentence, ms a sentence.
+14. ``conditioned``: the reference's inference chain. The flagship acoustic model at
+   full width with ``use_prosody``, ``speaker_emb_mode: input`` (192 wide) and the
+   style VAE, f32 from flax's initialisers (the duration predictor's output bias at
+   log(1 + 8) frames a token, as in ``bundle``), behind ``TTSEvaluationInterface``
+   with the prosody checkpoint of ``prosody_train`` (else a fresh one), the payload's
+   ``MeanBioEmbeddings`` fitted over the SEGS train split through
+   ``voice_biometrics``, and a seeded ECAPA at default width (80 mels, 256 channels,
+   192 dims, 3 blocks) saved with ``save_module`` and set through
+   ``set_biometric_model(make_ecapa_hook(...))`` on the card; the flagship vocoder.
+   Gates: the ECAPA embedding of LJ001-0002.wav on the card against the CPU's
+   (``TOL_ECAPA``); a request of 8 sentences with that reference through the kernels
+   and the plain versions on the same inputs and noise (equal durations, mel and
+   waveform within ``TOL_F32_REL``); 4 timed requests, each with 186 + 4 x 8 attention
+   and 37 / 6 / 18 anti-alias launches and finite, non-silent utterances; and
+   ``resynthesize`` of a SEGS utterance with the reference (186 / 37 / 6 / 18 launches,
+   t_out the source's frames, a finite, non-silent waveform). Prints each request's
+   stages (ECAPA, the host's reference work: wav load and style mel, prosody
+   prediction, the rest of the host frontend, acoustic model, vocoder), the first and
+   the median request, x realtime and the ms of ``resynthesize``.
+15. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -369,6 +405,12 @@ def _attention_cases():
     # the XTTS prompt encoder: 4 heads of 256 (the TF32 kernel), B 1 and 8, ragged
     for b, t, lens in XTTS_PROMPT_CASES:
         yield f"xtts-prompt-T{t}", b, t, 4, 256, lens, []
+    # the prosody model: one sentence padded to 16 tokens (1, 10 and 16 words valid), and
+    # a training batch of the default preset (64 rows of 64 word slots, ragged)
+    for words in (1, 10, 16):
+        yield f"prosody-w{words}", 1, 16, 4, 64, [words], []
+    yield "prosody-w37", 1, 48, 4, 64, [37], []
+    yield "prosody-train", 64, 64, 4, 64, [max(1, 40 - 2 * (i % 16)) for i in range(64)], []
 
 
 def _strided(torch, valid):
@@ -1363,7 +1405,8 @@ def phase_xtts(torch, gpu_line: str) -> dict:
 def bundle_checkpoints(torch) -> dict:
     """Port checkpoints of the flagship acoustic model and BigVGAN vocoder (seeded
     weights, as ``serving.build_flagship`` draws them; the vocoder unfolded, as a
-    trainer saves it) and the XTTS one: {kind: step directory}."""
+    trainer saves it), the XTTS one and a prosody model (``prosody_checkpoint``):
+    {kind: step directory}."""
     import dataclasses
     import math
 
@@ -1380,7 +1423,7 @@ def bundle_checkpoints(torch) -> dict:
     with torch.no_grad():
         am.variance_adaptor.predictors["durations"].out.bias.fill_(
             math.log1p(serving.FRAMES_PER_TOKEN))
-    out = {"xtts": xtts_checkpoint(torch)}
+    out = {"xtts": xtts_checkpoint(torch), "prosody": prosody_checkpoint(torch)}
     for kind, model, payload in (
             ("tts", am, serving.flagship_payload(request_symbols())),
             ("vocoder", vm, {"model_params": dataclasses.asdict(voc_p)})):
@@ -1475,6 +1518,9 @@ def phase_bundle(torch, gpu_line: str) -> dict:
     t2 = time.perf_counter()
     tts, voc, xi = bundle.tts, bundle.vocoder, bundle.xtts
     t3 = time.perf_counter()
+    check(tts.prosody_interface is not None
+          and next(tts.prosody_interface.model.parameters()).is_cuda,
+          "bundle: the TTS interface has no prosody model on the card")
     print(f"[bundle] checkpoints written in {t0 - t_phase:.1f} s; packed "
           f"{archive.stat().st_size / 2**30:.2f} GiB in {t1 - t0:.1f} s, extracted in "
           f"{t2 - t1:.1f} s, interfaces built on the card in {t3 - t2:.1f} s", flush=True)
@@ -2633,6 +2679,454 @@ def phase_xtts_train(torch, gpu_line: str) -> dict:
     return res
 
 
+# -- phases 13 and 14: the prosody model and the conditioned inference chain -----------
+
+PROSODY_TRAIN_PRESET = "default"
+PROSODY_TRAIN_STEPS = 20
+# the prosody model's inference call: 4 blocks, one attention launch each, per sentence
+PROSODY_LAUNCHES = 4
+TOL_PROSODY_GRAD = 1e-3  # a card-vs-CPU f32 step's gradients, of each tensor's scale
+REF_WAV = (REPO / "tests" / "data" / "SRC" / "EN" / "OPENSOURCE_VOICES" / "001_LJSpeech" /
+           "LJSpeech-1.1" / "wavs" / "LJ001-0002.wav")
+SEGS = REPO / "tests" / "data" / "SEGS"
+COND_SENTENCES = REQUEST_SENTENCES[:8]  # the conditioned request: 8 sentences, 1..11 words
+COND_REQUESTS = 3  # timed requests after the first
+COND_OVERRIDES = dict(use_prosody=True, speaker_emb_mode="input", speaker_bio_dim=192,
+                      use_style_encoder=True, style_use_vae=True, style_use_gmvae=False)
+TOL_ECAPA = 1e-4  # the ECAPA embedding on the card against the CPU's
+
+
+def prosody_gate(torch, model_cfg: dict) -> dict:
+    """One f32 step of the preset's model (seeded, dropout off) on the card and on the
+    CPU on the same SEGS batch: the losses within ``TOL_F32_REL``, every gradient within
+    ``TOL_PROSODY_GRAD`` of its tensor's scale (or 1e-3 of the model's largest)."""
+    import copy
+
+    from speechflow_torch.models.prosody import ProsodyCriterion, ProsodyModel, ProsodyParams
+    from speechflow_torch.ops import attention as A
+    from speechflow_torch.scripts import train_prosody as TP
+
+    params = ProsodyParams.create(dict(model_cfg["model"], dropout=0.0))
+    torch.manual_seed(1)
+    cpu = ProsodyModel(params)
+    gpu = copy.deepcopy(cpu).cuda()
+    loader = TP.ProsodySampleLoader(str(SEGS), params.vocab_size,
+                                    batch_size=int(model_cfg["batch"]["size"]))
+    inputs, targets = TP.prosody_batch(loader.next_batch())
+    res = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        x = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+        y = {k: torch.from_numpy(v).to(dev) for k, v in targets.items()}
+        before = A.fused_attention.launches
+        losses = ProsodyCriterion()(model(x), y, 0)
+        sum(losses.values()).backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            check(A.fused_attention.launches - before == params.n_layers,
+                  "prosody_train gate: the card's step did not launch the kernel per block")
+        res.append(({k: v.item() for k, v in losses.items()},
+                    {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res
+    loss_err = max(abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-6) for k in l_cpu)
+    model_scale = max(g.abs().max().item() for g in g_cpu.values())
+    worst, worst_name = 0.0, ""
+    for name, ref in g_cpu.items():
+        scale = max(ref.abs().max().item(), 1e-3 * model_scale)
+        err = (g_gpu[name] - ref).abs().max().item() / scale
+        if err > worst:
+            worst, worst_name = err, name
+    print(f"[prosody_train] f32 step card vs CPU (B{inputs['token_ids'].shape[0]} "
+          f"T{inputs['token_ids'].shape[1]}, dropout 0): losses {l_gpu} vs {l_cpu}, rel err "
+          f"{loss_err:.3g} (tol {TOL_F32_REL:g}); worst gradient {worst_name} {worst:.3g} of "
+          f"its scale (tol {TOL_PROSODY_GRAD:g})", flush=True)
+    check(loss_err <= TOL_F32_REL, f"prosody_train gate: losses differ {l_gpu} {l_cpu}")
+    check(worst <= TOL_PROSODY_GRAD, f"prosody_train gate: gradient {worst_name} {worst}")
+    return {"loss_rel_err": loss_err, "grad_rel_err": worst}
+
+
+def prosody_kernels_vs_plain(torch, pi, sentences) -> dict:
+    """The reloaded prosody interface on the card through the kernels and the plain
+    versions: logits within ``TOL_F32_REL`` of their scale and the same classes; and
+    the ms a sentence (the kernels; 4 launches)."""
+    import numpy as np
+
+    worst, ms = 0.0, []
+    for sent in sentences:
+        words = sent.split()
+        before = read_counts()["fused_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = pi.predict(words)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        check(read_counts()["fused_attention"] - before == PROSODY_LAUNCHES,
+              "prosody: a sentence did not launch the kernel once a block")
+        got = pi.logits(words)
+        with plain_versions():
+            ref = pi.logits(words)
+            pred_p = pi.predict(words)
+        for head in ("binary", "category"):
+            g, r = got[head][0, :len(words)], ref[head][0, :len(words)]
+            err = (g - r).abs().max().item() / max(r.abs().max().item(), 1e-6)
+            worst = max(worst, err)
+            check(err <= TOL_F32_REL, f"prosody: {head} logits kernels vs plain {err}")
+        for k in pred:
+            check(np.array_equal(pred[k], pred_p[k]), f"prosody: {k} differs (kernels, plain)")
+    return {"logit_rel_err": worst, "ms": float(np.median(ms)), "first_ms": ms[0]}
+
+
+def phase_prosody_train(torch, gpu_line: str) -> dict:
+    """The prosody model trained through the port's ``train_prosody.train`` at the
+    default preset (256 x 4 x 4, vocab 8000, batch 64, ``tokenizer: word_lm``) on
+    ``tests/data/SEGS`` for ``PROSODY_TRAIN_STEPS`` steps, then served."""
+    import tempfile
+
+    import numpy as np
+
+    from speechflow_torch.models.prosody import ProsodyPredictionInterface
+    from speechflow_torch.scripts import train_prosody as TP
+    from speechflow_torch.scripts.common import experiment_saver
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model_cfg = TP.configs(PROSODY_TRAIN_PRESET)
+    model_cfg["trainer"].update(max_steps=PROSODY_TRAIN_STEPS, log_every=5,
+                                ckpt_every=PROSODY_TRAIN_STEPS)
+    res = {"gate": prosody_gate(torch, model_cfg)}
+
+    st = {"lm_s": [], "words": [], "ends": [], "losses": []}
+    real_lm, real_loader = TP.train_word_lm, TP.ProsodySampleLoader
+
+    def timed_lm(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm = real_lm(*args, **kwargs)
+        torch.cuda.synchronize()
+        st["lm_s"].append(time.perf_counter() - t0)
+        st["lm_vocab"] = len(lm.vocab)
+        return lm
+
+    class CountingLoader(real_loader):
+        def next_batch(self):
+            batch = super().next_batch()
+            st["words"].append(int(batch["lengths"].sum()))
+            return batch
+
+    def callback(trainer, last):
+        st["losses"].append(float(last["total_loss"]))  # fetches: synchronised
+        st["ends"].append(time.perf_counter())
+
+    base = Path(tempfile.mkdtemp(prefix="prosody_", dir=workdir()))
+    saver = experiment_saver(model_cfg, {"dirs": {"data_root": str(SEGS)}}, base)
+    TP.train_word_lm, TP.ProsodySampleLoader = timed_lm, CountingLoader
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        expr = TP.train(model_cfg, SEGS, saver, device="cuda", callbacks=[callback])
+        train_s = time.perf_counter() - t0
+    finally:
+        TP.train_word_lm, TP.ProsodySampleLoader = real_lm, real_loader
+    train_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(st["losses"]) == PROSODY_TRAIN_STEPS and all(np.isfinite(st["losses"])),
+          f"prosody_train: losses {st['losses']}")
+    check(train_counts["fused_attention"] == PROSODY_LAUNCHES * PROSODY_TRAIN_STEPS,
+          f"prosody_train: {train_counts} launches for {PROSODY_TRAIN_STEPS} steps")
+    steps_ms = 1e3 * np.diff(st["ends"])  # step i+1 ends minus step i ends
+    ms = float(np.median(steps_ms))
+    words = float(np.mean(st["words"]))
+    print(f"[prosody_train] WordLM: {st['lm_vocab']} words trained in {st['lm_s'][0]:.2f} s on "
+          f"the card; {PROSODY_TRAIN_STEPS} steps at B{model_cfg['batch']['size']} in "
+          f"{train_s:.1f} s (WordLM included); losses {st['losses'][0]:.4f} -> "
+          f"{st['losses'][-1]:.4f}; {ms:.2f} ms a step (median from step 2, between step "
+          f"ends; first {1e3 * (st['ends'][0] - t0 - st['lm_s'][0]):.1f} ms after the WordLM), "
+          f"{words / (ms / 1e3):.0f} words trained a second; peak memory {peak:.2f} GiB; "
+          f"fused attention launches {train_counts['fused_attention']}; {gpu_line}", flush=True)
+
+    ckpt = ExperimentSaver.get_last_checkpoint(expr)
+    check(ckpt is not None and ckpt.name == f"step_{PROSODY_TRAIN_STEPS:09d}",
+          f"prosody_train: last checkpoint {ckpt}")
+    check((Path(expr) / "word_lm.pkl").is_file(), "prosody_train: no word_lm.pkl")
+    pi = ProsodyPredictionInterface(ckpt)
+    check(pi.vocab is not None and len(pi.vocab) == st["lm_vocab"],
+          "prosody_train: the checkpoint lacks the WordLM vocabulary")
+    reset_counts()
+    served = prosody_kernels_vs_plain(torch, pi, COND_SENTENCES)
+    serve_counts = read_counts()
+    print(f"[prosody_train] {ckpt.name} -> ProsodyPredictionInterface on the card: "
+          f"{len(COND_SENTENCES)} sentences, logits kernels vs plain rel err "
+          f"{served['logit_rel_err']:.3g} (tol {TOL_F32_REL:g}), classes equal; "
+          f"{served['ms']:.2f} ms a sentence (median; first {served['first_ms']:.1f} ms)",
+          flush=True)
+    _WORK["prosody_ckpt"] = ckpt
+    del pi
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[prosody_train] phase wall time {phase_s:.1f} s ({gpu_line})", flush=True)
+    launches = {k: train_counts[k] + serve_counts[k] for k in train_counts}
+    res.update(launches=launches, ms=ms, lm_s=st["lm_s"][0], words_per_s=words / (ms / 1e3),
+               peak=peak, predict_ms=served["ms"], phase_s=phase_s)
+    return res
+
+
+def prosody_checkpoint(torch) -> Path:
+    """The checkpoint ``prosody_train`` wrote in this run, else one of the default
+    preset's model from flax's initialisers (seed 0), hash tokens."""
+    if "prosody_ckpt" not in _WORK:
+        import dataclasses
+
+        from speechflow_torch.convert import nnx_from_module
+        from speechflow_torch.models.prosody import ProsodyModel, ProsodyParams
+        from speechflow_torch.scripts import train_prosody as TP
+        from speechflow_torch.training.saver import ExperimentSaver
+
+        params = ProsodyParams.create(dict(TP.configs(PROSODY_TRAIN_PRESET)["model"],
+                                           tokenizer="hash"))
+        torch.manual_seed(0)
+        saver = ExperimentSaver(workdir(), expr_suffix="prosody")
+        saver.to_save["model_params"] = dataclasses.asdict(params)
+        _WORK["prosody_ckpt"] = saver.save(0, nnx_from_module(ProsodyModel(params)))
+    return _WORK["prosody_ckpt"]
+
+
+def conditioned_payload() -> dict:
+    """The flagship payload of the char fallback's symbols with the conditioned
+    options, and the ``MeanBioEmbeddings`` of the SEGS train split: each utterance
+    loaded at 24 kHz through the ported ``voice_biometrics`` (with the biometric
+    model that is set), then fitted."""
+    import dataclasses
+
+    from speechflow_torch import serving
+    from speechflow_torch.data.parsers import TTSDSParser
+    from speechflow_torch.data.processors.audio import load_audio
+    from speechflow_torch.data.processors.embeddings import voice_biometrics
+    from speechflow_torch.data.processors.singletons import MeanBioEmbeddings
+    from speechflow_torch.io.flist import construct_file_list, split_file_list
+    from speechflow_torch.scripts.train_tts import TTS_DATA_PRESETS
+
+    payload = serving.flagship_payload(request_symbols())
+    payload["model_params"] = dataclasses.asdict(serving.ParallelTTSParams.create(
+        dict(payload["model_params"], **COND_OVERRIDES)))
+    ds_cfg = TTS_DATA_PRESETS["default"]["dataset"]
+    files = construct_file_list(SEGS, ext=".TextGridStage3")
+    train, _ = split_file_list(files, float(ds_cfg["split_ratio"]), int(ds_cfg["seed"]))
+    samples = TTSDSParser(max_duration=10.0, min_duration=0.5).read_datasamples(train)
+    t0 = time.perf_counter()
+    for ds in samples:
+        voice_biometrics(load_audio(ds, sample_rate=SR))
+    fit_s = time.perf_counter() - t0
+    mean = MeanBioEmbeddings().fit(samples)
+    payload["pipeline_info"]["singletons"]["MeanBioEmbeddings"] = mean.state_dict()
+    print(f"[conditioned] MeanBioEmbeddings over the SEGS train split: {len(samples)} "
+          f"utterances through voice_biometrics (ECAPA on the card) in {fit_s:.1f} s, "
+          f"{len(mean.mean_emb)} speakers", flush=True)
+    return payload
+
+
+def cond_request(torch, ti, vi, sentences, opts, timers, gen=None, noise=None) -> dict:
+    """One conditioned request as ``synthesize`` composes it, timed part by part (the
+    host clock, synchronised): the reference (wav load, ECAPA, style mel), the text
+    frontend (prosody prediction inside), the acoustic model, the vocoder."""
+    for v in timers.values():
+        v.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx = ti.prepare_embeddings(ti.create_context("EN"), REF_WAV)
+    t1 = time.perf_counter()
+    inputs = ti.prepare_batch(sentences, ctx, opts)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = ti.evaluate(inputs, opts, noise=noise, generator=gen)
+    mel, lens = _valid_mel(out)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    audio = vi.synthesize(mel)
+    t4 = time.perf_counter()
+    ecapa, prosody = sum(timers["ecapa"]), sum(timers["prosody"])
+    return {"inputs": inputs, "out": out, "mel": mel, "lens": lens, "wave": audio.data,
+            "ms": {"ecapa": ecapa, "reference_host": 1e3 * (t1 - t0) - ecapa,
+                   "prosody": prosody, "frontend_host": 1e3 * (t2 - t1) - prosody,
+                   "acoustic": 1e3 * (t3 - t2), "vocoder": 1e3 * (t4 - t3),
+                   "total": 1e3 * (t4 - t0)}}
+
+
+def _timed(torch, fn, sink: list):
+    """``fn``, appending the ms of each call (synchronised) to ``sink``."""
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append(1e3 * (time.perf_counter() - t0))
+        return out
+    return wrapper
+
+
+def _check_wave(what: str, wave, lens) -> float:
+    import numpy as np
+
+    check(wave.shape == ((sum(lens) - 1) * HOP,) and bool(np.isfinite(wave).all()),
+          f"{what}: waveform {wave.shape}, finite {np.isfinite(wave).all()}")
+    bounds = np.cumsum([0] + list(lens)) * HOP
+    std = min(float(wave[a:b].std()) for a, b in zip(bounds[:-1], bounds[1:]))
+    check(std > 1e-4, f"{what}: silent utterance (min std {std:.3g})")
+    return std
+
+
+def phase_conditioned(torch, gpu_line: str) -> dict:
+    """The reference's whole inference chain at flagship width: the acoustic model with
+    prosody classes, the projected speaker embedding and the style VAE (f32, flax's
+    initialisers), the prosody model of ``prosody_train``, a seeded ECAPA on the card
+    and the flagship vocoder; a text request with a reference wav, ``resynthesize``."""
+    import math
+
+    import numpy as np
+
+    from speechflow_torch import serving
+    from speechflow_torch.data.processors import embeddings as E
+    from speechflow_torch.interface.tts_interface import TTSEvaluationInterface, TTSOptions
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.models.biometric import ECAPAEmbedder, ECAPAParams
+    from speechflow_torch.models.tts import ParallelTTSModel, ParallelTTSParams
+    from speechflow_torch.utils.state_io import save_module
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # the speaker embedder: seeded, default width, saved and set as the biometric model
+    torch.manual_seed(1)
+    ecapa_path = str(save_module(ECAPAEmbedder(ECAPAParams()), ECAPAParams(),
+                                 workdir() / "ecapa.pkl"))
+    hook, hook_cpu = E.make_ecapa_hook(ecapa_path), E.make_ecapa_hook(ecapa_path, device="cpu")
+    check(next(hook.model.parameters()).is_cuda, "conditioned: the ECAPA hook is not on the card")
+    ref_wave = AudioChunk(file_path=REF_WAV).load(sr=SR).waveform
+    emb_gpu, emb_cpu = hook(ref_wave, SR), hook_cpu(ref_wave, SR)
+    ecapa_err = float(np.abs(emb_gpu - emb_cpu).max())
+    ecapa_ms = cuda_ms(lambda: hook(ref_wave, SR), 5)
+    print(f"[conditioned] ECAPA (80 mels, 256 channels, 192 dims, 3 blocks) on "
+          f"LJ001-0002.wav ({len(ref_wave) / SR:.2f} s): card vs CPU max_abs_err "
+          f"{ecapa_err:.3g} (tol {TOL_ECAPA:g}); {ecapa_ms:.2f} ms a call on the card "
+          f"(host mel included)", flush=True)
+    check(ecapa_err <= TOL_ECAPA, f"conditioned: ECAPA card vs CPU {ecapa_err}")
+    timers = {"ecapa": [], "prosody": []}
+    E.set_biometric_model(_timed(torch, hook, timers["ecapa"]))
+    try:
+        payload = conditioned_payload()
+        params = ParallelTTSParams.create(payload["model_params"])
+        torch.manual_seed(0)
+        am = ParallelTTSModel(params)
+        with torch.no_grad():  # flax's zero bias would give every token 0 frames
+            am.variance_adaptor.predictors["durations"].out.bias.fill_(
+                math.log1p(serving.FRAMES_PER_TOKEN))
+        am = am.to("cuda", torch.float32).eval()
+        _, vm = serving.build_flagship("default", device="cuda", dtype=torch.float32, seed=0)
+        ti = TTSEvaluationInterface(am, payload, prosody_ckpt=prosody_checkpoint(torch))
+        vi = VocoderEvaluationInterface(vm)
+        ti.prosody_interface.predict = _timed(torch, ti.prosody_interface.predict,
+                                              timers["prosody"])
+        opts = TTSOptions(t_out=T_FRAMES)
+        sentences = list(COND_SENTENCES)
+        print(f"[conditioned] built: acoustic model {params.encoder_dim} x "
+              f"{params.encoder_layers} / DiT {params.decoder_dim} x {params.decoder_layers} "
+              f"(prosody classes {params.n_prosody_classes}, speaker_bio_dim "
+              f"{params.speaker_bio_dim}, style VAE {params.style_emb_dim}), f32, flax's "
+              f"initialisers; prosody model {ti.prosody_interface.params.dim} x "
+              f"{ti.prosody_interface.params.n_layers}; in "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+        # kernels against plain on the same inputs (the kernels' prosody classes) and noise
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        r0 = cond_request(torch, ti, vi, sentences, opts, timers, gen=gen)
+        inputs = r0["inputs"]
+        check(inputs.prosody is not None and bool((inputs.prosody[:, 0] == -1).all()),
+              "conditioned: no prosody row (or a class on the BOS token)")
+        noise = torch.randn(am.noise_shape(inputs, T_FRAMES), generator=gen,
+                            device="cuda") * am.decoder.temperature
+        outs = []
+        for mode in (contextlib.nullcontext(), plain_versions()):
+            with mode, torch.inference_mode():
+                out = ti.evaluate(inputs, opts, noise=noise)
+                mel, lens = _valid_mel(out)
+                outs.append((out.attention.sum(1), mel, vi.synthesize(mel).data))
+        (d_k, mel_k, wav_k), (d_p, mel_p, wav_p) = outs
+        check(torch.equal(d_k, d_p), "conditioned f32: durations differ (kernels, plain)")
+        mel_err, mel_lim = (mel_k - mel_p).abs().max().item(), rel_limit(mel_p)
+        wav_err = float(np.abs(wav_k - wav_p).max())
+        wav_lim = TOL_F32_REL * float(np.abs(wav_p).max())
+        print(f"[conditioned] f32 {len(sentences)} sentences kernels vs plain: durations equal "
+              f"({int(d_k.sum())} frames), mel max_abs_err {mel_err:.3g} (tol {mel_lim:.3g}), "
+              f"wave max_abs_err {wav_err:.3g} (tol {wav_lim:.3g}); prosody classes "
+              f"{sorted(set(inputs.prosody.flatten().tolist()))}", flush=True)
+        check(mel_err <= mel_lim and wav_err <= wav_lim,
+              "conditioned f32: kernels disagree with plain")
+
+        # the timed requests
+        expected = dict(EXPECTED_LAUNCHES)
+        expected["fused_attention"] += PROSODY_LAUNCHES * len(sentences)
+        reset_counts()
+        runs = []
+        for i in range(1 + COND_REQUESTS):
+            before = read_counts()
+            r = cond_request(torch, ti, vi, sentences, opts, timers, gen=gen)
+            after = read_counts()
+            per_request = {k: after[k] - before[k] for k in after}
+            check(per_request == expected,
+                  f"conditioned: launches per request {per_request} != {expected}")
+            std = _check_wave("conditioned", r["wave"], r["lens"])
+            r["audio_s"] = len(r["wave"]) / SR
+            print(f"[conditioned] request {i}: {len(sentences)} sentences + LJ001-0002.wav -> "
+                  f"{r['audio_s']:.2f} s audio (frames {r['lens']}), min std {std:.4f}; "
+                  + ", ".join(f"{k} {v:.1f} ms" for k, v in r["ms"].items())
+                  + f"; launches {per_request}", flush=True)
+            runs.append(r)
+        request_counts = read_counts()
+        med = {k: float(np.median([r["ms"][k] for r in runs[1:]])) for k in runs[1]["ms"]}
+        audio_s = float(np.median([r["audio_s"] for r in runs[1:]]))
+        print(f"[conditioned] per request (f32, {gpu_line}): first {runs[0]['ms']['total']:.1f} "
+              f"ms; median of the next {COND_REQUESTS}: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+              + f" ms; {audio_s:.2f} s of audio = {audio_s / (med['total'] / 1e3):.1f}x "
+              f"realtime", flush=True)
+
+        # resynthesize one SEGS utterance with the reference
+        sega = sorted(SEGS.rglob("*.TextGridStage3"))[0]
+        reset_counts()
+        res_ms = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ti.resynthesize(sega, ref_audio=REF_WAV, generator=gen)
+            mel, lens = _valid_mel(out)
+            wave = vi.synthesize(mel).data
+            res_ms.append(1e3 * (time.perf_counter() - t0))
+            if i == 0:
+                resynth_counts = read_counts()
+        check(resynth_counts == EXPECTED_LAUNCHES,
+              f"conditioned resynthesize: launches {resynth_counts} != {EXPECTED_LAUNCHES}")
+        std = _check_wave("conditioned resynthesize", wave, lens)
+        check(out.spectrogram.shape[2] % 64 == 0 and bool(torch.isfinite(out.spectrogram).all()),
+              f"conditioned resynthesize: mel {tuple(out.spectrogram.shape)}")
+        print(f"[conditioned] resynthesize {sega.relative_to(REPO)} with LJ001-0002.wav: t_out "
+              f"{out.spectrogram.shape[2]} (the source mel), {lens[0]} frames -> "
+              f"{len(wave) / SR:.2f} s audio, std {std:.4f}; {res_ms[0]:.1f} ms first, "
+              f"{res_ms[1]:.1f} ms second (full pipeline on the host, model, vocoder); "
+              f"launches {resynth_counts}", flush=True)
+    finally:
+        E.set_biometric_model(None)
+    del am, vm, ti, vi
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[conditioned] phase wall time {phase_s:.1f} s ({gpu_line})", flush=True)
+    launches = {k: request_counts[k] + resynth_counts[k] for k in request_counts}
+    return {"launches": launches, "ms": med, "first_ms": runs[0]["ms"], "audio_s": audio_s,
+            "resynthesize_ms": res_ms, "ecapa_err": ecapa_err, "ecapa_ms": ecapa_ms,
+            "phase_s": phase_s}
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -2748,10 +3242,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,slice,toy,interface,tts_interface,xtts,bundle,"
-                            "train,tts_train,xtts_train",
+                            "train,tts_train,xtts_train,prosody_train,conditioned",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
-                         "tts_interface,xtts,bundle,train,tts_train,xtts_train,profile (the "
-                         "last is not in the default run)")
+                         "tts_interface,xtts,bundle,train,tts_train,xtts_train,prosody_train,"
+                         "conditioned,profile (the last is not in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2790,7 +3284,9 @@ def run(torch, phases: set) -> int:
              ("bundle", phase_bundle, tuple(EXPECTED_LAUNCHES)),
              ("train", phase_train, tuple(HEAD_LAUNCHES)),
              ("tts_train", phase_tts_train, tuple(EXPECTED_LAUNCHES)),
-             ("xtts_train", phase_xtts_train, ("fused_attention",)))
+             ("xtts_train", phase_xtts_train, ("fused_attention",)),
+             ("prosody_train", phase_prosody_train, ("fused_attention",)),
+             ("conditioned", phase_conditioned, tuple(EXPECTED_LAUNCHES)))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:

@@ -22,7 +22,8 @@ import numpy as np
 from speechflow_torch.io.audio import AudioChunk
 from speechflow_torch.io.timestamps import Timestamps
 
-__all__ = ["AudioDataSample", "SpectrogramDataSample", "TTSDataSample"]
+__all__ = ["AudioDataSample", "SpectrogramDataSample", "TTSDataSample",
+           "ProsodyPredictionDataSample"]
 
 Array = tp.Optional[np.ndarray]
 Labels = tp.Optional[tp.List[str]]
@@ -40,6 +41,9 @@ class AudioDataSample:
     lang: tp.Optional[str] = None
     lang_id: tp.Optional[int] = None
     speaker_emb: Array = None
+    speech_quality_emb: Array = None    # (5,) speech-quality statistics
+    ssl_feat: Array = None              # (T', D) SSL features
+    ac_feat: Array = None               # (T', D) neural-codec features
     #: each handler's parameters, by handler
     transform_params: tp.Dict[str, dict] = field(default_factory=dict)
     #: fields without a slot of their own (SSML words and modifiers)
@@ -106,3 +110,21 @@ class TTSDataSample(SpectrogramDataSample):
     @property
     def n_tokens(self) -> int:
         return 0 if self.transcription is None else len(self.transcription)
+
+
+@dataclass
+class ProsodyPredictionDataSample:
+    """A word-level prosody sample: the words, their token ids and per-word
+    targets (binary has-contour and the contour class; -1 is left out of the
+    loss)."""
+
+    file_path: tp.Optional[str] = None
+    label: tp.Optional[str] = None
+    index: int = 0
+    words: Labels = None
+    token_ids: Array = None             # (N,)
+    binary: Array = None                # (N,) 0/1, -1 pad
+    category: Array = None              # (N,) contour class, -1 pad
+
+    def __len__(self) -> int:
+        return 1

@@ -5,7 +5,10 @@
 - ``TTSDSParser``, the acoustic model's: TextGrid files (``AudioSeg``) ->
   samples with the text, the phonemes and their timestamps, the word tiers
   of the text parser and the utterance's audio window, after the duration,
-  language and speaker filters.
+  language and speaker filters;
+- ``ProsodyParser``, the prosody model's: TextGrid files -> word-level
+  samples with token ids and the ``prosody_targets`` of the ``prosody``
+  tier (punctuation-driven where a file has none).
 
 The audio is loaded by the ``load_audio`` handler, not here. A file that
 fails to parse is skipped with a warning, as the JAX parser skips it.
@@ -19,12 +22,16 @@ from pathlib import Path
 
 import numpy as np
 
-from speechflow_torch.data.core.datasample import AudioDataSample, TTSDataSample
+from speechflow_torch.data.core.datasample import (
+    AudioDataSample,
+    ProsodyPredictionDataSample,
+    TTSDataSample,
+)
 from speechflow_torch.io.audio import AudioChunk
 from speechflow_torch.io.seg import AudioSeg
 from speechflow_torch.io.timestamps import Timestamps
 
-__all__ = ["AudioDSParser", "TTSDSParser", "PARSERS"]
+__all__ = ["AudioDSParser", "TTSDSParser", "ProsodyParser", "prosody_targets", "PARSERS"]
 
 LOGGER = logging.getLogger("speechflow_torch")
 
@@ -134,4 +141,74 @@ class TTSDSParser:
         return samples
 
 
-PARSERS = {"AudioDSParser": AudioDSParser, "TTSDSParser": TTSDSParser}
+def prosody_targets(words: tp.Sequence[str],
+                    prosody_labels: tp.Optional[tp.Sequence[str]],
+                    n_classes: int = 8) -> tp.Tuple[np.ndarray, np.ndarray]:
+    """Word-level prosody labels -> (binary, category) int32 targets. Empty,
+    ``undefined`` and ``no`` are words without a contour (binary 0, category
+    -1); a numeric label is a contour class (binary 1, category
+    ``int(label) % n_classes``), any other label class 0. Without labels a
+    word ending in ``,.?!`` counts as label "1", any other as undefined."""
+    binary = np.zeros(len(words), np.int32)
+    category = np.full(len(words), -1, np.int32)
+    for k in range(len(words)):
+        lab = (prosody_labels[k] if prosody_labels else
+               ("1" if words[k][-1:] in ",.?!" else "undefined"))
+        if lab in ("", "undefined", "no"):
+            binary[k] = 0
+        else:
+            binary[k] = 1
+            try:
+                category[k] = int(lab) % n_classes
+            except ValueError:
+                category[k] = 0
+    return binary, category
+
+
+def seg_prosody_labels(seg: AudioSeg, n_words: int) -> tp.Optional[tp.List[str]]:
+    """The non-empty labels of the ``prosody`` tier when there is one per word."""
+    if "prosody" not in seg.grid:
+        return None
+    labels = seg.grid["prosody"].non_empty().labels
+    return labels if len(labels) == n_words else None
+
+
+class ProsodyParser:
+    """TextGrid files -> ``ProsodyPredictionDataSample``: the words of the text
+    tier, their ids (``word_ids``: a WordLM ``vocab`` or the hash vocabulary)
+    and their ``prosody_targets``; a file without words gives no sample."""
+
+    def __init__(self, vocab_size: int = 8000, vocab: tp.Optional[tp.Dict[str, int]] = None,
+                 n_classes: int = 8):
+        self.vocab_size = vocab_size
+        self.vocab = vocab
+        self.n_classes = n_classes
+
+    def to_datasample(self, path: tp.Union[str, Path], seg: AudioSeg
+                      ) -> tp.Optional[ProsodyPredictionDataSample]:
+        from speechflow_torch.models.prosody.interface import word_ids
+
+        words = [lab for _, _, lab in seg.words()]
+        if not words:
+            return None
+        binary, category = prosody_targets(words, seg_prosody_labels(seg, len(words)),
+                                           self.n_classes)
+        return ProsodyPredictionDataSample(
+            file_path=str(path), label=seg.speaker_name, words=words,
+            token_ids=word_ids(words, self.vocab, self.vocab_size), binary=binary,
+            category=category)
+
+    def read_datasamples(self, files: tp.Sequence[tp.Union[str, Path]]
+                         ) -> tp.List[ProsodyPredictionDataSample]:
+        samples = []
+        for f in files:
+            ds = self.to_datasample(f, AudioSeg.load(f))
+            if ds is not None:
+                samples.append(ds)
+        for i, s in enumerate(samples):
+            s.index = i
+        return samples
+
+
+PARSERS = {"AudioDSParser": AudioDSParser, "TTSDSParser": TTSDSParser,
+           "ProsodyParser": ProsodyParser}

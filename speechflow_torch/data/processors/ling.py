@@ -17,8 +17,9 @@ Features are one dense float32 matrix (N, LING_FEAT_DIM): [sil, word_begin,
 word_end, syntagma_end, pos(17), punct(8), emphasis, intonation(3), rel(21),
 importance, breath].
 
-The WordLM checkpoint branches wait for ``models/prosody/lm.py``: a
-``model_ckpt`` raises ``NotImplementedError``.
+With a ``model_ckpt`` (a ``word_lm.pkl`` of ``models/prosody/lm.py``, either
+package's), ``lm_feat_for_words`` and ``add_xpbert_feat`` take the trained
+WordLM's embeddings instead of the hashed ones.
 """
 
 from __future__ import annotations
@@ -352,17 +353,34 @@ def _char_ngrams(word: str, n_lo: int = 2, n_hi: int = 4) -> tp.List[str]:
     return out
 
 
-def _no_word_lm(model_ckpt: tp.Optional[str]) -> None:
-    if model_ckpt:
-        raise NotImplementedError(
-            "WordLM checkpoints (models/prosody/lm.py) are not ported yet")
+_WORD_LMS: tp.Dict[str, tp.Any] = {}
+
+
+def _get_word_lm(ckpt: tp.Optional[str]):
+    """The WordLM pickle at ``ckpt`` (loaded once per path), None without one."""
+    if not ckpt:
+        return None
+    if ckpt not in _WORD_LMS:
+        from speechflow_torch.models.prosody.lm import WordLM
+
+        _WORD_LMS[ckpt] = WordLM.load(ckpt)
+    return _WORD_LMS[ckpt]
 
 
 def lm_feat_for_words(words: tp.Sequence[str],
                       model_ckpt: tp.Optional[str] = None) -> np.ndarray:
-    """(n_words, LM_FEAT_DIM) word embeddings: hashed char n-grams (blake2s)
-    through a fixed random projection, each word's sum over sqrt(#grams)."""
-    _no_word_lm(model_ckpt)
+    """(n_words, LM_FEAT_DIM) word embeddings: with ``model_ckpt`` a trained
+    WordLM's (``WordLM.embed``, cut or zero-padded to LM_FEAT_DIM), else hashed
+    char n-grams (blake2s) through a fixed random projection, each word's sum
+    over sqrt(#grams)."""
+    lm = _get_word_lm(model_ckpt)
+    if lm is not None:
+        emb = lm.embed(list(words))
+        if emb.shape[1] >= LM_FEAT_DIM:
+            return emb[:, :LM_FEAT_DIM].astype(np.float32)
+        out = np.zeros((len(words), LM_FEAT_DIM), np.float32)
+        out[:, :emb.shape[1]] = emb
+        return out
     out = np.zeros((len(words), LM_FEAT_DIM), np.float32)
     for i, w in enumerate(words):
         grams = _char_ngrams(w)
@@ -375,14 +393,20 @@ def lm_feat_for_words(words: tp.Sequence[str],
 
 
 def add_xpbert_feat(ds: TTSDataSample, model_ckpt: tp.Optional[str] = None) -> TTSDataSample:
-    """Per-phoneme embeddings (the char-n-gram embeddings of the phoneme
-    symbols); rows of SIL are 0.1, and BOS/EOS rows 0.01 / -0.01 when the
-    transcription has service tokens."""
-    _no_word_lm(model_ckpt)
+    """Per-phoneme embeddings (a phoneme-level WordLM's at ``model_ckpt``, cut
+    or zero-padded to XPBERT_FEAT_DIM, else the char-n-gram embeddings of the
+    phoneme symbols); rows of SIL are 0.1, and BOS/EOS rows 0.01 / -0.01 when
+    the transcription has service tokens."""
     if ds.phonemes is None:
         return ds
     phonemes = list(ds.phonemes)
-    mat = lm_feat_for_words(phonemes)[:, :XPBERT_FEAT_DIM].astype(np.float32)
+    lm = _get_word_lm(model_ckpt)
+    if lm is not None:
+        mat = lm.embed(phonemes)[:, :XPBERT_FEAT_DIM].astype(np.float32)
+        if mat.shape[1] < XPBERT_FEAT_DIM:
+            mat = np.pad(mat, ((0, 0), (0, XPBERT_FEAT_DIM - mat.shape[1])))
+    else:
+        mat = lm_feat_for_words(phonemes)[:, :XPBERT_FEAT_DIM].astype(np.float32)
     for i, p in enumerate(phonemes):
         if p == SIL:
             mat[i] = 0.1

@@ -14,7 +14,7 @@ import numpy as np
 from speechflow_torch.ops.mel import MIN_LEVEL_DB, mel_filterbank
 
 __all__ = ["hann_window_np", "stft_np", "magnitude_np", "linear_to_mel_np",
-           "amp_to_db_np", "normalize_mel_np", "energy_np",
+           "amp_to_db_np", "normalize_mel_np", "energy_np", "spectral_flatness_np",
            "yin_f0_np", "MIN_LEVEL_DB"]
 
 
@@ -77,6 +77,15 @@ def normalize_mel_np(mel_db: np.ndarray, max_abs_value: float = 4.0,
 
 def energy_np(mag: np.ndarray) -> np.ndarray:
     return np.linalg.norm(mag, axis=-1).astype(np.float32)
+
+
+def spectral_flatness_np(mag: np.ndarray, power: float = 2.0, amin: float = 1e-10
+                         ) -> np.ndarray:
+    """1 - clip(100 * geometric / arithmetic mean of the power spectrum, 0, 0.99)."""
+    s = np.maximum(mag, amin) ** power
+    gmean = np.exp(np.mean(np.log(s), axis=-1))
+    amean = np.mean(s, axis=-1)
+    return (1.0 - np.clip(gmean / amean * 100.0, 0.0, 0.99)).astype(np.float32)
 
 
 def yin_f0_np(

@@ -1,7 +1,9 @@
 """Dataset-level handlers fitted once on the training subset (counterpart of
 ``SpeakerIDSetter``, ``StatisticsRange``, ``DatasetStatistics`` and
-``PhonemeStatistics`` in ``speechflow_tpu/data/processors/singletons.py``,
-the ones the vocoder's and the TTS data configs list). Their ``state_dict``
+``PhonemeStatistics`` and ``MeanBioEmbeddings`` in
+``speechflow_tpu/data/processors/singletons.py``: the ones the vocoder's and
+the TTS data configs list, and the per-speaker mean speaker embedding the TTS
+interface serves as its catalog). Their ``state_dict``
 goes into the pipeline info a checkpoint carries, and ``load_state_dict``
 seeds a handler from one before it is fitted (a resumed, fine-tuned or
 warm-started run keeps its checkpoint's speaker and language ids);
@@ -16,7 +18,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["SpeakerIDSetter", "StatisticsRange", "DatasetStatistics", "PhonemeStatistics",
-           "SINGLETON_HANDLERS"]
+           "MeanBioEmbeddings", "SINGLETON_HANDLERS"]
 
 
 class SpeakerIDSetter:
@@ -161,7 +163,38 @@ class PhonemeStatistics:
         self.counts = dict(d["counts"])
 
 
+class MeanBioEmbeddings:
+    """Per-speaker mean of the samples' ``speaker_emb`` (samples without a
+    speaker name pool under ``__all__``); ``apply`` gives a sample without an
+    embedding its speaker's mean."""
+
+    def __init__(self):
+        self.mean_emb: tp.Dict[str, np.ndarray] = {}
+
+    def fit(self, dataset: tp.Iterable) -> "MeanBioEmbeddings":
+        acc: tp.Dict[str, list] = {}
+        for ds in dataset:
+            emb = getattr(ds, "speaker_emb", None)
+            if emb is not None:
+                acc.setdefault(ds.speaker_name or "__all__", []).append(np.asarray(emb))
+        for spk, embs in acc.items():
+            self.mean_emb[spk] = np.mean(np.stack(embs), axis=0)
+        return self
+
+    def apply(self, ds):
+        if getattr(ds, "speaker_emb", None) is None and ds.speaker_name in self.mean_emb:
+            ds.speaker_emb = self.mean_emb[ds.speaker_name]
+        return ds
+
+    def state_dict(self) -> dict:
+        return {"mean_emb": {k: v.tolist() for k, v in self.mean_emb.items()}}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.mean_emb = {k: np.asarray(v, np.float32) for k, v in d["mean_emb"].items()}
+
+
 SINGLETON_HANDLERS = {"SpeakerIDSetter": SpeakerIDSetter,
                       "StatisticsRange": StatisticsRange,
                       "DatasetStatistics": DatasetStatistics,
-                      "PhonemeStatistics": PhonemeStatistics}
+                      "PhonemeStatistics": PhonemeStatistics,
+                      "MeanBioEmbeddings": MeanBioEmbeddings}

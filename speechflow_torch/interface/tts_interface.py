@@ -11,12 +11,32 @@ split_sentences -> prepare_text -> predict_pauses -> prepare_embeddings ->
 prepare_batch -> evaluate; feed the output to the vocoder interface for a
 waveform.
 
-``from_checkpoint(tree, payload)`` takes what the JAX
-``ExperimentSaver.load_checkpoint`` returns (the port does not read orbax
-files yet); the constructor takes a built model and a payload. Not ported
-yet, each raising ``NotImplementedError``: reference-audio embeddings (voice
-biometrics), a prosody model (``prosody_ckpt``), ``resynthesize`` (the audio
-pipeline), and models with ``use_prosody``.
+``from_checkpoint(tree, payload)`` takes what a checkpoint loader returns
+(the port's ``ExperimentSaver.load_checkpoint``, or the JAX one: the port
+does not read orbax files yet); the constructor takes a built model and a
+payload.
+
+The rest of the reference's chain:
+
+- ``prosody_ckpt`` (a port checkpoint directory of ``train_prosody``, or a
+  built ``ProsodyPredictionInterface``): ``predict_prosody_by_text`` gives
+  each word its contour class (-1 where the model sees none, or without a
+  model, or with ``TTSOptions.use_prosody_model`` off), and a model with
+  ``use_prosody`` gets the classes as a per-phoneme row;
+- ``prepare_embeddings(ctx, ref_audio)``: the reference wav at the pipeline's
+  sample rate through ``voice_biometrics`` (the speaker embedding) and the
+  host's normalised log-mel (the style mel, which ``prepare_batch`` gives every
+  row as ``inputs.mel``);
+- ``resynthesize(sega)``: an annotated utterance through the full pipeline of
+  ``pipeline_info`` (audio handlers included), optionally with a reference's
+  speaker embedding and style mel; ``t_out`` is the source's frames.
+
+Two behaviours are the reference's and kept: ``prepare_embeddings`` calls
+``voice_biometrics`` with its defaults, so a reference wav gets the handler's
+fallback embedding unless a process-wide ``set_biometric_model`` hook is set,
+whatever ``model_ckpt`` the training pipe gave that handler; and raw text gets
+the hashed LM features (``lm_feat_for_words(words)``), whatever WordLM the
+training pipe's ``add_lm_feat`` read.
 """
 
 from __future__ import annotations
@@ -33,6 +53,7 @@ import torch
 from speechflow_torch.convert import load_nnx_state
 from speechflow_torch.data.core.components import DataPipeline
 from speechflow_torch.data.core.datasample import TTSDataSample
+from speechflow_torch.data.processors import np_dsp
 from speechflow_torch.data.processors.ling import (
     _expand,
     lm_feat_for_words,
@@ -45,6 +66,8 @@ from speechflow_torch.data.processors.text import (
     TextParserHook,
     TTSTextProcessor,
 )
+from speechflow_torch.io.audio import AudioChunk
+from speechflow_torch.models.prosody.interface import ProsodyPredictionInterface
 from speechflow_torch.models.tts import ParallelTTSModel, ParallelTTSParams, TTSForwardInput
 from speechflow_torch.models.tts.batch_processor import TTSBatchProcessor
 from speechflow_torch.models.tts.data_types import TTSOutput
@@ -66,14 +89,15 @@ AUDIO_HANDLERS = {
 
 @dataclasses.dataclass
 class ProsodyReference:
-    """The speaker reference of a request: its name and id, and the catalog
-    mean embedding (a reference-audio embedding and its style mel need voice
-    biometrics, not ported yet)."""
+    """The speaker reference of a request: its name and id, the embedding of a
+    reference wav (else the catalog mean embedding) and the reference's mel
+    for the style encoder."""
 
     speaker_name: tp.Optional[str] = None
     speaker_id: int = 0
     speaker_emb: tp.Optional[np.ndarray] = None
     speaker_emb_mean: tp.Optional[np.ndarray] = None
+    style_mel: tp.Optional[np.ndarray] = None
 
     def initialize(self, speaker2id: tp.Dict[str, int],
                    mean_embs: tp.Dict[str, np.ndarray]) -> "ProsodyReference":
@@ -98,6 +122,10 @@ class TTSContext:
     def speaker_emb(self) -> tp.Optional[np.ndarray]:
         return self.prosody_reference.speaker_emb
 
+    @property
+    def style_mel(self) -> tp.Optional[np.ndarray]:
+        return self.prosody_reference.style_mel
+
 
 @dataclasses.dataclass
 class TTSOptions:
@@ -106,6 +134,16 @@ class TTSOptions:
     begin_pause: bool = True        # SIL at utterance start
     end_pause: bool = True          # SIL at utterance end
     pause_level: str = "punctuation"  # punctuation | words | none
+    use_prosody_model: bool = True
+
+
+def _with_style_mel(inputs: TTSForwardInput, style_mel: np.ndarray, batch: int
+                    ) -> TTSForwardInput:
+    """``inputs`` with the style mel (T, n_mels) as every row's ``mel``."""
+    style = torch.from_numpy(np.asarray(style_mel, np.float32))
+    return dataclasses.replace(
+        inputs, mel=style[None].expand(batch, *style.shape).contiguous(),
+        mel_lengths=torch.full((batch,), style.shape[0], dtype=torch.int32))
 
 
 def _service_pad(mat: np.ndarray, ds: TTSDataSample, sil_row: bool) -> np.ndarray:
@@ -122,20 +160,22 @@ class TTSEvaluationInterface:
                  text_parser: tp.Optional[TextParserHook] = None,
                  g2p_ckpt: tp.Optional[tp.Union[str, Path]] = None,
                  ckpt_path: tp.Optional[tp.Union[str, Path]] = None,
-                 prosody_ckpt: tp.Optional[tp.Union[str, Path]] = None):
+                 prosody_ckpt: tp.Union[str, Path, ProsodyPredictionInterface, None] = None):
         """``model`` with its weights loaded, on its device and in its dtype;
         ``payload`` as a trainer stores it (``pipeline_info``). Raw text goes
         through ``text_parser``, else the G2P at ``g2p_ckpt``, else a
-        ``g2p.pkl`` found beside ``ckpt_path``, else the char fallback."""
-        if prosody_ckpt is not None:
-            raise NotImplementedError("the prosody model interface is not ported yet")
+        ``g2p.pkl`` found beside ``ckpt_path``, else the char fallback.
+        ``prosody_ckpt``: a prosody checkpoint directory (loaded on the model's
+        device) or a built ``ProsodyPredictionInterface``."""
         self.model = model.eval()
         self.params = model.p
         p = next(model.parameters())
         self.device, self.dtype = p.device, p.dtype
         self.payload = dict(payload)
         info = payload["pipeline_info"]
+        self._info = info
         self.pipeline = DataPipeline.from_info(info, ignored_handlers=AUDIO_HANDLERS)
+        self._audio_pipeline: tp.Optional[DataPipeline] = None
         self.alphabet = self.pipeline.alphabet
         if text_parser is None:
             text_parser = self._discover_g2p(ckpt_path, g2p_ckpt, self.device)
@@ -151,6 +191,11 @@ class TTSEvaluationInterface:
             for k, v in singles.get("MeanBioEmbeddings", {}).get("mean_emb", {}).items()}
         self.speaker_durations: tp.Dict[str, float] = singles.get(
             "DatasetStatistics", {}).get("speaker_durations", {})
+        if prosody_ckpt is None or isinstance(prosody_ckpt, ProsodyPredictionInterface):
+            self.prosody_interface = prosody_ckpt
+        else:
+            self.prosody_interface = ProsodyPredictionInterface(prosody_ckpt,
+                                                                device=self.device)
 
     @classmethod
     def from_checkpoint(cls, tree: tp.Mapping, payload: tp.Mapping,
@@ -237,15 +282,49 @@ class TTSEvaluationInterface:
             out[-1] = False
         return out
 
+    def predict_prosody_by_text(self, words: tp.Sequence[str], ctx: TTSContext,
+                                opts: tp.Optional[TTSOptions] = None) -> np.ndarray:
+        """Each word's contour class from the prosody model, -1 where it
+        predicts none; all -1 without a model or with
+        ``opts.use_prosody_model`` off."""
+        opts = opts or TTSOptions()
+        if self.prosody_interface is None or not opts.use_prosody_model:
+            return np.full(len(words), -1, np.int32)
+        pred = self.prosody_interface.predict(list(words))
+        return np.where(pred["has_contour"] > 0, pred["category"], -1).astype(np.int32)
+
     # -- embeddings ------------------------------------------------------------
 
-    def prepare_embeddings(self, ctx: TTSContext, ref_audio=None) -> TTSContext:
-        """The catalog mean embedding of the context's speaker."""
-        if ref_audio is not None:
-            raise NotImplementedError(
-                "reference-audio embeddings need voice biometrics (ECAPA), not ported yet")
+    def _pipe_cfg(self, handler: str) -> dict:
+        return dict(((self._info["config"].get("preproc") or {}).get("pipe_cfg") or {})
+                    .get(handler) or {})
+
+    def prepare_embeddings(self, ctx: TTSContext,
+                           ref_audio: tp.Union[str, Path, AudioChunk, None] = None
+                           ) -> TTSContext:
+        """The context's speaker reference: with ``ref_audio`` (a path or an
+        ``AudioChunk``, loaded at the pipeline's ``load_audio`` rate), its
+        ``voice_biometrics`` embedding and its normalised log-mel at the
+        pipeline's ``n_mels`` (the style mel); else, and for what the
+        reference leaves unset, the catalog mean embedding of the speaker."""
         ref = ctx.prosody_reference
         ref.speaker_name = ref.speaker_name or ctx.speaker_name
+        if ref_audio is not None:
+            from speechflow_torch.data.processors.embeddings import voice_biometrics
+
+            chunk = (ref_audio if isinstance(ref_audio, AudioChunk)
+                     else AudioChunk(file_path=ref_audio))
+            ds = TTSDataSample(audio_chunk=chunk)
+            sr = self._pipe_cfg("load_audio").get("sample_rate", 24000)
+            ds.audio_chunk.load(sr=sr)
+            ds = voice_biometrics(ds)  # the handler's defaults, as the reference calls it
+            ref.speaker_emb = ds.speaker_emb
+            n_mels = self._pipe_cfg("linear_to_mel").get("n_mels", 80)
+            if isinstance(n_mels, dict):
+                n_mels = next(iter(n_mels.values()))
+            mag = np_dsp.magnitude_np(ds.audio_chunk.waveform)
+            ref.style_mel = np_dsp.normalize_mel_np(np_dsp.amp_to_db_np(
+                np_dsp.linear_to_mel_np(mag, sr, int(n_mels))))
         ref.initialize(self.speaker2id, self.mean_bio_embs)
         return ctx
 
@@ -267,7 +346,9 @@ class TTSEvaluationInterface:
 
     def _build_plain_sample(self, sent: str, ctx: TTSContext,
                             opts: TTSOptions) -> TTSDataSample:
-        """Word-by-word G2P, the pause plan, and the ling/LM features."""
+        """Word-by-word G2P, the pause plan, the ling/LM features and, for a
+        model with ``use_prosody``, each phoneme's word's prosody class (-1 at
+        pauses and service tokens)."""
         words = sent.split()
         pauses_after = self.predict_pauses(words, opts)
         phonemes: tp.List[str] = []
@@ -304,6 +385,15 @@ class TTSEvaluationInterface:
                 if w >= 0:
                     mat[i] = wf[w]
             ds.lm_feat = _service_pad(mat, ds, sil_row=False)
+        if self.params.use_prosody:
+            classes = self.predict_prosody_by_text(words, ctx, opts)
+            pros = np.full(len(phonemes), -1, np.int32)
+            for i, w in enumerate(word_map):
+                if w >= 0:
+                    pros[i] = classes[w]
+            if ds.n_tokens == len(pros) + 2:
+                pros = np.concatenate([[-1], pros, [-1]]).astype(np.int32)
+            ds.prosody = pros
         wl = list(word_lengths)
         if ds.n_tokens == sum(wl) + 2:
             wl = [1] + wl + [1]
@@ -331,11 +421,14 @@ class TTSEvaluationInterface:
     def prepare_batch(self, sentences: tp.Sequence[str], ctx: TTSContext,
                       opts: TTSOptions) -> TTSForwardInput:
         """One sample a sentence (SSML where it has a ``<prosody`` span),
-        through the pipeline's handlers and collate; the inputs on the model's
-        device, floats in its dtype (the SSML modifiers stay float32)."""
+        through the pipeline's handlers and collate, the context's style mel
+        (if any) as every row's ``mel``; the inputs on the model's device,
+        floats in its dtype (the SSML modifiers stay float32)."""
         samples = [self._build_ssml_sample(s, ctx) if "<prosody" in s
                    else self._build_plain_sample(s, ctx, opts) for s in sentences]
         inputs, _ = self.batch_processor(self.pipeline.datasample_to_batch(samples))
+        if ctx.style_mel is not None and inputs.mel is None:
+            inputs = _with_style_mel(inputs, ctx.style_mel, len(samples))
         return inputs.to(self.device, self.dtype)
 
     # -- inference ----------------------------------------------------------------
@@ -364,5 +457,40 @@ class TTSEvaluationInterface:
         sentences = [text] if "<prosody" in text else self.split_sentences(text)
         return self.evaluate(self.prepare_batch(sentences, ctx, opts), opts, noise, generator)
 
-    def resynthesize(self, *args, **kwargs) -> TTSOutput:
-        raise NotImplementedError("resynthesize needs the audio pipeline, not ported yet")
+    def _audio_pipe(self) -> DataPipeline:
+        """The full pipeline of ``pipeline_info``, audio handlers included."""
+        if self._audio_pipeline is None:
+            self._audio_pipeline = DataPipeline.from_info(self._info)
+        return self._audio_pipeline
+
+    @torch.inference_mode()
+    def resynthesize(self, sega_path: tp.Union[str, Path],
+                     ref_audio: tp.Union[str, Path, AudioChunk, None] = None,
+                     opts: tp.Optional[TTSOptions] = None,
+                     noise: tp.Optional[torch.Tensor] = None,
+                     generator: tp.Optional[torch.Generator] = None) -> TTSOutput:
+        """An annotated utterance (a TextGrid file) through the full pipeline
+        and the model, over the utterance's mel frames. With ``ref_audio`` the
+        speaker embedding and the style mel are the reference's (copy
+        synthesis in another voice); ``t_out`` is taken from the source mel
+        before the style mel replaces it. ``noise`` / ``generator`` as in
+        ``evaluate``."""
+        from speechflow_torch.data.parsers import TTSDSParser
+
+        opts = opts or TTSOptions()
+        pipe = self._audio_pipe()
+        dataset = TTSDSParser().read_datasamples([str(sega_path)])
+        if len(dataset) != 1:
+            raise ValueError(f"could not parse {sega_path}")
+        ds = dataset[0]
+        ds.speaker_id = self.speaker2id.get(ds.speaker_name, 0)
+        ds.lang_id = self.lang2id.get(ds.lang, 0)
+        ctx = None
+        if ref_audio is not None:
+            ctx = self.prepare_embeddings(TTSContext(), ref_audio)
+            ds.speaker_emb = ctx.speaker_emb
+        inputs, _ = self.batch_processor(pipe.datasample_to_batch([ds]))
+        t_out = int(inputs.mel.shape[1]) if inputs.mel is not None else opts.t_out
+        if ctx is not None and inputs.mel is not None:
+            inputs = _with_style_mel(inputs, ctx.style_mel, 1)
+        return self.evaluate(inputs, dataclasses.replace(opts, t_out=t_out), noise, generator)

@@ -30,6 +30,10 @@ class Tier:
     def non_empty(self) -> "Tier":
         return Tier(self.name, [iv for iv in self.intervals if iv[2] != ""])
 
+    @property
+    def labels(self) -> tp.List[str]:
+        return [iv[2] for iv in self.intervals]
+
 class TextGrid:
     """Short-form ooTextFile TextGrid with interval tiers only."""
 

@@ -19,8 +19,18 @@ caller, which holds the model in eval mode, gets inference):
 ``deterministic`` (default: not ``training``) switches dropout off apart from
 teacher forcing, as the JAX model's argument does. The weights start from
 flax's default initialisers (``flax_init_``), as the JAX model's do.
-Style/prosody/average conditioning, the other encoders and decoders wait for
-later slices: their flags raise here.
+
+Conditioning: ``use_prosody`` adds an embedding of each token's prosody
+class (``clip(prosody + 1, 0, n_prosody_classes)``: 0 is undefined) to the
+token embedding; ``speaker_emb_mode="input"`` projects the input's
+``speaker_emb`` (``speaker_bio_dim`` wide) in place of the speaker table;
+``use_style_encoder`` encodes the input's ``mel`` (a reference mel at
+inference) into a style vector that joins the condition, with its VAE's
+``vae_kl`` or GMVAE's ``gmvae_gm`` / ``gmvae_cat`` in ``additional_losses``
+(``style_eps`` gives the style sample's standard normal draw). Per-utterance
+averages, named condition sources, the soft length regulator, the inverse
+speaker classifier and the other encoders and decoders wait for later
+slices: their flags raise here.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from speechflow_torch.models.tts.common import ConditionalLayer, ConvStack
 from speechflow_torch.models.tts.data_types import TTSForwardInput, TTSOutput
 from speechflow_torch.models.tts.decoders import TTS_DECODERS, CFMDecoder, CFMDraws
 from speechflow_torch.models.tts.encoders import TTS_ENCODERS
+from speechflow_torch.models.tts.predictors import StyleEncoder
 from speechflow_torch.models.tts.variance_adaptor import (
     HierarchicalVarianceAdaptor,
     VarianceConfig,
@@ -57,7 +68,8 @@ class ParallelTTSParams(BaseModelParams):
     # embedding
     token_emb_dim: int = 256
     speaker_emb_dim: int = 128
-    speaker_emb_mode: str = "table"
+    speaker_emb_mode: str = "table"     # table | input (a projection of speaker_emb)
+    speaker_bio_dim: int = 192
     lang_emb_dim: int = 32
     use_ling_feat: bool = False
     ling_feat_dim: int = 56
@@ -66,8 +78,13 @@ class ParallelTTSParams(BaseModelParams):
     use_xpbert_feat: bool = False
     xpbert_feat_dim: int = 32
     use_prosody: bool = False
+    n_prosody_classes: int = 16          # contour classes (+1 for undefined)
     use_average_emb: bool = False
     use_style_encoder: bool = False
+    style_emb_dim: int = 128
+    style_use_vae: bool = True
+    style_use_gmvae: bool = False
+    style_gmvae_components: int = 16
     # conditioning
     condition_method: str = "cat"
     condition_levels: tp.Tuple[int, ...] = (0, 2)
@@ -97,10 +114,10 @@ class ParallelTTSParams(BaseModelParams):
     dropout: float = 0.1
 
     def unported(self) -> tp.List[str]:
-        bad = [f for f in ("use_prosody", "use_average_emb", "use_style_encoder",
-                           "soft_length_regulator", "use_inverse_speaker_classifier")
+        bad = [f for f in ("use_average_emb", "soft_length_regulator",
+                           "use_inverse_speaker_classifier")
                if getattr(self, f)]
-        if self.speaker_emb_mode != "table":
+        if self.speaker_emb_mode not in ("table", "input"):
             bad.append(f"speaker_emb_mode={self.speaker_emb_mode}")
         if self.condition_sources:
             bad.append("condition_sources")
@@ -127,12 +144,22 @@ class ParallelTTSModel(nn.Module):
             self.lm_proj = nn.Linear(p.lm_feat_dim, p.token_emb_dim)
         if p.use_xpbert_feat:
             self.xpbert_proj = nn.Linear(p.xpbert_feat_dim, p.token_emb_dim)
+        if p.use_prosody:
+            self.prosody_emb = nn.Embedding(p.n_prosody_classes + 1, p.token_emb_dim)
 
-        self.speaker_emb = nn.Embedding(p.n_speakers, p.speaker_emb_dim)
+        if p.speaker_emb_mode == "table":
+            self.speaker_emb = nn.Embedding(p.n_speakers, p.speaker_emb_dim)
+        else:
+            self.speaker_proj = nn.Linear(p.speaker_bio_dim, p.speaker_emb_dim)
         cond_dim = p.speaker_emb_dim
         if p.n_langs > 1:
             self.lang_emb = nn.Embedding(p.n_langs, p.lang_emb_dim)
             cond_dim += p.lang_emb_dim
+        if p.use_style_encoder:
+            self.style_encoder = StyleEncoder(
+                p.n_mels, emb_dim=p.style_emb_dim, use_vae=p.style_use_vae,
+                use_gmvae=p.style_use_gmvae, gmvae_n_components=p.style_gmvae_components)
+            cond_dim += p.style_emb_dim
         self.cond_dim = cond_dim
 
         self.conds = nn.ModuleDict()
@@ -172,6 +199,34 @@ class ParallelTTSModel(nn.Module):
             self.gate_head = nn.Linear(p.n_mels, 1)
         flax_init_(self)
 
+    def _global_condition(self, inputs: TTSForwardInput, sample_style: bool,
+                          losses: tp.Dict[str, torch.Tensor],
+                          style_eps: tp.Optional[torch.Tensor],
+                          generator: tp.Optional[torch.Generator]) -> torch.Tensor:
+        """speaker (table row or projected ``speaker_emb``) [+ language] [+ style]."""
+        p = self.p
+        if p.speaker_emb_mode == "table":
+            parts = [self.speaker_emb(torch.clamp(inputs.speaker_id, min=0))]
+        else:
+            if inputs.speaker_emb is None:
+                raise ValueError("speaker_emb_mode='input' needs inputs.speaker_emb")
+            parts = [self.speaker_proj(inputs.speaker_emb)]
+        if p.n_langs > 1:
+            parts.append(self.lang_emb(torch.clamp(inputs.lang_id, min=0)))
+        if p.use_style_encoder:
+            if inputs.mel is None:
+                raise ValueError("the style encoder needs inputs.mel (a reference mel)")
+            style, aux = self.style_encoder(inputs.mel, inputs.mel_lengths,
+                                            not sample_style, eps=style_eps,
+                                            generator=generator)
+            parts.append(style)
+            if isinstance(aux, dict):  # the GMVAE's losses
+                losses.update(aux)
+            elif aux is not None:
+                mu, logvar = aux
+                losses["vae_kl"] = (-0.5 * (1 + logvar - mu ** 2 - torch.exp(logvar))).mean()
+        return torch.cat(parts, dim=-1)
+
     def _cond(self, level: int, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         layer = self.conds[f"level{level}"] if f"level{level}" in self.conds else None
         return x if layer is None else layer(x, cond)
@@ -185,14 +240,17 @@ class ParallelTTSModel(nn.Module):
                 generator: tp.Optional[torch.Generator] = None,
                 cfm_timesteps: tp.Optional[int] = None,
                 deterministic: tp.Optional[bool] = None,
-                cfm_draws: tp.Optional[CFMDraws] = None) -> TTSOutput:
+                cfm_draws: tp.Optional[CFMDraws] = None,
+                style_eps: tp.Optional[torch.Tensor] = None) -> TTSOutput:
         """``training``: the teacher-forced call (None: ``self.training``),
         which needs ``inputs.mel``, ``mel_lengths`` and ``durations``.
         Inference: ``noise`` is the CFM's initial state (already scaled by the
         temperature); when None it is drawn from ``generator`` and scaled by
         ``decoder.temperature``; ``cfm_timesteps`` overrides the CFM's number
         of Euler steps. Training: ``cfm_draws`` are the CFM's u, z and CFG
-        masks, else drawn from ``generator``."""
+        masks, else drawn from ``generator``; ``style_eps`` is the style VAE's
+        standard normal draw (B, style_emb_dim) in the training call, else
+        drawn from ``generator``."""
         training = self.training if training is None else training
         det = (not training) if deterministic is None else deterministic
         p = self.p
@@ -207,11 +265,14 @@ class ParallelTTSModel(nn.Module):
             x = x + self.lm_proj(inputs.lm_feat)
         if p.use_xpbert_feat and inputs.xpbert_feat is not None:
             x = x + self.xpbert_proj(inputs.xpbert_feat)
+        if p.use_prosody and inputs.prosody is not None:
+            x = x + self.prosody_emb(torch.clamp(inputs.prosody.long() + 1, 0,
+                                                 p.n_prosody_classes))
 
-        parts = [self.speaker_emb(torch.clamp(inputs.speaker_id, min=0))]
-        if p.n_langs > 1:
-            parts.append(self.lang_emb(torch.clamp(inputs.lang_id, min=0)))
-        cond = torch.cat(parts, dim=-1)
+        losses: tp.Dict[str, torch.Tensor] = {}
+        # the style VAE samples in the training call, whatever ``deterministic``
+        # says, as the JAX model's does
+        cond = self._global_condition(inputs, training, losses, style_eps, generator)
 
         x = self._cond(0, x, cond)
         x = self.encoder(x, tok_lens, cond, deterministic=det)
@@ -226,7 +287,6 @@ class ParallelTTSModel(nn.Module):
         x = self._cond(2, x, cond)
 
         extra: tp.Dict[str, torch.Tensor] = {}
-        losses: tp.Dict[str, torch.Tensor] = {}
         if isinstance(self.decoder, CFMDecoder):
             if training:
                 dec_out, cfm_losses = self.decoder.forward_train(

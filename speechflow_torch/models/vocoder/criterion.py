@@ -6,8 +6,9 @@ generator and discriminator criteria ``GANTrainer`` calls as
 
 The adversarial gate reads ``step``, the trainer's micro-batch count: 0 before
 ``adv_start_iter``, then 1, or a linear ramp over ``adv_ramp_steps``. The
-perceptual terms (``cpc_ckpt``, ``bio_ckpt``) need the CPC and ECAPA models,
-which are not ported: asking for one raises ``NotImplementedError``.
+perceptual terms (``cpc_ckpt``, ``bio_ckpt``: the CPC model and the
+speaker-similarity loss over an ECAPA embedder) are not ported: asking for one
+raises ``NotImplementedError``.
 ``maximum`` against 0 (not ``relu``) keeps ``jnp.maximum``'s half gradient
 at a tie.
 """
@@ -88,8 +89,8 @@ def vocoder_gen_criterion(sample_rate: int = 24000, n_mels: int = 100,
     if cpc_ckpt:
         raise NotImplementedError("cpc_ckpt: the CPC model (models/ssl) is not ported yet")
     if bio_ckpt:
-        raise NotImplementedError("bio_ckpt: the ECAPA model (models/biometric) is not "
-                                  "ported yet")
+        raise NotImplementedError("bio_ckpt: the speaker-similarity loss over an ECAPA "
+                                  "embedder is not ported yet")
 
     def criterion(gen_out, disc, inputs, targets, step: int) -> tp.Dict[str, torch.Tensor]:
         fake, real = _crop(gen_out, targets["waveform"])

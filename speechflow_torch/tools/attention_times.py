@@ -6,7 +6,10 @@ request:
 - the flagship and toy programs (bf16, the ``wgmma`` kernel);
 - the f32 TTS interface at 32 sentences and the bundle's one sentence (the
   f32 default of the serving entry points: the TF32 kernel at dh 128);
-- the XTTS prompt encoder (f32, dh 256).
+- the XTTS prompt encoder (f32, dh 256), serving and training (B32);
+- the prosody model (f32, 4 heads of 64): a sentence at inference (one row,
+  T = words rounded up to 16), and a training step of the default preset
+  (B64, 64 word slots).
 
 It uses nothing but the wrapper's public functions, so the same file run from
 an older checkout times that checkout's kernel: to compare two trees, run it
@@ -41,10 +44,16 @@ def _cfm_lengths(b: int) -> tp.List[int]:
     return [1024 - 37 * (i % 9) for i in range(b)]
 
 
-# (program, label, B, T, H, dh, lengths, launches a batch or request, type). The bundle's
-# sentence is ``chip_smoke.BUNDLE_SENTENCE``: 58 tokens (char fallback), 297 frames at
-# the seeded flagship's durations (75776 samples), doubled by CFG; the f32 TTS interface
-# row takes the flagship's bench shape, as its bf16 serving path does.
+def _ragged(b: int, t: int, step: int) -> tp.List[int]:
+    return [max(1, t - step * (i % 16)) for i in range(b)]
+
+
+# (program, label, B, T, H, dh, lengths, launches a batch, request, sentence or training
+# step, type). The bundle's sentence is ``chip_smoke.BUNDLE_SENTENCE``: 58 tokens (char
+# fallback), 297 frames at the seeded flagship's durations (75776 samples), doubled by
+# CFG; the f32 TTS interface row takes the flagship's bench shape, as its bf16 serving
+# path does. A prosody sentence of 10 words is one 16-token row; a prosody training batch
+# has 64 rows of 64 word slots (``ProsodySampleLoader``), 10..40 words valid here.
 ROWS = (
     ("flagship", "encoder", 32, 128, 6, 128, [128] * 32, 6, "bf16"),
     ("flagship", "cfm", 64, 1024, 6, 128, _cfm_lengths(64), 180, "bf16"),
@@ -55,6 +64,9 @@ ROWS = (
     ("bundle", "encoder", 1, 58, 6, 128, [58], 6, "f32"),
     ("bundle", "cfm", 2, 1024, 6, 128, [297, 297], 180, "f32"),
     ("xtts", "prompt", 1, 112, 4, 256, [112], 4, "f32"),
+    ("xtts_train", "prompt", 32, 112, 4, 256, _ragged(32, 112, 3), 4, "f32"),
+    ("prosody", "sentence", 1, 16, 4, 64, [10], 4, "f32"),
+    ("prosody_train", "step", 64, 64, 4, 64, _ragged(64, 40, 2), 4, "f32"),
 )
 TYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 

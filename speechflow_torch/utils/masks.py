@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sequence_mask", "apply_mask"]
+__all__ = ["sequence_mask", "apply_mask", "masked_mean"]
 
 
 def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -18,3 +18,13 @@ def apply_mask(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     while mask.ndim < x.ndim:
         mask = mask[..., None]
     return x * mask.to(x.dtype)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None, eps: float = 1e-9
+                ) -> torch.Tensor:
+    """Mean of x over ``dim`` at the mask's valid positions (eps in the
+    denominator, as the JAX ``masked_mean``)."""
+    while mask.ndim < x.ndim:
+        mask = mask[..., None]
+    m = mask.to(x.dtype)
+    return (x * m).sum(dim=dim) / (m.expand_as(x).sum(dim=dim) + eps)

@@ -4,21 +4,34 @@
 ``{"params": <params dict>, "state": <nnx pure dict of numpy arrays>}``: the
 one JAX checkpoint format the port reads with nothing but pickle and numpy.
 ``load_module`` rebuilds the port's counterpart through
-``speechflow_torch.convert``.
+``speechflow_torch.convert``; ``save_module`` writes the same pickle from a
+port module (``convert.nnx_from_module``), so either package loads it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import pickle
 import typing as tp
 from pathlib import Path
 
 import torch
 
-from speechflow_torch.convert import load_nnx_state
+from speechflow_torch.convert import load_nnx_state, nnx_from_module
 from speechflow_torch.utils.device import resolve_device
 
-__all__ = ["load_module"]
+__all__ = ["save_module", "load_module"]
+
+
+def save_module(model: torch.nn.Module, params, path: tp.Union[str, Path]) -> Path:
+    """Persist a port module and its params as the JAX ``save_module`` does: one
+    pickle of ``{"params": params as a dict, "state": the JAX pure-dict layout}``
+    (float32 numpy leaves, list indices as ints)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({"params": dataclasses.asdict(params), "state": nnx_from_module(model)}, f)
+    return path
 
 
 def load_module(model_cls, params_cls, path: tp.Union[str, Path],

@@ -610,3 +610,55 @@ def test_xtts_training_step_on_the_gpu_matches_the_cpu(cuda_device, block_type):
         scale = max(r.abs().max().item(), 1e-3 * model_scale)
         assert (got_g[name] - r).abs().max().item() <= 1e-3 * scale, name
         assert r.any() != name.startswith("codec."), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [1, 9, 16, 27, 48])
+def test_attention_kernel_at_the_prosody_shape(cuda_device, rng, words):
+    """The prosody model's inference call: one sentence, T = words rounded up to
+    16, 4 heads of 64, f32 (the TF32 kernel), padded words masked."""
+    t_len = words + (-words) % 16
+    valid = torch.arange(t_len, device=cuda_device)[None] < words
+    before = A.fused_attention.launches
+    _check_attention(cuda_device, rng, torch.float32, 5e-5, (1, t_len, 4, 64), valid)
+    assert A.fused_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_ecapa_hook_on_the_gpu_matches_the_cpu(cuda_device, tmp_path):
+    """``make_ecapa_hook`` of one seeded embedder at default width on the GPU and on
+    the CPU: the same embedding within 1e-4."""
+    from speechflow_torch.data.processors.embeddings import make_ecapa_hook
+    from speechflow_torch.models.biometric import ECAPAEmbedder, ECAPAParams
+    from speechflow_torch.utils.state_io import save_module
+
+    torch.manual_seed(0)
+    params = ECAPAParams()
+    path = str(save_module(ECAPAEmbedder(params), params, tmp_path / "ecapa.pkl"))
+    gen = np.random.default_rng(1)
+    wav = (0.3 * np.sin(np.arange(40000) * 0.05) + 0.05 * gen.normal(size=40000)).astype(
+        np.float32)
+    gpu = make_ecapa_hook(path)
+    assert next(gpu.model.parameters()).is_cuda
+    cpu = make_ecapa_hook(path, device="cpu")
+    assert np.abs(gpu(wav, 24000) - cpu(wav, 24000)).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_prosody_model_on_the_gpu_matches_the_cpu(cuda_device):
+    """The prosody model's inference call (the kernel) on the GPU and on the CPU
+    (the plain version), at the default preset's width: logits within 1e-4 of
+    their scale, the same classes where the top-2 margin exceeds that."""
+    from speechflow_torch.models.prosody import ProsodyModel, ProsodyParams
+
+    torch.manual_seed(0)
+    model = ProsodyModel(ProsodyParams()).eval()
+    ids = torch.randint(1, 8000, (1, 32))
+    batch = {"token_ids": ids, "lengths": torch.tensor([27], dtype=torch.int32)}
+    ref = model(batch)
+    before = A.fused_attention.launches
+    got = copy.deepcopy(model).to(cuda_device)({k: v.to(cuda_device) for k, v in batch.items()})
+    assert A.fused_attention.launches == before + 4
+    for head in ("binary", "category"):
+        r, g = ref[head][0, :27].detach(), got[head][0, :27].detach().cpu()
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()

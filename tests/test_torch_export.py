@@ -29,6 +29,7 @@ from speechflow_torch.data.processors.text import Alphabet, TextParserHook
 from speechflow_torch.interface.tts_interface import TTSEvaluationInterface, TTSOptions
 from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
 from speechflow_torch.interface.xtts_interface import XTTSEvaluationInterface
+from speechflow_torch.models.prosody import ProsodyModel, ProsodyParams
 from speechflow_torch.models.tts import ParallelTTSModel, ParallelTTSParams, XTTSModel, XTTSParams
 from speechflow_torch.models.vocoder import Vocos, VocosParams
 from speechflow_torch.scripts import export
@@ -132,10 +133,18 @@ def test_missing_and_refused_components(bundle, experiments, tmp_path):
         export.pack(tmp_path / "none.tar.gz")
     with pytest.raises(FileNotFoundError, match="no step_"):
         export.pack(tmp_path / "x.tar.gz", tts=tmp_path)
-    # a prosody component reaches the TTS interface, which does not serve one yet
+    # a prosody component reaches the TTS interface: a prosody checkpoint serves, the
+    # checkpoint of another model in its place is refused
+    torch.manual_seed(0)
+    pp = ProsodyParams.create(dict(vocab_size=100, dim=16, n_layers=1, n_heads=2))
+    prosody = _save(tmp_path, "prosody", ProsodyModel(pp), {"model_params": dataclasses.asdict(pp)})
     out = tmp_path / "prosody.tar.gz"
+    export.pack(out, tts=experiments["tts"], prosody=prosody)
+    served = export.InferenceBundle.load(out, device="cpu").tts.prosody_interface
+    assert served.predict(["hello", "world"])["category"].shape == (2,)
+    out = tmp_path / "wrong_prosody.tar.gz"
     export.pack(out, tts=experiments["tts"], prosody=experiments["vocoder"])
-    with pytest.raises(NotImplementedError, match="prosody"):
+    with pytest.raises(KeyError):
         export.InferenceBundle.load(out, device="cpu").tts
     # a checkpoint without model.npz (an orbax one of the JAX trainer) is refused
     root = tmp_path / "orbax"

@@ -130,8 +130,10 @@ def test_lm_and_xpbert_features():
         b = J.add_xpbert_feat(JDS(phonemes=phs, transcription=tr))
         np.testing.assert_allclose(a.xpbert_feat, b.xpbert_feat, atol=FEAT_TOL, rtol=0)
     assert ling.add_xpbert_feat(TTSDataSample()).xpbert_feat is None
-    with pytest.raises(NotImplementedError):
-        ling.lm_feat_for_words(["a"], model_ckpt="word_lm.pkl")
+    # a WordLM model_ckpt is read (tests/test_torch_prosody.py holds it against JAX's):
+    # a missing one raises instead of falling back to the hashed features
+    with pytest.raises(FileNotFoundError):
+        ling.lm_feat_for_words(["a"], model_ckpt="no_such_word_lm.pkl")
 
 
 SSML = [

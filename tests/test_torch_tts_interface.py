@@ -5,9 +5,17 @@ info of ``configs/tts_data_24khz.yml`` with a speaker catalog, and a
 ``g2p.pkl`` beside it that both interfaces find. For plain multi-sentence
 text and for SSML, ``prepare_batch`` must give identical inputs; ``evaluate``
 with the JAX decoder's own noise equal integer durations, then the mel within
-``MODEL_TOL``; ``cfm_timesteps`` is honoured; the unported paths raise."""
+``MODEL_TOL``; ``cfm_timesteps`` is honoured; ``resynthesize`` of a corpus
+utterance with and without a reference wav; what is still unported raises.
+
+A second checkpoint holds the conditioned model (prosody classes, the
+projected speaker embedding, the style VAE) beside a JAX prosody checkpoint:
+``prosody_ckpt``, ``prepare_embeddings(ref_audio)`` (``EMB_TOL``),
+``prepare_batch`` with prosody rows and the style mel, ``synthesize`` and
+``resynthesize`` with the reference, each against the JAX interface."""
 
 import dataclasses
+import math
 from pathlib import Path
 
 import numpy as np
@@ -16,6 +24,8 @@ import torch
 from flax import nnx
 
 from speechflow_torch import serving
+from speechflow_torch.data.processors import embeddings
+from speechflow_torch.models.prosody import ProsodyPredictionInterface
 from speechflow_torch.data.processors.text import TextParserHook
 from speechflow_torch.interface.tts_interface import (
     TTSEvaluationInterface,
@@ -24,10 +34,15 @@ from speechflow_torch.interface.tts_interface import (
 from speechflow_torch.models.g2p import G2P
 from speechflow_torch.utils.masks import sequence_mask
 from tests.test_torch_g2p import CHARS, _jax_g2p
-from tests.torch_parity import cfm_noise, jax_tts_model, n, t, tts_params
+from tests.torch_parity import cfm_noise, jax_tts_model, n, randomize, t, tts_params
 
 torch.set_num_threads(1)
 MODEL_TOL = 2e-4  # the whole acoustic model in f32 (as test_torch_tts_model)
+EMB_TOL = 1e-5    # the reference's speaker embedding and style mel
+REPO = Path(__file__).resolve().parent.parent
+REF_WAV = (REPO / "tests/data/SRC/EN/OPENSOURCE_VOICES/001_LJSpeech/LJSpeech-1.1/wavs/"
+           "LJ001-0002.wav")
+SEGA = REPO / "tests/data/SEGS/EN/LJSpeech/000/0.TextGridStage3"
 LANGS = ("EN", "RU")
 SPEAKERS = {"amy": 0, "bob": 1, "cyd": 2}
 PLAIN = ("Hello world, a zebra dozed. Was it 3 bees?  Dr. Bob ate 2,000 deer; "
@@ -248,23 +263,32 @@ def test_char_fallback_matches_jax(checkpoint, interfaces):
 
 
 def test_unported_paths_raise(checkpoint, interfaces, monkeypatch):
+    """What is still unported raises: the per-utterance average embeddings and
+    named condition sources of the model, the CPC model behind an
+    ``ssl_features`` checkpoint; and nothing runs on the GPU without CUDA (a
+    prosody checkpoint, the ECAPA hook a reference wav would take)."""
     from speechflow_tpu.training import ExperimentSaver as JS
+
+    from speechflow_torch.data.core.datasample import AudioDataSample
+    from speechflow_torch.io.audio import AudioChunk
 
     ours, _ = interfaces
     tree, payload = JS.load_checkpoint(checkpoint)
-    with pytest.raises(NotImplementedError, match="biometrics"):
-        ours.synthesize("hello", ref_audio="ref.wav")
-    with pytest.raises(NotImplementedError, match="prosody"):
-        TTSEvaluationInterface.from_checkpoint(tree, payload, device="cpu",
-                                               prosody_ckpt="prosody")
-    with pytest.raises(NotImplementedError, match="audio pipeline"):
-        ours.resynthesize("utterance.TextGridStage3")
-    bad = dict(payload, model_params=dict(payload["model_params"], use_prosody=True))
-    with pytest.raises(NotImplementedError, match="use_prosody"):
-        TTSEvaluationInterface.from_checkpoint(tree, bad, device="cpu")
+    for option, value in (("use_average_emb", True), ("condition_sources", ["speaker"])):
+        bad = dict(payload, model_params=dict(payload["model_params"], **{option: value}))
+        with pytest.raises(NotImplementedError, match=option):
+            TTSEvaluationInterface.from_checkpoint(tree, bad, device="cpu")
+    monkeypatch.setattr(embeddings, "_MODELS", {})
+    wav = AudioDataSample(audio_chunk=AudioChunk(data=np.zeros(4096, np.float32), sr=24000))
+    with pytest.raises(NotImplementedError, match="CPC"):
+        embeddings.ssl_features(wav, model_ckpt="cpc.pkl")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TTSEvaluationInterface.from_checkpoint(tree, payload)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ProsodyPredictionInterface(checkpoint)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        embeddings.voice_biometrics(wav, model_ckpt="ecapa.pkl")
 
 
 def test_flagship_payload_builds_the_interface():
@@ -284,3 +308,186 @@ def test_flagship_payload_builds_the_interface():
     assert torch.isfinite(out.spectrogram).all()
     with pytest.raises(ValueError, match="n_symbols"):
         serving.flagship_payload([chr(0x400 + i) for i in range(100)])
+
+
+def test_resynthesize_matches_jax(interfaces):
+    """A corpus utterance through the full pipeline (audio handlers included)
+    and the model over its mel's frames, without and with a reference wav
+    (whose speaker embedding the table-speaker model ignores; the style mel
+    replaces the input mel after ``t_out`` is read from it)."""
+    ours, ref = interfaces
+    for ref_audio in (None, REF_WAV):
+        _compare_resynthesis(ours, ref, ref_audio)
+
+
+def _compare_resynthesis(ours, ref, ref_audio):
+    probe = ours.resynthesize(SEGA, ref_audio=ref_audio,
+                              generator=torch.Generator().manual_seed(0))
+    t_out = probe.spectrogram.shape[2]
+    assert t_out % 64 == 0 and t_out > 64  # the source mel, padded by the collate
+    noise = cfm_noise(ref.model, (1, t_out, ours.params.n_mels))
+    out_ref = ref.resynthesize(SEGA, ref_audio=ref_audio)
+    out = ours.resynthesize(SEGA, ref_audio=ref_audio, noise=t(noise))
+    assert out_ref.spectrogram.shape[2] == t_out
+    _assert_outputs_close(out, out_ref, t_out)
+
+
+# -- the conditioned model and its prosody model -------------------------------------
+
+COND = dict(use_prosody=True, n_prosody_classes=6, speaker_emb_mode="input",
+            speaker_bio_dim=192, use_style_encoder=True, style_emb_dim=8)
+COND_MELS = 12  # the conditioned pipeline's linear_to_mel n_mels: the style mel's width
+PROSODY = dict(vocab_size=64, n_classes=4, dim=32, n_layers=1, n_heads=2, dropout=0.0)
+
+
+@pytest.fixture(scope="module")
+def conditioned(tmp_path_factory):
+    """(port interface, JAX interface) over a conditioned model, the mean speaker
+    embeddings of its catalog, and a JAX prosody checkpoint whose classes vary
+    from word to word (no biases, large token embeddings)."""
+    from speechflow_tpu.data.processors.text import Alphabet
+    from speechflow_tpu.data.processors.text import TextParserHook as JH
+    from speechflow_tpu.interface import TTSEvaluationInterface as J
+    from speechflow_tpu.io import Config
+    from speechflow_tpu.models.prosody import ProsodyModel as JProsody
+    from speechflow_tpu.models.prosody import ProsodyParams as JPP
+    from speechflow_tpu.models.prosody.lm import WordLM as JWordLM
+    from speechflow_tpu.training import ExperimentSaver as JS
+
+    root = tmp_path_factory.mktemp("cond")
+    pm = randomize(JProsody(JPP.create(PROSODY), rngs=nnx.Rngs(0)), 11)
+    for path, leaf in nnx.iter_graph(pm):
+        if path and path[-1] == "bias":
+            leaf[...] = leaf[...] * 0.0
+    pm.emb.embedding[...] = pm.emb.embedding[...] * 10.0
+    psaver = JS(root / "prosody", expr_suffix="prosody")
+    psaver.to_save["model_params"] = dict(PROSODY)
+    psaver.save(1, nnx.to_pure_dict(nnx.state(pm, nnx.Not(nnx.RngState))))
+    prosody_ckpt = JS.get_last_checkpoint(psaver.expr_path)
+
+    params = tts_params(n_symbols=len(CHARS) + 8, n_mels=COND_MELS, **COND)
+    jm = jax_tts_model(params)
+    saver = JS(root / "tts", expr_suffix="tts")
+    cfg = Config.create_from_file(REPO / "configs" / "tts_data_24khz.yml",
+                                  value_select=["default"]).to_dict()
+    cfg["preproc"]["pipe_cfg"]["linear_to_mel"]["n_mels"] = COND_MELS
+    # a biometric checkpoint in the training pipe's config, which serving ignores, and a
+    # WordLM for add_lm_feat, which resynthesis reads and raw text does not
+    cfg["preproc"]["pipe_cfg"]["voice_biometrics"] = {"model_ckpt": str(root / "none.pkl")}
+    rng = np.random.default_rng(9)
+    words = sorted({w.lower() for w in PLAIN.split()})
+    lm = JWordLM({w: i + 1 for i, w in enumerate(words)},
+                 rng.normal(size=(len(words) + 1, 48)).astype(np.float32))
+    cfg["preproc"]["pipe_cfg"]["add_lm_feat"] = {"model_ckpt": str(lm.save(root / "lm.pkl"))}
+    saver.to_save["model_params"] = dict(params)
+    saver.to_save["pipeline_info"] = {
+        "config": cfg, "subsets": ["train", "test"],
+        "alphabet": Alphabet(sorted(set(CHARS))).to_dict(),
+        "singletons": {
+            "SpeakerIDSetter": {"speaker2id": SPEAKERS, "lang2id": {"EN": 0, "RU": 1}},
+            "MeanBioEmbeddings": {"mean_emb": {s: rng.normal(size=192).tolist()
+                                               for s in SPEAKERS}},
+        },
+    }
+    saver.save(3, nnx.to_pure_dict(nnx.state(jm, nnx.Not(nnx.RngState))))
+    ckpt = JS.get_last_checkpoint(saver.expr_path)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("SFTPU_DUMP_CACHE", raising=False)
+        ref = J(ckpt, text_parser=JH(), prosody_ckpt=prosody_ckpt)
+    prosody = ProsodyPredictionInterface.from_checkpoint(*JS.load_checkpoint(prosody_ckpt),
+                                                         device="cpu")
+    ours = TTSEvaluationInterface.from_checkpoint(*JS.load_checkpoint(ckpt), device="cpu",
+                                                  prosody_ckpt=prosody)
+    return ours, ref
+
+
+@pytest.fixture
+def no_biometric_hook(monkeypatch):
+    from speechflow_tpu.data.processors import embeddings as JE
+
+    monkeypatch.setattr(embeddings, "_MODELS", {})
+    monkeypatch.setattr(JE, "_MODELS", {})
+
+
+def test_prosody_ckpt_matches_jax(conditioned):
+    ours, ref = conditioned
+    words = PLAIN.split()
+    a = ours.predict_prosody_by_text(words, ours.create_context())
+    b = ref.predict_prosody_by_text(words, ref.create_context())
+    np.testing.assert_array_equal(a, b)
+    assert a.dtype == np.int32 and len(set(a)) > 1
+    off = TTSOptions(use_prosody_model=False)
+    np.testing.assert_array_equal(ours.predict_prosody_by_text(words, None, off),
+                                  np.full(len(words), -1))
+
+
+def test_prepare_embeddings_with_ref_audio_matches_jax(conditioned, no_biometric_hook):
+    """The speaker embedding and the style mel of the reference wav. Serving
+    calls ``voice_biometrics`` with its defaults, as the reference does: the
+    pipe's ``model_ckpt`` is not read, and without a set hook the embedding is
+    the handler's fallback (a train/serve skew of the reference, ROADMAP §3)."""
+    from speechflow_torch.io.audio import AudioChunk
+
+    ours, ref = conditioned
+    a = ours.prepare_embeddings(ours.create_context("EN", "amy"), REF_WAV)
+    b = ref.prepare_embeddings(ref.create_context("EN", "amy"), REF_WAV)
+    assert a.speaker_emb.shape == (192,) and a.style_mel.shape[1] == COND_MELS
+    np.testing.assert_allclose(a.speaker_emb, b.speaker_emb, atol=EMB_TOL, rtol=0)
+    np.testing.assert_allclose(a.style_mel, b.style_mel, atol=EMB_TOL, rtol=0)
+    wav = AudioChunk(file_path=REF_WAV).load(sr=24000)
+    np.testing.assert_allclose(a.speaker_emb,
+                               embeddings._fallback_embedding(wav.waveform, 24000), atol=1e-6)
+    assert not np.allclose(a.speaker_emb, ours.mean_bio_embs["amy"])
+    plain = ours.prepare_embeddings(ours.create_context("EN", "amy"))
+    np.testing.assert_array_equal(plain.speaker_emb, ours.mean_bio_embs["amy"])
+    assert plain.style_mel is None
+
+
+def test_conditioned_prepare_batch_and_synthesize_match_jax(conditioned, no_biometric_hook):
+    """Prosody rows, the reference's embedding on every row and its style mel
+    broadcast over the batch: identical inputs; then ``synthesize`` with the
+    JAX decoder's noise."""
+    ours, ref = conditioned
+    opts = TTSOptions(t_out=96)
+    sentences = ours.split_sentences(PLAIN)
+    ctx_a = ours.prepare_embeddings(ours.create_context("EN", "bob"), REF_WAV)
+    ctx_b = ref.prepare_embeddings(ref.create_context("EN", "bob"), REF_WAV)
+    a = ours.prepare_batch(sentences, ctx_a, opts)
+    b = ref.prepare_batch(sentences, ctx_b, _jax_opts(opts))
+    checked = _assert_inputs_equal(a, b, skip=("speaker_emb", "mel"))
+    assert {"prosody", "mel_lengths"} <= set(checked)
+    for name in ("speaker_emb", "mel"):
+        np.testing.assert_allclose(n(getattr(a, name)), np.asarray(getattr(b, name)),
+                                   atol=EMB_TOL, rtol=0, err_msg=name)
+    pros = n(a.prosody)
+    assert (pros[:, 0] == -1).all() and (pros >= 0).any() and a.mel.shape[0] == len(sentences)
+    noise = cfm_noise(ref.model, (len(sentences), 96, COND_MELS))
+    out_ref = ref.synthesize(PLAIN, lang="EN", speaker="bob", ref_audio=REF_WAV,
+                             opts=_jax_opts(opts))
+    out = ours.synthesize(PLAIN, lang="EN", speaker="bob", ref_audio=REF_WAV, opts=opts,
+                          noise=t(noise))
+    _assert_outputs_close(out, out_ref, 96)
+    assert math.isfinite(float(out.spectrogram.abs().max()))
+
+
+def test_raw_text_lm_features_ignore_the_pipe_word_lm(conditioned):
+    """Raw text gets the hashed LM features even though the training pipe's
+    ``add_lm_feat`` read a WordLM, as in the reference (ROADMAP §3)."""
+    from speechflow_torch.data.processors.ling import lm_feat_for_words
+
+    ours, _ = conditioned
+    sent = "Hello world, a zebra dozed."
+    x = ours.prepare_batch([sent], ours.create_context("EN", "amy"), TTSOptions())
+    lm = n(x.lm_feat)[0]
+    hashed = lm_feat_for_words(sent.split())
+    trained = lm_feat_for_words(sent.split(), model_ckpt=ours._pipe_cfg("add_lm_feat")[
+        "model_ckpt"])
+    rows = [r for r in lm if np.abs(r).max() > 0]
+    assert len(rows) > len(hashed)  # each word's row on each of its phonemes
+    assert all(np.isclose(r, hashed, atol=1e-7).all(1).any() for r in rows)
+    assert not any(np.isclose(r, trained, atol=1e-3).all(1).any() for r in rows)
+
+
+def test_conditioned_resynthesize_matches_jax(conditioned, no_biometric_hook):
+    ours, ref = conditioned
+    _compare_resynthesis(ours, ref, REF_WAV)

@@ -280,6 +280,6 @@ def test_noise_from_generator_is_scaled_by_temperature():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        ParallelTTSModel(ParallelTTSParams.create(tts_params(use_style_encoder=True)))
+        ParallelTTSModel(ParallelTTSParams.create(tts_params(use_average_emb=True)))
     with pytest.raises(NotImplementedError):
         VarianceConfig(name="aggregate_pitch", as_embedding=True)
