@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # build, kernels, slice, toy, interface, tts_interface,
                                      # xtts, bundle, train, tts_train, xtts_train,
-                                     # prosody_train, conditioned
+                                     # prosody_train, conditioned, jax_ckpt,
+                                     # vocoder_model_train
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
@@ -12,6 +13,8 @@
     python3 chip_smoke.py --phases build,tts_train   # training of the acoustic model
     python3 chip_smoke.py --phases build,xtts_train  # training of XTTS
     python3 chip_smoke.py --phases build,prosody_train,conditioned  # the inference chain
+    python3 chip_smoke.py --phases build,jax_ckpt,vocoder_model_train  # JAX checkpoints,
+                                     # the Vocos/ISTFT recipe's training
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -222,7 +225,24 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    stages (ECAPA, the host's reference work: wav load and style mel, prosody
    prediction, the rest of the host frontend, acoustic model, vocoder), the first and
    the median request, x realtime and the ms of ``resynthesize``.
-15. ``profile`` (only when asked for): for the flagship and the toy program,
+15. ``jax_ckpt``: the checkpoints ``tests/make_jax_checkpoints.py`` wrote with the JAX
+   package (``tests/data/jax_checkpoints``: the debug TTS recipe and the debug BigVGAN
+   vocoder, 2 steps each; orbax OCDBT with zstd zarr chunks) read on the card's host
+   without JAX (each one's bytes and read ms), into ``TTSEvaluationInterface`` and
+   ``VocoderEvaluationInterface`` in f32; the recorded sentence with the recorded
+   durations injected through both kernels (launches counted): mel and waveform
+   against the JAX package's within ``TOL_JAX_MEL`` and ``TOL_JAX_WAV`` of the
+   reference's scale, and against the plain versions within ``TOL_F32_REL``; then an
+   ``InferenceBundle`` packed from the two experiment directories serves the sentence
+   with the same launches and waveform.
+16. ``vocoder_model_train``: ``configs/vocoder_model.yml`` at its default width (mel
+   features, Vocos 512 x 8, ISTFT head, MPD + MRD at 32 channels, batch 32 of 1.0 s
+   chunks, f32) read by the YAML reader and trained through ``train_vocoder.train`` on
+   ``tests/data/SEGS``; cut: ``VOCODER_MODEL_STEPS`` steps. Finite losses; prints ms a
+   step, audio seconds trained a second and peak memory; the checkpoint through the
+   vocoder interface against the trained generator (``TOL_F32_REL``). The ISTFT head
+   launches no hand kernel.
+17. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -1153,13 +1173,14 @@ def xtts_checkpoint(torch) -> Path:
     from speechflow_torch import serving
     from speechflow_torch.convert import nnx_from_module
     from speechflow_torch.models.tts import XTTSModel, XTTSParams
-    from speechflow_torch.scripts.common import XTTS_MODEL_PRESETS
+    from speechflow_torch.scripts import train_tts as TT
     from speechflow_torch.training.saver import ExperimentSaver
 
     payload = serving.flagship_payload(request_symbols())
     info = payload["pipeline_info"]
     params = XTTSParams.create(dict(
-        XTTS_MODEL_PRESETS["default"], n_symbols=len(info["alphabet"]["symbols"]),
+        TT.configs("default", "configs/xtts_model.yml")[0]["model"],
+        n_symbols=len(info["alphabet"]["symbols"]),
         n_speakers=len(info["singletons"]["SpeakerIDSetter"]["speaker2id"]),
         prompt_dim=serving.TTS_DATA_CONFIG["preproc"]["pipe_cfg"]["linear_to_mel"]["n_mels"]))
     torch.manual_seed(0)
@@ -1765,6 +1786,45 @@ def planted_dbeta_fault(beta):
         AA.anti_alias_snake_vjp = real
 
 
+@contextlib.contextmanager
+def pinned_kinks(torch, pins: dict):
+    """The discriminators' leaky ReLUs and the hinge losses with each element's side of
+    0 replayed from ``pins["masks"]`` (recorded in call order when it is None), as
+    ``pinned_relus`` pins the acoustic model's ReLUs: the kernels' ~1e-6 forward
+    difference can carry an element across 0, where the slope jumps (0.1 to 1, 0 to
+    1); pinned, the two runs differ only where the losses are smooth.
+    ``pins["flips"]`` counts the elements that took the other side here."""
+    import torch.nn.functional as F
+
+    from speechflow_torch.models.vocoder import criterion
+
+    record = pins.get("masks") is None
+    if record:
+        pins["masks"] = []
+    pins["flips"], calls = 0, iter(range(len(pins["masks"])))
+
+    def side(x):
+        if record:
+            pins["masks"].append(x > 0)
+            return pins["masks"][-1]
+        mask = pins["masks"][next(calls)]
+        pins["flips"] += int((mask != (x > 0)).sum())
+        return mask
+
+    def leaky_relu(x, negative_slope=0.01, inplace=False):
+        return torch.where(side(x), x, x * negative_slope)
+
+    def hinge(x):
+        return x * side(x)
+
+    real = F.leaky_relu, criterion._relu
+    F.leaky_relu, criterion._relu = leaky_relu, hinge
+    try:
+        yield
+    finally:
+        F.leaky_relu, criterion._relu = real
+
+
 def gan_gate(torch) -> None:
     """The full-width f32 gate, cuDNN deterministic, kernels against the plain versions:
 
@@ -1774,7 +1834,11 @@ def gan_gate(torch) -> None:
     B. one whole GAN micro-batch: losses within ``TOL_F32_REL``, every gradient of
        both models within ``TOL_GAN_GRAD``: the losses' kinks (hinge, leaky ReLU, the
        log-mel's clip, log|X|) turn the two implementations' ~1e-6 forward difference
-       into larger gradient differences, which the plain path run twice shows as 0;
+       into larger gradient differences, which the plain path run twice shows as 0.
+       The discriminators' leaky ReLUs and the hinges are pinned to the plain run's
+       sides (``pinned_kinks``; the elements that crossed are counted): with flax's
+       initialisers a handful of crossings moved a discriminator bias's gradient by
+       1.5e-2 of its scale;
     and a planted fault (dβ negated in one snake's VJP) that both must reject."""
     from speechflow_torch.models.vocoder import Vocos, VocosParams
     from speechflow_torch.models.vocoder.criterion import (
@@ -1797,10 +1861,13 @@ def gan_gate(torch) -> None:
     cudnn = torch.backends.cudnn
     saved = cudnn.deterministic, cudnn.benchmark
     cudnn.deterministic, cudnn.benchmark = True, False
+    pins: dict = {}
     try:
         with plain_versions():
-            ref = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
-            again = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
+            with pinned_kinks(torch, pins):
+                ref = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
+            with pinned_kinks(torch, pins):
+                again = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
             with frozen(disc):
                 out = gen({"waveform": wav})
                 total = sum(gen_crit(out, disc, {"waveform": wav}, {"waveform": wav},
@@ -1808,10 +1875,13 @@ def gan_gate(torch) -> None:
                 cot = torch.autograd.grad(total, out)[0].detach()
             ref_vjp = gen_vjp(torch, gen, wav, cot)
         got_vjp = gen_vjp(torch, gen, wav, cot)
-        got = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
+        with pinned_kinks(torch, pins):
+            got = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
+        flips = pins["flips"]
         with planted_dbeta_fault(gen.head.post_act.beta):
             bad_vjp = gen_vjp(torch, gen, wav, cot)
-            bad = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
+            with pinned_kinks(torch, pins):
+                bad = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
     wa, wb, w0 = worst_relative(ref_vjp, got_vjp), worst_relative(ref[1], got[1]), \
@@ -1821,7 +1891,8 @@ def gan_gate(torch) -> None:
           + f". A (generator backward, one cotangent): {len(ref_vjp)} gradients, worst "
           f"relative {wa[0]:.3g} ({wa[1]}; tol {TOL_F32_REL:g}). B (the micro-batch): "
           f"{len(ref[1])} gradients, worst relative {wb[0]:.3g} ({wb[1]}; tol "
-          f"{TOL_GAN_GRAD:g}), plain run twice {w0[0]:.3g}", flush=True)
+          f"{TOL_GAN_GRAD:g}; {flips} of {sum(m.numel() for m in pins['masks'])} pinned "
+          f"kink elements crossed 0), plain run twice {w0[0]:.3g}", flush=True)
     check(wa[0] <= TOL_F32_REL, f"train f32 A: generator gradients disagree: {wa}")
     fails = gan_disagreement(ref, got, TOL_GAN_GRAD)
     check(not fails, "train f32 B: kernels disagree with plain: " + "; ".join(fails[:5]))
@@ -2790,7 +2861,7 @@ def phase_prosody_train(torch, gpu_line: str) -> dict:
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model_cfg = TP.configs(PROSODY_TRAIN_PRESET)
+    model_cfg = TP.configs(PROSODY_TRAIN_PRESET)[0]
     model_cfg["trainer"].update(max_steps=PROSODY_TRAIN_STEPS, log_every=5,
                                 ckpt_every=PROSODY_TRAIN_STEPS)
     res = {"gate": prosody_gate(torch, model_cfg)}
@@ -2882,7 +2953,7 @@ def prosody_checkpoint(torch) -> Path:
         from speechflow_torch.scripts import train_prosody as TP
         from speechflow_torch.training.saver import ExperimentSaver
 
-        params = ProsodyParams.create(dict(TP.configs(PROSODY_TRAIN_PRESET)["model"],
+        params = ProsodyParams.create(dict(TP.configs(PROSODY_TRAIN_PRESET)[0]["model"],
                                            tokenizer="hash"))
         torch.manual_seed(0)
         saver = ExperimentSaver(workdir(), expr_suffix="prosody")
@@ -2904,12 +2975,12 @@ def conditioned_payload() -> dict:
     from speechflow_torch.data.processors.embeddings import voice_biometrics
     from speechflow_torch.data.processors.singletons import MeanBioEmbeddings
     from speechflow_torch.io.flist import construct_file_list, split_file_list
-    from speechflow_torch.scripts.train_tts import TTS_DATA_PRESETS
+    from speechflow_torch.scripts import train_tts as TT
 
     payload = serving.flagship_payload(request_symbols())
     payload["model_params"] = dataclasses.asdict(serving.ParallelTTSParams.create(
         dict(payload["model_params"], **COND_OVERRIDES)))
-    ds_cfg = TTS_DATA_PRESETS["default"]["dataset"]
+    ds_cfg = TT.configs("default")[1]["dataset"]
     files = construct_file_list(SEGS, ext=".TextGridStage3")
     train, _ = split_file_list(files, float(ds_cfg["split_ratio"]), int(ds_cfg["seed"]))
     samples = TTSDSParser(max_duration=10.0, min_duration=0.5).read_datasamples(train)
@@ -3127,6 +3198,235 @@ def phase_conditioned(torch, gpu_line: str) -> dict:
             "phase_s": phase_s}
 
 
+# -- phase 15: checkpoints of the JAX package ---------------------------------------
+
+# tests/make_jax_checkpoints.py wrote these with the JAX package: the debug TTS recipe
+# (transformer encoder and the wrapper decoder's, 64 wide, 4 heads of 16; variance
+# predictors cut to 32 wide) and the debug BigVGAN vocoder (rates 8*8*2*2, 16 channels,
+# one MRF branch), each after 2 steps on tests/data/SEGS, and the JAX interfaces' mel
+# and waveform of one sentence under the model's own durations
+JAX_FIXTURE = REPO / "tests" / "data" / "jax_checkpoints"
+# the port on the card against the JAX package's recorded f32 output, as a share of the
+# reference's largest magnitude: the whole acoustic model, then the vocoder (3xTF32
+# attention, cuDNN convolutions without TF32, against XLA on the CPU)
+TOL_JAX_MEL = 2e-5
+TOL_JAX_WAV = 1e-4
+
+
+def _tree_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+@contextlib.contextmanager
+def injected_durations(torch, durations):
+    """The duration predictor's output replaced by ``durations`` (frames a token),
+    as the JAX reference was recorded under them."""
+    from speechflow_torch.models.tts.predictors import TokenLevelDP
+
+    saved = TokenLevelDP.__dict__["to_durations"]
+    TokenLevelDP.to_durations = staticmethod(
+        lambda log_d, lengths: torch.as_tensor(durations, device=log_d.device,
+                                               dtype=torch.float32))
+    try:
+        yield
+    finally:
+        TokenLevelDP.to_durations = saved
+
+
+def phase_jax_ckpt(torch, gpu_line: str) -> dict:
+    """Checkpoints the JAX trainers wrote (orbax OCDBT, zstd zarr chunks) served on
+    the card: read without JAX, into the TTS and vocoder interfaces and then into an
+    ``InferenceBundle`` packed from them; the sentence's mel and waveform held against
+    the JAX package's, the kernels against their plain versions."""
+    import tempfile
+
+    import numpy as np
+
+    from speechflow_torch.interface.tts_interface import TTSEvaluationInterface, TTSOptions
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.scripts import export
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = np.load(JAX_FIXTURE / "reference.npz")
+    sentence, speaker = str(ref["sentence"]), str(ref["speaker"])
+    opts = TTSOptions(t_out=int(ref["t_out"]))
+    loaded = {}
+    for kind in ("tts", "vocoder"):
+        ckpt = ExperimentSaver.get_last_checkpoint(JAX_FIXTURE / kind)
+        check(ckpt is not None and (ckpt / "_METADATA").is_file(),
+              f"jax_ckpt: no orbax checkpoint under {JAX_FIXTURE / kind}")
+        t0 = time.perf_counter()
+        tree, payload = ExperimentSaver.load_checkpoint(ckpt)
+        read_ms = 1e3 * (time.perf_counter() - t0)
+        nbytes = _tree_bytes(ckpt)
+        loaded[kind] = (ckpt, tree, payload)
+        print(f"[jax_ckpt] {kind}: {ckpt.relative_to(REPO)}, {nbytes} bytes on disk, read in "
+              f"{read_ms:.1f} ms ({nbytes / read_ms / 1e3:.2f} MB/s; host, first read; "
+              f"{gpu_line})", flush=True)
+    ckpt, tree, payload = loaded["tts"]
+    ti = TTSEvaluationInterface.from_checkpoint(tree, payload, ckpt_path=ckpt, device="cuda")
+    _, tree, payload = loaded["vocoder"]
+    vi = VocoderEvaluationInterface.from_checkpoint(tree, payload, device="cuda")
+
+    def request(tts, voc):
+        out = tts.synthesize(sentence, lang="EN", speaker=speaker, opts=opts)
+        mel = _valid_mel(out)[0]
+        return out, mel.float().cpu().numpy(), voc.synthesize(mel).data
+
+    with injected_durations(torch, ref["durations"]):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, mel, wav = request(ti, vi)
+        torch.cuda.synchronize()
+        req_ms = 1e3 * (time.perf_counter() - t0)
+        counts = read_counts()
+        check(counts["fused_attention"] > 0 and counts["anti_alias_snake"] > 0,
+              f"jax_ckpt: the request did not launch both kernels: {counts}")
+        durs = out.attention.sum(1).float().cpu().numpy()
+        check(np.array_equal(durs, ref["durations"]), "jax_ckpt: durations not injected")
+        check(mel.shape == ref["mel"].shape and wav.shape == ref["wav"].shape,
+              f"jax_ckpt: mel {mel.shape} / wave {wav.shape} against JAX's "
+              f"{ref['mel'].shape} / {ref['wav'].shape}")
+        mel_err = float(np.abs(mel - ref["mel"]).max())
+        wav_err = float(np.abs(wav - ref["wav"]).max())
+        mel_lim = TOL_JAX_MEL * float(np.abs(ref["mel"]).max())
+        wav_lim = TOL_JAX_WAV * float(np.abs(ref["wav"]).max())
+        print(f"[jax_ckpt] '{sentence}' by {speaker}: {mel.shape[0]} frames, "
+              f"{wav.shape[0]} samples in {req_ms:.1f} ms (first request); launches {counts}; "
+              f"against the JAX package's recorded output: mel max_abs_err {mel_err:.3g} "
+              f"(tol {mel_lim:.3g}), waveform {wav_err:.3g} (tol {wav_lim:.3g})", flush=True)
+        check(mel_err <= mel_lim and wav_err <= wav_lim,
+              "jax_ckpt: the port disagrees with the JAX package's output")
+        with plain_versions():
+            _, mel_p, wav_p = request(ti, vi)
+        errs = (float(np.abs(mel - mel_p).max()), float(np.abs(wav - wav_p).max()))
+        lims = (TOL_F32_REL * float(np.abs(mel_p).max()),
+                TOL_F32_REL * float(np.abs(wav_p).max()))
+        print(f"[jax_ckpt] kernels vs plain: mel {errs[0]:.3g} (tol {lims[0]:.3g}), "
+              f"waveform {errs[1]:.3g} (tol {lims[1]:.3g})", flush=True)
+        check(errs[0] <= lims[0] and errs[1] <= lims[1],
+              "jax_ckpt: the kernels disagree with the plain versions")
+        with tempfile.TemporaryDirectory() as tmp:
+            archive = export.pack(Path(tmp) / "jax.sftpu.tar.gz", tts=JAX_FIXTURE / "tts",
+                                  vocoder=JAX_FIXTURE / "vocoder")
+            bundle = export.InferenceBundle.load(archive, device="cuda")
+            bundle.tts, bundle.vocoder
+            before = read_counts()
+            got = bundle.synthesize(sentence, lang="EN", speaker=speaker, opts=opts).data
+            bundle_counts = {k: v - before[k] for k, v in read_counts().items()}
+            b_err = float(np.abs(got - wav).max())
+            print(f"[jax_ckpt] InferenceBundle packed from the JAX experiment directories "
+                  f"({archive.stat().st_size} bytes): waveform against the interfaces' "
+                  f"{b_err:.3g}; launches {bundle_counts}", flush=True)
+            check(bundle_counts == counts and b_err <= TOL_F32_REL * float(np.abs(wav).max()),
+                  "jax_ckpt: the bundle does not serve as the interfaces do")
+            del bundle
+    del ti, vi, loaded
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[jax_ckpt] phase wall time {phase_s:.1f} s", flush=True)
+    return {"launches": {k: counts[k] + bundle_counts[k] for k in counts},
+            "mel_err": mel_err, "wav_err": wav_err, "phase_s": phase_s}
+
+
+# -- phase 16: the Vocos/ISTFT vocoder recipe's training -------------------------------
+
+VOCODER_MODEL_CONFIG = "configs/vocoder_model.yml"
+VOCODER_MODEL_STEPS = 8  # the cut: 8 of the recipe's 2,000,000 steps
+
+
+def phase_vocoder_model_train(torch, gpu_line: str) -> dict:
+    """``configs/vocoder_model.yml`` at its default width (mel features, Vocos 512 x
+    8, ISTFT head, MPD + MRD at 32 channels, batch 32 of 1.0 s chunks) through
+    ``train_vocoder`` on ``tests/data/SEGS``, then its checkpoint through the
+    vocoder interface."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.scripts import train_vocoder as TV
+    from speechflow_torch.scripts.common import experiment_saver
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model_cfg, data_cfg = TV.configs("default", VOCODER_MODEL_CONFIG, data_root=SEGS)
+    check(model_cfg["model"]["head"] == "istft" and model_cfg["model"]["dim"] == 512,
+          f"vocoder_model_train: {VOCODER_MODEL_CONFIG} read as {model_cfg['model']}")
+    model_cfg["trainer"].update(max_steps=VOCODER_MODEL_STEPS, ckpt_every=VOCODER_MODEL_STEPS,
+                                log_every=1)
+    st = {"ends": [], "losses": [], "trainer": None, "counts": []}
+
+    def callback(trainer, last):
+        torch.cuda.synchronize()
+        st["ends"].append(time.perf_counter())
+        st["trainer"] = trainer
+        st["counts"].append(read_counts())
+        vals = {k: float(v) for k, v in last.items()}
+        st["losses"].append(vals)
+        check(all(np.isfinite(v) for v in vals.values()),
+              f"vocoder_model_train: non-finite loss {vals}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = experiment_saver(model_cfg, data_cfg, tmp)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        expr = TV.train(model_cfg, data_cfg, saver, device="cuda", callbacks=[callback])
+        t_fit = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ends = [t0] + st["ends"]
+        step_ms = [1e3 * (b - a) for a, b in zip(ends[:-1], ends[1:])]
+        ms = statistics.median(step_ms[1:])
+        batch = int(model_cfg["batch"]["size"])
+        chunk_s = float(data_cfg["preproc"]["pipe_cfg"]["random_chunk"]["chunk_duration"])
+        rate = batch * chunk_s / (ms / 1e3)
+        for i, (dt, vals) in enumerate(zip(step_ms, st["losses"])):
+            print(f"[vocoder_model_train] step {i + 1}: {dt:.1f} ms, gen/total "
+                  f"{vals['gen/total']:.4f}, disc/total {vals.get('disc/total', 0.0):.4f}",
+                  flush=True)
+        print(f"[vocoder_model_train] {VOCODER_MODEL_CONFIG} default (cut: "
+              f"{VOCODER_MODEL_STEPS} steps): {t_fit:.1f} s with set-up; {ms:.1f} ms a step "
+              f"(median of 2..{VOCODER_MODEL_STEPS}), {rate:.2f} s of audio trained per s "
+              f"(batch {batch} x {chunk_s} s), peak device memory {peak / 2**30:.2f} GiB; "
+              f"launches {launches} (the ISTFT head runs no hand kernel; {gpu_line})",
+              flush=True)
+        ckpt = ExperimentSaver.get_last_checkpoint(expr)
+        check(ckpt is not None and ckpt.name == f"step_{VOCODER_MODEL_STEPS:09d}",
+              f"vocoder_model_train: last checkpoint {ckpt}")
+        tree, payload = ExperimentSaver.load_checkpoint(ckpt)
+        vi = VocoderEvaluationInterface.from_checkpoint(tree, payload, device="cuda")
+        wav = _seg_waves(1, 64 * HOP * 4, offset=0)[0]
+        out = vi.resynthesize(AudioChunk(data=wav, sr=SR)).data
+        gen = st["trainer"].generator.eval()
+        with torch.no_grad():
+            ref = gen({"waveform": torch.from_numpy(wav)[None].to("cuda")})[0]
+        ref = np.clip(ref.float().cpu().numpy(), -1.0, 1.0)
+        err = float(np.abs(out - ref).max())
+        lim = TOL_F32_REL * float(np.abs(ref).max())
+        print(f"[vocoder_model_train] {ckpt.name} -> VocoderEvaluationInterface -> "
+              f"resynthesize {len(wav) / SR:.2f} s: max_abs_err {err:.3g} against the trained "
+              f"generator (tol {lim:.3g})", flush=True)
+        check(out.shape == wav.shape and bool(np.isfinite(out).all()) and err <= lim,
+              "vocoder_model_train: the reloaded checkpoint does not resynthesize as trained")
+        del vi, tree, gen, st["trainer"]
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[vocoder_model_train] phase wall time {phase_s:.1f} s", flush=True)
+    return {"launches": launches, "ms": ms, "audio_rate": rate, "peak": peak,
+            "phase_s": phase_s}
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -3242,10 +3542,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,slice,toy,interface,tts_interface,xtts,bundle,"
-                            "train,tts_train,xtts_train,prosody_train,conditioned",
+                            "train,tts_train,xtts_train,prosody_train,conditioned,jax_ckpt,"
+                            "vocoder_model_train",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
                          "tts_interface,xtts,bundle,train,tts_train,xtts_train,prosody_train,"
-                         "conditioned,profile (the last is not in the default run)")
+                         "conditioned,jax_ckpt,vocoder_model_train,profile (the last is not "
+                         "in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3286,7 +3588,9 @@ def run(torch, phases: set) -> int:
              ("tts_train", phase_tts_train, tuple(EXPECTED_LAUNCHES)),
              ("xtts_train", phase_xtts_train, ("fused_attention",)),
              ("prosody_train", phase_prosody_train, ("fused_attention",)),
-             ("conditioned", phase_conditioned, tuple(EXPECTED_LAUNCHES)))
+             ("conditioned", phase_conditioned, tuple(EXPECTED_LAUNCHES)),
+             ("jax_ckpt", phase_jax_ckpt, ("fused_attention", "anti_alias_snake")),
+             ("vocoder_model_train", phase_vocoder_model_train, ()))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:

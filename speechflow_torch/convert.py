@@ -45,7 +45,8 @@ __all__ = ["flatten_nnx", "state_dict_from_nnx", "load_nnx_state", "nnx_path",
 
 def flatten_nnx(pure: tp.Mapping, prefix: str = "") -> tp.Dict[str, np.ndarray]:
     """Dotted path -> float32 array for every parameter leaf (rng state and
-    non-float leaves skipped)."""
+    non-float leaves skipped; a torch tensor leaf, as a bfloat16 array of an
+    orbax checkpoint reads, is taken as its float32 values)."""
     out: tp.Dict[str, np.ndarray] = {}
     for k, v in pure.items():
         key = f"{prefix}{k}"
@@ -54,6 +55,9 @@ def flatten_nnx(pure: tp.Mapping, prefix: str = "") -> tp.Dict[str, np.ndarray]:
         if isinstance(v, tp.Mapping):
             out.update(flatten_nnx(v, key + "."))
             continue
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            v = v.float() if v.is_floating_point() else v
         arr = np.asarray(v)
         if np.issubdtype(arr.dtype, np.floating) or arr.dtype.name == "bfloat16":
             out[key] = arr.astype(np.float32)

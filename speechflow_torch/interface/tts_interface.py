@@ -12,9 +12,9 @@ prepare_batch -> evaluate; feed the output to the vocoder interface for a
 waveform.
 
 ``from_checkpoint(tree, payload)`` takes what a checkpoint loader returns
-(the port's ``ExperimentSaver.load_checkpoint``, or the JAX one: the port
-does not read orbax files yet); the constructor takes a built model and a
-payload.
+(``training.saver.ExperimentSaver.load_checkpoint``, which reads the port's
+checkpoints and the JAX trainer's orbax ones); the constructor takes a built
+model and a payload.
 
 The rest of the reference's chain:
 

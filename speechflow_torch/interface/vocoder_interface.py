@@ -6,10 +6,9 @@ waveform -> log-mel on the device (``MelFeatures``) -> waveform, a
 copy-synthesis check. The BigVGAN-class head is folded by default, as the
 JAX interface serves it.
 
-``from_checkpoint(tree, payload)`` takes what the JAX
-``ExperimentSaver.load_checkpoint`` returns: the checkpoint's files are
-orbax OCDBT, which the port does not read yet (see
-``speechflow_torch.training.saver``).
+``from_checkpoint(tree, payload)`` takes what
+``training.saver.ExperimentSaver.load_checkpoint`` returns for a checkpoint of
+either package (the port's, or the JAX trainer's orbax OCDBT one).
 """
 
 from __future__ import annotations

@@ -9,9 +9,9 @@ does), samples codec tokens with the KV-cached GPT and decodes them with the
 model's codec. A reference utterance (``ref_audio``) is turned into the mel
 the training pipeline computes and prefixed to the GPT's context.
 
-The constructor reads a checkpoint the port's trainers write
-(``training.saver.ExperimentSaver``; an orbax checkpoint of the JAX trainer is
-refused there) and builds the model on ``device``, the GPU unless
+The constructor reads a checkpoint of either package's trainers
+(``training.saver.ExperimentSaver``: the port's, or the JAX trainer's orbax
+one) and builds the model on ``device``, the GPU unless
 ``device="cpu"``, in float32, as the JAX interface serves it.
 """
 

@@ -1,1 +1,3 @@
-"""Host-side IO of the port: the audio container and corpus file lists."""
+"""Host-side IO of the port: the audio container, corpus file lists, YAML
+configs (``config``) and the JAX package's orbax checkpoints (``orbax`` over
+``ocdbt`` and ``zstd``)."""

@@ -12,7 +12,9 @@ G2P's device, then per word a Viterbi pass over the bigrams (when
 
 The trainer pickles the parameters as numpy arrays, and the port reads only
 numpy leaves: a pickle whose leaves are JAX arrays needs JAX to load.
-Training waits for a later slice.
+Training waits for a later slice; its starting point is ported:
+``init_tagger_params`` draws a fresh tagger as the JAX trainer does (numpy's
+generator, not flax's initialisers: the tagger is a plain parameter tree).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 
 from speechflow_torch.utils.device import resolve_device
 
-__all__ = ["G2P", "normalize_word"]
+__all__ = ["G2P", "init_tagger_params", "normalize_word"]
 
 _WORD_CLEAN_RE = re.compile(r"[^\w']+", re.UNICODE)
 BOW, EOW, UNK_CHAR = "<", ">", "\0"   # window boundary / unknown-char markers
@@ -37,6 +39,36 @@ BOW, EOW, UNK_CHAR = "<", ">", "\0"   # window boundary / unknown-char markers
 
 def normalize_word(word: str) -> str:
     return _WORD_CLEAN_RE.sub("", word.lower())
+
+
+def init_tagger_params(rng: np.random.Generator, arch: str, n_chars: int, n_langs: int,
+                       n_chunks: int, char_dim: int = 24, hidden: int = 384, win: int = 7,
+                       gru_hidden: int = 64) -> tp.Dict[str, np.ndarray]:
+    """A fresh tagger, drawn as ``speechflow_tpu``'s ``train_g2p`` draws one
+    (its ``init_params``): each matrix N(0, 1/fan_in) from ``rng`` in the JAX
+    trainer's order, the char and language tables scaled by 0.1, biases 0;
+    float32. The same generator state gives the same arrays."""
+    def mat(fan_in, *shape):
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    d = char_dim
+    if arch == "gru":
+        h = gru_hidden
+        p = {"ce": 0.1 * mat(1, n_chars, d), "le": 0.1 * mat(1, n_langs, d),
+             "w1": mat(2 * h, 2 * h, 2 * h), "b1": np.zeros(2 * h, np.float32),
+             "wo": mat(2 * h, 2 * h, n_chunks), "bo": np.zeros(n_chunks, np.float32)}
+        for side in ("f_", "b_"):
+            for g in ("z", "r", "n"):
+                p[side + "W" + g] = mat(d, d, h)
+                p[side + "U" + g] = mat(h, h, h)
+                p[side + "b" + g] = np.zeros(h, np.float32)
+        return p
+    if arch != "mlp":
+        raise ValueError(f"unknown G2P arch {arch!r} (gru or mlp)")
+    return {"ce": 0.1 * mat(1, n_chars, d), "le": 0.1 * mat(1, n_langs, d),
+            "w1": mat(win * d, win * d + d, hidden), "b1": np.zeros(hidden, np.float32),
+            "w2": mat(hidden, hidden, hidden), "b2": np.zeros(hidden, np.float32),
+            "wo": mat(hidden, hidden, n_chunks), "bo": np.zeros(n_chunks, np.float32)}
 
 
 class _Tagger(nn.Module):

@@ -21,7 +21,9 @@ PyTorch's layout (``speechflow_torch.convert`` maps flax's onto them):
   attention weights when ``deterministic`` is False, flax's ``dropout_rate``).
 
 ``flax_init_`` draws a module's weights from flax's default initialisers, so a
-model trained from scratch starts where the JAX one does.
+model trained from scratch starts where the JAX one does: the acoustic model,
+XTTS, the prosody model, ECAPA, the vocoders and the discriminators call it at
+the end of their constructors.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ trained WordLM vocabulary a checkpoint's payload carries as
 ``word_lm_vocab``, else the md5 hash vocabulary) -> per-word contour class.
 
 Two ways in: ``ProsodyPredictionInterface(ckpt_path)`` reads a checkpoint
-directory of the port's saver (``scripts/train_prosody.py`` writes one);
+directory of either package's trainer (``scripts/train_prosody.py`` writes one;
+the JAX trainer's orbax one too);
 ``from_checkpoint(tree, payload)`` takes what a checkpoint loader returns,
 the JAX ``ExperimentSaver.load_checkpoint`` included. The model runs on the
 GPU unless ``device="cpu"``; a sentence of n words is one row padded to a

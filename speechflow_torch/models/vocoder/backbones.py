@@ -9,7 +9,7 @@ import typing as tp
 import torch
 import torch.nn as nn
 
-from speechflow_torch.models.layers import Conv1d, layer_norm
+from speechflow_torch.models.layers import Conv1d, flax_init_, layer_norm
 from speechflow_torch.models.tts.common import gelu
 from speechflow_torch.ops.signal import depthwise_conv1d
 
@@ -47,6 +47,7 @@ class VocosBackbone(nn.Module):
         self.norm_out = layer_norm(dim)
         self.cond_proj = nn.Linear(cond_dim, dim) if cond_dim is not None else None
         self.dim = dim
+        flax_init_(self)  # the blocks' gamma keeps layer_scale, as in JAX
 
     def forward(self, x: torch.Tensor, cond: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T, dim_in) [, cond (B, cond_dim)] -> (B, T, dim)."""

@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from speechflow_torch.models.layers import Conv2d
+from speechflow_torch.models.layers import Conv2d, flax_init_
 from speechflow_torch.ops.stft import magnitude
 
 __all__ = ["PeriodDiscriminator", "MultiPeriodDiscriminator", "ResolutionDiscriminator",
@@ -48,6 +48,7 @@ class PeriodDiscriminator(nn.Module):
             Conv2d(chs[i], chs[i + 1], (5, 1), stride=(3, 1) if i < 4 else (1, 1))
             for i in range(5))
         self.post = Conv2d(chs[-1], 1, (3, 1))
+        flax_init_(self)
 
     def forward(self, wav: torch.Tensor) -> tp.Tuple[torch.Tensor, tp.List[torch.Tensor]]:
         """(B, T) -> the waveform reflect-padded to a multiple of the period and
@@ -79,6 +80,7 @@ class ResolutionDiscriminator(nn.Module):
             Conv2d(c, c, (5, 3), stride=(2, 2)), Conv2d(c, c, (3, 3), stride=(2, 1)),
             Conv2d(c, c, (3, 3), stride=(2, 2))])
         self.post = Conv2d(c, 1, (3, 3))
+        flax_init_(self)
 
     def forward(self, wav: torch.Tensor) -> tp.Tuple[torch.Tensor, tp.List[torch.Tensor]]:
         mag = magnitude(wav, self.n_fft, self.hop_length)  # (B, T, F) float32

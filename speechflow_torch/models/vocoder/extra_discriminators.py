@@ -14,7 +14,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from speechflow_torch.models.layers import Conv2d
+from speechflow_torch.models.layers import Conv2d, flax_init_
 from speechflow_torch.models.vocoder.discriminators import Output, run_stack
 from speechflow_torch.ops.cqt import cqt
 from speechflow_torch.ops.stft import magnitude, stft
@@ -32,6 +32,7 @@ class _Conv2DStack(nn.Module):
             Conv2d(ch_in, c, (3, 9)), Conv2d(c, c, (3, 9), stride=(1, 2)),
             Conv2d(c, c, (3, 9), stride=(1, 2)), Conv2d(c, c, (3, 3))])
         self.post = Conv2d(c, 1, (3, 3))
+        flax_init_(self)
 
     def forward(self, x: torch.Tensor) -> tp.Tuple[torch.Tensor, tp.List[torch.Tensor]]:
         return run_stack(self.convs, self.post, x)
@@ -127,6 +128,7 @@ class DiscriminatorCQT(nn.Module):
         convs.append(Conv2d(in_ch, in_ch, (3, 3)))
         self.convs = nn.ModuleList(convs)
         self.post = Conv2d(in_ch, 1, (3, 3))
+        flax_init_(self)
 
     def forward(self, wav: torch.Tensor) -> tp.Tuple[torch.Tensor, tp.List[torch.Tensor]]:
         z = cqt(wav, self.sr, self.hop_length, n_octaves=self.n_octaves,

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from speechflow_torch.models.layers import Conv1d, ConvTranspose1d
+from speechflow_torch.models.layers import Conv1d, ConvTranspose1d, flax_init_
 from speechflow_torch.ops.anti_alias import (
     aa_snake_downsample,
     aa_upsample_fir,
@@ -43,6 +43,7 @@ class ISTFTHead(nn.Module):
         self.n_fft = n_fft
         self.hop_length = hop_length
         self.out = nn.Linear(dim, n_fft + 2)
+        flax_init_(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, dim) -> (B, (T-1)·hop) waveform (a centered ISTFT of T frames)."""
@@ -109,6 +110,7 @@ class SnakeUpsampleHead(nn.Module):
         self.post_act = AntiAliasedSnake(ch, taps)
         self.post = Conv1d(ch, 1, 7)
         self.total_upsample = int(np.prod(upsample_rates))
+        flax_init_(self)  # snake α and β stay 0 (log scale), as in JAX
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, dim) -> (B, T·prod(rates)) waveform."""

@@ -1,95 +1,109 @@
 """What the training entry points share (counterpart of the parts of
-``speechflow_tpu/scripts/common.py`` the vocoder and TTS scripts use): the
-experiment directory with its configs, the data pipeline and its loaders,
-the optimizer and trainer configs read from a model config, the model
-params sized from the pipeline (``model_config_from_info``), and the
-resume / finetune / warm-start wiring (``apply_resume_warmstart``).
+``speechflow_tpu/scripts/common.py`` the training scripts use): the command
+line (``train_arguments``), the configs read from YAML files with one
+``value_select`` applied (``read_configs``, through ``io.config``, which needs
+no PyYAML), the experiment directory with the configs' YAML text, the data
+pipeline and its loaders, the optimizer and trainer configs read from a model
+config, the model params sized from the pipeline (``model_config_from_info``),
+and the resume / finetune / warm-start wiring (``apply_resume_warmstart``).
 
-Configs are plain nested dicts (the sections of the YAML files, one
-``value_select`` resolved): the machine with the GPU has no YAML reader, so
-the port's scripts carry them as presets. A config's text is written as
-JSON, which YAML readers also read.
+Configs are plain nested dicts: the sections of the YAML files.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
-import json
 import logging
 import typing as tp
 from pathlib import Path
 
 from speechflow_torch.convert import load_nnx_state, nnx_from_module
 from speechflow_torch.data.core.components import AudioLoader, DataPipeline
+from speechflow_torch.io.config import Config, yaml_dump
 from speechflow_torch.training.optimizer import OptimizerConfig
-from speechflow_torch.training.saver import ExperimentSaver
+from speechflow_torch.training.saver import ExperimentSaver, is_checkpoint
 from speechflow_torch.training.trainer import TrainerConfig
 
 LOGGER = logging.getLogger("speechflow_torch")
 
-__all__ = ["experiment_saver", "source_checkpoint", "resume_singletons", "build_data",
-           "model_config_from_info", "trainer_config",
-           "optimizer_config", "apply_resume_warmstart", "XTTS_MODEL_PRESETS",
-           "XTTS_TRAIN_PRESETS"]
+__all__ = ["REPO", "train_arguments", "read_configs", "configs_of_args", "experiment_saver",
+           "source_checkpoint", "resume_singletons", "build_data", "model_config_from_info",
+           "trainer_config", "optimizer_config", "apply_resume_warmstart"]
+
+REPO = Path(__file__).resolve().parents[2]
 
 
-def _xtts_model(debug: bool) -> dict:
-    def pick(default, dbg):
-        return dbg if debug else default
-
-    return {
-        "type": "xtts", "dim": pick(1024, 48), "n_layers": pick(12, 1),
-        "n_heads": pick(8, 2), "block_type": "attention",
-        "speaker_emb_dim": pick(128, 16), "use_prompt": True,
-        "prompt_layers": pick(4, 1), "prompt_downsample": 4,
-        "prompt_max_frames": pick(448, 64), "freeze_codec": False,
-        "codec": {"sample_rate": 24000, "channels": pick(32, 8),
-                  "latent_dim": pick(64, 16), "strides": [4, 8, 8],
-                  "n_quantizers": pick(4, 2), "codebook_size": pick(1024, 64)},
-    }
+def _config_path(path: tp.Union[str, Path]) -> Path:
+    """``path`` as given, or, a relative path that does not exist from the
+    working directory, under this checkout (``configs/...``)."""
+    p = Path(path)
+    return p if p.exists() or p.is_absolute() else REPO / p
 
 
-# configs/xtts_model.yml, section "model", per value_select (``XTTSParams``; the
-# prompt encoder's heads are XTTSParams' default 4, 256 wide at dim 1024)
-XTTS_MODEL_PRESETS: tp.Dict[str, dict] = {"default": _xtts_model(False),
-                                          "debug": _xtts_model(True)}
+def read_configs(model_config: tp.Union[str, Path], data_config: tp.Union[str, Path],
+                 value_select: tp.Optional[tp.Sequence[str]] = None,
+                 data_root: tp.Optional[tp.Union[str, Path]] = None
+                 ) -> tp.Tuple[dict, dict]:
+    """(model config, data config) of two YAML files with ``value_select``
+    applied (``["debug"]``, or a bare selector), as fresh plain dicts;
+    ``data_root`` replaces the data config's ``dirs.data_root``."""
+    if isinstance(value_select, str):
+        value_select = [value_select]
+    model_cfg = Config.create_from_file(_config_path(model_config), value_select).to_dict()
+    data_cfg = Config.create_from_file(_config_path(data_config), value_select).to_dict()
+    if data_root is not None:
+        data_cfg.setdefault("dirs", {})["data_root"] = str(data_root)
+    return model_cfg, data_cfg
 
 
-def _xtts_train(debug: bool) -> dict:
-    def pick(default, dbg):
-        return dbg if debug else default
+def train_arguments(description: str, model_config: str, data_config: str
+                    ) -> argparse.ArgumentParser:
+    """The training scripts' flags, as JAX's ``train_arguments`` has them, with
+    the repository's recipe as each config's default and ``--device`` (the GPU
+    unless ``cpu``), ``--experiment_dir`` and ``--tb``."""
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("-c", "--model_config", default=model_config,
+                    help=f"a model config YAML file (default {model_config})")
+    ap.add_argument("-cd", "--data_config", default=data_config,
+                    help=f"a data config YAML file (default {data_config})")
+    ap.add_argument("-vs", "--value_select", nargs="*", default=None,
+                    help="selectors of the configs' {default: ..., <selector>: ...} values")
+    ap.add_argument("-r", "--resume_from", default=None)
+    ap.add_argument("-w", "--warmstart", default=None, help="warmstart.ckpt")
+    ap.add_argument("--data_root", default=None, help="replaces dirs.data_root")
+    ap.add_argument("--max_steps", type=int, default=None)
+    ap.add_argument("--experiment_dir", default=None)
+    ap.add_argument("--device", default=None, help="cpu to run on the CPU")
+    ap.add_argument("--tb", action="store_true", help="TensorBoard scalars in <experiment>/tb")
+    return ap
 
-    return {
-        "experiment": {"name": "xtts_gpt", "base_dir": "experiments",
-                       "g2p_steps": pick(600, 120)},
-        "batch": {"size": pick(32, 2)},
-        "trainer": {"max_steps": pick(1000000, 6), "log_every": pick(100, 2),
-                    "ckpt_every": pick(20000, 6)},
-        "data_loaders": {"n_workers": pick(2, 1), "prefetch_factor": pick(8, 2)},
-        "optimizer": {"method": "adamw", "lr": pick(0.0001, 0.001),
-                      "lr_schedule": "WarmupCosine",
-                      "lr_schedule_kwargs": {"warmup_steps": pick(4000, 2),
-                                             "decay_steps": pick(1000000, 100)},
-                      "grad_clip": 1.0},
-        "loss": {},
-    }
 
-
-# configs/xtts_model.yml, the sections other than "model", per value_select
-XTTS_TRAIN_PRESETS: tp.Dict[str, dict] = {"default": _xtts_train(False),
-                                          "debug": _xtts_train(True)}
+def configs_of_args(args: argparse.Namespace) -> tp.Tuple[dict, dict]:
+    """The parsed flags' configs with their overrides, as JAX's
+    ``config_prepare`` applies them: ``--data_root``, ``--max_steps``,
+    ``-r`` (``resume.from``) and ``-w`` (``warmstart.ckpt``)."""
+    model_cfg, data_cfg = read_configs(args.model_config, args.data_config,
+                                       args.value_select, args.data_root)
+    if args.max_steps:
+        model_cfg.setdefault("trainer", {})["max_steps"] = args.max_steps
+    if args.resume_from:
+        model_cfg.setdefault("resume", {})["from"] = args.resume_from
+    if args.warmstart:
+        model_cfg.setdefault("warmstart", {})["ckpt"] = args.warmstart
+    return model_cfg, data_cfg
 
 
 def experiment_saver(model_cfg: tp.Mapping, data_cfg: tp.Mapping,
                      base_dir: tp.Optional[tp.Union[str, Path]] = None) -> ExperimentSaver:
     """A new experiment directory under ``base_dir`` (else the config's
     ``experiment.base_dir``), named after ``experiment.name``, with both
-    configs' text written beside the checkpoints and into the payload."""
+    configs' YAML text (overrides applied) written beside the checkpoints and
+    into the payload, as JAX's ``save_configs`` writes them."""
     exp = model_cfg.get("experiment") or {}
     saver = ExperimentSaver(base_dir or exp.get("base_dir", "experiments"),
                             expr_suffix=exp.get("name", "run"))
-    saver.save_configs(data_cfg_text=json.dumps(data_cfg, indent=2),
-                       model_cfg_text=json.dumps(model_cfg, indent=2))
+    saver.save_configs(data_cfg_text=yaml_dump(data_cfg), model_cfg_text=yaml_dump(model_cfg))
     return saver
 
 
@@ -107,8 +121,8 @@ def source_checkpoint(model_cfg: tp.Mapping) -> tp.Tuple[tp.Optional[str], tp.Op
     for kind in ("finetune", "warmstart"):
         src = (model_cfg.get(kind) or {}).get("ckpt")
         if src:
-            if not (Path(src) / "model.npz").exists():
-                raise FileNotFoundError(f"{kind}.ckpt {src} is not a checkpoint of the port")
+            if not is_checkpoint(src):
+                raise FileNotFoundError(f"{kind}.ckpt {src} is not a checkpoint directory")
             return kind, Path(src)
     return None, None
 
@@ -179,11 +193,13 @@ def optimizer_config(model_cfg: tp.Mapping, section: str = "optimizer") -> Optim
 
 
 def apply_resume_warmstart(trainer, model_cfg: tp.Mapping) -> None:
-    """The model config's start (``source_checkpoint``), from the port's own
-    checkpoints:
+    """The model config's start (``source_checkpoint``), from a checkpoint of
+    either package:
 
     - ``resume.from`` (an experiment or checkpoint directory): the last
-      checkpoint's weights, optimizer state and step;
+      checkpoint's weights, optimizer state and step (the port's checkpoints
+      only: a JAX checkpoint's optimizer state is optax's, and resuming from
+      one raises);
     - ``finetune.ckpt`` (a checkpoint directory): its weights only (a fresh
       optimizer and step 0);
     - ``warmstart.ckpt`` (a checkpoint directory) with ``include`` / ``exclude``

@@ -1,6 +1,7 @@
 """Relocatable inference bundle: trained checkpoints packed into one archive
-(counterpart of ``speechflow_tpu/scripts/export.py``, over the port's
-checkpoints and with the same manifest format).
+(counterpart of ``speechflow_tpu/scripts/export.py``, with the same
+manifest format: a bundle either package packed loads in the other's
+``InferenceBundle``).
 
 Pack::
 
@@ -14,11 +15,11 @@ Load (on the GPU unless ``device="cpu"``)::
     b = InferenceBundle.load("bundle.sftpu.tar.gz")
     audio = b.synthesize("Hello world!", lang="EN")
 
-Each component is a ``step_*`` directory the port's trainers write
-(``model.npz``, ``payload.pkl``); loading an orbax checkpoint of the JAX
-trainer fails with ``training.saver.ExperimentSaver.load_checkpoint``'s error.
-A ``prosody`` component goes to ``TTSEvaluationInterface(prosody_ckpt=...)``,
-which does not serve one yet.
+Each component is a ``step_*`` directory of either package's trainers: the
+port's (``model.npz``, ``payload.pkl``) or the JAX trainer's orbax checkpoint,
+both read by ``training.saver.ExperimentSaver.load_checkpoint``. A ``prosody``
+component goes to ``TTSEvaluationInterface(prosody_ckpt=...)``, which serves
+it beside the TTS model.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Trains the word-level contour classifier (``models/prosody``) on the
 TextGrid files of a corpus: the words of each file's text tier and the
 targets of its ``prosody`` tier (``data.parsers.prosody_targets``). With
-``tokenizer: word_lm`` (both presets) a WordLM is trained on the corpus text
+``tokenizer: word_lm`` (the recipe's, default and debug) a WordLM is trained on the corpus text
 first (``models/prosody/lm.py``, on the same device), saved as
 ``word_lm.pkl`` in the experiment directory, its vocabulary stored in the
 checkpoint payload as ``word_lm_vocab`` (the prosody interface tokenizes
@@ -13,9 +13,10 @@ with it), and its table warm-starts the token embedding. Then the generic
 deterministic call: no dropout, and the blocks' attention through
 ``fused_attention`` (the kernel and its VJP on the GPU).
 
-The model config is ``configs/prosody_model.yml``, carried as presets per
-``value_select`` (a CPU test holds them equal to the YAML); the data root is
-``configs/tts_data_24khz.yml``'s unless ``--data_root`` is given.
+``-c`` reads any YAML model config (default ``configs/prosody_model.yml``),
+``-cd`` any data config, whose ``dirs.data_root`` is the corpus unless
+``--data_root`` is given (default ``configs/tts_data_24khz.yml``); ``-vs``
+takes the selectors of their ``value_select``.
 
     python -m speechflow_torch.scripts.train_prosody -vs debug --device cpu --max_steps 4
     python -m speechflow_torch.scripts.train_prosody            # on the GPU, default preset
@@ -26,8 +27,6 @@ It runs on the GPU unless ``--device cpu``; weights start from
 
 from __future__ import annotations
 
-import argparse
-import copy
 import dataclasses
 import logging
 import typing as tp
@@ -42,42 +41,25 @@ from speechflow_torch.io.seg import AudioSeg
 from speechflow_torch.models.prosody import ProsodyCriterion, ProsodyModel, ProsodyParams
 from speechflow_torch.models.prosody.interface import word_ids
 from speechflow_torch.models.prosody.lm import train_word_lm
-from speechflow_torch.scripts.common import experiment_saver, optimizer_config, trainer_config
-from speechflow_torch.scripts.train_tts import DATA_CONFIG, TTS_DATA_PRESETS, recipe_of
+from speechflow_torch.scripts.common import (
+    configs_of_args,
+    experiment_saver,
+    optimizer_config,
+    read_configs,
+    train_arguments,
+    trainer_config,
+)
+from speechflow_torch.scripts.train_tts import DATA_CONFIG
 from speechflow_torch.training.saver import ExperimentSaver
 from speechflow_torch.training.trainer import Trainer
 from speechflow_torch.utils.device import resolve_device
 
 LOGGER = logging.getLogger("speechflow_torch")
 
-__all__ = ["PROSODY_PRESETS", "MODEL_CONFIG", "ProsodySampleLoader", "prosody_batch",
-           "configs", "train", "main", "cli"]
+__all__ = ["MODEL_CONFIG", "ProsodySampleLoader", "prosody_batch", "configs", "train",
+           "main", "cli"]
 
 MODEL_CONFIG = "configs/prosody_model.yml"
-REPO_CONFIG = Path(__file__).resolve().parents[2] / MODEL_CONFIG
-
-
-def _preset(debug: bool) -> dict:
-    def pick(default, dbg):
-        return dbg if debug else default
-
-    return {
-        "experiment": {"name": "prosody", "base_dir": "experiments"},
-        "batch": {"size": pick(64, 4)},
-        "trainer": {"max_steps": pick(50000, 6), "log_every": pick(100, 2),
-                    "ckpt_every": pick(5000, 6)},
-        "optimizer": {"method": "adamw", "lr": pick(0.0001, 0.001),
-                      "lr_schedule": "WarmupCosine",
-                      "lr_schedule_kwargs": {"warmup_steps": pick(1000, 2),
-                                             "decay_steps": pick(50000, 100)}},
-        "model": {"vocab_size": 8000, "n_classes": 8, "dim": pick(256, 32),
-                  "n_layers": pick(4, 1), "n_heads": pick(4, 2), "tokenizer": "word_lm",
-                  "lm_epochs": pick(30, 2)},
-    }
-
-
-# configs/prosody_model.yml, per value_select
-PROSODY_PRESETS: tp.Dict[str, dict] = {"default": _preset(False), "debug": _preset(True)}
 
 
 class ProsodySampleLoader:
@@ -130,9 +112,14 @@ def prosody_batch(batch: tp.Mapping) -> tp.Tuple[dict, dict]:
             {"binary": batch["binary"], "category": batch["category"]})
 
 
-def configs(value_select: str = "default") -> dict:
-    """A fresh copy of the model config of ``value_select``."""
-    return copy.deepcopy(PROSODY_PRESETS[value_select])
+def configs(value_select: tp.Union[str, tp.Sequence[str], None] = "default",
+            model_config: tp.Union[str, Path] = MODEL_CONFIG,
+            data_config: tp.Union[str, Path] = DATA_CONFIG,
+            data_root: tp.Union[str, Path, None] = None) -> tp.Tuple[dict, dict]:
+    """(model config, data config) read from the YAML files with
+    ``value_select``: fresh dicts; the data config gives the corpus
+    (``dirs.data_root``)."""
+    return read_configs(model_config, data_config, value_select, data_root)
 
 
 def train(model_cfg: tp.Mapping, data_root: tp.Union[str, Path], saver: ExperimentSaver,
@@ -166,23 +153,9 @@ def train(model_cfg: tp.Mapping, data_root: tp.Union[str, Path], saver: Experime
 
 
 def main(argv=None) -> str:
-    ap = argparse.ArgumentParser(description="training of the prosody model")
-    ap.add_argument("-c", "--model_config", default=MODEL_CONFIG, help=MODEL_CONFIG)
-    ap.add_argument("-cd", "--data_config", default=DATA_CONFIG, help=DATA_CONFIG)
-    ap.add_argument("-vs", "--value_select", default="default", choices=["default", "debug"])
-    ap.add_argument("--data_root", default=None)
-    ap.add_argument("--max_steps", type=int, default=None)
-    ap.add_argument("--experiment_dir", default=None)
-    ap.add_argument("--device", default=None, help="cpu to run on the CPU")
-    args = ap.parse_args(argv)
-    recipe_of(args.model_config, known=(MODEL_CONFIG,))
-    recipe_of(args.data_config, known=(DATA_CONFIG,))
-    model_cfg = configs(args.value_select)
-    data_cfg = copy.deepcopy(TTS_DATA_PRESETS[args.value_select])
-    if args.data_root:
-        data_cfg["dirs"]["data_root"] = args.data_root
-    if args.max_steps:
-        model_cfg["trainer"]["max_steps"] = args.max_steps
+    args = train_arguments("training of the prosody model", MODEL_CONFIG,
+                           DATA_CONFIG).parse_args(argv)
+    model_cfg, data_cfg = configs_of_args(args)
     saver = experiment_saver(model_cfg, data_cfg, args.experiment_dir)
     return train(model_cfg, data_cfg["dirs"]["data_root"], saver, device=args.device)
 

@@ -1,18 +1,20 @@
 """Vocoder (GAN) training (counterpart of ``speechflow_tpu/scripts/train_vocoder.py``).
 
-Builds the data (``configs/vocoder_data_24khz.yml``), the Vocos generator,
-the ``VocoderDiscriminator``, both criteria and ``GANTrainer``, then
-``fit``s. The configs are the presets below, transcribed from
-``configs/vocoder_bigvgan.yml`` and ``configs/vocoder_data_24khz.yml`` per
-``value_select`` (a CPU test holds them equal to the YAML files); the model
-section is ``serving.VOCODER_BIGVGAN_PRESETS``.
+Builds the data, the Vocos generator, the ``VocoderDiscriminator``, both
+criteria and ``GANTrainer``, then ``fit``s. ``-c`` and ``-cd`` read any YAML
+model and data config (defaults ``configs/vocoder_bigvgan.yml``, BigVGAN
+head, and ``configs/vocoder_data_24khz.yml``; ``configs/vocoder_model.yml`` is
+the Vocos/ISTFT recipe), ``-vs`` takes the selectors of their
+``value_select``; the flags are those of JAX's script.
 
     python -m speechflow_torch.scripts.train_vocoder -vs debug --device cpu
-    python -m speechflow_torch.scripts.train_vocoder --max_steps 16   # on the GPU
+    python -m speechflow_torch.scripts.train_vocoder -c configs/vocoder_model.yml  # GPU
 
 It runs on the GPU unless ``device="cpu"``. Weights start from
-``torch.manual_seed(trainer.seed)``. ``resume.from`` and
-``warmstart.disc_from`` read the port's own checkpoints. Not ported, and
+``torch.manual_seed(trainer.seed)``. ``resume.from`` (``-r``, the port's
+checkpoints: a JAX checkpoint's optimizer state is optax's) and
+``warmstart.disc_from`` (either package's) are read; ``-w`` sets
+``warmstart.ckpt``, which this script, like JAX's, does not read. Not ported, and
 raising ``NotImplementedError`` with the module they need: the ``tts``
 feature extractor (E2E GAN-TTS), ``loss.cpc_ckpt`` and ``loss.bio_ckpt``
 (CPC, ECAPA) and a MOS model for validation (``gan.mos_ckpt``).
@@ -20,8 +22,6 @@ feature extractor (E2E GAN-TTS), ``loss.cpc_ckpt`` and ``loss.bio_ckpt``
 
 from __future__ import annotations
 
-import argparse
-import copy
 import dataclasses
 import logging
 import typing as tp
@@ -38,11 +38,13 @@ from speechflow_torch.models.vocoder.criterion import (
 from speechflow_torch.models.vocoder.discriminators import VocoderDiscriminator
 from speechflow_torch.scripts.common import (
     build_data,
+    configs_of_args,
     experiment_saver,
     optimizer_config,
+    read_configs,
+    train_arguments,
     trainer_config,
 )
-from speechflow_torch.serving import VOCODER_BIGVGAN_PRESETS
 from speechflow_torch.training.gan_trainer import GANTrainer
 from speechflow_torch.training.saver import ExperimentSaver
 from speechflow_torch.utils.device import resolve_device
@@ -50,81 +52,19 @@ from speechflow_torch.utils.init import filter_kwargs
 
 LOGGER = logging.getLogger("speechflow_torch")
 
-__all__ = ["VOCODER_BIGVGAN_TRAIN_PRESETS", "VOCODER_DATA_PRESETS", "configs", "train",
-           "main"]
+__all__ = ["MODEL_CONFIG", "DATA_CONFIG", "configs", "train", "main"]
 
-REPO = Path(__file__).resolve().parents[2]
-
-# configs/vocoder_bigvgan.yml, the sections other than "model", per value_select
-VOCODER_BIGVGAN_TRAIN_PRESETS: tp.Dict[str, dict] = {
-    "default": {
-        "experiment": {"name": "vocos_bigvgan", "base_dir": "experiments"},
-        "batch": {"size": 32},
-        "trainer": {"max_steps": 2000000, "log_every": 100, "ckpt_every": 20000,
-                    "val_every": 5000, "val_batches": 8, "mixed_precision": True},
-        "data_loaders": {"n_workers": 4, "prefetch_factor": 16},
-        "optimizer": {"method": "adamw", "lr": 0.0002, "lr_schedule": "WarmupCosine",
-                      "lr_schedule_kwargs": {"warmup_steps": 2000, "decay_steps": 2000000},
-                      "grad_clip": 1.0, "grad_accum": 8},
-        "gan": {"disc_every": 1, "disc_start_iter": 0, "evaluate_pesq": True},
-        "loss": {"mel_weight": 45.0, "fm_weight": 2.0, "stft_weight": 1.0,
-                 "adv_weight": 1.0, "adv_start_iter": 0},
-        "discriminator": {"periods": [2, 3, 5, 7, 11],
-                          "resolutions": [[1024, 256], [2048, 512], [512, 128]],
-                          "channels": 32, "use_cqt": True, "sample_rate": 24000},
-    },
-    "debug": {
-        "experiment": {"name": "vocos_bigvgan", "base_dir": "experiments"},
-        "batch": {"size": 2},
-        "trainer": {"max_steps": 6, "log_every": 2, "ckpt_every": 6, "val_every": 3,
-                    "val_batches": 1, "mixed_precision": False},
-        "data_loaders": {"n_workers": 1, "prefetch_factor": 2},
-        "optimizer": {"method": "adamw", "lr": 0.001, "lr_schedule": "WarmupCosine",
-                      "lr_schedule_kwargs": {"warmup_steps": 2, "decay_steps": 100},
-                      "grad_clip": 1.0, "grad_accum": 1},
-        "gan": {"disc_every": 1, "disc_start_iter": 2, "evaluate_pesq": False},
-        "loss": {"mel_weight": 45.0, "fm_weight": 2.0, "stft_weight": 1.0,
-                 "adv_weight": 1.0, "adv_start_iter": 1000000},
-        "discriminator": {"periods": [2, 3, 5, 7, 11],
-                          "resolutions": [[1024, 256], [2048, 512], [512, 128]],
-                          "channels": 8, "use_cqt": True, "sample_rate": 24000},
-    },
-}
+MODEL_CONFIG = "configs/vocoder_bigvgan.yml"
+DATA_CONFIG = "configs/vocoder_data_24khz.yml"
 
 
-def _data_preset(split_ratio: float, max_num_samples: tp.Optional[int],
-                 chunk_duration: float) -> dict:
-    return {
-        "dirs": {"data_root": str(REPO / "tests" / "data" / "SEGS")},
-        "file_search": {"ext": ".wav"},
-        "dataset": {"subsets": ["train", "test"], "split_ratio": split_ratio,
-                    "max_num_samples": max_num_samples},
-        "parser": {"type": "AudioDSParser"},
-        "preproc": {"pipe": ["load_audio", "volume_normalize", "random_chunk",
-                             "multiple_audio"],
-                    "pipe_cfg": {"load_audio": {"sample_rate": 24000},
-                                 "random_chunk": {"chunk_duration": chunk_duration},
-                                 "multiple_audio": {"hop": 256}}},
-        "singleton_handlers": ["SpeakerIDSetter", "DatasetStatistics"],
-        "collate": {"type": "AudioCollate", "sample_multiple": 256},
-        "processor": {},
-        "sampler": {"train": {"type": "RandomSampler"}, "test": {"type": "SimpleSampler"}},
-    }
-
-
-# configs/vocoder_data_24khz.yml, per value_select; data_root is this checkout's
-# tests/data/SEGS, the corpus the YAML names
-VOCODER_DATA_PRESETS: tp.Dict[str, dict] = {
-    "default": _data_preset(0.9, None, 1.0),
-    "debug": _data_preset(0.5, 6, 0.35),
-}
-
-
-def configs(value_select: str = "default") -> tp.Tuple[dict, dict]:
-    """(model config, data config) of the flagship vocoder recipe: fresh copies."""
-    model_cfg = copy.deepcopy(VOCODER_BIGVGAN_TRAIN_PRESETS[value_select])
-    model_cfg["model"] = copy.deepcopy(VOCODER_BIGVGAN_PRESETS[value_select])
-    return model_cfg, copy.deepcopy(VOCODER_DATA_PRESETS[value_select])
+def configs(value_select: tp.Union[str, tp.Sequence[str], None] = "default",
+            model_config: tp.Union[str, Path] = MODEL_CONFIG,
+            data_config: tp.Union[str, Path] = DATA_CONFIG,
+            data_root: tp.Union[str, Path, None] = None) -> tp.Tuple[dict, dict]:
+    """(model config, data config) read from the YAML files (the flagship
+    recipe by default) with ``value_select``: fresh dicts."""
+    return read_configs(model_config, data_config, value_select, data_root)
 
 
 def train(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: ExperimentSaver,
@@ -186,22 +126,9 @@ def train(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: ExperimentSaver,
 
 
 def main(argv=None) -> str:
-    ap = argparse.ArgumentParser(description="GAN training of the flagship vocoder")
-    ap.add_argument("-vs", "--value_select", default="default", choices=["default", "debug"])
-    ap.add_argument("--data_root", default=None)
-    ap.add_argument("--max_steps", type=int, default=None)
-    ap.add_argument("--experiment_dir", default=None)
-    ap.add_argument("-r", "--resume_from", default=None)
-    ap.add_argument("--device", default=None, help="cpu to run the plain versions there")
-    ap.add_argument("--tb", action="store_true", help="TensorBoard scalars in <experiment>/tb")
-    args = ap.parse_args(argv)
-    model_cfg, data_cfg = configs(args.value_select)
-    if args.data_root:
-        data_cfg["dirs"]["data_root"] = args.data_root
-    if args.max_steps:
-        model_cfg["trainer"]["max_steps"] = args.max_steps
-    if args.resume_from:
-        model_cfg["resume"] = {"from": args.resume_from}
+    args = train_arguments("GAN training of a vocoder", MODEL_CONFIG,
+                           DATA_CONFIG).parse_args(argv)
+    model_cfg, data_cfg = configs_of_args(args)
     saver = experiment_saver(model_cfg, data_cfg, args.experiment_dir)
     return train(model_cfg, data_cfg, saver, device=args.device,
                  tb_dir=saver.expr_path / "tb" if args.tb else None)

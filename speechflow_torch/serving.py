@@ -17,10 +17,11 @@
 ``vm.from_features``. ``flagship_payload`` makes the checkpoint payload a
 trainer of the flagship would store (model params, and the pipeline info of
 ``configs/tts_data_24khz.yml`` with a seeded speaker catalog), from which
-``interface.tts_interface.TTSEvaluationInterface`` rebuilds the text path. The machine with the GPU has no YAML reader, so the
-configs' model sections are carried here as presets, transcribed field for
-field, and the bench's literals likewise (CPU tests hold them equal to the
-YAML files and to ``bench.py``).
+``interface.tts_interface.TTSEvaluationInterface`` rebuilds the text path. The
+programs are built from presets, not files: the configs' model sections
+transcribed field for field, with the bench's literals (CPU tests hold them
+equal to the YAML files and to ``bench.py``); the training scripts read the
+YAML files themselves (``io.config``).
 """
 
 from __future__ import annotations

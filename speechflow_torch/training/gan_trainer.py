@@ -243,7 +243,7 @@ class GANTrainer:
 
     def load_checkpoint(self, path) -> dict:
         """Both models, both optimizer states and the step."""
-        tree, payload = ExperimentSaver.load_checkpoint(path)
+        tree, payload = ExperimentSaver.load_checkpoint(ExperimentSaver.resumable(path))
         load_nnx_state(self.generator, tree["model"]["generator"])
         load_nnx_state(self.discriminator, tree["model"]["discriminator"])
         opt_tree = tree.get("opt") or {}

@@ -3,8 +3,7 @@
 
 An experiment directory (``<base>/<stamp>_<name>``) holds the data and model
 config text and ``checkpoints/step_<N:09d>/``, as the JAX saver lays it out.
-The JAX saver writes the state tree with orbax (OCDBT, zstd chunks), which
-the port cannot write or read. The port's checkpoint directory holds:
+A checkpoint directory the port writes holds:
 
 - ``model.npz``: the model tree in the JAX package's pure-dict layout
   (``convert.nnx_from_module``), one array per leaf under its ``/``-joined
@@ -13,11 +12,13 @@ the port cannot write or read. The port's checkpoint directory holds:
 - ``payload.pkl``: the same payload the JAX saver pickles (versions, the
   configs' text, pipeline info, model params, anything in ``to_save``).
 
-``load_checkpoint`` returns ``(tree, payload)`` as the JAX loader does
-(``tree = {"model", "step", "opt"}``), so the eval interfaces load a
-port-written checkpoint through their ``from_checkpoint``. A JAX-written
-checkpoint has no ``model.npz``: the port still starts from what the JAX
-loader returns for those (``remap_legacy_keys`` migrates old layouts).
+``load_checkpoint`` reads that layout and the JAX saver's: orbax OCDBT with
+zstd-compressed zarr chunks (``io.orbax``, no orbax or tensorstore needed),
+and returns ``(tree, payload)`` as the JAX loader does (``tree = {"model",
+"step", "opt"}``, ``remap_legacy_keys`` applied), so the eval interfaces,
+finetuning and warm starts take a checkpoint of either package. The ``opt``
+of a JAX checkpoint is optax state, which no torch optimizer reads: resuming
+from one raises (``resumable``).
 
 ``filter_state_by_prefix`` and ``merge_states`` serve finetuning and
 warm starts (``scripts.common.apply_resume_warmstart``): they work on that
@@ -27,6 +28,8 @@ pure-dict tree and match the ``/``-joined JAX paths, so a recipe's
 
 from __future__ import annotations
 
+import importlib
+import io
 import os
 import pickle
 import re
@@ -39,7 +42,39 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["ExperimentSaver"]
+from speechflow_torch.io import orbax
+
+__all__ = ["ExperimentSaver", "is_checkpoint", "load_pickle"]
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Reads a pickle the JAX package wrote: a class of ``speechflow_tpu.<m>``
+    is taken from ``speechflow_torch.<m>`` under the same name, and raises by
+    name where the port has no counterpart (the JAX package is never
+    imported)."""
+
+    def find_class(self, module: str, name: str):
+        if module == "speechflow_tpu" or module.startswith("speechflow_tpu."):
+            port = "speechflow_torch" + module[len("speechflow_tpu"):]
+            try:
+                return getattr(importlib.import_module(port), name)
+            except (ImportError, AttributeError) as e:
+                raise pickle.UnpicklingError(
+                    f"{module}.{name}: the pickle names a class of the JAX package that "
+                    f"has no counterpart {port}.{name} in the port") from e
+        return super().find_class(module, name)
+
+
+def load_pickle(data: bytes):
+    """Unpickle bytes this project wrote (either package); unpickling runs
+    code, so never read a pickle of unknown origin."""
+    return _PortUnpickler(io.BytesIO(data)).load()
+
+
+def is_checkpoint(path: tp.Union[str, Path]) -> bool:
+    """Whether ``path`` is a checkpoint directory of either package."""
+    p = Path(path)
+    return (p / "model.npz").is_file() or orbax.is_orbax_checkpoint(p)
 
 _DECODER_KEYS = ("dec_pre", "dec", "dec_post")
 
@@ -131,17 +166,24 @@ class ExperimentSaver:
 
     @staticmethod
     def load_checkpoint(path: tp.Union[str, Path]) -> tp.Tuple[dict, dict]:
-        """``(tree, payload)`` of a checkpoint the port wrote: ``tree["model"]``
-        is the pure-dict model tree (legacy layouts migrated), ``tree["step"]``
-        an int, ``tree["opt"]`` the optimizer states or None. Unpickling runs
-        code: load only checkpoints this project's trainers wrote."""
+        """``(tree, payload)`` of a checkpoint of either package:
+        ``tree["model"]`` is the pure-dict model tree (legacy layouts
+        migrated), ``tree["step"]`` the step, ``tree["opt"]`` the optimizer
+        states (the port's torch states, or a JAX checkpoint's optax tree) or
+        None. An orbax checkpoint's tree is what the JAX loader returns (dict
+        keys as strings, the step a 0-d array). Unpickling runs code: load only
+        checkpoints this project's trainers wrote."""
         import torch
 
         path = Path(path)
+        if orbax.is_orbax_checkpoint(path):
+            tree = orbax.read_tree(path)
+            if isinstance(tree, dict) and "model" in tree:
+                tree["model"] = ExperimentSaver.remap_legacy_keys(tree["model"])
+            return tree, ExperimentSaver.load_payload(path)
         if not (path / "model.npz").exists():
-            raise FileNotFoundError(
-                f"{path}: no model.npz; an orbax checkpoint of the JAX trainer is read "
-                "with the JAX package's ExperimentSaver.load_checkpoint")
+            raise FileNotFoundError(f"{path}: neither model.npz (a checkpoint of the port) "
+                                    "nor _METADATA (an orbax checkpoint of the JAX package)")
         with np.load(path / "model.npz") as z:
             flat = {k[len("model/"):]: z[k] for k in z.files if k.startswith("model/")}
             step = int(z["step"])
@@ -151,6 +193,18 @@ class ExperimentSaver:
         tree = {"model": ExperimentSaver.remap_legacy_keys(_unflatten(flat)), "step": step,
                 "opt": opt}
         return tree, ExperimentSaver.load_payload(path)
+
+    @staticmethod
+    def resumable(path: tp.Union[str, Path]) -> Path:
+        """``path``, when a trainer of the port can resume from it (weights,
+        optimizer state and step); ``NotImplementedError`` for a checkpoint of
+        the JAX package, whose optimizer state is optax's."""
+        if orbax.is_orbax_checkpoint(path):
+            raise NotImplementedError(
+                f"{path} is a checkpoint of the JAX trainer: its optimizer state is optax's, "
+                "which the port's torch optimizers cannot resume from (not ported). Start "
+                "from its weights with finetune.ckpt or warmstart.ckpt (-w) instead")
+        return Path(path)
 
     @staticmethod
     def get_last_checkpoint(expr_or_ckpt_dir: tp.Union[str, Path]) -> tp.Optional[Path]:
@@ -170,10 +224,11 @@ class ExperimentSaver:
 
     @staticmethod
     def load_payload(ckpt_path: tp.Union[str, Path]) -> dict:
-        """A checkpoint's ``payload.pkl`` ({} if it has none). Unpickling runs
-        code: read only checkpoints this project's trainers wrote."""
+        """A checkpoint's ``payload.pkl`` ({} if it has none), of either package
+        (``load_pickle``). Unpickling runs code: read only checkpoints this
+        project's trainers wrote."""
         f = Path(ckpt_path) / "payload.pkl"
-        return pickle.loads(f.read_bytes()) if f.exists() else {}
+        return load_pickle(f.read_bytes()) if f.exists() else {}
 
     @staticmethod
     def remap_legacy_keys(model: dict) -> dict:

@@ -215,7 +215,7 @@ class Trainer:
                                self.optimizer.state_dict(), extra=extra)
 
     def load_checkpoint(self, path: tp.Union[str, Path]) -> dict:
-        tree, payload = ExperimentSaver.load_checkpoint(path)
+        tree, payload = ExperimentSaver.load_checkpoint(ExperimentSaver.resumable(path))
         load_nnx_state(self.model, tree["model"])
         if tree.get("opt") is not None:
             self.optimizer.load_state_dict(tree["opt"])

@@ -7,6 +7,7 @@ through ``nnx.replace_by_pure_dict`` with JAX's output."""
 
 import copy
 import dataclasses
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,16 +15,18 @@ import pytest
 import torch
 from flax import nnx
 
+from speechflow_torch.convert import flatten_nnx, load_nnx_state
 from speechflow_torch.data.core.components import DataPipeline
 from speechflow_torch.scripts.common import experiment_saver
-from speechflow_torch.scripts.train_vocoder import VOCODER_DATA_PRESETS, configs
+from speechflow_torch.scripts.train_vocoder import configs
 from speechflow_torch.training.saver import ExperimentSaver
 
 torch.set_num_threads(1)
+SEGS = Path(__file__).resolve().parent / "data" / "SEGS"
 
 
 def _data_cfg(value_select: str = "default") -> dict:
-    cfg = copy.deepcopy(VOCODER_DATA_PRESETS[value_select])
+    cfg = configs(value_select, data_root=SEGS)[1]
     cfg["preproc"]["pipe_cfg"]["random_chunk"]["seed"] = 7
     return cfg
 
@@ -74,7 +77,7 @@ def _gan(tmp_path):
     from speechflow_torch.scripts.common import optimizer_config
     from speechflow_torch.training.gan_trainer import GANTrainer
 
-    model_cfg, data_cfg = configs("debug")
+    model_cfg, data_cfg = configs("debug", data_root=SEGS)
     saver = experiment_saver(model_cfg, data_cfg, tmp_path)
     torch.manual_seed(0)
     params = VocosParams.create(model_cfg["model"])
@@ -138,6 +141,32 @@ def test_checkpoint_loads_into_the_interface_and_into_jax(tmp_path):
 
 
 def test_port_loader_refuses_an_orbax_checkpoint(tmp_path):
+    """The port's loader reads an orbax checkpoint the JAX saver wrote: the GAN
+    tree comes back bit for bit (dict keys as orbax stores them, the step a 0-d
+    array), the payload too, and it fills a port GAN; resuming from it raises
+    (its optimizer state is optax's); a directory of neither layout is refused."""
+    from speechflow_tpu.training.saver import ExperimentSaver as JSaver
+
+    gan, _ = _gan(tmp_path)
+    tree, payload = ExperimentSaver.load_checkpoint(gan.save_checkpoint())
+    js = JSaver(tmp_path / "jax", expr_suffix="voc")
+    path = js.save(1, tree["model"], extra=payload)
+    ours, ours_payload = ExperimentSaver.load_checkpoint(path)
+    ref, ref_payload = JSaver.load_checkpoint(path)
+    assert ours_payload == ref_payload and set(ours) == set(ref) == {"model", "step"}
+    assert ours["step"].shape == () and int(ours["step"]) == 1
+    for (k, a), (k2, b) in zip(sorted(flatten_nnx(ours["model"]).items()),
+                               sorted(flatten_nnx(ref["model"]).items())):
+        assert k == k2
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    again, _ = _gan(tmp_path / "other")
+    load_nnx_state(again.generator, ours["model"]["generator"])
+    for (n, p), q in zip(gan.generator.named_parameters(), again.generator.parameters()):
+        assert torch.equal(p, q), n
+    with pytest.raises(NotImplementedError, match="optax"):
+        again.load_checkpoint(path)
     (tmp_path / "step_000000001").mkdir()
     with pytest.raises(FileNotFoundError, match="orbax"):
         ExperimentSaver.load_checkpoint(tmp_path / "step_000000001")
+
+

@@ -227,11 +227,12 @@ def test_xtts_synthesize_on_the_gpu_matches_the_cpu(cuda_device):
     the same tokens on the card (the prompt encoder's attention on the kernel)
     as on the CPU, and the waveform within 1e-4 of its scale."""
     from speechflow_torch.models.tts import XTTSModel, XTTSParams
-    from speechflow_torch.scripts.common import XTTS_MODEL_PRESETS
+    from speechflow_torch.scripts.train_tts import configs
 
     torch.manual_seed(0)
-    cpu = XTTSModel(XTTSParams.create(dict(XTTS_MODEL_PRESETS["debug"], n_layers=2,
-                                           n_symbols=40, n_speakers=2, prompt_dim=80)))
+    debug = configs("debug", "configs/xtts_model.yml")[0]["model"]
+    cpu = XTTSModel(XTTSParams.create(dict(debug, n_layers=2, n_symbols=40, n_speakers=2,
+                                           prompt_dim=80)))
     card = copy.deepcopy(cpu).to(cuda_device)
     rng = np.random.default_rng(3)
     text = torch.from_numpy(rng.integers(1, 40, (2, 16)))
@@ -528,7 +529,7 @@ def test_tts_training_step_on_the_gpu_matches_the_cpu(cuda_device):
     from speechflow_torch.training.optimizer import OptimizerConfig
     from speechflow_torch.training.trainer import Trainer, TrainerConfig
 
-    model_cfg, data_cfg = configs("debug")
+    model_cfg, data_cfg = configs("debug", data_root="tests/data/SEGS")
     model_cfg["model"]["decoder_type"] = "cfm"
     pipeline = DataPipeline.from_config(data_cfg)
     batch = pipeline.datasample_to_batch([s.copy() for s in pipeline.datasets["train"][:2]])
@@ -577,12 +578,12 @@ def test_xtts_training_step_on_the_gpu_matches_the_cpu(cuda_device, block_type):
     scale, or of 1e-3 of the model's largest gradient where that is more (the
     attention key biases' true gradient is 0); the codec's gradient is 0 on both."""
     from speechflow_torch.models.tts import XTTSModel, XTTSParams
-    from speechflow_torch.scripts.common import XTTS_MODEL_PRESETS
+    from speechflow_torch.scripts.train_tts import configs
 
     torch.manual_seed(0)
-    cpu = XTTSModel(XTTSParams.create(dict(XTTS_MODEL_PRESETS["debug"], n_layers=2,
-                                           n_symbols=40, n_speakers=2, prompt_dim=80,
-                                           block_type=block_type)))
+    debug = configs("debug", "configs/xtts_model.yml")[0]["model"]
+    cpu = XTTSModel(XTTSParams.create(dict(debug, n_layers=2, n_symbols=40, n_speakers=2,
+                                           prompt_dim=80, block_type=block_type)))
     card = copy.deepcopy(cpu).to(cuda_device)
     rng = np.random.default_rng(4)
     inputs = {"transcription": torch.from_numpy(rng.integers(1, 40, (2, 16))),

@@ -33,7 +33,7 @@ from speechflow_torch.models.prosody import ProsodyModel, ProsodyParams
 from speechflow_torch.models.tts import ParallelTTSModel, ParallelTTSParams, XTTSModel, XTTSParams
 from speechflow_torch.models.vocoder import Vocos, VocosParams
 from speechflow_torch.scripts import export
-from speechflow_torch.scripts.common import XTTS_MODEL_PRESETS
+from speechflow_torch.scripts.train_tts import configs
 from speechflow_torch.training.saver import ExperimentSaver
 from tests.torch_parity import tts_params, vocoder_params
 
@@ -69,7 +69,7 @@ def experiments(tmp_path_factory):
         am.variance_adaptor.predictors["durations"].out.bias.fill_(math.log1p(3.0))
     vp = VocosParams.create(vocoder_params(n_mels=tp_["n_mels"]))
     vm = serving.init_random_(Vocos(vp), gen)
-    xp = dict(XTTS_MODEL_PRESETS["debug"], n_symbols=len(symbols) + 5, n_speakers=3,
+    xp = dict(configs("debug", "configs/xtts_model.yml")[0]["model"], n_symbols=len(symbols) + 5, n_speakers=3,
               prompt_dim=100)
     torch.manual_seed(0)
     xm = XTTSModel(XTTSParams.create(xp))
@@ -146,12 +146,30 @@ def test_missing_and_refused_components(bundle, experiments, tmp_path):
     export.pack(out, tts=experiments["tts"], prosody=experiments["vocoder"])
     with pytest.raises(KeyError):
         export.InferenceBundle.load(out, device="cpu").tts
-    # a checkpoint without model.npz (an orbax one of the JAX trainer) is refused
+    # an orbax checkpoint of the JAX trainer packs and serves as the port's does
+    from speechflow_tpu.training.saver import ExperimentSaver as JSaver
+
+    tree, payload = ExperimentSaver.load_checkpoint(
+        ExperimentSaver.get_last_checkpoint(experiments["tts"]))
+    js = JSaver(tmp_path / "jax", expr_suffix="tts")
+    js.save(2, tree["model"], extra=payload)
     root = tmp_path / "orbax"
+    export.pack(root.with_suffix(".tar.gz"), tts=js.expr_path, vocoder=experiments["vocoder"])
+    jax_bundle = export.InferenceBundle.load(root.with_suffix(".tar.gz"), device="cpu")
+    port_bundle = export.InferenceBundle.load(bundle.root, device="cpu")
+    assert (jax_bundle.root / jax_bundle.manifest["components"]["tts"] / "_METADATA").is_file()
+    jax_bundle.tts, port_bundle.tts, jax_bundle.vocoder, port_bundle.vocoder
+    outs = []
+    for b in (jax_bundle, port_bundle):
+        torch.manual_seed(5)
+        outs.append(b.synthesize(TEXT, opts=OPTS).data)
+    np.testing.assert_array_equal(outs[0], outs[1])
+    # a step directory of neither layout is refused, naming both
+    root = tmp_path / "neither"
     (root / "tts" / "step_000000001" / "default").mkdir(parents=True)
     (root / "manifest.json").write_text(json.dumps(
         {"format": export.FORMAT, "components": {"tts": "tts/step_000000001"}}))
-    with pytest.raises(FileNotFoundError, match="no model.npz"):
+    with pytest.raises(FileNotFoundError, match="neither model.npz"):
         export.InferenceBundle.load(root, device="cpu").tts
     (root / "manifest.json").write_text(json.dumps({"format": "other", "components": {}}))
     with pytest.raises(ValueError, match="not a speechflow bundle"):

@@ -98,3 +98,23 @@ def test_g2p_runs_on_the_gpu_unless_told(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         G2P.load(path)
+
+
+@pytest.mark.parametrize("arch", ["gru", "mlp"])
+def test_fresh_tagger_is_the_jax_trainers_init(arch):
+    """``init_tagger_params`` gives the arrays the JAX trainer starts from: its
+    ``train_g2p`` at 0 steps returns them untouched, bit for bit."""
+    from speechflow_torch.models.g2p.model import init_tagger_params
+    from speechflow_tpu.models.g2p.model import train_g2p
+
+    lexicon = [("EN", "cat", ("K", "AE1", "T")), ("EN", "dog", ("D", "AO1", "G")),
+               ("EN", "sit", ("S", "IH1", "T")), ("RU", "да", ("d", "a"))]
+    ref = train_g2p(lexicon, steps=0, ensemble=1, arch=arch, seed=3, hidden=16,
+                    gru_hidden=8)
+    got = init_tagger_params(np.random.default_rng(3), arch, len(ref.cvocab), len(ref.lvocab),
+                             len(ref.chunk_symbols), hidden=16, gru_hidden=8)
+    want = ref.params
+    assert set(got) == set(want)
+    for k in got:
+        assert got[k].dtype == np.float32
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)

@@ -1,13 +1,16 @@
 """Rules of the port: ``speechflow_torch`` and ``chip_smoke.py`` import
-nothing of JAX, flax or the JAX package; entry points run on the GPU unless
-the caller asks for the CPU, and never fall back on their own; the flagship
-presets the port carries equal the YAML configs they were transcribed from."""
+nothing of JAX, flax or the JAX package, and none of the libraries that
+machine lacks for its checkpoints and configs (PyYAML, orbax, tensorstore,
+zstandard); entry points run on the GPU unless the caller asks for the CPU, and
+never fall back on their own; the serving presets the port carries equal the
+YAML configs they were transcribed from."""
 
 import ast
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,7 +19,9 @@ from speechflow_torch.utils.device import resolve_device
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "speechflow_tpu")
+SEGS = REPO / "tests" / "data" / "SEGS"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "speechflow_tpu", "yaml",
+             "tensorstore", "zstandard")
 
 
 def _port_files():
@@ -73,7 +78,8 @@ NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "training/losses/base.py", "training/losses/zoo.py", "scripts/train_tts.py",
                "models/tts/ar_decoders.py", "models/tts/xtts.py", "models/codec/__init__.py",
                "models/codec/rvq.py", "interface/xtts_interface.py", "interface/__init__.py",
-               "scripts/export.py", "app/__init__.py", "app/demo_server.py")
+               "scripts/export.py", "app/__init__.py", "app/demo_server.py",
+               "io/zstd.py", "io/ocdbt.py", "io/orbax.py", "io/config.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -132,18 +138,6 @@ def test_presets_equal_the_yaml_configs(config, presets, value_select):
     assert presets[value_select] == yml
 
 
-@pytest.mark.parametrize("value_select", ["default", "debug"])
-def test_xtts_preset_equals_the_yaml_config(value_select):
-    """The model section of ``xtts_model.yml``, as ``scripts.common`` carries it."""
-    from speechflow_tpu.io import Config
-
-    from speechflow_torch.scripts.common import XTTS_MODEL_PRESETS
-
-    yml = Config.create_from_file(REPO / "configs" / "xtts_model.yml",
-                                  value_select=[value_select]).section("model").to_dict()
-    assert XTTS_MODEL_PRESETS[value_select] == yml
-
-
 def test_serving_entry_points_run_on_the_gpu_unless_asked(monkeypatch, tmp_path):
     """The XTTS interface and the demo server's CLI raise without CUDA and
     without ``device="cpu"``, before they read a checkpoint."""
@@ -158,42 +152,6 @@ def test_serving_entry_points_run_on_the_gpu_unless_asked(monkeypatch, tmp_path)
         demo_server.main(["--tts_ckpt", str(tmp_path), "--vocoder_ckpt", str(tmp_path)])
 
 
-@pytest.mark.parametrize("value_select", ["default", "debug"])
-def test_training_presets_equal_the_yaml_configs(value_select):
-    """Every section of ``vocoder_bigvgan.yml`` (the model section through
-    ``serving``) and of ``vocoder_data_24khz.yml``, as the training script carries them."""
-    from speechflow_tpu.io import Config
-
-    from speechflow_torch.scripts.train_vocoder import configs
-
-    model_cfg, data_cfg = configs(value_select)
-    for name, ours in (("vocoder_bigvgan.yml", model_cfg), ("vocoder_data_24khz.yml", data_cfg)):
-        yml = Config.create_from_file(REPO / "configs" / name,
-                                      value_select=[value_select]).to_dict()
-        assert ours == yml, name
-
-
-@pytest.mark.parametrize("value_select", ["default", "debug"])
-@pytest.mark.parametrize("section", ["experiment", "batch", "trainer", "data_loaders",
-                                     "optimizer", "loss", "model", "data"])
-def test_tts_training_presets_equal_the_yaml_configs(value_select, section):
-    """Each section of ``tts_model.yml`` (the model section through
-    ``serving``) and the whole of ``tts_data_24khz.yml``, as ``train_tts``
-    carries them."""
-    from speechflow_tpu.io import Config
-
-    from speechflow_torch.scripts.train_tts import configs
-
-    model_cfg, data_cfg = configs(value_select)
-    name = "tts_data_24khz.yml" if section == "data" else "tts_model.yml"
-    yml = Config.create_from_file(REPO / "configs" / name,
-                                  value_select=[value_select]).to_dict()
-    if section == "data":
-        assert data_cfg == yml
-    else:
-        assert set(model_cfg) == set(yml) and model_cfg[section] == yml[section]
-
-
 def test_train_entry_point_runs_on_the_cpu_only_when_asked(monkeypatch, tmp_path):
     """``train_vocoder.main`` at the debug presets on the CPU writes a checkpoint
     the port loads; without CUDA and without ``--device cpu`` it raises."""
@@ -204,12 +162,35 @@ def test_train_entry_point_runs_on_the_cpu_only_when_asked(monkeypatch, tmp_path
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_vocoder.main(["-vs", "debug", "--experiment_dir", str(tmp_path / "gpu")])
     expr = train_vocoder.main(["-vs", "debug", "--max_steps", "2", "--device", "cpu",
-                               "--experiment_dir", str(tmp_path)])
+                               "--experiment_dir", str(tmp_path), "--data_root", str(SEGS)])
     ckpt = ExperimentSaver.get_last_checkpoint(expr)
     tree, payload = ExperimentSaver.load_checkpoint(ckpt)
     assert ckpt.name == "step_000000002" and set(tree["model"]) == {"generator",
                                                                     "discriminator"}
     assert payload["pipeline_info"]["dataset_sizes"] == {"train": 6, "test": 6}
+
+
+def test_vocoder_model_recipe_trains_on_the_cpu(tmp_path):
+    """``train_vocoder -c configs/vocoder_model.yml -vs debug`` (mel features,
+    Vocos backbone, ISTFT head, MPD + MRD) trains 2 steps on the CPU; the
+    checkpoint holds that model and serves through the vocoder interface."""
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.scripts import train_vocoder
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    expr = train_vocoder.main(["-c", "configs/vocoder_model.yml", "-vs", "debug",
+                               "--max_steps", "2", "--device", "cpu",
+                               "--experiment_dir", str(tmp_path), "--data_root", str(SEGS)])
+    ckpt = ExperimentSaver.get_last_checkpoint(expr)
+    tree, payload = ExperimentSaver.load_checkpoint(ckpt)
+    assert ckpt.name == "step_000000002" and int(tree["step"]) == 2
+    assert payload["model_params"]["head"] == "istft" and payload["model_params"]["dim"] == 64
+    assert "resolutions" in payload["model_config_text"]
+    assert set(tree["model"]["discriminator"]["mrd"]) == {"discs"}
+    vi = VocoderEvaluationInterface.from_checkpoint(tree, payload, device="cpu")
+    mel = torch.randn(1, 20, payload["model_params"]["n_mels"])
+    wav = vi.synthesize(mel).data
+    assert wav.shape[-1] == 19 * 256 and np.isfinite(wav).all()
 
 
 def test_tts_train_entry_point_runs_on_the_cpu_only_when_asked(monkeypatch, tmp_path):
@@ -225,7 +206,7 @@ def test_tts_train_entry_point_runs_on_the_cpu_only_when_asked(monkeypatch, tmp_
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_tts.main(["-vs", "debug", "--experiment_dir", str(tmp_path / "gpu")])
     expr = train_tts.main(["-vs", "debug", "--max_steps", "2", "--device", "cpu",
-                           "--experiment_dir", str(tmp_path)])
+                           "--experiment_dir", str(tmp_path), "--data_root", str(SEGS)])
     ckpt = ExperimentSaver.get_last_checkpoint(expr)
     tree, payload = ExperimentSaver.load_checkpoint(ckpt)
     assert ckpt.name == "step_000000002" and tree["opt"] is not None

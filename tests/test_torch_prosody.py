@@ -2,6 +2,8 @@
 and ``train_prosody`` against the JAX package (CPU, f32), with JAX's weights
 converted (``tests/torch_parity.py``) and the same seeded inputs."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -34,7 +36,7 @@ LM_TOL = 1e-5       # the WordLM table after SGNS training (f32 rounding, 40 ste
 SMALL = dict(vocab_size=64, n_classes=8, dim=32, n_layers=2, n_heads=2, dropout=0.0)
 WORDS = ("Hello world, this is a test. Printing, in the only sense with which we are at "
          "present concerned, differs from most if not from all the arts!").split()
-SEGS = str(train_prosody.TTS_DATA_PRESETS["default"]["dirs"]["data_root"])
+SEGS = str(Path(__file__).resolve().parent / "data" / "SEGS")
 
 
 def _pair(seed: int = 0, **kw):
@@ -238,7 +240,7 @@ def test_train_prosody_step_matches_jax():
     from speechflow_tpu.training.optimizer import OptimizerConfig as JOpt
     from speechflow_tpu.training.trainer import TrainerConfig as JCfg
 
-    cfg = dict(train_prosody.configs("debug")["model"], dropout=0.0, vocab_size=8000)
+    cfg = dict(train_prosody.configs("debug")[0]["model"], dropout=0.0, vocab_size=8000)
     jm, ours, _ = _pair(7, **cfg)
     batch = train_prosody.ProsodySampleLoader(SEGS, 8000, batch_size=4).next_batch()
     sgd = dict(method="sgd", lr=1.0, lr_schedule="ConstLR", betas=(0.0, 0.999))
@@ -263,7 +265,7 @@ def test_debug_preset_trains_and_serves(tmp_path):
     beside the checkpoint, its vocabulary in the payload, the checkpoint
     through the interface."""
     exp = train_prosody.main(["-vs", "debug", "--device", "cpu", "--max_steps", "4",
-                              "--experiment_dir", str(tmp_path)])
+                              "--experiment_dir", str(tmp_path), "--data_root", SEGS])
     ckpt = ExperimentSaver.get_last_checkpoint(exp)
     tree, payload = ExperimentSaver.load_checkpoint(ckpt)
     assert int(tree["step"]) == 4 and payload["model_params"]["tokenizer"] == "word_lm"
@@ -273,14 +275,6 @@ def test_debug_preset_trains_and_serves(tmp_path):
     pred = iface.predict(WORDS)
     assert pred["has_contour"].shape == pred["category"].shape == (len(WORDS),)
     assert iface.tokenize(["the", "qwzx"])[1] == 0 and iface.tokenize(["the"])[0] > 0
-
-
-@pytest.mark.parametrize("value_select", ["default", "debug"])
-def test_presets_equal_the_yaml_config(value_select):
-    from speechflow_tpu.io import Config
-
-    yml = Config.create_from_file(train_prosody.REPO_CONFIG, value_select=[value_select])
-    assert train_prosody.configs(value_select) == yml.to_dict()
 
 
 def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
@@ -293,5 +287,5 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
         train_word_lm(["a b c"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ProsodyPredictionInterface.from_checkpoint({}, {})
-    with pytest.raises(NotImplementedError, match="prosody_model.yml"):
-        train_prosody.main(["-c", "configs/tts_model.yml", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="missing.yml"):
+        train_prosody.main(["-c", str(tmp_path / "missing.yml"), "--device", "cpu"])

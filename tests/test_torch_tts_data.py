@@ -42,7 +42,7 @@ def jax_pipeline(monkeypatch):
     from speechflow_tpu.io import Config
 
     monkeypatch.delenv("SFTPU_DUMP_CACHE", raising=False)
-    _, data_cfg = configs("debug")
+    _, data_cfg = configs("debug", data_root=SEGS)
     return JDP(Config(data_cfg)).init_components()
 
 
@@ -207,7 +207,7 @@ def test_collated_batches_equal_jax(jax_pipeline):
     packages: the same info (alphabet from the phoneme statistics, singleton
     states, subset sizes); then a batch of each subset through every handler
     and ``TTSCollate``: every field of the port's batch equals JAX's."""
-    _, data_cfg = configs("debug")
+    _, data_cfg = configs("debug", data_root=SEGS)
     ours = DataPipeline.from_config(data_cfg)
     info, ref_info = ours.get_info(), jax_pipeline.get_info()
     for key in ("alphabet", "singletons", "dataset_sizes", "subsets"):
@@ -239,7 +239,7 @@ def test_model_config_from_info_matches_jax(jax_pipeline):
     from speechflow_tpu.io import Config
     from speechflow_tpu.scripts.common import model_config_from_info as J
 
-    model_cfg, data_cfg = configs("debug")
+    model_cfg, data_cfg = configs("debug", data_root=SEGS)
     ours = DataPipeline.from_config(data_cfg)
     got = model_config_from_info(model_cfg, ours)
     assert got == J(Config(model_cfg), jax_pipeline)
@@ -252,7 +252,7 @@ def test_loader_starts_its_workers_at_the_first_batch():
     loader; its first ``next_batch`` starts them, ``close`` stops them."""
     import multiprocessing
 
-    _, data_cfg = configs("debug")
+    _, data_cfg = configs("debug", data_root=SEGS)
     pipeline = DataPipeline.from_config(data_cfg)
     before = set(multiprocessing.active_children())
     loader = pipeline.loader("test", 2, n_workers=1, prefetch_factor=1)

@@ -148,3 +148,48 @@ def test_vocoder_model_debug_waveform_to_waveform(rng, cond):
     assert out.shape == ref.shape == wav.shape
     np.testing.assert_allclose(out, ref, atol=TOL * max(1.0, np.abs(ref).max()))
     assert np.abs(out).max() > 1e-3
+
+
+def _follows_flax(ref: dict, got: dict) -> None:
+    """Every tensor that is constant in the JAX module built from ``nnx.Rngs``
+    (zero biases, log-scale snake α and β at 0, LayerNorm scales, the ConvNeXt
+    ``gamma`` at its layer scale) is equal in the port's; every other tensor's
+    standard deviation is within 6/sqrt(size) of the JAX one's (torch's
+    kaiming-uniform would be 0.58 of it) and its mean within six standard
+    errors of 0."""
+    assert set(got) == set(ref)
+    drawn = 0
+    for k, r in ref.items():
+        g = got[k]
+        assert g.shape == r.shape, k
+        if r.size == 1 or (r == r.flat[0]).all():
+            np.testing.assert_array_equal(g, r, err_msg=k)
+            continue
+        drawn += 1
+        assert abs(g.std() / r.std() - 1) <= 6 / np.sqrt(r.size), k
+        assert abs(g.mean()) <= 6 * g.std() / np.sqrt(r.size), k
+    assert drawn >= len(ref) // 4
+
+
+@pytest.mark.parametrize("case", ["bigvgan", "vocos_istft", "mpd_mrd", "cqt"])
+def test_fresh_weights_follow_flax_initialisers(case):
+    """A vocoder or discriminator built from its arguments starts from the JAX
+    module's distribution (``layers.flax_init_``), not torch's."""
+    from speechflow_torch.convert import flatten_nnx, nnx_from_module
+    from speechflow_torch.models.vocoder.discriminators import VocoderDiscriminator
+    from speechflow_tpu.models import vocoder as JV
+
+    if case in ("bigvgan", "vocos_istft"):
+        head = dict(head="snake_upsample", upsample_rates=[8, 8, 2, 2], upsample_channels=64,
+                    resblock_kernel_sizes=[3, 7]) if case == "bigvgan" else dict(head="istft")
+        p = vocoder_params(n_mels=80, dim=64, n_layers=2, **head)
+        jm = JV.Vocos(JV.VocosParams.create(p), rngs=nnx.Rngs(0))
+        torch.manual_seed(0)
+        tm = Vocos(VocosParams.create(p))
+    else:
+        kw = dict(channels=8, use_cqt=case == "cqt")
+        jm = JV.VocoderDiscriminator(**kw, rngs=nnx.Rngs(0))
+        torch.manual_seed(0)
+        tm = VocoderDiscriminator(**kw)
+    _follows_flax(flatten_nnx(nnx.to_pure_dict(nnx.state(jm, nnx.Param))),
+                  flatten_nnx(nnx_from_module(tm)))

@@ -27,11 +27,12 @@ from speechflow_torch.models.layers import Conv1d, ConvTranspose1d
 from speechflow_torch.models.tts import XTTSModel, XTTSParams
 from speechflow_torch.models.tts.ar_decoders import CausalBlock, GPTDecoder, RetentionBlock
 from speechflow_torch.models.tts.common import rope_rotate
-from speechflow_torch.scripts.common import XTTS_MODEL_PRESETS
+from speechflow_torch.scripts.train_tts import configs
 from speechflow_torch.training.saver import ExperimentSaver
 from tests.torch_parity import n, port, randomize, t
 
 torch.set_num_threads(1)
+XTTS_DEBUG = configs("debug", "configs/xtts_model.yml")[0]["model"]
 BLOCK_TOL = 2e-5
 LOGIT_TOL = 1e-4  # of the logits' largest magnitude
 CODEC_TOL = 1e-5
@@ -42,7 +43,7 @@ BLOCKS = ("attention", "retention")
 
 def _cfg(block_type: str = "attention", **kw) -> dict:
     """The debug recipe with a prompt of the data config's mel bins and 3 speakers."""
-    c = dict(XTTS_MODEL_PRESETS["debug"], n_layers=2, n_symbols=40, n_speakers=3,
+    c = dict(XTTS_DEBUG, n_layers=2, n_symbols=40, n_speakers=3,
              prompt_dim=N_MELS, block_type=block_type)
     c.update(kw)
     return c
@@ -285,7 +286,7 @@ def test_codec_matches_jax():
     from speechflow_tpu.models.codec import CodecParams as JCP
     from speechflow_tpu.models.codec import NeuralCodec as JNC
 
-    cfg = XTTS_MODEL_PRESETS["debug"]["codec"]
+    cfg = XTTS_DEBUG["codec"]
     jc = randomize(JNC(JCP.create(cfg), rngs=nnx.Rngs(0)))
     tc = port(NeuralCodec(CodecParams.create(cfg)), jc)
     wav = (0.5 * _rng(8).normal(size=(2, 2000))).astype(np.float32)
@@ -307,7 +308,7 @@ def test_lookup_clamps_like_jax():
     from speechflow_tpu.models.codec import CodecParams as JCP
     from speechflow_tpu.models.codec import NeuralCodec as JNC
 
-    cfg = dict(XTTS_MODEL_PRESETS["debug"]["codec"], n_quantizers=4)
+    cfg = dict(XTTS_DEBUG["codec"], n_quantizers=4)
     jc = randomize(JNC(JCP.create(cfg), rngs=nnx.Rngs(0)))
     tc = port(NeuralCodec(CodecParams.create(cfg)), jc)
     codes = _rng(9).integers(0, 64, (2, 5, 1))

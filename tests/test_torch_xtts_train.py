@@ -44,8 +44,6 @@ from speechflow_torch.models.tts import (
 from speechflow_torch.ops import attention as A
 from speechflow_torch.scripts import train_tts
 from speechflow_torch.scripts.common import (
-    XTTS_MODEL_PRESETS,
-    XTTS_TRAIN_PRESETS,
     apply_resume_warmstart,
     build_data,
     source_checkpoint,
@@ -57,6 +55,8 @@ from tests.torch_parity import n, port, randomize, t
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
+SEGS = REPO / "tests" / "data" / "SEGS"
+XTTS_DEBUG = train_tts.configs("debug", "configs/xtts_model.yml")[0]["model"]
 VJP_TOL = 1e-5      # the attention VJP against JAX's, absolute (inputs and cotangent ~N(0, 1))
 LOSS_TOL = 1e-5     # gpt_ce, relative
 GRAD_TOL = 2e-4     # each gradient, of its tensor's largest magnitude (see _grad_errors)
@@ -141,7 +141,7 @@ def processed_samples():
     from speechflow_tpu.data.core.components import DataPipeline as JDP
     from speechflow_tpu.io import Config
 
-    _, data_cfg = train_tts.configs("debug")
+    _, data_cfg = train_tts.configs("debug", data_root=SEGS)
     ours = DataPipeline.from_config(data_cfg)
     with pytest.MonkeyPatch.context() as mp:
         mp.delenv("SFTPU_DUMP_CACHE", raising=False)
@@ -202,7 +202,7 @@ def test_collate_with_prompt_matches_jax(processed_samples, rows, speakers):
 def _cfg(block_type: str, **kw) -> dict:
     """The debug recipe with 2 GPT layers, a prompt of the data config's mel bins,
     40 symbols and 3 speakers."""
-    c = dict(XTTS_MODEL_PRESETS["debug"], n_layers=2, n_symbols=40, n_speakers=3,
+    c = dict(XTTS_DEBUG, n_layers=2, n_symbols=40, n_speakers=3,
              prompt_dim=N_MELS, block_type=block_type)
     c.update(kw)
     return c
@@ -345,7 +345,7 @@ def test_codec_criterion_and_gradients_match_jax():
     from speechflow_tpu.models.codec import NeuralCodec as JNC
     from speechflow_tpu.models.codec.rvq import codec_criterion as jcc
 
-    cfg = XTTS_MODEL_PRESETS["debug"]["codec"]
+    cfg = XTTS_DEBUG["codec"]
     jc = randomize(JNC(JCP.create(cfg), rngs=nnx.Rngs(0)), 4)
     tc = port(NeuralCodec(CodecParams.create(cfg)), jc).train()
     wav = (0.3 * _rng(13).normal(size=(2, 3000))).astype(np.float32)
@@ -450,7 +450,8 @@ def xtts_run(tmp_path_factory):
     """``train_tts.main`` on the XTTS recipe (debug) for 2 steps on the CPU."""
     out = tmp_path_factory.mktemp("xtts_run")
     expr = train_tts.main(["-c", "configs/xtts_model.yml", "-vs", "debug", "--max_steps", "2",
-                           "--device", "cpu", "--experiment_dir", str(out)])
+                           "--device", "cpu", "--experiment_dir", str(out),
+                           "--data_root", str(SEGS)])
     return Path(expr)
 
 
@@ -468,7 +469,7 @@ def test_train_tts_trains_xtts_on_the_cpu(xtts_run):
     assert params["n_symbols"] == len(info["alphabet"]["symbols"])
     assert params["dim"] == 48 and params["use_prompt"] and "n_langs" not in params
     assert info["config"]["collate"]["type"] == "TTSCollateWithPrompt"
-    assert '"TTSCollate"' in payload["data_config_text"]
+    assert "type: TTSCollate\n" in payload["data_config_text"]
     assert set(tree["model"]) == {"codec", "gpt", "speaker_emb", "prompt_enc"}
 
 
@@ -480,7 +481,7 @@ def test_resume_finetune_and_warmstart_from_an_xtts_run(xtts_run, tmp_path):
     the weights after it are those it started from)."""
     ckpt = ExperimentSaver.get_last_checkpoint(xtts_run)
     src = flatten_nnx(ExperimentSaver.load_checkpoint(ckpt)[0]["model"])
-    model_cfg, data_cfg = train_tts.configs("debug", "configs/xtts_model.yml")
+    model_cfg, data_cfg = train_tts.configs("debug", "configs/xtts_model.yml", data_root=SEGS)
     runs = {"resume": _quick(model_cfg, 3, resume={"from": str(xtts_run)}),
             "finetune": _quick(model_cfg, 1, finetune={"ckpt": str(ckpt)}),
             "warmstart": _quick(model_cfg, 1, warmstart={"ckpt": str(ckpt),
@@ -594,27 +595,26 @@ def test_xtts_interface_loads_a_trained_checkpoint(xtts_run, tmp_path):
     np.testing.assert_array_equal(outs[0].data, outs[1].data)
 
 
-def test_recipe_selection():
-    """``-c`` names a repository config the port carries; any other path raises."""
-    assert train_tts.recipe_of("configs/xtts_model.yml") == "configs/xtts_model.yml"
-    assert train_tts.recipe_of(REPO / "configs" / "tts_model.yml") == "configs/tts_model.yml"
-    with pytest.raises(NotImplementedError, match="YAML"):
-        train_tts.recipe_of("configs/vocoder_bigvgan.yml")
-    with pytest.raises(NotImplementedError):
-        train_tts.main(["-c", "configs/xtts_model.yml", "-cd", "configs/other.yml"])
+def test_recipe_selection(tmp_path, monkeypatch):
+    """``-c`` and ``-cd`` take any YAML file on disk: a copy of the XTTS recipe
+    outside the repository, with a selector of its own, picks the XTTS model
+    (the run is cut where training would start); a missing file raises."""
+    text = (REPO / "configs" / "xtts_model.yml").read_text()
+    mine = tmp_path / "my_xtts.yml"
+    mine.write_text(text.replace("dim: {default: 1024, debug: 48}",
+                                 "dim: {default: 1024, debug: 48, mine: 32}"))
+    seen = {}
 
+    def fake_train(model_cfg, data_cfg, saver, **kw):
+        seen.update(model=model_cfg, data=data_cfg, expr=saver.expr_path)
+        return str(saver.expr_path)
 
-@pytest.mark.parametrize("value_select", ["default", "debug"])
-@pytest.mark.parametrize("section", ["experiment", "batch", "trainer", "data_loaders",
-                                     "optimizer", "loss", "model"])
-def test_xtts_training_presets_equal_the_yaml_config(value_select, section):
-    """Each section of ``configs/xtts_model.yml`` as ``train_tts`` carries it."""
-    from speechflow_tpu.io import Config
-
-    model_cfg, data_cfg = train_tts.configs(value_select, "configs/xtts_model.yml")
-    yml = Config.create_from_file(REPO / "configs" / "xtts_model.yml",
-                                  value_select=[value_select]).to_dict()
-    assert set(model_cfg) == set(yml) and model_cfg[section] == yml[section]
-    assert XTTS_TRAIN_PRESETS[value_select].get(section, XTTS_MODEL_PRESETS[value_select]) \
-        == yml[section]
-    assert data_cfg == train_tts.configs(value_select)[1]
+    monkeypatch.setattr(train_tts, "train", fake_train)
+    train_tts.main(["-c", str(mine), "-cd", str(REPO / "configs" / "tts_data_24khz.yml"),
+                    "-vs", "mine", "debug", "--experiment_dir", str(tmp_path / "exp")])
+    assert seen["model"]["model"]["type"] == "xtts" and seen["model"]["model"]["dim"] == 32
+    assert seen["model"]["batch"]["size"] == 2  # "debug", the second selector
+    assert (seen["expr"] / "model.yml").read_text().startswith("experiment:")
+    assert not hasattr(train_tts, "recipe_of")
+    with pytest.raises(FileNotFoundError):
+        train_tts.main(["-c", str(tmp_path / "missing.yml")])
