@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # build, kernels, slice, toy, interface, tts_interface,
                                      # xtts, bundle, train, tts_train, xtts_train,
                                      # prosody_train, conditioned, jax_ckpt,
-                                     # vocoder_model_train
+                                     # vocoder_model_train, tts_forward_train, jax_resume,
+                                     # tts_options
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
@@ -15,6 +16,8 @@
     python3 chip_smoke.py --phases build,prosody_train,conditioned  # the inference chain
     python3 chip_smoke.py --phases build,jax_ckpt,vocoder_model_train  # JAX checkpoints,
                                      # the Vocos/ISTFT recipe's training
+    python3 chip_smoke.py --phases build,tts_forward_train,jax_resume,tts_options
+                                     # tts_forward.yml, JAX runs resumed, the kit's options
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -242,7 +245,30 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    step, audio seconds trained a second and peak memory; the checkpoint through the
    vocoder interface against the trained generator (``TOL_F32_REL``). The ISTFT head
    launches no hand kernel.
-17. ``profile`` (only when asked for): for the flagship and the toy program,
+17. ``tts_forward_train``: ``configs/tts_forward.yml`` at its default width (bi-GRU
+   encoder and wrapper decoder 256 wide, pitch and energy bucketed and embedded,
+   batch 48: the 40 train utterances of SEGS, mixed precision as the file says) through
+   ``train_tts.train``; cut: ``TTS_FORWARD_STEPS`` steps. First one f32 step card vs CPU
+   (flax's initialisers, dropout 0, two utterances, the CPU's ReLU masks): losses within
+   ``TOL_F32_REL``, every gradient within ``TOL_TTS_GRAD``, a planted fault (the
+   decoder's backward GRU run forward) rejected. Then the run: finite losses, the
+   weights unchanged after step 1 and changed after step 2; ms a step, mel frames a
+   second, peak memory; the decoder's bi-GRU at ``GRU_TIMED`` and ``maximum_path`` at
+   ``MAS_TIMED``. Last, the checkpoint through ``TTSEvaluationInterface`` and the
+   flagship BigVGAN's interface: 4 sentences, 37 / 6 / 18 anti-alias launches and no
+   attention, the waveform kernels vs plain within ``TOL_F32_REL``.
+18. ``jax_resume``: the JAX runs of ``tests/data/jax_checkpoints/resume`` (the debug
+   ``tts_forward.yml`` and ``vocoder_model.yml`` recipes, narrowed, with optax state)
+   resumed as ``-r`` resumes them, every dropout rate 0, one step each on the recorded
+   batch: losses within ``TOL_F32_REL`` of JAX's next step, the recorded samples of the
+   parameters within two Adam steps and of both moments within ``TOL_RESUME_MOMENT``
+   of the model's scale (``resume_record.npz``).
+19. ``tts_options``: ``TTS_OPTIONS`` (a multi-stream context encoder of a conformer and
+   a transformer, the variance options, averages, the inverse speaker classifier, the
+   Tacotron decoder) at width 256, f32: a training step (finite losses and gradients,
+   no attention launch), then an inference call with 8 attention launches, kernels vs
+   plain within ``TOL_F32_REL``.
+20. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -1794,35 +1820,34 @@ def pinned_kinks(torch, pins: dict):
     difference can carry an element across 0, where the slope jumps (0.1 to 1, 0 to
     1); pinned, the two runs differ only where the losses are smooth.
     ``pins["flips"]`` counts the elements that took the other side here."""
-    import torch.nn.functional as F
-
     from speechflow_torch.models.vocoder import criterion
+    from speechflow_torch.models.vocoder import discriminators as D
 
     record = pins.get("masks") is None
     if record:
         pins["masks"] = []
     pins["flips"], calls = 0, iter(range(len(pins["masks"])))
 
-    def side(x):
+    def side(on):
         if record:
-            pins["masks"].append(x > 0)
-            return pins["masks"][-1]
+            pins["masks"].append(on)
+            return on
         mask = pins["masks"][next(calls)]
-        pins["flips"] += int((mask != (x > 0)).sum())
+        pins["flips"] += int((mask != on).sum())
         return mask
 
-    def leaky_relu(x, negative_slope=0.01, inplace=False):
-        return torch.where(side(x), x, x * negative_slope)
+    def leaky_relu(x, negative_slope=0.1):
+        return torch.where(side(x >= 0), x, x * negative_slope)
 
     def hinge(x):
-        return x * side(x)
+        return x * side(x > 0)
 
-    real = F.leaky_relu, criterion._relu
-    F.leaky_relu, criterion._relu = leaky_relu, hinge
+    real = D.leaky_relu, criterion._relu
+    D.leaky_relu, criterion._relu = leaky_relu, hinge
     try:
         yield
     finally:
-        F.leaky_relu, criterion._relu = real
+        D.leaky_relu, criterion._relu = real
 
 
 def gan_gate(torch) -> None:
@@ -3427,6 +3452,568 @@ def phase_vocoder_model_train(torch, gpu_line: str) -> dict:
             "phase_s": phase_s}
 
 
+# -- phase 17: the ForwardTacotron-class recipe's training -------------------------------
+
+TTS_FORWARD_CONFIG = "configs/tts_forward.yml"
+TTS_FORWARD_STEPS = 6  # the cut: 6 of the recipe's 300,000 steps
+TTS_FORWARD_REQUEST = REQUEST_SENTENCES[:4]
+TTS_FORWARD_FRAMES = 4  # frames a token injected into the served request
+# the decoder's bi-GRU at the recipe's batch over a 1024-frame input, and the
+# monotonic alignment search at the same batch over 128 tokens (the recipe runs no
+# MAS; the in-model aligner of ``use_gradtts_fa`` would, at this shape)
+GRU_TIMED = (48, 1024)
+MAS_TIMED = (48, 128, 1024)
+
+
+@contextlib.contextmanager
+def planted_gru_fault(model):
+    """The decoder's backward GRU run forward in time: the same weights, the other
+    direction (a fault the gate must see)."""
+    bwd = model.decoder.enc.bwd
+    bwd.reverse = False
+    try:
+        yield
+    finally:
+        bwd.reverse = True
+
+
+@contextlib.contextmanager
+def injected_frames(torch, frames: int):
+    """The duration predictor's output replaced by ``frames`` a valid token."""
+    from speechflow_torch.models.tts.predictors import TokenLevelDP
+    from speechflow_torch.utils.masks import sequence_mask
+
+    saved = TokenLevelDP.__dict__["to_durations"]
+    TokenLevelDP.to_durations = staticmethod(
+        lambda log_d, lengths: sequence_mask(lengths, log_d.shape[1]).float() * frames)
+    try:
+        yield
+    finally:
+        TokenLevelDP.to_durations = saved
+
+
+def tts_forward_gate(torch, model_cfg: dict, data_cfg: dict) -> dict:
+    """One f32 step of ``configs/tts_forward.yml`` at its default width on the card
+    and on the CPU: the same weights (flax's initialisers, seed 0), every dropout
+    rate 0, the first two train utterances, the CPU's ReLU masks (``pinned_relus``);
+    TF32 off. Losses within ``TOL_F32_REL``, every gradient within ``TOL_TTS_GRAD``
+    of its scale; the same gate must reject a planted fault (the decoder's backward
+    GRU run forward)."""
+    import copy
+
+    from speechflow_torch.data.core.components import DataPipeline
+    from speechflow_torch.models.tts import ParallelTTSModel, ParallelTTSParams, TTSCriterion
+    from speechflow_torch.models.tts.batch_processor import TTSBatchProcessor
+    from speechflow_torch.scripts.common import model_config_from_info
+    from speechflow_torch.utils.init import filter_kwargs
+
+    t0 = time.perf_counter()
+    pipeline = DataPipeline.from_config(data_cfg)
+    params = ParallelTTSParams.create(model_config_from_info(model_cfg, pipeline))
+    torch.manual_seed(0)
+    cpu = ParallelTTSModel(params)
+    no_dropout(cpu)
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = pipeline.datasample_to_batch([s.copy() for s in pipeline.datasets["train"][:2]])
+    inputs, targets = TTSBatchProcessor()(batch)
+    crit = TTSCriterion(**filter_kwargs(TTSCriterion.__init__, dict(model_cfg["loss"])))
+    pins = {}
+    with pinned_relus(cpu, pins):
+        ref = tts_step_grads(torch, cpu, crit, inputs, targets, None)
+    zero = [k for k, v in ref[1].items() if not v.any()]
+    check(not zero, f"tts_forward_train: reference gradients all zero: {zero}")
+    args = (crit, _on(inputs, "cuda"), _on(targets, "cuda"), None)
+    with pinned_relus(card, pins):
+        got = tts_step_grads(torch, card, *args)
+    flips = pins["flips"]
+    with pinned_relus(card, pins), planted_gru_fault(card):
+        bad = tts_step_grads(torch, card, *args)
+    loss_err, grad_err, where = tts_disagreement(ref, got)
+    f_loss, f_grad, f_where = tts_disagreement(ref, bad)
+    print(f"[tts_forward_train] f32 step at default width, card vs CPU (flax's "
+          f"initialisers, B2, mel {tuple(inputs.mel.shape)}, tokens "
+          f"{tuple(inputs.transcription.shape)}, TF32 off, dropout 0; "
+          f"{time.perf_counter() - t0:.1f} s): losses "
+          + ", ".join(f"{k} {v:.6g}" for k, v in got[0].items())
+          + f"; worst loss error {loss_err:.3g} of the loss (tol {TOL_F32_REL:g}); "
+          f"{len(ref[1])} gradients, worst {grad_err:.3g} of scale ({where}; tol "
+          f"{TOL_TTS_GRAD:g}); ReLU pre-activations pinned to the CPU's side: {flips}",
+          flush=True)
+    check(loss_err <= TOL_F32_REL and grad_err <= TOL_TTS_GRAD,
+          f"tts_forward_train f32: the card disagrees with the CPU: loss {loss_err}, "
+          f"{where} {grad_err}")
+    print(f"[tts_forward_train] planted fault (the decoder's backward GRU run forward): "
+          f"worst loss error {f_loss:.3g}, worst gradient {f_grad:.3g} of scale ({f_where})",
+          flush=True)
+    check(max(f_loss / TOL_F32_REL, f_grad / TOL_TTS_GRAD) > 1,
+          "the tts_forward_train gate passes a planted fault (backward GRU run forward)")
+    del cpu, card, got, ref, bad
+    torch.cuda.empty_cache()
+    return {"grad_err": grad_err, "loss_err": loss_err, "fault_grad_err": f_grad}
+
+
+def time_recurrences(torch, model, gpu_line: str) -> dict:
+    """The trained model's decoder bi-GRU (forward and backward) at ``GRU_TIMED`` and
+    ``maximum_path`` at ``MAS_TIMED``, on the card, CUDA events."""
+    from speechflow_torch.ops.mas import maximum_path
+
+    b, t = GRU_TIMED
+    enc = model.decoder.enc
+    x = torch.randn(b, t, enc.fwd.cell.dense_i.in_features, device="cuda", requires_grad=True)
+
+    def gru():
+        enc(x).square().mean().backward()
+
+    gru_ms = cuda_ms(gru, 5)
+    with torch.no_grad():
+        gru_fwd_ms = cuda_ms(lambda: enc(x), 5)
+    bm, n, tm = MAS_TIMED
+    value = torch.randn(bm, n, tm, device="cuda")
+    tl = torch.full((bm,), n, device="cuda")
+    ml = torch.full((bm,), tm, device="cuda")
+    mas_ms = cuda_ms(lambda: maximum_path(value, tl, ml), 3)
+    print(f"[tts_forward_train] decoder bi-GRU ({enc.fwd.hidden} + {enc.bwd.hidden} wide, "
+          f"cuDNN, f32) over B{b} x {t} frames: forward {gru_fwd_ms:.2f} ms, forward and "
+          f"backward {gru_ms:.2f} ms; maximum_path B{bm} x {n} tokens x {tm} frames "
+          f"(the scan on the card, the backtrace on the host): {mas_ms:.2f} ms ({gpu_line})",
+          flush=True)
+    return {"gru_ms": gru_ms, "gru_fwd_ms": gru_fwd_ms, "mas_ms": mas_ms}
+
+
+def phase_tts_forward_train(torch, gpu_line: str) -> dict:
+    """``configs/tts_forward.yml`` trained through ``train_tts`` at its default width,
+    then its checkpoint served through the TTS and vocoder interfaces on BigVGAN."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from speechflow_torch import serving
+    from speechflow_torch.interface.tts_interface import TTSEvaluationInterface, TTSOptions
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.models.vocoder import Vocos
+    from speechflow_torch.scripts import train_tts as TT
+    from speechflow_torch.scripts.common import experiment_saver
+    from speechflow_torch.training.saver import ExperimentSaver
+    from speechflow_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model_cfg, data_cfg = TT.configs("default", TTS_FORWARD_CONFIG, data_root=SEGS)
+    m = model_cfg["model"]
+    check(m["encoder_type"] == "rnn" and m["decoder_inner"] == "rnn"
+          and m["encoder_dim"] == 256, f"tts_forward_train: {TTS_FORWARD_CONFIG} read as {m}")
+    res = {"gate": tts_forward_gate(torch, model_cfg, data_cfg)}
+    model_cfg["trainer"].update(max_steps=TTS_FORWARD_STEPS, ckpt_every=TTS_FORWARD_STEPS,
+                                log_every=1)
+    mixed = bool(model_cfg["trainer"].get("mixed_precision", False))
+    st = {"ref": None, "steps": [], "losses": [], "trainer": None}
+    real_step = Trainer.training_step
+
+    def step(self, batch):
+        if st["ref"] is None:
+            st["ref"] = [p.detach().clone() for p in self.model.parameters()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(self, batch)
+        torch.cuda.synchronize()
+        st["steps"].append((1e3 * (time.perf_counter() - t0), int(batch.mel_lengths.sum()),
+                            tuple(batch.mel.shape)))
+        return out
+
+    def callback(trainer, last):
+        st["trainer"] = trainer
+        vals = {k: float(v) for k, v in last.items()}
+        st["losses"].append(vals)
+        check(all(np.isfinite(v) for v in vals.values()),
+              f"tts_forward_train: non-finite loss {vals}")
+        changed = any(not torch.equal(p, r)
+                      for p, r in zip(trainer.model.parameters(), st["ref"]))
+        check(changed == (trainer.global_step >= 2),
+              f"tts_forward_train: weights {'changed' if changed else 'unchanged'} after "
+              f"step {trainer.global_step} (lr 0 at count 0, then the warmup's)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = experiment_saver(model_cfg, data_cfg, tmp)
+        Trainer.training_step = step
+        try:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            expr = TT.train(model_cfg, data_cfg, saver, device="cuda", callbacks=[callback])
+            t_fit = time.perf_counter() - t0
+        finally:
+            Trainer.training_step = real_step
+        peak = torch.cuda.max_memory_allocated()
+        train_counts = read_counts()
+        for i, ((ms_i, n, mel), vals) in enumerate(zip(st["steps"], st["losses"])):
+            print(f"[tts_forward_train] step {i + 1}: {ms_i:.1f} ms, mel {mel}, {n} valid "
+                  f"frames; losses " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()),
+                  flush=True)
+        step_ms = [s[0] for s in st["steps"]]
+        ms = statistics.median(step_ms[1:])
+        rate = sum(s[1] for s in st["steps"][1:]) / (sum(step_ms[1:]) / 1e3)
+        print(f"[tts_forward_train] {TTS_FORWARD_CONFIG} default (cut: {TTS_FORWARD_STEPS} "
+              f"steps; mixed_precision {mixed}): {t_fit:.1f} s with set-up; {ms:.1f} ms a "
+              f"step (median of 2..{TTS_FORWARD_STEPS}), {rate:.0f} mel frames trained per "
+              f"second, peak device memory {peak / 2**30:.2f} GiB; launches {train_counts} "
+              f"({gpu_line})", flush=True)
+        res.update(time_recurrences(torch, st["trainer"].model, gpu_line))
+
+        ckpt = ExperimentSaver.get_last_checkpoint(expr)
+        check(ckpt is not None and ckpt.name == f"step_{TTS_FORWARD_STEPS:09d}",
+              f"tts_forward_train: last checkpoint {ckpt}")
+        tree, payload = ExperimentSaver.load_checkpoint(ckpt)
+        ti = TTSEvaluationInterface.from_checkpoint(tree, payload, ckpt_path=ckpt,
+                                                    device="cuda")
+        speaker = ti.get_speakers()[0]
+        ctx = ti.prepare_embeddings(ti.create_context("EN", speaker))
+        opts = TTSOptions(t_out=T_FRAMES)
+        _, voc_params = serving.flagship_params()
+        vm = serving.init_random_(Vocos(voc_params), torch.Generator().manual_seed(0))
+        vi = VocoderEvaluationInterface(vm.to("cuda"))
+        sentences = list(TTS_FORWARD_REQUEST)
+        with injected_frames(torch, TTS_FORWARD_FRAMES):
+            reset_counts()
+            got = tts_request(torch, ti, vi, sentences, ctx, opts)
+            request_counts = read_counts()
+            with plain_versions():
+                ref = tts_request(torch, ti, vi, sentences, ctx, opts)
+        check(torch.equal(got["out"].attention.sum(1), ref["out"].attention.sum(1)),
+              "tts_forward_train: durations differ between two calls")
+        wave, lens = got["wave"], got["lens"]
+        wav_err = float(np.abs(wave - ref["wave"]).max())
+        wav_lim = TOL_F32_REL * float(np.abs(ref["wave"]).max())
+        ms_r = got["ms"]
+        print(f"[tts_forward_train] {ckpt.name} -> TTSEvaluationInterface -> BigVGAN "
+              f"(flagship width, seeded), f32, {TTS_FORWARD_FRAMES} frames a token injected "
+              f"(6 steps predict none): {len(sentences)} sentences, frames {lens} -> "
+              f"{len(wave) / SR:.3f} s audio; frontend {ms_r['frontend']:.1f} ms, acoustic "
+              f"{ms_r['acoustic']:.1f} ms, vocoder {ms_r['vocoder']:.1f} ms (first call); "
+              f"launches {request_counts}; kernels vs plain: wave max_abs_err {wav_err:.3g} "
+              f"(tol {wav_lim:.3g})", flush=True)
+        check(wave.shape == ((sum(lens) - 1) * HOP,) and bool(np.isfinite(wave).all())
+              and wav_err <= wav_lim, "tts_forward_train: the checkpoint does not serve")
+        check(request_counts["fused_attention"] == 0
+              and all(request_counts[k] == v for k, v in HEAD_LAUNCHES.items()),
+              f"tts_forward_train: the request's launches {request_counts}")
+        del ti, vi, vm, got, ref, st["trainer"], tree
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[tts_forward_train] phase wall time {phase_s:.1f} s", flush=True)
+    res.update(launches={k: train_counts[k] + request_counts[k] for k in train_counts},
+               ms=ms, frame_rate=rate, peak=peak, phase_s=phase_s)
+    return res
+
+
+# -- phase 18: JAX training runs resumed on the card ------------------------------------
+
+RESUME_RECORD = JAX_FIXTURE / "resume_record.npz"
+# the port's resumed step against JAX's recorded one: each Adam moment within this
+# share of the model's largest (the step's new gradient enters mu at 0.1: a leaky ReLU
+# or hinge element on the other side of 0, a kink, moves a 2-channel discriminator
+# bias's gradient by a few percent); a moment restarted from zero would be off by 0.9
+# of the saved one. The parameters within two Adam steps (lr each) of JAX's: near a
+# kink or at a gradient near 0 the two sides may step apart
+TOL_RESUME_MOMENT = 1e-3
+
+
+def _flax_state(module, opt, key: str) -> dict:
+    """The optimizer state ``key`` of every parameter of ``module`` in flax's layout
+    (dotted paths, as ``convert.flatten_nnx``)."""
+    import copy
+
+    import torch
+
+    from speechflow_torch.convert import flatten_nnx, nnx_from_module
+
+    view = copy.deepcopy(module)
+    state = {n: opt.base.state[p][key] for n, p in zip(opt.names, opt.params)}
+    with torch.no_grad():
+        for name, p in view.named_parameters():
+            p.copy_(state[name])
+    return flatten_nnx(nnx_from_module(view))
+
+
+def _held(rec, prefix: str, module, opt, lr: float) -> dict:
+    """The port's parameters and moments at the record's sampled elements against
+    JAX's: the worst error of each against its limit."""
+    import numpy as np
+
+    from speechflow_torch.convert import flatten_nnx, nnx_from_module
+
+    trees = {"param": flatten_nnx(nnx_from_module(module)),
+             "mu": _flax_state(module, opt, "exp_avg"),
+             "nu": _flax_state(module, opt, "exp_avg_sq")}
+    keys = [k[len(f"{prefix}/idx/"):] for k in rec.files if k.startswith(f"{prefix}/idx/")]
+    check(keys and set(keys) == set(trees["param"]),
+          f"jax_resume: {prefix}: the record's leaves are not the model's")
+    worst = {}
+    for name, tree in trees.items():
+        ref = {k: rec[f"{prefix}/{name}/{k}"] for k in keys}
+        scale = max(float(np.abs(v).max()) for v in ref.values())
+        errs = []
+        for k in keys:
+            got = tree[k].reshape(-1)[rec[f"{prefix}/idx/{k}"]]
+            lim = 2 * lr if name == "param" else TOL_RESUME_MOMENT * scale
+            errs.append((float(np.abs(got - ref[k]).max()) / max(lim, 1e-30), k))
+        worst[name] = max(errs)
+    return worst
+
+
+def jax_resume_step(torch, kind: str, device: str) -> dict:
+    """The JAX run of ``tests/data/jax_checkpoints/resume/<kind>`` resumed on ``device``
+    as ``-r`` resumes it (``apply_resume_warmstart`` for the acoustic model, the GAN
+    trainer's ``load_checkpoint`` as ``train_vocoder`` calls it), every dropout rate 0,
+    one step on the recorded batch: losses, sampled parameters and Adam moments
+    against JAX's next step."""
+    import numpy as np
+
+    from speechflow_torch.io.config import value_select, yaml_load
+    from speechflow_torch.models.tts import (
+        ParallelTTSModel,
+        ParallelTTSParams,
+        TTSCriterion,
+        TTSForwardInput,
+        TTSTarget,
+    )
+    from speechflow_torch.models.vocoder import Vocos, VocosParams
+    from speechflow_torch.models.vocoder.batch_processor import VocoderBatchProcessor
+    from speechflow_torch.models.vocoder.criterion import (
+        vocoder_disc_criterion,
+        vocoder_gen_criterion,
+    )
+    from speechflow_torch.models.vocoder.discriminators import VocoderDiscriminator
+    from speechflow_torch.scripts.common import (
+        apply_resume_warmstart,
+        optimizer_config,
+        trainer_config,
+    )
+    from speechflow_torch.training.gan_trainer import GANTrainer
+    from speechflow_torch.training.saver import ExperimentSaver
+    from speechflow_torch.training.trainer import Trainer
+    from speechflow_torch.utils.init import filter_kwargs
+
+    rec = np.load(RESUME_RECORD)
+    cfg = value_select(yaml_load(str(rec[f"{kind}/config_yaml"])), ["debug"])
+    run = JAX_FIXTURE / "resume" / kind
+    ckpt = ExperimentSaver.get_last_checkpoint(run)
+    check(ckpt is not None and (ckpt / "_METADATA").is_file(), f"jax_resume: no run in {run}")
+    _, payload = ExperimentSaver.load_checkpoint(ckpt)
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    if kind == "tts":
+        model = ParallelTTSModel(ParallelTTSParams.create(payload["model_params"])).to(device)
+        crit = TTSCriterion(**filter_kwargs(TTSCriterion.__init__, dict(cfg["loss"])))
+        trainer = Trainer(model, crit, lambda batch: batch, optimizer_config(cfg),
+                          trainer_config(cfg))
+        apply_resume_warmstart(trainer, {"resume": {"from": str(run)}})
+        step0, count0 = trainer.global_step, trainer.optimizer.count
+        no_dropout(model)
+
+        def fields(cls, tag):
+            return cls(**{f: torch.from_numpy(rec[f"tts/{tag}/{f}"])
+                          for f in cls.__dataclass_fields__ if f"tts/{tag}/{f}" in rec.files})
+
+        losses = trainer.training_step((fields(TTSForwardInput, "in"), fields(TTSTarget, "tgt")))
+        opts = (("tts", model, trainer.optimizer),)
+        counts = (trainer.global_step, trainer.optimizer.count)
+    else:
+        params = VocosParams.create(payload["model_params"])
+        gen = Vocos(params).to(device)
+        disc = VocoderDiscriminator(**filter_kwargs(VocoderDiscriminator.__init__,
+                                                    cfg["discriminator"])).to(device)
+        loss_cfg = dict(cfg["loss"])
+        gan_cfg = cfg.get("gan") or {}
+        trainer = GANTrainer(
+            gen, disc, vocoder_gen_criterion(sample_rate=params.sample_rate,
+                                             n_mels=params.n_mels,
+                                             **filter_kwargs(vocoder_gen_criterion, loss_cfg)),
+            vocoder_disc_criterion(), VocoderBatchProcessor(device=torch.device(device)),
+            gen_optimizer=optimizer_config(cfg), disc_optimizer=optimizer_config(cfg),
+            config=trainer_config(cfg), disc_every=int(gan_cfg.get("disc_every", 1)),
+            disc_start_iter=int(gan_cfg.get("disc_start_iter", 0)))
+        trainer.load_checkpoint(ckpt)
+        step0, count0 = trainer.global_step, trainer.gen_opt.count
+        losses = trainer.training_step({"waveform": rec["vocoder/waveform"]})
+        opts = (("vocoder/gen", gen, trainer.gen_opt), ("vocoder/disc", disc, trainer.disc_opt))
+        counts = (trainer.global_step, trainer.gen_opt.count, trainer.disc_opt.count)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    loss_err = max(abs(float(losses[k]) - float(rec[f"{kind}/loss/{k}"]))
+                   / max(abs(float(rec[f"{kind}/loss/{k}"])), 1e-6)
+                   for k in losses if f"{kind}/loss/{k}" in rec.files)
+    check(all(f"{kind}/loss/{k}" in rec.files for k in losses),
+          f"jax_resume: {kind}: losses {sorted(losses)} not all in the record")
+    lr = trainer.optimizer.schedule(count0) if kind == "tts" else \
+        trainer.gen_opt.schedule(count0)
+    held = {prefix: _held(rec, prefix, module, opt, lr) for prefix, module, opt in opts}
+    print(f"[jax_resume] {kind}: {ckpt.relative_to(REPO)} resumed at step {step0} (applied "
+          f"steps {count0}) on {device}, one step on the recorded batch ({step_ms:.1f} ms with "
+          f"the resume); steps after {counts}; losses against JAX's next step: worst "
+          f"{loss_err:.3g} of the loss (tol {TOL_F32_REL:g}); worst share of the limit: "
+          + "; ".join(f"{p}: " + ", ".join(f"{n} {v[0]:.3g} ({v[1]})" for n, v in h.items())
+                      for p, h in held.items()), flush=True)
+    check(loss_err <= TOL_F32_REL, f"jax_resume: {kind}: losses disagree with JAX's")
+    check(all(v[0] <= 1 for h in held.values() for v in h.values()),
+          f"jax_resume: {kind}: the resumed step disagrees with JAX's")
+    return {"loss_err": loss_err, "held": held, "step0": step0, "count0": count0,
+            "ms": step_ms}
+
+
+def phase_jax_resume(torch, gpu_line: str) -> dict:
+    """The JAX runs of ``tests/data/jax_checkpoints/resume`` resumed with their
+    optimizer state on the card, each for one step against JAX's recorded next one
+    (cuDNN deterministic: its transform algorithms can turn a conv of silence into
+    ±1e-12 where XLA gives 0, the leaky ReLU's kink)."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts()
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        res = {kind: jax_resume_step(torch, kind, "cuda") for kind in ("tts", "vocoder")}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[jax_resume] phase wall time {phase_s:.1f} s ({gpu_line})", flush=True)
+    return {"launches": read_counts(), "phase_s": phase_s, **res}
+
+
+# -- phase 19: the acoustic-model options on the card ------------------------------------
+
+# one model at the kit's default width (256) that turns on what the JAX package builds
+# beyond the recipes' paths: a multi-stream context encoder (a conformer and a
+# transformer sub-encoder, each attending through the fused kernel at inference), the
+# variance options (embeddings, per-stream routing, an LSGAN discriminator, the in-model
+# aligner with its monotonic alignment search), per-utterance averages, the inverse
+# speaker classifier and the Tacotron decoder
+TTS_OPTIONS = dict(
+    n_symbols=100, n_speakers=4, n_mels=100, encoder_type="context",
+    encoder_sub_types=("conformer", "transformer"), encoder_concat_streams=False,
+    condition_levels=(0, 1, 2), use_average_emb=True,
+    averages={"rate": {"interval": [0.0, 10.0], "n_bins": 16, "emb_dim": 16}},
+    use_inverse_speaker_classifier=True, decoder_type="taco",
+    variances=({"name": "aggregate_pitch", "as_embedding": True, "cat_to_streams": (0, 1),
+                "use_discriminator": True},
+               {"name": "aggregate_energy", "input_stream": 1, "as_embedding": True,
+                "interval": (0.0, 150.0)},
+               {"name": "durations", "input_stream": 1, "use_gradtts_fa": True,
+                "fa_feat_dim": 100}))
+OPTIONS_SHAPE = (4, 64, 256)  # B, tokens, mel frames of the training batch
+OPTIONS_T_OUT = 128           # frames of the inference call (the Tacotron decoder's budget)
+# attention launches of one inference call: 4 conformer and 4 transformer blocks
+OPTIONS_LAUNCHES = {"fused_attention": 8, "anti_alias_snake": 0, "aa_upsample_fir": 0,
+                    "aa_snake_downsample": 0}
+
+
+def options_batch(torch, rng, device):
+    """(inputs, targets) of a random teacher-forced batch at ``OPTIONS_SHAPE``."""
+    import numpy as np
+
+    from speechflow_torch.models.tts import TTSForwardInput, TTSTarget
+
+    b, n, t = OPTIONS_SHAPE
+    lens = np.array([n, n - 9, n - 20, n - 33])
+    mel_lens = np.array([t, t - 31, t - 70, t - 101])
+    valid = np.arange(n)[None] < lens[:, None]
+    frames = np.arange(t)[None] < mel_lens[:, None]
+
+    def f(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    inputs = TTSForwardInput(
+        transcription=f(np.where(valid, rng.integers(1, 100, (b, n)), 0)),
+        transcription_lengths=f(lens), speaker_id=f(rng.integers(0, 4, b)),
+        lang_id=f(np.zeros(b, np.int64)),
+        aggregate_pitch=f((rng.uniform(80, 300, (b, n)) * valid).astype(np.float32)),
+        aggregate_energy=f((rng.uniform(0, 100, (b, n)) * valid).astype(np.float32)),
+        mel=f((rng.normal(size=(b, t, 100)) * frames[..., None]).astype(np.float32)),
+        mel_lengths=f(mel_lens), averages={"rate": f(rng.uniform(0, 10, b).astype(np.float32))})
+    targets = TTSTarget(mel=inputs.mel, mel_lengths=inputs.mel_lengths,
+                        gate=f((np.arange(t)[None] >= mel_lens[:, None] - 1).astype(np.float32)),
+                        aggregate_pitch=inputs.aggregate_pitch,
+                        aggregate_energy=inputs.aggregate_energy,
+                        transcription_lengths=inputs.transcription_lengths,
+                        speaker_id=inputs.speaker_id)
+    return inputs, targets
+
+
+def phase_tts_options(torch, gpu_line: str) -> dict:
+    """``TTS_OPTIONS`` on the card (f32, flax's initialisers): a training step (every
+    loss finite, every gradient finite, no fused-attention launch: training drops
+    attention weights), then an inference call through the kernels and through the
+    plain versions (8 attention launches; durations equal, mel within
+    ``TOL_F32_REL``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from speechflow_torch.models.tts import ParallelTTSModel, ParallelTTSParams, TTSCriterion
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    model = ParallelTTSModel(ParallelTTSParams.create(TTS_OPTIONS)).to("cuda")
+    inputs, targets = options_batch(torch, np.random.default_rng(0), "cuda")
+    crit = TTSCriterion(inverse_speaker_scale=0.1)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = crit(model.train()(inputs, training=True), targets, 0)
+    sum(losses.values()).backward()
+    torch.cuda.synchronize()
+    train_ms = 1e3 * (time.perf_counter() - t0)
+    train_counts = read_counts()
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+    check(all(np.isfinite(float(v.detach())) for v in losses.values()) and not bad,
+          f"tts_options: non-finite losses {losses} or gradients {bad}")
+    expected = {"fa_duration", "fa_prior", "aggregate_pitch_disc_loss",
+                "aggregate_pitch_gen_loss", "inverse_speaker", "spectral", "gate"}
+    check(expected <= set(losses), f"tts_options: losses {sorted(losses)}")
+    check(train_counts["fused_attention"] == 0,
+          f"tts_options: the training call launched attention: {train_counts}")
+    model.zero_grad(set_to_none=True)
+    raw = dataclasses.replace(inputs, mel=None, mel_lengths=None, aggregate_pitch=None,
+                              aggregate_energy=None, averages=None)
+    with torch.no_grad():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.eval()(raw, t_out=OPTIONS_T_OUT)
+        torch.cuda.synchronize()
+        infer_ms = 1e3 * (time.perf_counter() - t0)
+        counts = read_counts()
+        with plain_versions():
+            ref = model(raw, t_out=OPTIONS_T_OUT)
+    check(counts == OPTIONS_LAUNCHES, f"tts_options: inference launches {counts}")
+    check(torch.equal(out.spectrogram_lengths, ref.spectrogram_lengths),
+          "tts_options: lengths differ, kernels vs plain")
+    err, lim = (out.spectrogram - ref.spectrogram).abs().max().item(), rel_limit(ref.spectrogram)
+    print(f"[tts_options] {TTS_OPTIONS['encoder_type']} encoder "
+          f"{TTS_OPTIONS['encoder_sub_types']} in streams, as_embedding, routing, a pitch "
+          f"discriminator, the in-model aligner, averages, the inverse speaker classifier, "
+          f"the Tacotron decoder; default width, f32: a training step B{OPTIONS_SHAPE[0]} x "
+          f"{OPTIONS_SHAPE[1]} tokens x {OPTIONS_SHAPE[2]} frames {train_ms:.1f} ms (first "
+          f"call), losses " + ", ".join(f"{k} {float(v.detach()):.4g}" for k, v in losses.items())
+          + f"; inference {OPTIONS_T_OUT} frames {infer_ms:.1f} ms (first call), frames "
+          f"{out.spectrogram_lengths.tolist()}, launches {counts}; kernels vs plain: mel "
+          f"max_abs_err {err:.3g} (tol {lim:.3g}) ({gpu_line})", flush=True)
+    check(err <= lim, "tts_options: the kernels disagree with the plain versions")
+    del model, out, ref
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[tts_options] phase wall time {phase_s:.1f} s", flush=True)
+    return {"launches": {k: train_counts[k] + counts[k] for k in counts},
+            "train_ms": train_ms, "infer_ms": infer_ms, "err": err, "phase_s": phase_s}
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -3543,11 +4130,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="build,kernels,slice,toy,interface,tts_interface,xtts,bundle,"
                             "train,tts_train,xtts_train,prosody_train,conditioned,jax_ckpt,"
-                            "vocoder_model_train",
+                            "vocoder_model_train,tts_forward_train,jax_resume,tts_options",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
                          "tts_interface,xtts,bundle,train,tts_train,xtts_train,prosody_train,"
-                         "conditioned,jax_ckpt,vocoder_model_train,profile (the last is not "
-                         "in the default run)")
+                         "conditioned,jax_ckpt,vocoder_model_train,tts_forward_train,"
+                         "jax_resume,tts_options,profile (the last is not in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3590,7 +4177,10 @@ def run(torch, phases: set) -> int:
              ("prosody_train", phase_prosody_train, ("fused_attention",)),
              ("conditioned", phase_conditioned, tuple(EXPECTED_LAUNCHES)),
              ("jax_ckpt", phase_jax_ckpt, ("fused_attention", "anti_alias_snake")),
-             ("vocoder_model_train", phase_vocoder_model_train, ()))
+             ("vocoder_model_train", phase_vocoder_model_train, ()),
+             ("tts_forward_train", phase_tts_forward_train, tuple(HEAD_LAUNCHES)),
+             ("jax_resume", phase_jax_resume, ()),
+             ("tts_options", phase_tts_options, ("fused_attention",)))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:

@@ -206,9 +206,56 @@ def _strip_comment(raw: str, no: int) -> str:
     return raw
 
 
+# PyYAML's Reader refuses every character outside this set
+_NON_PRINTABLE = re.compile("[^\x09\x0a\x0d\x20-\x7e\x85\xa0-\ud7ff\ue000-\ufffd"
+                            "\U00010000-\U0010ffff]")
+
+
+def _split_lines(text: str) -> tp.List[str]:
+    """The lines as PyYAML breaks them: at ``\r\n``, ``\r``, ``\n`` and
+    ``\x85`` everywhere (a quoted scalar they cut is one over several lines),
+    and at U+2028 and U+2029 except inside a quoted scalar, whose content they
+    are (``str.splitlines`` also breaks at those two inside quotes, and at
+    ``\x0b``, ``\x0c`` and ``\x1c``-``\x1e``, which PyYAML refuses)."""
+    out: tp.List[str] = []
+    start = 0
+    quote = None
+    comment = False
+    i = 0
+    n = len(text)
+    while i < n:
+        c = text[i]
+        if c in "\r\n\x85" or (c in "\u2028\u2029" and not quote):
+            out.append(text[start:i])
+            i += 2 if text[i:i + 2] == "\r\n" else 1
+            start, quote, comment = i, None, False
+            continue
+        if comment:
+            pass
+        elif quote:
+            if c == "\\" and quote == '"':
+                i += 1
+            elif c == quote:
+                if quote == "'" and text[i + 1:i + 2] == "'":
+                    i += 1
+                else:
+                    quote = None
+        elif c in "'\"" and (i == start or text[i - 1] in " \t[{,:-?"):
+            quote = c
+        elif c == "#" and (i == start or text[i - 1] in " \t"):
+            comment = True
+        i += 1
+    if start < n:
+        out.append(text[start:])
+    return out
+
+
 def _lines(text: str) -> tp.List[_Line]:
     out: tp.List[_Line] = []
-    for no, raw in enumerate(text.splitlines(), 1):
+    for no, raw in enumerate(_split_lines(text), 1):
+        bad = _NON_PRINTABLE.search(raw)
+        if bad:
+            raise ConfigError(no, f"the non-printable character {bad.group(0)!r}")
         body = raw.lstrip(" ")
         if body.startswith("\t"):
             raise ConfigError(no, "a tab in the indentation")
@@ -408,7 +455,10 @@ def _balance(text: str) -> int:
             if c == "\\" and quote == '"':
                 i += 1
             elif c == quote:
-                quote = None
+                if quote == "'" and text[i + 1:i + 2] == "'":
+                    i += 1  # '' is a quote inside the scalar
+                else:
+                    quote = None
         elif c in "'\"" and (i == 0 or text[i - 1] in " \t[{,:"):
             quote = c
         elif c in "[{":

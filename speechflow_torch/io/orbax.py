@@ -29,7 +29,7 @@ import numpy as np
 from speechflow_torch.io import zstd
 from speechflow_torch.io.ocdbt import OcdbtStore
 
-__all__ = ["is_orbax_checkpoint", "read_tree", "read_zarr"]
+__all__ = ["is_orbax_checkpoint", "read_tree", "read_zarr", "top_keys"]
 
 _SEQUENCE, _DICT = 1, 2
 _ARRAY_TYPES = ("np.ndarray", "jax.Array", "scalar")
@@ -118,6 +118,14 @@ def _insert(tree, keys: tp.Sequence[tp.Tuple[str, int]], value) -> tp.Any:
     node = tree if isinstance(tree, dict) else {}
     node[key] = value if len(keys) == 1 else _insert(node.get(key), keys[1:], value)
     return node
+
+
+def top_keys(path: tp.Union[str, Path]) -> tp.Set[str]:
+    """The top-level keys of the tree of the orbax checkpoint ``path`` (from its
+    ``_METADATA``, no array read)."""
+    meta = json.loads((Path(path) / "_METADATA").read_text())
+    return {entry["key_metadata"][0]["key"] for entry in meta["tree_metadata"].values()
+            if entry["key_metadata"]}
 
 
 def read_tree(path: tp.Union[str, Path]) -> tp.Any:

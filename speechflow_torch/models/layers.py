@@ -20,6 +20,14 @@ PyTorch's layout (``speechflow_torch.convert`` maps flax's onto them):
   q/k/v/out projections, through ``flash_attention_fn`` (``dropout`` on the
   attention weights when ``deterministic`` is False, flax's ``dropout_rate``).
 
+- ``RNN``: ``nnx.RNN`` over ``nnx.GRUCell`` or ``nnx.OptimizedLSTMCell``, one
+  direction, from a zero carry over every step of the padded sequence (the JAX
+  encoders pass no ``seq_lengths``); ``reverse`` runs from the last step and
+  keeps the order. The cells keep flax's parameters: the GRU's input dense has
+  a bias and its hidden dense none (so n = tanh(W_in·x + b_in + r ⊙ W_hn·h)),
+  the LSTM the other way round; the recurrence runs as torch's GRU / LSTM
+  (cuDNN on the GPU) with the missing bias a constant zero, in float32.
+
 ``flax_init_`` draws a module's weights from flax's default initialisers, so a
 model trained from scratch starts where the JAX one does: the acoustic model,
 XTTS, the prosody model, ECAPA, the vocoders and the discriminators call it at
@@ -30,6 +38,7 @@ from __future__ import annotations
 
 import math
 import typing as tp
+import warnings
 
 import torch
 import torch.nn as nn
@@ -37,8 +46,8 @@ import torch.nn.functional as F
 
 from speechflow_torch.ops.attention import flash_attention_fn
 
-__all__ = ["Conv1d", "Conv2d", "ConvTranspose1d", "MultiHeadAttention", "flax_init_",
-           "layer_norm"]
+__all__ = ["Conv1d", "Conv2d", "ConvTranspose1d", "MultiHeadAttention", "RNN", "RNNCell",
+           "flax_init_", "layer_norm"]
 
 # the standard deviation of a unit normal truncated to ±2 (``variance_scaling``'s
 # "truncated_normal" divides by it)
@@ -144,6 +153,54 @@ class MultiHeadAttention(nn.Module):
         return self.out(o.reshape(b, t, -1))
 
 
+class RNNCell(nn.Module):
+    """The parameters of ``nnx.GRUCell`` (``dense_i`` with a bias, ``dense_h``
+    without) or ``nnx.OptimizedLSTMCell`` (the other way round), gates in
+    flax's order (r, z, n and i, f, g, o, torch's too)."""
+
+    orthogonal_init = ("dense_h",)
+
+    def __init__(self, kind: str, dim_in: int, hidden: int):
+        super().__init__()
+        gates = {"gru": 3, "lstm": 4}[kind]
+        self.dense_i = nn.Linear(dim_in, gates * hidden, bias=kind == "gru")
+        self.dense_h = nn.Linear(hidden, gates * hidden, bias=kind == "lstm")
+
+
+class RNN(nn.Module):
+    """(B, T, Din) -> (B, T, hidden): ``nnx.RNN(cell, reverse=..., keep_order=True)``
+    with no ``seq_lengths``."""
+
+    def __init__(self, kind: str, dim_in: int, hidden: int, reverse: bool = False):
+        super().__init__()
+        self.kind = kind
+        self.hidden = hidden
+        self.reverse = reverse
+        self.cell = RNNCell(kind, dim_in, hidden)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        di, dh = self.cell.dense_i, self.cell.dense_h
+        with torch.autocast(x.device.type, enabled=False):
+            x = x.float()
+            if self.reverse:
+                x = x.flip(1)
+            zero = torch.zeros(dh.weight.shape[0], device=x.device, dtype=x.dtype)
+            h0 = x.new_zeros(1, x.shape[0], self.hidden)
+            weights = [di.weight.float(), dh.weight.float(),
+                       zero if di.bias is None else di.bias.float(),
+                       zero if dh.bias is None else dh.bias.float()]
+            with warnings.catch_warnings():
+                # cuDNN would like the four weights in one buffer; they stay the
+                # module's own parameters
+                warnings.simplefilter("ignore", UserWarning)
+                args = (weights, True, 1, 0.0, torch.is_grad_enabled(), False, True)
+                if self.kind == "gru":
+                    out = torch._VF.gru(x, h0, *args)[0]
+                else:
+                    out = torch._VF.lstm(x, (h0, h0), *args)[0]
+        return out.flip(1) if self.reverse else out
+
+
 def flax_init_(module: nn.Module) -> nn.Module:
     """Flax's default initialisers over every layer of ``module``, in place, from
     torch's global generator: the kernels of ``nnx.Linear``, ``nnx.Conv`` and
@@ -151,8 +208,9 @@ def flax_init_(module: nn.Module) -> nn.Module:
     output axis, truncated at two of the normal's deviations), their biases zero;
     ``nnx.Embed`` normal with std 1/sqrt(features); ``nnx.LayerNorm`` scale 1,
     bias 0. The layers a module names in its ``zero_init`` start at zero, as flax's
-    ``zeros_init`` kernels with zero biases. Other parameters keep their
-    constructed values."""
+    ``zeros_init`` kernels with zero biases; those in its ``orthogonal_init`` get
+    an orthogonal kernel (the recurrent kernels, flax's ``orthogonal()``). Other
+    parameters keep their constructed values."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, ConvTranspose1d)):
@@ -170,4 +228,6 @@ def flax_init_(module: nn.Module) -> nn.Module:
             for name in getattr(m, "zero_init", ()):
                 for p in getattr(m, name).parameters():
                     p.zero_()
+            for name in getattr(m, "orthogonal_init", ()):
+                nn.init.orthogonal_(getattr(m, name).weight)
     return module

@@ -1,5 +1,15 @@
-"""Autoregressive decoders of the XTTS family (counterpart of the GPT half of
-``speechflow_tpu/models/tts/ar_decoders.py``).
+"""Autoregressive decoders (counterpart of
+``speechflow_tpu/models/tts/ar_decoders.py``): the Tacotron2 decoder and the
+XTTS family.
+
+- ``TacoDecoder`` with ``LSAttention``: a GRU cell (flax's, ``layers.RNN``'s
+  cell) steps over the frames on prenet(previous frame) and the attention
+  context; location-sensitive attention scores the memory from the query, the
+  memory and a conv over the previous and cumulative attention weights. The
+  training call is teacher-forced (a zero go frame, then the targets), with the
+  prenet's dropout masks drawn for every step up front (or given, as a test
+  gives JAX's); ``generate`` feeds its frames back for ``max_frames`` steps
+  and returns the gate logits for the caller to trim.
 
 - ``CausalBlock``: pre-norm causal self-attention with explicit q/k/v
   projections. RoPE rotates the normed full-width input, and q, k and v are
@@ -18,8 +28,7 @@ Sampling: temperature 0 is argmax; above 0 it is
 argmax(logits / temperature + Gumbel noise), which is what
 ``jax.random.categorical`` computes. The noise is drawn from a
 ``torch.Generator``, or given as ``gumbel`` draws (one (B, V) draw a token),
-so that a test can feed the JAX package's own draws. The Tacotron2 decoder of
-the JAX module is not ported yet.
+so that a test can feed the JAX package's own draws.
 """
 
 from __future__ import annotations
@@ -31,11 +40,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from speechflow_torch.models.layers import layer_norm
+from speechflow_torch.models.layers import Conv1d, RNNCell, layer_norm
 from speechflow_torch.models.tts.common import gelu, rope_rotate
 from speechflow_torch.utils.masks import sequence_mask
 
-__all__ = ["CausalBlock", "RetentionBlock", "GPTDecoder"]
+__all__ = ["LSAttention", "TacoDecoder", "CausalBlock", "RetentionBlock", "GPTDecoder"]
 
 _MASKED = -1e9  # the JAX block's masked score
 
@@ -50,6 +59,107 @@ def _at(pos: int, positions: tp.Optional[torch.Tensor], device) -> torch.Tensor:
     if positions is not None:
         return positions
     return torch.tensor([pos], dtype=torch.float32, device=device)
+
+
+class LSAttention(nn.Module):
+    """Location-sensitive attention."""
+
+    def __init__(self, query_dim: int, memory_dim: int, attn_dim: int = 128,
+                 n_filters: int = 32, kernel_size: int = 31):
+        super().__init__()
+        self.query_proj = nn.Linear(query_dim, attn_dim, bias=False)
+        self.memory_proj = nn.Linear(memory_dim, attn_dim, bias=False)
+        self.loc_conv = Conv1d(2, n_filters, kernel_size, bias=False)
+        self.loc_proj = nn.Linear(n_filters, attn_dim, bias=False)
+        self.v = nn.Linear(attn_dim, 1, bias=False)
+
+    def forward(self, query, memory_proj, memory, attn_state, mask):
+        """query (B, Dq); attn_state (B, N, 2) = [previous, cumulative] weights;
+        returns (context (B, Dm), weights (B, N))."""
+        loc = self.loc_proj(self.loc_conv(attn_state))
+        e = self.v(torch.tanh(self.query_proj(query)[:, None] + memory_proj + loc))[..., 0]
+        attn = torch.softmax(torch.where(mask, e, torch.full_like(e, _MASKED)), dim=-1)
+        return torch.einsum("bn,bnd->bd", attn, memory), attn
+
+
+def _gru_step(cell: RNNCell, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``nnx.GRUCell``: n = tanh(W_in·x + b_in + r ⊙ W_hn·h)."""
+    xr, xz, xn = cell.dense_i(x).chunk(3, dim=-1)
+    hr, hz, hn = cell.dense_h(h).chunk(3, dim=-1)
+    r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+    return (1.0 - z) * torch.tanh(xn + r * hn) + z * h
+
+
+class TacoDecoder(nn.Module):
+    def __init__(self, dim_in: int, dim_out: int, dim: int = 512, prenet_dim: int = 256,
+                 attn_dim: int = 128, prenet_dropout: float = 0.5, **kw):
+        super().__init__()
+        self.pre1 = nn.Linear(dim_out, prenet_dim)
+        self.pre2 = nn.Linear(prenet_dim, prenet_dim)
+        self.prenet_dropout = prenet_dropout
+        self.attn = LSAttention(dim, dim_in, attn_dim)
+        self.cell = RNNCell("gru", prenet_dim + dim_in, dim)
+        self.frame_proj = nn.Linear(dim + dim_in, dim_out)
+        self.gate_proj = nn.Linear(dim + dim_in, 1)
+        self.dim = dim
+        self.prenet_dim = prenet_dim
+        self.dim_out = dim_out
+
+    def drop_masks(self, t: int, b: int, deterministic: bool, device=None,
+                   generator: tp.Optional[torch.Generator] = None
+                   ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        """The prenet's two (t, b, prenet_dim) dropout masks (keep / keep, or 0)."""
+        if deterministic or self.prenet_dropout <= 0:
+            ones = torch.ones(t, b, self.prenet_dim, device=device)
+            return ones, ones
+        keep = 1.0 - self.prenet_dropout
+        return tuple((torch.rand(t, b, self.prenet_dim, generator=generator,
+                                 device=device) < keep).float() / keep for _ in range(2))
+
+    def _steps(self, memory, memory_lengths, t: int, frames_in, masks):
+        b, n, _ = memory.shape
+        mask = sequence_mask(memory_lengths, n)
+        memory_proj = self.attn.memory_proj(memory)
+        h = memory.new_zeros(b, self.dim)
+        state = memory.new_zeros(b, n, 2)
+        state[:, 0, 0] = 1.0
+        prev = memory.new_zeros(b, self.dim_out)
+        frames, gates, attns = [], [], []
+        for i in range(t):
+            x = frames_in[:, i] if frames_in is not None else prev
+            pre = torch.relu(self.pre2(torch.relu(self.pre1(x)) * masks[0][i].to(x.dtype)))
+            pre = pre * masks[1][i].to(x.dtype)
+            context, attn = self.attn(h, memory_proj, memory, state, mask)
+            h = _gru_step(self.cell, h, torch.cat([pre, context.to(pre.dtype)], dim=-1))
+            hc = torch.cat([h, context.to(h.dtype)], dim=-1)
+            prev = self.frame_proj(hc)
+            frames.append(prev)
+            gates.append(self.gate_proj(hc)[..., 0])
+            attns.append(attn)
+            state = torch.stack([attn, state[..., 1] + attn], dim=-1).to(state.dtype)
+        return torch.stack(frames, 1), torch.stack(gates, 1), torch.stack(attns, 1)
+
+    def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
+                target_frames: torch.Tensor, deterministic: bool = True,
+                masks: tp.Optional[tp.Tuple[torch.Tensor, torch.Tensor]] = None,
+                generator: tp.Optional[torch.Generator] = None):
+        """Teacher-forced: (frames (B, T, dim_out), gate logits (B, T), attention
+        (B, T, N)) from the go frame and the targets shifted by one."""
+        b, t = target_frames.shape[:2]
+        target_frames = target_frames.to(memory.dtype)
+        frames_in = torch.cat([torch.zeros_like(target_frames[:, :1]),
+                               target_frames[:, :-1]], dim=1)
+        if masks is None:
+            masks = self.drop_masks(t, b, deterministic, memory.device, generator)
+        return self._steps(memory, memory_lengths, t, frames_in, masks)
+
+    def generate(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
+                 max_frames: int = 1024):
+        """Feedback decoding for ``max_frames`` steps: (frames, gate logits)."""
+        b = memory.shape[0]
+        ones = self.drop_masks(max_frames, b, True, memory.device)
+        frames, gates, _ = self._steps(memory, memory_lengths, max_frames, None, ones)
+        return frames, gates
 
 
 class CausalBlock(nn.Module):

@@ -23,7 +23,9 @@ from speechflow_torch.models.tts.data_types import TTSForwardInput, TTSTarget
 __all__ = ["TTSBatchProcessor"]
 
 
-def _tensor(x) -> tp.Optional[torch.Tensor]:
+def _tensor(x):
+    if isinstance(x, dict):  # the named utterance averages
+        return {k: _tensor(v) for k, v in x.items()}
     return None if x is None else torch.from_numpy(np.ascontiguousarray(x))
 
 

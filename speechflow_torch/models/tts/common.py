@@ -5,8 +5,8 @@ Dropout follows the JAX blocks: each block takes ``deterministic`` (True by
 default, the inference call) and drops at its rate only when it is False,
 at the sites the JAX blocks drop (after a conv block's activation, a
 transformer block's attention weights and both residual branches, a DiT
-block's attention weights). The JAX ``PreNet`` has no caller in either
-package and is not ported.
+block's attention weights). The JAX ``PreNet`` and ``MixStyle`` have no caller
+in either package and are not ported.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from speechflow_torch.models.layers import Conv1d, MultiHeadAttention, layer_nor
 
 __all__ = ["sinusoidal_embedding", "rope_rotate", "gelu", "dropout", "ConvBlock", "ConvStack",
            "AdaLayerNorm", "FiLM", "ConditionalLayer", "TransformerBlock",
-           "DiTBlock", "VectorQuantizer"]
+           "DiTBlock", "VectorQuantizer", "VarianceEmbedding", "grad_reverse"]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -234,3 +234,47 @@ class VectorQuantizer(nn.Module):
         commit = ((q.detach() - x) ** 2).mean()
         codebook_loss = ((q - x.detach()) ** 2).mean()
         return x + (q - x).detach(), idx, codebook_loss + self.beta * commit
+
+
+class VarianceEmbedding(nn.Module):
+    """A scalar variance bucketed into ``n_bins`` over ``interval`` and embedded:
+    bin = clip(int((x - lo) / (hi - lo) · n_bins), 0, n_bins - 1), the cast
+    truncating toward zero as JAX's ``astype(int32)``; ``log_scale`` takes
+    log1p(max(x, 0)) and log1p of the interval first."""
+
+    def __init__(self, interval: tp.Tuple[float, float] = (0.0, 880.0), n_bins: int = 256,
+                 emb_dim: int = 64, log_scale: bool = False):
+        super().__init__()
+        self.interval = tuple(float(v) for v in interval)
+        self.n_bins = n_bins
+        self.log_scale = log_scale
+        self.emb = nn.Embedding(n_bins, emb_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lo, hi = self.interval
+        x = x.float()
+        if self.log_scale:
+            x = torch.log1p(torch.clamp(x, min=0.0))
+            lo, hi = math.log1p(max(lo, 0.0)), math.log1p(hi)
+        # float32 division first, as JAX computes it (a float64 bound would move
+        # values on a bin edge)
+        scaled = (x - torch.tensor(lo, dtype=torch.float32)) / torch.tensor(
+            hi - lo, dtype=torch.float32) * self.n_bins
+        idx = torch.clamp(scaled.to(torch.int32), 0, self.n_bins - 1)
+        return self.emb(idx.long())
+
+
+class _GradReverse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return -ctx.scale * g, None
+
+
+def grad_reverse(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """The identity whose gradient is -scale times the incoming one."""
+    return _GradReverse.apply(x, scale)

@@ -2,15 +2,17 @@
 ``speechflow_tpu/models/tts/criterion.py``): the spectral loss over the
 stacked stages, the gate's BCE, a regression loss for each variance
 predictor (durations in the log(1 + d) domain the predictor outputs), and the
-model's ``additional_losses`` (the CFM's ``cfm``) passed through with their
-scales. The inverse-speaker classifier is not ported: a criterion that would
-weigh it raises."""
+model's ``additional_losses`` (the CFM's ``cfm``, the VAE's, VQ's, the
+discriminators' and the aligner's) passed through with their scales, and, with
+``inverse_speaker_scale``, the cross-entropy of the model's
+``inverse_speaker_logits`` against the speaker ids."""
 
 from __future__ import annotations
 
 import typing as tp
 
 import torch
+import torch.nn.functional as F
 
 from speechflow_torch.models.tts.data_types import TTSOutput, TTSTarget
 from speechflow_torch.training.losses import GateLoss, LossSchedule, RegressionLoss, SpectralLoss
@@ -29,8 +31,6 @@ class TTSCriterion:
         inverse_speaker_scale: float = 0.0,
         schedules: tp.Optional[tp.Dict[str, LossSchedule]] = None,
     ):
-        if inverse_speaker_scale > 0:
-            raise NotImplementedError("the inverse-speaker classifier is not ported yet")
         schedules = schedules or {}
         self.spectral = SpectralLoss(kind=spectral_kind, name="spectral", schedule=schedules.get(
             "spectral", LossSchedule(scale=spectral_scale)))
@@ -40,6 +40,7 @@ class TTSCriterion:
             "durations": 0.1, "aggregate_pitch": 0.1, "aggregate_energy": 0.1}
         self.regression = RegressionLoss(kind="l2")
         self.additional_scales = additional_scales or {}
+        self.inverse_speaker_scale = inverse_speaker_scale
 
     def __call__(self, outputs: TTSOutput, targets: TTSTarget,
                  step: int) -> tp.Dict[str, torch.Tensor]:
@@ -61,4 +62,9 @@ class TTSCriterion:
                                                    lengths=targets.transcription_lengths)
         for name, val in (outputs.additional_losses or {}).items():
             losses[name] = self.additional_scales.get(name, 1.0) * val
+        logits = (outputs.additional_content or {}).get("inverse_speaker_logits")
+        if self.inverse_speaker_scale > 0 and logits is not None \
+                and targets.speaker_id is not None:
+            ce = F.cross_entropy(logits.float(), torch.clamp(targets.speaker_id, min=0).long())
+            losses["inverse_speaker"] = self.inverse_speaker_scale * ce
         return losses

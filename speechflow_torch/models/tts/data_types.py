@@ -32,9 +32,12 @@ class TTSForwardInput:
     mel_lengths: Tensor = None
     pitch: Tensor = None                  # (B, T) frame-level
     energy: Tensor = None
+    speech_quality_emb: Tensor = None     # (B, 5), a condition source
+    ssl_feat: Tensor = None               # (B, T', D), a condition source
     pitch_modifier: Tensor = None         # (B, N) SSML factors, 1.0 outside a span
     volume_modifier: Tensor = None
     rate_modifier: Tensor = None
+    averages: tp.Optional[tp.Dict[str, torch.Tensor]] = None  # name -> (B,) utterance values
 
     def get(self, name: str, default=None):
         return getattr(self, name, default)
@@ -45,6 +48,8 @@ class TTSForwardInput:
         float32 durations; the variance adaptor casts pitch and volume where
         it multiplies)."""
         def move(name, v):
+            if isinstance(v, dict):
+                return {k: move(name, a) for k, a in v.items()}
             if not isinstance(v, torch.Tensor):
                 return v
             if dtype is not None and v.is_floating_point() and not name.endswith("_modifier"):

@@ -1,6 +1,9 @@
 """Variance and duration predictors and the style encoder (counterpart of
 ``speechflow_tpu/models/tts/predictors.py``: ``VariancePredictor``,
-``TokenLevelDP``, ``GaussianMixtureVAE`` and ``StyleEncoder``).
+``TokenLevelDP``, ``GaussianMixtureVAE``, ``StyleEncoder``, the LSGAN
+``SignalDiscriminator`` of the ``use_discriminator`` variances and the in-model
+aligner ``GradTTSFA`` of ``use_gradtts_fa``, whose monotonic alignment search is
+``ops.mas.maximum_path``).
 
 The style encoder's draws can be given: ``eps`` is the VAE's (or GMVAE's)
 standard normal sample, so that a test injects JAX's; without it the sample
@@ -16,10 +19,12 @@ import typing as tp
 import torch
 import torch.nn as nn
 
+from speechflow_torch.models.layers import Conv1d, layer_norm
 from speechflow_torch.models.tts.common import ConvStack
 from speechflow_torch.utils.masks import apply_mask, masked_mean, sequence_mask
 
-__all__ = ["VariancePredictor", "TokenLevelDP", "GaussianMixtureVAE", "StyleEncoder"]
+__all__ = ["VariancePredictor", "TokenLevelDP", "GaussianMixtureVAE", "StyleEncoder",
+           "SignalDiscriminator", "GradTTSFA"]
 
 
 class VariancePredictor(nn.Module):
@@ -151,3 +156,98 @@ class StyleEncoder(nn.Module):
         logvar = torch.clamp(self.logvar(pooled), -8.0, 8.0)
         z = mu if deterministic else _sample(mu, logvar, eps, generator)
         return z, (mu, logvar)
+
+
+class SignalDiscriminator(nn.Module):
+    """A per-position LSGAN discriminator over (context, 1-D signal) pairs: a
+    conv trunk over the masked context, the signal projected and concatenated,
+    two more convs and a sigmoid head."""
+
+    def __init__(self, ctx_dim: int, dim: int = 192, kernel_size: int = 3):
+        super().__init__()
+        self.conv1 = Conv1d(ctx_dim, dim, kernel_size)
+        self.norm1 = layer_norm(dim)
+        self.conv2 = Conv1d(dim, dim, kernel_size)
+        self.norm2 = layer_norm(dim)
+        self.signal_proj = nn.Linear(1, dim)
+        self.out_conv1 = Conv1d(2 * dim, dim, kernel_size)
+        self.out_norm1 = layer_norm(dim)
+        self.out_conv2 = Conv1d(dim, dim, kernel_size)
+        self.out_norm2 = layer_norm(dim)
+        self.head = nn.Linear(dim, 1)
+
+    def _trunk(self, ctx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        h = self.norm1(torch.relu(self.conv1(ctx * mask)))
+        return self.norm2(torch.relu(self.conv2(h * mask)))
+
+    def _prob(self, h: torch.Tensor, signal: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        z = torch.cat([h, self.signal_proj(signal[..., None].to(h.dtype))], dim=-1)
+        z = self.out_norm1(torch.relu(self.out_conv1(z * mask)))
+        z = self.out_norm2(torch.relu(self.out_conv2(z * mask)))
+        return torch.sigmoid(self.head(z)[..., 0])
+
+    def lsgan_losses(self, context: torch.Tensor, real: torch.Tensor, fake: torch.Tensor,
+                     lengths: torch.Tensor) -> tp.Dict[str, torch.Tensor]:
+        """{'disc_loss', 'gen_loss'}: the discriminator's side sees the context,
+        the real and the fake signals detached; the generator's lets gradients
+        reach the context and the fake."""
+        mask = sequence_mask(lengths, context.shape[1]).to(context.dtype)[..., None]
+
+        def mmean(v):
+            return (v * mask[..., 0]).sum() / torch.clamp(mask.sum(), min=1.0)
+
+        h_d = self._trunk(context.detach(), mask)
+        disc = (mmean((1.0 - self._prob(h_d, real.detach(), mask)) ** 2)
+                + mmean(self._prob(h_d, fake.detach(), mask) ** 2))
+        gen = mmean((1.0 - self._prob(self._trunk(context, mask), fake, mask)) ** 2)
+        return {"disc_loss": disc, "gen_loss": gen}
+
+
+class GradTTSFA(nn.Module):
+    """In-model forced aligner: a conv encoder maps the content to per-token mel
+    means, monotonic alignment search against the target mel under a unit
+    Gaussian gives the durations (and their losses), and a log-duration
+    predictor gives them at inference (exp(logw))."""
+
+    def __init__(self, dim_in: int, feat_dim: int, dim: int = 256, dp_dim: int = 256, **kw):
+        super().__init__()
+        self.encoder = ConvStack(dim_in, dim, dim, n_layers=2, kernel_size=3, dropout=0.1)
+        self.proj = nn.Linear(dim, feat_dim)
+        self.dp = ConvStack(dim, dp_dim, dp_dim, n_layers=2, kernel_size=3, dropout=0.1)
+        self.dp_out = nn.Linear(dp_dim, 1)
+        self.feat_dim = feat_dim
+
+    def _encode(self, x: torch.Tensor, deterministic: bool):
+        h = self.encoder(x, deterministic)
+        return self.proj(h), self.dp_out(self.dp(h, deterministic))[..., 0]
+
+    def predict(self, x: torch.Tensor, token_lengths: torch.Tensor,
+                deterministic: bool = True) -> torch.Tensor:
+        _, logw = self._encode(x, deterministic)
+        d = torch.exp(logw.float())
+        return apply_mask(d, sequence_mask(token_lengths, d.shape[1]))
+
+    def align(self, x: torch.Tensor, token_lengths: torch.Tensor, mel: torch.Tensor,
+              mel_lengths: torch.Tensor, deterministic: bool = False):
+        """(MAS durations (B, N), the path (B, N, T), {'fa_duration', 'fa_prior'})."""
+        from speechflow_torch.ops.mas import maximum_path
+
+        mu_x, logw = self._encode(x, deterministic)
+        mu_x, logw, mel = mu_x.float(), logw.float(), mel.float()
+        c = self.feat_dim
+        log2pi = math.log(2 * math.pi)
+        with torch.no_grad():
+            log_prior = (-0.5 * torch.einsum("btc,btc->bt", mel, mel)[:, None, :]
+                         + torch.einsum("bnc,btc->bnt", mu_x, mel)
+                         - 0.5 * (mu_x ** 2).sum(-1)[:, :, None] - 0.5 * log2pi * c)
+            attn = maximum_path(log_prior, token_lengths, mel_lengths)
+        dura = attn.sum(-1)
+        tok_mask = sequence_mask(token_lengths, x.shape[1]).float()
+        logw_tgt = torch.log(dura + 1e-8) * tok_mask
+        dura_loss = (logw * tok_mask - logw_tgt).abs().sum() / torch.clamp(tok_mask.sum(),
+                                                                            min=1.0)
+        mu_y = torch.einsum("bnt,bnc->btc", attn, mu_x)
+        mel_mask = sequence_mask(mel_lengths, mel.shape[1]).float()[..., None]
+        prior = (0.5 * ((mel - mu_y) ** 2 + log2pi) * mel_mask).sum()
+        prior_loss = prior / torch.clamp(mel_mask.sum() * c, min=1.0)
+        return dura, attn, {"fa_duration": dura_loss, "fa_prior": prior_loss}

@@ -22,9 +22,17 @@ from speechflow_torch.models.layers import Conv2d, flax_init_
 from speechflow_torch.ops.stft import magnitude
 
 __all__ = ["PeriodDiscriminator", "MultiPeriodDiscriminator", "ResolutionDiscriminator",
-           "MultiResolutionDiscriminator", "VocoderDiscriminator", "run_stack"]
+           "MultiResolutionDiscriminator", "VocoderDiscriminator", "leaky_relu", "run_stack"]
 
 Output = tp.Tuple[tp.List[torch.Tensor], tp.List[tp.List[torch.Tensor]]]
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
+    """``nnx.leaky_relu``: at exactly 0 the slope is 1, as JAX's ``where(x >= 0, ...)``
+    gives it (torch's takes ``negative_slope`` there). Exact zeros are common: a
+    discriminator's biases start at 0 and stay there through the warmup's lr-0 step,
+    and a chunk's silence and padding give conv outputs of exactly the bias."""
+    return torch.where(x >= 0, x, x * negative_slope)
 
 
 def run_stack(convs: nn.ModuleList, post: nn.Module, x: torch.Tensor
@@ -32,7 +40,7 @@ def run_stack(convs: nn.ModuleList, post: nn.Module, x: torch.Tensor
     """Convs with LeakyReLU(0.1), then the post conv: (logits (B, -1), feature maps)."""
     fmaps = []
     for conv in convs:
-        x = F.leaky_relu(conv(x), 0.1)
+        x = leaky_relu(conv(x), 0.1)
         fmaps.append(x)
     logits = post(x)
     fmaps.append(logits)

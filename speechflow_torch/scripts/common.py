@@ -197,9 +197,9 @@ def apply_resume_warmstart(trainer, model_cfg: tp.Mapping) -> None:
     either package:
 
     - ``resume.from`` (an experiment or checkpoint directory): the last
-      checkpoint's weights, optimizer state and step (the port's checkpoints
-      only: a JAX checkpoint's optimizer state is optax's, and resuming from
-      one raises);
+      checkpoint's weights, optimizer state and step (a JAX checkpoint's optax
+      state mapped by ``training.optax_state``; a checkpoint without optimizer
+      state is refused);
     - ``finetune.ckpt`` (a checkpoint directory): its weights only (a fresh
       optimizer and step 0);
     - ``warmstart.ckpt`` (a checkpoint directory) with ``include`` / ``exclude``

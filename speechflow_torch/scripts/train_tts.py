@@ -24,12 +24,13 @@ both configs' YAML text.
     python -m speechflow_torch.scripts.train_tts -c configs/xtts_model.yml -vs debug \
         --device cpu --max_steps 2
     python -m speechflow_torch.scripts.train_tts -c configs/xtts_model.yml   # on the GPU
+    python -m speechflow_torch.scripts.train_tts -c configs/tts_forward.yml  # on the GPU
 
 It runs on the GPU unless ``device="cpu"``. Weights start from
 ``torch.manual_seed(trainer.seed)``; ``resume.from`` (``-r``),
 ``finetune.ckpt`` and ``warmstart.ckpt`` (``-w``, with ``include`` /
 ``exclude``) read checkpoints of either package; ``-r`` of a JAX checkpoint
-raises, its optimizer state being optax's (``common.apply_resume_warmstart``).
+resumes its optax state too (``common.apply_resume_warmstart``).
 Every experiment tries to train a G2P into its directory, as the JAX script
 does, inside a guard that logs a failure and goes on: the G2P trainer
 (``scripts/train_g2p.py``) is not ported yet, so the guard logs that and the

@@ -11,9 +11,9 @@ the Vocos/ISTFT recipe), ``-vs`` takes the selectors of their
     python -m speechflow_torch.scripts.train_vocoder -c configs/vocoder_model.yml  # GPU
 
 It runs on the GPU unless ``device="cpu"``. Weights start from
-``torch.manual_seed(trainer.seed)``. ``resume.from`` (``-r``, the port's
-checkpoints: a JAX checkpoint's optimizer state is optax's) and
-``warmstart.disc_from`` (either package's) are read; ``-w`` sets
+``torch.manual_seed(trainer.seed)``. ``resume.from`` (``-r``, either package's
+checkpoints, both optimizers' states) and ``warmstart.disc_from`` (either
+package's) are read; ``-w`` sets
 ``warmstart.ckpt``, which this script, like JAX's, does not read. Not ported, and
 raising ``NotImplementedError`` with the module they need: the ``tts``
 feature extractor (E2E GAN-TTS), ``loss.cpc_ckpt`` and ``loss.bio_ckpt``

@@ -26,7 +26,9 @@ and ``build_optimizer`` gives the same semantics over ``torch.optim``:
   param group's learning rate: schedule × scale × window.
 
 ``step()`` is called after each micro-batch's backward: it takes the
-parameters' ``.grad`` and clears them.
+parameters' ``.grad`` and clears them. ``load_state_dict`` takes the port's
+``state_dict()`` or the optimizer tree of a JAX checkpoint (optax's state,
+mapped by ``training.optax_state``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch.nn as nn
 
 from speechflow_torch.convert import nnx_path
 from speechflow_torch.training.lr_schedulers import build_lr_schedule
+from speechflow_torch.training.optax_state import is_optax_state, load_optax_state
 
 __all__ = ["OptimizerConfig", "ParamGroup", "Lamb", "Optimizer", "build_optimizer"]
 
@@ -133,15 +136,18 @@ class Optimizer:
     def __init__(self, cfg: OptimizerConfig, module: nn.Module):
         self.cfg = cfg
         self.schedule = build_lr_schedule(cfg.lr_schedule, cfg.lr, **cfg.lr_schedule_kwargs)
+        self.module = module
         paths = nnx_path(module)
         by_group: tp.Dict[tp.Optional[int], list] = {}
         for name, p in module.named_parameters():
             if p.requires_grad:
                 g = next((i for i, pg in enumerate(cfg.param_groups)
                           if pg.pattern in paths[name]), None)
-                by_group.setdefault(g, []).append(p)
-        self.params = [p for ps in by_group.values() for p in ps]
-        self.base = _base(cfg, [{"params": ps, "sf_group": g} for g, ps in by_group.items()])
+                by_group.setdefault(g, []).append((name, p))
+        self.names = [name for ps in by_group.values() for name, _ in ps]
+        self.params = [p for ps in by_group.values() for _, p in ps]
+        self.base = _base(cfg, [{"params": [p for _, p in ps], "sf_group": g}
+                                for g, ps in by_group.items()])
         self.count = 0
         self.mini_step = 0
         self.notfinite_count = 0
@@ -200,6 +206,9 @@ class Optimizer:
                 "acc": self.acc}
 
     def load_state_dict(self, state: tp.Mapping) -> None:
+        if is_optax_state(state):
+            load_optax_state(self, state)
+            return
         self.base.load_state_dict(state["base"])
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])

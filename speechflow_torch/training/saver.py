@@ -16,9 +16,10 @@ A checkpoint directory the port writes holds:
 zstd-compressed zarr chunks (``io.orbax``, no orbax or tensorstore needed),
 and returns ``(tree, payload)`` as the JAX loader does (``tree = {"model",
 "step", "opt"}``, ``remap_legacy_keys`` applied), so the eval interfaces,
-finetuning and warm starts take a checkpoint of either package. The ``opt``
-of a JAX checkpoint is optax state, which no torch optimizer reads: resuming
-from one raises (``resumable``).
+finetuning and warm starts take a checkpoint of either package; the trainers
+resume either (the ``opt`` of a JAX checkpoint is optax's state, which
+``training.optax_state`` maps), and ``resumable`` refuses a checkpoint that
+holds no optimizer state.
 
 ``filter_state_by_prefix`` and ``merge_states`` serve finetuning and
 warm starts (``scripts.common.apply_resume_warmstart``): they work on that
@@ -196,15 +197,18 @@ class ExperimentSaver:
 
     @staticmethod
     def resumable(path: tp.Union[str, Path]) -> Path:
-        """``path``, when a trainer of the port can resume from it (weights,
-        optimizer state and step); ``NotImplementedError`` for a checkpoint of
-        the JAX package, whose optimizer state is optax's."""
-        if orbax.is_orbax_checkpoint(path):
-            raise NotImplementedError(
-                f"{path} is a checkpoint of the JAX trainer: its optimizer state is optax's, "
-                "which the port's torch optimizers cannot resume from (not ported). Start "
-                "from its weights with finetune.ckpt or warmstart.ckpt (-w) instead")
-        return Path(path)
+        """``path``, when a trainer can resume from it: it holds the optimizer
+        state (the port's ``opt.pt``, or a JAX checkpoint's ``opt`` tree);
+        ``ValueError`` for one that holds only weights, whose moments a resume
+        would restart from zero."""
+        path = Path(path)
+        has_opt = ("opt" in orbax.top_keys(path) if orbax.is_orbax_checkpoint(path)
+                   else (path / "opt.pt").is_file())
+        if not has_opt:
+            raise ValueError(
+                f"{path} holds no optimizer state: resuming would restart the moments from "
+                "zero. Start from its weights with finetune.ckpt or warmstart.ckpt (-w)")
+        return path
 
     @staticmethod
     def get_last_checkpoint(expr_or_ckpt_dir: tp.Union[str, Path]) -> tp.Optional[Path]:

@@ -3,7 +3,8 @@ write, and the JAX package's output for one sentence, so that the port (which
 reads them without JAX, orbax or tensorstore) can be held to them on the CPU
 and on the GPU. Run it once, by hand, where JAX runs (it is not a test):
 
-    JAX_PLATFORMS=cpu python tests/make_jax_checkpoints.py
+    JAX_PLATFORMS=cpu python tests/make_jax_checkpoints.py          # all but resume/
+    JAX_PLATFORMS=cpu python tests/make_jax_checkpoints.py resume   # resume/ alone
 
 It writes:
 
@@ -25,6 +26,28 @@ and 12 MB): the three variance predictors are 32 wide (the recipe's 256 are
 8 MB of weights alone), the discriminators have 2 channels, not the debug
 recipe's 8, and each checkpoint is saved again by the JAX ``ExperimentSaver``
 without its optimizer state (Adam's two moments double a tree).
+
+``python tests/make_jax_checkpoints.py resume`` writes only the checkpoints a run
+resumes from, with their optimizer state (optax's), and leaves the rest as it is:
+
+- ``resume/tts/``: the last checkpoint of ``train_tts.py -c
+  configs/tts_forward.yml -vs debug`` after ``RESUME_STEPS["tts"]`` steps (bi-GRU
+  encoder and decoder, bucketed pitch and energy);
+- ``resume/vocoder/``: the last checkpoint of ``train_vocoder.py -c
+  configs/vocoder_model.yml -vs debug`` after ``RESUME_STEPS["vocoder"]`` steps (its
+  discriminator starts at step 2, at the warmup's lr of 0, and moves at step 3: its
+  biases are off 0 when the run is resumed, where a conv of silence would otherwise
+  give exact zeros at the leaky ReLU's kink);
+- ``resume_record.npz``: JAX's next step from each, taken by the run's own trainer
+  with every dropout rate 0 on its last batch (recorded: the acoustic model's inputs
+  and targets, the vocoder's waveform): the losses, and for every parameter leaf up
+  to ``RESUME_SAMPLES`` of its elements (their flat indices recorded) of the
+  parameter and of Adam's two moments after the step, in flax's layout, with each
+  model's YAML config.
+
+Cuts (the size of a tree with its two moments): the acoustic model 32 wide with
+16-wide variance predictors and 16-wide embeddings of 64 bins; the vocoder 32 wide,
+the discriminators 2 channels over periods 2 and 3 and one resolution.
 """
 
 from __future__ import annotations
@@ -108,6 +131,150 @@ def _reference(tts_ckpt: Path, voc_ckpt: Path) -> dict:
             "mel": mel.astype(np.float32), "wav": np.asarray(wav, np.float32)}
 
 
+RESUME_STEPS = {"tts": 2, "vocoder": 4}
+RESUME_SAMPLES = 16  # elements of each leaf kept in the record
+
+
+def _resume_configs(tmp: Path) -> tp.Tuple[Path, Path]:
+    tts = (REPO / "configs" / "tts_forward.yml").read_text()
+    cuts = [("token_emb_dim: {default: 256, debug: 64}", "token_emb_dim: {default: 256, debug: 32}"),
+            ("encoder_dim: {default: 256, debug: 64}", "encoder_dim: {default: 256, debug: 32}"),
+            ("decoder_dim: {default: 256, debug: 64}", "decoder_dim: {default: 256, debug: 32}"),
+            ("speaker_emb_dim: {default: 128, debug: 32}",
+             "speaker_emb_dim: {default: 128, debug: 16}"),
+            ("postnet_dim: {default: 256, debug: 64}", "postnet_dim: {default: 256, debug: 32}")]
+    for name in ("aggregate_pitch", "aggregate_energy"):
+        cuts.append((f"- {{name: {name}, as_embedding: true}}",
+                     f"- {{name: {name}, as_embedding: true, dim: 16, emb_dim: 16, n_bins: 64}}"))
+    cuts.append(("- {name: durations}", "- {name: durations, dim: 16}"))
+    voc = (REPO / "configs" / "vocoder_model.yml").read_text()
+    cuts_voc = [("dim: {default: 512, debug: 64}", "dim: {default: 512, debug: 32}"),
+                ("channels: {default: 32, debug: 8}", "channels: {default: 32, debug: 2}"),
+                ("periods: [2, 3, 5, 7, 11]", "periods: [2, 3]"),
+                ("resolutions: [[1024, 256], [2048, 512], [512, 128]]",
+                 "resolutions: [[512, 128]]")]
+    for text, edits, name in ((tts, cuts, "tts_forward.yml"), (voc, cuts_voc, "vocoder_model.yml")):
+        for a, b in edits:
+            assert text.count(a) == 1, a
+            text = text.replace(a, b)
+        (tmp / name).write_text(text)
+    return tmp / "tts_forward.yml", tmp / "vocoder_model.yml"
+
+
+def _moments(opt_state) -> tp.Tuple[dict, dict]:
+    """The (mu, nu) trees of the first Adam state in an optax state tree."""
+    if isinstance(opt_state, dict):
+        if "mu" in opt_state and "nu" in opt_state:
+            return opt_state["mu"], opt_state["nu"]
+        for v in opt_state.values():
+            found = _moments(v)
+            if found:
+                return found
+    return ()
+
+
+def _sampled(prefix: str, model, optimizer, rng) -> dict:
+    """Up to RESUME_SAMPLES elements of every parameter leaf and of its two moments."""
+    from flax import nnx
+
+    from speechflow_torch.convert import flatten_nnx
+
+    params = flatten_nnx(nnx.to_pure_dict(nnx.state(model, nnx.Param)))
+    mu, nu = (flatten_nnx(t) for t in _moments(nnx.to_pure_dict(nnx.state(optimizer))))
+    out = {}
+    for k, v in sorted(params.items()):
+        idx = np.sort(rng.choice(v.size, min(v.size, RESUME_SAMPLES), replace=False))
+        out[f"{prefix}/idx/{k}"] = idx.astype(np.int64)
+        for name, tree in (("param", params), ("mu", mu), ("nu", nu)):
+            out[f"{prefix}/{name}/{k}"] = tree[k].reshape(-1)[idx].astype(np.float32)
+    return out
+
+
+def _no_dropout(model) -> None:
+    from flax import nnx
+
+    for _, node in nnx.iter_graph(model):
+        if isinstance(node, nnx.Dropout):
+            node.rate = 0.0
+        elif isinstance(node, nnx.MultiHeadAttention):
+            node.dropout_rate = 0.0
+
+
+def resume_fixture() -> None:
+    """``resume/`` and ``resume_record.npz`` (see the module's docstring)."""
+    import dataclasses
+
+    from speechflow_tpu.models.tts.batch_processor import TTSBatchProcessor
+    from speechflow_tpu.scripts import train_tts, train_vocoder
+    from speechflow_tpu.training.gan_trainer import GANTrainer
+    from speechflow_tpu.training.trainer import Trainer
+
+    out_dir = OUT / "resume"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    record: tp.Dict[str, np.ndarray] = {}
+    rng = np.random.default_rng(0)
+    here = Path.cwd()
+    seen: dict = {}
+    steps = {Trainer: Trainer.training_step, GANTrainer: GANTrainer.training_step}
+
+    def recording(cls):
+        def step(self, batch):
+            seen[cls] = (self, batch)
+            return steps[cls](self, batch)
+        return step
+
+    with tempfile.TemporaryDirectory(prefix="jax_resume_") as td:
+        tmp = Path(td)
+        tts_yml, voc_yml = _resume_configs(tmp)
+        for cls in steps:
+            cls.training_step = recording(cls)
+        try:
+            runs = {}
+            for kind, script, yml, data in (("tts", train_tts, tts_yml, "tts_data_24khz.yml"),
+                                            ("vocoder", train_vocoder, voc_yml,
+                                             "vocoder_data_24khz.yml")):
+                os.chdir(tmp)
+                expr = Path(script.main([
+                    "-c", str(yml), "-cd", str(REPO / "configs" / data), "-vs", "debug",
+                    "--max_steps", str(RESUME_STEPS[kind]), "--data_root", str(SEGS),
+                    "--platform", "cpu"])).resolve()
+                os.chdir(here)
+                ckpt = expr / "checkpoints" / f"step_{RESUME_STEPS[kind]:09d}"
+                shutil.copytree(ckpt, out_dir / kind / ckpt.name)
+                record[f"{kind}/config_yaml"] = np.array(yml.read_text())
+                runs[kind] = seen[Trainer if kind == "tts" else GANTrainer]
+        finally:
+            os.chdir(here)
+            for cls, fn in steps.items():
+                cls.training_step = fn
+
+        trainer, batch = runs["tts"]
+        _no_dropout(trainer.model)
+        inputs, targets = TTSBatchProcessor()(batch)
+        for tag, obj in (("in", inputs), ("tgt", targets)):
+            for f in dataclasses.fields(obj):
+                v = getattr(obj, f.name)
+                if v is not None and not isinstance(v, (dict, int)):
+                    record[f"tts/{tag}/{f.name}"] = np.asarray(v)
+        losses = trainer.training_step(batch)
+        record.update({f"tts/loss/{k}": np.asarray(float(v)) for k, v in losses.items()})
+        record.update(_sampled("tts", trainer.model, trainer.optimizer, rng))
+
+        gan, batch = runs["vocoder"]
+        wave = np.asarray(batch.collated_samples.waveform if hasattr(batch, "collated_samples")
+                          else batch.waveform, np.float32)
+        record["vocoder/waveform"] = wave
+        losses = gan.training_step({"waveform": wave})
+        record.update({f"vocoder/loss/{k}": np.asarray(float(v)) for k, v in losses.items()})
+        record.update(_sampled("vocoder/gen", gan.generator, gan.gen_opt, rng))
+        record.update(_sampled("vocoder/disc", gan.discriminator, gan.disc_opt, rng))
+    np.savez_compressed(OUT / "resume_record.npz", **record)
+    size = sum(p.stat().st_size for p in out_dir.rglob("*") if p.is_file())
+    print(f"{out_dir}: {size} bytes; {OUT / 'resume_record.npz'}: "
+          f"{(OUT / 'resume_record.npz').stat().st_size} bytes")
+
+
 def main() -> None:
     from speechflow_tpu.scripts import train_tts, train_vocoder
 
@@ -131,4 +298,7 @@ def main() -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, str(REPO))
-    main()
+    if sys.argv[1:] == ["resume"]:
+        resume_fixture()
+    else:
+        main()

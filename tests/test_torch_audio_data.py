@@ -143,8 +143,9 @@ def test_checkpoint_loads_into_the_interface_and_into_jax(tmp_path):
 def test_port_loader_refuses_an_orbax_checkpoint(tmp_path):
     """The port's loader reads an orbax checkpoint the JAX saver wrote: the GAN
     tree comes back bit for bit (dict keys as orbax stores them, the step a 0-d
-    array), the payload too, and it fills a port GAN; resuming from it raises
-    (its optimizer state is optax's); a directory of neither layout is refused."""
+    array), the payload too, and it fills a port GAN; resuming from it is refused
+    (saved without its optimizer state, a resume would restart the moments from
+    zero); a directory of neither layout is refused."""
     from speechflow_tpu.training.saver import ExperimentSaver as JSaver
 
     gan, _ = _gan(tmp_path)
@@ -163,7 +164,7 @@ def test_port_loader_refuses_an_orbax_checkpoint(tmp_path):
     load_nnx_state(again.generator, ours["model"]["generator"])
     for (n, p), q in zip(gan.generator.named_parameters(), again.generator.parameters()):
         assert torch.equal(p, q), n
-    with pytest.raises(NotImplementedError, match="optax"):
+    with pytest.raises(ValueError, match="no optimizer state"):
         again.load_checkpoint(path)
     (tmp_path / "step_000000001").mkdir()
     with pytest.raises(FileNotFoundError, match="orbax"):

@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 import yaml
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 from speechflow_torch.io.config import Config, ConfigError, value_select, yaml_dump, yaml_load
@@ -100,6 +100,8 @@ def test_plain_scalars_resolve_as_pyyaml(s):
 @settings(max_examples=200, deadline=None)
 @given(st.text(alphabet=st.characters(codec="utf-8", exclude_categories=("Cs", "Cc")),
                max_size=12))
+@example("\u2028")
+@example("\u2029")
 def test_quoted_scalars_read_as_pyyaml(s):
     """Single-quoted (``''`` escapes a quote) and double-quoted (JSON escapes)
     scalars are strings, whatever they hold."""
@@ -108,6 +110,44 @@ def test_quoted_scalars_read_as_pyyaml(s):
     for q in (single, double):
         text = f"k: {q}\nl: [{q}]\n"
         assert yaml_load(text) == yaml.safe_load(text) == {"k": s, "l": [s]}
+
+
+# every character at which ``str.splitlines`` breaks a line
+_SPLITLINES_BREAKS = ["\n", "\r", "\r\n", "\x0b", "\x0c", "\x1c", "\x1d", "\x1e", "\x85",
+                      "\u2028", "\u2029"]
+
+
+@pytest.mark.parametrize("brk", _SPLITLINES_BREAKS)
+@pytest.mark.parametrize("form", ["single", "double", "flow", "plain", "plain_end", "comment",
+                                  "comment_quote", "line_start"])
+def test_line_breaks_read_as_pyyaml(form, brk):
+    """Each break of ``str.splitlines`` in a single- and a double-quoted scalar, in
+    a flow sequence, inside and at the end of a plain scalar, in a comment (one
+    with an apostrophe too) and before a key: where PyYAML's ``SafeLoader`` reads
+    the text, the port reads the same value, or refuses it with ``ConfigError``
+    (a quoted scalar over several lines is outside the subset); where PyYAML
+    raises, the port raises ``ConfigError`` with the line number."""
+    text = {"single": f"k: 'a{brk}b'\n", "double": f'k: "a{brk}b"\n',
+            "flow": f"k: ['a{brk}b', 1]\n", "plain": f"k: a{brk}b\n",
+            "plain_end": f"k: ab{brk}\n", "comment": f"k: 1 # x{brk}y\nl: 2\n",
+            "comment_quote": f"k: 1 # it's{brk}l: 2\n", "line_start": f"k: 1\n{brk}l: 2\n"}[form]
+    try:
+        ref = yaml.safe_load(text)
+    except yaml.YAMLError:
+        with pytest.raises(ConfigError) as e:
+            yaml_load(text)
+        assert e.value.line in (1, 2)
+        return
+    try:
+        got = yaml_load(text)
+    except ConfigError as e:
+        assert "several lines" in str(e) and form in ("single", "double", "flow"), (text, e)
+        return
+    assert got == ref, (text, got, ref)
+    if brk in ("\u2028", "\u2029") and form in ("single", "double", "flow"):
+        value = got["k"][0] if form == "flow" else got["k"]
+        assert value == "a" + brk + "b"
+    assert yaml_load(yaml_dump(got)) == yaml.safe_load(yaml_dump(got)) == got
 
 
 def test_join_tag_and_value_select():

@@ -34,6 +34,7 @@ from speechflow_torch.convert import load_nnx_state
 from speechflow_torch.io import zstd
 from speechflow_torch.io.ocdbt import OcdbtStore
 from speechflow_torch.io.orbax import read_tree, read_zarr
+from speechflow_torch.training.optimizer import OptimizerConfig, build_optimizer
 from speechflow_torch.training.saver import ExperimentSaver, load_pickle
 from speechflow_tpu.training.saver import ExperimentSaver as JSaver
 
@@ -181,7 +182,10 @@ def _assert_same(ours, ref, path="") -> None:
 
 def test_jax_saver_trees_read_bit_for_bit(tmp_path):
     """The tree and payload of a JAX checkpoint (with optax state) as the JAX
-    loader returns them; resuming a port trainer from it raises."""
+    loader returns them; it is resumable (it holds optimizer state), and a port
+    optimizer refuses its tree by name, optax's raw AdamW tuple not being the
+    ``nnx.Optimizer`` state a JAX trainer saves (``test_torch_jax_resume`` maps
+    those)."""
     tree = _jax_tree(np.random.default_rng(1))
     saver = JSaver(tmp_path, "t")
     saver.to_save["pipeline_info"] = {"alphabet": ["a", "b"], "singletons": {"x": {1: 2}}}
@@ -190,8 +194,10 @@ def test_jax_saver_trees_read_bit_for_bit(tmp_path):
     ours, payload = ExperimentSaver.load_checkpoint(path)
     _assert_same(ours, ref)
     assert payload == ref_payload and ours["step"].shape == () and int(ours["step"]) == 7
-    with pytest.raises(NotImplementedError, match="optax"):
-        ExperimentSaver.resumable(path)
+    assert ExperimentSaver.resumable(path) == path
+    opt = build_optimizer(OptimizerConfig(), torch.nn.Linear(4, 3))
+    with pytest.raises(KeyError, match="opt_state"):
+        opt.load_state_dict({"opt_state": ours["opt"]})
 
 
 @pytest.mark.parametrize("separator,order", [(".", "C"), ("/", "F")])

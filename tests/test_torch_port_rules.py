@@ -79,7 +79,8 @@ NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "models/tts/ar_decoders.py", "models/tts/xtts.py", "models/codec/__init__.py",
                "models/codec/rvq.py", "interface/xtts_interface.py", "interface/__init__.py",
                "scripts/export.py", "app/__init__.py", "app/demo_server.py",
-               "io/zstd.py", "io/ocdbt.py", "io/orbax.py", "io/config.py")
+               "io/zstd.py", "io/ocdbt.py", "io/orbax.py", "io/config.py", "ops/mas.py",
+               "ops/length_regulator.py", "training/optax_state.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

@@ -242,5 +242,8 @@ def test_conditioning_needs_its_inputs():
         tm(dataclasses.replace(x, speaker_emb=None), t_out=32)
     with pytest.raises(ValueError, match="mel"):
         tm(dataclasses.replace(x, mel=None, mel_lengths=None), t_out=32)
-    with pytest.raises(NotImplementedError, match="speaker_emb_mode"):
-        ParallelTTSModel(ParallelTTSParams.create(tts_params(speaker_emb_mode="bio")))
+    # any mode but "table" projects speaker_emb, as the JAX model builds it
+    bio = ParallelTTSModel(ParallelTTSParams.create(tts_params(speaker_emb_mode="bio")))
+    assert hasattr(bio, "speaker_proj") and not hasattr(bio, "speaker_emb")
+    with pytest.raises(ValueError, match="speaker_emb"):
+        bio.eval()(dataclasses.replace(x, speaker_emb=None), t_out=32)

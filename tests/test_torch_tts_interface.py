@@ -263,10 +263,12 @@ def test_char_fallback_matches_jax(checkpoint, interfaces):
 
 
 def test_unported_paths_raise(checkpoint, interfaces, monkeypatch):
-    """What is still unported raises: the per-utterance average embeddings and
-    named condition sources of the model, the CPC model behind an
-    ``ssl_features`` checkpoint; and nothing runs on the GPU without CUDA (a
-    prosody checkpoint, the ECAPA hook a reference wav would take)."""
+    """What is still unported raises: the CPC model behind an ``ssl_features``
+    checkpoint; and nothing runs on the GPU without CUDA (a prosody checkpoint,
+    the ECAPA hook a reference wav would take). The model options that raised
+    until the acoustic-model kit was ported build from the same checkpoint: the
+    average embeddings (none configured) and the classic condition named as
+    sources give the same condition width."""
     from speechflow_tpu.training import ExperimentSaver as JS
 
     from speechflow_torch.data.core.datasample import AudioDataSample
@@ -274,10 +276,11 @@ def test_unported_paths_raise(checkpoint, interfaces, monkeypatch):
 
     ours, _ = interfaces
     tree, payload = JS.load_checkpoint(checkpoint)
-    for option, value in (("use_average_emb", True), ("condition_sources", ["speaker"])):
-        bad = dict(payload, model_params=dict(payload["model_params"], **{option: value}))
-        with pytest.raises(NotImplementedError, match=option):
-            TTSEvaluationInterface.from_checkpoint(tree, bad, device="cpu")
+    for option, value in (("use_average_emb", True), ("condition_sources", ["speaker", "lang"])):
+        other = dict(payload, model_params=dict(payload["model_params"], **{option: value}))
+        built = TTSEvaluationInterface.from_checkpoint(tree, other, device="cpu")
+        assert getattr(built.model.p, option) == value
+        assert built.model.cond_dim == ours.model.cond_dim
     monkeypatch.setattr(embeddings, "_MODELS", {})
     wav = AudioDataSample(audio_chunk=AudioChunk(data=np.zeros(4096, np.float32), sr=24000))
     with pytest.raises(NotImplementedError, match="CPC"):

@@ -279,7 +279,14 @@ def test_noise_from_generator_is_scaled_by_temperature():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        ParallelTTSModel(ParallelTTSParams.create(tts_params(use_average_emb=True)))
-    with pytest.raises(NotImplementedError):
-        VarianceConfig(name="aggregate_pitch", as_embedding=True)
+    """Nothing the JAX package builds is refused any more (the options that
+    raised here until the kit was ported now build); what JAX cannot build
+    raises in the port too: an unknown encoder or decoder, a named condition
+    source with no width."""
+    ParallelTTSModel(ParallelTTSParams.create(tts_params(use_average_emb=True)))
+    VarianceConfig(name="aggregate_pitch", as_embedding=True)
+    for bad in (dict(encoder_type="lstm"), dict(decoder_type="gpt")):
+        with pytest.raises(KeyError):
+            ParallelTTSModel(ParallelTTSParams.create(tts_params(**bad)))
+    with pytest.raises(ValueError, match="condition_source_dims"):
+        ParallelTTSModel(ParallelTTSParams.create(tts_params(condition_sources=["pitch"])))
