@@ -5,7 +5,7 @@
                                      # xtts, bundle, train, tts_train, xtts_train,
                                      # prosody_train, conditioned, jax_ckpt,
                                      # vocoder_model_train, tts_forward_train, jax_resume,
-                                     # tts_options
+                                     # tts_options, e2e_train, vocoder_recipes, aligner
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
@@ -18,6 +18,8 @@
                                      # the Vocos/ISTFT recipe's training
     python3 chip_smoke.py --phases build,tts_forward_train,jax_resume,tts_options
                                      # tts_forward.yml, JAX runs resumed, the kit's options
+    python3 chip_smoke.py --phases build,e2e_train,vocoder_recipes,aligner
+                                     # E2E GAN-TTS, the vocoder recipes, the aligner
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -268,7 +270,45 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    Tacotron decoder) at width 256, f32: a training step (finite losses and gradients,
    no attention launch), then an inference call with 8 attention launches, kernels vs
    plain within ``TOL_F32_REL``.
-20. ``profile`` (only when asked for): for the flagship and the toy program,
+20. ``e2e_train``: ``configs/vocoder_styletts2_e2e.yml`` at its default width (the acoustic
+   model 256 wide, 4 + 4 transformer layers, inside Vocos 512 x 8 with the NSF-HiFiGAN head,
+   256 channels, style 192; batch 16 of ``configs/tts_data_24khz.yml``, f32) through
+   ``train_vocoder.train``; cut: ``E2E_STEPS`` steps. First one f32 generator step card vs
+   CPU (flax's initialisers, dropout 0, two utterances, the same sine draws, the ReLUs
+   and the NSF head's leaky ReLUs pinned, the adversarial terms off): losses within
+   ``TOL_F32_REL``, the gradients of a fixed waveform cotangent plus the extractor's
+   losses within ``TOL_TTS_GRAD``, a planted fault (a transposed conv's kernel flipped)
+   rejected. Then
+   the run (ms a step, audio seconds a second, peak memory); the checkpoint through
+   ``VocoderEvaluationInterface`` on a text batch of 4 test utterances with no mel (4
+   frames a token injected): one fused-attention launch a transformer layer (dh 64),
+   kernels vs plain within ``TOL_F32_REL``; then by layer (``e2e_serve_layers``): the
+   acoustic model's mel and frame F0 within ``TOL_F32_REL``, and the waveform vocoded with
+   the F0 held at the plain run's within ``TOL_F32_REL``. Then
+   ``vocoder_styletts2_e2e_ft.yml`` (the BigVGAN head) for ``E2E_FT_STEPS`` steps with
+   ``warmstart.disc_from`` the E2E run: its anti-alias launches and VJPs a step; its
+   trained generator through the kernels and the plain versions on one f32 step
+   (``ft_kernel_gate``): the waveform and losses within ``TOL_F32_REL``, the gradients
+   within ``TOL_TTS_GRAD``, two planted faults of the VJP (dβ negated in every snake, dx in
+   the post snake) rejected.
+21. ``vocoder_recipes``: ``vocoder_nsf.yml`` + ``vocoder_nsf_data_24khz.yml`` default (its
+   f32 generator gate and planted fault as in ``e2e_train``; ``NSF_STEPS`` micro-batches),
+   served through ``VocoderEvaluationInterface`` (``synthesize`` with a TTS output's F0,
+   ``resynthesize`` with the host's YIN F0); ``nsf_istft`` inference card vs CPU;
+   ``vocoder_mel_dac.yml`` default (``DAC_STEPS`` steps) and ``resynthesize``; the IMDCT
+   (both) and DAC heads at dim 512, a GAN micro-batch and an inference call card vs CPU
+   each; a GAN step with ``bio_ckpt`` (a seeded ECAPA); ``train_mos_proxy`` for
+   ``MOS_STEPS`` steps hooked into a GAN validation. No hand kernel runs on these paths.
+22. ``aligner``: ``configs/aligner_model.yml`` default (192 wide, 4 layers of 2 heads of 96,
+   6 flows) on ``aligner_data_stage1.yml`` over the raw ``.TextGrid`` of a copy of SEGS:
+   one f32 step card vs CPU (seeded, dropout 0, the CPU's path pinned, the card's own path
+   equal to it with TF32 off; the durations moved with TF32 on counted; a planted fault,
+   the squeeze by halves, rejected); ``ALIGNER_STEPS`` steps; the annotator's ``Aligner``
+   writes ``.TextGridStage1`` (dh-96 attention, kernels vs plain); stage 2 trains on those
+   (the config's phoneme filter at its debug 2.0 s: a 6-step model's timestamps are not
+   speech's) and writes ``.TextGridStage2``; every grid read back with ``AudioSeg.load``.
+   Prints ms a step, mel frames a second, ms an aligned utterance.
+23. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -1795,15 +1835,18 @@ def gen_vjp(torch, gen, wav, cot) -> dict:
 
 
 @contextlib.contextmanager
-def planted_dbeta_fault(beta):
-    """The fused entry's VJP with dβ negated for the snake whose β is ``beta``."""
+def planted_dbeta_fault(beta, negate: str = "d_beta"):
+    """The fused entry's VJP with ``negate`` (``d_beta``, or ``dx``) negated for the snake
+    whose β is ``beta`` (every snake when None)."""
     from speechflow_torch.ops import anti_alias as AA
 
     real = AA.anti_alias_snake_vjp
 
     def faulty(x, alpha, b, g, taps=12):
-        dx, d_alpha, d_beta = real(x, alpha, b, g, taps)
-        return dx, d_alpha, (-d_beta if b.data_ptr() == beta.data_ptr() else d_beta)
+        grads = dict(zip(("dx", "d_alpha", "d_beta"), real(x, alpha, b, g, taps)))
+        if beta is None or b.data_ptr() == beta.data_ptr():
+            grads[negate] = -grads[negate]
+        return grads["dx"], grads["d_alpha"], grads["d_beta"]
 
     AA.anti_alias_snake_vjp = faulty
     try:
@@ -4014,6 +4057,977 @@ def phase_tts_options(torch, gpu_line: str) -> dict:
             "train_ms": train_ms, "infer_ms": infer_ms, "err": err, "phase_s": phase_s}
 
 
+# -- phase 20: E2E GAN-TTS (styletts2_e2e and its ft) ----------------------------------
+
+E2E_CONFIG = "configs/vocoder_styletts2_e2e.yml"
+E2E_FT_CONFIG = "configs/vocoder_styletts2_e2e_ft.yml"
+E2E_DATA_CONFIG = "configs/tts_data_24khz.yml"
+E2E_STEPS = 4      # the cut: 4 of the recipe's 1,000,000 steps
+E2E_FT_STEPS = 3   # and 3 of the ft recipe's 200,000
+E2E_SERVE_ROWS = 4  # sentences of the served text batch
+E2E_FRAMES = 4      # frames a token injected into it
+
+
+def trivial_disc(x):
+    """A discriminator stand-in for the generator gates, whose adversarial and
+    feature-matching weights are 0 (the kinks of the real discriminators are the
+    ``train`` phase's gate, ``pinned_kinks``)."""
+    return [x.mean(-1, keepdim=True)], [[x]]
+
+
+def gen_step_grads(torch, model, crit, inputs, targets, draws) -> tuple:
+    """One generator call without the optimizer: ({loss: value}, {parameter: gradient
+    on the CPU}, the waveform). The gradients are those of a fixed cotangent on the waveform (a seeded
+    normal, drawn on the CPU) plus the extractor's own losses: the STFT losses' log|X|
+    of tiny bins would amplify the card's rounding (ROADMAP §3, expected difference 4),
+    as in the ``train`` phase's gate."""
+    from speechflow_torch.models.vocoder.model import split_output
+
+    for p in model.parameters():
+        p.grad = None
+    out = model(inputs, sine_noise=draws)
+    losses = crit(out, trivial_disc, inputs, targets, 0)
+    wav, ft = split_output(out)
+    cot = torch.randn(wav.shape, generator=torch.Generator().manual_seed(7)).to(wav.device)
+    ((wav * cot).sum() + sum(ft.values())).backward()
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+             for n, p in model.named_parameters()},
+            wav.detach())
+
+
+@contextlib.contextmanager
+def planted_flip_fault(conv):
+    """A transposed conv run with its kernel flipped, as ``nn.ConvTranspose1d`` with
+    the flax kernel would run it (a fault the gates must see)."""
+    import torch.nn.functional as F
+
+    real = conv.forward
+
+    def flipped(x):
+        b, t, c = x.shape
+        xd = x.new_zeros(b, c, (t - 1) * conv.stride + 1)
+        xd[:, :, ::conv.stride] = x.transpose(1, 2)
+        return F.conv1d(F.pad(xd, conv.pads), conv.weight.flip(-1), conv.bias).transpose(1, 2)
+
+    conv.forward = flipped
+    try:
+        yield
+    finally:
+        conv.forward = real
+
+
+@contextlib.contextmanager
+def pinned_leaky_relus(pins: dict):
+    """The NSF head's leaky ReLUs (``nsf.leaky_relu``) with each element's side of 0
+    recorded in call order (``pins["masks"]`` None), else replayed, counting in
+    ``pins["flips"]`` the pre-activations that took the other side here: the same
+    values and gradients where the sides agree."""
+    import torch
+
+    from speechflow_torch.models.vocoder import nsf
+
+    record = pins.get("masks") is None
+    if record:
+        pins["masks"] = []
+    pins["flips"], calls = 0, iter(range(len(pins["masks"])))
+    real = nsf.leaky_relu
+
+    def pinned(x, negative_slope=0.1):
+        if record:
+            mask = x >= 0
+            pins["masks"].append(mask.cpu())
+        else:
+            mask = pins["masks"][next(calls)].to(x.device)
+            pins["flips"] += int((mask != (x >= 0)).sum())
+        return torch.where(mask, x, x * negative_slope)
+
+    nsf.leaky_relu = pinned
+    try:
+        yield
+    finally:
+        nsf.leaky_relu = real
+
+
+def generator_gate(torch, label: str, cpu, inputs, targets, frames: int, fault) -> dict:
+    """One f32 generator step on the card and on the CPU from the same weights,
+    batch and sine-source draws (every dropout rate 0, the acoustic model's ReLUs and
+    the NSF head's leaky ReLUs pinned to the CPU's side, TF32 off), the adversarial
+    and feature-matching terms off: losses within ``TOL_F32_REL``; the gradients of a
+    fixed waveform cotangent plus the extractor's losses (``gen_step_grads``) within
+    ``TOL_TTS_GRAD`` of each tensor's scale; the same gate must reject ``fault(card)``, a
+    planted fault."""
+    import copy
+
+    from speechflow_torch.models.vocoder.criterion import vocoder_gen_criterion
+    from speechflow_torch.training.trainer import _place
+
+    t0 = time.perf_counter()
+    p = cpu.params
+    crit = vocoder_gen_criterion(p.sample_rate, p.n_mels, adv_weight=0.0, fm_weight=0.0)
+    no_dropout(cpu)
+    card = copy.deepcopy(cpu).to("cuda")
+    draws = None
+    if cpu.nsf_head:
+        hop = p.hop_length
+        draws = cpu.head.sine_gen.draw(inputs["waveform"].shape[0], frames * hop, "cpu",
+                                       torch.Generator().manual_seed(0))
+    pins, leaky = {}, {}
+    with pinned_relus(cpu, pins), pinned_leaky_relus(leaky):
+        ref = gen_step_grads(torch, cpu, crit, inputs, targets, draws)
+    args = (crit, _place(inputs, torch.device("cuda")), _place(targets, torch.device("cuda")),
+            None if draws is None else tuple(d.cuda() for d in draws))
+    with pinned_relus(card, pins), pinned_leaky_relus(leaky):
+        got = gen_step_grads(torch, card, *args)
+    flips = (pins["flips"], leaky["flips"])
+    with pinned_relus(card, pins), pinned_leaky_relus(leaky), fault(card):
+        bad = gen_step_grads(torch, card, *args)
+    loss_err, grad_err, where = tts_disagreement(ref, got)
+    f_loss, f_grad, f_where = tts_disagreement(ref, bad)
+    print(f"[{label}] f32 generator step at default width, card vs CPU (flax's initialisers, "
+          f"B{inputs['waveform'].shape[0]}, {frames} frames, TF32 off, dropout 0, the same "
+          f"sine draws; {time.perf_counter() - t0:.1f} s): losses "
+          + ", ".join(f"{k} {v:.6g}" for k, v in got[0].items())
+          + f"; worst loss error {loss_err:.3g} of the loss (tol {TOL_F32_REL:g}); "
+          f"{len(ref[1])} gradients (a waveform cotangent and the extractor's losses), worst "
+          f"{grad_err:.3g} of scale ({where}; tol {TOL_TTS_GRAD:g}); pre-activations on the "
+          f"other side of 0 on the card, pinned to "
+          f"the CPU's: {flips[0]} of the acoustic model's ReLUs, {flips[1]} of the NSF head's "
+          f"leaky ReLUs (of {sum(m.numel() for m in leaky.get('masks', []))}); planted fault "
+          f"(the first transposed conv's kernel flipped): loss {f_loss:.3g}, gradient "
+          f"{f_grad:.3g} ({f_where})", flush=True)
+    check(loss_err <= TOL_F32_REL and grad_err <= TOL_TTS_GRAD,
+          f"{label} f32: the card disagrees with the CPU: loss {loss_err}, {where} {grad_err}")
+    check(max(f_loss / TOL_F32_REL, f_grad / TOL_TTS_GRAD) > 1,
+          f"the {label} gate passes a planted fault (a transposed conv's kernel flipped)")
+    del card
+    torch.cuda.empty_cache()
+    return {"loss_err": loss_err, "grad_err": grad_err, "fault_grad_err": f_grad}
+
+
+def flip_first_up(model):
+    return planted_flip_fault(model.head.ups[0])
+
+
+def timed_fit(torch, label: str, trainer_cls, train_fn, model_cfg: dict, data_cfg: dict,
+              steps: int, tmp: str, work_of_batch) -> dict:
+    """``train_fn`` (a script's ``train``) for ``steps`` steps into ``tmp``, each
+    ``trainer_cls.training_step`` timed between synchronisations: finite losses; ms a
+    step (median of 2..), work a second (``work_of_batch(batch)`` gives each step's
+    amount of work and its note), peak memory, launches, the experiment directory and
+    the trainer."""
+    import copy
+    import statistics
+
+    import numpy as np
+
+    from speechflow_torch.scripts.common import experiment_saver
+
+    model_cfg = copy.deepcopy(model_cfg)
+    model_cfg["trainer"].update(max_steps=steps, ckpt_every=steps, log_every=1)
+    st = {"steps": [], "losses": [], "trainer": None}
+    real_step = trainer_cls.training_step
+
+    def step(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(self, batch)
+        torch.cuda.synchronize()
+        st["steps"].append((1e3 * (time.perf_counter() - t0), *work_of_batch(batch)))
+        return out
+
+    def callback(trainer, last):
+        st["trainer"] = trainer
+        vals = {k: float(v) for k, v in last.items()}
+        st["losses"].append(vals)
+        check(all(np.isfinite(v) for v in vals.values()), f"{label}: non-finite loss {vals}")
+
+    saver = experiment_saver(model_cfg, data_cfg, tmp)
+    trainer_cls.training_step = step
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        expr = train_fn(model_cfg, data_cfg, saver, device="cuda", callbacks=[callback])
+        t_fit = time.perf_counter() - t0
+    finally:
+        trainer_cls.training_step = real_step
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for i, ((ms_i, _, note), vals) in enumerate(zip(st["steps"], st["losses"])):
+        print(f"[{label}] step {i + 1}: {ms_i:.1f} ms, {note}; "
+              + ", ".join(f"{k} {v:.4g}" for k, v in vals.items() if not k.startswith("val/")),
+              flush=True)
+    timed = st["steps"][1:] or st["steps"]
+    return {"expr": expr, "ms": statistics.median(s[0] for s in timed),
+            "rate": sum(s[1] for s in timed) / (sum(s[0] for s in timed) / 1e3),
+            "peak": peak, "launches": launches, "trainer": st["trainer"], "t_fit": t_fit}
+
+
+def gan_run(torch, label: str, train_fn, model_cfg: dict, data_cfg: dict, steps: int,
+            tmp: str, audio_s) -> dict:
+    """``timed_fit`` of ``train_fn`` (``train_vocoder.train``) for ``steps`` micro-batches,
+    ``audio_s(batch)`` seconds of audio each."""
+    from speechflow_torch.training.gan_trainer import GANTrainer
+
+    def work(batch):
+        secs = audio_s(batch)
+        return secs, f"{secs:.2f} s of audio"
+
+    run = timed_fit(torch, label, GANTrainer, train_fn, model_cfg, data_cfg, steps, tmp, work)
+    print(f"[{label}] {steps} steps: {run['t_fit']:.1f} s with set-up; {run['ms']:.1f} ms a "
+          f"step (median of 2..{steps}), {run['rate']:.2f} s of audio trained per s, peak "
+          f"device memory {run['peak'] / 2**30:.2f} GiB; launches {run['launches']}", flush=True)
+    return dict(run, audio_rate=run["rate"])
+
+
+@contextlib.contextmanager
+def counted_vjps():
+    """Counts of the fused anti-alias entry's VJP calls (``counts["vjp"]``)."""
+    from speechflow_torch.ops import anti_alias as AA
+
+    counts = {"vjp": 0}
+    real = AA.anti_alias_snake_vjp
+
+    def counting(*args, **kwargs):
+        counts["vjp"] += 1
+        return real(*args, **kwargs)
+
+    AA.anti_alias_snake_vjp = counting
+    try:
+        yield counts
+    finally:
+        AA.anti_alias_snake_vjp = real
+
+
+def ft_kernel_gate(torch, model, inputs, targets) -> dict:
+    """The ``_ft`` recipe's trained generator (the BigVGAN head's anti-aliased snakes under
+    autograd) on one batch, f32 with TF32 off and every dropout rate 0, through the kernels
+    and through the plain versions from the same weights, the acoustic model's ReLUs pinned
+    to the plain run's side: the waveform within ``TOL_F32_REL`` of its scale, the losses
+    within ``TOL_F32_REL``, the gradients of a fixed waveform cotangent plus the extractor's
+    losses (``gen_step_grads``) within ``TOL_TTS_GRAD`` of each tensor's scale; the same gate
+    must reject two planted faults of the VJP (dβ negated in every snake; dx negated in the
+    post snake)."""
+    from speechflow_torch.models.vocoder.criterion import vocoder_gen_criterion
+    from speechflow_torch.training.trainer import _place
+
+    t0 = time.perf_counter()
+    p = model.params
+    crit = vocoder_gen_criterion(p.sample_rate, p.n_mels, adv_weight=0.0, fm_weight=0.0)
+    model.train()
+    no_dropout(model)
+    args = (crit, _place(inputs, torch.device("cuda")), _place(targets, torch.device("cuda")),
+            None)
+    pins = {}
+    with plain_versions(), pinned_relus(model, pins):
+        ref = gen_step_grads(torch, model, *args)
+    with counted_vjps() as vjps, pinned_relus(model, pins):
+        reset_counts()
+        got = gen_step_grads(torch, model, *args)
+        launches = read_counts()
+    flips = pins["flips"]
+    faults = {}
+    for name, fault in (("dβ negated in every snake's VJP", planted_dbeta_fault(None)),
+                        ("dx negated in the post snake's VJP",
+                         planted_dbeta_fault(model.head.post_act.beta, "dx"))):
+        with pinned_relus(model, pins), fault:
+            faults[name] = tts_disagreement(ref, gen_step_grads(torch, model, *args))
+    wav_err = ((got[2] - ref[2]).abs().max() / ref[2].abs().max()).item()
+    loss_err, grad_err, where = tts_disagreement(ref, got)
+    print(f"[e2e_train] ft gate: the trained _ft generator, one f32 step (B"
+          f"{ref[2].shape[0]}, {tuple(ref[2].shape)} samples, TF32 off, dropout 0; "
+          f"{time.perf_counter() - t0:.1f} s), kernels vs plain: waveform {wav_err:.3g} of "
+          f"scale (tol {TOL_F32_REL:g}); losses "
+          + ", ".join(f"{k} {v:.6g}" for k, v in got[0].items())
+          + f", worst error {loss_err:.3g} of the loss (tol {TOL_F32_REL:g}); {len(ref[1])} "
+          f"gradients, worst {grad_err:.3g} of scale ({where}; tol {TOL_TTS_GRAD:g}); the "
+          f"kernels' run: launches {launches}, fused VJPs {vjps['vjp']}; ReLU pre-activations "
+          f"on the other side of 0, pinned to the plain run's: {flips}; planted faults: "
+          + "; ".join(f"{k}: loss {v[0]:.3g}, gradient {v[1]:.3g} ({v[2]})"
+                      for k, v in faults.items()), flush=True)
+    check(launches["anti_alias_snake"] > 0 and vjps["vjp"] > 0,
+          f"e2e_train ft gate: no anti-alias kernel under autograd: {launches}, {vjps}")
+    check(wav_err <= TOL_F32_REL and loss_err <= TOL_F32_REL and grad_err <= TOL_TTS_GRAD,
+          f"e2e_train ft gate: kernels disagree with plain: waveform {wav_err}, loss "
+          f"{loss_err}, {where} {grad_err}")
+    for name, (f_loss, f_grad, _) in faults.items():
+        check(max(f_loss / TOL_F32_REL, f_grad / TOL_TTS_GRAD) > 1,
+              f"the e2e_train ft gate passes a planted fault ({name})")
+    return {"wav_err": wav_err, "loss_err": loss_err, "grad_err": grad_err,
+            "fault_grad_err": {k: v[1] for k, v in faults.items()}}
+
+
+def e2e_serve_layers(torch, model, text: dict, caught: list, ref) -> dict:
+    """Where the served E2E waveform's kernels-vs-plain difference comes from. The
+    kernels feed the acoustic model, whose outputs (the mel and the frame F0 of each run,
+    ``caught``) must agree within ``TOL_F32_REL`` of their scale. The vocoder then runs
+    from the plain run's outputs with one of them swapped for the kernels' run's, the
+    same sine draws: with the F0 held at the plain run's, the waveform within
+    ``TOL_F32_REL`` of its scale. Beside it, the vocoder's own gain from the mel to the
+    waveform: its response to the kernels' mel difference with each element's sign drawn
+    at random (the same magnitudes, no direction of the kernels')."""
+    (mel_k, f0_k), (mel_p, f0_p) = caught
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    cond = text.get("speaker_emb")
+    style = text.get("style_emb", cond)
+
+    def vocode(mel, f0):
+        return model.from_features(mel, cond, f0, style,
+                                   generator=torch.Generator("cuda").manual_seed(0))
+
+    signs = torch.randint(0, 2, mel_p.shape, generator=torch.Generator().manual_seed(3))
+    scrambled = mel_p + (mel_k - mel_p) * (2 * signs - 1).to(mel_p)
+    with torch.no_grad():
+        again, fixed_f0, f0_only = vocode(mel_p, f0_p), vocode(mel_k, f0_p), vocode(mel_p, f0_k)
+        random_dir = vocode(scrambled, f0_p)
+    out = {"mel": rel(mel_k, mel_p), "f0": rel(f0_k, f0_p), "replay": rel(again, ref),
+           "f0_fixed": rel(fixed_f0, again), "f0_only": rel(f0_only, again),
+           "random_sign": rel(random_dir, again), "f0_hz": (f0_k - f0_p).abs().max().item(),
+           "f0_max_hz": f0_p.max().item(), "voiced": (f0_p > 0).float().mean().item()}
+    out["gain"] = out["f0_fixed"] / max(out["mel"], 1e-30)
+    print(f"[e2e_train] served batch by layer, kernels vs plain (of each tensor's scale): the "
+          f"acoustic model's mel {out['mel']:.3g}, frame F0 {out['f0']:.3g} "
+          f"({out['f0_hz']:.3g} Hz at most; the plain run's F0 at most {out['f0_max_hz']:.4g} "
+          f"Hz, {out['voiced']:.3g} of the frames above 0; tol {TOL_F32_REL:g}); the vocoder "
+          f"from the plain run's outputs replays its waveform to {out['replay']:.3g}; the "
+          f"kernels' mel with the F0 held at the plain run's {out['f0_fixed']:.3g} (tol "
+          f"{TOL_F32_REL:g}; {out['gain']:.3g} x the mel's), the same mel difference with "
+          f"random signs {out['random_sign']:.3g}; the kernels' F0 alone {out['f0_only']:.3g}",
+          flush=True)
+    check(out["mel"] <= TOL_F32_REL and out["f0"] <= TOL_F32_REL
+          and out["f0_fixed"] <= TOL_F32_REL,
+          f"e2e_train: the served batch's layers disagree, kernels vs plain: {out}")
+    return out
+
+
+def phase_e2e_train(torch, gpu_line: str) -> dict:
+    """``configs/vocoder_styletts2_e2e.yml`` at its default width (the acoustic model
+    256 wide with 4 + 4 transformer layers inside Vocos 512 x 8 and the NSF-HiFiGAN
+    head, 256 channels, style 192; batch 16 of whole utterances of
+    ``configs/tts_data_24khz.yml``, f32) through ``train_vocoder``; its generator served
+    on a text batch; then ``vocoder_styletts2_e2e_ft.yml`` (the BigVGAN head under
+    autograd) with the discriminator warm-started from that run."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from speechflow_torch.data.core.components import DataPipeline
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.models.vocoder import Vocos, VocosParams
+    from speechflow_torch.models.vocoder.tts_features import E2EBatchProcessor
+    from speechflow_torch.ops import attention as A
+    from speechflow_torch.scripts import train_vocoder as TV
+    from speechflow_torch.scripts.common import model_config_from_info
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model_cfg, data_cfg = TV.configs("default", E2E_CONFIG, E2E_DATA_CONFIG, data_root=SEGS)
+    m = model_cfg["model"]
+    check(m["feature_extractor"] == "tts" and m["head"] == "nsf_hifigan" and m["dim"] == 512
+          and m["tts_params"]["encoder_dim"] == 256,
+          f"e2e_train: {E2E_CONFIG} read as {m}")
+    pipeline = DataPipeline.from_config(data_cfg)
+    params = VocosParams.create(m)
+    params.tts_params = model_config_from_info({"model": dict(params.tts_params)}, pipeline)
+    batch = pipeline.datasample_to_batch([s.copy() for s in pipeline.datasets["train"][:2]])
+    inputs, targets = E2EBatchProcessor()(batch)
+    torch.manual_seed(0)
+    res = {"gate": generator_gate(torch, "e2e_train", Vocos(params), inputs, targets,
+                                  inputs["tts_inputs"].mel.shape[1], flip_first_up)}
+
+    def audio_s(b):
+        return float(b.mel_lengths.sum()) * HOP / SR
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = gan_run(torch, "e2e_train", TV.train, model_cfg, data_cfg, E2E_STEPS, tmp,
+                      audio_s)
+        ckpt = ExperimentSaver.get_last_checkpoint(run["expr"])
+        check(ckpt is not None, f"e2e_train: no checkpoint in {run['expr']}")
+        tree, payload = ExperimentSaver.load_checkpoint(ckpt)
+        vi = VocoderEvaluationInterface.from_checkpoint(tree, payload, device="cuda")
+        rows = [s.copy() for s in pipeline.datasets["test"][:E2E_SERVE_ROWS]]
+        text, _ = E2EBatchProcessor(device="cuda")(pipeline.datasample_to_batch(rows))
+        text["tts_inputs"] = dataclasses.replace(text["tts_inputs"], mel=None, mel_lengths=None,
+                                                 durations=None)
+        tok = text["tts_inputs"].transcription_lengths.tolist()
+        # the acoustic model's outputs (mel, frame F0) of each run, for the layer checks
+        caught = []
+        hook = vi.model.feature_extractor.register_forward_hook(
+            lambda mod, args, out: caught.append((out[0], out[2]["pitch"])))
+        with injected_frames(torch, E2E_FRAMES), torch.no_grad():
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wav = vi.model(text, generator=torch.Generator("cuda").manual_seed(0))[0]
+            torch.cuda.synchronize()
+            serve_ms = 1e3 * (time.perf_counter() - t0)
+            serve_counts = read_counts()
+            with plain_versions():
+                ref = vi.model(text, generator=torch.Generator("cuda").manual_seed(0))[0]
+        hook.remove()
+        err, lim = (wav - ref).abs().max().item(), rel_limit(ref)
+        print(f"[e2e_train] {ckpt.name} -> VocoderEvaluationInterface (E2E generator, f32) on "
+              f"a text batch of {len(tok)} test utterances ({tok} tokens, {E2E_FRAMES} frames "
+              f"a token injected, max_output_length frames): waveform {tuple(wav.shape)} in "
+              f"{serve_ms:.1f} ms (first call); launches {serve_counts}; kernels vs plain: "
+              f"max_abs_err {err:.3g} (tol {lim:.3g}) ({gpu_line})", flush=True)
+        check(bool(torch.isfinite(wav).all()) and err <= lim,
+              "e2e_train: the served generator's kernels disagree with the plain versions")
+        res["serve"] = e2e_serve_layers(torch, vi.model, text, caught, ref)
+        layers = m["tts_params"]["encoder_layers"] + m["tts_params"]["decoder_layers"]
+        check(serve_counts["fused_attention"] == layers,
+              f"e2e_train: {serve_counts['fused_attention']} attention launches, not one a "
+              f"transformer layer ({layers})")
+        # the served batch's attention calls, timed at their shapes: the encoder over the
+        # tokens, the decoder over max_output_length frames, E2E_FRAMES a valid token
+        tts_p = vi.model.feature_extractor.tts.p
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        b, t_tok = text["tts_inputs"].transcription.shape
+        res["attn"] = {}
+        for label, t_len, lens, calls, h, dh in (
+                ("encoder", t_tok, tok, tts_p.encoder_layers, tts_p.encoder_heads,
+                 tts_p.encoder_dim // tts_p.encoder_heads),
+                ("decoder", tts_p.max_output_length, [E2E_FRAMES * n for n in tok],
+                 tts_p.decoder_layers, tts_p.decoder_heads,
+                 tts_p.decoder_dim // tts_p.decoder_heads)):
+            ms, plain, lib, bms, kind, _ = attention_times(torch, A, b, t_len, h, dh, lens,
+                                                           torch.float32, gen)
+            res["attn"][label] = (ms, plain, lib, bms)
+            print(f"[e2e_train] fused_attention e2e {label} B{b} T{t_len} H{h} dh{dh} f32 (valid "
+                  f"{lens}): kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+                  f"{bms:.5f} ms ({kind}); {calls} launches a served batch", flush=True)
+        del vi, tree, wav, ref, run["trainer"]
+        torch.cuda.empty_cache()
+
+        ft_cfg, _ = TV.configs("default", E2E_FT_CONFIG, E2E_DATA_CONFIG, data_root=SEGS)
+        check(ft_cfg["model"]["head"] == "snake_upsample",
+              f"e2e_train: {E2E_FT_CONFIG} read as {ft_cfg['model']}")
+        ft_cfg["warmstart"] = {"disc_from": run["expr"]}
+        with counted_vjps() as vjps, tempfile.TemporaryDirectory() as tmp2:
+            ft = gan_run(torch, "e2e_train ft", TV.train, ft_cfg, data_cfg, E2E_FT_STEPS, tmp2,
+                         audio_s)
+        per_step = {k: v / E2E_FT_STEPS for k, v in ft["launches"].items()}
+        print(f"[e2e_train] {E2E_FT_CONFIG} (discriminator warm-started from the E2E run): "
+              f"anti-alias launches a step {per_step}, fused VJPs {vjps['vjp']} "
+              f"({vjps['vjp'] / E2E_FT_STEPS:.0f} a step)", flush=True)
+        check(ft["launches"]["anti_alias_snake"] > 0 and vjps["vjp"] > 0,
+              f"e2e_train: the ft recipe ran no anti-alias kernel under autograd: "
+              f"{ft['launches']}, {vjps}")
+        res["ft_gate"] = ft_kernel_gate(torch, ft["trainer"].generator, inputs, targets)
+        del ft["trainer"]
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[e2e_train] phase wall time {phase_s:.1f} s", flush=True)
+    launches = {k: run["launches"][k] + serve_counts[k] + ft["launches"][k]
+                for k in serve_counts}
+    res.update(launches=launches, ms=run["ms"], audio_rate=run["audio_rate"],
+               peak=run["peak"], ft_ms=ft["ms"], ft_vjps=vjps["vjp"], serve_ms=serve_ms,
+               phase_s=phase_s)
+    return res
+
+
+# -- phase 21: the vocoder recipes that raised (NSF, mel_dac, IMDCT, DAC, bio, MOS) ------
+
+NSF_CONFIG, NSF_DATA = "configs/vocoder_nsf.yml", "configs/vocoder_nsf_data_24khz.yml"
+DAC_CONFIG = "configs/vocoder_mel_dac.yml"
+NSF_STEPS = 8   # the cut: 8 micro-batches, one optimizer step at grad_accum 8
+DAC_STEPS = 4
+MOS_STEPS = 20
+
+
+def _chunks_with_f0(n: int, length: int = 24064):
+    """``n`` 1 s SEGS chunks and their host YIN F0 (80-880 Hz), a frame a hop."""
+    import numpy as np
+
+    from speechflow_torch.data.processors.np_dsp import yin_f0_np
+
+    wav = _seg_waves(n, length)
+    f0 = np.stack([yin_f0_np(w, SR, HOP, 2048, 80.0, 880.0, 0.2) for w in wav])
+    return wav, f0.astype(np.float32)
+
+
+def head_step(torch, label: str, params: dict, wav) -> dict:
+    """One GAN micro-batch (the recipe's discriminators and losses, AdamW) and one
+    inference call card vs CPU of a fresh ``Vocos`` with ``params``."""
+    import copy
+
+    import numpy as np
+
+    from speechflow_torch.models.vocoder import Vocos, VocosParams
+    from speechflow_torch.models.vocoder.criterion import (
+        vocoder_disc_criterion,
+        vocoder_gen_criterion,
+    )
+    from speechflow_torch.models.vocoder.discriminators import VocoderDiscriminator
+    from speechflow_torch.training.gan_trainer import GANTrainer
+    from speechflow_torch.training.optimizer import OptimizerConfig
+    from speechflow_torch.training.trainer import TrainerConfig
+
+    torch.manual_seed(0)
+    p = VocosParams.create(params)
+    cpu = Vocos(p).eval()
+    gen = copy.deepcopy(cpu).to("cuda")
+    gan = GANTrainer(gen, VocoderDiscriminator().to("cuda"),
+                     vocoder_gen_criterion(p.sample_rate, p.n_mels), vocoder_disc_criterion(),
+                     lambda b: ({"waveform": b}, {"waveform": b}),
+                     gen_optimizer=OptimizerConfig(lr=1e-4), disc_optimizer=OptimizerConfig(),
+                     config=TrainerConfig(max_steps=1))
+    x = torch.from_numpy(wav).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = {k: float(v) for k, v in gan.training_step(x).items()}
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    check(all(np.isfinite(v) for v in losses.values()), f"{label}: non-finite {losses}")
+    mel = torch.randn(2, 64, p.n_mels, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = cpu.from_features(mel)
+        t0 = time.perf_counter()
+        got = copy.deepcopy(cpu).to("cuda").from_features(mel.cuda()).cpu()
+        infer_ms = 1e3 * (time.perf_counter() - t0)
+    err, lim = (got - ref).abs().max().item(), rel_limit(ref)
+    print(f"[vocoder_recipes] {label} (dim {p.dim}, f32): a GAN micro-batch of "
+          f"{tuple(wav.shape)} in {step_ms:.1f} ms (first call), gen/total "
+          f"{losses['gen/total']:.4g}, disc/total {losses['disc/total']:.4g}; inference of "
+          f"{tuple(mel.shape)} -> {tuple(got.shape)}, card vs CPU max_abs_err {err:.3g} "
+          f"(tol {lim:.3g})", flush=True)
+    check(got.shape == (2, 63 * p.hop_length) and err <= lim,
+          f"{label}: the card disagrees with the CPU")
+    del gan, gen
+    return {"step_ms": step_ms, "err": err}
+
+
+def phase_vocoder_recipes(torch, gpu_line: str) -> dict:
+    """The vocoder recipes that raised until now, at their default widths, on the
+    card: ``vocoder_nsf.yml`` trained and served (F0 of a TTS output, YIN F0),
+    ``nsf_istft`` inference, ``vocoder_mel_dac.yml`` trained and resynthesized, the
+    IMDCT (both) and DAC heads, a GAN step with ``bio_ckpt``, and the MOS proxy
+    trained and hooked into a validation. No hand kernel runs on these paths."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from speechflow_torch.data.processors.np_dsp import yin_f0_np
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.models.biometric.ecapa import ECAPAEmbedder, ECAPAParams
+    from speechflow_torch.models.tts.data_types import TTSOutput
+    from speechflow_torch.models.vocoder import Vocos, VocosParams, mos_proxy
+    from speechflow_torch.models.vocoder.criterion import (
+        vocoder_disc_criterion,
+        vocoder_gen_criterion,
+    )
+    from speechflow_torch.models.vocoder.discriminators import VocoderDiscriminator
+    from speechflow_torch.ops import mel as M
+    from speechflow_torch.ops import stft as S
+    from speechflow_torch.scripts import train_vocoder as TV
+    from speechflow_torch.training.gan_trainer import GANTrainer
+    from speechflow_torch.training.saver import ExperimentSaver
+    from speechflow_torch.training.trainer import TrainerConfig
+    from speechflow_torch.utils.state_io import save_module
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    nsf_cfg, nsf_data = TV.configs("default", NSF_CONFIG, NSF_DATA, data_root=SEGS)
+    check(nsf_cfg["model"]["head"] == "nsf_hifigan" and nsf_cfg["model"]["dim"] == 512,
+          f"vocoder_recipes: {NSF_CONFIG} read as {nsf_cfg['model']}")
+    wav2, f02 = _chunks_with_f0(2)
+    torch.manual_seed(0)
+    inputs = {"waveform": torch.from_numpy(wav2), "pitch": torch.from_numpy(f02)}
+    res["nsf_gate"] = generator_gate(torch, "vocoder_recipes nsf",
+                                     Vocos(VocosParams.create(nsf_cfg["model"])), inputs,
+                                     {"waveform": inputs["waveform"]}, f02.shape[1],
+                                     flip_first_up)
+
+    def chunk_s(b):
+        return b.waveform.shape[0] * b.waveform.shape[1] / SR
+
+    with tempfile.TemporaryDirectory() as tmp:
+        nsf = gan_run(torch, "vocoder_recipes nsf", TV.train, nsf_cfg, nsf_data, NSF_STEPS,
+                      tmp, chunk_s)
+        tree, payload = ExperimentSaver.load_checkpoint(
+            ExperimentSaver.get_last_checkpoint(nsf["expr"]))
+        vi = VocoderEvaluationInterface.from_checkpoint(tree, payload, device="cuda")
+        wav = _seg_waves(1, 64 * HOP * 4, offset=0)[0]
+        with torch.no_grad():
+            mel = M.amp_to_db(M.linear_to_mel(S.magnitude(torch.from_numpy(wav)[None]), SR,
+                                              vi.params.n_mels))
+        t = mel.shape[1]
+        tokens = t // 8
+        attn = torch.zeros(1, t, tokens + 1)
+        attn[0, torch.arange(t), torch.clamp(torch.arange(t) // 8, max=tokens)] = 1.0
+        f0 = torch.from_numpy(yin_f0_np(wav, SR, HOP, 2048, 80.0, 880.0, 0.2))[None].float()
+        tok_pitch = (attn[0].T @ f0[0, :t]) / attn[0].sum(0).clamp(min=1)
+        out = TTSOutput(spectrogram=mel[None], attention=attn,
+                        variance_predictions={"aggregate_pitch": tok_pitch[None]})
+        t0 = time.perf_counter()
+        syn = vi.synthesize(out).data
+        syn_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        resyn = vi.resynthesize(AudioChunk(data=wav, sr=SR)).data
+        resyn_ms = 1e3 * (time.perf_counter() - t0)
+        print(f"[vocoder_recipes] nsf -> VocoderEvaluationInterface: synthesize of a TTS "
+              f"output ({t} frames, {tokens + 1} tokens of 8 frames, its token pitch through "
+              f"the attention) {syn.shape} in {syn_ms:.1f} ms; resynthesize "
+              f"{len(wav) / SR:.2f} s with the host's YIN F0 in {resyn_ms:.1f} ms", flush=True)
+        check(syn.shape == ((t - 1) * HOP,) and resyn.shape == wav.shape
+              and bool(np.isfinite(syn).all() and np.isfinite(resyn).all()),
+              "vocoder_recipes: the NSF interface's outputs")
+        del vi, tree, nsf["trainer"]
+        res.update(nsf_ms=nsf["ms"], nsf_rate=nsf["audio_rate"], nsf_peak=nsf["peak"])
+
+        torch.manual_seed(0)
+        istft_p = dict(nsf_cfg["model"], head="nsf_istft")
+        cpu = Vocos(VocosParams.create(istft_p)).eval()
+        f0 = torch.from_numpy(f02)
+        feats = torch.randn(2, f02.shape[1], cpu.params.n_mels,
+                            generator=torch.Generator().manual_seed(3))
+        draws = cpu.head.sine_gen.draw(2, f02.shape[1] * HOP, "cpu",
+                                       torch.Generator().manual_seed(4))
+        with torch.no_grad():
+            ref = cpu.from_features(feats, f0=f0, sine_noise=draws)
+            got = copy.deepcopy(cpu).cuda().from_features(
+                feats.cuda(), f0=f0.cuda(), sine_noise=tuple(d.cuda() for d in draws)).cpu()
+        err, lim = (got - ref).abs().max().item(), rel_limit(ref)
+        print(f"[vocoder_recipes] nsf_istft inference (dim 512, f32): {tuple(got.shape)}, "
+              f"card vs CPU max_abs_err {err:.3g} (tol {lim:.3g})", flush=True)
+        check(err <= lim, "vocoder_recipes: nsf_istft disagrees, card vs CPU")
+
+        dac_cfg, dac_data = TV.configs("default", DAC_CONFIG, data_root=SEGS)
+        check(dac_cfg["model"]["feature_extractor"] == "codec",
+              f"vocoder_recipes: {DAC_CONFIG} read as {dac_cfg['model']}")
+        dac = gan_run(torch, "vocoder_recipes mel_dac", TV.train, dac_cfg, dac_data,
+                      DAC_STEPS, tmp + "/dac", chunk_s)
+        tree, payload = ExperimentSaver.load_checkpoint(
+            ExperimentSaver.get_last_checkpoint(dac["expr"]))
+        vi = VocoderEvaluationInterface.from_checkpoint(tree, payload, device="cuda")
+        resyn = vi.resynthesize(AudioChunk(data=wav, sr=SR)).data
+        hop = vi.params.hop_length  # the codec's latents: N / hop frames, (frames - 1)·hop out
+        print(f"[vocoder_recipes] mel_dac -> resynthesize {len(wav) / SR:.2f} s: "
+              f"{resyn.shape}", flush=True)
+        check(resyn.shape == ((len(wav) // hop - 1) * hop,) and bool(np.isfinite(resyn).all()),
+              "vocoder_recipes: mel_dac's resynthesis")
+        del vi, tree, dac["trainer"]
+        res.update(dac_ms=dac["ms"], dac_rate=dac["audio_rate"], dac_peak=dac["peak"])
+    torch.cuda.empty_cache()
+
+    wav4, _ = _chunks_with_f0(4)
+    base = dict(feature_extractor="mel", backbone="vocos", dim=512, n_layers=8)
+    for label, opt in (("imdct_symexp", dict(head="imdct_symexp", hop_length=512)),
+                       ("imdct_cos", dict(head="imdct_cos", hop_length=512)),
+                       ("dac", dict(head="dac"))):
+        res[label] = head_step(torch, label, dict(base, **opt), wav4)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.manual_seed(0)
+        ep = ECAPAParams(n_mels=80)
+        bio = str(save_module(ECAPAEmbedder(ep), ep, Path(tmp) / "ecapa.pkl"))
+        torch.manual_seed(0)
+        gen = Vocos(VocosParams()).cuda()
+        gan = GANTrainer(gen, VocoderDiscriminator().cuda(),
+                         vocoder_gen_criterion(bio_ckpt=bio, device="cuda"),
+                         vocoder_disc_criterion(), lambda b: ({"waveform": b}, {"waveform": b}),
+                         config=TrainerConfig(max_steps=1))
+        losses = {k: float(v) for k, v in gan.training_step(torch.from_numpy(wav4).cuda()).items()}
+        print(f"[vocoder_recipes] GAN step with bio_ckpt (a seeded ECAPA, 80 mels, 256 "
+              f"channels, save_module): gen/spk_sim {losses['gen/spk_sim']:.4g}", flush=True)
+        check("gen/spk_sim" in losses and np.isfinite(losses["gen/spk_sim"]),
+              f"vocoder_recipes: bio_ckpt step {losses}")
+        del gan, gen
+
+    waves = [AudioChunk(file_path=f).load(sr=SR).waveform for f in sorted(SEGS.rglob("*.wav"))]
+    t0 = time.perf_counter()
+    mos = mos_proxy.train_mos_proxy(waves, SR, steps=MOS_STEPS, batch=8, device="cuda")
+    mos_s = time.perf_counter() - t0
+    torch.manual_seed(0)
+    gan = GANTrainer(Vocos(VocosParams()).cuda(), VocoderDiscriminator().cuda(),
+                     vocoder_gen_criterion(), vocoder_disc_criterion(),
+                     lambda b: ({"waveform": b}, {"waveform": b}),
+                     config=TrainerConfig(val_batches=1), mos_hook=mos_proxy.MOSProxyHook(mos))
+    val = gan.validate([torch.from_numpy(wav4).cuda()])
+    print(f"[vocoder_recipes] train_mos_proxy: {MOS_STEPS} Adam steps of 8 x 1 s chunks of the "
+          f"{len(waves)} SEGS utterances in "
+          f"{mos_s:.1f} s; hooked into a GAN validation: val/mos {val.get('val/mos')}",
+          flush=True)
+    check(1.0 <= val.get("val/mos", 0.0) <= 5.0, f"vocoder_recipes: validation {val}")
+    del gan, mos
+    torch.cuda.empty_cache()
+    launches = {k: nsf["launches"][k] + dac["launches"][k] for k in nsf["launches"]}
+    phase_s = time.perf_counter() - t_phase
+    print(f"[vocoder_recipes] launches {launches}: no hand kernel runs on these paths "
+          f"(NSF, iSTFT, MDCT and codec heads; no snake); phase wall time {phase_s:.1f} s "
+          f"({gpu_line})", flush=True)
+    res.update(launches=launches, phase_s=phase_s)
+    return res
+
+
+# -- phase 22: the forced aligner's two stages through the annotator ---------------------
+
+ALIGNER_DATA2 = "configs/aligner_data_stage2.yml"
+ALIGNER_STEPS = 6  # the cut: 6 of the recipe's 200,000 steps a stage
+
+
+@contextlib.contextmanager
+def pinned_path(module, path):
+    """``maximum_path`` in the aligner's module returning ``path`` (on the caller's
+    device), recording the path it would have found in ``module.own``."""
+    from speechflow_torch.models.aligner import model as AM
+
+    real = AM.maximum_path
+
+    def pinned(value, *args):
+        module.own = real(value, *args)
+        return path.to(value.device, value.dtype)
+
+    AM.maximum_path = pinned
+    try:
+        yield
+    finally:
+        AM.maximum_path = real
+
+
+@contextlib.contextmanager
+def planted_squeeze_fault(torch):
+    """The flow's squeeze stacking the two halves of the utterance on the channels
+    in place of interleaving frame pairs (a fault the gate must see)."""
+    from speechflow_torch.models.aligner.flows import FlowSpecDecoder
+
+    real = FlowSpecDecoder.__dict__["_squeeze"]
+
+    def halves(x, lengths):
+        t2 = x.shape[1] // 2
+        return torch.cat([x[:, :t2], x[:, t2:2 * t2]], dim=-1), lengths // 2
+
+    FlowSpecDecoder._squeeze = staticmethod(halves)
+    try:
+        yield
+    finally:
+        FlowSpecDecoder._squeeze = real
+
+
+def aligner_grads(torch, model, inputs, targets) -> tuple:
+    from speechflow_torch.models.aligner import AlignerCriterion
+
+    for p in model.parameters():
+        p.grad = None
+    out = model(inputs, training=True)
+    losses = AlignerCriterion()(out, targets, 0)
+    sum(losses.values()).backward()
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+             for n, p in model.named_parameters()}), out["path"].detach().cpu()
+
+
+def aligner_gate(torch, model_cfg: dict, data_cfg: dict) -> dict:
+    """One f32 training step of ``configs/aligner_model.yml`` at its default width on
+    the card and on the CPU: the same seeded weights (the couplings' zero output convs
+    drawn at std 0.02, so every coupling trains), dropout 0, the first two train
+    utterances, TF32 off. The card's own MAS path must equal the CPU's (durations
+    exact); losses within ``TOL_F32_REL``, every gradient within ``TOL_TTS_GRAD``; a
+    planted fault (the squeeze stacking halves) must be rejected. Also counts the
+    token durations that move on the card with TF32 on."""
+    import copy
+
+    from speechflow_torch.data.core.components import DataPipeline
+    from speechflow_torch.models.aligner import AlignerBatchProcessor, GlowTTSAligner, GlowTTSParams
+    from speechflow_torch.scripts.common import model_config_from_info
+
+    t0 = time.perf_counter()
+    pipeline = DataPipeline.from_config(data_cfg)
+    params = GlowTTSParams.create(model_config_from_info(model_cfg, pipeline))
+    torch.manual_seed(0)
+    cpu = GlowTTSAligner(params)
+    for cp in cpu.flow.couplings:
+        torch.nn.init.normal_(cp.post.weight, std=0.02)
+    no_dropout(cpu)
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = pipeline.datasample_to_batch([s.copy() for s in pipeline.datasets["train"][:2]])
+    inputs, targets = AlignerBatchProcessor()(batch)
+    ref, path = aligner_grads(torch, cpu, inputs, targets)
+    zero = [k for k, v in ref[1].items() if not v.any()]
+    check(not zero, f"aligner: reference gradients all zero: {zero}")
+    ci, ct = _on(inputs, "cuda"), _on(targets, "cuda")
+    with pinned_path(card, path):
+        got, _ = aligner_grads(torch, card, ci, ct)
+    moved = int((card.own.cpu().sum(-1) != path.sum(-1)).sum())
+    with pinned_path(card, path), planted_squeeze_fault(torch):
+        bad, _ = aligner_grads(torch, card, ci, ct)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            tf32 = card(ci, training=True)["durations"].cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    moved_tf32 = int((tf32 != path.sum(-1)).sum())
+    loss_err, grad_err, where = tts_disagreement(ref, got)
+    f_loss, f_grad, f_where = tts_disagreement(ref, bad)
+    n_tok = int(inputs.transcription_lengths.sum())
+    print(f"[aligner] f32 step at default width, card vs CPU (seeded, B2, mel "
+          f"{tuple(inputs.mel.shape)}, tokens {tuple(inputs.transcription.shape)}, TF32 off, "
+          f"dropout 0; {time.perf_counter() - t0:.1f} s): losses "
+          + ", ".join(f"{k} {v:.6g}" for k, v in got[0].items())
+          + f"; worst loss error {loss_err:.3g} (tol {TOL_F32_REL:g}); {len(ref[1])} "
+          f"gradients, worst {grad_err:.3g} of scale ({where}; tol {TOL_TTS_GRAD:g}); token "
+          f"durations of the card's own path that differ from the CPU's: {moved} of {n_tok} "
+          f"(TF32 off), {moved_tf32} with TF32 on; planted fault (squeeze by halves): loss "
+          f"{f_loss:.3g}, gradient {f_grad:.3g} ({f_where})", flush=True)
+    check(moved == 0, f"aligner: {moved} token durations differ, card vs CPU, TF32 off")
+    check(loss_err <= TOL_F32_REL and grad_err <= TOL_TTS_GRAD,
+          f"aligner f32: the card disagrees with the CPU: loss {loss_err}, {where} {grad_err}")
+    check(max(f_loss / TOL_F32_REL, f_grad / TOL_TTS_GRAD) > 1,
+          "the aligner gate passes a planted fault (squeeze by halves)")
+    del cpu, card
+    torch.cuda.empty_cache()
+    return {"loss_err": loss_err, "grad_err": grad_err, "fault_grad_err": f_grad,
+            "moved_tf32": moved_tf32, "tokens": n_tok}
+
+
+def aligner_stage(torch, label: str, TA, model_cfg: dict, data_cfg: dict, tmp: str,
+                  root: Path, stage) -> dict:
+    """One stage: ``train_aligner.train`` for ``ALIGNER_STEPS`` steps (``timed_fit``), then
+    the ``Aligner`` over ``root`` (the stage's input grids), timed."""
+    from speechflow_torch.annotator.align import Aligner
+    from speechflow_torch.training.saver import ExperimentSaver
+    from speechflow_torch.training.trainer import Trainer
+
+    def work(batch):
+        frames = int(batch.mel_lengths.sum())
+        return frames, f"mel {tuple(batch.mel.shape)}, {frames} frames"
+
+    run = timed_fit(torch, f"aligner {label}", Trainer, TA.train, model_cfg, data_cfg,
+                    ALIGNER_STEPS, tmp, work)
+    expr, t_fit, ms, rate, peak = (run[k] for k in ("expr", "t_fit", "ms", "rate", "peak"))
+    train_counts = run["launches"]
+    ckpt = ExperimentSaver.get_last_checkpoint(expr)
+    al = Aligner(ckpt, batch_size=16, device="cuda")
+    files = sorted(root.rglob(f"*{stage.input_ext}"))
+    if stage.input_ext == ".TextGrid":
+        files = [f for f in files if ".TextGridStage" not in f.name]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = al.run(root, stage)
+    torch.cuda.synchronize()
+    align_s = time.perf_counter() - t0
+    align_counts = read_counts()
+    print(f"[aligner] {label}: {t_fit:.1f} s with set-up; {ms:.1f} ms a step (median of "
+          f"2..{ALIGNER_STEPS}), {rate:.0f} mel frames trained per second, peak device memory "
+          f"{peak / 2**30:.2f} GiB, training launches {train_counts}; Aligner {stage.name} "
+          f"over {len(files)} grids: {len(written)} written in {align_s:.2f} s "
+          f"({1e3 * align_s / max(len(written), 1):.1f} ms an aligned utterance), launches "
+          f"{align_counts}", flush=True)
+    check(len(written) > 0, f"{label}: the Aligner wrote nothing")
+    return {"ckpt": ckpt, "aligner": al, "files": files, "written": written, "ms": ms,
+            "frame_rate": rate, "peak": peak, "align_s": align_s,
+            "launches": {k: train_counts[k] + align_counts[k] for k in align_counts}}
+
+
+def phase_aligner(torch, gpu_line: str) -> dict:
+    """``configs/aligner_model.yml`` at its default width (192 wide, 4 layers of 2
+    heads of 96, 6 flows) trained on ``aligner_data_stage1.yml`` over the raw
+    ``.TextGrid`` of a copy of ``tests/data/SEGS``; the annotator's ``Aligner`` writes
+    ``.TextGridStage1``; stage 2 trains on those and writes ``.TextGridStage2``; every
+    grid is read back. The encoder attends through the fused kernel (dh 96) when it
+    aligns."""
+    import tempfile
+
+    import numpy as np
+
+    from speechflow_torch.annotator.align import AlignStage
+    from speechflow_torch.io.seg import AudioSeg
+    from speechflow_torch.scripts import train_aligner as TA
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "SEGS"
+        shutil.copytree(SEGS, root, ignore=shutil.ignore_patterns("*.TextGridStage*"))
+        model_cfg, data_cfg = TA.configs("default", data_root=root)
+        m = model_cfg["model"]
+        check(m["encoder_dim"] == 192 and m["encoder_heads"] == 2 and m["n_flows"] == 6,
+              f"aligner: {TA.MODEL_CONFIG} read as {m}")
+        res["gate"] = aligner_gate(torch, model_cfg, data_cfg)
+        s1 = aligner_stage(torch, "stage 1", TA, model_cfg, data_cfg, tmp + "/e1", root,
+                           AlignStage.stage1)
+
+        # the stage's dh-96 attention through the kernels and the plain versions
+        from speechflow_torch.ops import attention as A
+
+        model = s1["aligner"].model
+        _, inputs = s1["aligner"].batch_inputs(s1["files"][:16])
+        inputs = inputs.to("cuda", torch.float32)
+        with torch.no_grad():
+            reset_counts()
+            h = model.encode_text(inputs, training=False)
+            d = model.align(inputs)[0]
+            counts = read_counts()
+            with plain_versions():
+                h_ref = model.encode_text(inputs, training=False)
+                d_ref = model.align(inputs)[0]
+        err = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                  for a, b in zip(h, h_ref))
+        lens = inputs.transcription_lengths.tolist()
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        b, t = inputs.transcription.shape
+        ms, plain, lib, bms, kind, _ = attention_times(torch, A, b, t, 2, 96, lens,
+                                                       torch.float32, gen)
+        print(f"[aligner] encoder of a stage-1 batch (B{b} T{t} H2 dh96, tokens {lens}), f32: "
+              f"kernels vs plain: worst of mu, logstd, log-duration {err:.3g} of scale (tol "
+              f"{TOL_F32_REL:g}), durations equal {bool(torch.equal(d, d_ref))}; {counts['fused_attention']} "
+              f"launches for two calls; one attention call: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.5f} ms ({kind}) ({gpu_line})",
+              flush=True)
+        check(err <= TOL_F32_REL and torch.equal(d, d_ref)
+              and counts["fused_attention"] == 2 * model.p.encoder_layers,
+              f"aligner: dh-96 attention kernels vs plain: {err}, {counts}")
+        res["attn"] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+                       "shape": (b, t, 2, 96)}
+
+        _, data2 = TA.configs("default", data_config=ALIGNER_DATA2, data_root=root)
+        # a 6-step stage-1 model's timestamps are not speech's: the default 0.3 s phoneme
+        # filter would drop every grid, so stage 2 reads them with the config's debug 2.0 s
+        data2["parser"]["max_phoneme_length"] = 2.0
+        s2 = aligner_stage(torch, "stage 2", TA, model_cfg, data2, tmp + "/e2", root,
+                           AlignStage.stage2)
+        n_ivs = []
+        for p in s1["written"] + s2["written"]:
+            seg = AudioSeg.load(p)
+            ivs = seg.phonemes()
+            times = np.asarray([iv[:2] for iv in ivs])
+            check(len(ivs) > 0 and bool((np.diff(times[:, 0]) >= 0).all())
+                  and times[-1, 1] <= seg.duration + 1e-6,
+                  f"aligner: {p.name} reads back wrong")
+            n_ivs.append(len(ivs))
+        print(f"[aligner] {len(s1['written'])} .TextGridStage1 and {len(s2['written'])} "
+              f".TextGridStage2 read back with AudioSeg.load: {sum(n_ivs)} phoneme intervals",
+              flush=True)
+        check(all(p.suffix == ".TextGridStage2" for p in s2["written"]),
+              "aligner: stage 2 wrote the wrong files")
+        del s1["aligner"], s2["aligner"], model
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[aligner] phase wall time {phase_s:.1f} s", flush=True)
+    launches = {k: s1["launches"][k] + s2["launches"][k] + counts[k] for k in counts}
+    res.update(launches=launches, ms=s1["ms"], ms2=s2["ms"], frame_rate=s1["frame_rate"],
+               peak=max(s1["peak"], s2["peak"]),
+               ms_utt=1e3 * s1["align_s"] / len(s1["written"]), phase_s=phase_s)
+    return res
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -4130,11 +5144,13 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="build,kernels,slice,toy,interface,tts_interface,xtts,bundle,"
                             "train,tts_train,xtts_train,prosody_train,conditioned,jax_ckpt,"
-                            "vocoder_model_train,tts_forward_train,jax_resume,tts_options",
+                            "vocoder_model_train,tts_forward_train,jax_resume,tts_options,"
+                            "e2e_train,vocoder_recipes,aligner",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
                          "tts_interface,xtts,bundle,train,tts_train,xtts_train,prosody_train,"
                          "conditioned,jax_ckpt,vocoder_model_train,tts_forward_train,"
-                         "jax_resume,tts_options,profile (the last is not in the default run)")
+                         "jax_resume,tts_options,e2e_train,vocoder_recipes,aligner,profile "
+                         "(the last is not in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -4180,7 +5196,10 @@ def run(torch, phases: set) -> int:
              ("vocoder_model_train", phase_vocoder_model_train, ()),
              ("tts_forward_train", phase_tts_forward_train, tuple(HEAD_LAUNCHES)),
              ("jax_resume", phase_jax_resume, ()),
-             ("tts_options", phase_tts_options, ("fused_attention",)))
+             ("tts_options", phase_tts_options, ("fused_attention",)),
+             ("e2e_train", phase_e2e_train, ("fused_attention", "anti_alias_snake")),
+             ("vocoder_recipes", phase_vocoder_recipes, ()),
+             ("aligner", phase_aligner, ("fused_attention",)))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:

@@ -1,0 +1,2 @@
+"""Annotation tools (counterpart of ``speechflow_tpu.annotator``): the forced
+aligner's stage, ``align.Aligner``."""

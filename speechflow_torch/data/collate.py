@@ -1,6 +1,7 @@
 """Collation (counterpart of ``speechflow_tpu/data/collate.py``):
 ``AudioCollate`` (waveforms padded to a multiple of ``sample_multiple``, ids,
-speaker embeddings) and ``TTSCollate``.
+speaker embeddings), ``SpectrogramCollate`` (also the frame-level fields: mel,
+magnitude, energy, pitch; the NSF vocoder's data) and ``TTSCollate``.
 
 ``TTSCollate`` pads tokens to a multiple of ``token_multiple``, token-level
 features (durations, aggregate pitch and energy, ling/LM/XPBERT features)
@@ -26,11 +27,15 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from speechflow_torch.data.core.datasample import AudioDataSample, TTSDataSample
+from speechflow_torch.data.core.datasample import (
+    AudioDataSample,
+    SpectrogramDataSample,
+    TTSDataSample,
+)
 from speechflow_torch.utils.pad import stack_and_pad
 
-__all__ = ["CollatedAudio", "AudioCollate", "CollatedTTS", "TTSCollate", "TTSCollateWithPrompt",
-           "COLLATES"]
+__all__ = ["CollatedAudio", "AudioCollate", "CollatedSpectrogram", "SpectrogramCollate",
+           "CollatedTTS", "TTSCollate", "TTSCollateWithPrompt", "COLLATES"]
 
 Array = tp.Optional[np.ndarray]
 TOKEN_FIELDS = ("durations", "aggregate_pitch", "aggregate_energy", "ling_feat", "lm_feat",
@@ -45,6 +50,20 @@ class CollatedAudio:
     speaker_id: Array = None
     lang_id: Array = None
     speaker_emb: Array = None
+
+
+@dataclass
+class CollatedSpectrogram:
+    speaker_id: Array = None               # (B,)
+    lang_id: Array = None
+    speaker_emb: Array = None              # (B, D)
+    waveform: Array = None                 # (B, S) float32
+    waveform_lengths: Array = None
+    mel: Array = None                      # (B, T, n_mels)
+    mel_lengths: Array = None
+    magnitude: Array = None                # (B, T, n_fft // 2 + 1)
+    energy: Array = None                   # (B, T)
+    pitch: Array = None
 
 
 @dataclass
@@ -93,15 +112,16 @@ class AudioCollate:
         return out
 
 
-class TTSCollate:
-    def __init__(self, token_multiple: int = 16, frame_multiple: int = 64,
-                 sample_multiple: int = 256):
-        self.token_multiple = token_multiple
+class SpectrogramCollate:
+    def __init__(self, frame_multiple: int = 64, sample_multiple: int = 256):
         self.frame_multiple = frame_multiple
         self.sample_multiple = sample_multiple
 
-    def _frames(self, samples: tp.List[TTSDataSample], out: CollatedTTS) -> None:
-        """The sample- and frame-level fields (``SpectrogramCollate``'s)."""
+    def _frames(self, samples, out) -> None:
+        """The ids, speaker embeddings, and the sample- and frame-level fields."""
+        embs = [s.speaker_emb for s in samples]
+        if all(e is not None for e in embs):
+            out.speaker_emb = np.stack(embs).astype(np.float32)
         if samples[0].audio_chunk is not None and samples[0].audio_chunk.data is not None:
             out.waveform, out.waveform_lengths = stack_and_pad(
                 [s.audio_chunk.waveform for s in samples], multiple=self.sample_multiple)
@@ -115,9 +135,27 @@ class TTSCollate:
             if all(v is not None for v in values):
                 setattr(out, attr, stack_and_pad(values, multiple=self.frame_multiple,
                                                  target_len=t_mel)[0])
+
+    def __call__(self, samples: tp.List[SpectrogramDataSample]) -> CollatedSpectrogram:
+        out = CollatedSpectrogram(speaker_id=_ids(samples, "speaker_id"),
+                                  lang_id=_ids(samples, "lang_id"))
+        self._frames(samples, out)
+        return out
+
+
+class TTSCollate(SpectrogramCollate):
+    def __init__(self, token_multiple: int = 16, frame_multiple: int = 64,
+                 sample_multiple: int = 256):
+        super().__init__(frame_multiple, sample_multiple)
+        self.token_multiple = token_multiple
+
+    def _frames(self, samples: tp.List[TTSDataSample], out: CollatedTTS) -> None:
+        """``SpectrogramCollate``'s fields and the stop-gate target."""
+        super()._frames(samples, out)
         gates = [s.gate for s in samples]
-        if t_mel is not None and all(g is not None for g in gates):
+        if out.mel is not None and all(g is not None for g in gates):
             # padding frames keep gate 1, so the stop head trains on them too
+            t_mel = out.mel.shape[1]
             gate = stack_and_pad(gates, target_len=t_mel)[0]
             pos = np.arange(t_mel)[None, :]
             out.gate = np.where(pos >= out.mel_lengths[:, None] - 1, 1.0, gate)
@@ -125,9 +163,6 @@ class TTSCollate:
     def __call__(self, samples: tp.List[TTSDataSample]) -> CollatedTTS:
         out = CollatedTTS(speaker_id=_ids(samples, "speaker_id"),
                           lang_id=_ids(samples, "lang_id"))
-        embs = [s.speaker_emb for s in samples]
-        if all(e is not None for e in embs):
-            out.speaker_emb = np.stack(embs).astype(np.float32)
         self._frames(samples, out)
         out.transcription, out.transcription_lengths = stack_and_pad(
             [s.transcription for s in samples], multiple=self.token_multiple)
@@ -171,5 +206,5 @@ class TTSCollateWithPrompt(TTSCollate):
         return out
 
 
-COLLATES = {"AudioCollate": AudioCollate, "TTSCollate": TTSCollate,
-            "TTSCollateWithPrompt": TTSCollateWithPrompt}
+COLLATES = {"AudioCollate": AudioCollate, "SpectrogramCollate": SpectrogramCollate,
+            "TTSCollate": TTSCollate, "TTSCollateWithPrompt": TTSCollateWithPrompt}

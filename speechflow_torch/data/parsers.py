@@ -25,6 +25,7 @@ import numpy as np
 from speechflow_torch.data.core.datasample import (
     AudioDataSample,
     ProsodyPredictionDataSample,
+    SpectrogramDataSample,
     TTSDataSample,
 )
 from speechflow_torch.io.audio import AudioChunk
@@ -47,11 +48,14 @@ class AudioDSParser:
                 return name
         return p.parent.name
 
-    def to_datasample(self, path: tp.Union[str, Path]) -> AudioDataSample:
+    def to_datasample(self, path: tp.Union[str, Path]) -> SpectrogramDataSample:
+        """A ``SpectrogramDataSample`` (an audio sample whose spectral fields are
+        empty), so spectral handlers such as ``pitch`` run on a raw-audio corpus
+        (the NSF vocoder's data)."""
         p = Path(path)
         speaker = self.speaker_from_path(p)
-        return AudioDataSample(file_path=str(p), label=speaker, speaker_name=speaker,
-                               audio_chunk=AudioChunk(file_path=p))
+        return SpectrogramDataSample(file_path=str(p), label=speaker, speaker_name=speaker,
+                                     audio_chunk=AudioChunk(file_path=p))
 
     def read_datasamples(self, files: tp.Sequence[tp.Union[str, Path]]
                          ) -> tp.List[AudioDataSample]:

@@ -1,8 +1,8 @@
 """Handlers (counterpart of ``speechflow_tpu/data/processors``): named
 functions over a sample, found by the names a pipeline config lists.
 
-Ported: the text path's (``text_to_transcription``, ``add_ling_feat``,
-``add_lm_feat``, ``add_xpbert_feat``), the audio path's
+Ported: the text path's (``text_to_transcription``, ``phonemize``,
+``add_ling_feat``, ``add_lm_feat``, ``add_xpbert_feat``), the audio path's
 (``data/processors/audio.py``), the spectral handlers
 (``data/processors/spectral.py``), the alignment-derived ones
 (``data/processors/tts.py``) and the model-based ones
@@ -17,9 +17,9 @@ __all__ = ["get_handler"]
 
 def get_handler(name: str) -> tp.Callable:
     from speechflow_torch.data.processors import audio, embeddings, ling, spectral, tts
-    from speechflow_torch.data.processors.text import text_to_transcription
+    from speechflow_torch.data.processors.text import phonemize, text_to_transcription
 
-    handlers = {"text_to_transcription": text_to_transcription,
+    handlers = {"text_to_transcription": text_to_transcription, "phonemize": phonemize,
                 **{n: getattr(ling, n) for n in ("add_ling_feat", "add_lm_feat",
                                                  "add_xpbert_feat")},
                 **{n: getattr(m, n) for m in (audio, spectral, tts) for n in m.__all__},

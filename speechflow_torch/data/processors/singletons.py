@@ -144,9 +144,11 @@ class PhonemeStatistics:
         for ds in dataset:
             phs = getattr(ds, "phonemes", None)
             if not phs and getattr(ds, "text", None):
-                raise NotImplementedError(
-                    "PhonemeStatistics of a text-only corpus needs the phonemizer "
-                    "(speechflow_tpu/data/processors/text.py phonemize_words), not ported yet")
+                # a text-only corpus (the raw .TextGrid of stage 1): count what the
+                # `phonemize` handler's default will emit, so the alphabet covers it
+                from speechflow_torch.data.processors.text import phonemize_words
+
+                phs, _ = phonemize_words(ds.text, lang=getattr(ds, "lang", None) or "EN")
             for p in phs or ():
                 key = p if p else "<SIL>"
                 self.counts[key] = self.counts.get(key, 0) + 1

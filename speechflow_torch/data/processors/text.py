@@ -5,7 +5,10 @@ An ``Alphabet`` maps tokens to stable ids with the service tokens first; a
 ``TextParserHook`` turns raw text into phonemes for inference (built in: the
 character-level fallback, after ``text_norm.normalize_text``);
 ``G2PParserHook`` runs a trained G2P instead; ``TTSTextProcessor`` encodes
-phonemes with BOS/EOS into the transcription.
+phonemes with BOS/EOS into the transcription. ``phonemize`` (the handler)
+and ``phonemize_words`` give a sample that has text but no phoneme tier (the
+seg generator's raw ``.TextGrid``, stage 1 of forced alignment) its phonemes,
+word by word.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import numpy as np
 from speechflow_torch.data.core.datasample import TTSDataSample
 
 __all__ = ["Alphabet", "TTSTextProcessor", "TextParserHook", "G2PParserHook",
-           "text_to_transcription", "PAD", "BOS", "EOS", "SIL", "UNK", "SERVICE_TOKENS"]
+           "phonemize_words", "phonemize", "text_to_transcription", "PAD", "BOS", "EOS", "SIL", "UNK", "SERVICE_TOKENS"]
 
 PAD, BOS, EOS, SIL, UNK = "<PAD>", "<BOS>", "<EOS>", "<SIL>", "<UNK>"
 SERVICE_TOKENS = (PAD, BOS, EOS, SIL, UNK)
@@ -104,6 +107,43 @@ class G2PParserHook(TextParserHook):
             else:
                 out.extend(prons.get(p, ()))
         return out
+
+
+def phonemize_words(text: str, hook: tp.Optional[TextParserHook] = None,
+                    lang: str = "EN") -> tp.Tuple[tp.List[str], tp.List[int]]:
+    """Raw text -> (phonemes, phonemes a word), word by word through ``hook``
+    (the char fallback by default), punctuation stripped and pauses dropped:
+    inserting pauses is ``add_pauses_from_text``'s job."""
+    hook = hook or TextParserHook()
+    phonemes: tp.List[str] = []
+    counts: tp.List[int] = []
+    for word in text.split():
+        core = word.strip(hook.PAUSE_CHARS + "\"'()[]")
+        if not core:
+            continue
+        phs = [p for p in hook(core, lang) if p != SIL]
+        if not phs:
+            continue
+        phonemes.extend(phs)
+        counts.append(len(phs))
+    return phonemes, counts
+
+
+def phonemize(ds: TTSDataSample, g2p: tp.Optional[str] = None,
+              device: str = "cpu") -> TTSDataSample:
+    """Text -> phonemes and ``word_lengths`` for a sample without a phoneme
+    tier; a sample with phonemes, or without text, is left as it is. ``g2p``
+    is a trained ``g2p.pkl`` (run on ``device``, the host by default: handlers
+    run in the data workers); without it, the char fallback, whose symbols
+    ``PhonemeStatistics`` counts for such a corpus."""
+    if ds.phonemes or not ds.text:
+        return ds
+    hook = G2PParserHook(g2p, device=device) if g2p else TextParserHook()
+    phs, counts = phonemize_words(ds.text, hook, ds.lang or "EN")
+    ds.phonemes = phs
+    ds.word_lengths = np.asarray(counts, dtype=np.int32)
+    ds.phoneme_timestamps = None
+    return ds
 
 
 class TTSTextProcessor:

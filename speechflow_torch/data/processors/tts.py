@@ -1,9 +1,12 @@
 """Alignment-derived handlers (counterpart of the handlers of
-``speechflow_tpu/data/processors/tts.py`` that the TTS data config lists):
-pauses from the timestamps' gaps, per-token frame durations that sum to the
-mel's length, token-level pitch and energy, and the stop-gate target."""
+``speechflow_tpu/data/processors/tts.py`` that the TTS and aligner data configs
+list): pauses from the text (stage 1 of forced alignment) or from the
+timestamps' gaps, per-token frame durations that sum to the mel's length,
+token-level pitch and energy, and the stop-gate target."""
 
 from __future__ import annotations
+
+import typing as tp
 
 import numpy as np
 
@@ -11,8 +14,60 @@ from speechflow_torch.data.core.datasample import TTSDataSample
 from speechflow_torch.data.processors.text import SIL
 from speechflow_torch.io.timestamps import Timestamps
 
-__all__ = ["add_pauses_from_timestamps", "calc_durations", "aggregate_pitch",
+__all__ = ["add_pauses_from_text", "add_pauses_from_timestamps", "calc_durations", "aggregate_pitch",
            "aggregate_energy", "gate_target"]
+
+
+def add_pauses_from_text(ds: TTSDataSample, level: str = "words",
+                         begin_end_pauses: bool = True) -> TTSDataSample:
+    """SIL tokens from the text: after every word (``level="words"``) or after
+    each word whose text ends in punctuation (``"punctuation"``), and at both
+    ends; repeated SILs collapse to one. The phonemes are grouped into words by
+    the word timestamps (a phoneme's midpoint), else by ``word_lengths``, else one
+    a word. The phoneme timestamps no longer fit and are dropped."""
+    if ds.phonemes is None:
+        return ds
+    groups: tp.List[tp.List[str]] = []
+    if ds.word_timestamps is not None and ds.phoneme_timestamps is not None:
+        wts = np.asarray(ds.word_timestamps.intervals, np.float64)
+        cur = -2
+        for (b, e), lab in zip(ds.phoneme_timestamps, ds.phonemes):
+            mid = 0.5 * (b + e)
+            hits = np.nonzero((wts[:, 0] - 1e-6 <= mid) & (mid <= wts[:, 1] + 1e-6))[0]
+            w = int(hits[0]) if len(hits) else -1
+            if w != cur or not groups:
+                groups.append([])
+                cur = w
+            groups[-1].append(lab)
+    elif ds.word_lengths is not None:
+        pos = 0
+        for n in ds.word_lengths:
+            groups.append(list(ds.phonemes[pos:pos + int(n)]))
+            pos += int(n)
+    else:
+        groups = [[p] for p in ds.phonemes]
+
+    words = ds.text.split() if ds.text else [""] * len(groups)
+    out: tp.List[str] = [SIL] if begin_end_pauses else []
+    wi = 0
+    for g in groups:
+        is_word = any(p not in (SIL, "", None) for p in g)
+        out.extend(p if p not in ("", None) else SIL for p in g)
+        if is_word:
+            word = words[wi] if wi < len(words) else ""
+            wi += 1
+            trailing_punct = word and not word[-1].isalnum()
+            if (level == "words" or trailing_punct) and (out and out[-1] != SIL):
+                out.append(SIL)
+    if begin_end_pauses and out and out[-1] != SIL:
+        out.append(SIL)
+    collapsed: tp.List[str] = []
+    for p in out:
+        if not (p == SIL and collapsed and collapsed[-1] == SIL):
+            collapsed.append(p)
+    ds.phonemes = collapsed
+    ds.phoneme_timestamps = None
+    return ds
 
 
 def add_pauses_from_timestamps(ds: TTSDataSample, min_len: float = 0.03,

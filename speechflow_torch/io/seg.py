@@ -1,11 +1,13 @@
-"""Praat TextGrids and annotated utterances (counterpart of the reading half
-of ``speechflow_tpu/io/seg.py``): short-form ``ooTextFile`` TextGrids with
+"""Praat TextGrids and annotated utterances (counterpart of
+``speechflow_tpu/io/seg.py``): short-form ``ooTextFile`` TextGrids with
 interval tiers (the ``.TextGridStage3`` files of ``tests/data/SEGS``:
 orig/syntagmas/text/stress/phonemes/pos/rel/id/head_id/emphasis/prosody/meta),
-read from the Praat file-format spec, and ``AudioSeg``, an utterance's audio
-window, tiers and ``meta`` dict (lang, speaker_name, audio_chunk), as the
-TTS parser reads them. Writing TextGrids waits for the annotation tools that
-write them. Text only.
+read from the Praat file-format spec and written as the JAX package writes
+them (``TextGrid.dumps``/``save``: numbers with at most six decimals, quotes
+doubled), and ``AudioSeg``, an utterance's audio window, tiers and ``meta``
+dict (lang, speaker_name, audio_chunk), as the TTS parser reads it and the
+annotator's aligner writes it (``AudioSeg.save``: the meta dict as the
+``meta`` tier's python literal). Text only.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import ast
 import typing as tp
 from dataclasses import dataclass, field
 from pathlib import Path
+
+import numpy as np
 
 from speechflow_torch.io.audio import AudioChunk
 
@@ -51,6 +55,18 @@ class TextGrid:
 
     def __contains__(self, name: str) -> bool:
         return any(t.name == name for t in self.tiers)
+
+    @property
+    def tier_names(self) -> tp.List[str]:
+        return [t.name for t in self.tiers]
+
+    def add(self, tier: Tier) -> "TextGrid":
+        """Add ``tier`` last, replacing a tier of the same name; ``xmax`` grows
+        to the tier's last end."""
+        self.tiers = [t for t in self.tiers if t.name != tier.name] + [tier]
+        if tier.intervals:
+            self.xmax = max(self.xmax, *(iv[1] for iv in tier.intervals))
+        return self
 
     # -- parsing ---------------------------------------------------------------
 
@@ -93,6 +109,29 @@ class TextGrid:
                         intervals.append((t, t, lab))
                 tiers.append(Tier(name, intervals))
         return TextGrid(xmin, xmax, tiers)
+
+    # -- writing ----------------------------------------------------------------
+
+    def dumps(self) -> str:
+        lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', ""]
+        lines += [_num(self.xmin), _num(self.xmax), "<exists>", str(len(self.tiers))]
+        for tier in self.tiers:
+            lines += ['"IntervalTier"', f'"{tier.name}"']
+            lines += [_num(self.xmin), _num(self.xmax), str(len(tier.intervals))]
+            for b, e, lab in tier.intervals:
+                lines += [_num(b), _num(e), '"%s"' % lab.replace('"', '""')]
+        return "\n".join(lines) + "\n"
+
+    def save(self, path: tp.Union[str, Path]) -> None:
+        p = Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(self.dumps(), encoding="utf-8")
+
+
+def _num(x: float) -> str:
+    s = f"{x:.6f}".rstrip("0").rstrip(".")
+    return s if s else "0"
+
 
 def _tokenize(text: str) -> tp.List[str]:
     """Yield TextGrid tokens: quoted strings (with '""' escapes) or bare words."""
@@ -171,6 +210,28 @@ class AudioSeg:
         seg.audio_chunk = AudioChunk(file_path=path.parent / f"{path.name.split('.')[0]}.wav",
                                      begin=chunk[0], end=chunk[1])
         return seg
+
+    @staticmethod
+    def _plain(v):
+        """numpy scalars and arrays, tuples and paths as python literals, so the
+        meta dict's repr reads back with ``ast.literal_eval``."""
+        if isinstance(v, np.generic):
+            return v.item()
+        if isinstance(v, np.ndarray):
+            return v.tolist()
+        if isinstance(v, dict):
+            return {k: AudioSeg._plain(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [AudioSeg._plain(x) for x in v]
+        if isinstance(v, Path):
+            return str(v)
+        return v
+
+    def save(self, path: tp.Union[str, Path]) -> None:
+        """The grid with the meta dict as its last tier (``meta``), at ``path``."""
+        self.meta = self._plain(self.meta)
+        self.grid.add(Tier("meta", [(self.grid.xmin, self.grid.xmax, repr(self.meta))]))
+        self.grid.save(path)
 
     # -- views -----------------------------------------------------------------
 

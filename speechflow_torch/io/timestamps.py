@@ -35,6 +35,13 @@ class Timestamps:
     def end(self) -> float:
         return float(self.intervals[-1, 1]) if len(self) else 0.0
 
+    @staticmethod
+    def from_durations(durations: tp.Sequence[float], begin: float = 0.0) -> "Timestamps":
+        """Back-to-back intervals of the given lengths from ``begin``."""
+        ends = begin + np.cumsum(np.asarray(durations, dtype=np.float64))
+        begins = np.concatenate([[begin], ends[:-1]])
+        return Timestamps(np.stack([begins, ends], axis=1))
+
     def to_frames(self, hop_len: int, sr: int, n_frames: tp.Optional[int] = None) -> np.ndarray:
         """Convert intervals to integer per-interval frame counts.
 

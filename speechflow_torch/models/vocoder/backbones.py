@@ -1,6 +1,7 @@
 """Vocos backbone (counterpart of ``speechflow_tpu/models/vocoder/backbones.py``):
 embedding conv (k=7) -> LayerNorm (+ a projected speaker embedding when
-``cond_dim`` is set) -> N ConvNeXt blocks -> LayerNorm, channels-last."""
+``cond_dim`` is set) -> N ConvNeXt blocks -> LayerNorm, channels-last; and
+``DummyBackbone``, the identity, for heads that take the features directly."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from speechflow_torch.models.layers import Conv1d, flax_init_, layer_norm
 from speechflow_torch.models.tts.common import gelu
 from speechflow_torch.ops.signal import depthwise_conv1d
 
-__all__ = ["ConvNeXtBlock", "VocosBackbone"]
+__all__ = ["ConvNeXtBlock", "VocosBackbone", "DummyBackbone"]
 
 
 class ConvNeXtBlock(nn.Module):
@@ -57,3 +58,14 @@ class VocosBackbone(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return self.norm_out(x)
+
+
+class DummyBackbone(nn.Module):
+    """The identity: the head consumes the features as they come."""
+
+    def __init__(self, dim_in: int = 100):
+        super().__init__()
+        self.dim = dim_in
+
+    def forward(self, x: torch.Tensor, cond: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+        return x

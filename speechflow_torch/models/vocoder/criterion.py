@@ -5,10 +5,12 @@ generator and discriminator criteria ``GANTrainer`` calls as
 ``criterion(gen_out, disc, inputs, targets, step)``.
 
 The adversarial gate reads ``step``, the trainer's micro-batch count: 0 before
-``adv_start_iter``, then 1, or a linear ramp over ``adv_ramp_steps``. The
-perceptual terms (``cpc_ckpt``, ``bio_ckpt``: the CPC model and the
-speaker-similarity loss over an ECAPA embedder) are not ported: asking for one
-raises ``NotImplementedError``.
+``adv_start_iter``, then 1, or a linear ramp over ``adv_ramp_steps``.
+``bio_ckpt`` adds the speaker-similarity loss (``make_speaker_similarity_loss``,
+1 - cosine of a frozen ECAPA's embeddings). A generator output
+``(wav, ft_losses)`` (the ``codec`` and ``tts`` extractors) has its losses
+merged into the generator's and its waveform alone judged. ``cpc_ckpt`` (the CPC
+perceptual loss) is not ported: it raises ``NotImplementedError``.
 ``maximum`` against 0 (not ``relu``) keeps ``jnp.maximum``'s half gradient
 at a tie.
 """
@@ -19,11 +21,12 @@ import typing as tp
 
 import torch
 
+from speechflow_torch.models.vocoder.model import split_output
 from speechflow_torch.ops.mel import amp_to_db, linear_to_mel
 from speechflow_torch.ops.stft import magnitude
 
-__all__ = ["mel_reconstruction_loss", "multires_stft_loss", "vocoder_gen_criterion",
-           "vocoder_disc_criterion"]
+__all__ = ["mel_reconstruction_loss", "multires_stft_loss", "make_speaker_similarity_loss",
+           "vocoder_gen_criterion", "vocoder_disc_criterion"]
 
 
 def _crop(fake: torch.Tensor, real: torch.Tensor):
@@ -79,20 +82,51 @@ def _feature_matching(real_fmaps, fake_fmaps) -> torch.Tensor:
     return loss / max(n, 1)
 
 
+def make_speaker_similarity_loss(bio_ckpt, sample_rate: int = 24000, n_fft: int = 1024,
+                                 hop: int = 256,
+                                 device: tp.Union[str, torch.device, None] = None
+                                 ) -> tp.Callable:
+    """``loss(fake, real)``: the mean over the batch of 1 - cosine between the
+    ECAPA embeddings of the two waveforms' log-mels (the ECAPA of
+    ``bio_ckpt``, a ``save_module`` pickle of either package, frozen, on
+    ``device``: the GPU unless ``device="cpu"``). The real side is detached."""
+    from speechflow_torch.models.biometric.ecapa import ECAPAEmbedder, ECAPAParams
+    from speechflow_torch.utils.state_io import load_module
+
+    model, params = load_module(ECAPAEmbedder, ECAPAParams, bio_ckpt, device=device)
+    model.requires_grad_(False)
+    n_mels = params.n_mels
+
+    def embed(wav):
+        mel = amp_to_db(linear_to_mel(magnitude(wav, n_fft, hop), sample_rate, n_mels))
+        emb = model(mel)
+        return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=-1, keepdim=True), min=1e-9)
+
+    def loss(fake: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
+        e_f = embed(fake)
+        e_r = embed(real).detach()
+        return torch.mean(1.0 - torch.sum(e_f * e_r, dim=-1))
+
+    return loss
+
+
 def vocoder_gen_criterion(sample_rate: int = 24000, n_mels: int = 100,
                           mel_weight: float = 45.0, fm_weight: float = 2.0,
                           stft_weight: float = 1.0, adv_weight: float = 1.0,
                           adv_start_iter: int = 0, adv_ramp_steps: int = 0,
                           cpc_ckpt: tp.Optional[str] = None, cpc_weight: float = 1.0,
                           bio_ckpt: tp.Optional[str] = None,
-                          speaker_sim_weight: float = 1.0):
+                          speaker_sim_weight: float = 1.0,
+                          device: tp.Union[str, torch.device, None] = None):
+    """``device`` is where the ``bio_ckpt`` ECAPA runs (the GPU unless
+    ``device="cpu"``)."""
     if cpc_ckpt:
         raise NotImplementedError("cpc_ckpt: the CPC model (models/ssl) is not ported yet")
-    if bio_ckpt:
-        raise NotImplementedError("bio_ckpt: the speaker-similarity loss over an ECAPA "
-                                  "embedder is not ported yet")
+    spk_loss = (make_speaker_similarity_loss(bio_ckpt, sample_rate, device=device)
+                if bio_ckpt else None)
 
     def criterion(gen_out, disc, inputs, targets, step: int) -> tp.Dict[str, torch.Tensor]:
+        gen_out, ft_losses = split_output(gen_out)
         fake, real = _crop(gen_out, targets["waveform"])
         losses = {
             "mel": mel_weight * mel_reconstruction_loss(fake, real, sample_rate,
@@ -106,6 +140,9 @@ def vocoder_gen_criterion(sample_rate: int = 24000, n_mels: int = 100,
             gate *= min(max((step - adv_start_iter + 1) / adv_ramp_steps, 0.0), 1.0)
         losses["adv"] = adv_weight * gate * _hinge_gen(fake_logits)
         losses["fm"] = fm_weight * gate * _feature_matching(real_fmaps, fake_fmaps)
+        if spk_loss is not None:
+            losses["spk_sim"] = speaker_sim_weight * spk_loss(fake, real)
+        losses.update(ft_losses)
         return losses
 
     return criterion
@@ -113,7 +150,7 @@ def vocoder_gen_criterion(sample_rate: int = 24000, n_mels: int = 100,
 
 def vocoder_disc_criterion():
     def criterion(gen_out, disc, inputs, targets, step: int) -> tp.Dict[str, torch.Tensor]:
-        fake, real = _crop(gen_out, targets["waveform"])
+        fake, real = _crop(split_output(gen_out)[0], targets["waveform"])
         fake_logits, _ = disc(fake)
         real_logits, _ = disc(real)
         return {"disc_hinge": _hinge_disc(real_logits, fake_logits)}

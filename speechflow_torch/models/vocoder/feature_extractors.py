@@ -1,17 +1,22 @@
 """Vocoder feature extractors (counterpart of
 ``speechflow_tpu/models/vocoder/feature_extractors.py``): ``MelFeatures``,
-log-mel computed on the device from the waveform, and ``AudioFeatures``, the
-pass-through of precomputed features."""
+log-mel computed on the device from the waveform, ``AudioFeatures``, the
+pass-through of precomputed features, and ``CodecFeatures``, the quantized
+latents of a trainable RVQ codec (``models/codec/rvq.py``). The ``tts``
+extractor, the acoustic model itself, is ``tts_features.TTSFeatures``."""
 
 from __future__ import annotations
+
+import typing as tp
 
 import torch
 import torch.nn as nn
 
+from speechflow_torch.models.layers import flax_init_
 from speechflow_torch.ops import mel as M
 from speechflow_torch.ops import stft as S
 
-__all__ = ["MelFeatures", "AudioFeatures"]
+__all__ = ["MelFeatures", "AudioFeatures", "CodecFeatures"]
 
 
 class MelFeatures(nn.Module):
@@ -53,3 +58,26 @@ class AudioFeatures(nn.Module):
     def forward(self, inputs) -> torch.Tensor:
         return inputs[self.feature] if isinstance(inputs, dict) \
             else getattr(inputs, self.feature)
+
+
+class CodecFeatures(nn.Module):
+    """Waveform -> codec encoder -> residual VQ -> quantized latents (B, N/hop,
+    latent_dim). Trained with the vocoder, it returns ``(q, {"codec_vq": loss})``
+    (the commitment loss joins the generator's losses); frozen, the detached
+    ``q`` alone."""
+
+    def __init__(self, codec_params: tp.Optional[dict] = None, freeze: bool = False):
+        super().__init__()
+        from speechflow_torch.models.codec.rvq import CodecParams, NeuralCodec
+
+        self.codec = flax_init_(NeuralCodec(CodecParams.create(dict(codec_params or {}))))
+        self.freeze = freeze
+        self.dim = self.codec.p.latent_dim
+        self.hop = self.codec.hop
+
+    def forward(self, inputs):
+        wav = inputs["waveform"] if isinstance(inputs, dict) else inputs.waveform
+        q, _, vq_loss = self.codec.rvq(self.codec.encode_latent(wav))
+        if self.freeze:
+            return q.detach()
+        return q, {"codec_vq": vq_loss}

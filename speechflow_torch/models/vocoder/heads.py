@@ -1,7 +1,10 @@
 """Vocoder heads (counterpart of ``speechflow_tpu/models/vocoder/heads.py``):
-``ISTFTHead`` (per-frame magnitude and phase, inverted by ``ops.stft.istft``)
-and the BigVGAN-class ``SnakeUpsampleHead`` with its ``AntiAliasedSnake`` and
-``ResBlock``.
+``ISTFTHead`` (per-frame magnitude and phase, inverted by ``ops.stft.istft``),
+the BigVGAN-class ``SnakeUpsampleHead`` with its ``AntiAliasedSnake`` and
+``ResBlock``, the MDCT heads ``IMDCTSymExpHead`` and ``IMDCTCosHead`` (per-frame
+MDCT coefficients through a fixed windowed basis, overlap-added at hop = frame
+length), and ``DACHead`` (a projection into the codec's latent space and the
+codec's transposed-conv decoder, ``models/codec/rvq.py::CodecDecoder``).
 
 Every activation goes through the hand-written anti-alias kernel
 (``speechflow_torch.ops.anti_alias``) on the GPU. Within a
@@ -25,9 +28,10 @@ from speechflow_torch.ops.anti_alias import (
     aa_upsample_fir,
     anti_alias_snake,
 )
-from speechflow_torch.ops.stft import istft
+from speechflow_torch.ops.stft import istft, overlap_add
 
-__all__ = ["ISTFTHead", "AntiAliasedSnake", "ResBlock", "SnakeUpsampleHead"]
+__all__ = ["ISTFTHead", "AntiAliasedSnake", "ResBlock", "SnakeUpsampleHead", "DACHead",
+           "IMDCTSymExpHead", "IMDCTCosHead"]
 
 
 class ISTFTHead(nn.Module):
@@ -127,3 +131,99 @@ class SnakeUpsampleHead(nn.Module):
         for res in group[1:]:
             acc = acc + res(x, shared_stage1=s1)
         return acc / len(group)
+
+
+def _factor_strides(hop: int, max_stride: int = 8) -> tp.Tuple[int, ...]:
+    """``hop`` as transposed-conv strides of at most ``max_stride``, largest
+    first (256 -> (8, 8, 4)), so the codec decoder upsamples by exactly the hop."""
+    strides = []
+    rem = hop
+    while rem > 1:
+        for s in range(min(max_stride, rem), 1, -1):
+            if rem % s == 0:
+                strides.append(s)
+                rem //= s
+                break
+        else:
+            raise ValueError(f"cannot factor hop {hop} into strides <= {max_stride}")
+    return tuple(strides)
+
+
+class DACHead(nn.Module):
+    """Backbone hidden states -> the codec's latent space (``proj``) -> the
+    codec decoder (decoder only; its strides default to the hop's factors, and
+    a decoder whose upsampling is not the hop raises). No 10x latent rescale:
+    the decoder trains with the vocoder."""
+
+    def __init__(self, dim: int, hop_length: int = 256,
+                 codec_params: tp.Optional[dict] = None):
+        super().__init__()
+        from speechflow_torch.models.codec.rvq import CodecDecoder, CodecParams
+
+        cp = dict(codec_params or {})
+        cp.setdefault("strides", _factor_strides(hop_length))
+        params = CodecParams.create(cp)
+        self.decoder = CodecDecoder(params)
+        if self.decoder.hop != hop_length:
+            raise ValueError(f"codec strides {cp['strides']} upsample x{self.decoder.hop}, "
+                             f"but the vocoder hop is {hop_length}")
+        self.proj = nn.Linear(dim, params.latent_dim)
+        flax_init_(self)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, dim) -> (B, T·hop) waveform."""
+        return self.decoder(self.proj(x))
+
+
+def _mdct_basis(frame_len: int) -> np.ndarray:
+    """The DCT-IV-style basis (2N, N) of an MDCT of window length 2N, float32."""
+    n = frame_len
+    k = np.arange(n)[None, :]
+    t = np.arange(2 * n)[:, None]
+    return np.cos(np.pi / n * (t + 0.5 + n / 2) * (k + 0.5)).astype(np.float32)
+
+
+class _IMDCTHead(nn.Module):
+    """Linear -> MDCT coefficients (``_coeffs``) -> frames through the sine-windowed
+    basis -> overlap-add at hop = ``mdct_frame_len``, cropped by half a hop to
+    T·hop samples. The windowed basis is the JAX head's constant, built once in
+    numpy (float32 basis, float64 window): a parameter that does not train, so
+    checkpoints of either package carry it."""
+
+    def __init__(self, dim: int, mdct_frame_len: int = 512, out_mult: int = 1):
+        super().__init__()
+        n = self.frame_len = mdct_frame_len
+        self.out = nn.Linear(dim, out_mult * n)
+        basis = _mdct_basis(n) * (2.0 / n)
+        window = np.sin(np.pi / (2 * n * 2) * (np.arange(2 * n) * 2 + 1))
+        self.basis = nn.Parameter(torch.from_numpy((basis * window[:, None]).astype(np.float32)),
+                                  requires_grad=False)
+        flax_init_(self)
+
+    def _coeffs(self, h: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, dim) -> (B, T·frame_len) waveform."""
+        coeffs = self._coeffs(self.out(x))
+        frames = torch.matmul(coeffs, self.basis.to(coeffs.dtype).T)   # (B, T, 2N)
+        hop, t = self.frame_len, frames.shape[1]
+        return overlap_add(frames, hop)[:, hop // 2: hop // 2 + t * hop]
+
+
+class IMDCTSymExpHead(_IMDCTHead):
+    """Symmetric-exponential coefficients: sign(h)·(exp(min(|h|, 10)) - 1)."""
+
+    def _coeffs(self, h: torch.Tensor) -> torch.Tensor:
+        return torch.sign(h) * (torch.exp(torch.clamp(h.abs(), max=10.0)) - 1.0)
+
+
+class IMDCTCosHead(_IMDCTHead):
+    """exp(min(m, 10))·cos(p) from a projection of twice the frame length."""
+
+    def __init__(self, dim: int, mdct_frame_len: int = 512):
+        super().__init__(dim, mdct_frame_len, out_mult=2)
+
+    def _coeffs(self, h: torch.Tensor) -> torch.Tensor:
+        m, p = h.chunk(2, dim=-1)
+        return torch.exp(torch.clamp(m, max=10.0)) * torch.cos(p)

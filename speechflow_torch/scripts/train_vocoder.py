@@ -14,10 +14,14 @@ It runs on the GPU unless ``device="cpu"``. Weights start from
 ``torch.manual_seed(trainer.seed)``. ``resume.from`` (``-r``, either package's
 checkpoints, both optimizers' states) and ``warmstart.disc_from`` (either
 package's) are read; ``-w`` sets
-``warmstart.ckpt``, which this script, like JAX's, does not read. Not ported, and
-raising ``NotImplementedError`` with the module they need: the ``tts``
-feature extractor (E2E GAN-TTS), ``loss.cpc_ckpt`` and ``loss.bio_ckpt``
-(CPC, ECAPA) and a MOS model for validation (``gan.mos_ckpt``).
+``warmstart.ckpt``, which this script, like JAX's, does not read, and so is
+``gan.mos_ckpt``: the JAX trainer takes a MOS model only through
+``GANTrainer(mos_hook=...)`` (``models/vocoder/mos_proxy.py``). The ``tts``
+feature extractor (E2E GAN-TTS, ``configs/vocoder_styletts2_e2e*.yml`` over
+``configs/tts_data_24khz.yml``) sizes the acoustic model from the pipeline and
+batches through ``E2EBatchProcessor``; ``loss.bio_ckpt`` adds the
+speaker-similarity loss. ``loss.cpc_ckpt`` raises ``NotImplementedError``
+(the CPC model is not ported).
 """
 
 from __future__ import annotations
@@ -36,10 +40,12 @@ from speechflow_torch.models.vocoder.criterion import (
     vocoder_gen_criterion,
 )
 from speechflow_torch.models.vocoder.discriminators import VocoderDiscriminator
+from speechflow_torch.models.vocoder.tts_features import E2EBatchProcessor
 from speechflow_torch.scripts.common import (
     build_data,
     configs_of_args,
     experiment_saver,
+    model_config_from_info,
     optimizer_config,
     read_configs,
     train_arguments,
@@ -76,28 +82,30 @@ def train(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: ExperimentSaver,
     ``tensorboard`` package)."""
     dev = resolve_device(device)
     params = VocosParams.create(model_cfg["model"])
-    if params.feature_extractor == "tts":
-        raise NotImplementedError("feature_extractor 'tts' (E2E GAN-TTS): "
-                                  "models/vocoder/tts_features.py is not ported yet")
-    if (model_cfg.get("gan") or {}).get("mos_ckpt"):
-        raise NotImplementedError("gan.mos_ckpt: models/vocoder/mos_proxy.py is not "
-                                  "ported yet")
     loss_cfg = dict(model_cfg.get("loss") or {})
     gen_crit = vocoder_gen_criterion(sample_rate=params.sample_rate, n_mels=params.n_mels,
+                                     device=dev,
                                      **filter_kwargs(vocoder_gen_criterion, loss_cfg))
     cfg = trainer_config(model_cfg)
-    torch.manual_seed(cfg.seed)
-    generator = Vocos(params).to(dev)
-    discriminator = VocoderDiscriminator(**filter_kwargs(
-        VocoderDiscriminator.__init__, model_cfg.get("discriminator") or {})).to(dev)
     pipeline, loaders = build_data(data_cfg, model_cfg)
     try:
+        if params.feature_extractor == "tts":
+            # E2E GAN-TTS: the acoustic model inside the generator, sized from the data
+            params.tts_params = model_config_from_info(
+                {"model": dict(params.tts_params)}, pipeline)
+            batch_processor = E2EBatchProcessor(device=dev)
+        else:
+            batch_processor = VocoderBatchProcessor(device=dev)
+        torch.manual_seed(cfg.seed)
+        generator = Vocos(params).to(dev)
+        discriminator = VocoderDiscriminator(**filter_kwargs(
+            VocoderDiscriminator.__init__, model_cfg.get("discriminator") or {})).to(dev)
         saver.to_save["pipeline_info"] = pipeline.get_info()
         saver.to_save["model_params"] = dataclasses.asdict(params)
         gan_cfg = model_cfg.get("gan") or {}
         gan = GANTrainer(
             generator, discriminator, gen_crit, vocoder_disc_criterion(),
-            VocoderBatchProcessor(device=dev),
+            batch_processor,
             gen_optimizer=optimizer_config(model_cfg),
             disc_optimizer=optimizer_config(
                 model_cfg, "disc_optimizer" if model_cfg.get("disc_optimizer")

@@ -53,7 +53,10 @@ def _ragged(b: int, t: int, step: int) -> tp.List[int]:
 # fallback), 297 frames at the seeded flagship's durations (75776 samples), doubled by
 # CFG; the f32 TTS interface row takes the flagship's bench shape, as its bf16 serving
 # path does. A prosody sentence of 10 words is one 16-token row; a prosody training batch
-# has 64 rows of 64 word slots (``ProsodySampleLoader``), 10..40 words valid here.
+# has 64 rows of 64 word slots (``ProsodySampleLoader``), 10..40 words valid here. The
+# aligner aligns 16 SEGS utterances a batch (their stage-1 token counts, padded to 16);
+# the E2E generator serves 4 SEGS test utterances, its decoder over the recipe's
+# max_output_length of 4096 frames with 4 frames a token valid.
 ROWS = (
     ("flagship", "encoder", 32, 128, 6, 128, [128] * 32, 6, "bf16"),
     ("flagship", "cfm", 64, 1024, 6, 128, _cfm_lengths(64), 180, "bf16"),
@@ -67,6 +70,10 @@ ROWS = (
     ("xtts_train", "prompt", 32, 112, 4, 256, _ragged(32, 112, 3), 4, "f32"),
     ("prosody", "sentence", 1, 16, 4, 64, [10], 4, "f32"),
     ("prosody_train", "step", 64, 64, 4, 64, _ragged(64, 40, 2), 4, "f32"),
+    ("aligner", "align", 16, 144, 2, 96,
+     [138, 132, 75, 129, 69, 23, 101, 105, 91, 30, 18, 88, 47, 65, 88, 78], 4, "f32"),
+    ("e2e", "encoder", 4, 96, 4, 64, [66, 58, 87, 76], 4, "f32"),
+    ("e2e", "decoder", 4, 4096, 4, 64, [264, 232, 348, 304], 4, "f32"),
 )
 TYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 

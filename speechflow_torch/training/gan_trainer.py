@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 
 from speechflow_torch.convert import load_nnx_state, nnx_from_module
+from speechflow_torch.models.vocoder.model import split_output
 from speechflow_torch.training.optimizer import OptimizerConfig, build_optimizer
 from speechflow_torch.training.saver import ExperimentSaver
 from speechflow_torch.training.trainer import (
@@ -114,7 +115,8 @@ class GANTrainer:
         step = self.global_step
         gen_out, metrics = self._generator_step(inputs, targets, step)
         if step >= self.disc_start_iter and step % self.disc_every == 0:
-            metrics.update(self._discriminator_step(gen_out.detach(), inputs, targets, step))
+            fake = split_output(gen_out)[0]
+            metrics.update(self._discriminator_step(fake.detach(), inputs, targets, step))
         self.global_step += 1
         return metrics
 
@@ -157,7 +159,7 @@ class GANTrainer:
         inputs, targets = _place(self.batch_processor(batch), self.device)
         with self._autocast():
             out = self.generator(inputs)
-        fake = out.float().cpu().numpy()
+        fake = split_output(out)[0].float().cpu().numpy()
         real = targets["waveform"].float().cpu().numpy()
         t = min(fake.shape[-1], real.shape[-1])
         fake, real = fake[..., :t], real[..., :t]

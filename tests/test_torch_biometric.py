@@ -213,7 +213,9 @@ def test_mean_bio_embeddings_matches_jax():
     rng = np.random.default_rng(8)
     samples = [Sample(speaker_name=s, speaker_emb=rng.normal(size=4).astype(np.float32))
                for s in ("a", "b", "a", None)]
-    ours, ref = MeanBioEmbeddings().fit(samples), J().fit(samples)
+    ref = J()
+    ref.mean_emb = {}  # the JAX handler is a process-wide singleton: start it empty
+    ours, ref = MeanBioEmbeddings().fit(samples), ref.fit(samples)
     assert ours.state_dict() == ref.state_dict()
     assert set(ours.mean_emb) == {"a", "b", "__all__"}
     loaded = SINGLETON_HANDLERS["MeanBioEmbeddings"]()

@@ -663,3 +663,88 @@ def test_prosody_model_on_the_gpu_matches_the_cpu(cuda_device):
     for head in ("binary", "category"):
         r, g = ref[head][0, :27].detach(), got[head][0, :27].detach().cpu()
         assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("t_len", [1, 37, 128, 300])
+def test_attention_kernel_at_the_aligner_head_dim(cuda_device, rng, dtype, tol, t_len):
+    """The aligner's encoder at its default width: 2 heads of 96 (a head dim no
+    other path runs), ragged keys (the second row is a third as long)."""
+    valid = torch.arange(t_len, device=cuda_device)[None] < torch.tensor(
+        [t_len, max(1, t_len // 3)], device=cuda_device)[:, None]
+    _check_attention(cuda_device, rng, dtype, tol, (2, t_len, 2, 96), valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)])
+def test_fused_attention_vjp_at_the_aligner_head_dim(cuda_device, rng, dtype, tol):
+    """dh 96 under autograd: one forward launch, q, k and v's gradients against
+    PyTorch autograd of the plain version (as ``test_fused_attention_vjp_matches_plain_autograd``)."""
+    shape = (3, 150, 2, 96)
+    lens = torch.tensor([150, 91, 12], device=cuda_device)
+    valid = torch.arange(150, device=cuda_device)[None] < lens[:, None]
+    q, k, v, g = (_normal(rng, *shape).to(cuda_device, dtype) for _ in range(4))
+    before = A.fused_attention.launches
+    got, ref = [], []
+    for fn, grads in ((A.fused_attention, got), (A.attention_reference, ref)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        fn(*leaves, valid).backward(g)
+        grads.extend(x.grad for x in leaves)
+    torch.cuda.synchronize()
+    assert A.fused_attention.launches == before + 1
+    for u, w in zip(got, ref):
+        assert (u.float() - w.float()).abs().max().item() <= tol * w.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_aligner_align_on_the_gpu_matches_the_cpu(cuda_device):
+    """``GlowTTSAligner.align`` at the recipe's default width (192 wide, 2 heads
+    of 96, 6 flows), seeded: the GPU (the kernel, TF32 off) gives the CPU's
+    durations exactly and one attention launch a layer."""
+    from speechflow_torch.models.aligner import GlowTTSAligner, GlowTTSParams
+    from speechflow_torch.models.tts import TTSForwardInput
+
+    torch.manual_seed(0)
+    model = GlowTTSAligner(GlowTTSParams(n_symbols=60, n_mels=80)).eval()
+    for cp in model.flow.couplings:  # random couplings (fresh ones are the identity)
+        torch.nn.init.normal_(cp.post.weight, std=0.02)
+    gen = torch.Generator().manual_seed(1)
+    inputs = TTSForwardInput(transcription=torch.randint(5, 60, (2, 40), generator=gen),
+                             transcription_lengths=torch.tensor([40, 23]),
+                             mel=torch.randn(2, 300, 80, generator=gen),
+                             mel_lengths=torch.tensor([300, 170]))
+    ref, _ = model.align(inputs)
+    before = A.fused_attention.launches
+    got, _ = copy.deepcopy(model).to(cuda_device).align(inputs.to(cuda_device))
+    assert A.fused_attention.launches == before + model.p.encoder_layers
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["nsf_hifigan", "nsf_istft", "imdct_symexp", "imdct_cos"])
+def test_vocoder_heads_on_the_gpu_match_the_cpu(cuda_device, head):
+    """The NSF and MDCT heads at the recipes' default widths (Vocos 512, NSF 256
+    channels, style 192), seeded, the same sine-source draws: the waveform on the
+    GPU within 1e-4 of the CPU's largest magnitude."""
+    from speechflow_torch.models.vocoder import Vocos, VocosParams
+
+    torch.manual_seed(0)
+    params = VocosParams.create(dict(head=head, style_dim=192, n_mels=100))
+    model = Vocos(params).eval()
+    gen = torch.Generator().manual_seed(2)
+    mel = torch.randn(2, 40, 100, generator=gen)
+    f0 = torch.where(torch.rand(2, 40, generator=gen) > 0.3,
+                     100 + 200 * torch.rand(2, 40, generator=gen), torch.zeros(2, 40))
+    style = torch.randn(2, 192, generator=gen)
+    kw = {}
+    if model.nsf_head:
+        hop = model.head.total_up if head == "nsf_hifigan" else model.head.hop
+        kw = dict(f0=f0, style=style,
+                  sine_noise=model.head.sine_gen.draw(2, 40 * hop, "cpu", gen))
+    with torch.no_grad():
+        ref = model.from_features(mel, **kw)
+        dev = {k: (tuple(x.to(cuda_device) for x in v) if isinstance(v, tuple) else
+                   v.to(cuda_device)) for k, v in kw.items()}
+        got = copy.deepcopy(model).to(cuda_device).from_features(mel.to(cuda_device), **dev)
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

@@ -80,7 +80,14 @@ NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "models/codec/rvq.py", "interface/xtts_interface.py", "interface/__init__.py",
                "scripts/export.py", "app/__init__.py", "app/demo_server.py",
                "io/zstd.py", "io/ocdbt.py", "io/orbax.py", "io/config.py", "ops/mas.py",
-               "ops/length_regulator.py", "training/optax_state.py")
+               "ops/length_regulator.py", "training/optax_state.py",
+               "models/vocoder/nsf.py", "models/vocoder/tts_features.py",
+               "models/vocoder/mos_proxy.py", "models/vocoder/heads.py",
+               "models/vocoder/backbones.py", "models/vocoder/model.py",
+               "models/aligner/__init__.py", "models/aligner/flows.py",
+               "models/aligner/model.py", "models/aligner/criterion.py",
+               "models/aligner/batch_processor.py", "scripts/train_aligner.py",
+               "annotator/__init__.py", "annotator/align.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

@@ -251,6 +251,6 @@ def test_pipeline_rejects_unported_handlers():
     dp = DataPipeline.from_info(info, ignored_handlers={"spectral_flatness"})
     assert dp.handler_names == ["text_to_transcription", "add_xpbert_feat"]
     assert dp.collate_fn.token_multiple == 8
-    info["config"]["collate"]["type"] = "SpectrogramCollate"
-    with pytest.raises(NotImplementedError, match="SpectrogramCollate"):
+    info["config"]["collate"]["type"] = "ImageCollate"
+    with pytest.raises(NotImplementedError, match="ImageCollate"):
         DataPipeline.from_info(info, ignored_handlers={"spectral_flatness"})

@@ -248,8 +248,22 @@ def test_gan_criteria_match_jax(rng, step, ramp):
     np.testing.assert_allclose(d["disc_hinge"].item(), float(jdl["disc_hinge"]), rtol=1e-5)
 
 
-def test_perceptual_terms_raise_until_ported():
+def test_perceptual_terms_raise_until_ported(tmp_path):
+    """The CPC term waits on the CPC model; the speaker-similarity term
+    (``bio_ckpt``, an ECAPA pickle) is ported and adds ``spk_sim`` (its parity:
+    ``test_torch_vocoder_options.py``)."""
+    from speechflow_torch.models.biometric.ecapa import ECAPAEmbedder, ECAPAParams
+    from speechflow_torch.utils.state_io import save_module
+
     with pytest.raises(NotImplementedError, match="CPC"):
         vocoder_gen_criterion(cpc_ckpt="x")
-    with pytest.raises(NotImplementedError, match="ECAPA"):
-        vocoder_gen_criterion(bio_ckpt="x")
+    p = ECAPAParams(n_mels=20, channels=8, emb_dim=4, n_blocks=1)
+    ckpt = save_module(ECAPAEmbedder(p), p, tmp_path / "ecapa.pkl")
+    crit = vocoder_gen_criterion(n_mels=20, bio_ckpt=str(ckpt), device="cpu")
+    wav = torch.randn(1, 2048, generator=torch.Generator().manual_seed(0)) * 0.3
+
+    def disc(x):
+        return [x.mean(-1, keepdim=True)], [[x]]
+
+    losses = crit(wav, disc, None, {"waveform": wav}, 0)
+    assert abs(float(losses["spk_sim"])) < 1e-5  # the same waveform: cosine 1

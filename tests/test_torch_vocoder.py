@@ -93,10 +93,19 @@ def test_vocos_from_features(rng):
 
 
 def test_unported_vocoder_options_raise():
-    for bad in (dict(feature_extractor="codec"), dict(feature_extractor="tts"),
-                dict(head="nsf_hifigan"), dict(head="nsf_istft"), dict(head="imdct_symexp"),
-                dict(head="imdct_cos"), dict(head="dac"), dict(backbone="dummy")):
-        with pytest.raises(NotImplementedError):
+    """Every option of the JAX ``Vocos`` builds (their parity is held in
+    ``test_torch_vocoder_options.py``); an unknown one raises as JAX's does."""
+    tts = dict(token_emb_dim=8, encoder_dim=8, encoder_layers=1, encoder_heads=2,
+               decoder_type="wrapper", decoder_dim=8, decoder_layers=1, postnet_dim=8)
+    for opt in (dict(feature_extractor="codec", head="istft", n_fft=64),
+                dict(feature_extractor="tts", tts_params=tts),
+                dict(head="nsf_hifigan"), dict(head="nsf_istft", n_fft=64),
+                dict(head="imdct_symexp"), dict(head="imdct_cos"),
+                dict(head="dac", dac_codec_params=dict(channels=4, latent_dim=8)),
+                dict(backbone="dummy")):
+        assert isinstance(Vocos(VocosParams.create(vocoder_params(**opt))), Vocos)
+    for bad in (dict(feature_extractor="x"), dict(head="x"), dict(backbone="x")):
+        with pytest.raises(ValueError):
             Vocos(VocosParams.create(vocoder_params(**bad)))
 
 

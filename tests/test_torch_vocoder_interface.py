@@ -172,7 +172,21 @@ def test_audio_chunk(rng, tmp_path):
 
 @pytest.mark.parametrize("head", ["nsf_hifigan", "nsf_istft"])
 def test_nsf_heads_raise(head):
-    """NSF heads are not ported: the interface raises as the model does."""
-    with pytest.raises(NotImplementedError):
+    """The NSF heads are ported: the interface rebuilds one from a checkpoint's
+    tree and synthesizes with an F0 (zeros without one); the NSF paths' parity is
+    ``test_torch_vocoder_options.py::test_vocoder_interface_nsf_paths``."""
+    from speechflow_torch.convert import nnx_from_module
+    from speechflow_torch.models.vocoder import Vocos, VocosParams
+
+    params = dict(PARAMS, head=head, n_fft=64, style_dim=8)
+    tree = {"model": nnx_from_module(Vocos(VocosParams.create(params)))}
+    vi = VocoderEvaluationInterface.from_checkpoint(tree, {"model_params": params},
+                                                    device="cpu")
+    mel = np.zeros((6, params.get("n_mels", 100)), np.float32)
+    hop = vi.params.hop_length
+    for f0 in (None, np.full(6, 150.0, np.float32)):
+        out = vi.synthesize(mel, f0=f0).data
+        assert out.shape == (5 * hop,) and np.isfinite(out).all()
+    with pytest.raises(KeyError):  # the copy stays strict
         VocoderEvaluationInterface.from_checkpoint(
-            {"model": {}}, {"model_params": dict(PARAMS, head=head)}, device="cpu")
+            {"model": {}}, {"model_params": params}, device="cpu")
