@@ -5,7 +5,8 @@
                                      # xtts, bundle, train, tts_train, xtts_train,
                                      # prosody_train, conditioned, jax_ckpt,
                                      # vocoder_model_train, tts_forward_train, jax_resume,
-                                     # tts_options, e2e_train, vocoder_recipes, aligner
+                                     # tts_options, e2e_train, vocoder_recipes, aligner,
+                                     # aux_models, vocoder_cpc
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
@@ -20,6 +21,8 @@
                                      # tts_forward.yml, JAX runs resumed, the kit's options
     python3 chip_smoke.py --phases build,e2e_train,vocoder_recipes,aligner
                                      # E2E GAN-TTS, the vocoder recipes, the aligner
+    python3 chip_smoke.py --phases build,aux_models,vocoder_cpc
+                                     # the auxiliary models, the vocoder's CPC loss
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -169,7 +172,9 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    per step inside the step and between steps, mel frames trained per
    second, peak device memory and the step's FLOP bound. Last, the
    checkpoint through ``ExperimentSaver.load_checkpoint`` ->
-   ``TTSEvaluationInterface.from_checkpoint``: in f32, through the kernels,
+   ``TTSEvaluationInterface.from_checkpoint``, which must find the ``g2p.pkl`` that
+   ``train_tts`` trained into the experiment (1200 steps x 3 members) and phonemize
+   the request through it: in f32, through the kernels,
    within ``TOL_F32_REL`` of the trained model through the plain versions on
    a text request (mel and waveform), and the vocoder's kernels within it of
    its plain versions on a training utterance; then in bf16 a
@@ -308,7 +313,32 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    (the config's phoneme filter at its debug 2.0 s: a 6-step model's timestamps are not
    speech's) and writes ``.TextGridStage2``; every grid read back with ``AudioSeg.load``.
    Prints ms a step, mel frames a second, ms an aligned utterance.
-23. ``profile`` (only when asked for): for the flagship and the toy program,
+23. ``aux_models``: the auxiliary models at their JAX defaults on the card, TF32 off. G2P:
+   ``train_g2p_artifact`` on SEGS (1200 steps x 3 BiGRU members, each member's steps a
+   replayed CUDA graph), tests/test_g2p.py's 25 held-out word types scored (PER <= 0.31,
+   exact-match >= 0.26), then 4 raw-text sentences through ``TTSEvaluationInterface`` at
+   flagship width that finds the ``g2p.pkl`` (its tokens the G2P's phonemes; 186 / 37 / 6
+   / 18 launches). CREPE: ``train_crepe`` (600 x 64), held tones' median relative error
+   < 0.03, the ``pitch`` handler's ``crepe`` and ``yingram`` on a SEGS utterance. CTC:
+   tests/test_asr_ctc.py's synthetic task until greedy decoding returns the sequences,
+   then ``CTCPhonemeASR`` over the saved checkpoint (45 s, three windows). Demucs:
+   ``DEMUCS_STEPS`` steps under ``denoiser_criterion``, the ``denoise`` handler over the
+   checkpoint. CPC: ``train_cpc`` on the SEGS waves (the loss falling), saved and read
+   back by ``ssl_features``. The codec and ECAPA examples for a few steps, each pickle
+   read by its handler. One f32 step of CPC, CREPE, CTC and demucs card vs CPU: the loss
+   within ``TOL_F32_REL``, every gradient within ``TOL_TTS_GRAD`` of its scale.
+24. ``vocoder_cpc``: ``configs/vocoder_bigvgan.yml`` default (the unfolded 1536 head) with
+   ``loss.cpc_ckpt`` the CPC of ``aux_models`` (else one trained for 20 steps). First the
+   f32 gate (``cpc_gate``): a GAN micro-batch B2 x 8192 through the kernels and the plain
+   versions, the losses (``cpc`` among them) within ``TOL_F32_REL``, every gradient within
+   ``TOL_GAN_GRAD``, and the ``cpc`` term's own generator gradients within
+   ``TOL_GAN_GRAD``; a planted fault (the fake branch detached) rejected. Then
+   ``train_vocoder.train`` for ``CPC_MICRO_BATCHES`` micro-batches: finite losses, the
+   CPC's weights unchanged, 37 / 43 / 18 anti-alias launches (forward and VJP) each. Then
+   the checkpoint through ``VocoderEvaluationInterface`` (folded) and ``Denoiser`` over its
+   model: the bias and a resynthesis (37 / 6 / 18 launches each), denoised, kernels vs
+   plain within ``TOL_F32_REL``.
+25. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -2324,6 +2354,7 @@ def phase_tts_train(torch, gpu_line: str) -> dict:
     import numpy as np
 
     from speechflow_torch import serving
+    from speechflow_torch.data.processors.text import G2PParserHook
     from speechflow_torch.interface.tts_interface import TTSEvaluationInterface, TTSOptions
     from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
     from speechflow_torch.models.tts.batch_processor import TTSBatchProcessor
@@ -2432,7 +2463,11 @@ def phase_tts_train(torch, gpu_line: str) -> dict:
         # f32: the reloaded checkpoint through the kernels against the trained model in
         # memory through the plain versions, on the same request and noise, each one's
         # valid frames then through the vocoder, with its kernels and with its plain versions
-        trained = TTSEvaluationInterface(trainer.model, payload)
+        # train_tts trained a G2P into the experiment, and the reloaded interface found it
+        check(isinstance(ti.text_processor.parser, G2PParserHook),
+              "tts_train: the reloaded checkpoint does not serve through the run's g2p.pkl")
+        trained = TTSEvaluationInterface(trainer.model, payload,
+                                         text_parser=ti.text_processor.parser)
         got = tts_request(torch, ti, vi, sentences, ctx, opts, noise=noise)
         with plain_versions():
             ref = tts_request(torch, trained, vi, sentences, ctx, opts, noise=noise)
@@ -2483,7 +2518,8 @@ def phase_tts_train(torch, gpu_line: str) -> dict:
         del got, ref, spec_k, spec_p, trained, trainer, st["trainer"], st["batch"], last, target
         del tf_in, tf_draws, tf, o
 
-        ti = TTSEvaluationInterface(ti.model.to(torch.bfloat16), payload)
+        ti = TTSEvaluationInterface(ti.model.to(torch.bfloat16), payload,
+                                    text_parser=ti.text_processor.parser)
         vm.to(torch.bfloat16)
         reset_counts()
         r = tts_request(torch, ti, vi, sentences, ctx, opts, gen=gen)
@@ -5028,6 +5064,666 @@ def phase_aligner(torch, gpu_line: str) -> dict:
     return res
 
 
+# -- phase 23: the auxiliary models --------------------------------------------------
+
+G2P_HELD = 25  # word types held out: tests/test_g2p.py's split (seed 0's permutation)
+G2P_MAX_PER, G2P_MIN_EXACT = 0.31, 0.26  # tests/test_g2p.py's gates
+CREPE_TONES = (80.0, 150.0, 220.0, 440.0)  # held tones (tests/test_pitch_crepe.py)
+CREPE_MAX_MEDIAN_ERR = 0.03
+CTC_STEPS = 150  # tests/test_asr_ctc.py's synthetic task
+DEMUCS_STEPS = 20
+CODEC_STEPS, BIOMETRIC_STEPS = 20, 10  # the examples' cut (200 and 60 by default)
+
+
+def _harmonic(f0: float, seconds: float = 1.0, n_harm: int = 10):
+    import numpy as np
+
+    tt = np.arange(int(SR * seconds)) / SR
+    sig = sum(k ** -1.0 * np.sin(2 * np.pi * k * f0 * tt) for k in range(1, n_harm + 1))
+    return (sig / np.abs(sig).max()).astype(np.float32)
+
+
+def _seg_wave(i: int = 0):
+    """The ``i``-th SEGS utterance at 24 kHz, whole."""
+    from speechflow_torch.io.audio import AudioChunk
+
+    return AudioChunk(file_path=sorted(SEGS.rglob("*.wav"))[i]).load(sr=SR).waveform
+
+
+def aux_g2p(torch, gpu_line: str) -> dict:
+    """``train_g2p_artifact`` on SEGS at JAX's defaults (1200 steps x 3 members, the
+    BiGRU) with tests/test_g2p.py's held-out split, its PER and exact-match gates; then
+    a raw-text request of 4 sentences through ``TTSEvaluationInterface`` at flagship
+    width, which finds that ``g2p.pkl`` beside its checkpoint path: its tokens are the
+    G2P's phonemes, and it launches the flagship's kernels."""
+    import numpy as np
+
+    from speechflow_torch import serving
+    from speechflow_torch.data.processors.text import SERVICE_TOKENS, G2PParserHook
+    from speechflow_torch.interface.tts_interface import TTSEvaluationInterface, TTSOptions
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.models.g2p import G2P, mine_g2p_lexicon
+    from speechflow_torch.scripts import train_g2p as TG
+
+    lexicon = mine_g2p_lexicon(sorted(SEGS.rglob("*.TextGrid*")))
+    out_dir = workdir() / "g2p"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = TG.train_g2p_artifact(SEGS, out_dir, steps=1200,
+                                 holdout=(G2P_HELD + 0.5) / len(lexicon), seed=0,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    g2p = G2P.load(path, device="cuda")
+    idx = np.random.default_rng(0).permutation(len(lexicon))
+    per, exact = TG.held_out_scores(g2p, [lexicon[i] for i in idx[:G2P_HELD]])
+    print(f"[aux_models] G2P: train_g2p_artifact on SEGS ({len(lexicon)} word types, "
+          f"{G2P_HELD} held out; 1200 steps x 3 members) in {train_s:.1f} s with mining; "
+          f"held-out PER {per:.4f} (gate <= {G2P_MAX_PER}), exact-match {exact:.4f} "
+          f"(gate >= {G2P_MIN_EXACT}) ({gpu_line})", flush=True)
+    check(per <= G2P_MAX_PER and exact >= G2P_MIN_EXACT,
+          f"aux_models: G2P held-out PER {per:.4f} / exact {exact:.4f} fail their gates")
+
+    sentences = list(REQUEST_SENTENCES[:4])
+    hook = G2PParserHook(g2p)
+    payload = serving.flagship_payload(sorted({s for x in sentences for s in hook(x)}))
+    am, vm = serving.build_flagship("default", device="cuda", dtype=torch.float32, seed=0)
+    ti = TTSEvaluationInterface(am, payload, ckpt_path=out_dir)
+    vi = VocoderEvaluationInterface(vm)
+    check(isinstance(ti.text_processor.parser, G2PParserHook),
+          "aux_models: the TTS interface did not find the trained g2p.pkl")
+    ctx = ti.prepare_embeddings(ti.create_context("EN", ti.get_speakers()[0]))
+    reset_counts()
+    r = tts_request(torch, ti, vi, sentences, ctx, TTSOptions(t_out=T_FRAMES),
+                    gen=torch.Generator(device="cuda").manual_seed(0))
+    counts = read_counts()
+    ids = r["inputs"].transcription.cpu().numpy()
+    lens = r["inputs"].transcription_lengths.cpu().numpy()
+    used = {s for row, n in zip(ids, lens) for s in ti.alphabet.decode(row[:n])}
+    phones = set(g2p.phoneme_inventory)
+    wave = r["wave"]
+    print(f"[aux_models] raw text -> G2P -> TTSEvaluationInterface (flagship width, f32): "
+          f"{len(sentences)} sentences, {int(lens.sum())} tokens of {len(used)} symbols "
+          f"({len(used & phones)} G2P phonemes), {len(wave)} samples in "
+          f"{r['ms']['total']:.1f} ms, launches {counts}", flush=True)
+    check(used <= phones | set(SERVICE_TOKENS) and len(used & phones) > 10,
+          f"aux_models: the request's tokens are not the G2P's phonemes: {sorted(used)[:20]}")
+    check(counts == EXPECTED_LAUNCHES, f"aux_models: request launches {counts}")
+    check(bool(np.isfinite(wave).all()) and float(wave.std()) > 1e-4,
+          "aux_models: the G2P request's waveform is not finite or is silent")
+    del am, vm, ti, vi
+    torch.cuda.empty_cache()
+    return {"launches": counts, "g2p_per": per, "g2p_exact": exact, "g2p_s": train_s}
+
+
+def aux_crepe(torch, gpu_line: str) -> dict:
+    """``train_crepe`` at JAX's defaults (600 steps x 64 frames), its median relative
+    error on held tones, and the ``pitch`` handler's ``crepe`` (the saved tracker, on
+    the card) and ``yingram`` methods on a SEGS utterance."""
+    import numpy as np
+
+    from speechflow_torch.data.core.datasample import SpectrogramDataSample
+    from speechflow_torch.data.processors import spectral as S
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.models.pitch import CrepeParams, crepe_f0, save_crepe, train_crepe
+
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = train_crepe(CrepeParams(), steps=600, batch=64, seed=0, device="cuda",
+                        losses=losses)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    errs, voiced = [], []
+    with torch.inference_mode():
+        for f0 in CREPE_TONES:
+            est = crepe_f0(model, torch.from_numpy(_harmonic(f0)[None]).to("cuda"),
+                           sr=SR)[0].cpu().numpy()
+            voiced.append(float((est > 0).mean()))
+            errs.append(abs(float(np.median(est[est > 0])) - f0) / f0 if voiced[-1] else 1.0)
+    med = float(np.median(errs))
+    print(f"[aux_models] CREPE: train_crepe 600 x 64 in {train_s:.1f} s (loss "
+          f"{np.mean(losses[:20]):.4f} -> {np.mean(losses[-20:]):.4f}); held tones "
+          f"{CREPE_TONES}: voiced {voiced}, relative errors "
+          + ", ".join(f"{e:.4f}" for e in errs)
+          + f", median {med:.4f} (gate < {CREPE_MAX_MEDIAN_ERR})", flush=True)
+    check(min(voiced) > 0.8 and med < CREPE_MAX_MEDIAN_ERR,
+          f"aux_models: CREPE tones voiced {voiced}, median relative error {med}")
+    ckpt = workdir() / "crepe.pkl"
+    save_crepe(model, ckpt)
+    wav = _seg_wave(0)
+    f0 = S.pitch(SpectrogramDataSample(audio_chunk=AudioChunk(data=wav, sr=SR)),
+                 method="crepe", crepe_ckpt=str(ckpt)).pitch
+    img = S.pitch(SpectrogramDataSample(audio_chunk=AudioChunk(data=wav, sr=SR)),
+                  method="yingram").pitch
+    n_frames = 1 + len(wav) // HOP
+    print(f"[aux_models] pitch handler on a SEGS utterance ({len(wav) / SR:.2f} s): crepe "
+          f"{f0.shape}, voiced {float((f0 > 0).mean()):.3f}, median "
+          f"{float(np.median(f0[f0 > 0])) if (f0 > 0).any() else 0.0:.1f} Hz; yingram "
+          f"{img.shape} in [{img.min():.3f}, {img.max():.3f}]", flush=True)
+    check(f0.shape == (n_frames,) and (f0 >= 0).all() and (f0 > 0).any(),
+          "aux_models: the crepe pitch handler")
+    check(img.ndim == 2 and img.shape[0] == n_frames and img.min() >= 0.0 and img.max() <= 4.0
+          and bool(np.isfinite(img).all()), "aux_models: the yingram pitch handler")
+    S._CREPE_CACHE.clear()
+    return {"crepe_err": med, "crepe_s": train_s}
+
+
+def _ctc_task():
+    """tests/test_asr_ctc.py's task: two 40-frame, 16-band mel patterns encoding
+    [1, 2, 3] and [3, 1, 2]."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    seqs = [[1, 2, 3], [3, 1, 2]]
+    mels = []
+    for labels in seqs:
+        mel = rng.normal(0, 0.1, (40, 16)).astype(np.float32)
+        seg = 40 // len(labels)
+        for j, lab in enumerate(labels):
+            mel[j * seg:(j + 1) * seg, lab * 3:lab * 3 + 3] += 2.0
+        mels.append(mel)
+    return np.stack(mels), seqs
+
+
+def aux_ctc(torch, gpu_line: str) -> dict:
+    """The CTC recognizer trained on tests/test_asr_ctc.py's synthetic task
+    (``CTCLoss``, adam 3e-3) until greedy decoding returns the sequences; then
+    ``CTCPhonemeASR`` over its saved checkpoint on 45 s of SEGS audio (three
+    20 s windows)."""
+    import numpy as np
+
+    from speechflow_torch.annotator.asr import CTCPhonemeASR
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.models.asr import CTCRecognizer, CTCRecognizerParams, greedy_ctc_decode
+    from speechflow_torch.training.losses import CTCLoss
+    from speechflow_torch.training.optimizer import optax_optimizer
+    from speechflow_torch.utils.state_io import save_module
+
+    mels, seqs = _ctc_task()
+    params = CTCRecognizerParams(n_symbols=5, n_mels=16, dim=48, time_stride=1)
+    torch.manual_seed(0)
+    model = CTCRecognizer(params).to("cuda").train()
+    opt = optax_optimizer(model.parameters(), "adam", 3e-3)
+    ctc = CTCLoss(blank_id=0)
+    mel = torch.from_numpy(mels).to("cuda")
+    tgt = torch.tensor(seqs, device="cuda")
+    tgt_lens = torch.tensor([3, 3], device="cuda")
+    losses = []
+    for _ in range(CTC_STEPS + 1):
+        opt.zero_grad(set_to_none=True)
+        logits, out_lens = model(mel)
+        loss = ctc(logits, tgt, lengths=out_lens, target_lengths=tgt_lens)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    losses = [float(v) for v in losses]
+    model.eval()
+    with torch.inference_mode():
+        decoded = [list(greedy_ctc_decode(lg)[0]) for lg in model(mel)[0]]
+    print(f"[aux_models] CTC: {CTC_STEPS + 1} steps on the synthetic task, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, greedy decode {decoded} (want {seqs})",
+          flush=True)
+    check(losses[-1] < 0.2 * losses[0] and decoded == seqs,
+          "aux_models: the CTC recognizer did not learn the synthetic task")
+    ckpt = save_module(model, params, workdir() / "ctc.pkl")
+    wav = np.concatenate([_seg_wave(i) for i in range(12)])[:45 * SR]
+    asr = CTCPhonemeASR(ckpt, {1: "A", 2: "B", 3: "C", 4: "D"})
+    t0 = time.perf_counter()
+    out = asr.transcribe(AudioChunk(data=wav, sr=SR))
+    stamps = out["timestamps"]
+    print(f"[aux_models] CTCPhonemeASR on {len(wav) / SR:.1f} s: {len(stamps)} tokens in "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms", flush=True)
+    check(set(out) == {"text", "timestamps"} and out["text"] == " ".join(s[0] for s in stamps)
+          and len(stamps) > 0 and all(0.0 <= b <= e for _, b, e in stamps)
+          and all(a[1] <= b[1] for a, b in zip(stamps, stamps[1:])),
+          "aux_models: CTCPhonemeASR's transcript")
+    return {"ctc_loss": losses[-1]}
+
+
+def _noisy_batch(rng, n: int, length: int):
+    """``n`` SEGS chunks of ``length`` samples with white noise at 10 dB SNR:
+    (noisy, clean) float32."""
+    import numpy as np
+
+    clean = _seg_waves(n, length, offset=int(rng.integers(0, SR)))
+    noise = rng.standard_normal(clean.shape) * clean.std(-1, keepdims=True) * 10 ** (-10 / 20)
+    return (clean + noise).astype(np.float32), clean
+
+
+def aux_demucs(torch, gpu_line: str) -> dict:
+    """``WaveDenoiser`` at its defaults, ``DEMUCS_STEPS`` adam steps under
+    ``denoiser_criterion`` on SEGS chunks with noise, then the ``denoise`` handler
+    over its saved checkpoint (on the card)."""
+    import numpy as np
+
+    from speechflow_torch.data.core.datasample import AudioDataSample
+    from speechflow_torch.data.processors.audio import denoise
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.models.denoiser import WaveDenoiser, WaveDenoiserParams, denoiser_criterion
+    from speechflow_torch.training.optimizer import optax_optimizer
+    from speechflow_torch.utils.state_io import save_module
+
+    rng = np.random.default_rng(0)
+    params = WaveDenoiserParams()
+    torch.manual_seed(0)
+    model = WaveDenoiser(params).to("cuda").train()
+    opt = optax_optimizer(model.parameters(), "adam", 3e-4)
+    crit = denoiser_criterion()
+    losses = []
+    for _ in range(DEMUCS_STEPS):
+        noisy, clean = (torch.from_numpy(a).to("cuda") for a in _noisy_batch(rng, 4, 24576))
+        opt.zero_grad(set_to_none=True)
+        loss = sum(crit(model(noisy), {"clean": clean}, 0).values())
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    losses = [float(v) for v in losses]
+    ckpt = save_module(model, params, workdir() / "demucs.pkl")
+    noisy, _ = _noisy_batch(rng, 1, 3 * SR + 77)
+    out = denoise(AudioDataSample(audio_chunk=AudioChunk(data=noisy[0], sr=SR)),
+                  model_ckpt=str(ckpt)).audio_chunk.waveform
+    print(f"[aux_models] demucs: {DEMUCS_STEPS} steps (B4 x 1.02 s), loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; the denoise handler over its checkpoint: {out.shape}", flush=True)
+    check(all(np.isfinite(losses)) and out.shape == noisy[0].shape
+          and bool(np.isfinite(out).all()), "aux_models: demucs training or the denoise handler")
+    return {"demucs_loss": losses[-1]}
+
+
+def aux_cpc(torch, gpu_line: str) -> dict:
+    """``train_cpc`` at JAX's defaults (150 steps, 4 x 1 s chunks) on the SEGS waves,
+    the loss falling; saved with ``save_module`` (the ``vocoder_cpc`` phase's
+    ``loss.cpc_ckpt``) and read back by ``ssl_features(model_ckpt=...)``."""
+    import numpy as np
+
+    from speechflow_torch.data.core.datasample import AudioDataSample
+    from speechflow_torch.data.processors.embeddings import ssl_features
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.models.ssl import train_cpc
+    from speechflow_torch.utils.state_io import save_module
+
+    waves = [_seg_wave(i) for i in range(len(sorted(SEGS.rglob("*.wav"))))]
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = train_cpc(waves, sr=SR, seed=0, device="cuda", losses=losses)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    ckpt = save_module(model, model.p, workdir() / "cpc.pkl")
+    _WORK["cpc"] = ckpt
+    wav = _seg_wave(1)
+    feat = ssl_features(AudioDataSample(audio_chunk=AudioChunk(data=wav, sr=SR)),
+                        model_ckpt=str(ckpt)).ssl_feat
+    with torch.inference_mode():
+        padded = np.pad(wav, (0, (-len(wav)) % (model.hop * 64)))
+        ref = model(torch.from_numpy(padded[None].astype(np.float32)).to("cuda"))[0]
+        ref = ref[:len(wav) // model.hop].float().cpu().numpy()
+    err = float(np.abs(feat - ref).max())
+    print(f"[aux_models] CPC: {len(losses)} steps on {len(waves)} SEGS waves in {train_s:.1f} s, "
+          f"InfoNCE {first:.4f} -> {last:.4f} (means of the first and last 10); "
+          f"ssl_features over the checkpoint {feat.shape}, max_abs_err {err:.3g} against "
+          f"the trained model", flush=True)
+    check(last < first, "aux_models: the CPC loss did not fall")
+    check(feat.shape == ref.shape and err <= TOL_F32_REL * float(np.abs(ref).max()),
+          "aux_models: ssl_features does not serve the saved CPC")
+    return {"cpc_loss": last, "cpc_s": train_s}
+
+
+def aux_examples(torch, gpu_line: str) -> dict:
+    """The codec and ECAPA examples for a few steps each on the card, each ``--save``
+    pickle read back by the handler that serves it."""
+    import numpy as np
+
+    from speechflow_torch.data.core.datasample import AudioDataSample
+    from speechflow_torch.data.processors.embeddings import codec_features, voice_biometrics
+    from speechflow_torch.examples.biometric import train as BT
+    from speechflow_torch.examples.codec import train as CT
+    from speechflow_torch.io.audio import AudioChunk
+
+    wav = _seg_wave(2)
+    out = {}
+    for name, mod, steps, handler, field in (
+            ("codec", CT, CODEC_STEPS, codec_features, "ac_feat"),
+            ("biometric", BT, BIOMETRIC_STEPS, voice_biometrics, "speaker_emb")):
+        path = workdir() / f"{name}.pkl"
+        t0 = time.perf_counter()
+        mod.main(["--steps", str(steps), "--save", str(path)])
+        dt = time.perf_counter() - t0
+        feat = getattr(handler(AudioDataSample(audio_chunk=AudioChunk(data=wav, sr=SR)),
+                               model_ckpt=str(path)), field)
+        print(f"[aux_models] examples/{name}/train.py: {steps} steps in {dt:.1f} s; "
+              f"{handler.__name__} over its pickle: {feat.shape}", flush=True)
+        check(bool(np.isfinite(feat).all()) and feat.shape[-1] == 64,
+              f"aux_models: {name} example's pickle through {handler.__name__}")
+        out[f"{name}_s"] = dt
+    return out
+
+
+def aux_card_vs_cpu(torch, gpu_line: str) -> dict:
+    """One f32 step of CPC, CREPE, CTC and demucs at their defaults on the card and on
+    the CPU, TF32 off, the same weights and batch: the loss within ``TOL_F32_REL``, each
+    gradient within ``TOL_TTS_GRAD`` of its tensor's scale."""
+    import copy
+
+    import numpy as np
+
+    from speechflow_torch.models.asr import CTCRecognizer, CTCRecognizerParams
+    from speechflow_torch.models.denoiser import WaveDenoiser, WaveDenoiserParams, denoiser_criterion
+    from speechflow_torch.models.pitch import CrepeF0, CrepeParams, synth_pitch_batch
+    from speechflow_torch.models.ssl import CPCModel, CPCParams, cpc_infonce_loss
+    from speechflow_torch.ops.mel import amp_to_db, linear_to_mel
+    from speechflow_torch.ops.stft import magnitude
+    from speechflow_torch.training.losses import CTCLoss
+
+    rng = np.random.default_rng(5)
+    wav2 = _seg_waves(2, SR)
+    frames, targets = synth_pitch_batch(rng, CrepeParams(), 16)
+    noisy, clean = _noisy_batch(rng, 2, 16384)
+    ctc_params = CTCRecognizerParams()
+    labels = rng.integers(1, ctc_params.n_symbols, (2, 12))
+
+    def cpc_loss(m, dev):
+        return cpc_infonce_loss(m, torch.from_numpy(wav2).to(dev))
+
+    def crepe_loss(m, dev):
+        return torch.nn.functional.binary_cross_entropy_with_logits(
+            m(torch.from_numpy(frames).to(dev)), torch.from_numpy(targets).to(dev))
+
+    def ctc_loss(m, dev):
+        w = torch.from_numpy(wav2).to(dev)
+        mel = amp_to_db(linear_to_mel(magnitude(w, 1024, 256), SR, ctc_params.n_mels))
+        logits, lens = m(mel)
+        return CTCLoss()(logits, torch.from_numpy(labels).to(dev), lengths=lens)
+
+    def demucs_loss(m, dev):
+        out = m(torch.from_numpy(noisy).to(dev))
+        return sum(denoiser_criterion()(out, {"clean": torch.from_numpy(clean).to(dev)},
+                                        0).values())
+
+    res = {}
+    torch.manual_seed(0)
+    for name, model, loss_fn in (("cpc", CPCModel(CPCParams()), cpc_loss),
+                                 ("crepe", CrepeF0(CrepeParams()), crepe_loss),
+                                 ("ctc", CTCRecognizer(ctc_params), ctc_loss),
+                                 ("demucs", WaveDenoiser(WaveDenoiserParams()), demucs_loss)):
+        runs = []
+        for dev, m in (("cpu", model.train()), ("cuda", copy.deepcopy(model).to("cuda"))):
+            loss = loss_fn(m, dev)
+            loss.backward()
+            runs.append((float(loss), {n: p.grad.detach().float().cpu()
+                                       for n, p in m.named_parameters() if p.grad is not None}))
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = runs
+        worst = max(((g_gpu[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
+                    for n, g in g_cpu.items())
+        print(f"[aux_models] {name} f32 step card vs CPU: loss {l_gpu:.6g} vs {l_cpu:.6g}, "
+              f"{len(g_cpu)} gradients, worst relative {worst[0]:.3g} ({worst[1]}; tol "
+              f"{TOL_TTS_GRAD:g})", flush=True)
+        check(abs(l_gpu - l_cpu) <= TOL_F32_REL * abs(l_cpu) and worst[0] <= TOL_TTS_GRAD
+              and set(g_gpu) == set(g_cpu), f"aux_models: {name} card vs CPU: {worst}")
+        res[f"{name}_grad_rel"] = worst[0]
+    return res
+
+
+def phase_aux_models(torch, gpu_line: str) -> dict:
+    """The auxiliary models' training and serving on the card (see the docstring)."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = aux_g2p(torch, gpu_line)
+    for part in (aux_crepe, aux_ctc, aux_demucs, aux_cpc, aux_examples, aux_card_vs_cpu):
+        t0 = time.perf_counter()
+        res.update(part(torch, gpu_line))
+        print(f"[aux_models] {part.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[aux_models] phase wall time {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
+# -- phase 24: GAN training of the flagship vocoder with the CPC loss --------------------
+
+CPC_MICRO_BATCHES = 8  # the cut: one optimizer step of the recipe's grad_accum 8
+
+
+def cpc_checkpoint(torch) -> Path:
+    """The CPC that ``aux_models`` trained in this run, else one trained here for 20
+    steps (the phase alone)."""
+    from speechflow_torch.models.ssl import train_cpc
+    from speechflow_torch.utils.state_io import save_module
+
+    if "cpc" not in _WORK:
+        model = train_cpc([_seg_wave(i) for i in range(8)], sr=SR, steps=20, seed=0,
+                          device="cuda")
+        _WORK["cpc"] = save_module(model, model.p, workdir() / "cpc.pkl")
+    return _WORK["cpc"]
+
+
+@contextlib.contextmanager
+def planted_cpc_fault():
+    """The CPC perceptual loss with its fake branch detached: the term sends no
+    gradient to the generator."""
+    from speechflow_torch.models.vocoder import criterion as C
+
+    real = C.make_cpc_perceptual_loss
+
+    def faulty(ckpt, device=None):
+        loss = real(ckpt, device)
+
+        def detached(fake, wav):
+            return loss(fake.detach(), wav)
+
+        detached.model = loss.model
+        return detached
+
+    C.make_cpc_perceptual_loss = faulty
+    try:
+        yield
+    finally:
+        C.make_cpc_perceptual_loss = real
+
+
+def cpc_term_grads(torch, gen, disc, crit, wav) -> dict:
+    """The generator's gradients of the ``cpc`` term alone (discriminator frozen; 0
+    where the term reaches no parameter)."""
+    from speechflow_torch.training.gan_trainer import frozen
+
+    for p in gen.parameters():
+        p.grad = None
+    inputs = {"waveform": wav}
+    with frozen(disc):
+        term = crit(gen(inputs), disc, inputs, inputs, 0)["cpc"]
+        if term.requires_grad:
+            term.backward()
+    return {f"gen.{n}": (torch.zeros_like(p) if p.grad is None else p.grad.detach().clone())
+            for n, p in gen.named_parameters()}
+
+
+def cpc_gate(torch, ckpt: Path) -> None:
+    """``gan_gate`` with the CPC term, full width f32, cuDNN deterministic, kernels
+    against the plain versions: B, one whole GAN micro-batch (B=2 x 8192; the losses,
+    ``cpc`` among them, within ``TOL_F32_REL``, every gradient within ``TOL_GAN_GRAD``,
+    the kinks pinned); C, the generator's gradients of the ``cpc`` term alone within
+    ``TOL_GAN_GRAD``. A planted fault, the fake branch detached, must be rejected."""
+    from speechflow_torch.models.vocoder import Vocos, VocosParams
+    from speechflow_torch.models.vocoder.criterion import (
+        vocoder_disc_criterion,
+        vocoder_gen_criterion,
+    )
+    from speechflow_torch.models.vocoder.discriminators import VocoderDiscriminator
+    from speechflow_torch.scripts import train_vocoder as TV
+    from speechflow_torch.utils.init import filter_kwargs
+
+    model_cfg, _ = TV.configs(TRAIN_PRESET)
+    params = VocosParams.create(model_cfg["model"])
+    kw = dict(sample_rate=params.sample_rate, n_mels=params.n_mels, device="cuda",
+              **filter_kwargs(vocoder_gen_criterion, dict(model_cfg["loss"],
+                                                          cpc_ckpt=str(ckpt))))
+    torch.manual_seed(0)
+    gen = Vocos(params).to("cuda")
+    disc = VocoderDiscriminator(**model_cfg["discriminator"]).to("cuda")
+    gen_crit, disc_crit = vocoder_gen_criterion(**kw), vocoder_disc_criterion()
+    wav = torch.from_numpy(_seg_waves(2, 8192)).to("cuda")
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    pins: dict = {}
+    try:
+        with plain_versions():
+            with pinned_kinks(torch, pins):
+                ref = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
+            c_ref = cpc_term_grads(torch, gen, disc, gen_crit, wav)
+        with pinned_kinks(torch, pins):
+            got = gan_grads(torch, gen, disc, gen_crit, disc_crit, wav)
+        c_got = cpc_term_grads(torch, gen, disc, gen_crit, wav)
+        flips = pins["flips"]
+        with planted_cpc_fault():
+            bad_crit = vocoder_gen_criterion(**kw)
+        with pinned_kinks(torch, pins):
+            bad = gan_grads(torch, gen, disc, bad_crit, disc_crit, wav)
+        c_bad = cpc_term_grads(torch, gen, disc, bad_crit, wav)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    wb, wc = worst_relative(ref[1], got[1]), worst_relative(c_ref, c_got)
+    print(f"[vocoder_cpc] f32 GAN micro-batch B2 x 8192 with the CPC loss, cuDNN "
+          f"deterministic; losses " + ", ".join(f"{k} {v:.6g}" for k, v in got[0].items())
+          + f". B (the micro-batch): {len(ref[1])} gradients, worst relative {wb[0]:.3g} "
+          f"({wb[1]}; tol {TOL_GAN_GRAD:g}; {flips} pinned kink elements crossed 0). C (the "
+          f"cpc term alone): {len(c_ref)} generator gradients, worst relative {wc[0]:.3g} "
+          f"({wc[1]})", flush=True)
+    check("gen/cpc" in ref[0] and ref[0]["gen/cpc"] > 0, "vocoder_cpc: no cpc loss")
+    fails = gan_disagreement(ref, got, TOL_GAN_GRAD)
+    check(not fails, "vocoder_cpc f32 B: kernels disagree with plain: " + "; ".join(fails[:5]))
+    check(wc[0] <= TOL_GAN_GRAD, f"vocoder_cpc f32 C: the cpc term's gradients disagree: {wc}")
+    fb, fc = gan_disagreement(ref, bad, TOL_GAN_GRAD), worst_relative(c_ref, c_bad)
+    print(f"[vocoder_cpc] planted fault (the fake branch detached): B rejects with {len(fb)} "
+          f"disagreement(s) {fb[:2]}; C worst relative {fc[0]:.3g} ({fc[1]})", flush=True)
+    check(fc[0] > TOL_GAN_GRAD, "the CPC gate passes a detached fake branch")
+    del gen, disc, ref, got, bad, c_ref, c_got, c_bad
+    torch.cuda.empty_cache()
+
+
+def phase_vocoder_cpc(torch, gpu_line: str) -> dict:
+    """GAN training of the flagship vocoder with the CPC perceptual loss through the
+    port's entry point, then ``Denoiser`` over the served vocoder."""
+    import tempfile
+
+    import numpy as np
+
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.models.vocoder import criterion as C
+    from speechflow_torch.models.vocoder.denoiser import Denoiser
+    from speechflow_torch.scripts import train_vocoder as TV
+    from speechflow_torch.scripts.common import experiment_saver
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ckpt = cpc_checkpoint(torch)
+    cpc_gate(torch, ckpt)
+
+    model_cfg, data_cfg = TV.configs(TRAIN_PRESET)
+    data_cfg["dirs"]["data_root"] = str(SEGS)
+    model_cfg["loss"]["cpc_ckpt"] = str(ckpt)
+    model_cfg["trainer"]["max_steps"] = CPC_MICRO_BATCHES
+    made, real_make = [], C.make_cpc_perceptual_loss
+
+    def recorded(*args, **kwargs):
+        made.append(real_make(*args, **kwargs))
+        return made[-1]
+
+    st = {"launches": [], "losses": [], "times": [], "cpc": None}
+
+    def callback(trainer, last):
+        torch.cuda.synchronize()
+        st["times"].append(time.perf_counter())
+        counts = read_counts()
+        reset_counts()
+        st["launches"].append(counts)
+        vals = {k: float(v) for k, v in last.items()}
+        st["losses"].append(vals)
+        i = trainer.global_step
+        check(all(np.isfinite(v) for v in vals.values()) and vals.get("gen/cpc", 0.0) > 0,
+              f"vocoder_cpc: losses at micro-batch {i}: {vals}")
+        check(counts == TRAIN_LAUNCHES,
+              f"vocoder_cpc: launches at micro-batch {i}: {counts} != {TRAIN_LAUNCHES}")
+        cpc = made[0].model
+        check(all(torch.equal(p, q) for p, q in zip(cpc.parameters(), st["cpc"]))
+              and all(p.grad is None for p in cpc.parameters()),
+              f"vocoder_cpc: the CPC's weights changed at micro-batch {i}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = experiment_saver(model_cfg, data_cfg, tmp)
+        C.make_cpc_perceptual_loss = recorded
+        try:
+            from speechflow_torch.models.ssl import CPCModel, CPCParams
+            from speechflow_torch.utils.state_io import load_module
+
+            st["cpc"] = [p.detach().clone() for p in
+                         load_module(CPCModel, CPCParams, ckpt, device="cuda")[0].parameters()]
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            expr = TV.train(model_cfg, data_cfg, saver, device="cuda", callbacks=[callback])
+            t_fit = time.perf_counter() - t0
+        finally:
+            C.make_cpc_perceptual_loss = real_make
+        peak = torch.cuda.max_memory_allocated()
+        check(len(made) == 1 and len(st["losses"]) == CPC_MICRO_BATCHES,
+              f"vocoder_cpc: {len(made)} CPC losses built, {len(st['losses'])} micro-batches")
+        ends = [t0] + st["times"]
+        step_ms = [1e3 * (b - a) for a, b in zip(ends[:-1], ends[1:])]
+        for i, (dt, vals) in enumerate(zip(step_ms, st["losses"])):
+            print(f"[vocoder_cpc] micro-batch {i + 1}: {dt:.1f} ms, gen/total "
+                  f"{vals['gen/total']:.4f}, gen/cpc {vals['gen/cpc']:.4f}", flush=True)
+        ms = float(np.median(step_ms[1:]))
+        print(f"[vocoder_cpc] {CPC_MICRO_BATCHES} micro-batches of configs/vocoder_bigvgan.yml "
+              f"(B32, bf16 autocast, the CPC in f32) with loss.cpc_ckpt in {t_fit:.1f} s with "
+              f"set-up, {ms:.1f} ms a micro-batch (median of 2..{CPC_MICRO_BATCHES}), peak "
+              f"device memory {peak / 2**30:.2f} GiB ({gpu_line})", flush=True)
+        launches = {k: sum(c[k] for c in st["launches"]) for k in TRAIN_LAUNCHES}
+
+        # Denoiser over the served vocoder (the checkpoint through the interface: folded)
+        last_ckpt = ExperimentSaver.get_last_checkpoint(expr)
+        vi = VocoderEvaluationInterface.from_checkpoint(*ExperimentSaver.load_checkpoint(
+            last_ckpt), device="cuda")
+        wav = _seg_waves(1, 64 * HOP * 4, offset=0)[0]
+        outs = []
+        for mode in (contextlib.nullcontext(), plain_versions()):
+            with mode:
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                den = Denoiser(vi.model, n_mels=vi.model.params.n_mels)
+                audio = vi.resynthesize(AudioChunk(data=wav, sr=SR)).data
+                with torch.inference_mode():
+                    clean = den(torch.from_numpy(audio).to("cuda")).float().cpu().numpy()
+                torch.cuda.synchronize()
+                outs.append((clean, read_counts(), 1e3 * (time.perf_counter() - t0)))
+        (k_out, k_counts, k_ms), (p_out, _, p_ms) = outs
+        err = float(np.abs(k_out - p_out).max())
+        lim = TOL_F32_REL * float(np.abs(p_out).max())
+        want = {k: 2 * HEAD_LAUNCHES[k] for k in HEAD_LAUNCHES}
+        print(f"[vocoder_cpc] Denoiser over the served (folded) vocoder: bias + resynthesize "
+              f"{len(wav) / SR:.2f} s + denoise in {k_ms:.1f} ms (plain {p_ms:.1f} ms), "
+              f"launches {k_counts}, max_abs_err {err:.3g} against the plain versions (tol "
+              f"{lim:.3g})", flush=True)
+        check(all(k_counts[k] == want[k] for k in want),
+              f"vocoder_cpc: Denoiser launches {k_counts} != {want}")
+        check(k_out.shape == p_out.shape and bool(np.isfinite(k_out).all()) and err <= lim,
+              "vocoder_cpc: the Denoiser through the kernels disagrees with the plain versions")
+        for k in launches:
+            launches[k] += k_counts[k]
+        del vi
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[vocoder_cpc] phase wall time {phase_s:.1f} s", flush=True)
+    return {"launches": launches, "ms": ms, "peak": peak, "phase_s": phase_s}
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -5145,11 +5841,12 @@ def main(argv=None) -> int:
                     default="build,kernels,slice,toy,interface,tts_interface,xtts,bundle,"
                             "train,tts_train,xtts_train,prosody_train,conditioned,jax_ckpt,"
                             "vocoder_model_train,tts_forward_train,jax_resume,tts_options,"
-                            "e2e_train,vocoder_recipes,aligner",
+                            "e2e_train,vocoder_recipes,aligner,aux_models,vocoder_cpc",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
                          "tts_interface,xtts,bundle,train,tts_train,xtts_train,prosody_train,"
                          "conditioned,jax_ckpt,vocoder_model_train,tts_forward_train,"
-                         "jax_resume,tts_options,e2e_train,vocoder_recipes,aligner,profile "
+                         "jax_resume,tts_options,e2e_train,vocoder_recipes,aligner,aux_models,"
+                         "vocoder_cpc,profile "
                          "(the last is not in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -5199,7 +5896,9 @@ def run(torch, phases: set) -> int:
              ("tts_options", phase_tts_options, ("fused_attention",)),
              ("e2e_train", phase_e2e_train, ("fused_attention", "anti_alias_snake")),
              ("vocoder_recipes", phase_vocoder_recipes, ()),
-             ("aligner", phase_aligner, ("fused_attention",)))
+             ("aligner", phase_aligner, ("fused_attention",)),
+             ("aux_models", phase_aux_models, tuple(EXPECTED_LAUNCHES)),
+             ("vocoder_cpc", phase_vocoder_cpc, tuple(HEAD_LAUNCHES)))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:

@@ -19,6 +19,7 @@ flax leaf                  flax layout                 port layout
 ``LayerNorm.scale/bias``   (D,)                        ``LayerNorm.weight/bias``
 ``GroupNorm.scale/bias``   (D,)                        ``GroupNorm.weight/bias``
 bare ``Param``             any                         same name, same shape
+float ``Variable``         any (CREPE's ``cents``)     a parameter without gradient
 =========================  ==========================  ===========================
 
 The copy is strict both ways: every parameter of the port must be filled

@@ -3,7 +3,7 @@ functions over a sample, found by the names a pipeline config lists.
 
 Ported: the text path's (``text_to_transcription``, ``phonemize``,
 ``add_ling_feat``, ``add_lm_feat``, ``add_xpbert_feat``), the audio path's
-(``data/processors/audio.py``), the spectral handlers
+(``data/processors/audio.py``, ``denoise`` among them), the spectral handlers
 (``data/processors/spectral.py``), the alignment-derived ones
 (``data/processors/tts.py``) and the model-based ones
 (``data/processors/embeddings.py``); ``get_handler`` raises

@@ -1,6 +1,6 @@
-"""Waveform handlers (counterpart of ``speechflow_tpu/data/processors/audio.py``,
-the handlers of the vocoder's data path). Each takes an ``AudioDataSample``
-and changes its ``audio_chunk`` in place."""
+"""Waveform handlers (counterpart of ``speechflow_tpu/data/processors/audio.py``:
+the handlers of the vocoder's data path, and ``denoise``). Each takes an
+``AudioDataSample`` and changes its ``audio_chunk`` in place."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import numpy as np
 from speechflow_torch.data.core.datasample import AudioDataSample
 
 __all__ = ["load_audio", "trim_audio", "random_chunk", "pad_audio", "multiple_audio",
-           "volume_normalize"]
+           "volume_normalize", "denoise"]
 
 
 def load_audio(ds: AudioDataSample, sample_rate: tp.Optional[int] = None) -> AudioDataSample:
@@ -53,4 +53,48 @@ def multiple_audio(ds: AudioDataSample, hop: int = 256) -> AudioDataSample:
 
 def volume_normalize(ds: AudioDataSample, peak: float = 0.95) -> AudioDataSample:
     ds.audio_chunk.normalize(peak)
+    return ds
+
+
+_DENOISERS: tp.Dict[str, tp.Any] = {}
+
+
+def denoise(ds: AudioDataSample, model_ckpt: tp.Optional[str] = None,
+            strength: float = 1.0) -> AudioDataSample:
+    """With ``model_ckpt`` (a ``WaveDenoiser`` saved with ``save_module``, either
+    package's; loaded once per path, on the GPU), ``strength`` mixes its output
+    into the waveform. Without it, spectral subtraction on the host (scipy's
+    STFT, 1024-sample frames at 75 % overlap): the mean magnitude of the
+    quietest 10 % of frames, times ``strength``, is subtracted, the phase kept."""
+    wav = ds.audio_chunk.waveform
+    if model_ckpt:
+        import torch
+
+        if model_ckpt not in _DENOISERS:
+            from speechflow_torch.models.denoiser import WaveDenoiser, WaveDenoiserParams
+            from speechflow_torch.utils.state_io import load_module
+
+            _DENOISERS[model_ckpt], _ = load_module(WaveDenoiser, WaveDenoiserParams,
+                                                    model_ckpt)
+        model = _DENOISERS[model_ckpt]
+        dev = next(model.parameters()).device
+        x = torch.from_numpy(np.ascontiguousarray(wav[None], np.float32)).to(dev)
+        with torch.inference_mode():
+            den = model(x)[0].float().cpu().numpy()
+        ds.audio_chunk.data = ((1.0 - strength) * wav + strength * den[:len(wav)]
+                               ).astype(np.float32)
+        return ds
+
+    from scipy.signal import istft as sp_istft
+    from scipy.signal import stft as sp_stft
+
+    n_fft = 1024
+    _, _, spec = sp_stft(wav, nperseg=n_fft, noverlap=3 * n_fft // 4)
+    mag, phase = np.abs(spec), np.angle(spec)
+    quiet = np.argsort(mag.sum(axis=0))[:max(int(0.1 * mag.shape[1]), 1)]
+    noise_profile = mag[:, quiet].mean(axis=1, keepdims=True)
+    mag = np.maximum(mag - strength * noise_profile, 0.0)
+    _, out = sp_istft(mag * np.exp(1j * phase), nperseg=n_fft, noverlap=3 * n_fft // 4)
+    out = np.pad(out, (0, max(0, len(wav) - len(out))))[:len(wav)]
+    ds.audio_chunk.data = out.astype(np.float32)
     return ds

@@ -14,8 +14,8 @@ asked for the CPU, and raises where there is no CUDA.
 ``make_ecapa_hook`` pads the waveform to a multiple of ``hop_len * 64`` before
 the STFT, as JAX does to bound its jit shapes; the embedder's squeeze
 averages over padded frames too, so the padding is part of the function and
-is kept. ``make_cpc_hook`` (the CPC model) and ``make_hf_wav2vec2_hook``
-(HF weights) are not ported and raise.
+is kept; ``make_cpc_hook`` (a CPC model) and ``make_codec_hook`` pad the same
+way. ``make_hf_wav2vec2_hook`` (HF weights, not in the repository) raises.
 """
 
 from __future__ import annotations
@@ -135,9 +135,28 @@ def make_codec_hook(ckpt_path: str,
     return encode
 
 
-def make_cpc_hook(ckpt_path: str) -> tp.Callable:
-    raise NotImplementedError("the CPC model (models/ssl/cpc.py) is not ported yet, so an "
-                              "ssl_features model_ckpt cannot be served")
+def make_cpc_hook(ckpt_path: str,
+                  device: tp.Union[str, torch.device, None] = None) -> tp.Callable:
+    """Waveform -> (T', context_dim) CPC features hook of a ``CPCModel`` saved
+    with ``save_module`` (either package's), on ``device`` (the GPU unless
+    ``device="cpu"``): the waveform padded to a multiple of ``hop * 64``, the
+    features cut to ``max(len // hop, 1)`` frames."""
+    from speechflow_torch.models.ssl import CPCModel, CPCParams
+    from speechflow_torch.utils.state_io import load_module
+
+    model, _ = load_module(CPCModel, CPCParams, ckpt_path, device=device)
+    dev = next(model.parameters()).device
+    hop = model.hop
+
+    def fn(wav: np.ndarray, sr: int) -> np.ndarray:
+        padded, n = _pad_to_multiple(wav, hop * 64)
+        x = torch.from_numpy(np.ascontiguousarray(padded[None], np.float32)).to(dev)
+        with torch.inference_mode():
+            f = model(x)[0].float().cpu().numpy()
+        return f[: max(n // hop, 1)]
+
+    fn.model = model
+    return fn
 
 
 def make_hf_wav2vec2_hook(model_name: str = "facebook/wav2vec2-base",

@@ -15,7 +15,7 @@ from speechflow_torch.ops.mel import MIN_LEVEL_DB, mel_filterbank
 
 __all__ = ["hann_window_np", "stft_np", "magnitude_np", "linear_to_mel_np",
            "amp_to_db_np", "normalize_mel_np", "energy_np", "spectral_flatness_np",
-           "yin_f0_np", "MIN_LEVEL_DB"]
+           "yin_f0_np", "yingram_np", "MIN_LEVEL_DB"]
 
 
 def hann_window_np(win_len: int) -> np.ndarray:
@@ -147,3 +147,38 @@ def yin_f0_np(
     f0 = np.where(voiced, f0, 0.0)
     f0 = np.where((f0 >= f0_min) & (f0 <= f0_max), f0, 0.0)
     return f0.astype(np.float32)
+
+
+def yingram_np(x: np.ndarray, sr: int, hop_length: int = 256, frame_length: int = 2048,
+               lag_min: int = 22, lag_max: int = 2047, bins_per_semitone: int = 20
+               ) -> np.ndarray:
+    """Numpy mirror of ``ops.pitch.yingram`` (same framing, CMNDF and midi grid)
+    in float64: (T,) waveform -> (1 + T // hop, n_bins) float32."""
+    from speechflow_torch.ops.pitch import midi_to_lag, yingram_midi_range
+
+    if lag_max >= frame_length:
+        raise ValueError(f"yingram requires lag_max < frame_length, got lag_max={lag_max} "
+                         f"frame_length={frame_length} (raise frame_length or lower lag_max)")
+    w = frame_length
+    pad = w // 2
+    frames = _frame_np(np.pad(x, (pad, pad), mode="reflect").astype(np.float64), w,
+                       hop_length)
+    nfft = int(2 ** np.ceil(np.log2(w + lag_max)))
+    spec = np.fft.rfft(frames, n=nfft, axis=-1)
+    acf = np.fft.irfft(spec * np.conj(spec), n=nfft, axis=-1)[:, :lag_max]
+    taus = np.arange(lag_max)
+    sq = frames * frames
+    csum = np.concatenate([np.zeros_like(sq[:, :1]), np.cumsum(sq, axis=-1)], axis=-1)
+    d = (csum[:, w - lag_max + 1: w + 1][:, ::-1] - 2.0 * acf
+         + csum[:, w:] - csum[:, :lag_max])
+    d = np.maximum(d, 0.0)
+    cum = np.cumsum(d[:, 1:], axis=-1)
+    dprime = np.concatenate([np.ones_like(d[:, :1]),
+                             d[:, 1:] * taus[1:] / np.maximum(cum, 1e-7)], axis=-1)
+    mmin, mmax = yingram_midi_range(sr, lag_min, lag_max)
+    lags = midi_to_lag(sr, np.arange(mmin, mmax + 1, 1.0 / bins_per_semitone))
+    lo = np.clip(np.floor(lags).astype(np.int64), 0, lag_max - 1)
+    hi = np.clip(lo + 1, 0, lag_max - 1)
+    frac = (lags - lo) / np.maximum(hi - lo, 1)
+    img = (dprime[:, hi] - dprime[:, lo]) * frac + dprime[:, lo]
+    return img.astype(np.float32)

@@ -1,9 +1,9 @@
 """Spectral handlers (counterpart of ``speechflow_tpu/data/processors/spectral.py``,
 the handlers of the TTS data config): the magnitude STFT, the mel
-filterbank, log amplitude and its normalisation, energy, and YIN pitch
-reconciled to the magnitude's frames. Each runs on the host through the
-numpy DSP of ``np_dsp`` and records its parameters in the sample's
-``transform_params``."""
+filterbank, log amplitude and its normalisation, energy, and pitch (YIN, CREPE
+or the yingram) reconciled to the magnitude's frames. Each runs on the host
+through the numpy DSP of ``np_dsp`` (CREPE's network on the GPU) and records
+its parameters in the sample's ``transform_params``."""
 
 from __future__ import annotations
 
@@ -60,23 +60,49 @@ def normalize_mel(ds: SpectrogramDataSample, max_abs_value: float = 4.0,
     return ds
 
 
+_CREPE_CACHE: tp.Dict[str, tp.Any] = {}
+
+
 def pitch(ds: SpectrogramDataSample, f0_min: float = 80.0, f0_max: float = 880.0,
           frame_length: int = 2048, threshold: float = 0.2, method: str = "yin",
           crepe_ckpt: tp.Optional[str] = None,
           yingram_bins: int = 20) -> SpectrogramDataSample:
-    """YIN F0 (0 where unvoiced), zoomed linearly to the magnitude's frame
-    count when that differs. The JAX handler's other methods need models or
-    transforms the port has not yet: ``crepe`` and ``yingram`` raise."""
-    if method in ("crepe", "yingram"):
-        raise NotImplementedError(f"pitch method {method!r} is not ported yet")
-    if method != "yin":
+    """``method``: ``yin`` (host numpy), ``crepe`` (the trainable tracker of
+    ``crepe_ckpt``, a ``save_crepe`` pickle of either package, loaded once per
+    path and run on the GPU; f0 outside [f0_min, f0_max] becomes 0) or
+    ``yingram`` (host numpy: the midi-scale CMNDF image with ``yingram_bins``
+    bins a semitone, lags up to min(2047, frame_length - 1), clipped to
+    [0, 4]). The result is zoomed linearly along time to the magnitude's frame
+    count when that differs."""
+    if method not in ("yin", "crepe", "yingram"):
         raise ValueError(f"unknown pitch method: {method!r}")
+    if method == "crepe" and not crepe_ckpt:
+        raise ValueError("pitch method 'crepe' requires crepe_ckpt")
     hop_len = ds.get_param_val("hop_len", ds.hop_len or 256)
-    f0 = np_dsp.yin_f0_np(ds.audio_chunk.waveform, ds.audio_chunk.sr, hop_len, frame_length,
-                          f0_min, f0_max, threshold)
+    wav, sr = ds.audio_chunk.waveform, ds.audio_chunk.sr
+    if method == "crepe":
+        import torch
+
+        from speechflow_torch.models.pitch import crepe_f0, load_crepe
+
+        model = _CREPE_CACHE.get(crepe_ckpt)
+        if model is None:
+            model = _CREPE_CACHE[crepe_ckpt] = load_crepe(crepe_ckpt)
+        x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(
+            next(model.parameters()).device)
+        with torch.inference_mode():
+            f0 = crepe_f0(model, x, sr=sr, hop_length=hop_len)[0].float().cpu().numpy()
+        f0 = np.where((f0 < f0_min) | (f0 > float(f0_max)), 0.0, f0).astype(np.float32)
+    elif method == "yin":
+        f0 = np_dsp.yin_f0_np(wav, sr, hop_len, frame_length, f0_min, f0_max, threshold)
+    else:
+        f0 = np.clip(np_dsp.yingram_np(wav, sr, hop_len, frame_length,
+                                       lag_max=min(2047, frame_length - 1),
+                                       bins_per_semitone=yingram_bins), 0.0, 4.0)
     if ds.magnitude is not None and f0.shape[0] != ds.magnitude.shape[0]:
         fmax = f0.max() if len(f0) else 0.0
-        f0 = ndimage.zoom(f0, [ds.magnitude.shape[0] / f0.shape[0]], order=1)
+        zoom = [ds.magnitude.shape[0] / f0.shape[0]] + [1.0] * (f0.ndim - 1)
+        f0 = ndimage.zoom(f0, zoom, order=1)
         f0 = np.clip(f0, 0.0, fmax)[: ds.magnitude.shape[0]].astype(np.float32)
     ds.pitch = f0
     return ds

@@ -9,8 +9,9 @@ The adversarial gate reads ``step``, the trainer's micro-batch count: 0 before
 ``bio_ckpt`` adds the speaker-similarity loss (``make_speaker_similarity_loss``,
 1 - cosine of a frozen ECAPA's embeddings). A generator output
 ``(wav, ft_losses)`` (the ``codec`` and ``tts`` extractors) has its losses
-merged into the generator's and its waveform alone judged. ``cpc_ckpt`` (the CPC
-perceptual loss) is not ported: it raises ``NotImplementedError``.
+merged into the generator's and its waveform alone judged. ``cpc_ckpt`` adds
+the CPC perceptual loss (``make_cpc_perceptual_loss``, the L1 between a frozen
+CPC's features of the two waveforms).
 ``maximum`` against 0 (not ``relu``) keeps ``jnp.maximum``'s half gradient
 at a tie.
 """
@@ -25,8 +26,8 @@ from speechflow_torch.models.vocoder.model import split_output
 from speechflow_torch.ops.mel import amp_to_db, linear_to_mel
 from speechflow_torch.ops.stft import magnitude
 
-__all__ = ["mel_reconstruction_loss", "multires_stft_loss", "make_speaker_similarity_loss",
-           "vocoder_gen_criterion", "vocoder_disc_criterion"]
+__all__ = ["mel_reconstruction_loss", "multires_stft_loss", "make_cpc_perceptual_loss",
+           "make_speaker_similarity_loss", "vocoder_gen_criterion", "vocoder_disc_criterion"]
 
 
 def _crop(fake: torch.Tensor, real: torch.Tensor):
@@ -82,6 +83,34 @@ def _feature_matching(real_fmaps, fake_fmaps) -> torch.Tensor:
     return loss / max(n, 1)
 
 
+def make_cpc_perceptual_loss(cpc_ckpt, device: tp.Union[str, torch.device, None] = None
+                              ) -> tp.Callable:
+    """``loss(fake, real)``: the mean L1 between the features of the CPC of
+    ``cpc_ckpt`` (a ``save_module`` pickle of either package, frozen, on
+    ``device``: the GPU unless ``device="cpu"``) of the two waveforms. The
+    real side carries no gradient; the fake side's flows back through the
+    frozen CPC into the waveform. The CPC runs in float32 with autocast off,
+    as JAX's, whose mixed precision sets the compute dtype of the generator
+    and the discriminator only."""
+    from speechflow_torch.models.ssl import CPCModel, CPCParams
+    from speechflow_torch.utils.state_io import load_module
+
+    model, _ = load_module(CPCModel, CPCParams, cpc_ckpt, device=device)
+    model.requires_grad_(False)
+
+    def features(wav: torch.Tensor) -> torch.Tensor:
+        with torch.autocast(wav.device.type, enabled=False):
+            return model(wav.float())
+
+    def loss(fake: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            r = features(real)
+        return torch.mean(torch.abs(features(fake) - r))
+
+    loss.model = model
+    return loss
+
+
 def make_speaker_similarity_loss(bio_ckpt, sample_rate: int = 24000, n_fft: int = 1024,
                                  hop: int = 256,
                                  device: tp.Union[str, torch.device, None] = None
@@ -118,10 +147,9 @@ def vocoder_gen_criterion(sample_rate: int = 24000, n_mels: int = 100,
                           bio_ckpt: tp.Optional[str] = None,
                           speaker_sim_weight: float = 1.0,
                           device: tp.Union[str, torch.device, None] = None):
-    """``device`` is where the ``bio_ckpt`` ECAPA runs (the GPU unless
-    ``device="cpu"``)."""
-    if cpc_ckpt:
-        raise NotImplementedError("cpc_ckpt: the CPC model (models/ssl) is not ported yet")
+    """``device`` is where the ``cpc_ckpt`` CPC and the ``bio_ckpt`` ECAPA run
+    (the GPU unless ``device="cpu"``)."""
+    cpc_loss = make_cpc_perceptual_loss(cpc_ckpt, device=device) if cpc_ckpt else None
     spk_loss = (make_speaker_similarity_loss(bio_ckpt, sample_rate, device=device)
                 if bio_ckpt else None)
 
@@ -140,6 +168,8 @@ def vocoder_gen_criterion(sample_rate: int = 24000, n_mels: int = 100,
             gate *= min(max((step - adv_start_iter + 1) / adv_ramp_steps, 0.0), 1.0)
         losses["adv"] = adv_weight * gate * _hinge_gen(fake_logits)
         losses["fm"] = fm_weight * gate * _feature_matching(real_fmaps, fake_fmaps)
+        if cpc_loss is not None:
+            losses["cpc"] = cpc_weight * cpc_loss(fake, real)
         if spk_loss is not None:
             losses["spk_sim"] = speaker_sim_weight * spk_loss(fake, real)
         losses.update(ft_losses)

@@ -1,14 +1,20 @@
-"""Batched YIN F0 (counterpart of ``yin_f0`` in ``speechflow_tpu/ops/pitch.py``,
-the one function of that module the vocoder's validation metrics use).
+"""Batched F0 and pitch images (counterpart of ``speechflow_tpu/ops/pitch.py``):
+YIN F0 (``yin_f0``) and the NANSY-style yingram (``yingram``), with the midi
+<-> lag conversions of its grid.
 
 The difference function comes from FFT correlations of centered,
 reflect-padded frames (1 + T // hop of them, as a centered STFT gives); the
 CMNDF's first local minimum under the threshold (else its global minimum) is
 refined by a parabola; frames whose CMNDF minimum or energy is too high, or
-whose F0 leaves [f0_min, f0_max], are unvoiced (0).
+whose F0 leaves [f0_min, f0_max], are unvoiced (0). ``yingram`` samples the lag-normalised CMNDF of the same
+centred frames on a grid of ``bins_per_semitone`` bins per midi semitone over
+[lag_min, lag_max] by linear interpolation (the correlation zero-padded, so
+linear, not circular).
 """
 
 from __future__ import annotations
+
+import typing as tp
 
 import numpy as np
 import torch
@@ -16,7 +22,58 @@ import torch.nn.functional as F
 
 from speechflow_torch.ops.stft import frame_signal
 
-__all__ = ["yin_f0"]
+__all__ = ["yin_f0", "yingram", "yingram_midi_range", "midi_to_lag", "lag_to_midi"]
+
+
+def midi_to_lag(sr: float, midi) -> np.ndarray:
+    """Midi note -> time lag in samples (A4 = 69 at 440 Hz)."""
+    return sr / (440.0 * 2.0 ** ((np.asarray(midi, np.float64) - 69.0) / 12.0))
+
+
+def lag_to_midi(sr: float, lag) -> np.ndarray:
+    """Time lag in samples -> midi note."""
+    return 12.0 * np.log2(sr / (440.0 * np.asarray(lag, np.float64))) + 69.0
+
+
+def yingram_midi_range(sr: int, lag_min: int, lag_max: int) -> tp.Tuple[int, int]:
+    """Closed midi interval covered by the lag search range."""
+    return int(np.ceil(lag_to_midi(sr, lag_max))), int(lag_to_midi(sr, lag_min))
+
+
+def yingram(x: torch.Tensor, sr: int, hop_length: int = 256, frame_length: int = 2048,
+            lag_min: int = 22, lag_max: int = 2047, bins_per_semitone: int = 20
+            ) -> torch.Tensor:
+    """(B, T) or (T,) waveform -> (B, 1 + T // hop, n_bins) midi-scale CMNDF
+    image, float32 (low values mark periodicity at a bin's pitch)."""
+    squeeze = x.ndim == 1
+    x = (x[None] if squeeze else x).float()
+    w = frame_length
+    if lag_max >= w:
+        raise ValueError("frame_length must exceed lag_max")
+    pad = w // 2
+    frames = frame_signal(F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0], w, hop_length)
+    nfft = int(2 ** np.ceil(np.log2(w + lag_max)))
+    spec = torch.fft.rfft(frames, n=nfft, dim=-1)
+    acf = torch.fft.irfft(spec * torch.conj(spec), n=nfft, dim=-1)[..., :lag_max]
+    sq = frames * frames
+    csum = F.pad(torch.cumsum(sq, dim=-1), (1, 0))
+    taus = torch.arange(lag_max, device=x.device)
+    # d(tau) = c[W-tau] - 2 acf(tau) + c[W] - c[tau], c = cumsum(x^2)
+    d = (csum[..., w - lag_max + 1: w + 1].flip(-1) - 2.0 * acf
+         + csum[..., w:] - csum[..., :lag_max])
+    d = torch.clamp(d, min=0.0)
+    cum = torch.cumsum(d[..., 1:], dim=-1)
+    dprime = torch.cat([torch.ones_like(d[..., :1]),
+                        d[..., 1:] * taus[1:] / torch.clamp(cum, min=1e-7)], dim=-1)
+    mmin, mmax = yingram_midi_range(sr, lag_min, lag_max)
+    lags = midi_to_lag(sr, np.arange(mmin, mmax + 1, 1.0 / bins_per_semitone))
+    lo = np.clip(np.floor(lags).astype(np.int64), 0, lag_max - 1)
+    hi = np.clip(lo + 1, 0, lag_max - 1)
+    frac = torch.as_tensor((lags - lo) / np.maximum(hi - lo, 1), dtype=torch.float32,
+                           device=x.device)
+    lo, hi = (torch.as_tensor(a, device=x.device) for a in (lo, hi))
+    img = (dprime[..., hi] - dprime[..., lo]) * frac + dprime[..., lo]
+    return img[0] if squeeze else img
 
 
 def yin_f0(x: torch.Tensor, sr: int, hop_length: int = 256, frame_length: int = 2048,

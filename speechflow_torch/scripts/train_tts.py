@@ -31,10 +31,10 @@ It runs on the GPU unless ``device="cpu"``. Weights start from
 ``finetune.ckpt`` and ``warmstart.ckpt`` (``-w``, with ``include`` /
 ``exclude``) read checkpoints of either package; ``-r`` of a JAX checkpoint
 resumes its optax state too (``common.apply_resume_warmstart``).
-Every experiment tries to train a G2P into its directory, as the JAX script
-does, inside a guard that logs a failure and goes on: the G2P trainer
-(``scripts/train_g2p.py``) is not ported yet, so the guard logs that and the
-eval interfaces use the char fallback.
+Every experiment trains a G2P into its directory as ``g2p.pkl`` (as the JAX
+script does: ``experiment.train_g2p``, ``g2p_steps``, ``g2p_ensemble``; on the
+training device), inside a guard that logs a failure and goes on; the eval
+interfaces find it there and phonemize raw text through it.
 """
 
 from __future__ import annotations
@@ -91,9 +91,10 @@ def configs(value_select: tp.Union[str, tp.Sequence[str], None] = "default",
     return read_configs(model_config, data_config, value_select, data_root)
 
 
-def _train_g2p(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: ExperimentSaver) -> None:
-    """The experiment's raw-text G2P, as the JAX script trains it; a failure is
-    logged and training goes on."""
+def _train_g2p(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: ExperimentSaver,
+               device: torch.device) -> None:
+    """The experiment's raw-text G2P, as the JAX script trains it, on ``device``;
+    a failure is logged and training goes on."""
     exp = model_cfg.get("experiment") or {}
     if not exp.get("train_g2p", True):
         return
@@ -103,7 +104,7 @@ def _train_g2p(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: ExperimentSav
         train_g2p_artifact((data_cfg.get("dirs") or {}).get("data_root"),
                            saver.expr_path / "g2p.pkl",
                            steps=int(exp.get("g2p_steps", 1200)),
-                           ensemble=int(exp.get("g2p_ensemble", 3)))
+                           ensemble=int(exp.get("g2p_ensemble", 3)), device=device)
     except Exception as e:  # a G2P failure never stops the acoustic model's training
         LOGGER.warning("G2P training skipped: %r", e)
 
@@ -158,7 +159,7 @@ def train(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: ExperimentSaver,
         model = model.to(dev)
         saver.to_save["pipeline_info"] = pipeline.get_info()
         saver.to_save["model_params"] = dataclasses.asdict(params)
-        _train_g2p(model_cfg, data_cfg, saver)
+        _train_g2p(model_cfg, data_cfg, saver, dev)
         trainer = Trainer(model, criterion, batch_processor, optimizer_config(model_cfg), cfg,
                           saver=saver, tb_dir=tb_dir)
         apply_resume_warmstart(trainer, model_cfg)

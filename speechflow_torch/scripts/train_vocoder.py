@@ -20,8 +20,8 @@ package's) are read; ``-w`` sets
 feature extractor (E2E GAN-TTS, ``configs/vocoder_styletts2_e2e*.yml`` over
 ``configs/tts_data_24khz.yml``) sizes the acoustic model from the pipeline and
 batches through ``E2EBatchProcessor``; ``loss.bio_ckpt`` adds the
-speaker-similarity loss. ``loss.cpc_ckpt`` raises ``NotImplementedError``
-(the CPC model is not ported).
+speaker-similarity loss and ``loss.cpc_ckpt`` the CPC perceptual loss (a
+``save_module`` pickle of a ``CPCModel``, frozen).
 """
 
 from __future__ import annotations

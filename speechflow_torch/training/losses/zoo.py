@@ -1,7 +1,8 @@
 """The losses of the acoustic model's criterion (counterpart of
 ``SpectralLoss``, ``GateLoss`` and ``RegressionLoss`` in
-``speechflow_tpu/training/losses/zoo.py``): length-masked means in float32.
-The rest of the JAX zoo comes with the models that use it."""
+``speechflow_tpu/training/losses/zoo.py``): length-masked means in float32;
+and ``CTCLoss``, the CTC recognizer's. The rest of the JAX zoo comes with the
+models that use it."""
 
 from __future__ import annotations
 
@@ -82,3 +83,28 @@ class RegressionLoss(BaseLoss):
             target = torch.log1p(torch.clamp(target, min=0.0))
         err = (output - target).abs() if self.kind == "l1" else (output - target) ** 2
         return _masked_mean(err, lengths)
+
+
+class CTCLoss(BaseLoss):
+    """CTC over (B, T, V) logits and (B, U) labels (``optax.ctc_loss``'s
+    semantics): each sequence's negative log-likelihood over its label count
+    (at least 1), then the batch mean. ``lengths`` bound the valid frames (all
+    when None); ``target_lengths`` the valid labels (when None, the labels
+    equal to ``blank_id`` are padding, which must trail)."""
+
+    def __init__(self, blank_id: int = 0, **kwargs):
+        super().__init__(**kwargs)
+        self.blank_id = blank_id
+
+    def compute(self, output: torch.Tensor, target: torch.Tensor,
+                lengths: tp.Optional[torch.Tensor] = None,
+                target_lengths: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, t, _ = output.shape
+        if lengths is None:
+            lengths = torch.full((b,), t, dtype=torch.long, device=output.device)
+        if target_lengths is None:
+            target_lengths = (target != self.blank_id).sum(-1)
+        logp = F.log_softmax(output.float(), dim=-1).transpose(0, 1)
+        per_seq = F.ctc_loss(logp, target.long(), lengths.long(), target_lengths.long(),
+                             blank=self.blank_id, reduction="none")
+        return torch.mean(per_seq / torch.clamp(target_lengths.to(per_seq.dtype), min=1.0))

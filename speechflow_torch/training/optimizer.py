@@ -43,9 +43,11 @@ from speechflow_torch.convert import nnx_path
 from speechflow_torch.training.lr_schedulers import build_lr_schedule
 from speechflow_torch.training.optax_state import is_optax_state, load_optax_state
 
-__all__ = ["OptimizerConfig", "ParamGroup", "Lamb", "Optimizer", "build_optimizer"]
+__all__ = ["OptimizerConfig", "ParamGroup", "Lamb", "Optimizer", "build_optimizer",
+           "optax_optimizer"]
 
 MAX_CONSECUTIVE_ERRORS = 100
+OPTAX_ADAMW_DECAY = 1e-4  # optax.adamw's default weight decay (torch's AdamW: 1e-2)
 
 
 @dataclasses.dataclass
@@ -219,3 +221,18 @@ class Optimizer:
 
 def build_optimizer(cfg: OptimizerConfig, module: nn.Module) -> Optimizer:
     return Optimizer(cfg, module)
+
+
+def optax_optimizer(params: tp.Iterable[torch.Tensor], method: str, lr: float,
+                    weight_decay: float = OPTAX_ADAMW_DECAY,
+                    capturable: bool = False) -> torch.optim.Optimizer:
+    """A bare ``optax.adam(lr)`` or ``optax.adamw(lr, weight_decay)`` (optax's
+    betas and eps, decay decoupled; no clipping, accumulation or finiteness gate)
+    as torch's: the chain of the auxiliary models' trainers (G2P, CPC, CREPE,
+    the examples). ``capturable`` lets a CUDA graph capture its step."""
+    kw = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
+    if method == "adam":
+        return torch.optim.Adam(params, **kw)
+    if method == "adamw":
+        return torch.optim.AdamW(params, weight_decay=weight_decay, **kw)
+    raise ValueError(f"optax_optimizer: adam or adamw, not {method!r}")

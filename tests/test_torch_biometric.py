@@ -201,8 +201,13 @@ def test_codec_hook_matches_jax(tmp_path, no_hooks):
 
 
 def test_unported_hooks_raise():
-    with pytest.raises(NotImplementedError, match="CPC"):
+    """The HF wav2vec2 hook is not ported (its weights are not in the
+    repository); the CPC hook is (``test_torch_cpc.py``), and like the other
+    hooks it loads its model on the GPU unless asked for the CPU."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         E.make_cpc_hook("cpc.pkl")
+    with pytest.raises(FileNotFoundError):
+        E.make_cpc_hook("cpc.pkl", device="cpu")
     with pytest.raises(NotImplementedError, match="weights"):
         E.make_hf_wav2vec2_hook()
 

@@ -748,3 +748,71 @@ def test_vocoder_heads_on_the_gpu_match_the_cpu(cuda_device, head):
                    v.to(cuda_device)) for k, v in kw.items()}
         got = copy.deepcopy(model).to(cuda_device).from_features(mel.to(cuda_device), **dev)
     assert (got.cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gru", "mlp"])
+def test_g2p_training_on_the_gpu_matches_the_cpu(cuda_device, arch):
+    """``train_g2p`` on the GPU (the stacked members' steps after the third a replayed
+    CUDA graph) against the CPU's eager steps, dropout off, 2 members of 8 steps:
+    every parameter within 1e-4 of its scale plus what AdamW makes of the
+    gradients' rounding (8·lr at most where a gradient is ~eps)."""
+    from pathlib import Path
+
+    from speechflow_torch.models.g2p import mine_g2p_lexicon, train_g2p
+
+    segs = Path(__file__).resolve().parent / "data" / "SEGS"
+    lexicon = mine_g2p_lexicon(sorted(segs.rglob("*.TextGridStage3")))[:80]
+    kw = dict(steps=8, ensemble=2, dropout=0.0, hidden=32, arch=arch)
+    cpu = train_g2p(lexicon, device="cpu", **kw)
+    gpu = train_g2p(lexicon, device=cuda_device, **kw)
+    for pc, pg in zip(cpu.params, gpu.params):
+        for k in pc:
+            err = np.abs(pg[k] - pc[k])
+            assert (err <= 1e-4 * max(np.abs(pc[k]).max(), 1e-30) + 8 * 3e-3).all(), k
+            assert np.median(err) <= 1e-4 * max(np.abs(pc[k]).max(), 1e-30), k
+    words = ["hello", "zebra", "quickly"]
+    assert gpu.predict(words, use_lexicon=False) == cpu.predict(words, use_lexicon=False)
+
+
+@pytest.mark.cuda
+def test_g2p_training_with_dropout_on_the_gpu(cuda_device):
+    """With dropout, the captured step's masks come from the seeded generator:
+    two runs from one seed agree, and another seed gives other weights."""
+    from pathlib import Path
+
+    from speechflow_torch.models.g2p import mine_g2p_lexicon, train_g2p
+
+    segs = Path(__file__).resolve().parent / "data" / "SEGS"
+    lexicon = mine_g2p_lexicon(sorted(segs.rglob("*.TextGridStage3")))[:80]
+    a, b, c = (train_g2p(lexicon, steps=30, ensemble=1, device=cuda_device, seed=s)
+               for s in (4, 4, 5))
+    for k in a.params:
+        np.testing.assert_array_equal(a.params[k], b.params[k])
+    assert not np.array_equal(a.params["wo"], c.params["wo"])
+
+
+@pytest.mark.cuda
+def test_cpc_perceptual_loss_on_the_gpu_matches_the_cpu(cuda_device, tmp_path):
+    """The CPC perceptual loss and its gradient into the fake waveform on the
+    GPU (f32, autocast on around it) against the CPU's."""
+    from speechflow_torch.models.ssl import CPCModel, CPCParams
+    from speechflow_torch.models.vocoder.criterion import make_cpc_perceptual_loss
+    from speechflow_torch.utils.state_io import save_module
+
+    torch.manual_seed(0)
+    ckpt = save_module(CPCModel(CPCParams()), CPCParams(), tmp_path / "cpc.pkl")
+    gen = torch.Generator().manual_seed(1)
+    fake, real = 0.1 * torch.randn(2, 16000, generator=gen), 0.1 * torch.randn(2, 16000,
+                                                                              generator=gen)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        x = fake.to(dev).detach().requires_grad_()
+        with torch.autocast(torch.device(dev).type, dtype=torch.bfloat16):
+            loss = make_cpc_perceptual_loss(str(ckpt), device=dev)(x, real.to(dev))
+        assert loss.dtype == torch.float32
+        loss.backward()
+        grads.append((loss.item(), x.grad.cpu()))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = grads
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert (g_gpu - g_cpu).abs().max().item() <= 1e-4 * g_cpu.abs().max().item()

@@ -87,7 +87,14 @@ NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "models/aligner/__init__.py", "models/aligner/flows.py",
                "models/aligner/model.py", "models/aligner/criterion.py",
                "models/aligner/batch_processor.py", "scripts/train_aligner.py",
-               "annotator/__init__.py", "annotator/align.py")
+               "annotator/__init__.py", "annotator/align.py",
+               "scripts/train_g2p.py", "models/g2p/__init__.py", "models/ssl/__init__.py",
+               "models/ssl/cpc.py", "models/denoiser/__init__.py", "models/denoiser/demucs.py",
+               "models/vocoder/denoiser.py", "models/pitch/__init__.py",
+               "models/pitch/crepe.py", "models/asr/__init__.py", "models/asr/ctc_model.py",
+               "annotator/asr.py", "data/processors/embeddings.py",
+               "examples/__init__.py", "examples/codec/train.py",
+               "examples/biometric/train.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

@@ -249,14 +249,14 @@ def test_gan_criteria_match_jax(rng, step, ramp):
 
 
 def test_perceptual_terms_raise_until_ported(tmp_path):
-    """The CPC term waits on the CPC model; the speaker-similarity term
-    (``bio_ckpt``, an ECAPA pickle) is ported and adds ``spk_sim`` (its parity:
-    ``test_torch_vocoder_options.py``)."""
+    """Both perceptual terms are ported: the CPC term (``cpc_ckpt``, its parity:
+    ``test_torch_cpc.py``) reads a CPC checkpoint; the speaker-similarity term (``bio_ckpt``, an ECAPA pickle) adds
+    ``spk_sim`` (its parity: ``test_torch_vocoder_options.py``)."""
     from speechflow_torch.models.biometric.ecapa import ECAPAEmbedder, ECAPAParams
     from speechflow_torch.utils.state_io import save_module
 
-    with pytest.raises(NotImplementedError, match="CPC"):
-        vocoder_gen_criterion(cpc_ckpt="x")
+    with pytest.raises(FileNotFoundError):
+        vocoder_gen_criterion(cpc_ckpt="x", device="cpu")
     p = ECAPAParams(n_mels=20, channels=8, emb_dim=4, n_blocks=1)
     ckpt = save_module(ECAPAEmbedder(p), p, tmp_path / "ecapa.pkl")
     crit = vocoder_gen_criterion(n_mels=20, bio_ckpt=str(ckpt), device="cpu")

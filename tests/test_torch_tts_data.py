@@ -156,8 +156,12 @@ def test_spectral_handlers_match_jax(handler, kw):
 
 
 def test_unported_pitch_methods_raise():
-    with pytest.raises(NotImplementedError, match="crepe"):
+    """Every pitch method of JAX's handler is ported; as in JAX, ``crepe``
+    without a ``crepe_ckpt`` and an unknown method raise ``ValueError``."""
+    with pytest.raises(ValueError, match="crepe_ckpt"):
         get_handler("pitch")(TTSDataSample(), method="crepe")
+    with pytest.raises(ValueError, match="unknown pitch method"):
+        get_handler("pitch")(TTSDataSample(), method="dio")
 
 
 def test_sample_len_and_the_comb_by_len_sampler():

@@ -263,9 +263,10 @@ def test_char_fallback_matches_jax(checkpoint, interfaces):
 
 
 def test_unported_paths_raise(checkpoint, interfaces, monkeypatch):
-    """What is still unported raises: the CPC model behind an ``ssl_features``
-    checkpoint; and nothing runs on the GPU without CUDA (a prosody checkpoint,
-    the ECAPA hook a reference wav would take). The model options that raised
+    """What is still unported raises: the HF wav2vec2 hook (its weights are not
+    in the repository); and nothing runs on the GPU without CUDA (a prosody
+    checkpoint, the ECAPA hook a reference wav would take, the CPC model behind
+    an ``ssl_features`` checkpoint, ported since). The model options that raised
     until the acoustic-model kit was ported build from the same checkpoint: the
     average embeddings (none configured) and the classic condition named as
     sources give the same condition width."""
@@ -283,9 +284,11 @@ def test_unported_paths_raise(checkpoint, interfaces, monkeypatch):
         assert built.model.cond_dim == ours.model.cond_dim
     monkeypatch.setattr(embeddings, "_MODELS", {})
     wav = AudioDataSample(audio_chunk=AudioChunk(data=np.zeros(4096, np.float32), sr=24000))
-    with pytest.raises(NotImplementedError, match="CPC"):
-        embeddings.ssl_features(wav, model_ckpt="cpc.pkl")
+    with pytest.raises(NotImplementedError, match="wav2vec2"):
+        embeddings.make_hf_wav2vec2_hook()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        embeddings.ssl_features(wav, model_ckpt="cpc.pkl")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TTSEvaluationInterface.from_checkpoint(tree, payload)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

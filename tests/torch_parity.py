@@ -53,6 +53,23 @@ def port(module: torch.nn.Module, jax_model: nnx.Module) -> torch.nn.Module:
     return module.eval()
 
 
+def assert_grads_match(module: torch.nn.Module, jax_grads, tol: float) -> None:
+    """Every parameter gradient of ``module`` (after a backward) within ``tol``
+    of the largest magnitude of its JAX counterpart in ``jax_grads`` (an nnx
+    state of gradients), in flax's layout."""
+    from speechflow_torch.convert import _mappings, flatten_nnx
+
+    flat = flatten_nnx(nnx.to_pure_dict(jax_grads))
+    for name, param, src, _, to_flax in _mappings(module):
+        if not param.requires_grad:
+            continue
+        ref = flat[src]
+        got = to_flax(n(param.grad))
+        err = float(np.abs(got - ref).max())
+        assert err <= tol * max(float(np.abs(ref).max()), 1e-30), \
+            (name, err / max(float(np.abs(ref).max()), 1e-30))
+
+
 def t(x) -> torch.Tensor:
     """numpy / JAX array -> CPU torch tensor (copy)."""
     return torch.from_numpy(np.array(x))
