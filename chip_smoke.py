@@ -6,7 +6,7 @@
                                      # prosody_train, conditioned, jax_ckpt,
                                      # vocoder_model_train, tts_forward_train, jax_resume,
                                      # tts_options, e2e_train, vocoder_recipes, aligner,
-                                     # aux_models, vocoder_cpc
+                                     # aux_models, vocoder_cpc, data_prep
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
@@ -23,6 +23,7 @@
                                      # E2E GAN-TTS, the vocoder recipes, the aligner
     python3 chip_smoke.py --phases build,aux_models,vocoder_cpc
                                      # the auxiliary models, the vocoder's CPC loss
+    python3 chip_smoke.py --phases build,data_prep   # dump, annotation, eval_tts, ...
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -338,7 +339,26 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    the checkpoint through ``VocoderEvaluationInterface`` (folded) and ``Denoiser`` over its
    model: the bias and a resynthesis (37 / 6 / 18 launches each), denoised, kernels vs
    plain within ``TOL_F32_REL``.
-25. ``profile`` (only when asked for): for the flagship and the toy program,
+25. ``data_prep``: the data-preparation chain on a copy of SEGS. ``dump.main`` over
+   ``configs/tts_data_24khz.yml`` at its default select with ``CONTOUR_HANDLERS`` before
+   aggregate_pitch (the whole corpus, the feature cache on), twice: ms an utterance on
+   the first and on the cached pass, the cache's hits (every handler of the second
+   pass). ``prosody_annotation.main`` from that dump (the share of words labelled),
+   ``train_prosody`` default on those labels for ``DATA_PREP_PROSODY_STEPS`` steps (4
+   attention launches a step, f32). ``train_tts`` with ``configs/tts_model.yml`` default
+   (768 x 6 x 6, CFM-DiT, f32) for ``DATA_PREP_TTS_STEPS`` steps over the dump's cache,
+   normalising pitch and energy by speaker from its ``ranges.json`` (``UPDATE_HANDLERS``
+   recomputed): the collated averages present and finite, ms in and between steps,
+   peak memory. ``eval_tts.main`` on that checkpoint and a seeded BigVGAN checkpoint:
+   186 / 37 / 6 / 18 launches a text, finite non-silent ``.wav`` files of 256 samples a
+   mel frame after the first; one sentence kernels vs plain (f32, mel and the 16-bit wav within
+   ``TOL_F32_REL``). ``configs/vocoder_bigvgan.yml`` default (bf16) for
+   ``DATA_PREP_VOC_MICRO_BATCHES`` micro-batches without and with
+   ``VOC_AUGMENTATIONS`` (37 / 43 / 18 launches each): ms between micro-batches.
+   ``data_pipeline_check.main --profile`` over the TTS config with every new handler
+   (``CHECK_AFTER``): the contracts, each handler's host ms. The Ogg fixtures, where
+   ctypes finds the codec libraries (which it found is printed).
+26. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -760,6 +780,17 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are left out of the path's counts (a comparison with plain)."""
+    saved = read_counts()
+    try:
+        yield
+    finally:
+        for name, fn in _counters().items():
+            fn.launches = saved[name]
 
 
 @contextlib.contextmanager
@@ -5724,6 +5755,446 @@ def phase_vocoder_cpc(torch, gpu_line: str) -> dict:
     return {"launches": launches, "ms": ms, "peak": peak, "phase_s": phase_s}
 
 
+# -- phase 25: the data-preparation chain -----------------------------------------------
+
+# tests/test_signal1d.py's contour handlers, put before aggregate_pitch
+CONTOUR_HANDLERS = {
+    "signal_enhancement": {"attributes": "pitch", "interpolate_zeros": True, "smooth": True},
+    "average_by_time": {"attributes": ["pitch", "energy", "rate"], "use_quantile": True},
+    "normalize": {"attributes": ["pitch", "energy"], "normalize_by": "speaker"},
+}
+# recomputed from the cache in training: normalize now has the dump's ranges.json, and
+# the token aggregates follow the normalised contours
+UPDATE_HANDLERS = ["normalize", "aggregate_pitch", "aggregate_energy"]
+DATA_PREP_PROSODY_STEPS = 8
+DATA_PREP_TTS_STEPS = 4
+DATA_PREP_VOC_MICRO_BATCHES = 4
+# the waveform augmentations of the vocoder recipe's pipe (after random_chunk), seeded
+VOC_AUGMENTATIONS = {
+    "aug_gain": {"p": 1.0, "seed": 11},
+    "aug_colored_noise": {"p": 1.0, "color": "pink", "seed": 12},
+    "aug_clipping": {"p": 1.0, "seed": 13},
+    "aug_room_impulse_response": {"p": 1.0, "seed": 14},
+}
+# every handler new in this slice that the TTS data feeds, in pipe order around the
+# config's own (data_pipeline_check): waveform augmentations after load_audio, the
+# spectral and LPC features after magnitude, mel augmentations after normalize_mel, the
+# contour handlers after pitch, the token- and frame-level ones after calc_durations
+CHECK_AFTER = {
+    "load_audio": [
+        ("resample_audio", {"sample_rate": 24000}), ("dither_audio", {"seed": 1}),
+        ("preemphasis_audio", {"coeff": 0.5}), ("loudness_normalize", {"target_dbfs": -23.0}),
+        ("mu_law_encode_audio", {}), ("aug_gain", {"p": 1.0, "seed": 2}),
+        ("aug_clipping", {"p": 1.0, "seed": 3}), ("aug_colored_noise", {"p": 1.0, "seed": 4}),
+        ("aug_pitch_shift", {"p": 1.0, "seed": 5}), ("aug_time_stretch", {"p": 1.0, "seed": 6}),
+        ("aug_gain_curve", {"p": 1.0, "seed": 7}), ("aug_frequency_mask", {"p": 1.0, "seed": 8}),
+        ("aug_gsm_simulation", {"p": 1.0, "seed": 9}), ("aug_vtlp", {"p": 1.0, "seed": 10}),
+        ("aug_room_impulse_response", {"p": 1.0, "seed": 11}),
+        ("aug_background_noise", {"p": 1.0, "seed": 12}),
+        ("aug_change_rhythm", {"p": 1.0, "mode": "random", "seed": 13}),
+        ("aug_monotonic_speech", {"p": 1.0, "seed": 14})],
+    "magnitude": [("spectral_flatness", {}), ("spectral_tilt", {}), ("spectral_envelope", {}),
+                  ("lpc", {}), ("lpc_from_spectrogram", {}), ("lpc_decompose", {})],
+    "normalize_mel": [("store_field", {"key": "mel", "as_key": "clean_mel"}),
+                      ("aug_spec_blur", {"p": 1.0, "seed": 15}),
+                      ("aug_spec_noise", {"p": 1.0, "seed": 16}),
+                      ("aug_spec_augment", {"p": 1.0, "seed": 17})],
+    "pitch": [("signal_enhancement", {"attributes": ["pitch", "energy"],
+                                      "interpolate_zeros": True, "smooth": True,
+                                      "set_zero_in_pauses": True, "max_zero_interval": 20}),
+              ("clip", {"attributes": ["pitch"], "min_value": 0.0, "max_value": 800.0}),
+              ("timedim_interpolation", {"features": ["pitch", "energy"], "shape_as": "mel"})],
+    "add_pauses_from_timestamps": [("apply_fade_inside_pauses", {})],
+    "text_to_transcription": [("calc_word_lengths", {}), ("apply_ssml_modifiers", {})],
+    "calc_durations": [("average_by_time", {"attributes": ["pitch", "energy", "rate"]}),
+                       ("normalize", {"attributes": ["pitch", "energy"],
+                                      "normalize_by": "speaker"}),
+                       ("calc_invert_durations", {}), ("transcription_by_frames", {})],
+    "gate_target": [("pitch_to_wavelet", {"num_bands": 10})],
+}
+
+
+def tts_data_config(data_root, extra_after: tp.Mapping, singletons=None, dump=None) -> dict:
+    """``configs/tts_data_24khz.yml`` at its default select over ``data_root``, with the
+    handlers of ``extra_after`` ({handler: [(name, params), ...]}) after each handler,
+    or, for ``CONTOUR_HANDLERS``, before aggregate_pitch."""
+    from speechflow_torch.io.config import Config
+
+    cfg = Config.create_from_file(REPO / "configs" / "tts_data_24khz.yml").to_dict()
+    cfg["dirs"]["data_root"] = str(data_root)
+    pipe = []
+    for name in cfg["preproc"]["pipe"]:
+        if name == "aggregate_pitch" and extra_after is CONTOUR_HANDLERS:
+            pipe += list(CONTOUR_HANDLERS)
+        pipe.append(name)
+        pipe += [n for n, _ in (extra_after.get(name) or []) if extra_after is not CONTOUR_HANDLERS]
+    cfg["preproc"]["pipe"] = pipe
+    params = (CONTOUR_HANDLERS if extra_after is CONTOUR_HANDLERS else
+              {n: p for extra in extra_after.values() for n, p in extra})
+    cfg["preproc"]["pipe_cfg"].update(json.loads(json.dumps(params)))
+    if singletons is not None:
+        cfg["singleton_handlers"] = singletons
+    if dump is not None:
+        cfg["processor"] = {"dump": dump}
+    return cfg
+
+
+def _write_config(cfg: dict, path: Path) -> Path:
+    from speechflow_torch.io.config import yaml_dump
+
+    path.write_text(yaml_dump(cfg))
+    return path
+
+
+def prep_dump(tmp: Path, gpu_line: str) -> dict:
+    """``dump.main`` twice over the contour config; the per-utterance ms of each pass."""
+    import numpy as np
+
+    from speechflow_torch.scripts import dump
+
+    cfg_path = _write_config(tts_data_config(tmp / "SEGS", CONTOUR_HANDLERS),
+                             tmp / "tts_data_contours.yml")
+    argv = ["-cd", str(cfg_path), "--dump_path", str(tmp / "dump")]
+    t0 = time.perf_counter()
+    first = dump.main(argv)
+    t1 = time.perf_counter()
+    cached = dump.main(argv)
+    t2 = time.perf_counter()
+    n = sum(first["subsets"].values())
+    check(n == 50 and sum(cached["subsets"].values()) == n,
+          f"data_prep: dumped {first['subsets']} then {cached['subsets']} of SEGS's 50")
+    check(cached["cache_misses"] == 0 and cached["cache_hits"] == first["cache_misses"],
+          f"data_prep: the cached pass hit {cached['cache_hits']} and missed "
+          f"{cached['cache_misses']} of {first['cache_misses']}")
+    ranges = json.loads((tmp / "dump" / "ranges.json").read_text())
+    cents = np.load(tmp / "dump" / "prosody_centroids.npy")
+    check(len(ranges) >= 2 and all({"pitch", "energy"} <= set(r) for r in ranges.values()),
+          f"data_prep: ranges.json {ranges}")
+    check(cents.shape == (8, 10) and bool(np.isfinite(cents).all()),
+          f"data_prep: centroids {cents.shape}")
+    for label, rep in (("first", first), ("cached", cached)):
+        ms = np.asarray(rep["sample_ms"])
+        print(f"[data_prep] dump {label} pass: {len(ms)} utterances, ms each "
+              + " ".join(f"{v:.1f}" for v in ms)
+              + f"; median {np.median(ms):.1f} ms, total {ms.sum() / 1e3:.2f} s; cache hits "
+              f"{rep['cache_hits']}, handler runs {rep['cache_misses']}", flush=True)
+    print(f"[data_prep] dump: {t1 - t0:.1f} s then {t2 - t1:.1f} s cached (host, one "
+          f"process); ranges.json {len(ranges)} speakers, {first['n_contours']} word "
+          f"contours -> {len(cents)} centroids ({gpu_line})", flush=True)
+    return {"dump_first_ms": float(np.median(first["sample_ms"])),
+            "dump_cached_ms": float(np.median(cached["sample_ms"])), "cfg": cfg_path}
+
+
+def prep_prosody(torch, tmp: Path, cfg_path: Path, gpu_line: str) -> dict:
+    """``prosody_annotation.main`` from the dump, then ``train_prosody`` on those labels."""
+    import numpy as np
+
+    from speechflow_torch.io.seg import AudioSeg
+    from speechflow_torch.scripts import prosody_annotation
+    from speechflow_torch.scripts import train_prosody as TP
+    from speechflow_torch.scripts.common import experiment_saver
+
+    n = prosody_annotation.main(["-cd", str(cfg_path), "--dump_path", str(tmp / "dump")])
+    words = labelled = 0
+    for f in sorted((tmp / "SEGS").rglob("*.TextGridStage3")):
+        labels = AudioSeg.load(f).grid["prosody"].labels
+        words += len(labels)
+        labelled += sum(lab != "undefined" for lab in labels)
+    check(n == 50 and labelled > 0, f"data_prep: {n} segs annotated, {labelled} words labelled")
+    model_cfg = TP.configs("default")[0]
+    model_cfg["trainer"].update(max_steps=DATA_PREP_PROSODY_STEPS, log_every=1,
+                                ckpt_every=DATA_PREP_PROSODY_STEPS)
+    ends, losses = [], []
+
+    def callback(trainer, last):
+        losses.append(float(last["total_loss"]))
+        ends.append(time.perf_counter())
+
+    saver = experiment_saver(model_cfg, {"dirs": {"data_root": str(tmp / "SEGS")}},
+                             tmp / "prosody")
+    before = read_counts()
+    TP.train(model_cfg, tmp / "SEGS", saver, device="cuda", callbacks=[callback])
+    launches = read_counts()["fused_attention"] - before["fused_attention"]
+    check(len(losses) == DATA_PREP_PROSODY_STEPS and bool(np.isfinite(losses).all()),
+          f"data_prep: prosody losses {losses}")
+    check(launches == PROSODY_LAUNCHES * DATA_PREP_PROSODY_STEPS,
+          f"data_prep: {launches} attention launches in {DATA_PREP_PROSODY_STEPS} prosody steps")
+    ms = float(np.median(1e3 * np.diff(ends)))
+    print(f"[data_prep] prosody_annotation: {n} segs, {labelled} of {words} words labelled "
+          f"({labelled / words:.3f}); train_prosody default (256 x 4 x 4, B"
+          f"{model_cfg['batch']['size']}) on those labels: {DATA_PREP_PROSODY_STEPS} steps, "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, {ms:.2f} ms a step (median between "
+          f"step ends), {launches} fused attention launches (f32: TF32 route; {gpu_line})",
+          flush=True)
+    return {"labelled": labelled / words, "prosody_ms": ms}
+
+
+def prep_tts(torch, tmp: Path, gpu_line: str) -> dict:
+    """``train_tts`` at the flagship's width over the normalised, cached pipeline."""
+    import statistics
+
+    import numpy as np
+
+    from speechflow_torch.scripts import train_tts as TT
+    from speechflow_torch.scripts.common import experiment_saver
+    from speechflow_torch.training.trainer import Trainer
+
+    model_cfg, _ = TT.configs("default")
+    check(model_cfg["model"]["encoder_dim"] == 768,
+          f"data_prep: tts_model.yml read as {model_cfg['model']}")
+    model_cfg["trainer"].update(max_steps=DATA_PREP_TTS_STEPS, ckpt_every=DATA_PREP_TTS_STEPS)
+    data_cfg = tts_data_config(
+        tmp / "SEGS", CONTOUR_HANDLERS,
+        singletons={"SpeakerIDSetter": {}, "DatasetStatistics": {}, "PhonemeStatistics": {},
+                    "StatisticsRange": {"ranges_file": str(tmp / "dump" / "ranges.json")}},
+        dump={"dump_path": str(tmp / "dump"), "full_dump": True,
+              "update_handlers": UPDATE_HANDLERS})
+    st = {"steps": [], "ends": []}
+    real_step = Trainer.training_step
+
+    def step(self, batch):
+        st["rows"] = batch.mel.shape[0]
+        avg = batch.averages
+        check(avg is not None and set(avg) == {"pitch", "energy", "rate"}
+              and all(bool(np.isfinite(v).all()) and v.shape == (batch.mel.shape[0],)
+                      for v in avg.values()),
+              f"data_prep: collated averages {avg}")
+        check(float(np.abs(batch.pitch).max()) < 20.0,
+              "data_prep: the batch's pitch is not normalised by speaker")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(self, batch)
+        torch.cuda.synchronize()
+        st["steps"].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def callback(trainer, last):
+        st["ends"].append(time.perf_counter())
+        check(all(np.isfinite(float(v)) for v in last.values()), f"data_prep: losses {last}")
+
+    saver = experiment_saver(model_cfg, data_cfg, tmp / "tts")
+    Trainer.training_step = step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        expr = TT.train(model_cfg, data_cfg, saver, device="cuda", callbacks=[callback])
+    finally:
+        Trainer.training_step = real_step
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ends = [t0] + st["ends"]
+    wall = [1e3 * (b - a) for a, b in zip(ends[:-1], ends[1:])]
+    check(len(st["steps"]) == DATA_PREP_TTS_STEPS, f"data_prep: {len(st['steps'])} tts steps")
+    ms, wall_ms = statistics.median(st["steps"][1:]), statistics.median(wall[1:])
+    pkl_mb = float(np.mean([f.stat().st_size for f in (tmp / "dump").glob("*.pkl")])) / 2**20
+    print(f"[data_prep] train_tts default (768 x 6 x 6, CFM-DiT, f32, B{st['rows']}) over "
+          f"the dump's cache with ranges.json: "
+          f"{DATA_PREP_TTS_STEPS} steps, {ms:.1f} ms in the step, {wall_ms:.1f} ms between "
+          f"steps (medians of 2..{DATA_PREP_TTS_STEPS}; the first {wall[0] / 1e3:.1f} s with "
+          f"set-up and G2P), peak device memory {peak:.2f} GiB; averages pitch / energy / "
+          f"rate collated and finite; each sample's cache {pkl_mb:.2f} MiB, read and, "
+          f"with the recomputed handlers, written again a step ({gpu_line})", flush=True)
+    return {"tts_ms": ms, "tts_wall_ms": wall_ms, "tts_peak": peak, "expr": expr}
+
+
+def prep_eval(torch, tmp: Path, expr, gpu_line: str) -> dict:
+    """``eval_tts.main`` on the trained checkpoint with a seeded BigVGAN checkpoint. A
+    model trained for a few steps predicts next to no frames, so every token is given
+    ``TTS_FORWARD_FRAMES`` (as ``tts_forward_train`` serves its model)."""
+    import dataclasses
+
+    import numpy as np
+
+    from speechflow_torch import serving
+    from speechflow_torch.convert import nnx_from_module
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.models.vocoder import Vocos
+    from speechflow_torch.scripts import eval_tts
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    _, voc_p = serving.flagship_params()
+    vm = serving.init_random_(Vocos(voc_p), torch.Generator().manual_seed(0))
+    saver = ExperimentSaver(tmp, expr_suffix="vocoder")
+    saver.to_save.update({"model_params": dataclasses.asdict(voc_p)})
+    voc_ckpt = saver.save(0, nnx_from_module(vm))
+    del vm
+    argv = ["--tts_ckpt", str(expr), "--vocoder_ckpt", str(voc_ckpt)]
+    before = read_counts()
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    with injected_frames(torch, TTS_FORWARD_FRAMES):
+        written = eval_tts.main(argv + ["--out", str(tmp / "eval")])
+    eval_s = time.perf_counter() - t0
+    counts = {k: v - before[k] for k, v in read_counts().items()}
+    n_texts = len(eval_tts.DEFAULT_TEXTS)
+    check(counts == {k: n_texts * v for k, v in EXPECTED_LAUNCHES.items()},
+          f"data_prep: eval_tts launches {counts} for {n_texts} texts")
+    for i in range(n_texts):
+        mel = np.load(tmp / "eval" / f"{i}.mel.npy")
+        wav = AudioChunk(file_path=tmp / "eval" / f"{i}.wav").load().data
+        check(mel.shape[1] == voc_p.n_mels and bool(np.isfinite(mel).all()),
+              f"data_prep: mel {i} {mel.shape}")
+        check(len(wav) == (mel.shape[0] - 1) * HOP and bool(np.isfinite(wav).all())
+              and float(wav.std()) > 1e-4,
+              f"data_prep: wav {i}: {len(wav)} samples for {mel.shape[0]} frames, "
+              f"std {wav.std():.3g}")
+    # kernels against plain on one sentence, f32, the same noise
+    sentence = ["--text", eval_tts.DEFAULT_TEXTS[0]]
+    outs = {}
+    for label, ctx in (("plain", plain_versions()), ("kernels", contextlib.nullcontext())):
+        with uncounted(), ctx, injected_frames(torch, TTS_FORWARD_FRAMES):
+            torch.manual_seed(0)
+            eval_tts.main(argv + sentence + ["--out", str(tmp / label)])
+        outs[label] = (np.load(tmp / label / "0.mel.npy"),
+                       AudioChunk(file_path=tmp / label / "0.wav").load().data)
+    (mel_k, wav_k), (mel_p, wav_p) = outs["kernels"], outs["plain"]
+    check(mel_k.shape == mel_p.shape, f"data_prep: frames {mel_k.shape} vs plain {mel_p.shape}")
+    mel_err, wav_err = float(np.abs(mel_k - mel_p).max()), float(np.abs(wav_k - wav_p).max())
+    mel_lim = TOL_F32_REL * float(np.abs(mel_p).max())
+    # the .wav files are 16-bit PCM: add its step (1/32767) to the waveform's limit
+    wav_lim = TOL_F32_REL * float(np.abs(wav_p).max()) + 1.0 / 32767
+    print(f"[data_prep] eval_tts: {n_texts} texts in {eval_s:.1f} s with the checkpoints' "
+          f"load -> {len(written)} files, launches {counts}; one sentence f32 kernels vs "
+          f"plain: mel max_abs_err {mel_err:.3g} (tol {mel_lim:.3g}), wav {wav_err:.3g} (tol "
+          f"{wav_lim:.3g}, 16-bit files) ({gpu_line})", flush=True)
+    check(mel_err <= mel_lim and wav_err <= wav_lim, "data_prep: eval_tts kernels disagree "
+                                                     "with plain")
+    return {"eval_s": eval_s}
+
+
+def prep_vocoder(torch, tmp: Path, gpu_line: str) -> dict:
+    """The flagship vocoder recipe (bf16) without and with the waveform augmentations.
+    SEGS's 45 train files make micro-batches of 32 and 13 chunks in turn, and the first
+    of each size also picks cuDNN's algorithms, so the runs are compared on micro-batches
+    3 and 4."""
+    import numpy as np
+
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.scripts import train_vocoder as TV
+    from speechflow_torch.scripts.common import experiment_saver
+    from speechflow_torch.training import gan_trainer as GT
+
+    rng = np.random.default_rng(0)
+    ir = (rng.standard_normal(SR // 4) * np.exp(-np.arange(SR // 4) / (0.05 * SR)))
+    AudioChunk(data=(0.5 * ir / np.abs(ir).max()).astype(np.float32), sr=SR).save(
+        tmp / "ir.wav", overwrite=True)
+    real_gen_step = GT.GANTrainer._generator_step
+    res = {}
+    for label, augs in (("plain data", {}), ("augmented", VOC_AUGMENTATIONS)):
+        model_cfg, data_cfg = TV.configs("default", data_root=SEGS)
+        model_cfg["trainer"].update(max_steps=DATA_PREP_VOC_MICRO_BATCHES,
+                                    ckpt_every=DATA_PREP_VOC_MICRO_BATCHES)
+        pipe = data_cfg["preproc"]["pipe"]
+        i = pipe.index("random_chunk") + 1
+        pipe[i:i] = list(augs)
+        data_cfg["preproc"]["pipe_cfg"].update(json.loads(json.dumps(augs)))
+        if augs:
+            data_cfg["preproc"]["pipe_cfg"]["aug_room_impulse_response"]["ir_paths"] = [
+                str(tmp / "ir.wav")]
+        ends, sizes = [], []
+
+        def gen_step(self, inputs, targets, step):
+            sizes.append(int(inputs["waveform"].shape[0]))
+            return real_gen_step(self, inputs, targets, step)
+
+        saver = experiment_saver(model_cfg, data_cfg, tmp / f"voc_{len(augs)}")
+        before = read_counts()
+        GT.GANTrainer._generator_step = gen_step
+        try:
+            t0 = time.perf_counter()
+            TV.train(model_cfg, data_cfg, saver, device="cuda",
+                     callbacks=[lambda trainer, last: ends.append(time.perf_counter())])
+        finally:
+            GT.GANTrainer._generator_step = real_gen_step
+        counts = {k: v - before[k] for k, v in read_counts().items()}
+        check(counts == {k: DATA_PREP_VOC_MICRO_BATCHES * v for k, v in TRAIN_LAUNCHES.items()},
+              f"data_prep: vocoder launches {counts}")
+        wall = [1e3 * (b - a) for a, b in zip([t0] + ends[:-1], ends)]
+        res[label] = [(b, ms) for b, ms in zip(sizes[2:], wall[2:])]
+        print(f"[data_prep] vocoder_bigvgan.yml default (bf16) {label} "
+              f"({', '.join(augs) or 'no augmentation'}): micro-batches of "
+              + ", ".join(f"B{b} {ms:.1f} ms" for b, ms in zip(sizes, wall))
+              + f" (between micro-batches; the first with set-up), launches {counts} "
+              f"({gpu_line})", flush=True)
+    return {"voc_ms": res}
+
+
+def prep_check(tmp: Path, gpu_line: str) -> dict:
+    """``data_pipeline_check.main`` over the TTS config with every new handler."""
+    from speechflow_torch.scripts import data_pipeline_check
+
+    cfg = tts_data_config(tmp / "SEGS", CHECK_AFTER)
+    cfg["preproc"]["pipe_cfg"]["aug_room_impulse_response"]["ir_paths"] = [str(tmp / "ir.wav")]
+    cfg["singleton_handlers"] = {"SpeakerIDSetter": {}, "DatasetStatistics": {},
+                                 "PhonemeStatistics": {},
+                                 "StatisticsRange": {"ranges_file": str(tmp / "dump" /
+                                                                        "ranges.json")}}
+    lines = data_pipeline_check.main(["-cd", str(_write_config(cfg, tmp / "check.yml")),
+                                      "--n_batches", "1", "--profile"])
+    check("[train] handler IO contracts: OK" in lines and "[test] handler IO contracts: OK"
+          in lines, "data_prep: data_pipeline_check's contracts")
+    check(all("size=2" in line for line in lines if " batch " in line),
+          "data_prep: data_pipeline_check dropped samples")
+    head = next(i for i, line in enumerate(lines) if line.startswith("handler host ms"))
+    timed = {line.split()[0] for line in lines[head + 1:]}
+    new = {n for extra in CHECK_AFTER.values() for n, _ in extra}
+    check(new <= timed and len(new) == 39, f"data_prep: handlers not run: {new - timed}")
+    print(f"[data_prep] data_pipeline_check: {len(cfg['preproc']['pipe'])} handlers "
+          f"({len(new)} new), host ms a sample above ({gpu_line})", flush=True)
+    return {}
+
+
+def prep_ogg() -> dict:
+    """The Ogg fixtures through the port's readers, where ctypes finds the libraries."""
+    from speechflow_torch.io import codecs
+    from speechflow_torch.io.audio import AudioChunk
+
+    found = codecs.available()
+    print("[data_prep] ogg libraries: " + ", ".join(f"{k} {'found' if v else 'absent'}"
+                                                     for k, v in found.items()), flush=True)
+    data = REPO / "tests" / "data"
+    meta = dict(line.split("=", 1) for line in (data / "fixture_meta.txt").read_text()
+                .splitlines() if "=" in line)
+    for name, libs in (("fixture.ogg", ("libvorbisfile",)), ("fixture.opus", ("libopus",))):
+        if not all(found[lib] for lib in libs):
+            print(f"[data_prep] {name}: not read ({'/'.join(libs)} absent)", flush=True)
+            continue
+        a = AudioChunk(file_path=data / name).load(sr=int(meta["sr"]))
+        check(abs(a.duration - float(meta["seconds"])) < 0.05 and a.sr == int(meta["sr"])
+              and float(abs(a.data).max()) > 0.01, f"data_prep: {name} read as {a.duration} s")
+        print(f"[data_prep] {name}: {a.duration:.3f} s at {a.sr} Hz (meta {meta['seconds']} s)",
+              flush=True)
+    return {"ogg": found}
+
+
+def phase_data_prep(torch, gpu_line: str) -> dict:
+    """The data-preparation chain on a copy of SEGS: dump (twice), prosody annotation and
+    ``train_prosody``, ``train_tts`` over the normalised cached pipeline, ``eval_tts``,
+    the augmented vocoder recipe, ``data_pipeline_check`` and the Ogg fixtures."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tempfile.mkdtemp(prefix="data_prep_", dir=workdir()))
+    shutil.copytree(SEGS, tmp / "SEGS")
+    reset_counts()
+    res = prep_dump(tmp, gpu_line)
+    res.update(prep_prosody(torch, tmp, res.pop("cfg"), gpu_line))
+    res.update(prep_tts(torch, tmp, gpu_line))
+    torch.cuda.empty_cache()
+    res.update(prep_eval(torch, tmp, res.pop("expr"), gpu_line))
+    torch.cuda.empty_cache()
+    res.update(prep_vocoder(torch, tmp, gpu_line))
+    torch.cuda.empty_cache()
+    res.update(prep_check(tmp, gpu_line))
+    res.update(prep_ogg())
+    res["launches"] = read_counts()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[data_prep] phase wall time {res['phase_s']:.1f} s; launches {res['launches']}",
+          flush=True)
+    return res
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -5841,12 +6312,12 @@ def main(argv=None) -> int:
                     default="build,kernels,slice,toy,interface,tts_interface,xtts,bundle,"
                             "train,tts_train,xtts_train,prosody_train,conditioned,jax_ckpt,"
                             "vocoder_model_train,tts_forward_train,jax_resume,tts_options,"
-                            "e2e_train,vocoder_recipes,aligner,aux_models,vocoder_cpc",
+                            "e2e_train,vocoder_recipes,aligner,aux_models,vocoder_cpc,data_prep",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
                          "tts_interface,xtts,bundle,train,tts_train,xtts_train,prosody_train,"
                          "conditioned,jax_ckpt,vocoder_model_train,tts_forward_train,"
                          "jax_resume,tts_options,e2e_train,vocoder_recipes,aligner,aux_models,"
-                         "vocoder_cpc,profile "
+                         "vocoder_cpc,data_prep,profile "
                          "(the last is not in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -5898,7 +6369,8 @@ def run(torch, phases: set) -> int:
              ("vocoder_recipes", phase_vocoder_recipes, ()),
              ("aligner", phase_aligner, ("fused_attention",)),
              ("aux_models", phase_aux_models, tuple(EXPECTED_LAUNCHES)),
-             ("vocoder_cpc", phase_vocoder_cpc, tuple(HEAD_LAUNCHES)))
+             ("vocoder_cpc", phase_vocoder_cpc, tuple(HEAD_LAUNCHES)),
+             ("data_prep", phase_data_prep, ("fused_attention", "anti_alias_snake")))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:

@@ -1,7 +1,8 @@
 """Collation (counterpart of ``speechflow_tpu/data/collate.py``):
 ``AudioCollate`` (waveforms padded to a multiple of ``sample_multiple``, ids,
 speaker embeddings), ``SpectrogramCollate`` (also the frame-level fields: mel,
-magnitude, energy, pitch; the NSF vocoder's data) and ``TTSCollate``.
+magnitude, energy, pitch, and the per-utterance ``averages`` (name -> (B,), 0
+where a sample lacks one); the NSF vocoder's data) and ``TTSCollate``.
 
 ``TTSCollate`` pads tokens to a multiple of ``token_multiple``, token-level
 features (durations, aggregate pitch and energy, ling/LM/XPBERT features)
@@ -64,6 +65,7 @@ class CollatedSpectrogram:
     magnitude: Array = None                # (B, T, n_fft // 2 + 1)
     energy: Array = None                   # (B, T)
     pitch: Array = None
+    averages: tp.Optional[tp.Dict[str, np.ndarray]] = None  # name -> (B,)
 
 
 @dataclass
@@ -78,6 +80,7 @@ class CollatedTTS:
     magnitude: Array = None                # (B, T, n_fft // 2 + 1)
     energy: Array = None                   # (B, T)
     pitch: Array = None
+    averages: tp.Optional[tp.Dict[str, np.ndarray]] = None  # name -> (B,)
     gate: Array = None                     # (B, T)
     transcription: Array = None            # (B, N)
     transcription_lengths: Array = None
@@ -135,6 +138,11 @@ class SpectrogramCollate:
             if all(v is not None for v in values):
                 setattr(out, attr, stack_and_pad(values, multiple=self.frame_multiple,
                                                  target_len=t_mel)[0])
+        avgs = [getattr(s, "averages", None) for s in samples]
+        if all(a is not None for a in avgs):
+            keys = sorted(set().union(*[a.keys() for a in avgs]))
+            out.averages = {k: np.asarray([a.get(k, 0.0) for a in avgs], np.float32)
+                            for k in keys}
 
     def __call__(self, samples: tp.List[SpectrogramDataSample]) -> CollatedSpectrogram:
         out = CollatedSpectrogram(speaker_id=_ids(samples, "speaker_id"),

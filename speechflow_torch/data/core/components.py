@@ -7,8 +7,8 @@ Two ways in:
   handler chain of ``preproc.pipe`` and the collate from the plain dict a
   trainer stores (the resolved data config, the alphabet and each singleton
   handler's state), for inference. Handlers in ``ignored_handlers`` are left
-  out; any other handler that is not ported raises ``NotImplementedError``
-  with its name. Singletons stay as their state dicts
+  out; a name no handler has raises ``KeyError`` with it. Singletons stay as
+  their state dicts
   (``pipeline.singletons[name]``).
 - ``from_config(data_config)`` builds the training pipeline from a data
   config (the sections of ``configs/vocoder_data_24khz.yml``): the files of
@@ -21,8 +21,15 @@ Two ways in:
   DataLoader worker processes (``n_workers``, ``prefetch_factor``), the one-host
   counterpart of the JAX data server.
 
-In training a sample whose handlers fail is dropped with a warning, as the
-JAX data processor drops it; ``datasample_to_batch`` (inference) raises.
+A ``processor.dump`` section (``dump_path``, ``handlers``, ``full_dump``,
+``update_handlers``, ...) gives the training batches the per-sample feature
+cache of ``data/core/processor.py``, keyed by each handler's name and its
+config parameters as the JAX package keys them. A handler with a ``ranges``
+parameter (``normalize``) gets the ``StatisticsRange`` singleton.
+
+In training a sample whose handlers fail is dropped with a warning (and
+recorded in the cache's ``skip_samples.txt``), as the JAX data processor drops
+it; ``datasample_to_batch`` (inference) raises and never reads the cache.
 """
 
 from __future__ import annotations
@@ -35,9 +42,10 @@ import typing as tp
 import torch
 
 from speechflow_torch.data.collate import COLLATES
+from speechflow_torch.data.core.processor import DumpProcessor
 from speechflow_torch.data.parsers import PARSERS
 from speechflow_torch.data.processors import get_handler
-from speechflow_torch.data.processors.singletons import SINGLETON_HANDLERS
+from speechflow_torch.data.processors.singletons import SINGLETON_HANDLERS, StatisticsRange
 from speechflow_torch.data.processors.text import Alphabet, TTSTextProcessor
 from speechflow_torch.data.samplers import SAMPLERS
 from speechflow_torch.io.flist import construct_file_list, split_file_list
@@ -78,8 +86,14 @@ class DataPipeline:
             "add_service_tokens", True))
         self.text_processor = (TTSTextProcessor(self.alphabet, add_service_tokens=service)
                                if self.alphabet is not None else None)
+        ranges = None
+        if "StatisticsRange" in self.singletons:
+            ranges = StatisticsRange()
+            ranges.load_state_dict(self.singletons["StatisticsRange"])
         self.preproc_fns: tp.List[tp.Callable] = []
         self.handler_names: tp.List[str] = []
+        #: each handler's config parameters, which key its cached fields
+        self.handler_params: tp.Dict[str, dict] = {}
         for name in preproc.get("pipe") or []:
             if name in ignored_handlers:
                 continue
@@ -88,9 +102,16 @@ class DataPipeline:
             if name == "text_to_transcription":
                 params.pop("add_service_tokens", None)
                 params["processor"] = self.text_processor
+            if ranges is not None and "ranges" in inspect.signature(fn).parameters:
+                params["ranges"] = ranges
+            self.handler_params[name] = {k: v for k, v in params.items()
+                                         if k not in ("processor", "ranges")}
             params = _known_kwargs(fn, params, name)
             self.preproc_fns.append(functools.partial(fn, **params))
             self.handler_names.append(name)
+        dump_cfg = (cfg.get("processor") or {}).get("dump")
+        self.dump = (DumpProcessor(**_known_kwargs(DumpProcessor, dict(dump_cfg), "dump"))
+                     if dump_cfg else None)
         self.info = dict(info)
         self.datasets: tp.Dict[str, list] = {}
         self.samplers: tp.Dict[str, tp.Any] = {}
@@ -174,7 +195,13 @@ class DataPipeline:
         """The next batch of ``subset``'s sampler, processed and collated here
         (None if every sample of it failed)."""
         samples, _ = self.samplers[subset].sampling(batch_size)
-        return _Process(self.preproc_fns, self.collate_fn).batch(samples)
+        return self.process.batch(samples)
+
+    @property
+    def process(self) -> "_Process":
+        """The training path's processing of a sample (through the cache)."""
+        return _Process(self.preproc_fns, self.collate_fn,
+                        [self.handler_params[n] for n in self.handler_names], self.dump)
 
     def loader(self, subset: str, batch_size: int, n_workers: int = 0,
                prefetch_factor: int = 2) -> "AudioLoader":
@@ -193,22 +220,40 @@ class DataPipeline:
 
 
 class _Process:
-    """Copy a sample and run the handlers over it; drop it with a warning if
-    one fails. Picklable, for the loader's worker processes."""
+    """Copy a sample and run the handlers over it (a cached handler's fields
+    set from ``dump`` instead); drop it with a warning if one fails.
+    Picklable, for the loader's worker processes."""
 
-    def __init__(self, preproc_fns: tp.Sequence[tp.Callable], collate_fn: tp.Callable):
+    def __init__(self, preproc_fns: tp.Sequence[tp.Callable], collate_fn: tp.Callable,
+                 params: tp.Sequence[dict], dump: tp.Optional[DumpProcessor]):
         self.preproc_fns = list(preproc_fns)
         self.collate_fn = collate_fn
+        self.params = list(params)  # each handler's config parameters: its cache key
+        self.dump = dump
 
     def sample(self, ds):
+        dump = self.dump
+        if dump is not None and dump.sample_key(ds) in dump.skip_samples:
+            return None
+        cache = dump.load(ds) if dump is not None else {}
+        dirty = False
         try:
             ds = ds.copy()
-            for fn in self.preproc_fns:
+            for fn, params in zip(self.preproc_fns, self.params):
+                if dump is not None and dump.is_cached(fn, params, cache):
+                    dump.apply_cached(ds, fn, params, cache)
+                    continue
                 ds = fn(ds)
-            return ds
+                if dump is not None:
+                    dirty |= dump.store_outputs(ds, fn, params, cache)
         except (OSError, ValueError) as e:
             LOGGER.warning("sample %s failed in preproc: %r", getattr(ds, "file_path", None), e)
+            if dump is not None:
+                dump.blacklist(ds)
             return None
+        if dirty:
+            dump.save(ds, cache)
+        return ds
 
     def batch(self, samples: tp.Sequence) -> tp.Any:
         kept = [d for d in (self.sample(s) for s in samples) if d is not None]
@@ -262,7 +307,7 @@ class AudioLoader:
 
     def __init__(self, pipeline: DataPipeline, subset: str, batch_size: int,
                  n_workers: int = 0, prefetch_factor: int = 2):
-        process = _Process(pipeline.preproc_fns, pipeline.collate_fn)
+        process = pipeline.process
         kwargs = dict(num_workers=n_workers)
         if n_workers > 0:
             kwargs.update(prefetch_factor=prefetch_factor, multiprocessing_context="spawn")

@@ -14,6 +14,7 @@ sorts by it, so the sort keeps the file order.
 from __future__ import annotations
 
 import copy
+import hashlib
 import typing as tp
 from dataclasses import dataclass, field
 
@@ -44,6 +45,7 @@ class AudioDataSample:
     speech_quality_emb: Array = None    # (5,) speech-quality statistics
     ssl_feat: Array = None              # (T', D) SSL features
     ac_feat: Array = None               # (T', D) neural-codec features
+    mu_law_waveform: Array = None       # (S,) mu-law companded waveform
     #: each handler's parameters, by handler
     transform_params: tp.Dict[str, dict] = field(default_factory=dict)
     #: fields without a slot of their own (SSML words and modifiers)
@@ -52,6 +54,18 @@ class AudioDataSample:
     def copy(self):
         """A deep copy: the handlers change a sample in place."""
         return copy.deepcopy(self)
+
+    @property
+    def uid(self) -> str:
+        """The JAX sample's id: sha256 of ``file_path|label|index``, 16 hex digits."""
+        key = f"{self.file_path or ''}|{self.label or ''}|{self.index}"
+        return hashlib.sha256(key.encode()).hexdigest()[:16]
+
+    def get(self, name: str, default=None):
+        """A field, else an entry of ``additional``."""
+        if hasattr(self, name):
+            return getattr(self, name)
+        return self.additional.get(name, default)
 
     def get_param_val(self, name: str, default=None):
         """A parameter an earlier handler recorded in ``transform_params``."""
@@ -70,7 +84,12 @@ class SpectrogramDataSample(AudioDataSample):
     mel: Array = None                   # (T, n_mels)
     energy: Array = None                # (T,)
     pitch: Array = None                 # (T,)
+    spectral_flatness: Array = None     # (T,)
     hop_len: tp.Optional[int] = None
+    #: per-utterance scalars of ``average_by_time``, by contour
+    averages: tp.Optional[tp.Dict[str, np.ndarray]] = None
+    #: (lo, hi, span) of each contour ``normalize`` scaled
+    ranges: tp.Optional[tp.Dict[str, np.ndarray]] = None
 
     @property
     def n_frames(self) -> int:

@@ -1,30 +1,40 @@
 """Handlers (counterpart of ``speechflow_tpu/data/processors``): named
-functions over a sample, found by the names a pipeline config lists.
+functions over a sample, found by the names a pipeline config lists, each
+declared with the fields it reads and writes (``handler``, over
+``data.core.registry.PipeRegistry``).
 
-Ported: the text path's (``text_to_transcription``, ``phonemize``,
-``add_ling_feat``, ``add_lm_feat``, ``add_xpbert_feat``), the audio path's
-(``data/processors/audio.py``, ``denoise`` among them), the spectral handlers
-(``data/processors/spectral.py``), the alignment-derived ones
-(``data/processors/tts.py``) and the model-based ones
-(``data/processors/embeddings.py``); ``get_handler`` raises
-``NotImplementedError`` for any other name.
+``get_handler`` resolves every name of the JAX package's registry: the audio,
+spectral, text, linguistic, alignment-derived, model-based, contour (``signal1d``),
+LPC, SSML and augmentation handlers. Unlike the JAX package, whose
+``get_handler`` imports neither ``lpc`` nor ``ssml`` (so ``lpc`` and
+``apply_ssml_modifiers`` raise ``KeyError`` in a fresh process there), it imports
+every handler module before it looks a name up.
 """
 
 import typing as tp
 
-__all__ = ["get_handler"]
+__all__ = ["HANDLERS", "handler", "get_handler"]
+
+HANDLERS: tp.Dict[str, tp.Callable] = {}
+
+
+def handler(inputs: tp.Optional[set] = None, outputs: tp.Optional[set] = None,
+            optional: tp.Optional[set] = None):
+    """Register the decorated function under its name with its contract."""
+    from speechflow_torch.data.core.registry import PipeRegistry
+
+    def deco(fn):
+        fn = PipeRegistry.registry(inputs=inputs, outputs=outputs, optional=optional)(fn)
+        HANDLERS[fn.__name__] = fn
+        return fn
+
+    return deco
 
 
 def get_handler(name: str) -> tp.Callable:
-    from speechflow_torch.data.processors import audio, embeddings, ling, spectral, tts
-    from speechflow_torch.data.processors.text import phonemize, text_to_transcription
+    from speechflow_torch.data.processors import (  # noqa: F401
+        audio, augment, embeddings, ling, lpc, signal1d, spectral, ssml, text, tts)
 
-    handlers = {"text_to_transcription": text_to_transcription, "phonemize": phonemize,
-                **{n: getattr(ling, n) for n in ("add_ling_feat", "add_lm_feat",
-                                                 "add_xpbert_feat")},
-                **{n: getattr(m, n) for m in (audio, spectral, tts) for n in m.__all__},
-                **{n: getattr(embeddings, n) for n in ("voice_biometrics", "ssl_features",
-                                                       "speech_quality", "codec_features")}}
-    if name not in handlers:
-        raise NotImplementedError(f"handler '{name}' is not ported; ported: {sorted(handlers)}")
-    return handlers[name]
+    if name not in HANDLERS:
+        raise KeyError(f"unknown handler '{name}'; known: {sorted(HANDLERS)}")
+    return HANDLERS[name]

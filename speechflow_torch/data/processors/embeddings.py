@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from speechflow_torch.data.core.datasample import AudioDataSample
-from speechflow_torch.data.processors import np_dsp
+from speechflow_torch.data.processors import handler, np_dsp
 
 __all__ = ["set_biometric_model", "set_ssl_model", "set_quality_model", "set_codec_model",
            "make_ecapa_hook", "make_codec_hook", "make_cpc_hook", "make_hf_wav2vec2_hook",
@@ -180,6 +180,7 @@ def _checkpoint_hook(kind: str, ckpt: tp.Optional[str],
     return None
 
 
+@handler(inputs={"audio_chunk"}, outputs={"speaker_emb"})
 def voice_biometrics(ds: AudioDataSample, emb_dim: int = 192,
                      model_ckpt: tp.Optional[str] = None) -> AudioDataSample:
     wav, sr = ds.audio_chunk.waveform, ds.audio_chunk.sr
@@ -189,6 +190,7 @@ def voice_biometrics(ds: AudioDataSample, emb_dim: int = 192,
     return ds
 
 
+@handler(inputs={"audio_chunk"}, outputs={"ssl_feat"})
 def ssl_features(ds: AudioDataSample, hop_len: int = 256, dim: int = 256,
                  model_ckpt: tp.Optional[str] = None) -> AudioDataSample:
     wav, sr = ds.audio_chunk.waveform, ds.audio_chunk.sr
@@ -202,6 +204,7 @@ def ssl_features(ds: AudioDataSample, hop_len: int = 256, dim: int = 256,
     return ds
 
 
+@handler(inputs={"audio_chunk"}, outputs={"speech_quality_emb"})
 def speech_quality(ds: AudioDataSample) -> AudioDataSample:
     wav, sr = ds.audio_chunk.waveform, ds.audio_chunk.sr
     fn = _MODELS.get("quality")
@@ -218,6 +221,7 @@ def speech_quality(ds: AudioDataSample) -> AudioDataSample:
     return ds
 
 
+@handler(inputs={"audio_chunk"}, outputs={"ac_feat"})
 def codec_features(ds: AudioDataSample, hop_len: int = 512,
                    model_ckpt: tp.Optional[str] = None) -> AudioDataSample:
     wav, sr = ds.audio_chunk.waveform, ds.audio_chunk.sr

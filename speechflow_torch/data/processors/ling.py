@@ -30,6 +30,7 @@ import typing as tp
 import numpy as np
 
 from speechflow_torch.data.core.datasample import TTSDataSample
+from speechflow_torch.data.processors import handler
 from speechflow_torch.data.processors.text import SIL
 
 __all__ = [
@@ -253,6 +254,8 @@ def _syntagma_last_words(ds: TTSDataSample) -> tp.Optional[tp.Set[int]]:
     return {i for i in range(len(ids)) if i + 1 == len(ids) or ids[i + 1] != ids[i]}
 
 
+@handler(inputs={"phonemes", "transcription"}, outputs={"ling_feat", "prosody", "word_lengths"},
+         optional={"pos_tags", "syntax_rels", "emphasis_labels", "prosody_labels"})
 def add_ling_feat(ds: TTSDataSample, use_rule_tagger_fallback: bool = True) -> TTSDataSample:
     """Per-phoneme linguistic features, prosody class ids (the word's
     prosody label + 1, -1 undefined) and word lengths (runs of one word;
@@ -299,6 +302,7 @@ def add_ling_feat(ds: TTSDataSample, use_rule_tagger_fallback: bool = True) -> T
     return ds
 
 
+@handler(inputs={"phonemes", "transcription"}, outputs={"lm_feat"})
 def add_lm_feat(ds: TTSDataSample, model_ckpt: tp.Optional[str] = None) -> TTSDataSample:
     """Each phoneme gets its word's embedding (pauses and service tokens 0)."""
     if ds.phoneme_timestamps is None or ds.word_timestamps is None:
@@ -392,6 +396,7 @@ def lm_feat_for_words(words: tp.Sequence[str],
     return out
 
 
+@handler(inputs={"phonemes", "transcription"}, outputs={"xpbert_feat"})
 def add_xpbert_feat(ds: TTSDataSample, model_ckpt: tp.Optional[str] = None) -> TTSDataSample:
     """Per-phoneme embeddings (a phoneme-level WordLM's at ``model_ckpt``, cut
     or zero-padded to XPBERT_FEAT_DIM, else the char-n-gram embeddings of the

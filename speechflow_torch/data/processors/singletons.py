@@ -93,6 +93,15 @@ class StatisticsRange:
                 float(v.mean()), float(v.std()))
         return self
 
+    def get(self, feature: str, speaker: tp.Optional[str] = None
+            ) -> tp.Tuple[float, float, float, float]:
+        """(lo, hi, mean, std) of ``feature`` for ``speaker`` (else ``__all__``,
+        else the first speaker's); (0, 1, 0, 1) where there is none."""
+        spk = speaker if speaker in self.ranges else "__all__"
+        if spk not in self.ranges and self.ranges:
+            spk = next(iter(self.ranges))
+        return self.ranges.get(spk, {}).get(feature) or (0.0, 1.0, 0.0, 1.0)
+
     def state_dict(self) -> dict:
         return {"ranges": self.ranges}
 

@@ -12,6 +12,7 @@ import typing as tp
 import numpy as np
 
 from speechflow_torch.data.core.datasample import TTSDataSample
+from speechflow_torch.data.processors import handler
 
 __all__ = ["parse_ssml", "apply_ssml_modifiers"]
 
@@ -50,6 +51,8 @@ def parse_ssml(text: str) -> tp.Tuple[str, tp.List[tp.Tuple[str, dict]]]:
     return " ".join(w for w, _ in out), out
 
 
+@handler(inputs={"transcription"},
+         outputs={"pitch_modifier", "volume_modifier", "rate_modifier"})
 def apply_ssml_modifiers(ds: TTSDataSample) -> TTSDataSample:
     """Word-level SSML modifiers to token level (uniform within a word; 1.0
     outside any span), into ``ds.additional``. Reads

@@ -19,6 +19,7 @@ import typing as tp
 import numpy as np
 
 from speechflow_torch.data.core.datasample import TTSDataSample
+from speechflow_torch.data.processors import handler
 
 __all__ = ["Alphabet", "TTSTextProcessor", "TextParserHook", "G2PParserHook",
            "phonemize_words", "phonemize", "text_to_transcription", "PAD", "BOS", "EOS", "SIL", "UNK", "SERVICE_TOKENS"]
@@ -129,6 +130,7 @@ def phonemize_words(text: str, hook: tp.Optional[TextParserHook] = None,
     return phonemes, counts
 
 
+@handler(inputs={"text"}, outputs={"phonemes", "word_lengths"})
 def phonemize(ds: TTSDataSample, g2p: tp.Optional[str] = None,
               device: str = "cpu") -> TTSDataSample:
     """Text -> phonemes and ``word_lengths`` for a sample without a phoneme
@@ -179,6 +181,7 @@ class TTSTextProcessor:
         return ds
 
 
+@handler(inputs={"phonemes"}, outputs={"transcription"})
 def text_to_transcription(ds: TTSDataSample,
                           processor: tp.Optional[TTSTextProcessor] = None) -> TTSDataSample:
     """Pipe-level wrapper; the pipeline binds ``processor``."""

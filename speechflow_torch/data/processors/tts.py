@@ -1,8 +1,9 @@
-"""Alignment-derived handlers (counterpart of the handlers of
-``speechflow_tpu/data/processors/tts.py`` that the TTS and aligner data configs
-list): pauses from the text (stage 1 of forced alignment) or from the
-timestamps' gaps, per-token frame durations that sum to the mel's length,
-token-level pitch and energy, and the stop-gate target."""
+"""Alignment-derived handlers (counterpart of
+``speechflow_tpu/data/processors/tts.py``): pauses from the text (stage 1 of
+forced alignment) or from the timestamps' gaps, per-token frame durations that
+sum to the mel's length, token-level pitch and energy, the stop-gate target,
+tokens per word, fades inside pauses, the frame-level reciprocal durations and
+the frame-level transcription."""
 
 from __future__ import annotations
 
@@ -11,13 +12,16 @@ import typing as tp
 import numpy as np
 
 from speechflow_torch.data.core.datasample import TTSDataSample
+from speechflow_torch.data.processors import handler
 from speechflow_torch.data.processors.text import SIL
 from speechflow_torch.io.timestamps import Timestamps
 
-__all__ = ["add_pauses_from_text", "add_pauses_from_timestamps", "calc_durations", "aggregate_pitch",
-           "aggregate_energy", "gate_target"]
+__all__ = ["add_pauses_from_text", "add_pauses_from_timestamps", "calc_durations",
+           "aggregate_pitch", "aggregate_energy", "gate_target", "calc_word_lengths",
+           "apply_fade_inside_pauses", "calc_invert_durations", "transcription_by_frames"]
 
 
+@handler(inputs={"phonemes"}, outputs={"phonemes"}, optional={"word_timestamps"})
 def add_pauses_from_text(ds: TTSDataSample, level: str = "words",
                          begin_end_pauses: bool = True) -> TTSDataSample:
     """SIL tokens from the text: after every word (``level="words"``) or after
@@ -70,6 +74,8 @@ def add_pauses_from_text(ds: TTSDataSample, level: str = "words",
     return ds
 
 
+@handler(inputs={"phonemes", "phoneme_timestamps"},
+         outputs={"phonemes", "phoneme_timestamps"})
 def add_pauses_from_timestamps(ds: TTSDataSample, min_len: float = 0.03,
                                merge_short: bool = True) -> TTSDataSample:
     """Empty-label intervals (gaps) become SIL tokens; with ``merge_short`` a
@@ -93,6 +99,7 @@ def add_pauses_from_timestamps(ds: TTSDataSample, min_len: float = 0.03,
     return ds
 
 
+@handler(inputs={"transcription", "phoneme_timestamps"}, outputs={"durations"})
 def calc_durations(ds: TTSDataSample) -> TTSDataSample:
     """Frames per token of the transcription, summing exactly to the mel's
     length; with service tokens, BOS spans [0, first phoneme) and EOS [last
@@ -128,6 +135,7 @@ def _aggregate(feat: np.ndarray, durations: np.ndarray, mode: str = "mean",
     return out
 
 
+@handler(inputs={"durations", "pitch"}, outputs={"aggregate_pitch"})
 def aggregate_pitch(ds: TTSDataSample, mode: str = "mean",
                     voiced_only: bool = True) -> TTSDataSample:
     """Token-level pitch; with ``voiced_only`` the mean of each token's voiced
@@ -137,15 +145,86 @@ def aggregate_pitch(ds: TTSDataSample, mode: str = "mean",
     return ds
 
 
+@handler(inputs={"durations", "energy"}, outputs={"aggregate_energy"})
 def aggregate_energy(ds: TTSDataSample, mode: str = "mean") -> TTSDataSample:
     ds.aggregate_energy = _aggregate(ds.energy, ds.durations, mode)
     return ds
 
 
+@handler(inputs={"mel"}, outputs={"gate"})
 def gate_target(ds: TTSDataSample, last_frames: int = 1) -> TTSDataSample:
     """1 on the last ``last_frames`` frames, 0 before."""
     t = ds.n_frames
     gate = np.zeros(t, dtype=np.float32)
     gate[max(0, t - last_frames):] = 1.0
     ds.gate = gate
+    return ds
+
+
+@handler(inputs={"transcription"}, outputs={"word_lengths"})
+def calc_word_lengths(ds: TTSDataSample) -> TTSDataSample:
+    """Per word, the phonemes whose interval lies inside it (1e-6 s slack);
+    without timestamps one word of every token."""
+    if ds.word_timestamps is None or ds.phoneme_timestamps is None:
+        ds.word_lengths = np.asarray([ds.n_tokens], dtype=np.int32)
+        return ds
+    counts = [sum(1 for b, e in ds.phoneme_timestamps if b >= wb - 1e-6 and e <= we + 1e-6)
+              for wb, we in ds.word_timestamps]
+    ds.word_lengths = np.asarray(counts, dtype=np.int32)
+    return ds
+
+
+@handler(inputs={"audio_chunk", "phonemes", "phoneme_timestamps"}, outputs={"audio_chunk"})
+def apply_fade_inside_pauses(ds: TTSDataSample) -> TTSDataSample:
+    """Fade the waveform to silence inside each SIL interval: a steep
+    log-space curve out over its first half and in over its second; a side
+    next to another pause or the utterance's edge stays silent."""
+    if ds.phoneme_timestamps is None or ds.audio_chunk is None:
+        return ds
+    sr = ds.audio_chunk.sr
+    wav = np.array(ds.audio_chunk.waveform)
+    phonemes = list(ds.phonemes)
+    for idx, (ph, (b, e)) in enumerate(zip(phonemes, ds.phoneme_timestamps)):
+        if ph != SIL:
+            continue
+        a, z = max(int(b * sr), 0), min(int(e * sr), len(wav))
+        if z - a <= 1:
+            continue
+        l_len = (z - a) // 2
+        r_len = (z - a) - l_len
+        l_curve = np.flip(np.logspace(-1.0, 1.0, l_len) ** 4.0 / 10000.0)
+        if idx == 0 or phonemes[idx - 1] == SIL:
+            l_curve = l_curve * 0.0
+        r_curve = np.logspace(-1.0, 1.0, r_len) ** 4.0 / 10000.0
+        if idx == len(phonemes) - 1 or (idx + 1 < len(phonemes) and phonemes[idx + 1] == SIL):
+            r_curve = r_curve * 0.0
+        wav[a:z] = wav[a:z] * np.concatenate([l_curve, r_curve]).astype(np.float32)
+    ds.audio_chunk.data = wav.astype(np.float32)
+    return ds
+
+
+@handler(inputs={"durations"}, outputs={"invert_durations"})
+def calc_invert_durations(ds: TTSDataSample) -> TTSDataSample:
+    """``additional["invert_durations"]``: each frame carries 1 / its token's
+    frames."""
+    if ds.durations is None:
+        return ds
+    durs = np.asarray(ds.durations).astype(np.int64)
+    ds.additional["invert_durations"] = np.repeat(
+        np.where(durs > 0, 1.0 / np.maximum(durs, 1), 0.0), np.maximum(durs, 0)
+    ).astype(np.float32)
+    return ds
+
+
+@handler(inputs={"durations", "transcription"}, outputs={"transcription_by_frames"})
+def transcription_by_frames(ds: TTSDataSample) -> TTSDataSample:
+    """``additional["transcription_by_frames"]``: each token id repeated by its
+    frames (a CTC target at frame level); as long as the mel."""
+    if ds.durations is None or ds.transcription is None:
+        return ds
+    durs = np.asarray(ds.durations).astype(np.int64)
+    ext = np.repeat(np.asarray(ds.transcription), np.maximum(durs, 0))
+    if ds.mel is not None and len(ext) != ds.mel.shape[0]:
+        raise ValueError(f"{len(ext)} frames of transcription for {ds.mel.shape[0]} of mel")
+    ds.additional["transcription_by_frames"] = ext.astype(np.int32)
     return ds

@@ -2,10 +2,12 @@
 the part the eval interfaces and the audio handlers use).
 
 An ``AudioChunk`` holds a float32 waveform and its rate, or the path of a
-``.wav`` file read (and downmixed to mono) on ``load``, cut to the window
-[``begin``, ``end``) seconds when one is given; ``load(sr)`` and
-``resample`` go through ``scipy.signal.resample_poly``. Numpy and scipy
-only: audio files are host artifacts.
+``.wav``, Ogg/Vorbis (``.ogg``, ``.oga``) or Ogg/Opus (``.opus``) file read (and
+downmixed to mono) on ``load``, cut to the window [``begin``, ``end``) seconds
+when one is given; ``load(sr)`` and ``resample`` go through
+``scipy.signal.resample_poly``. ``save`` writes by extension: 16-bit PCM WAV,
+Vorbis or Opus (``io/codecs.py``, the system's codec libraries through ctypes).
+Numpy and scipy otherwise: audio files are host artifacts.
 
 One difference from the JAX class: an array given as ``data`` is kept as it
 is, so a batch of waveforms (B, N) stays one; the JAX class averages any 2-D
@@ -27,6 +29,7 @@ from scipy.signal import resample_poly
 
 __all__ = ["AudioChunk"]
 
+_OGG_SUFFIXES = (".ogg", ".oga", ".opus")
 _INT_SCALE = {np.dtype(np.int16): 32768.0, np.dtype(np.int32): 2147483648.0}
 
 
@@ -39,6 +42,19 @@ def _to_float32(data: np.ndarray) -> np.ndarray:
     elif not np.issubdtype(data.dtype, np.floating):
         raise ValueError(f"unsupported sample type: {data.dtype}")
     return np.asarray(data, np.float32)
+
+
+def _read(path: Path) -> tp.Tuple[int, np.ndarray]:
+    """(rate, samples) of a WAV file or of an Ogg file, by its first packet."""
+    if path.suffix.lower() not in _OGG_SUFFIXES:
+        return wavfile.read(str(path))
+    from speechflow_torch.io import codecs
+
+    if codecs.ogg_codec_of(path) == "opus" or path.suffix.lower() == ".opus":
+        data, sr = codecs.read_ogg_opus(path)
+    else:
+        data, sr = codecs.read_ogg_vorbis(path)
+    return sr, data
 
 
 @dataclasses.dataclass
@@ -61,10 +77,12 @@ class AudioChunk:
     @property
     def duration(self) -> float:
         """Seconds of audio (a file not yet read: its window, else the file's
-        length, mapped, not read)."""
+        length: a WAV file mapped, not read; a compressed one decoded)."""
         if self.data is None and self.end is not None:
             return self.end - self.begin
         if self.data is None and self.file_path is not None:
+            if self.file_path.suffix.lower() in _OGG_SUFFIXES:
+                return self.load().duration
             sr, data = wavfile.read(str(self.file_path), mmap=True)
             return data.shape[0] / sr - self.begin
         return self.waveform.shape[-1] / self.sr
@@ -84,7 +102,7 @@ class AudioChunk:
         if self.data is None:
             if self.file_path is None:
                 raise ValueError("AudioChunk has neither data nor file_path")
-            file_sr, data = wavfile.read(str(self.file_path))
+            file_sr, data = _read(Path(self.file_path))
             data = _to_float32(np.atleast_1d(data))
             if data.ndim > 1:  # (N, channels) -> mono
                 data = data.mean(axis=-1).astype(np.float32)
@@ -101,6 +119,24 @@ class AudioChunk:
             self.data = resample_poly(self.waveform, sr // g, self.sr // g,
                                       axis=-1).astype(np.float32)
             self.sr = sr
+        return self
+
+    def save(self, path: tp.Union[str, Path], overwrite: bool = False) -> "AudioChunk":
+        """Write the waveform, clipped to [-1, 1], by extension: ``.ogg`` /
+        ``.oga`` Vorbis, ``.opus`` Opus at 48 kHz, else 16-bit PCM WAV."""
+        path = Path(path)
+        if path.exists() and not overwrite:
+            raise FileExistsError(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        pcm = np.clip(self.waveform, -1.0, 1.0)
+        suffix = path.suffix.lower()
+        if suffix in (".ogg", ".oga", ".opus"):
+            from speechflow_torch.io import codecs
+
+            write = codecs.write_ogg_opus if suffix == ".opus" else codecs.write_ogg_vorbis
+            write(path, pcm, int(self.sr))
+        else:
+            wavfile.write(str(path), int(self.sr), (pcm * 32767.0).astype(np.int16))
         return self
 
     # -- in-place transforms of a mono waveform (the audio handlers') -------------
@@ -125,6 +161,21 @@ class AudioChunk:
         if rem:
             self.data = np.pad(self.data, (0, rem), constant_values=pad_value)
         return self
+
+    def volume(self, gain: float) -> "AudioChunk":
+        self.data = (self.waveform * gain).astype(np.float32)
+        return self
+
+    def preemphasis(self, coeff: float = 0.97) -> "AudioChunk":
+        """y[0] = x[0], y[n] = x[n] - coeff x[n-1]."""
+        wav = self.waveform
+        self.data = np.concatenate([wav[:1], wav[1:] - coeff * wav[:-1]]).astype(np.float32)
+        return self
+
+    def mu_law_encode(self, mu: int = 255) -> np.ndarray:
+        """The waveform, clipped to [-1, 1], mu-law companded (not quantised)."""
+        wav = np.clip(self.waveform, -1.0, 1.0)
+        return (np.sign(wav) * np.log1p(mu * np.abs(wav)) / np.log1p(mu)).astype(np.float32)
 
     def normalize(self, peak: float = 0.95) -> "AudioChunk":
         """Scale the peak magnitude to ``peak`` (silence is left as it is)."""

@@ -24,6 +24,11 @@ class Timestamps:
     def __len__(self) -> int:
         return len(self.intervals)
 
+    def __getitem__(self, idx):
+        """A row (begin, end), or a slice as ``Timestamps``."""
+        out = self.intervals[idx]
+        return Timestamps(out) if isinstance(idx, slice) else out
+
     def __iter__(self):
         return iter(self.intervals)
 

@@ -45,7 +45,11 @@ import numpy as np
 
 from speechflow_torch.io import orbax
 
-__all__ = ["ExperimentSaver", "is_checkpoint", "load_pickle"]
+__all__ = ["ExperimentSaver", "is_checkpoint", "load_pickle", "UnmappedClassError"]
+
+
+class UnmappedClassError(pickle.UnpicklingError):
+    """A pickle names a class of the JAX package the port has no counterpart of."""
 
 
 class _PortUnpickler(pickle.Unpickler):
@@ -60,7 +64,7 @@ class _PortUnpickler(pickle.Unpickler):
             try:
                 return getattr(importlib.import_module(port), name)
             except (ImportError, AttributeError) as e:
-                raise pickle.UnpicklingError(
+                raise UnmappedClassError(
                     f"{module}.{name}: the pickle names a class of the JAX package that "
                     f"has no counterpart {port}.{name} in the port") from e
         return super().find_class(module, name)

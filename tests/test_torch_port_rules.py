@@ -94,7 +94,12 @@ NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "models/pitch/crepe.py", "models/asr/__init__.py", "models/asr/ctc_model.py",
                "annotator/asr.py", "data/processors/embeddings.py",
                "examples/__init__.py", "examples/codec/train.py",
-               "examples/biometric/train.py")
+               "examples/biometric/train.py",
+               "data/core/registry.py", "data/core/processor.py", "data/processors/audio.py",
+               "data/processors/augment.py", "data/processors/lpc.py",
+               "data/processors/signal1d.py", "io/codecs.py", "scripts/dump.py",
+               "scripts/prosody_annotation.py", "scripts/data_pipeline_check.py",
+               "scripts/eval_tts.py", "training/callbacks.py", "utils/plotting.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -154,14 +159,18 @@ def test_presets_equal_the_yaml_configs(config, presets, value_select):
 
 
 def test_serving_entry_points_run_on_the_gpu_unless_asked(monkeypatch, tmp_path):
-    """The XTTS interface and the demo server's CLI raise without CUDA and
-    without ``device="cpu"``, before they read a checkpoint."""
+    """The XTTS interface, the demo server's CLI and ``eval_tts`` raise without
+    CUDA and without ``device="cpu"``, before they read a checkpoint's weights."""
     from speechflow_torch.app import demo_server
     from speechflow_torch.interface.xtts_interface import XTTSEvaluationInterface
+    from speechflow_torch.scripts import eval_tts
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         XTTSEvaluationInterface(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eval_tts.main(["--tts_ckpt", str(REPO / "tests" / "data" / "jax_checkpoints" / "tts"),
+                       "--out", str(tmp_path)])
     monkeypatch.setattr(demo_server, "make_server", lambda *a, **k: pytest.fail("served"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         demo_server.main(["--tts_ckpt", str(tmp_path), "--vocoder_ckpt", str(tmp_path)])

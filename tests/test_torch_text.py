@@ -242,15 +242,20 @@ def test_collate_gives_plain_samples_neutral_modifiers():
 
 
 def test_pipeline_rejects_unported_handlers():
-    info = {"config": {"preproc": {"pipe": ["text_to_transcription", "spectral_flatness",
+    """Every handler of the JAX registry is ported (``spectral_flatness`` too); a
+    name in neither registry raises ``KeyError`` with it, as in JAX, unless it is
+    ignored; an unported collate raises ``NotImplementedError``."""
+    info = {"config": {"preproc": {"pipe": ["text_to_transcription", "spectral_centroid",
                                             "add_xpbert_feat"]},
                        "collate": {"type": "TTSCollate", "token_multiple": 8}},
             "subsets": ["train"], "alphabet": text.Alphabet(["a"]).to_dict()}
-    with pytest.raises(NotImplementedError, match="spectral_flatness"):
+    with pytest.raises(KeyError, match="spectral_centroid"):
         DataPipeline.from_info(info)
-    dp = DataPipeline.from_info(info, ignored_handlers={"spectral_flatness"})
+    dp = DataPipeline.from_info(info, ignored_handlers={"spectral_centroid"})
     assert dp.handler_names == ["text_to_transcription", "add_xpbert_feat"]
     assert dp.collate_fn.token_multiple == 8
+    info["config"]["preproc"]["pipe"][1] = "spectral_flatness"
+    assert DataPipeline.from_info(info).handler_names[1] == "spectral_flatness"
     info["config"]["collate"]["type"] = "ImageCollate"
     with pytest.raises(NotImplementedError, match="ImageCollate"):
         DataPipeline.from_info(info, ignored_handlers={"spectral_flatness"})
