@@ -6,7 +6,7 @@
                                      # prosody_train, conditioned, jax_ckpt,
                                      # vocoder_model_train, tts_forward_train, jax_resume,
                                      # tts_options, e2e_train, vocoder_recipes, aligner,
-                                     # aux_models, vocoder_cpc, data_prep
+                                     # aux_models, vocoder_cpc, data_prep, annotator
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
@@ -24,6 +24,8 @@
     python3 chip_smoke.py --phases build,aux_models,vocoder_cpc
                                      # the auxiliary models, the vocoder's CPC loss
     python3 chip_smoke.py --phases build,data_prep   # dump, annotation, eval_tts, ...
+    python3 chip_smoke.py --phases build,annotator   # corpus preparation, the 5-step
+                                     # annotator, the two-stage recipe, MNIST
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -310,10 +312,9 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    one f32 step card vs CPU (seeded, dropout 0, the CPU's path pinned, the card's own path
    equal to it with TF32 off; the durations moved with TF32 on counted; a planted fault,
    the squeeze by halves, rejected); ``ALIGNER_STEPS`` steps; the annotator's ``Aligner``
-   writes ``.TextGridStage1`` (dh-96 attention, kernels vs plain); stage 2 trains on those
-   (the config's phoneme filter at its debug 2.0 s: a 6-step model's timestamps are not
-   speech's) and writes ``.TextGridStage2``; every grid read back with ``AudioSeg.load``.
-   Prints ms a step, mel frames a second, ms an aligned utterance.
+   writes ``.TextGridStage1`` (dh-96 attention, kernels vs plain); every grid read back with
+   ``AudioSeg.load``. Prints ms a step, mel frames a second, ms an aligned utterance. Stage
+   2 and the correction run in ``annotator``, through the runner, at the same width.
 23. ``aux_models``: the auxiliary models at their JAX defaults on the card, TF32 off. G2P:
    ``train_g2p_artifact`` on SEGS (1200 steps x 3 BiGRU members, each member's steps a
    replayed CUDA graph), tests/test_g2p.py's 25 held-out word types scored (PER <= 0.31,
@@ -358,7 +359,20 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    ``data_pipeline_check.main --profile`` over the TTS config with every new handler
    (``CHECK_AFTER``): the contracts, each handler's host ms. The Ogg fixtures, where
    ctypes finds the codec libraries (which it found is printed).
-26. ``profile`` (only when asked for): for the flagship and the toy program,
+26. ``annotator``: on a copy of ``tests/data/SRC``, ``prepare_datasets.main`` for the
+   LJSpeech layout and for a golos layout of 4 SRC wavs (each to ``GOLOS_DBFS``), and
+   hifi_tts's Ogg conversion where the codec libraries are found (else printed as not
+   run). ``annotator.runner.main -vs default`` (``aligner_model.yml``: 192 wide, 4 layers
+   of 2 heads of 96, 6 flows; f32, TF32 off) over the copy: steps 0-1 (ms a seg, host),
+   then steps 2-4 with ``--max_steps ANNOTATOR_STEPS`` (ms a training step and an aligned
+   utterance a stage; the launches of these steps are the path's); sidecars, segs, every
+   stage's grids read back, the speakers; stage 2 warm-started from stage 1. Then a batch
+   of the stage-3 grids through the kernels and the plain versions (durations equal, the
+   rest within ``TOL_F32_REL``). The two-stage recipe on the tone corpus of
+   ``tests/test_annotator_two_stage.py`` (debug width, ``TONE_STEPS`` a stage) under that
+   test's assertions, and the MNIST example (``MNIST_STEPS`` of B``MNIST_BATCH``;
+   accuracy above 0.8, as JAX's example requires).
+27. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -5001,13 +5015,54 @@ def aligner_stage(torch, label: str, TA, model_cfg: dict, data_cfg: dict, tmp: s
             "launches": {k: train_counts[k] + align_counts[k] for k in align_counts}}
 
 
+def aligner_kernels_vs_plain(torch, label: str, what: str, aligner, files,
+                             gpu_line: str) -> tuple:
+    """The encoder and ``align`` of an ``Aligner``'s model over a batch of (up to 16 of)
+    ``files``, f32, through the kernels and under ``plain_versions()``: mu, logstd and
+    log-duration within ``TOL_F32_REL`` of scale, the durations equal, one launch a
+    layer a call; one attention call at the batch's shape timed. Returns (the times,
+    the launches of the two kernel calls)."""
+    from speechflow_torch.ops import attention as A
+
+    model = aligner.model
+    _, inputs = aligner.batch_inputs(files[:16])
+    inputs = inputs.to("cuda", torch.float32)
+    with torch.no_grad():
+        reset_counts()
+        h = model.encode_text(inputs, training=False)
+        d = model.align(inputs)[0]
+        counts = read_counts()
+        with plain_versions():
+            h_ref = model.encode_text(inputs, training=False)
+            d_ref = model.align(inputs)[0]
+    err = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+              for a, b in zip(h, h_ref))
+    lens = inputs.transcription_lengths.tolist()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, t = inputs.transcription.shape
+    heads = model.p.encoder_heads
+    dh = model.p.encoder_dim // heads
+    ms, plain, lib, bms, kind, _ = attention_times(torch, A, b, t, heads, dh, lens,
+                                                   torch.float32, gen)
+    print(f"[{label}] encoder of {what} (B{b} T{t} H{heads} dh{dh}, tokens {lens}), f32: "
+          f"kernels vs plain: worst of mu, logstd, log-duration {err:.3g} of scale (tol "
+          f"{TOL_F32_REL:g}), durations equal {bool(torch.equal(d, d_ref))}; "
+          f"{counts['fused_attention']} launches for two calls; one attention call: kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.5f} ms ({kind}) "
+          f"({gpu_line})", flush=True)
+    check(err <= TOL_F32_REL and torch.equal(d, d_ref)
+          and counts["fused_attention"] == 2 * model.p.encoder_layers,
+          f"{label}: dh-{dh} attention kernels vs plain: {err}, {counts}")
+    return ({"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+             "shape": (b, t, heads, dh), "err": err}, counts)
+
+
 def phase_aligner(torch, gpu_line: str) -> dict:
     """``configs/aligner_model.yml`` at its default width (192 wide, 4 layers of 2
     heads of 96, 6 flows) trained on ``aligner_data_stage1.yml`` over the raw
     ``.TextGrid`` of a copy of ``tests/data/SEGS``; the annotator's ``Aligner`` writes
-    ``.TextGridStage1``; stage 2 trains on those and writes ``.TextGridStage2``; every
-    grid is read back. The encoder attends through the fused kernel (dh 96) when it
-    aligns."""
+    ``.TextGridStage1``, each read back. The encoder attends through the fused kernel
+    (dh 96) when it aligns. (The annotator phase runs both stages through the runner.)"""
     import tempfile
 
     import numpy as np
@@ -5032,46 +5087,11 @@ def phase_aligner(torch, gpu_line: str) -> dict:
                            AlignStage.stage1)
 
         # the stage's dh-96 attention through the kernels and the plain versions
-        from speechflow_torch.ops import attention as A
+        res["attn"], counts = aligner_kernels_vs_plain(torch, "aligner", "a stage-1 batch",
+                                                       s1["aligner"], s1["files"], gpu_line)
 
-        model = s1["aligner"].model
-        _, inputs = s1["aligner"].batch_inputs(s1["files"][:16])
-        inputs = inputs.to("cuda", torch.float32)
-        with torch.no_grad():
-            reset_counts()
-            h = model.encode_text(inputs, training=False)
-            d = model.align(inputs)[0]
-            counts = read_counts()
-            with plain_versions():
-                h_ref = model.encode_text(inputs, training=False)
-                d_ref = model.align(inputs)[0]
-        err = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-                  for a, b in zip(h, h_ref))
-        lens = inputs.transcription_lengths.tolist()
-        gen = torch.Generator(device="cuda").manual_seed(5)
-        b, t = inputs.transcription.shape
-        ms, plain, lib, bms, kind, _ = attention_times(torch, A, b, t, 2, 96, lens,
-                                                       torch.float32, gen)
-        print(f"[aligner] encoder of a stage-1 batch (B{b} T{t} H2 dh96, tokens {lens}), f32: "
-              f"kernels vs plain: worst of mu, logstd, log-duration {err:.3g} of scale (tol "
-              f"{TOL_F32_REL:g}), durations equal {bool(torch.equal(d, d_ref))}; {counts['fused_attention']} "
-              f"launches for two calls; one attention call: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.5f} ms ({kind}) ({gpu_line})",
-              flush=True)
-        check(err <= TOL_F32_REL and torch.equal(d, d_ref)
-              and counts["fused_attention"] == 2 * model.p.encoder_layers,
-              f"aligner: dh-96 attention kernels vs plain: {err}, {counts}")
-        res["attn"] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
-                       "shape": (b, t, 2, 96)}
-
-        _, data2 = TA.configs("default", data_config=ALIGNER_DATA2, data_root=root)
-        # a 6-step stage-1 model's timestamps are not speech's: the default 0.3 s phoneme
-        # filter would drop every grid, so stage 2 reads them with the config's debug 2.0 s
-        data2["parser"]["max_phoneme_length"] = 2.0
-        s2 = aligner_stage(torch, "stage 2", TA, model_cfg, data2, tmp + "/e2", root,
-                           AlignStage.stage2)
         n_ivs = []
-        for p in s1["written"] + s2["written"]:
+        for p in s1["written"]:
             seg = AudioSeg.load(p)
             ivs = seg.phonemes()
             times = np.asarray([iv[:2] for iv in ivs])
@@ -5079,18 +5099,16 @@ def phase_aligner(torch, gpu_line: str) -> dict:
                   and times[-1, 1] <= seg.duration + 1e-6,
                   f"aligner: {p.name} reads back wrong")
             n_ivs.append(len(ivs))
-        print(f"[aligner] {len(s1['written'])} .TextGridStage1 and {len(s2['written'])} "
-              f".TextGridStage2 read back with AudioSeg.load: {sum(n_ivs)} phoneme intervals",
-              flush=True)
-        check(all(p.suffix == ".TextGridStage2" for p in s2["written"]),
-              "aligner: stage 2 wrote the wrong files")
-        del s1["aligner"], s2["aligner"], model
+        print(f"[aligner] {len(s1['written'])} .TextGridStage1 read back with AudioSeg.load: "
+              f"{sum(n_ivs)} phoneme intervals", flush=True)
+        check(all(p.suffix == ".TextGridStage1" for p in s1["written"]),
+              "aligner: stage 1 wrote the wrong files")
+        del s1["aligner"]
     torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t_phase
     print(f"[aligner] phase wall time {phase_s:.1f} s", flush=True)
-    launches = {k: s1["launches"][k] + s2["launches"][k] + counts[k] for k in counts}
-    res.update(launches=launches, ms=s1["ms"], ms2=s2["ms"], frame_rate=s1["frame_rate"],
-               peak=max(s1["peak"], s2["peak"]),
+    launches = {k: s1["launches"][k] + counts[k] for k in counts}
+    res.update(launches=launches, ms=s1["ms"], frame_rate=s1["frame_rate"], peak=s1["peak"],
                ms_utt=1e3 * s1["align_s"] / len(s1["written"]), phase_s=phase_s)
     return res
 
@@ -6195,6 +6213,388 @@ def phase_data_prep(torch, gpu_line: str) -> dict:
     return res
 
 
+# -- phase 25: the annotator's 5-step runner, the tone-corpus recipe, MNIST -----------
+
+SRC = REPO / "tests" / "data" / "SRC"
+LJSPEECH = SRC / "EN" / "OPENSOURCE_VOICES" / "001_LJSpeech" / "LJSpeech-1.1"
+ANNOTATOR_STEPS = 6  # the cut: 6 of aligner_model.yml's 200,000 steps a stage
+GOLOS_DBFS = -30.0
+# tests/test_annotator_two_stage.py: 8 utterances of 2-3 words of 0.12 s tones a character,
+# about half with a 0.35 s silence after a known word; the debug aligner, 400 steps a stage
+TONE_FREQS = {c: 250.0 + 150.0 * i for i, c in enumerate("abcdefgh")}
+TONE_WORDS = ["abc", "de", "fgh", "cad", "beg", "fa"]
+TONE_STEPS = 400
+MNIST_STEPS, MNIST_BATCH = 200, 64
+
+
+@contextlib.contextmanager
+def timed_calls(torch, owner, name: str, sink: list):
+    """Each call of ``owner.name`` timed between synchronisations: (ms, args, result)."""
+    raw, real = owner.__dict__[name], getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append((1e3 * (time.perf_counter() - t0), args, out))
+        return out
+
+    setattr(owner, name, staticmethod(timed) if isinstance(raw, staticmethod) else timed)
+    try:
+        yield sink
+    finally:
+        setattr(owner, name, raw)
+
+
+@contextlib.contextmanager
+def runner_timers(torch):
+    """The calls an annotator run spends its time in, each timed (``timed_calls``):
+    label -> the list of (ms, args, result)."""
+    from speechflow_torch.annotator.align import Aligner
+    from speechflow_torch.data.core.components import AudioLoader, DataPipeline
+    from speechflow_torch.training.trainer import Trainer
+
+    targets = {"pipeline": (DataPipeline, "from_config"), "data": (AudioLoader, "next_batch"),
+               "step": (Trainer, "training_step"), "save": (Trainer, "save_checkpoint"),
+               "loader close": (AudioLoader, "close"), "aligner load": (Aligner, "__init__"),
+               "align": (Aligner, "run")}
+    sinks = {label: [] for label in targets}
+    with contextlib.ExitStack() as stack:
+        for label, (owner, name) in targets.items():
+            stack.enter_context(timed_calls(torch, owner, name, sinks[label]))
+        yield sinks
+
+
+def time_split(sinks: dict, wall_s: float) -> str:
+    """Seconds in each timed call of ``runner_timers`` (the first training step and the
+    first data wait apart) and the rest of ``wall_s``."""
+    parts = {k: sum(c[0] for c in v) / 1e3 for k, v in sinks.items()}
+    for k in ("step", "data"):
+        if sinks[k]:
+            parts[f"first {k}"] = sinks[k][0][0] / 1e3
+            parts[k] -= parts[f"first {k}"]
+    rest = wall_s - sum(v for k, v in parts.items())
+    return ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f", other {rest:.1f} s"
+
+
+def _dbfs(wav) -> float:
+    import numpy as np
+
+    return float(20 * np.log10(np.sqrt(np.mean(np.square(wav, dtype=np.float64)))))
+
+
+def annot_prepare(tmp: Path, gpu_line: str) -> dict:
+    """``prepare_datasets``: the LJSpeech layout of the SRC copy (``metadata.csv`` ->
+    ``.txt``), a golos layout of 4 SRC wavs (loudness to ``GOLOS_DBFS``), and Ogg
+    conversion (hifi_tts) where the machine has the codec libraries."""
+    import json
+
+    import numpy as np
+
+    from speechflow_torch.annotator import prepare_datasets as PD
+    from speechflow_torch.io import codecs
+    from speechflow_torch.io.audio import AudioChunk
+
+    t0 = time.perf_counter()
+    lj = tmp / "SRC" / LJSPEECH.relative_to(SRC)
+    rows = [r.split("|")[0] for r in (lj / "metadata.csv").read_text().splitlines() if r]
+    expect = sum((lj / "wavs" / f"{r}.wav").exists() for r in rows)
+    n_lj = PD.main(["ljspeech", "-d", str(lj)])
+    check(n_lj == expect > 0 and all((lj / "wavs" / f"{r}.txt").exists() for r in rows),
+          f"prepare ljspeech: {n_lj} of {expect}")
+    golos = tmp / "golos" / "crowd"
+    golos.mkdir(parents=True)
+    wavs = sorted(SRC.rglob("*.wav"))[::12][:4]
+    manifest = []
+    for i, w in enumerate(wavs):
+        shutil.copy(w, golos / f"{i}.wav")
+        manifest.append(json.dumps({"audio_filepath": f"{i}.wav", "text": f"utterance {i}"}))
+    (golos / "manifest.jsonl").write_text("\n".join(manifest))
+    before = [_dbfs(AudioChunk(file_path=w).load().waveform) for w in wavs]
+    n_golos = PD.main(["golos", "-d", str(tmp / "golos")])
+    after = [_dbfs(AudioChunk(file_path=golos / f"{i}.wav").load().waveform)
+             for i in range(len(wavs))]
+    check(n_golos == len(wavs) and all(abs(a - GOLOS_DBFS) < 0.1 for a in after),
+          f"prepare golos: {n_golos} files, dBFS {after}")
+    found = codecs.available()
+    if all(found[lib] for lib in ("libogg", "libvorbis", "libvorbisenc", "libvorbisfile")):
+        hifi = tmp / "hifi"
+        AudioChunk(file_path=wavs[0]).load().save(hifi / "audio" / "0.ogg")
+        (hifi / "manifest.json").write_text(json.dumps(
+            {"audio_filepath": "audio/0.ogg", "text_normalized": "Zero."}))
+        check(PD.prepare_hifi_tts(hifi) == 1 and (hifi / "audio" / "0.wav").exists(),
+              "prepare hifi_tts: the Ogg file was not converted")
+        ogg = "hifi_tts: the Ogg/Vorbis file converted to wav"
+    else:
+        ogg = ("hifi_tts's Ogg conversion not run: "
+               + ", ".join(k for k, v in found.items() if not v) + " absent on this machine")
+    print(f"[annotator] prepare_datasets: ljspeech {n_lj} .txt of {len(rows)} metadata rows; "
+          f"golos {n_golos} wavs from dBFS {np.round(before, 2).tolist()} to "
+          f"{np.round(after, 3).tolist()} (target {GOLOS_DBFS}); {ogg}; "
+          f"{time.perf_counter() - t0:.1f} s ({gpu_line})", flush=True)
+    return {"ljspeech_txt": n_lj, "golos": n_golos, "ogg": ogg}
+
+
+def annot_runner(torch, tmp: Path, gpu_line: str) -> dict:
+    """``runner.main -vs default --max_steps ANNOTATOR_STEPS`` over the SRC copy: steps 0
+    and 1 (timed on the host), then 2, 3 and 4 on the card with each training step and
+    each ``Aligner.run`` timed; every grid read back; the stage-3 grids re-aligned
+    through the kernels and the plain versions."""
+    import numpy as np
+
+    from speechflow_torch.annotator import runner
+    from speechflow_torch.annotator.align import Aligner
+    from speechflow_torch.io.config import yaml_dump, yaml_load
+    from speechflow_torch.io.seg import AudioSeg
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    # aligner_model.yml with its experiments in tmp; beside it stage 2's data config reads
+    # the grids of a 6-step stage 1 with the config's own debug phoneme limit (2.0 s): the
+    # default 0.3 s would drop every one of them
+    cfg_dir = tmp / "configs"
+    cfg_dir.mkdir()
+    model = yaml_load((REPO / "configs" / "aligner_model.yml").read_text())
+    model["experiment"]["base_dir"] = str(tmp / "exp")
+    (cfg_dir / "aligner_model.yml").write_text(yaml_dump(model))
+    data2 = yaml_load((REPO / ALIGNER_DATA2).read_text())
+    data2["parser"]["max_phoneme_length"] = data2["parser"]["max_phoneme_length"]["debug"]
+    (cfg_dir / Path(ALIGNER_DATA2).name).write_text(yaml_dump(data2))
+    src, out = tmp / "SRC", tmp / "annotated"
+    common = ["-d", str(src), "-o", str(out), "-vs", "default", "--aligner_config",
+              str(cfg_dir / "aligner_model.yml")]
+
+    t0 = time.perf_counter()
+    rep = runner.main(common + ["--steps", "0", "1"])
+    ms_seg = 1e3 * (time.perf_counter() - t0) / max(rep["segs"], 1)
+    n_wavs = len(list(src.rglob("*.wav")))
+    check(rep["transcribed"] == n_wavs and rep["segs"] >= n_wavs,
+          f"annotator: steps 0-1 gave {rep}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts()
+    t0 = time.perf_counter()
+    with runner_timers(torch) as sinks:
+        rep2 = runner.main(common + ["--steps", "2", "3", "4", "--max_steps",
+                                     str(ANNOTATOR_STEPS)])
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    steps, aligns = sinks["step"], sinks["align"]
+    rep.update(rep2)
+    check(len(steps) == 2 * ANNOTATOR_STEPS and len(aligns) == 3,
+          f"annotator: {len(steps)} training steps, {len(aligns)} alignments")
+    exps = sorted((tmp / "exp").iterdir())
+    ckpt2 = ExperimentSaver.get_last_checkpoint(exps[-1])
+    m = ExperimentSaver.load_payload(ckpt2)["model_params"]
+    check(m["encoder_dim"] == 192 and m["encoder_layers"] == 4 and m["encoder_heads"] == 2
+          and m["n_flows"] == 6, f"annotator: the aligner trained as {m}")
+    check(yaml_load((exps[-1] / "model.yml").read_text())["warmstart"]["ckpt"]
+          == str(ExperimentSaver.get_last_checkpoint(exps[0])),
+          "annotator: stage 2 did not start from stage 1's checkpoint")
+    grids = {}
+    for stage in (1, 2, 3):
+        files = sorted((out / "SEGS").rglob(f"*.TextGridStage{stage}"))
+        for f in files:
+            seg = AudioSeg.load(f)
+            times = np.asarray([iv[:2] for iv in seg.phonemes()])
+            check(len(times) > 0 and bool((np.diff(times[:, 0]) >= 0).all())
+                  and times[-1, 1] <= seg.duration + 1e-6, f"annotator: {f.name} reads back wrong")
+        grids[stage] = files
+    check([len(grids[s]) for s in (1, 2, 3)] == [rep["stage1_aligned"], rep["stage2_aligned"],
+                                                 rep["stage3"]] and grids[3],
+          f"annotator: grids {[len(g) for g in grids.values()]} against the report {rep}")
+    n_spk = sum(v["n"] for v in rep["speakers"].values())
+    check(n_spk == rep["stage3"], f"annotator: speaker stats count {n_spk}")
+    ms_step = [float(np.median([s[0] for s in steps[k * ANNOTATOR_STEPS:][1:ANNOTATOR_STEPS]]))
+               for k in (0, 1)]
+    ms_utt = [a[0] / max(len(a[2]), 1) for a in aligns]
+    print(f"[annotator] runner over the SRC copy ({n_wavs} wavs), aligner_model.yml default "
+          f"(192 wide, 4 layers of 2 heads of 96, 6 flows), {ANNOTATOR_STEPS} steps a stage, f32 "
+          f"(TF32 off): sidecars {rep['transcribed']}, segs {rep['segs']}, stage-1/2/3 grids "
+          f"{rep['stage1_aligned']}/{rep['stage2_aligned']}/{rep['stage3']}, speakers "
+          f"{len(rep['speakers'])} ({n_spk} utterances, "
+          f"{sum(v['duration'] for v in rep['speakers'].values()):.1f} s); {ms_seg:.1f} ms a seg "
+          f"(steps 0-1, host); ms a training step (median of 2..{ANNOTATOR_STEPS}) stage 1 "
+          f"{ms_step[0]:.1f}, stage 2 {ms_step[1]:.1f}; ms an aligned utterance stage 1/2/3 "
+          + "/".join(f"{v:.1f}" for v in ms_utt)
+          + f"; steps 2-4 {wall:.1f} s ({time_split(sinks, wall)}); attention launches "
+          f"{launches['fused_attention']} ({gpu_line})", flush=True)
+    al = Aligner(ckpt2, device="cuda")
+    attn, _ = aligner_kernels_vs_plain(torch, "annotator", "a batch of stage-3 grids", al,
+                                       grids[3], gpu_line)
+    del al
+    torch.cuda.empty_cache()
+    return {"report": rep, "ms_seg": ms_seg, "ms_step": ms_step, "ms_utt": ms_utt,
+            "launches": launches, "attn": attn}
+
+
+def _tone(freq: float, dur: float, rng):
+    import numpy as np
+
+    t = np.arange(int(dur * SR)) / SR
+    sig = np.sin(2 * np.pi * freq * t) + 0.3 * np.sin(2 * np.pi * 2 * freq * t)
+    env = np.minimum(1.0, np.minimum(np.arange(len(t)), np.arange(len(t))[::-1]) / (0.01 * SR))
+    return (0.3 * sig * env + 0.003 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def tone_corpus(root: Path) -> dict:
+    """tests/test_annotator_two_stage.py's corpus: ``<u>.wav`` and ``<u>.TextGrid`` (a
+    ``text`` tier) for 8 utterances; returns the known silences, by utterance."""
+    import numpy as np
+
+    from speechflow_torch.io.audio import AudioChunk
+    from speechflow_torch.io.seg import AudioSeg, TextGrid, Tier
+
+    rng = np.random.default_rng(7)
+    gaps = {}
+    for u in range(8):
+        n_words = int(rng.integers(2, 4))
+        words = [TONE_WORDS[int(rng.integers(len(TONE_WORDS)))] for _ in range(n_words)]
+        gap_after = int(rng.integers(0, n_words - 1)) if u % 2 == 0 else None
+        pieces, word_ts, cur = [np.zeros(int(0.2 * SR), np.float32)], [], 0.2
+        for w_i, w in enumerate(words):
+            wb = cur
+            for ch in w:
+                pieces.append(_tone(TONE_FREQS[ch], 0.12, rng))
+                cur += 0.12
+            word_ts.append((wb, cur, w))
+            if w_i == gap_after:
+                pieces.append(np.zeros(int(0.35 * SR), np.float32))
+                gaps[u] = (cur, cur + 0.35)
+                cur += 0.35
+        pieces.append(np.zeros(int(0.2 * SR), np.float32))
+        cur += 0.2
+        AudioChunk(data=np.concatenate(pieces), sr=SR).save(root / f"{u}.wav")
+        grid = TextGrid(0.0, cur)
+        grid.add(Tier("text", word_ts))
+        seg = AudioSeg(AudioChunk(file_path=root / f"{u}.wav"), grid)
+        seg.meta.update(speaker_name="tone", lang="EN")
+        seg.save(root / f"{u}.TextGrid")
+    return gaps
+
+
+def annot_tone(torch, tmp: Path, gpu_line: str) -> dict:
+    """Runner step 2 on the tone corpus at the debug width, ``TONE_STEPS`` steps a stage
+    (lr 0.002, 2 data workers), held to tests/test_annotator_two_stage.py's assertions: the stages'
+    grids written; stage 2 trained on stage 1's output; stage 2's grids differ, with
+    fewer pauses; stage 2's long pauses on the known silences, and quiet."""
+    import numpy as np
+
+    from speechflow_torch.annotator import runner
+    from speechflow_torch.io.config import Config, yaml_dump
+    from speechflow_torch.io.seg import AudioSeg
+
+    root, out = tmp / "tone", tmp / "tone_out"
+    root.mkdir()
+    out.mkdir()
+    gaps = tone_corpus(root)
+    cfg = Config.create_from_file(REPO / "configs" / "aligner_model.yml", ["debug"]).to_dict()
+    cfg["experiment"]["base_dir"] = str(out / "experiments")
+    cfg["trainer"].update(max_steps=TONE_STEPS, ckpt_every=TONE_STEPS)
+    cfg["optimizer"]["lr"] = 0.002
+    # one worker keeps a debug step waiting ~19 ms for its data; the batches are the
+    # sampler's, drawn here, whatever the workers
+    cfg["data_loaders"]["n_workers"] = 2
+    (out / "aligner_model.yml").write_text(yaml_dump(cfg))
+    losses = []
+    t0 = time.perf_counter()
+    with runner_timers(torch) as sinks:
+        runner.main(["-d", str(root), "-o", str(out), "--steps", "2", "--aligner_config",
+                     str(out / "aligner_model.yml"), "-vs", "debug",
+                     "--max_steps", str(TONE_STEPS)])
+    wall = time.perf_counter() - t0
+    steps = sinks["step"]
+    for k in (0, 1):
+        losses.append([float(s[2]["total_loss"])
+                       for s in steps[k * TONE_STEPS:(k + 1) * TONE_STEPS]])
+    s1, s2 = sorted(root.glob("*.TextGridStage1")), sorted(root.glob("*.TextGridStage2"))
+    check(len(s1) >= 6 and len(s2) >= 4, f"tone: {len(s1)} stage-1, {len(s2)} stage-2 grids")
+    exps = sorted((out / "experiments").iterdir())
+    data2 = (exps[-1] / "data.yml").read_text()
+    check(len(exps) >= 2 and ".TextGridStage1" in data2 and "add_pauses_from_timestamps" in data2
+          and "add_pauses_from_text" in (exps[0] / "data.yml").read_text(),
+          "tone: stage 2 did not train on stage 1's output")
+    n_sil1, n_sil2, diff = [], [], 0
+    for f2 in s2:
+        f1 = f2.with_suffix(".TextGridStage1")
+        phs1, phs2 = AudioSeg.load(f1).phonemes(), AudioSeg.load(f2).phonemes()
+        if [iv[2] for iv in phs1] != [iv[2] for iv in phs2] or not np.allclose(
+                [iv[0] for iv in phs1][:len(phs2)], [iv[0] for iv in phs2][:len(phs1)],
+                atol=1e-3):
+            diff += 1
+        n_sil1.append(sum(1 for iv in phs1 if not iv[2]))
+        n_sil2.append(sum(1 for iv in phs2 if not iv[2]))
+    hits, total, ratios = 0, 0, []
+    for u, (gb, ge) in gaps.items():
+        f2 = root / f"{u}.TextGridStage2"
+        if not f2.exists():
+            continue
+        seg = AudioSeg.load(f2)
+        wav = np.asarray(seg.audio_chunk.load(sr=SR).waveform, np.float64)
+        rms_all = np.sqrt((wav ** 2).mean()) + 1e-9
+        sils = [(b, e) for b, e, lab in seg.phonemes() if not lab and e - b >= 0.1]
+        total += 1
+        hits += any(sb - 0.1 <= 0.5 * (gb + ge) <= se + 0.1 for sb, se in sils)
+        ratios += [np.sqrt((wav[int(b * SR):int(e * SR)] ** 2).mean()) / rms_all
+                   for b, e in sils if int(e * SR) > int(b * SR)]
+    ratio = float(np.mean(ratios)) if ratios else float("nan")
+    ms = [float(np.median([s[0] for s in steps[k * TONE_STEPS:(k + 1) * TONE_STEPS][1:]]))
+          for k in (0, 1)]
+    print(f"[annotator] tone corpus (8 utterances, {len(gaps)} with a known 0.35 s silence), "
+          f"debug aligner, {TONE_STEPS} steps a stage: loss stage 1 {losses[0][0]:.4g} -> "
+          f"{np.mean(losses[0][-20:]):.4g} (mean of the last 20), stage 2 {losses[1][0]:.4g} -> "
+          f"{np.mean(losses[1][-20:]):.4g}; {ms[0]:.1f} / {ms[1]:.1f} ms a step; grids "
+          f"{len(s1)} / {len(s2)}; stage 2 differs in {diff}; pauses a grid stage 1 "
+          f"{np.mean(n_sil1):.2f}, stage 2 {np.mean(n_sil2):.2f}; known silences hit "
+          f"{hits}/{total}; pause energy ratio {ratio:.3f}; {wall:.1f} s "
+          f"({time_split(sinks, wall)}) ({gpu_line})", flush=True)
+    check(diff >= 1, "tone: the stage-2 grids equal the stage-1 grids")
+    check(np.mean(n_sil2) < np.mean(n_sil1), f"tone: pauses {n_sil1} -> {n_sil2}")
+    check(total >= 2 and hits / total >= 0.5 and ratio < 0.6,
+          f"tone: known silences hit {hits}/{total}, pause energy ratio {ratio}")
+    return {"tone_loss": [(ls[0], float(np.mean(ls[-20:]))) for ls in losses],
+            "tone_hits": (hits, total), "tone_ratio": ratio, "tone_ms": ms}
+
+
+def annot_mnist(torch, gpu_line: str) -> dict:
+    """The port's MNIST example on the card (``MNIST_STEPS`` steps of ``MNIST_BATCH``, the
+    synthetic images), gated as JAX's example is: accuracy above 0.8."""
+    from speechflow_torch.examples.mnist import train as M
+
+    t0 = time.perf_counter()
+    run = M.main(["--steps", str(MNIST_STEPS), "--batch", str(MNIST_BATCH)])
+    first, last = run["first"], run["last"]
+    print(f"[annotator] MNIST example: {MNIST_STEPS} steps of B{MNIST_BATCH}: ce "
+          f"{first['ce']:.4f} -> {last['ce']:.4f}, accuracy {last['constant_acc']:.3f}; "
+          f"{run['ms_step']:.3f} ms a step (median, synchronised); "
+          f"{time.perf_counter() - t0:.1f} s ({gpu_line})", flush=True)
+    check(next(run["model"].parameters()).is_cuda, "MNIST: the model is not on the card")
+    return {"mnist": {"ce": (first["ce"], last["ce"]), "acc": last["constant_acc"],
+                      "ms_step": run["ms_step"]}}
+
+
+def phase_annotator(torch, gpu_line: str) -> dict:
+    """The annotator on a copy of ``tests/data/SRC``: corpus preparation, the 5-step
+    runner at ``aligner_model.yml``'s default width (its launches are the path's), the
+    kernels against the plain versions on its stage-3 grids, the two-stage recipe on
+    the tone corpus, and the MNIST example."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="annotator_", dir=workdir()))
+    shutil.copytree(SRC, tmp / "SRC")
+    res = annot_prepare(tmp, gpu_line)
+    res.update(annot_runner(torch, tmp, gpu_line))
+    res.update(annot_tone(torch, tmp, gpu_line))
+    res.update(annot_mnist(torch, gpu_line))
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[annotator] phase wall time {res['phase_s']:.1f} s; the runner's launches "
+          f"{res['launches']}", flush=True)
+    return res
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -6312,12 +6712,13 @@ def main(argv=None) -> int:
                     default="build,kernels,slice,toy,interface,tts_interface,xtts,bundle,"
                             "train,tts_train,xtts_train,prosody_train,conditioned,jax_ckpt,"
                             "vocoder_model_train,tts_forward_train,jax_resume,tts_options,"
-                            "e2e_train,vocoder_recipes,aligner,aux_models,vocoder_cpc,data_prep",
+                            "e2e_train,vocoder_recipes,aligner,aux_models,vocoder_cpc,data_prep,"
+                            "annotator",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
                          "tts_interface,xtts,bundle,train,tts_train,xtts_train,prosody_train,"
                          "conditioned,jax_ckpt,vocoder_model_train,tts_forward_train,"
                          "jax_resume,tts_options,e2e_train,vocoder_recipes,aligner,aux_models,"
-                         "vocoder_cpc,data_prep,profile "
+                         "vocoder_cpc,data_prep,annotator,profile "
                          "(the last is not in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -6370,7 +6771,8 @@ def run(torch, phases: set) -> int:
              ("aligner", phase_aligner, ("fused_attention",)),
              ("aux_models", phase_aux_models, tuple(EXPECTED_LAUNCHES)),
              ("vocoder_cpc", phase_vocoder_cpc, tuple(HEAD_LAUNCHES)),
-             ("data_prep", phase_data_prep, ("fused_attention", "anti_alias_snake")))
+             ("data_prep", phase_data_prep, ("fused_attention", "anti_alias_snake")),
+             ("annotator", phase_annotator, ("fused_attention",)))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:

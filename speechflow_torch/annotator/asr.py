@@ -1,10 +1,14 @@
-"""Transcription for dataset annotation (counterpart of the part of
-``speechflow_tpu/annotator/asr.py`` that the CTC recognizer needs): the
-``.whisper`` transcript format (``{"text": ..., "timestamps": [[token,
-begin_s, end_s], ...]}``), the ``ASRBase`` interface, ``FileASR`` (reads the
-``.whisper`` file beside an audio file) and ``CTCPhonemeASR`` (the trainable
-CTC phoneme recognizer of ``models/asr``). Whisper, the cloud services and
-the rest of the annotator are not ported.
+"""Transcription for dataset annotation (counterpart of
+``speechflow_tpu/annotator/asr.py``): the ``.whisper`` transcript format
+(``{"text": ..., "timestamps": [[token, begin_s, end_s], ...]}``), the
+``ASRBase`` interface, ``FileASR`` (reads the ``.whisper`` file beside an audio
+file), ``CTCPhonemeASR`` (the trainable CTC phoneme recognizer of
+``models/asr``) and ``run_audio_transcription`` (the annotator's step 0: a
+``.whisper`` file beside every audio file).
+
+``WhisperASR`` needs the ``transformers`` package and Whisper's weights, which
+the port does not carry: it raises when built, naming the package, and never
+falls back on another recognizer.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 
 from speechflow_torch.io.audio import AudioChunk
 
-__all__ = ["ASRBase", "FileASR", "CTCPhonemeASR"]
+__all__ = ["ASRBase", "FileASR", "WhisperASR", "CTCPhonemeASR", "run_audio_transcription"]
 
 
 class ASRBase:
@@ -38,6 +42,33 @@ class FileASR(ASRBase):
 
     def transcribe(self, audio: AudioChunk) -> dict:
         return self(audio.file_path)
+
+
+class WhisperASR(ASRBase):
+    """HF Whisper: not ported, since it needs ``transformers`` and its weights."""
+
+    def __init__(self, model_name: str = "openai/whisper-small", device: str = "cpu"):
+        raise NotImplementedError(
+            f"WhisperASR ({model_name}) needs the transformers package and the model's "
+            "weights, which the port does not carry: give precomputed .whisper files "
+            "(FileASR) or a CTC checkpoint (CTCPhonemeASR)")
+
+
+def run_audio_transcription(data_root: tp.Union[str, Path], asr: tp.Optional[ASRBase] = None,
+                            ext: str = ".wav", overwrite: bool = False) -> int:
+    """Write ``asr``'s transcript (default ``WhisperASR``) as the ``.whisper`` file
+    beside every ``ext`` file under ``data_root`` that has none (every one with
+    ``overwrite``); returns the number of files with a transcript."""
+    from speechflow_torch.io.flist import construct_file_list
+
+    asr = asr or WhisperASR()
+    done = 0
+    for f in construct_file_list(data_root, ext=ext):
+        side = Path(f).with_suffix(".whisper")
+        if overwrite or not side.exists():
+            side.write_text(json.dumps(asr(f), ensure_ascii=False, indent=2), encoding="utf-8")
+        done += 1
+    return done
 
 
 class CTCPhonemeASR(ASRBase):

@@ -23,7 +23,11 @@ float ``Variable``         any (CREPE's ``cents``)     a parameter without gradi
 =========================  ==========================  ===========================
 
 The copy is strict both ways: every parameter of the port must be filled
-and every parameter of the JAX state used. ``nnx_from_module`` is the
+and every parameter of the JAX state used. ``lenet_state_dict`` /
+``lenet_to_nnx`` do the same for the MNIST example's LeNet, whose port is NCHW
+where JAX's is NHWC: besides the layouts above, the first dense layer's input
+rows go from JAX's (H, W, C) flattening to the port's (C, H, W).
+``nnx_from_module`` is the
 inverse: the port's parameters as the JAX package's pure dict (nested dicts
 of float32 numpy, list indices as ints), which ``nnx.replace_by_pure_dict``
 takes. This module is the only bridge between the packages, and it takes
@@ -32,6 +36,7 @@ plain arrays: it imports neither.
 
 from __future__ import annotations
 
+import math
 import typing as tp
 
 import numpy as np
@@ -41,7 +46,7 @@ import torch.nn as nn
 from speechflow_torch.models.layers import Conv1d, Conv2d, ConvTranspose1d, MultiHeadAttention
 
 __all__ = ["flatten_nnx", "state_dict_from_nnx", "load_nnx_state", "nnx_path",
-           "nnx_from_module"]
+           "nnx_from_module", "lenet_state_dict", "lenet_to_nnx"]
 
 
 def flatten_nnx(pure: tp.Mapping, prefix: str = "") -> tp.Dict[str, np.ndarray]:
@@ -161,3 +166,45 @@ def load_nnx_state(module: nn.Module, pure: tp.Mapping) -> nn.Module:
         for name, p in module.named_parameters():
             p.copy_(sd[name].to(dtype=p.dtype, device=p.device))
     return module
+
+
+def _lenet_map(channels: int, rows: int) -> tp.Tuple[int, int, int]:
+    """(H, W, C) of the square map ``l1`` flattens: ``rows`` = H·W·C."""
+    side = math.isqrt(rows // channels)
+    return side, side, channels
+
+
+def lenet_state_dict(pure: tp.Mapping) -> tp.Dict[str, torch.Tensor]:
+    """The LeNet's ``state_dict`` (convs ``c1``, ``c2``; dense ``l1``, ``l2``) from
+    JAX's pure dict: conv kernels (kh, kw, Cin, Cout) -> (Cout, Cin, kh, kw), dense
+    kernels transposed, and ``l1``'s rows, flattened from ``c2``'s square (H, W, C)
+    map, reordered to (C, H, W)."""
+    flat = flatten_nnx(pure)
+    expect = {f"{m}.{leaf}" for m in ("c1", "c2", "l1", "l2") for leaf in ("kernel", "bias")}
+    if set(flat) != expect:
+        raise KeyError(f"a LeNet state has {sorted(expect)}, got {sorted(flat)}")
+    l1 = flat["l1.kernel"]
+    h, w, c = _lenet_map(flat["c2.kernel"].shape[-1], l1.shape[0])
+    arrays = {
+        "c1.weight": flat["c1.kernel"].transpose(3, 2, 0, 1),
+        "c2.weight": flat["c2.kernel"].transpose(3, 2, 0, 1),
+        "l1.weight": l1.reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(h * w * c, -1).T,
+        "l2.weight": flat["l2.kernel"].T,
+    }
+    arrays.update({f"{m}.bias": flat[f"{m}.bias"] for m in ("c1", "c2", "l1", "l2")})
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
+
+
+def lenet_to_nnx(module: nn.Module) -> dict:
+    """The inverse of ``lenet_state_dict``: the port's LeNet as JAX's pure dict."""
+    sd = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in module.state_dict().items()}
+    l1 = sd["l1.weight"].T
+    h, w, c = _lenet_map(sd["c2.weight"].shape[0], l1.shape[0])
+    kernels = {
+        "c1": sd["c1.weight"].transpose(2, 3, 1, 0),
+        "c2": sd["c2.weight"].transpose(2, 3, 1, 0),
+        "l1": l1.reshape(c, h, w, -1).transpose(1, 2, 0, 3).reshape(h * w * c, -1),
+        "l2": sd["l2.weight"].T,
+    }
+    return {m: {"kernel": np.ascontiguousarray(k), "bias": sd[f"{m}.bias"]}
+            for m, k in kernels.items()}

@@ -19,6 +19,10 @@ the token-level fields.
 a prompt row of the same speaker from the batch (``additional``'s
 ``prompt_index``, ``prompt_mel``, ``prompt_mel_lengths`` and
 ``prompt_transcription``).
+
+``ImageCollate`` stacks images as float32 with each label's id (a label not in
+``label2id`` gets the next id); ``NoCollate`` (registered as ``none``, a data
+config's default) gives None for any batch.
 """
 
 from __future__ import annotations
@@ -30,13 +34,15 @@ import numpy as np
 
 from speechflow_torch.data.core.datasample import (
     AudioDataSample,
+    ImageDataSample,
     SpectrogramDataSample,
     TTSDataSample,
 )
 from speechflow_torch.utils.pad import stack_and_pad
 
 __all__ = ["CollatedAudio", "AudioCollate", "CollatedSpectrogram", "SpectrogramCollate",
-           "CollatedTTS", "TTSCollate", "TTSCollateWithPrompt", "COLLATES"]
+           "CollatedTTS", "TTSCollate", "TTSCollateWithPrompt", "CollatedImage", "ImageCollate",
+           "NoCollate", "COLLATES"]
 
 Array = tp.Optional[np.ndarray]
 TOKEN_FIELDS = ("durations", "aggregate_pitch", "aggregate_energy", "ling_feat", "lm_feat",
@@ -214,5 +220,29 @@ class TTSCollateWithPrompt(TTSCollate):
         return out
 
 
+@dataclass
+class CollatedImage:
+    image: Array = None                    # (B, H, W, C) float32
+    label_id: Array = None                 # (B,) int32
+
+
+class ImageCollate:
+    def __init__(self, label2id: tp.Optional[tp.Dict[str, int]] = None):
+        self.label2id = label2id or {}
+
+    def __call__(self, samples: tp.List[ImageDataSample]) -> CollatedImage:
+        for s in samples:
+            self.label2id.setdefault(s.label, len(self.label2id))
+        return CollatedImage(
+            image=np.stack([s.image for s in samples]).astype(np.float32),
+            label_id=np.asarray([self.label2id[s.label] for s in samples], np.int32))
+
+
+class NoCollate:
+    def __call__(self, samples) -> None:
+        return None
+
+
 COLLATES = {"AudioCollate": AudioCollate, "SpectrogramCollate": SpectrogramCollate,
-            "TTSCollate": TTSCollate, "TTSCollateWithPrompt": TTSCollateWithPrompt}
+            "TTSCollate": TTSCollate, "TTSCollateWithPrompt": TTSCollateWithPrompt,
+            "ImageCollate": ImageCollate, "none": NoCollate}

@@ -1,4 +1,6 @@
 """Sample records (counterpart of ``speechflow_tpu/data/core/datasample.py``):
+``DataSample``, the plain record of ``SimpleDSParser`` and ``EasyDSParser``,
+and ``ImageDataSample``, which adds an image (the MNIST example's);
 ``AudioDataSample``, what the audio handlers read and write (the vocoder's
 training data); ``SpectrogramDataSample``, which adds the spectral handlers'
 fields; and ``TTSDataSample``, which adds what ``TTSDSParser`` reads from a
@@ -23,11 +25,41 @@ import numpy as np
 from speechflow_torch.io.audio import AudioChunk
 from speechflow_torch.io.timestamps import Timestamps
 
-__all__ = ["AudioDataSample", "SpectrogramDataSample", "TTSDataSample",
-           "ProsodyPredictionDataSample"]
+__all__ = ["DataSample", "ImageDataSample", "AudioDataSample", "SpectrogramDataSample",
+           "TTSDataSample", "ProsodyPredictionDataSample"]
 
 Array = tp.Optional[np.ndarray]
 Labels = tp.Optional[tp.List[str]]
+
+
+def _uid(file_path, label, index) -> str:
+    """The JAX sample's id: sha256 of ``file_path|label|index``, 16 hex digits."""
+    return hashlib.sha256(f"{file_path or ''}|{label or ''}|{index}".encode()).hexdigest()[:16]
+
+
+@dataclass
+class DataSample:
+    file_path: tp.Optional[str] = None
+    label: tp.Optional[str] = None
+    tag: tp.Optional[str] = None
+    index: int = 0
+    transform_params: tp.Dict[str, dict] = field(default_factory=dict)
+    additional: tp.Dict[str, tp.Any] = field(default_factory=dict)
+
+    def copy(self):
+        return copy.deepcopy(self)
+
+    @property
+    def uid(self) -> str:
+        return _uid(self.file_path, self.label, self.index)
+
+    def __len__(self) -> int:
+        return 1
+
+
+@dataclass
+class ImageDataSample(DataSample):
+    image: Array = None                 # (H, W, C)
 
 
 @dataclass
@@ -57,9 +89,7 @@ class AudioDataSample:
 
     @property
     def uid(self) -> str:
-        """The JAX sample's id: sha256 of ``file_path|label|index``, 16 hex digits."""
-        key = f"{self.file_path or ''}|{self.label or ''}|{self.index}"
-        return hashlib.sha256(key.encode()).hexdigest()[:16]
+        return _uid(self.file_path, self.label, self.index)
 
     def get(self, name: str, default=None):
         """A field, else an entry of ``additional``."""

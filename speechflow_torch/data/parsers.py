@@ -8,7 +8,14 @@
   language and speaker filters;
 - ``ProsodyParser``, the prosody model's: TextGrid files -> word-level
   samples with token ids and the ``prosody_targets`` of the ``prosody``
-  tier (punctuation-driven where a file has none).
+  tier (punctuation-driven where a file has none);
+- on ``BaseDSParser`` (``data/core/parser.py``: preprocessing functions, a
+  process pool, the skip of corrupt files, the pickle cache): ``SimpleDSParser``
+  (a file list -> ``DataSample``, labelled by the parent directory),
+  ``ImageDSParser`` (``.npy`` arrays -> ``ImageDataSample``), ``EasyDSParser``
+  (any function over a file list; its result in ``additional["result"]``) and
+  ``LibriSpeechDSParser`` (the MFA ``words`` / ``phones`` TextGrids of
+  LibriSpeech-Alignments -> ``TTSDataSample``).
 
 The audio is loaded by the ``load_audio`` handler, not here. A file that
 fails to parse is skipped with a warning, as the JAX parser skips it.
@@ -24,15 +31,19 @@ import numpy as np
 
 from speechflow_torch.data.core.datasample import (
     AudioDataSample,
+    DataSample,
+    ImageDataSample,
     ProsodyPredictionDataSample,
     SpectrogramDataSample,
     TTSDataSample,
 )
+from speechflow_torch.data.core.parser import BaseDSParser, Metadata
 from speechflow_torch.io.audio import AudioChunk
-from speechflow_torch.io.seg import AudioSeg
+from speechflow_torch.io.seg import AudioSeg, TextGrid
 from speechflow_torch.io.timestamps import Timestamps
 
-__all__ = ["AudioDSParser", "TTSDSParser", "ProsodyParser", "prosody_targets", "PARSERS"]
+__all__ = ["AudioDSParser", "TTSDSParser", "ProsodyParser", "SimpleDSParser", "ImageDSParser",
+           "EasyDSParser", "LibriSpeechDSParser", "prosody_targets", "PARSERS"]
 
 LOGGER = logging.getLogger("speechflow_torch")
 
@@ -214,5 +225,105 @@ class ProsodyParser:
         return samples
 
 
-PARSERS = {"AudioDSParser": AudioDSParser, "TTSDSParser": TTSDSParser,
+class SimpleDSParser(BaseDSParser):
+    def reader(self, path) -> tp.List[Metadata]:
+        return [{"path": str(path)}]
+
+    def to_datasample(self, md: Metadata) -> DataSample:
+        return DataSample(file_path=md["path"], label=Path(md["path"]).parent.name)
+
+
+class ImageDSParser(SimpleDSParser):
+    """A ``.npy`` file's array as the image (other files: none), labelled by its
+    parent directory."""
+
+    def to_datasample(self, md: Metadata) -> ImageDataSample:
+        path = md["path"]
+        return ImageDataSample(file_path=path, label=Path(path).parent.name,
+                               image=np.load(path) if path.endswith(".npy") else None)
+
+
+class EasyDSParser(SimpleDSParser):
+    """``fn(path)`` over a file list (in ``n_processes`` processes, so ``fn`` must
+    pickle): a sample it returns is kept, None drops the file, any other result
+    goes into ``additional["result"]`` of a ``DataSample``."""
+
+    def __init__(self, fn: tp.Callable[[str], tp.Any], **kwargs):
+        super().__init__(**kwargs)
+        self.fn = fn
+
+    def to_datasample(self, md: Metadata):
+        out = self.fn(md["path"])
+        if out is None or isinstance(out, (DataSample, AudioDataSample,
+                                           ProsodyPredictionDataSample)):
+            return out
+        return DataSample(file_path=md["path"], additional={"result": out})
+
+
+class LibriSpeechDSParser(BaseDSParser):
+    """LibriSpeech-Alignments (MFA) TextGrids -> ``TTSDataSample``. Each word of
+    the ``words`` tier takes the non-silent ``phones`` entries within it (1e-4 s
+    of slack; ``spn`` becomes ``<UNK>``); silences between words are dropped (the
+    ``add_pauses_from_timestamps`` handler puts the pauses back). A grid without
+    either tier, words or phones, a word without phones, or out of the duration
+    bounds gives no sample. The audio is the ``.flac`` or ``.wav`` beside the grid
+    with ``-align`` taken out of its path; the speaker is the directory two up
+    (``speaker/chapter/utterance``)."""
+
+    SIL_LABELS = frozenset({"", "sil", "sp", "spn_sil", "<eps>"})
+
+    def __init__(self, max_duration: tp.Optional[float] = None,
+                 min_duration: tp.Optional[float] = None, **kwargs):
+        super().__init__(**kwargs)
+        self.max_duration = max_duration
+        self.min_duration = min_duration
+
+    def reader(self, path: tp.Union[str, Path]) -> tp.List[Metadata]:
+        return [{"grid": TextGrid.load(path), "path": str(path)}]
+
+    @staticmethod
+    def resolve_audio(grid_path: Path) -> tp.Optional[Path]:
+        base = Path(str(grid_path).replace("-align", ""))
+        for suffix in (".flac", ".wav"):
+            if base.with_suffix(suffix).exists():
+                return base.with_suffix(suffix)
+        return None
+
+    def to_datasample(self, md: Metadata) -> tp.Optional[TTSDataSample]:
+        grid, path = md["grid"], Path(md["path"])
+        if "words" not in grid or "phones" not in grid:
+            return None
+        words = [iv for iv in grid["words"].intervals if iv[2]]
+        phones = [iv for iv in grid["phones"].intervals
+                  if iv[2].lower() not in self.SIL_LABELS]
+        dur = grid.xmax - grid.xmin
+        if not words or not phones or (self.max_duration and dur > self.max_duration) \
+                or (self.min_duration and dur < self.min_duration):
+            return None
+        eps = 1e-4
+        phonemes, ph_ts, word_lengths = [], [], []
+        for wb, we, _ in words:
+            inside = [(pb, pe, lab) for pb, pe, lab in phones
+                      if pb >= wb - eps and pe <= we + eps]
+            if not inside:
+                return None  # a word without phones: a mis-parsed grid
+            phonemes += ["<UNK>" if lab == "spn" else lab for _, _, lab in inside]
+            ph_ts += [(pb, pe) for pb, pe, _ in inside]
+            word_lengths.append(len(inside))
+        audio = self.resolve_audio(path)
+        if audio is None:
+            return None
+        speaker = path.parent.parent.name or path.parent.name
+        return TTSDataSample(
+            file_path=str(path), sega_path=str(path), label=speaker, speaker_name=speaker,
+            lang="EN", audio_chunk=AudioChunk(file_path=audio),
+            text=" ".join(lab for _, _, lab in words), phonemes=phonemes,
+            phoneme_timestamps=Timestamps(np.asarray(ph_ts)),
+            word_timestamps=Timestamps(np.asarray([[b, e] for b, e, _ in words])),
+            word_lengths=np.asarray(word_lengths, np.int32))
+
+
+PARSERS = {"TTSDSParser": TTSDSParser, "AudioDSParser": AudioDSParser,
+           "SimpleDSParser": SimpleDSParser, "ImageDSParser": ImageDSParser,
+           "EasyDSParser": EasyDSParser, "LibriSpeechDSParser": LibriSpeechDSParser,
            "ProsodyParser": ProsodyParser}

@@ -4,8 +4,12 @@
 each epoch. ``SimpleSampler`` walks in order (or by length with
 ``comb_by_len``, or greedily up to ``tokens_per_batch``); ``RandomSampler``
 shuffles each epoch with ``random.Random(seed + epoch)`` (in length-sorted
-blocks of 64 with ``comb_by_len``); ``TripletSampler`` draws anchor,
-positive and negative samples for metric learning."""
+blocks of 64 with ``comb_by_len``); ``WeightedSampler`` draws by inverse
+frequency of sample fields, ``FillingSampler`` the least-seen field values
+first; ``TripletSampler`` draws anchor, positive and negative samples for
+metric learning. The drawing samplers take each draw's generator from
+``numpy.random.default_rng(seed + epoch·k + drawn)``, JAX's, so a seed gives
+JAX's batches."""
 
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ import typing as tp
 
 import numpy as np
 
-__all__ = ["SimpleSampler", "RandomSampler", "TripletSampler", "SAMPLERS"]
+__all__ = ["SimpleSampler", "RandomSampler", "WeightedSampler", "FillingSampler",
+           "TripletSampler", "SAMPLERS"]
 
 
 class SimpleSampler:
@@ -80,6 +85,111 @@ class RandomSampler(SimpleSampler):
             rng.shuffle(self._order)
 
 
+class WeightedSampler:
+    """Draws with replacement, a sample's weight ∝ 1 / count(its value)^alpha for
+    each of ``fields`` (normalised per field). Each batch first picks a field by
+    ``chunks_ratio`` (even by default), then ``batch_size`` samples by that
+    field's weights, with ``default_rng(seed + epoch·100003 + drawn)``. An
+    epoch is ``epoch_size`` draws (the dataset's size by default)."""
+
+    def __init__(self, fields: tp.Sequence[str] = ("speaker_name",), alpha: float = 1.0,
+                 epoch_size: tp.Optional[int] = None,
+                 chunks_ratio: tp.Optional[tp.Sequence[float]] = None, seed: int = 0):
+        self.dataset: tp.Sequence = []
+        self.epoch = 0
+        self.fields = list(fields)
+        self.alpha = alpha
+        self.epoch_size = epoch_size
+        self.chunks_ratio = (list(chunks_ratio) if chunks_ratio
+                             else [1.0 / len(self.fields)] * len(self.fields))
+        self.seed = seed
+        self._weights: tp.List[np.ndarray] = []
+        self._drawn = 0
+
+    def set_dataset(self, dataset: tp.Sequence) -> "WeightedSampler":
+        self.dataset = dataset
+        self._weights = []
+        for fld in self.fields:
+            vals = [getattr(s, fld, None) for s in dataset]
+            freq: tp.Dict[tp.Any, int] = {}
+            for v in vals:
+                freq[v] = freq.get(v, 0) + 1
+            w = np.asarray([1.0 / freq[v] ** self.alpha for v in vals], np.float64)
+            self._weights.append(w / w.sum())
+        self.reset()
+        return self
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def reset(self) -> None:
+        self._drawn = 0
+        self.epoch += 1
+
+    def probabilities(self, field: str) -> np.ndarray:
+        return self._weights[self.fields.index(field)]
+
+    def sampling(self, batch_size: int) -> tp.Tuple[list, bool]:
+        rng = np.random.default_rng(self.seed + self.epoch * 100003 + self._drawn)
+        u, acc, fi = rng.uniform(), 0.0, 0
+        for i, r in enumerate(self.chunks_ratio):
+            acc += r
+            if u <= acc:
+                fi = i
+                break
+        idx = rng.choice(len(self.dataset), size=batch_size, p=self._weights[fi])
+        self._drawn += batch_size
+        is_last = self._drawn >= (self.epoch_size or len(self.dataset))
+        if is_last:
+            self.reset()
+        return [self.dataset[int(i)] for i in idx], is_last
+
+
+class FillingSampler:
+    """Each draw takes the least-seen combination of ``fields`` (ties broken by a
+    uniform draw), then a sample of it, with ``default_rng(seed + epoch·7919 +
+    drawn)``; an epoch is a dataset's worth of draws."""
+
+    def __init__(self, fields: tp.Sequence[str] = ("speaker_name",), seed: int = 0):
+        self.dataset: tp.Sequence = []
+        self.epoch = 0
+        self.fields = list(fields)
+        self.seed = seed
+        self._seen: tp.Dict[tp.Any, int] = {}
+        self._by_key: tp.Dict[tp.Any, tp.List[int]] = {}
+        self._drawn = 0
+
+    def set_dataset(self, dataset: tp.Sequence) -> "FillingSampler":
+        self.dataset = dataset
+        self._by_key = {}
+        for i, s in enumerate(dataset):
+            self._by_key.setdefault(tuple(getattr(s, f, None) for f in self.fields),
+                                    []).append(i)
+        self._seen = {k: 0 for k in self._by_key}
+        self.reset()
+        return self
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def reset(self) -> None:
+        self._drawn = 0
+        self.epoch += 1
+
+    def sampling(self, batch_size: int) -> tp.Tuple[list, bool]:
+        rng = np.random.default_rng(self.seed + self.epoch * 7919 + self._drawn)
+        out = []
+        for _ in range(batch_size):
+            key = min(self._seen, key=lambda k: (self._seen[k], rng.uniform()))
+            self._seen[key] += 1
+            out.append(self.dataset[int(rng.choice(self._by_key[key]))])
+        self._drawn += batch_size
+        is_last = self._drawn >= len(self.dataset)
+        if is_last:
+            self.reset()
+        return out, is_last
+
+
 class TripletSampler:
     """``batch_size`` triplets a draw, flattened as [anchors, positives,
     negatives]: an anchor's positive shares its ``field`` (a label with at
@@ -135,4 +245,5 @@ class TripletSampler:
 
 
 SAMPLERS = {"SimpleSampler": SimpleSampler, "RandomSampler": RandomSampler,
+            "WeightedSampler": WeightedSampler, "FillingSampler": FillingSampler,
             "TripletSampler": TripletSampler}

@@ -27,7 +27,7 @@ import numpy as np
 from scipy.io import wavfile
 from scipy.signal import resample_poly
 
-__all__ = ["AudioChunk"]
+__all__ = ["AudioChunk", "AudioFormat"]
 
 _OGG_SUFFIXES = (".ogg", ".oga", ".opus")
 _INT_SCALE = {np.dtype(np.int16): 32768.0, np.dtype(np.int32): 2147483648.0}
@@ -55,6 +55,19 @@ def _read(path: Path) -> tp.Tuple[int, np.ndarray]:
     else:
         data, sr = codecs.read_ogg_vorbis(path)
     return sr, data
+
+
+class AudioFormat:
+    """The file types ``AudioChunk`` reads and writes, by extension."""
+
+    WAV = "wav"
+    OGG = "ogg"
+    OPUS = "opus"
+    SUPPORTED = (WAV, OGG, OPUS, "oga")
+
+    @staticmethod
+    def check(path: tp.Union[str, Path]) -> bool:
+        return Path(path).suffix.lower().lstrip(".") in AudioFormat.SUPPORTED
 
 
 @dataclasses.dataclass

@@ -227,11 +227,17 @@ class AudioSeg:
             return str(v)
         return v
 
-    def save(self, path: tp.Union[str, Path]) -> None:
-        """The grid with the meta dict as its last tier (``meta``), at ``path``."""
+    def save(self, path: tp.Union[str, Path], with_audio: bool = False) -> None:
+        """The grid with the meta dict as its last tier (``meta``), at ``path``;
+        with ``with_audio`` also the audio chunk's waveform as the wav beside it,
+        named by the grid's name before its first ``.``."""
         self.meta = self._plain(self.meta)
         self.grid.add(Tier("meta", [(self.grid.xmin, self.grid.xmax, repr(self.meta))]))
         self.grid.save(path)
+        if with_audio:
+            path = Path(path)
+            self.audio_chunk.save(path.parent / f"{path.name.split('.')[0]}.wav",
+                                  overwrite=True)
 
     # -- views -----------------------------------------------------------------
 

@@ -111,7 +111,14 @@ def _unflatten(flat: tp.Mapping[str, np.ndarray]) -> dict:
 class ExperimentSaver:
     def __init__(self, experiment_path: tp.Union[str, Path], expr_suffix: str = ""):
         stamp = time.strftime("%Y%m%d_%H%M%S")
-        self.expr_path = Path(experiment_path) / f"{stamp}{'_' + expr_suffix if expr_suffix else ''}"
+        name = f"{stamp}{'_' + expr_suffix if expr_suffix else ''}"
+        self.expr_path = Path(experiment_path) / name
+        # a second experiment started in the same second gets its own directory (JAX's
+        # would share the first's)
+        k = 1
+        while self.expr_path.exists():
+            k += 1
+            self.expr_path = Path(experiment_path) / f"{name}_{k}"
         self.ckpt_dir = self.expr_path / "checkpoints"
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.to_save: tp.Dict[str, tp.Any] = {"versions": self._versions(),

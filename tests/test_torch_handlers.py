@@ -87,19 +87,23 @@ def processed():
     """Two utterances (LJSpeech, p225) through the debug data config's pipe, in
     each package (JAX's feature cache off)."""
     from speechflow_tpu.data.core.components import DataPipeline as JDP
+    from speechflow_tpu.data.core.singleton import Singleton
     from speechflow_tpu.io import Config
 
     with pytest.MonkeyPatch.context() as mp:
         mp.delenv("SFTPU_DUMP_CACHE", raising=False)
         _, cfg = configs("debug", data_root=SEGS)
-        jdp = JDP(Config(copy.deepcopy(cfg))).init_components()
-        pdp = DataPipeline.from_config(cfg)
-        out = []
-        for i in (0, 3):
-            j = jdp["train"].data_processor.process_sample(jdp["train"].dataset[i].copy())
-            p = pdp.process.sample(pdp.datasets["train"][i])
-            assert j.file_path == p.file_path
-            out.append((j, p))
+        try:
+            jdp = JDP(Config(copy.deepcopy(cfg))).init_components()
+            pdp = DataPipeline.from_config(cfg)
+            out = []
+            for i in (0, 3):
+                j = jdp["train"].data_processor.process_sample(jdp["train"].dataset[i].copy())
+                p = pdp.process.sample(pdp.datasets["train"][i])
+                assert j.file_path == p.file_path
+                out.append((j, p))
+        finally:
+            Singleton.clear()  # JAX's singletons are one instance per process and thread
     return out
 
 
@@ -146,6 +150,7 @@ def _ssml(ds):
 
 def _run(name, kwargs, j, p):
     from speechflow_tpu.data.processors import get_handler as jget
+    from speechflow_tpu.data.core.singleton import Singleton
     from speechflow_tpu.data.processors import lpc, ssml  # noqa: F401  (not imported by jget)
     from speechflow_tpu.data.processors.singletons import StatisticsRange as JRange
 
@@ -160,7 +165,10 @@ def _run(name, kwargs, j, p):
         j.word_lengths = p.word_lengths = np.asarray(
             [1] * (len(p.additional["ssml"]) - 1) + [p.n_tokens - len(p.additional["ssml"]) + 1],
             np.int32)
-    return jget(name)(j, **jk), get_handler(name)(p, **pk)
+    try:
+        return jget(name)(j, **jk), get_handler(name)(p, **pk)
+    finally:
+        Singleton.clear(JRange)
 
 
 @pytest.mark.parametrize("sample", [0, 1], ids=["LJSpeech", "p225"])

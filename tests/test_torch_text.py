@@ -256,6 +256,6 @@ def test_pipeline_rejects_unported_handlers():
     assert dp.collate_fn.token_multiple == 8
     info["config"]["preproc"]["pipe"][1] = "spectral_flatness"
     assert DataPipeline.from_info(info).handler_names[1] == "spectral_flatness"
-    info["config"]["collate"]["type"] = "ImageCollate"
-    with pytest.raises(NotImplementedError, match="ImageCollate"):
+    info["config"]["collate"]["type"] = "VideoCollate"
+    with pytest.raises(NotImplementedError, match="VideoCollate"):
         DataPipeline.from_info(info, ignored_handlers={"spectral_flatness"})

@@ -189,21 +189,27 @@ def test_sample_len_and_the_comb_by_len_sampler():
 def test_singletons_match_jax():
     """``PhonemeStatistics`` over the parsed corpus; ``StatisticsRange`` over
     samples that carry features, and empty at parse time, as in JAX."""
+    from speechflow_tpu.data.core.singleton import Singleton
     from speechflow_tpu.data.parsers import TTSDSParser as JP
     from speechflow_tpu.data.processors.singletons import PhonemeStatistics as JPS
     from speechflow_tpu.data.processors.singletons import StatisticsRange as JSR
 
-    ours, ref = TTSDSParser().read_datasamples(_files()), JP().read_datasamples(_files())
-    a, b = PhonemeStatistics().fit(ours), JPS().fit(ref)
-    assert a.state_dict() == b.state_dict() and a.symbols == b.symbols and "<SIL>" in a.symbols
-    assert StatisticsRange().fit(ours).state_dict() == {"ranges": {}}
-    rng = np.random.default_rng(0)
-    for s, r in zip(ours[:6], list(ref)[:6]):
-        s.pitch = r.pitch = np.where(rng.random(50) > 0.3, rng.uniform(80, 300, 50),
-                                     0).astype(np.float32)
-        s.energy = r.energy = rng.uniform(0, 9, 50).astype(np.float32)
-    got, want = StatisticsRange().fit(ours[:6]), JSR().fit(list(ref)[:6])
-    assert got.state_dict() == want.state_dict() and got.ranges
+    Singleton.clear()  # JAX's singletons are one instance per process and thread
+    try:
+        ours, ref = TTSDSParser().read_datasamples(_files()), JP().read_datasamples(_files())
+        a, b = PhonemeStatistics().fit(ours), JPS().fit(ref)
+        assert a.state_dict() == b.state_dict() and a.symbols == b.symbols \
+            and "<SIL>" in a.symbols
+        assert StatisticsRange().fit(ours).state_dict() == {"ranges": {}}
+        rng = np.random.default_rng(0)
+        for s, r in zip(ours[:6], list(ref)[:6]):
+            s.pitch = r.pitch = np.where(rng.random(50) > 0.3, rng.uniform(80, 300, 50),
+                                         0).astype(np.float32)
+            s.energy = r.energy = rng.uniform(0, 9, 50).astype(np.float32)
+        got, want = StatisticsRange().fit(ours[:6]), JSR().fit(list(ref)[:6])
+        assert got.state_dict() == want.state_dict() and got.ranges
+    finally:
+        Singleton.clear()
 
 
 def test_collated_batches_equal_jax(jax_pipeline):
@@ -284,5 +290,8 @@ def test_statistics_range_reads_a_ranges_file(tmp_path):
     samples = TTSDSParser().read_datasamples(_files()[:3])
     for s in samples:
         s.pitch = np.full(20, 120.0, np.float32)
-    got, want = StatisticsRange(str(path)).fit(samples), JSR(str(path)).fit(samples)
-    assert got.state_dict() == want.state_dict() == {"ranges": ranges}
+    try:
+        got, want = StatisticsRange(str(path)).fit(samples), JSR(str(path)).fit(samples)
+        assert got.state_dict() == want.state_dict() == {"ranges": ranges}
+    finally:
+        Singleton.clear(JSR)
