@@ -6,7 +6,8 @@
                                      # prosody_train, conditioned, jax_ckpt,
                                      # vocoder_model_train, tts_forward_train, jax_resume,
                                      # tts_options, e2e_train, vocoder_recipes, aligner,
-                                     # aux_models, vocoder_cpc, data_prep, annotator
+                                     # aux_models, vocoder_cpc, data_prep, annotator,
+                                     # ddp
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
@@ -26,6 +27,7 @@
     python3 chip_smoke.py --phases build,data_prep   # dump, annotation, eval_tts, ...
     python3 chip_smoke.py --phases build,annotator   # corpus preparation, the 5-step
                                      # annotator, the two-stage recipe, MNIST
+    python3 chip_smoke.py --phases build,ddp  # data-parallel training on two ranks
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -62,7 +64,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    scale for large snake arguments), bf16 3.2e-2.
 4. ``slice``: the flagship serving path (``serving.build_flagship``, its
    BigVGAN head folded as served) at full width with seeded random weights:
-   3 request batches at bench shape (B=32, 128 tokens, 1024 frames, bf16),
+   ``N_BATCHES`` request batches at bench shape (B=32, 128 tokens, 1024 frames, bf16),
    each with 186 attention, 37 fused anti-alias, 6 stage-1 and 18
    snake-downsample launches; the vocoder alone, folded and unfolded, ms a
    batch; one f32 batch of 2 through the kernels and through the plain
@@ -72,7 +74,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    fold (one dilated conv's folded taps shifted by one, in the first and in
    the last folded stage).
 5. ``toy``: the toy serving path (``serving.build_toy``: CFM acoustic model
-   256 wide, Vocos with the ISTFT head) at bench shape, bf16: 3 batches (the
+   256 wide, Vocos with the ISTFT head) at bench shape, bf16: ``N_BATCHES`` batches (the
    first a warm-up), 124 attention launches each (4 encoder + 30 steps x 4
    layers), waveform finite, non-silent, (1024 - 1)·256 samples; one f32
    batch of 2 through the kernels and the plain versions (equal durations,
@@ -95,7 +97,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    inputs and noise (within 1e-6). Then in bf16, a request is a paragraph of
    32 English sentences (a batch of 32, ``t_out`` 1024), composed as the
    export chain composes it: the first speaker, the sentences' valid mel
-   frames concatenated, one vocoder call. 4 requests (the first timed apart):
+   frames concatenated, one vocoder call. 1 + ``TTS_REQUESTS`` requests (the first apart):
    each with 186 attention and 37 / 6 / 18 anti-alias launches, every
    utterance's stretch of the waveform finite with std > 1e-4; host frontend,
    acoustic, vocoder and total ms and x realtime over the audio produced. In
@@ -108,7 +110,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    ``configs/tts_data_24khz.yml`` and loaded by ``XTTSEvaluationInterface``: one
    greedy request of 128 tokens through the kernels and the plain versions
    (prompt embeddings and prefill logits within ``TOL_F32_REL``, then the first
-   differing token, if any, with its top-2 logit margin); 4 text requests of 512
+   differing token, if any, with its top-2 logit margin); ``XTTS_REQUESTS`` text requests of 512
    tokens at temperature 0.8 behind a 448-frame synthetic reference prompt (4
    attention launches each, finite waveforms of 512 hops); ms a request (first,
    median), x realtime, the ms a decoded token (a 512-token and a 1-token
@@ -116,7 +118,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    per-token bound (trunk weights and KV cache over HBM), the request's stages
    (host frontend, prompt encoder, prefill, decode, codec decode) against the
    median request, a 17-token request under ``torch.profiler`` (busy share, kernels a
-   decode step), peak memory, and a batch of 8 through ``XTTSModel.synthesize``
+   decode step), peak memory, and a batch of ``XTTS_BATCH`` through ``XTTSModel.synthesize``
    (tokens a second).
 9. ``bundle``: the serving entry points. Port checkpoints of the flagship acoustic
    model and BigVGAN vocoder (seeded) and the XTTS model above, ``pack``ed
@@ -168,7 +170,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    reference gradient all zero but the attention key biases', losses within
    ``TOL_F32_REL``, every gradient within ``TOL_TTS_GRAD`` of its scale; the
    same gate must reject a planted fault (the CFM prior ``mu`` not
-   detached). Then 8 steps
+   detached). Then ``TTS_TRAIN_STEPS`` steps
    into a temporary experiment directory: finite losses; the weights
    unchanged after step 1 (lr 0 at count 0) and changed after step 2; no
    fused-attention launch (training takes the plain attention). Prints ms
@@ -198,7 +200,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    CPU's codes given to both, the card's own code flips counted): no reference
    gradient all zero but the codec's, ``gpt_ce`` within ``TOL_F32_REL``, every
    gradient within ``TOL_TTS_GRAD`` of its scale; the same gate must reject a planted
-   fault (the VJP's dq and dk exchanged). Then 8 steps into a
+   fault (the VJP's dq and dk exchanged). Then ``XTTS_TRAIN_STEPS`` steps into a
    temporary experiment directory: lr 0 at count 0, finite losses, the weights
    unchanged after step 1 and changed after step 2, 4 fused-attention launches a
    step. Prints ms per step inside the step and between steps, audio tokens trained
@@ -231,7 +233,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    Gates: the ECAPA embedding of LJ001-0002.wav on the card against the CPU's
    (``TOL_ECAPA``); a request of 8 sentences with that reference through the kernels
    and the plain versions on the same inputs and noise (equal durations, mel and
-   waveform within ``TOL_F32_REL``); 4 timed requests, each with 186 + 4 x 8 attention
+   waveform within ``TOL_F32_REL``); 1 + ``COND_REQUESTS`` requests, each with 186 + 4 x 8 attention
    and 37 / 6 / 18 anti-alias launches and finite, non-silent utterances; and
    ``resynthesize`` of a SEGS utterance with the reference (186 / 37 / 6 / 18 launches,
    t_out the source's frames, a finite, non-silent waveform). Prints each request's
@@ -320,7 +322,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    replayed CUDA graph), tests/test_g2p.py's 25 held-out word types scored (PER <= 0.31,
    exact-match >= 0.26), then 4 raw-text sentences through ``TTSEvaluationInterface`` at
    flagship width that finds the ``g2p.pkl`` (its tokens the G2P's phonemes; 186 / 37 / 6
-   / 18 launches). CREPE: ``train_crepe`` (600 x 64), held tones' median relative error
+   / 18 launches). CREPE: ``train_crepe`` (``CREPE_STEPS`` x 64), held tones' median relative error
    < 0.03, the ``pitch`` handler's ``crepe`` and ``yingram`` on a SEGS utterance. CTC:
    tests/test_asr_ctc.py's synthetic task until greedy decoding returns the sequences,
    then ``CTCPhonemeASR`` over the saved checkpoint (45 s, three windows). Demucs:
@@ -372,9 +374,31 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    ``tests/test_annotator_two_stage.py`` (debug width, ``TONE_STEPS`` a stage) under that
    test's assertions, and the MNIST example (``MNIST_STEPS`` of B``MNIST_BATCH``;
    accuracy above 0.8, as JAX's example requires).
-27. ``profile`` (only when asked for): for the flagship and the toy program,
+27. ``ddp``: data-parallel training on ``DDP_WORLD`` ranks of the one card, spawned
+   under the environment contract (``SPEECHFLOW_COORDINATOR``, ``_NUM_PROCESSES``,
+   ``_PROCESS_ID``) with gloo (collectives time out after ``DDP_COLLECTIVE_S``), rank 0's
+   data server feeding both: ``train_tts.train`` on ``configs/tts_model.yml`` default with
+   ``use_mesh`` (global batch ``DDP_TTS_BATCH``, ``DDP_TTS_STEPS`` steps), then
+   ``train_vocoder.train`` on the train phase's recipe (``DDP_GAN_MICRO_BATCHES``, one
+   optimizer step, each micro-batch split over the ranks). Before its first step each rank
+   takes its gradients on seeded random weights (dropout off, injected draws), averaged over
+   the ranks, and rank 0 holds them against one process on the gathered global batch (the
+   ReLUs' sides pinned; ``TOL_TTS_GRAD``), as it holds the gradients with each rank's own
+   valid-frame count as the normaliser, which must be rejected; the GAN's gate in float64
+   through the plain versions on ``DDP_GATE_WAVE`` of each rank's rows (kinks pinned;
+   ``TOL_GAN_GRAD``), rank 0's unaveraged gradients the planted fault. Then: each step's
+   samples disjoint over the ranks and together one process's global batch, the weights
+   equal on both ranks, rank 0's experiment the only one, its checkpoint served one request
+   through ``TTSEvaluationInterface`` kernels vs plain (186 / 37 / 6 / 18 launches), the
+   anti-alias kernels and VJPs launched in each rank; ms a step, the loader's wait and peak
+   memory per rank; no child process left.
+28. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
+
+After each phase a line ``[time] <phase> <seconds> s``, and ``[time] total`` before the
+``kernels`` line. Past ``SMOKE_DEADLINE_S`` a watchdog (``faulthandler``) prints every
+thread's stack and exits with code 1.
 
 ``TOL_F32_REL`` is relative: an f32 output through the kernels may differ
 from the plain versions' by 1e-4 of the plain output's largest magnitude
@@ -396,8 +420,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import faulthandler
 import functools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -407,13 +433,14 @@ import urllib.parse
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+SMOKE_DEADLINE_S = 1100  # the watchdog: past it the run fails with every thread's stack
 
 # H100 SXM peaks (NVIDIA data sheet; dense): HBM bytes/s and operations/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"f32": 67e12}
 SR, HOP = 24000, 256
 BATCH, T_FRAMES = 32, 1024  # the bench request shape (serving.bench_inputs: 128 tokens)
-N_BATCHES = 3  # request batches of a serving path; the first is timed apart as warm-up
+N_BATCHES = 2  # request batches of a serving path; the first is timed apart as warm-up
 # f32 outputs of a path through the kernels against the plain versions (and the folded
 # head against the unfolded one): a share of the reference's largest magnitude
 TOL_F32_REL = 1e-4
@@ -447,9 +474,9 @@ HEAD_STAGES = [(4096, 768), (16384, 384), (32768, 192), (65536, 96), (131072, 48
 # XTTS (configs/xtts_model.yml default): a request decodes 512 tokens (256 samples each,
 # 5.46 s at 24 kHz) behind a reference prompt of 448 mel frames, which the prompt
 # encoder's stride 4 makes 112; its 4 blocks attend with 4 heads of 256
-XTTS_MAX_TOKENS, XTTS_PROMPT_FRAMES, XTTS_REQUESTS, XTTS_BATCH = 512, 448, 4, 8
+XTTS_MAX_TOKENS, XTTS_PROMPT_FRAMES, XTTS_REQUESTS, XTTS_BATCH = 512, 448, 2, 2
 XTTS_GREEDY_TOKENS = 128  # the kernels-vs-plain request (two of them: keep it short)
-XTTS_DECODE_RUNS = 3  # generates of 512 and of 1 token that time the decode
+XTTS_DECODE_RUNS = 1  # generates of 512 and of 1 token that time the decode
 # the kernel's dh-256 cases: (B, T, lengths) at B 1 and 8, ragged
 XTTS_PROMPT_CASES = [(b, t, [max(1, t - 13 * i) for i in range(b)])
                      for t in (1, 17, 112, 128) for b in (1, 8)]
@@ -1034,13 +1061,13 @@ def phase_interface(torch, gpu_line: str) -> dict:
     from speechflow_torch import serving
     from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
     from speechflow_torch.io.audio import AudioChunk
-    from speechflow_torch.models.vocoder import Vocos, VocosParams
+    from speechflow_torch.models.vocoder import VocosParams
     from speechflow_torch.models.vocoder.folded_head import FoldedSnakeHead
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     params = VocosParams.create(serving.VOCODER_BIGVGAN_PRESETS["default"])
-    vm = serving.init_random_(Vocos(params), torch.Generator().manual_seed(0))
+    vm = seeded_vocoder(torch, params)
     vi = VocoderEvaluationInterface(vm.to("cuda"))
     check(isinstance(vi.model.head, FoldedSnakeHead), "the interface's head is not folded")
     rng = np.random.default_rng(5)
@@ -1120,7 +1147,7 @@ REQUEST_SENTENCES = (
 )
 SSML_REQUEST = ('Please speak <prosody rate="x-slow">these few words very slowly</prosody> '
                 'and then go on as usual.')
-TTS_REQUESTS = 3  # timed requests after the first
+TTS_REQUESTS = 1  # timed requests after the first
 
 
 def _valid_mel(out):
@@ -1280,6 +1307,16 @@ def phase_tts_interface(torch, gpu_line: str) -> dict:
 # -- phases 8 and 9: XTTS serving, the bundle and the demo server ---------------------
 
 _WORK: tp.Dict[str, tp.Any] = {}
+
+
+def seeded_vocoder(torch, params):
+    """``Vocos(params)`` with ``serving.init_random_``'s seed-0 weights, built on the card
+    (its constructor's initialisers, which those overwrite, take seconds on a CPU)."""
+    from speechflow_torch import serving
+    from speechflow_torch.models.vocoder import Vocos
+
+    with torch.device("cuda"):
+        return serving.init_random_(Vocos(params), torch.Generator().manual_seed(0))
 
 
 def workdir() -> Path:
@@ -1580,8 +1617,9 @@ def bundle_checkpoints(torch) -> dict:
 
     tts_p, voc_p = serving.flagship_params()
     gen = torch.Generator().manual_seed(0)
-    am = serving.init_random_(ParallelTTSModel(tts_p), gen)
-    vm = serving.init_random_(Vocos(voc_p), gen)
+    with torch.device("cuda"):  # built on the card: the initialisers are overwritten
+        am = serving.init_random_(ParallelTTSModel(tts_p), gen)
+        vm = serving.init_random_(Vocos(voc_p), gen)
     with torch.no_grad():
         am.variance_adaptor.predictors["durations"].out.bias.fill_(
             math.log1p(serving.FRAMES_PER_TOKEN))
@@ -2189,7 +2227,8 @@ def phase_train(torch, gpu_line: str) -> dict:
 # -- phase 11: acoustic-model training -----------------------------------------------
 
 TTS_TRAIN_PRESET = "default"
-TTS_TRAIN_STEPS = 8
+TTS_TRAIN_STEPS = 3  # the cut: step 1 at lr 0, then 2 that move the weights
+TTS_G2P_STEPS = 300  # the cut of train_tts's G2P (1200 a member; aux_models gates one of 1200)
 # card against CPU, one f32 step (TF32 off): each gradient within this share of its
 # tensor's largest magnitude, or of 1e-3 of the model's largest gradient where that is
 # more (the attention key biases' true gradient is 0, softmax being shift-invariant, so
@@ -2403,7 +2442,6 @@ def phase_tts_train(torch, gpu_line: str) -> dict:
     from speechflow_torch.interface.tts_interface import TTSEvaluationInterface, TTSOptions
     from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
     from speechflow_torch.models.tts.batch_processor import TTSBatchProcessor
-    from speechflow_torch.models.vocoder import Vocos
     from speechflow_torch.ops import attention as A
     from speechflow_torch.scripts import train_tts as TT
     from speechflow_torch.scripts.common import experiment_saver
@@ -2416,6 +2454,7 @@ def phase_tts_train(torch, gpu_line: str) -> dict:
     model_cfg, data_cfg = TT.configs(TTS_TRAIN_PRESET)
     data_cfg["dirs"]["data_root"] = str(REPO / "tests" / "data" / "SEGS")
     model_cfg["trainer"]["max_steps"] = TTS_TRAIN_STEPS
+    model_cfg["experiment"]["g2p_steps"] = TTS_G2P_STEPS
     res = {"gate": tts_gate(torch, model_cfg, data_cfg)}
 
     st = {"ref": None, "steps": [], "ends": [], "losses": [], "trainer": None, "batch": None}
@@ -2503,7 +2542,7 @@ def phase_tts_train(torch, gpu_line: str) -> dict:
         noise = torch.randn(ti.model.noise_shape(inputs, T_FRAMES), generator=gen,
                             device="cuda") * ti.model.decoder.temperature
         _, voc_params = serving.flagship_params()
-        vm = serving.init_random_(Vocos(voc_params), torch.Generator().manual_seed(0))
+        vm = seeded_vocoder(torch, voc_params)
         vi = VocoderEvaluationInterface(vm.to("cuda"))
         # f32: the reloaded checkpoint through the kernels against the trained model in
         # memory through the plain versions, on the same request and noise, each one's
@@ -2595,7 +2634,7 @@ def phase_tts_train(torch, gpu_line: str) -> dict:
 # -- phase 12: XTTS training --------------------------------------------------------
 
 XTTS_TRAIN_PRESET = "default"
-XTTS_TRAIN_STEPS = 8
+XTTS_TRAIN_STEPS = 3  # the cut: B32, B8, then a full B32
 # a training step: the prompt encoder's 4 blocks, each one fused-attention forward (its
 # backward is the torch-op VJP, no launch); the GPT's causal attention is plain einsum
 XTTS_TRAIN_LAUNCHES = {"fused_attention": 4, "anti_alias_snake": 0, "aa_upsample_fir": 0,
@@ -2910,7 +2949,7 @@ REF_WAV = (REPO / "tests" / "data" / "SRC" / "EN" / "OPENSOURCE_VOICES" / "001_L
            "LJSpeech-1.1" / "wavs" / "LJ001-0002.wav")
 SEGS = REPO / "tests" / "data" / "SEGS"
 COND_SENTENCES = REQUEST_SENTENCES[:8]  # the conditioned request: 8 sentences, 1..11 words
-COND_REQUESTS = 3  # timed requests after the first
+COND_REQUESTS = 1  # timed requests after the first
 COND_OVERRIDES = dict(use_prosody=True, speaker_emb_mode="input", speaker_bio_dim=192,
                       use_style_encoder=True, style_use_vae=True, style_use_gmvae=False)
 TOL_ECAPA = 1e-4  # the ECAPA embedding on the card against the CPU's
@@ -3485,7 +3524,7 @@ def phase_jax_ckpt(torch, gpu_line: str) -> dict:
 # -- phase 16: the Vocos/ISTFT vocoder recipe's training -------------------------------
 
 VOCODER_MODEL_CONFIG = "configs/vocoder_model.yml"
-VOCODER_MODEL_STEPS = 8  # the cut: 8 of the recipe's 2,000,000 steps
+VOCODER_MODEL_STEPS = 3  # the cut: 3 of the recipe's 2,000,000 steps
 
 
 def phase_vocoder_model_train(torch, gpu_line: str) -> dict:
@@ -3579,7 +3618,7 @@ def phase_vocoder_model_train(torch, gpu_line: str) -> dict:
 # -- phase 17: the ForwardTacotron-class recipe's training -------------------------------
 
 TTS_FORWARD_CONFIG = "configs/tts_forward.yml"
-TTS_FORWARD_STEPS = 6  # the cut: 6 of the recipe's 300,000 steps
+TTS_FORWARD_STEPS = 3  # the cut: 3 of the recipe's 300,000 steps
 TTS_FORWARD_REQUEST = REQUEST_SENTENCES[:4]
 TTS_FORWARD_FRAMES = 4  # frames a token injected into the served request
 # the decoder's bi-GRU at the recipe's batch over a 1024-frame input, and the
@@ -3715,7 +3754,6 @@ def phase_tts_forward_train(torch, gpu_line: str) -> dict:
     from speechflow_torch import serving
     from speechflow_torch.interface.tts_interface import TTSEvaluationInterface, TTSOptions
     from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
-    from speechflow_torch.models.vocoder import Vocos
     from speechflow_torch.scripts import train_tts as TT
     from speechflow_torch.scripts.common import experiment_saver
     from speechflow_torch.training.saver import ExperimentSaver
@@ -3795,7 +3833,7 @@ def phase_tts_forward_train(torch, gpu_line: str) -> dict:
         ctx = ti.prepare_embeddings(ti.create_context("EN", speaker))
         opts = TTSOptions(t_out=T_FRAMES)
         _, voc_params = serving.flagship_params()
-        vm = serving.init_random_(Vocos(voc_params), torch.Generator().manual_seed(0))
+        vm = seeded_vocoder(torch, voc_params)
         vi = VocoderEvaluationInterface(vm.to("cuda"))
         sentences = list(TTS_FORWARD_REQUEST)
         with injected_frames(torch, TTS_FORWARD_FRAMES):
@@ -4143,8 +4181,8 @@ def phase_tts_options(torch, gpu_line: str) -> dict:
 E2E_CONFIG = "configs/vocoder_styletts2_e2e.yml"
 E2E_FT_CONFIG = "configs/vocoder_styletts2_e2e_ft.yml"
 E2E_DATA_CONFIG = "configs/tts_data_24khz.yml"
-E2E_STEPS = 4      # the cut: 4 of the recipe's 1,000,000 steps
-E2E_FT_STEPS = 3   # and 3 of the ft recipe's 200,000
+E2E_STEPS = 2      # the cut: 2 of the recipe's 1,000,000 steps
+E2E_FT_STEPS = 2   # and 2 of the ft recipe's 200,000
 E2E_SERVE_ROWS = 4  # sentences of the served text batch
 E2E_FRAMES = 4      # frames a token injected into it
 
@@ -4619,8 +4657,8 @@ def phase_e2e_train(torch, gpu_line: str) -> dict:
 NSF_CONFIG, NSF_DATA = "configs/vocoder_nsf.yml", "configs/vocoder_nsf_data_24khz.yml"
 DAC_CONFIG = "configs/vocoder_mel_dac.yml"
 NSF_STEPS = 8   # the cut: 8 micro-batches, one optimizer step at grad_accum 8
-DAC_STEPS = 4
-MOS_STEPS = 20
+DAC_STEPS = 2
+MOS_STEPS = 10
 
 
 def _chunks_with_f0(n: int, length: int = 24064):
@@ -4855,7 +4893,7 @@ def phase_vocoder_recipes(torch, gpu_line: str) -> dict:
 # -- phase 22: the forced aligner's two stages through the annotator ---------------------
 
 ALIGNER_DATA2 = "configs/aligner_data_stage2.yml"
-ALIGNER_STEPS = 6  # the cut: 6 of the recipe's 200,000 steps a stage
+ALIGNER_STEPS = 3  # the cut: 3 of the recipe's 200,000 steps a stage
 
 
 @contextlib.contextmanager
@@ -5119,6 +5157,7 @@ G2P_HELD = 25  # word types held out: tests/test_g2p.py's split (seed 0's permut
 G2P_MAX_PER, G2P_MIN_EXACT = 0.31, 0.26  # tests/test_g2p.py's gates
 CREPE_TONES = (80.0, 150.0, 220.0, 440.0)  # held tones (tests/test_pitch_crepe.py)
 CREPE_MAX_MEDIAN_ERR = 0.03
+CREPE_STEPS = 300  # the cut (of JAX's 600): its host batches are most of the phase
 CTC_STEPS = 150  # tests/test_asr_ctc.py's synthetic task
 DEMUCS_STEPS = 20
 CODEC_STEPS, BIOMETRIC_STEPS = 20, 10  # the examples' cut (200 and 60 by default)
@@ -5206,7 +5245,7 @@ def aux_g2p(torch, gpu_line: str) -> dict:
 
 
 def aux_crepe(torch, gpu_line: str) -> dict:
-    """``train_crepe`` at JAX's defaults (600 steps x 64 frames), its median relative
+    """``train_crepe`` (``CREPE_STEPS`` steps x 64 frames; JAX's default is 600), its median relative
     error on held tones, and the ``pitch`` handler's ``crepe`` (the saved tracker, on
     the card) and ``yingram`` methods on a SEGS utterance."""
     import numpy as np
@@ -5219,7 +5258,7 @@ def aux_crepe(torch, gpu_line: str) -> dict:
     losses = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model = train_crepe(CrepeParams(), steps=600, batch=64, seed=0, device="cuda",
+    model = train_crepe(CrepeParams(), steps=CREPE_STEPS, batch=64, seed=0, device="cuda",
                         losses=losses)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
@@ -5231,7 +5270,7 @@ def aux_crepe(torch, gpu_line: str) -> dict:
             voiced.append(float((est > 0).mean()))
             errs.append(abs(float(np.median(est[est > 0])) - f0) / f0 if voiced[-1] else 1.0)
     med = float(np.median(errs))
-    print(f"[aux_models] CREPE: train_crepe 600 x 64 in {train_s:.1f} s (loss "
+    print(f"[aux_models] CREPE: train_crepe {CREPE_STEPS} x 64 in {train_s:.1f} s (loss "
           f"{np.mean(losses[:20]):.4f} -> {np.mean(losses[-20:]):.4f}); held tones "
           f"{CREPE_TONES}: voiced {voiced}, relative errors "
           + ", ".join(f"{e:.4f}" for e in errs)
@@ -5784,8 +5823,8 @@ CONTOUR_HANDLERS = {
 # recomputed from the cache in training: normalize now has the dump's ranges.json, and
 # the token aggregates follow the normalised contours
 UPDATE_HANDLERS = ["normalize", "aggregate_pitch", "aggregate_energy"]
-DATA_PREP_PROSODY_STEPS = 8
-DATA_PREP_TTS_STEPS = 4
+DATA_PREP_PROSODY_STEPS = 4
+DATA_PREP_TTS_STEPS = 2
 DATA_PREP_VOC_MICRO_BATCHES = 4
 # the waveform augmentations of the vocoder recipe's pipe (after random_chunk), seeded
 VOC_AUGMENTATIONS = {
@@ -5961,6 +6000,7 @@ def prep_tts(torch, tmp: Path, gpu_line: str) -> dict:
     check(model_cfg["model"]["encoder_dim"] == 768,
           f"data_prep: tts_model.yml read as {model_cfg['model']}")
     model_cfg["trainer"].update(max_steps=DATA_PREP_TTS_STEPS, ckpt_every=DATA_PREP_TTS_STEPS)
+    model_cfg["experiment"]["g2p_steps"] = TTS_G2P_STEPS
     data_cfg = tts_data_config(
         tmp / "SEGS", CONTOUR_HANDLERS,
         singletons={"SpeakerIDSetter": {}, "DatasetStatistics": {}, "PhonemeStatistics": {},
@@ -6025,12 +6065,11 @@ def prep_eval(torch, tmp: Path, expr, gpu_line: str) -> dict:
     from speechflow_torch import serving
     from speechflow_torch.convert import nnx_from_module
     from speechflow_torch.io.audio import AudioChunk
-    from speechflow_torch.models.vocoder import Vocos
     from speechflow_torch.scripts import eval_tts
     from speechflow_torch.training.saver import ExperimentSaver
 
     _, voc_p = serving.flagship_params()
-    vm = serving.init_random_(Vocos(voc_p), torch.Generator().manual_seed(0))
+    vm = seeded_vocoder(torch, voc_p)
     saver = ExperimentSaver(tmp, expr_suffix="vocoder")
     saver.to_save.update({"model_params": dataclasses.asdict(voc_p)})
     voc_ckpt = saver.save(0, nnx_from_module(vm))
@@ -6217,13 +6256,13 @@ def phase_data_prep(torch, gpu_line: str) -> dict:
 
 SRC = REPO / "tests" / "data" / "SRC"
 LJSPEECH = SRC / "EN" / "OPENSOURCE_VOICES" / "001_LJSpeech" / "LJSpeech-1.1"
-ANNOTATOR_STEPS = 6  # the cut: 6 of aligner_model.yml's 200,000 steps a stage
+ANNOTATOR_STEPS = 2  # the cut: 2 of aligner_model.yml's 200,000 steps a stage
 GOLOS_DBFS = -30.0
 # tests/test_annotator_two_stage.py: 8 utterances of 2-3 words of 0.12 s tones a character,
 # about half with a 0.35 s silence after a known word; the debug aligner, 400 steps a stage
 TONE_FREQS = {c: 250.0 + 150.0 * i for i, c in enumerate("abcdefgh")}
 TONE_WORDS = ["abc", "de", "fgh", "cad", "beg", "fa"]
-TONE_STEPS = 400
+TONE_STEPS = 100  # the cut (of 400): the gates below pass at 100 steps on the card
 MNIST_STEPS, MNIST_BATCH = 200, 64
 
 
@@ -6595,6 +6634,451 @@ def phase_annotator(torch, gpu_line: str) -> dict:
     return res
 
 
+# -- phase 27: data-parallel training ------------------------------------------------
+
+DDP_WORLD = 2
+DDP_TTS_STEPS = 3
+DDP_TTS_BATCH = 40  # the global batch: the 40 train utterances of SEGS, 20 a rank
+DDP_GAN_MICRO_BATCHES = 8  # one optimizer step at the recipe's grad_accum 8
+DDP_GATE_WAVE = (1, 8192)  # each rank's rows and samples of the GAN gate (float64)
+DDP_TIMEOUT_S = 300  # both ranks joined within this, else the phase fails
+DDP_COLLECTIVE_S = 60  # a collective waits no longer (gloo's default: 30 minutes)
+
+
+def concat_rows(parts: list):
+    """The ranks' parts of a collated batch as one (each is padded as the whole batch)."""
+    import dataclasses
+
+    import numpy as np
+
+    first = parts[0]
+    if isinstance(first, np.ndarray):
+        return np.concatenate(parts) if first.ndim else first
+    if dataclasses.is_dataclass(first) and not isinstance(first, type):
+        return dataclasses.replace(first, **{f.name: concat_rows([getattr(p, f.name)
+                                                                  for p in parts])
+                                             for f in dataclasses.fields(first) if f.init})
+    if isinstance(first, dict):
+        return {k: concat_rows([p[k] for p in parts]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(v for p in parts for v in p)
+    return first
+
+
+def ddp_draws(torch, model, rows: slice, shape: tuple):
+    """Rows ``rows`` of the CFM's u, z and CFG masks for a global batch of mel ``shape``,
+    drawn from one seed on the CPU (every rank and the reference draw alike)."""
+    from speechflow_torch.models.tts.decoders import CFMDraws
+
+    full = model.decoder.draw(shape[0], shape, torch.device("cpu"),
+                              torch.Generator().manual_seed(0))
+    return CFMDraws(*(a[rows].to("cuda") for a in full))
+
+
+def ddp_gather(torch, obj):
+    """Every rank's ``obj`` (pickled through the process group), in rank order."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def ddp_tts_gate(torch, trainer, batch, rank: int, world: int) -> tp.Optional[dict]:
+    """On every rank, before its first step, with the trainer's model given seeded
+    random weights (``serving.init_random_`` from a CUDA generator: flax's zero DiT
+    modulations would zero the DiT trunk's gradients) and dropout off for the gate: f32 gradients of the step
+    with injected draws, averaged over the ranks, and again with the planted fault
+    (each rank's own valid-frame count as the loss normaliser). Rank 0 then gathers
+    the ranks' batches and ReLU masks and computes one process's step on the global
+    batch, the masks replayed; returns the disagreements there (None elsewhere)."""
+    from speechflow_torch import serving
+    from speechflow_torch.parallel import distributed as D
+    from speechflow_torch.training.trainer import _place
+
+    model = serving.init_random_(trainer.model, torch.Generator(device="cuda").manual_seed(0))
+    rates = {m: m.dropout for m in model.modules() if isinstance(getattr(m, "dropout", None),
+                                                                 float)}
+    no_dropout(model)
+    inputs, targets = _place(trainer.batch_processor(batch), torch.device("cuda"))
+    b = inputs.mel.shape[0]
+    shape = (b * world, *inputs.mel.shape[1:])
+    names = [n for n, _ in model.named_parameters()]
+
+    def grads(draws, dp: bool):
+        for p in model.parameters():
+            p.grad = None
+        with D.data_parallel_step(dp):
+            losses = trainer.criterion(model(batch_in, training=True, cfm_draws=draws),
+                                       batch_tgt, 0)
+            sum(losses.values()).backward()
+        g = [torch.zeros_like(p) if p.grad is None else p.grad for p in model.parameters()]
+        lv = [v.detach().float() for v in losses.values()]
+        if dp:
+            g, lv = D.mean_over_ranks(g), D.mean_over_ranks(lv)
+        return ({k: float(v) for k, v in zip(losses, lv)},
+                {n: v.detach().clone() for n, v in zip(names, g)})
+
+    batch_in, batch_tgt = inputs, targets
+    draws = ddp_draws(torch, model, slice(rank * b, (rank + 1) * b), shape)
+    pins: dict = {}
+    real_sum = D._all_reduce_sum
+    with uncounted():
+        with pinned_relus(model, pins):
+            got = grads(draws, True)
+        D._all_reduce_sum = lambda x: x.detach().clone() * D.process_count()
+        try:
+            with pinned_relus(model, pins):
+                bad = grads(draws, True)
+        finally:
+            D._all_reduce_sum = real_sum
+        parts = ddp_gather(torch, (batch, [m.cpu() for m in pins["masks"]]))
+        out = None
+        if rank == 0:
+            glob = concat_rows([bt for bt, _ in parts])
+            batch_in, batch_tgt = _place(trainer.batch_processor(glob), torch.device("cuda"))
+            ref_pins = {"masks": [torch.cat(ms) for ms in zip(*(m for _, m in parts))]}
+            with pinned_relus(model, ref_pins):
+                ref = grads(ddp_draws(torch, model, slice(None), tuple(batch_in.mel.shape)),
+                            False)
+            out = {"shape": tuple(batch_in.mel.shape), "flips": ref_pins["flips"],
+                   "n": len(ref[1]), "got": tts_disagreement(ref, got),
+                   "bad": tts_disagreement(ref, bad)}
+    for m, r in rates.items():
+        m.dropout = r
+    for p in model.parameters():
+        p.grad = None
+    del got, bad, parts, batch_in, batch_tgt, inputs, targets
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_gan_gate(torch, gan, batch, rank: int, world: int) -> tp.Optional[dict]:
+    """On every rank, before its first micro-batch: ``gan_grads`` of float64 copies of
+    both models through the plain versions (float64 leaves the batch split no
+    rounding to show) on its first ``DDP_GATE_WAVE`` rows and samples, the
+    discriminators' kinks recorded, averaged over the ranks. Rank 0 gathers the
+    rows and masks and computes one process's gradients on them, the kinks replayed;
+    its own unaveraged gradients are the planted fault (a rank that skips the
+    all-reduce). Returns the disagreements on rank 0 (None elsewhere)."""
+    import copy
+
+    from speechflow_torch.parallel import distributed as D
+
+    rows, n = DDP_GATE_WAVE
+    gen = copy.deepcopy(gan.generator).double()
+    disc = copy.deepcopy(gan.discriminator).double()
+    wav = torch.as_tensor(batch.waveform[:rows, :n]).to("cuda", torch.float64)
+    pins: dict = {}
+    with uncounted(), plain_versions():
+        with D.data_parallel_step(), pinned_kinks(torch, pins):
+            losses, grads = gan_grads(torch, gen, disc, gan.gen_criterion,
+                                      gan.disc_criterion, wav)
+        names = list(grads)
+        mean = dict(zip(names, D.mean_over_ranks([grads[k] for k in names])))
+        lv = D.mean_over_ranks([torch.tensor(v, device="cuda") for v in losses.values()])
+        losses = {k: float(v) for k, v in zip(losses, lv)}
+        parts = ddp_gather(torch, (wav.cpu(), [m.cpu() for m in pins["masks"]]))
+        out = None
+        if rank == 0:
+            ref_pins = {"masks": [torch.cat(ms).to("cuda")
+                                  for ms in zip(*(m for _, m in parts))]}
+            glob = torch.cat([w for w, _ in parts]).to("cuda")
+            with pinned_kinks(torch, ref_pins):
+                ref = gan_grads(torch, gen, disc, gan.gen_criterion, gan.disc_criterion, glob)
+            out = {"shape": tuple(glob.shape), "n": len(ref[1]), "flips": ref_pins["flips"],
+                   "worst": worst_relative(ref[1], mean),
+                   "fails": gan_disagreement(ref, (losses, mean), TOL_GAN_GRAD),
+                   "bad": gan_disagreement(ref, (losses, grads), TOL_GAN_GRAD)}
+    del gen, disc, grads, mean, parts
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_rank_run(torch, kind: str, rank: int, world: int, tmp: Path) -> dict:
+    """One rank's ``train_tts.train`` (``kind`` "tts") or ``train_vocoder.train``
+    ("gan") with ``use_mesh``: the samples of each step, ms a step, the loader's wait,
+    peak memory, launches, a digest of the weights after the last step."""
+    import hashlib
+
+    from speechflow_torch.scripts import train_tts as TT
+    from speechflow_torch.scripts import train_vocoder as TV
+    from speechflow_torch.scripts.common import experiment_saver
+    from speechflow_torch.server.loader import DataLoader
+    from speechflow_torch.training.gan_trainer import GANTrainer
+    from speechflow_torch.training.trainer import Trainer
+
+    if kind == "tts":
+        model_cfg, data_cfg = TT.configs("default", data_root=SEGS)
+        model_cfg["batch"]["size"] = DDP_TTS_BATCH
+        model_cfg["experiment"]["train_g2p"] = False
+        steps, cls, train, gate = DDP_TTS_STEPS, Trainer, TT.train, ddp_tts_gate
+    else:
+        model_cfg, data_cfg = TV.configs(TRAIN_PRESET, data_root=SEGS)
+        steps, cls, train, gate = DDP_GAN_MICRO_BATCHES, GANTrainer, TV.train, ddp_gan_gate
+    model_cfg["trainer"].update(max_steps=steps, ckpt_every=steps, use_mesh=True)
+    saver = experiment_saver(model_cfg, data_cfg, tmp / f"{kind}_exp") if rank == 0 else None
+    rec: dict = {"keys": [], "ms": [], "wait_s": 0.0}
+    real_next, real_step = DataLoader.next_batch, cls.training_step
+
+    def next_batch(self, timeout: float = 120.0):
+        batch = real_next(self, timeout=DDP_COLLECTIVE_S)
+        if self.subset == "train":
+            rec["keys"].append(list(self.last_keys))
+            rec["wait_s"] = self.wait_s
+        return batch
+
+    def step(self, batch):
+        if "gate" not in rec:
+            ddp_mark(rank, f"{kind}: first batch in hand")
+            rec["gate"] = gate(torch, self, batch, rank, world)
+            ddp_mark(rank, f"{kind}: gate done")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(self, batch)
+        torch.cuda.synchronize()
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        ddp_mark(rank, f"{kind}: step {len(rec['ms'])} in {rec['ms'][-1]:.0f} ms")
+        return out
+
+    def done(trainer, last):
+        if trainer.global_step == steps:
+            models = [trainer.model] if kind == "tts" else [trainer.generator,
+                                                            trainer.discriminator]
+            h = hashlib.sha256()
+            for m in models:
+                for p in m.parameters():
+                    h.update(p.detach().cpu().numpy().tobytes())
+            rec["digest"] = h.hexdigest()
+
+    DataLoader.next_batch, cls.training_step = next_batch, step
+    ddp_mark(rank, f"{kind}: train() starts")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with counted_vjps() as vjps:
+            rec["expr"] = train(model_cfg, data_cfg, saver, device="cuda", callbacks=[done])
+        rec["fit_s"] = time.perf_counter() - t0
+        ddp_mark(rank, f"{kind}: train() returned")
+    finally:
+        DataLoader.next_batch, cls.training_step = real_next, real_step
+    rec.update(launches=read_counts(), vjps=vjps["vjp"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return rec
+
+
+def ddp_mark(rank: int, what: str) -> None:
+    """A rank's progress, with the seconds since the phase began."""
+    t = time.time() - float(os.environ.get("SPEECHFLOW_DDP_T0", time.time()))
+    print(f"[ddp] rank {rank} at {t:.1f} s: {what}", flush=True)
+
+
+def ddp_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """A spawned rank under the environment contract: acoustic model, then vocoder GAN."""
+    import pickle
+
+    import torch
+
+    os.environ.update(SPEECHFLOW_COORDINATOR=f"127.0.0.1:{port}",
+                      SPEECHFLOW_NUM_PROCESSES=str(world), SPEECHFLOW_PROCESS_ID=str(rank))
+    sys.path.insert(0, str(REPO))
+    from speechflow_torch.parallel import distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    D.init_distributed(device="cuda", timeout_s=DDP_COLLECTIVE_S)
+    ddp_mark(rank, f"joined the process group ({D.backend()})")
+    try:
+        out = {"backend": D.backend(),
+               "tts": ddp_rank_run(torch, "tts", rank, world, Path(tmp)),
+               "gan": ddp_rank_run(torch, "gan", rank, world, Path(tmp))}
+    finally:
+        D.shutdown_distributed()
+    with open(Path(tmp) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def ddp_spawn(tmp: Path) -> list:
+    """``DDP_WORLD`` ranks spawned and joined within ``DDP_TIMEOUT_S``; when one fails
+    the others are stopped and the phase fails (its traceback is on stderr)."""
+    import multiprocessing as mp
+    import pickle
+
+    from speechflow_torch.server.transport import find_free_port
+
+    ctx = mp.get_context("spawn")
+    port = find_free_port()
+    procs = [ctx.Process(target=ddp_rank, args=(r, DDP_WORLD, port, str(tmp)), name=f"rank{r}")
+             for r in range(DDP_WORLD)]
+    deadline = time.time() + DDP_TIMEOUT_S
+    os.environ["SPEECHFLOW_DDP_T0"] = str(time.time())
+    try:
+        for p in procs:
+            p.start()
+        while any(p.is_alive() for p in procs):
+            failed = [p for p in procs if p.exitcode not in (None, 0)]
+            check(not failed, "ddp: " + ", ".join(f"{p.name} exited with {p.exitcode}"
+                                                 for p in failed))
+            check(time.time() < deadline, f"ddp: the ranks did not finish in {DDP_TIMEOUT_S} s")
+            procs[0].join(0.5)
+        check(all(p.exitcode == 0 for p in procs),
+              f"ddp: rank exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    out = []
+    for r in range(DDP_WORLD):
+        with open(tmp / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def ddp_check_tts(torch, ranks: list, tmp: Path, gpu_line: str) -> dict:
+    """The samples, the gradient gate and its planted fault, the weights, the
+    checkpoint: rank 0's alone, served one request kernels vs plain."""
+    import numpy as np
+
+    from speechflow_torch import serving
+    from speechflow_torch.data.core.components import DataPipeline
+    from speechflow_torch.interface.tts_interface import TTSEvaluationInterface, TTSOptions
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.scripts import train_tts as TT
+    from speechflow_torch.server import sample_key
+    from speechflow_torch.training.saver import ExperimentSaver
+
+    runs = [r["tts"] for r in ranks]
+    model_cfg, data_cfg = TT.configs("default", data_root=SEGS)
+    # the samples: each step's two parts disjoint, together one process's global batch
+    pipeline = DataPipeline.from_config(TT.data_config_of(model_cfg, data_cfg))
+    want = [[sample_key(s) for s in pipeline.samplers["train"].sampling(DDP_TTS_BATCH)[0]]
+            for _ in range(DDP_TTS_STEPS)]
+    for k in range(DDP_TTS_STEPS):
+        parts = [r["keys"][k] for r in runs]
+        check(not set(parts[0]) & set(parts[1]), f"ddp: step {k + 1}'s ranks share samples")
+        check(parts[0] + parts[1] == want[k],
+              f"ddp: step {k + 1}'s samples are not one process's global batch")
+    check(runs[0]["digest"] == runs[1]["digest"],
+          "ddp: the ranks' weights differ after the last step")
+    # only rank 0 wrote: one experiment, its checkpoint at the last step
+    exps = sorted((tmp / "tts_exp").iterdir())
+    ckpt = ExperimentSaver.get_last_checkpoint(exps[0]) if len(exps) == 1 else None
+    check(ckpt is not None and ckpt.name == f"step_{DDP_TTS_STEPS:09d}"
+          and runs[0]["expr"] == runs[1]["expr"] == str(exps[0]),
+          f"ddp: experiments {exps}, checkpoint {ckpt}")
+
+    # the gate: rank 0's averaged gradients against one process on the global batch
+    gate = runs[0]["gate"]
+    (loss_err, grad_err, where), (f_loss, f_grad, f_where) = gate["got"], gate["bad"]
+    print(f"[ddp] acoustic model (tts_model.yml default, f32, TF32 off): {DDP_WORLD} ranks x "
+          f"{gate['shape'][0] // DDP_WORLD} of the global batch {gate['shape']}, step 1's "
+          f"gradients (seeded random weights, dropout 0, injected draws) averaged over the "
+          f"ranks against one process on the card (rank 0): worst loss error {loss_err:.3g} "
+          f"(tol {TOL_F32_REL:g}), {gate['n']} gradients, worst {grad_err:.3g} of scale "
+          f"({where}; tol {TOL_TTS_GRAD:g}; {gate['flips']} ReLU pre-activations pinned "
+          f"across 0); planted fault (each rank's own valid-frame count): worst {f_grad:.3g} "
+          f"({f_where}) ({gpu_line})", flush=True)
+    check(loss_err <= TOL_F32_REL and grad_err <= TOL_TTS_GRAD,
+          f"ddp: the ranks' gradients disagree with one process: {where} {grad_err}")
+    check(f_grad > TOL_TTS_GRAD, "ddp: the gate passes local normalisers (planted fault)")
+    tree, payload = ExperimentSaver.load_checkpoint(ckpt)
+
+    # rank 0's checkpoint serves a request, kernels against plain
+    ti = TTSEvaluationInterface.from_checkpoint(tree, payload, ckpt_path=ckpt, device="cuda")
+    _, voc_params = serving.flagship_params()
+    vm = seeded_vocoder(torch, voc_params)
+    vi = VocoderEvaluationInterface(vm)
+    ctx = ti.prepare_embeddings(ti.create_context("EN", ti.get_speakers()[0]))
+    opts = TTSOptions(t_out=T_FRAMES)
+    sentences = list(TTS_TRAIN_REQUEST)
+    noise = torch.randn(ti.model.noise_shape(ti.prepare_batch(sentences, ctx, opts), T_FRAMES),
+                        generator=torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda") * ti.model.decoder.temperature
+    reset_counts()
+    got = tts_request(torch, ti, vi, sentences, ctx, opts, noise=noise)
+    served = read_counts()
+    with uncounted(), plain_versions():
+        ref = tts_request(torch, ti, vi, sentences, ctx, opts, noise=noise)
+    mel_err = (got["out"].spectrogram - ref["out"].spectrogram).abs().max().item()
+    mel_lim = rel_limit(ref["out"].spectrogram)
+    wav_err = float(np.abs(got["wave"] - ref["wave"]).max())
+    wav_lim = TOL_F32_REL * float(np.abs(ref["wave"]).max())
+    print(f"[ddp] rank 0's {ckpt.name} (the only experiment) -> TTSEvaluationInterface, f32: "
+          f"{len(sentences)} sentences, kernels vs plain: mel max_abs_err {mel_err:.3g} (tol "
+          f"{mel_lim:.3g}), wave {wav_err:.3g} (tol {wav_lim:.3g}); launches {served}",
+          flush=True)
+    check(mel_err <= mel_lim and wav_err <= wav_lim,
+          "ddp: the checkpoint's request with the kernels disagrees with the plain versions")
+    check(served == EXPECTED_LAUNCHES, f"ddp: the request's launches {served}")
+    del ti, vi, vm, got, ref
+    torch.cuda.empty_cache()
+    return served
+
+
+def ddp_check_gan(torch, ranks: list, gpu_line: str) -> None:
+    """The GAN gate (rank 0's): the averaged gradients, and its own unaveraged ones
+    (the planted fault), against one process on the ranks' rows, kinks pinned."""
+    runs = [r["gan"] for r in ranks]
+    check(runs[0]["digest"] == runs[1]["digest"],
+          "ddp: the ranks' generator and discriminator differ after the optimizer step")
+    gate = runs[0]["gate"]
+    w, fails, bad = gate["worst"], gate["fails"], gate["bad"]
+    print(f"[ddp] vocoder GAN ({TRAIN_PRESET} recipe; the gate in float64 through the plain "
+          f"versions): {DDP_WORLD} ranks x {DDP_GATE_WAVE}, both models' gradients averaged "
+          f"over the ranks against one process on {gate['shape']} (rank 0): {gate['n']} "
+          f"gradients, worst relative {w[0]:.3g} ({w[1]}; tol {TOL_GAN_GRAD:g}; "
+          f"{gate['flips']} kink elements crossed 0, pinned); planted fault (a rank that "
+          f"skips the all-reduce): {len(bad)} disagreement(s), {bad[:1]} ({gpu_line})",
+          flush=True)
+    check(not fails, "ddp: the GAN gradients disagree with one process: " + "; ".join(fails[:3]))
+    check(bool(bad), "ddp: the GAN gate passes a rank that skips the all-reduce")
+
+
+def phase_ddp(torch, gpu_line: str) -> dict:
+    """Data-parallel training through ``train_tts.train`` and ``train_vocoder.train`` on
+    ``DDP_WORLD`` ranks of the one card (spawned, the environment contract, gloo), rank
+    0's data server feeding both."""
+    import multiprocessing as mp
+    import statistics
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tempfile.mkdtemp(prefix="ddp_", dir=workdir()))
+    ranks = ddp_spawn(tmp)
+    print(f"[ddp] {DDP_WORLD} ranks spawned, trained and joined in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    for kind, what in (("tts", "acoustic model, step"), ("gan", "vocoder GAN, micro-batch")):
+        for r, rank in enumerate(ranks):
+            run = rank[kind]
+            print(f"[ddp] rank {r} {what}s: {len(run['ms'])}, ms each "
+                  + " ".join(f"{v:.1f}" for v in run["ms"])
+                  + f" (median of 2.. {statistics.median(run['ms'][1:]):.1f}); train() "
+                  f"{run['fit_s']:.1f} s with set-up; waited on its loader {run['wait_s']:.1f} s; "
+                  f"peak device memory {run['peak_gib']:.2f} GiB; launches {run['launches']}, "
+                  f"anti-alias VJPs {run['vjps']}; backend {rank['backend']} ({gpu_line})",
+                  flush=True)
+    check(all(r["backend"] == "gloo" for r in ranks), "ddp: the ranks' backend is not gloo")
+    served = ddp_check_tts(torch, ranks, tmp, gpu_line)
+    ddp_check_gan(torch, ranks, gpu_line)
+    train = {k: sum(r[kind]["launches"][k] for r in ranks for kind in ("tts", "gan"))
+             for k in served}
+    check(all(r["gan"]["launches"][k] > 0 for r in ranks for k in HEAD_LAUNCHES)
+          and all(r["gan"]["vjps"] > 0 for r in ranks),
+          "ddp: a rank's GAN step launched no anti-alias kernel or VJP")
+    children = mp.active_children()
+    check(not children, f"ddp: processes still alive: {children}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[ddp] phase wall time {phase_s:.1f} s ({gpu_line})", flush=True)
+    return {"launches": {k: train[k] + served[k] for k in served}, "phase_s": phase_s}
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -6713,15 +7197,17 @@ def main(argv=None) -> int:
                             "train,tts_train,xtts_train,prosody_train,conditioned,jax_ckpt,"
                             "vocoder_model_train,tts_forward_train,jax_resume,tts_options,"
                             "e2e_train,vocoder_recipes,aligner,aux_models,vocoder_cpc,data_prep,"
-                            "annotator",
+                            "annotator,ddp",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
                          "tts_interface,xtts,bundle,train,tts_train,xtts_train,prosody_train,"
                          "conditioned,jax_ckpt,vocoder_model_train,tts_forward_train,"
                          "jax_resume,tts_options,e2e_train,vocoder_recipes,aligner,aux_models,"
-                         "vocoder_cpc,data_prep,annotator,profile "
+                         "vocoder_cpc,data_prep,annotator,ddp,profile "
                          "(the last is not in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    # a run past its deadline dumps every thread's stack and exits non-zero
+    faulthandler.dump_traceback_later(SMOKE_DEADLINE_S, exit=True)
 
     try:
         import torch
@@ -6743,12 +7229,22 @@ def main(argv=None) -> int:
             shutil.rmtree(_WORK["dir"], ignore_errors=True)
 
 
+def phase_time(label: str, t0: float) -> float:
+    """Print a phase's wall time; return the clock for the next phase."""
+    now = time.perf_counter()
+    print(f"[time] {label} {now - t0:.1f} s", flush=True)
+    return now
+
+
 def run(torch, phases: set) -> int:
+    start = t0 = time.perf_counter()
     gpu_line = phase_gpu()
     records = {}
     phase_build()
+    t0 = phase_time("build", t0)
     if "kernels" in phases:
         records = phase_kernels(torch)
+        t0 = phase_time("kernels", t0)
     # each serving path with the kernels it must launch
     paths = (("slice", phase_slice, tuple(EXPECTED_LAUNCHES)),
              ("toy", phase_toy, ("fused_attention",)),
@@ -6772,12 +7268,14 @@ def run(torch, phases: set) -> int:
              ("aux_models", phase_aux_models, tuple(EXPECTED_LAUNCHES)),
              ("vocoder_cpc", phase_vocoder_cpc, tuple(HEAD_LAUNCHES)),
              ("data_prep", phase_data_prep, ("fused_attention", "anti_alias_snake")),
-             ("annotator", phase_annotator, ("fused_attention",)))
+             ("annotator", phase_annotator, ("fused_attention",)),
+             ("ddp", phase_ddp, tuple(EXPECTED_LAUNCHES)))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:
             continue
         out = phase(torch, gpu_line)
+        t0 = phase_time(label, t0)
         counts = out["launches"]
         check(all(counts[k] > 0 for k in kernels_of_path),
               f"{label}: a kernel of the path was never launched: {counts}")
@@ -6792,6 +7290,8 @@ def run(torch, phases: set) -> int:
             records[name]["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
     if "profile" in phases:
         phase_profile(torch, gpu_line)
+        t0 = phase_time("profile", t0)
+    print(f"[time] total {time.perf_counter() - start:.1f} s", flush=True)
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

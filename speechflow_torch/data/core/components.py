@@ -34,7 +34,9 @@ it; ``datasample_to_batch`` (inference) raises and never reads the cache.
 
 from __future__ import annotations
 
+import collections
 import functools
+import importlib
 import inspect
 import logging
 import typing as tp
@@ -69,6 +71,9 @@ class DataPipeline:
 
     def __init__(self, info: tp.Mapping, ignored_handlers: tp.Iterable[str] = ()):
         cfg = info["config"]
+        preproc = cfg.get("preproc") or {}
+        for module in preproc.get("imports") or []:  # modules that register handlers, collates
+            importlib.import_module(module)
         self.alphabet = Alphabet.from_dict(info["alphabet"]) if info.get("alphabet") else None
         self.singletons: tp.Dict[str, dict] = dict(info.get("singletons") or {})
         ignored_handlers = set(ignored_handlers)
@@ -79,7 +84,6 @@ class DataPipeline:
             raise NotImplementedError(f"collate '{ctype}' is not ported")
         self.collate_fn = COLLATES[ctype](**_known_kwargs(COLLATES[ctype], collate_cfg, ctype))
 
-        preproc = cfg.get("preproc") or {}
         pipe_cfg = preproc.get("pipe_cfg") or {}
         # stage-2 aligner data configs turn the service tokens off
         service = bool((pipe_cfg.get("text_to_transcription") or {}).get(
@@ -191,6 +195,49 @@ class DataPipeline:
         """The config, subsets, alphabet, singleton states and dataset sizes."""
         return dict(self.info)
 
+    @staticmethod
+    def aggregate_info(infos: tp.Sequence[tp.Mapping]) -> dict:
+        """Several pipelines' infos as one (the first's config): each singleton's
+        states merged (``aggregate``), the dataset sizes summed, the alphabet
+        rebuilt from the merged phoneme counts."""
+        if not infos:
+            return {}
+        merged = dict(infos[0])
+        merged["singletons"] = dict(merged.get("singletons") or {})
+        merged["dataset_sizes"] = dict(merged.get("dataset_sizes") or {})
+        for other in infos[1:]:
+            for name, state in (other.get("singletons") or {}).items():
+                if name not in merged["singletons"]:
+                    merged["singletons"][name] = state
+                    continue
+                mine, theirs = SINGLETON_HANDLERS[name](), SINGLETON_HANDLERS[name]()
+                mine.load_state_dict(merged["singletons"][name])
+                theirs.load_state_dict(state)
+                merged["singletons"][name] = mine.aggregate(theirs).state_dict()
+            for s, n in (other.get("dataset_sizes") or {}).items():
+                merged["dataset_sizes"][s] = merged["dataset_sizes"].get(s, 0) + n
+        counts = (merged["singletons"].get("PhonemeStatistics") or {}).get("counts")
+        if counts:
+            merged["alphabet"] = Alphabet(sorted(counts)).to_dict()
+        return merged
+
+    def adopt_shared_state(self, info: tp.Mapping) -> None:
+        """Take ``aggregate_info``'s singleton states and alphabet, and apply the
+        singletons to this pipeline's samples again (their speaker and language
+        ids become the merged ones)."""
+        shared = dict(self.info, singletons=dict(info.get("singletons") or {}),
+                      alphabet=info.get("alphabet") or self.info.get("alphabet"))
+        rebuilt = DataPipeline(shared)
+        self.__dict__.update({k: v for k, v in rebuilt.__dict__.items()
+                              if k not in ("datasets", "samplers")})
+        for name, state in self.singletons.items():
+            inst = SINGLETON_HANDLERS[name]()
+            inst.load_state_dict(state)
+            if hasattr(inst, "apply"):
+                for samples in self.datasets.values():
+                    for ds in samples:
+                        inst.apply(ds)
+
     def sample_batch(self, subset: str, batch_size: int) -> tp.Any:
         """The next batch of ``subset``'s sampler, processed and collated here
         (None if every sample of it failed)."""
@@ -274,56 +321,62 @@ class _SubsetSamples(torch.utils.data.Dataset):
         return self.process.sample(self.samples[i])
 
 
-class _Collate:
-    def __init__(self, collate_fn: tp.Callable):
-        self.collate_fn = collate_fn
-
-    def __call__(self, samples: tp.Sequence):
-        kept = [s for s in samples if s is not None]
-        return self.collate_fn(kept) if kept else None
+def _as_is(sample):
+    """The loader's per-sample collate: the processed sample itself."""
+    return sample
 
 
-class _SamplerBatches:
-    """The sampler's batches as index lists, epoch after epoch."""
+class _SamplerIndices:
+    """The sampler's batches, epoch after epoch, as one stream of sample indices;
+    each batch's size is queued in ``sizes`` as its indices are handed out."""
 
     def __init__(self, sampler, batch_size: int):
         self.sampler = sampler
         self.batch_size = batch_size
+        self.sizes: collections.deque = collections.deque()
 
     def __iter__(self):
         while True:
             samples, _ = self.sampler.sampling(self.batch_size)
-            yield [s.index for s in samples]
+            self.sizes.append(len(samples))
+            yield from (s.index for s in samples)
 
 
 class AudioLoader:
     """Batches of one subset from a ``torch.utils.data.DataLoader``: the
-    sampler runs here, the handlers and the collate in ``n_workers`` spawned
-    worker processes with ``prefetch_factor`` batches each in flight (in this
-    process when ``n_workers`` is 0). The workers start at the first
-    ``next_batch()``, so a loader never read (a validation subset before its
-    first validation) takes no host time from the others. ``next_batch()``
-    skips a batch whose samples all failed; ``close()`` stops the workers."""
+    sampler runs here and its batches go out as single samples to ``n_workers``
+    spawned worker processes, which run the handlers (a batch's samples on all of
+    them at once, so the first batch waits for a share of it, not for all of it);
+    the collate runs here. Each worker keeps ``prefetch_factor`` batches' share of
+    samples in flight (everything runs in this process when ``n_workers`` is 0).
+    The workers start at the first ``next_batch()``, so a loader never read (a
+    validation subset before its first validation) takes no host time from the
+    others. A failing sample is left out of its batch; ``next_batch()`` skips a
+    batch whose samples all failed; ``close()`` stops the workers."""
 
     def __init__(self, pipeline: DataPipeline, subset: str, batch_size: int,
                  n_workers: int = 0, prefetch_factor: int = 2):
-        process = pipeline.process
+        self._indices = _SamplerIndices(pipeline.samplers[subset], batch_size)
+        self._collate = pipeline.collate_fn
         kwargs = dict(num_workers=n_workers)
         if n_workers > 0:
-            kwargs.update(prefetch_factor=prefetch_factor, multiprocessing_context="spawn")
+            kwargs.update(prefetch_factor=max(2, -(-prefetch_factor * batch_size // n_workers)),
+                          multiprocessing_context="spawn")
         self._loader = torch.utils.data.DataLoader(
-            _SubsetSamples(pipeline.datasets[subset], process),
-            batch_sampler=_SamplerBatches(pipeline.samplers[subset], batch_size),
-            collate_fn=_Collate(pipeline.collate_fn), **kwargs)
+            _SubsetSamples(pipeline.datasets[subset], pipeline.process),
+            sampler=self._indices, batch_size=None, collate_fn=_as_is, **kwargs)
         self._it = None
 
     def next_batch(self):
         if self._it is None:
             self._it = iter(self._loader)
         while True:
-            batch = next(self._it)
-            if batch is not None:
-                return batch
+            first = next(self._it)  # drawing it queues its batch's size
+            n = self._indices.sizes.popleft()
+            kept = [s for s in [first, *(next(self._it) for _ in range(n - 1))]
+                    if s is not None]
+            if kept:
+                return self._collate(kept)
 
     def close(self) -> None:
         """Stop the worker processes (the iterator's shutdown runs on release)."""

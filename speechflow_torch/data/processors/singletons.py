@@ -58,6 +58,14 @@ class SpeakerIDSetter:
         self.speaker2id = dict(d["speaker2id"])
         self.lang2id = dict(d["lang2id"])
 
+    def aggregate(self, other: "SpeakerIDSetter") -> "SpeakerIDSetter":
+        """Append ``other``'s new speakers and languages (sorted) after these."""
+        for name in sorted(other.speaker2id):
+            self.speaker2id.setdefault(name, len(self.speaker2id))
+        for lang in sorted(other.lang2id):
+            self.lang2id.setdefault(lang, len(self.lang2id))
+        return self
+
 
 class StatisticsRange:
     """Per speaker, per feature (pitch, energy and their token aggregates):
@@ -108,6 +116,11 @@ class StatisticsRange:
     def load_state_dict(self, d: dict) -> None:
         self.ranges = d["ranges"]
 
+    def aggregate(self, other: "StatisticsRange") -> "StatisticsRange":
+        for spk, feats in other.ranges.items():
+            self.ranges.setdefault(spk, {}).update(feats)
+        return self
+
 
 class DatasetStatistics:
     """Sample count, durations (total, longest, per speaker) and lengths."""
@@ -142,6 +155,17 @@ class DatasetStatistics:
     def load_state_dict(self, d: dict) -> None:
         self.__dict__.update(d)
 
+    def aggregate(self, other: "DatasetStatistics") -> "DatasetStatistics":
+        self.max_transcription_length = max(self.max_transcription_length,
+                                            other.max_transcription_length)
+        self.max_frames = max(self.max_frames, other.max_frames)
+        self.max_audio_duration = max(self.max_audio_duration, other.max_audio_duration)
+        self.total_duration += other.total_duration
+        self.n_samples += other.n_samples
+        for k, v in other.speaker_durations.items():
+            self.speaker_durations[k] = self.speaker_durations.get(k, 0.0) + v
+        return self
+
 
 class PhonemeStatistics:
     """How often each phoneme occurs (an empty label counts as ``<SIL>``)."""
@@ -173,6 +197,11 @@ class PhonemeStatistics:
     def load_state_dict(self, d: dict) -> None:
         self.counts = dict(d["counts"])
 
+    def aggregate(self, other: "PhonemeStatistics") -> "PhonemeStatistics":
+        for k, v in other.counts.items():
+            self.counts[k] = self.counts.get(k, 0) + v
+        return self
+
 
 class MeanBioEmbeddings:
     """Per-speaker mean of the samples' ``speaker_emb`` (samples without a
@@ -202,6 +231,10 @@ class MeanBioEmbeddings:
 
     def load_state_dict(self, d: dict) -> None:
         self.mean_emb = {k: np.asarray(v, np.float32) for k, v in d["mean_emb"].items()}
+
+    def aggregate(self, other: "MeanBioEmbeddings") -> "MeanBioEmbeddings":
+        self.mean_emb.update(other.mean_emb)
+        return self
 
 
 SINGLETON_HANDLERS = {"SpeakerIDSetter": SpeakerIDSetter,

@@ -208,7 +208,8 @@ class TTSEvaluationInterface:
         ``ckpt_path`` (the checkpoint's directory) is where a ``g2p.pkl`` is
         looked for. Other keywords go to the constructor."""
         dev = resolve_device(device)
-        model = ParallelTTSModel(ParallelTTSParams.create(payload["model_params"]))
+        with dev:  # built where it runs: the initialisers it overwrites are cheap there
+            model = ParallelTTSModel(ParallelTTSParams.create(payload["model_params"]))
         load_nnx_state(model, tree["model"])
         return cls(model.to(dev, dtype), payload, ckpt_path=ckpt_path, **kwargs)
 

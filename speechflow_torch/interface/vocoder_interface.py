@@ -53,8 +53,9 @@ class VocoderEvaluationInterface:
         model_tree = ExperimentSaver.remap_legacy_keys(tree["model"])
         if "generator" in model_tree:  # the GAN trainer's layout
             model_tree = model_tree["generator"]
-        model = load_nnx_state(Vocos(VocosParams.create(payload["model_params"])),
-                               model_tree)
+        with dev:  # built where it runs: the initialisers it overwrites are cheap there
+            model = Vocos(VocosParams.create(payload["model_params"]))
+        model = load_nnx_state(model, model_tree)
         return cls(model.to(dev, dtype), fold_inference, dict(payload))
 
     @property

@@ -10,6 +10,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from speechflow_torch.parallel.distributed import global_count
+
 __all__ = ["ProsodyCriterion", "eer", "IGNORE"]
 
 IGNORE = -1
@@ -33,8 +35,8 @@ class ProsodyCriterion:
         b_tgt = targets["binary"]
         mask = (b_tgt != IGNORE).float()
         ce_b = _ce(outputs["binary"], torch.clamp(b_tgt, min=0))
-        losses["binary"] = self.binary_scale * (ce_b * mask).sum() / torch.clamp(mask.sum(),
-                                                                                 min=1)
+        losses["binary"] = self.binary_scale * (ce_b * mask).sum() / torch.clamp(
+            global_count(mask.sum()), min=1)
         c_tgt = targets["category"]
         cmask = (c_tgt != IGNORE).float()
         ce_c = _ce(outputs["category"], torch.clamp(c_tgt, min=0))
@@ -42,7 +44,7 @@ class ProsodyCriterion:
             w = torch.as_tensor(self.class_weights, device=ce_c.device, dtype=ce_c.dtype)
             ce_c = ce_c * w[torch.clamp(c_tgt, min=0).long()]
         losses["category"] = self.category_scale * (ce_c * cmask).sum() / torch.clamp(
-            cmask.sum(), min=1)
+            global_count(cmask.sum()), min=1)
         return losses
 
 

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from speechflow_torch.models.layers import Conv1d, RNNCell, layer_norm
 from speechflow_torch.models.tts.common import gelu, rope_rotate
+from speechflow_torch.parallel.distributed import global_count
 from speechflow_torch.utils.masks import sequence_mask
 
 __all__ = ["LSAttention", "TacoDecoder", "CausalBlock", "RetentionBlock", "GPTDecoder"]
@@ -406,7 +407,7 @@ class GPTDecoder(nn.Module):
         logits = self(text_ids, audio_ids, cond, prompt_emb, prompt_lengths).float()
         ce = F.cross_entropy(logits.transpose(1, 2), audio_ids.long(), reduction="none")
         mask = sequence_mask(audio_lengths.to(ce.device), audio_ids.shape[1]).to(ce.dtype)
-        return (ce * mask).sum() / mask.sum().clamp(min=1.0)
+        return (ce * mask).sum() / global_count(mask.sum()).clamp(min=1.0)
 
     @staticmethod
     def _sample(logits: torch.Tensor, temperature: float,

@@ -26,7 +26,9 @@ __all__ = ["TTSBatchProcessor"]
 def _tensor(x):
     if isinstance(x, dict):  # the named utterance averages
         return {k: _tensor(v) for k, v in x.items()}
-    return None if x is None else torch.from_numpy(np.ascontiguousarray(x))
+    # a copy only of what is not contiguous and writable (a data server's loader hands
+    # out read-only views of the received frames)
+    return None if x is None else torch.from_numpy(np.require(x, requirements=("C", "W")))
 
 
 def _fields(cls, c: CollatedTTS, extra: tp.Mapping) -> dict:

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from speechflow_torch.models.tts.common import sinusoidal_embedding
 from speechflow_torch.models.tts.encoders import TTS_ENCODERS, DiTEncoder
+from speechflow_torch.parallel.distributed import global_count
 from speechflow_torch.utils.masks import apply_mask, sequence_mask
 
 __all__ = ["WrapperDecoder", "CFMDecoder", "CFMDraws", "TTS_DECODERS"]
@@ -138,7 +139,7 @@ class CFMDecoder(nn.Module):
                        deterministic=False)
         mask = sequence_mask(lengths, target.shape[1])[..., None].to(v.dtype)
         cfm = torch.sum((v - flow_target) ** 2 * mask) / torch.clamp(
-            mask.sum() * target.shape[-1], min=1.0)
+            global_count(mask.sum() * target.shape[-1]), min=1.0)
         return mu, {"cfm": cfm}
 
     def generate(self, content: torch.Tensor, lengths: torch.Tensor,

@@ -21,6 +21,7 @@ import torch.nn as nn
 
 from speechflow_torch.models.layers import Conv1d, layer_norm
 from speechflow_torch.models.tts.common import ConvStack
+from speechflow_torch.parallel.distributed import global_count
 from speechflow_torch.utils.masks import apply_mask, masked_mean, sequence_mask
 
 __all__ = ["VariancePredictor", "TokenLevelDP", "GaussianMixtureVAE", "StyleEncoder",
@@ -194,7 +195,7 @@ class SignalDiscriminator(nn.Module):
         mask = sequence_mask(lengths, context.shape[1]).to(context.dtype)[..., None]
 
         def mmean(v):
-            return (v * mask[..., 0]).sum() / torch.clamp(mask.sum(), min=1.0)
+            return (v * mask[..., 0]).sum() / torch.clamp(global_count(mask.sum()), min=1.0)
 
         h_d = self._trunk(context.detach(), mask)
         disc = (mmean((1.0 - self._prob(h_d, real.detach(), mask)) ** 2)
@@ -244,10 +245,10 @@ class GradTTSFA(nn.Module):
         dura = attn.sum(-1)
         tok_mask = sequence_mask(token_lengths, x.shape[1]).float()
         logw_tgt = torch.log(dura + 1e-8) * tok_mask
-        dura_loss = (logw * tok_mask - logw_tgt).abs().sum() / torch.clamp(tok_mask.sum(),
-                                                                            min=1.0)
+        dura_loss = (logw * tok_mask - logw_tgt).abs().sum() / torch.clamp(
+            global_count(tok_mask.sum()), min=1.0)
         mu_y = torch.einsum("bnt,bnc->btc", attn, mu_x)
         mel_mask = sequence_mask(mel_lengths, mel.shape[1]).float()[..., None]
         prior = (0.5 * ((mel - mu_y) ** 2 + log2pi) * mel_mask).sum()
-        prior_loss = prior / torch.clamp(mel_mask.sum() * c, min=1.0)
+        prior_loss = prior / torch.clamp(global_count(mel_mask.sum() * c), min=1.0)
         return dura, attn, {"fa_duration": dura_loss, "fa_prior": prior_loss}

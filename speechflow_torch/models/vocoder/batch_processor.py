@@ -20,7 +20,8 @@ class VocoderBatchProcessor:
         self.device = torch.device(device)
 
     def _tensor(self, x) -> torch.Tensor:
-        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.require(x, requirements=("C", "W")))  # a loader's views are read-only
         return t.to(self.device, non_blocking=True)
 
     def __call__(self, batch) -> tp.Tuple[dict, dict]:

@@ -25,6 +25,7 @@ import torch
 from speechflow_torch.models.vocoder.model import split_output
 from speechflow_torch.ops.mel import amp_to_db, linear_to_mel
 from speechflow_torch.ops.stft import magnitude
+from speechflow_torch.parallel.distributed import norm_ratio
 
 __all__ = ["mel_reconstruction_loss", "multires_stft_loss", "make_cpc_perceptual_loss",
            "make_speaker_similarity_loss", "vocoder_gen_criterion", "vocoder_disc_criterion"]
@@ -53,7 +54,7 @@ def multires_stft_loss(fake: torch.Tensor, real: torch.Tensor,
     for n_fft, hop in resolutions:
         mf = magnitude(fake, n_fft, hop)
         mr = magnitude(real, n_fft, hop)
-        sc = torch.linalg.norm(mr - mf) / torch.clamp(torch.linalg.norm(mr), min=1e-6)
+        sc = norm_ratio(mr - mf, mr)
         lm = torch.mean(torch.abs(torch.log(mf + 1e-5) - torch.log(mr + 1e-5)))
         total = total + sc + lm
     return total / len(resolutions)

@@ -79,13 +79,14 @@ def _upsample2(x: torch.Tensor) -> torch.Tensor:
     """2x interpolation: zero-stuff + half-band FIR (gain-compensated)."""
     b, t = x.shape
     up = torch.stack([x, torch.zeros_like(x)], dim=-1).reshape(b, 2 * t)
-    return _fir_1d(up, _on(("fir", 2.0), str(x.device)))
+    return _fir_1d(up, _on(("fir", 2.0), str(x.device)).to(x.dtype))
 
 
 def cqt(wav: torch.Tensor, sr: int, hop_length: int = 256, fmin: float = 32.703195,
         n_octaves: int = 9, bins_per_octave: int = 24, filter_scale: float = 1.0,
         upsample: bool = True) -> torch.Tensor:
-    """(B, T) waveform -> (B, n_frames, n_octaves·bins_per_octave, 2) float32 CQT.
+    """(B, T) waveform -> (B, n_frames, n_octaves·bins_per_octave, 2) float32 CQT
+    (float64 for a float64 waveform).
 
     ``hop_length`` is in samples at the working rate (twice ``sr`` with
     ``upsample``) and must be divisible by 2**(n_octaves-1); the top bin must
@@ -102,11 +103,11 @@ def cqt(wav: torch.Tensor, sr: int, hop_length: int = 256, fmin: float = 32.7031
         raise ValueError(f"top CQT bin {top:.0f} Hz >= nyquist {nyq:.0f} Hz")
     dev = str(wav.device)
     with torch.autocast(device_type=wav.device.type, enabled=False):
-        x = wav.float()
+        x = wav if wav.dtype == torch.float64 else wav.float()
         x = _upsample2(x) if upsample else x
         length = _top_octave_bank(work_sr, fmin, n_bins, bins_per_octave, filter_scale)[1]
-        bank = _on(("bank", work_sr, fmin, n_bins, bins_per_octave, filter_scale), dev)
-        fir = _on(("fir", 1.0), dev)
+        bank = _on(("bank", work_sr, fmin, n_bins, bins_per_octave, filter_scale), dev).to(x.dtype)
+        fir = _on(("fir", 1.0), dev).to(x.dtype)
         octaves: tp.List[torch.Tensor] = []
         hop = hop_length
         n_frames = x.shape[-1] // hop_length + 1

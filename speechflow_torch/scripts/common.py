@@ -13,14 +13,17 @@ Configs are plain nested dicts: the sections of the YAML files.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import logging
+import os
 import typing as tp
 from pathlib import Path
 
 from speechflow_torch.convert import load_nnx_state, nnx_from_module
 from speechflow_torch.data.core.components import AudioLoader, DataPipeline
 from speechflow_torch.io.config import Config, yaml_dump
+from speechflow_torch.parallel.distributed import process_count, process_index
 from speechflow_torch.training.optimizer import OptimizerConfig
 from speechflow_torch.training.saver import ExperimentSaver, is_checkpoint
 from speechflow_torch.training.trainer import TrainerConfig
@@ -28,8 +31,10 @@ from speechflow_torch.training.trainer import TrainerConfig
 LOGGER = logging.getLogger("speechflow_torch")
 
 __all__ = ["REPO", "train_arguments", "read_configs", "configs_of_args", "experiment_saver",
-           "source_checkpoint", "resume_singletons", "build_data", "model_config_from_info",
-           "trainer_config", "optimizer_config", "apply_resume_warmstart"]
+           "source_checkpoint", "resume_singletons", "build_data", "close_data",
+           "model_config_from_info", "trainer_config", "optimizer_config",
+           "apply_resume_warmstart", "rank_experiment", "data_parallel_ranks",
+           "experiment_log"]
 
 REPO = Path(__file__).resolve().parents[2]
 
@@ -61,7 +66,7 @@ def train_arguments(description: str, model_config: str, data_config: str
                     ) -> argparse.ArgumentParser:
     """The training scripts' flags, as JAX's ``train_arguments`` has them, with
     the repository's recipe as each config's default and ``--device`` (the GPU
-    unless ``cpu``), ``--experiment_dir`` and ``--tb``."""
+    unless ``cpu``), ``--experiment_dir``, ``--tb`` and ``--use_mesh``."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("-c", "--model_config", default=model_config,
                     help=f"a model config YAML file (default {model_config})")
@@ -76,17 +81,22 @@ def train_arguments(description: str, model_config: str, data_config: str
     ap.add_argument("--experiment_dir", default=None)
     ap.add_argument("--device", default=None, help="cpu to run on the CPU")
     ap.add_argument("--tb", action="store_true", help="TensorBoard scalars in <experiment>/tb")
+    ap.add_argument("--use_mesh", action="store_true",
+                    help="trainer.use_mesh: data parallel over the ranks of the environment "
+                         "contract (SPEECHFLOW_COORDINATOR, _NUM_PROCESSES, _PROCESS_ID)")
     return ap
 
 
 def configs_of_args(args: argparse.Namespace) -> tp.Tuple[dict, dict]:
     """The parsed flags' configs with their overrides, as JAX's
     ``config_prepare`` applies them: ``--data_root``, ``--max_steps``,
-    ``-r`` (``resume.from``) and ``-w`` (``warmstart.ckpt``)."""
+    ``-r`` (``resume.from``) and ``-w`` (``warmstart.ckpt``); and ``--use_mesh``."""
     model_cfg, data_cfg = read_configs(args.model_config, args.data_config,
                                        args.value_select, args.data_root)
     if args.max_steps:
         model_cfg.setdefault("trainer", {})["max_steps"] = args.max_steps
+    if getattr(args, "use_mesh", False):
+        model_cfg.setdefault("trainer", {})["use_mesh"] = True
     if args.resume_from:
         model_cfg.setdefault("resume", {})["from"] = args.resume_from
     if args.warmstart:
@@ -143,9 +153,32 @@ def build_data(data_cfg: tp.Mapping, model_cfg: tp.Mapping
     """The pipeline of the data config, its singleton handlers seeded from the
     checkpoint the model config starts from (``resume_singletons``), and a
     loader per subset at the model config's ``batch.size``, with
-    ``data_loaders.n_workers`` and ``prefetch_factor``."""
+    ``data_loaders.n_workers`` and ``prefetch_factor``.
+
+    Under a process group of several ranks (``parallel.init_distributed``)
+    ``batch.size`` is the global batch: rank 0 builds the pipeline and hosts the
+    data server and its workers for every rank, each rank's loaders draw
+    ``size // world`` samples, its slice of each global batch, and the other
+    ranks rebuild the pipeline's metadata from the server's info. Then the
+    loaders are a ``server.LoaderBundle``: ``close_data`` stops them."""
     dl = model_cfg.get("data_loaders") or {}
     batch_size = int((model_cfg.get("batch") or {}).get("size", 8))
+    world = process_count()
+    if world > 1:
+        from speechflow_torch.server import init_data_loader_distributed
+
+        pipeline = None
+        if process_index() == 0:
+            pipeline = DataPipeline.from_config(data_cfg,
+                                                seed_singletons=resume_singletons(model_cfg))
+        bundle = init_data_loader_distributed(
+            pipeline, batch_size=max(batch_size // world, 1),
+            n_workers=int(dl.get("n_workers", 2)),
+            prefetch_factor=int(dl.get("prefetch_factor", 8)),
+            min_prefetch={"train": 2})  # the others start at their first batch
+        if pipeline is None:
+            pipeline = DataPipeline.from_info(next(iter(bundle.values())).info)
+        return pipeline, bundle
     pipeline = DataPipeline.from_config(data_cfg, seed_singletons=resume_singletons(model_cfg))
     loaders = {}
     try:
@@ -158,6 +191,55 @@ def build_data(data_cfg: tp.Mapping, model_cfg: tp.Mapping
             ld.close()
         raise
     return pipeline, loaders
+
+
+def close_data(loaders: tp.Mapping) -> None:
+    """Stop ``build_data``'s loaders (and the data server behind them)."""
+    if hasattr(loaders, "shutdown"):
+        loaders.shutdown()
+    else:
+        for ld in loaders.values():
+            ld.close()
+
+
+@contextlib.contextmanager
+def experiment_log(saver: tp.Optional[ExperimentSaver]):
+    """Rank 0's ``LoggingServer`` on the experiment's ``experiment.log`` (rank 0 alone
+    has the saver), as JAX's scripts wrap their training; the other ranks send it
+    their records (and so do the data workers every rank spawns)."""
+    from speechflow_torch.logging import LoggingServer, attach_socket_handler
+    from speechflow_torch.logging.server import LOG_ADDR_ENV
+    from speechflow_torch.parallel.distributed import broadcast_bytes
+
+    if saver is not None:
+        with LoggingServer.ctx(saver.expr_path) as server:
+            if process_count() > 1:
+                broadcast_bytes(server.address.encode())
+            yield
+        return
+    address = broadcast_bytes(None).decode()
+    os.environ[LOG_ADDR_ENV] = address
+    attach_socket_handler(address)
+    yield
+
+
+def data_parallel_ranks(cfg) -> int:
+    """The number of ranks a run trains over; several need ``trainer.use_mesh``."""
+    world = process_count()
+    if world > 1 and not cfg.use_mesh:
+        raise ValueError(f"{world} ranks are running: set trainer.use_mesh to train "
+                         "data-parallel")
+    return world
+
+
+def rank_experiment(saver: tp.Optional[ExperimentSaver]) -> str:
+    """Rank 0's experiment directory, on every rank (rank 0 alone has a saver)."""
+    from speechflow_torch.parallel.distributed import broadcast_bytes
+
+    path = str(saver.expr_path) if saver is not None else None
+    if process_count() == 1:
+        return path or ""
+    return broadcast_bytes(path.encode() if process_index() == 0 else None).decode()
 
 
 def model_config_from_info(model_cfg: tp.Mapping, pipeline: DataPipeline) -> dict:

@@ -35,6 +35,7 @@ from speechflow_torch.models.aligner import (
 from speechflow_torch.scripts.common import (
     apply_resume_warmstart,
     build_data,
+    close_data,
     configs_of_args,
     experiment_saver,
     model_config_from_info,
@@ -87,8 +88,7 @@ def train(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: ExperimentSaver,
         LOGGER.info("aligner training done: %s", last)
         return str(saver.expr_path)
     finally:
-        for ld in loaders.values():
-            ld.close()
+        close_data(loaders)
 
 
 def main(argv=None) -> str:

@@ -57,13 +57,18 @@ from speechflow_torch.models.tts import (
     xtts_criterion,
 )
 from speechflow_torch.models.tts.batch_processor import TTSBatchProcessor
+from speechflow_torch.parallel.distributed import init_distributed, shutdown_distributed
 from speechflow_torch.scripts.common import (
     apply_resume_warmstart,
     build_data,
+    close_data,
     configs_of_args,
+    data_parallel_ranks,
+    experiment_log,
     experiment_saver,
     model_config_from_info,
     optimizer_config,
+    rank_experiment,
     read_configs,
     train_arguments,
     trainer_config,
@@ -124,7 +129,8 @@ def data_config_of(model_cfg: tp.Mapping, data_cfg: tp.Mapping) -> tp.Mapping:
 def build_model(model_cfg: tp.Mapping, pipeline) -> tp.Tuple[tp.Any, tp.Any, tp.Callable,
                                                               tp.Callable]:
     """(params, model, criterion, batch processor) of the model config's type,
-    sized from ``pipeline``; the model on the CPU, from torch's global generator."""
+    sized from ``pipeline``; the model on torch's default device, from torch's
+    global generator."""
     m_dict = model_config_from_info(model_cfg, pipeline)
     model_type = m_dict.pop("type", "parallel")
     if model_type == "xtts":
@@ -143,41 +149,56 @@ def build_model(model_cfg: tp.Mapping, pipeline) -> tp.Tuple[tp.Any, tp.Any, tp.
     return params, ParallelTTSModel(params), criterion, TTSBatchProcessor()
 
 
-def train(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: ExperimentSaver,
+def train(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: tp.Optional[ExperimentSaver],
           device: tp.Union[str, torch.device, None] = None,
           callbacks: tp.Sequence[tp.Callable] = (),
           tb_dir: tp.Optional[tp.Union[str, Path]] = None) -> str:
     """Build and fit the acoustic model; returns the experiment directory.
-    Scalars go to TensorBoard under ``tb_dir`` when one is given."""
+    Scalars go to TensorBoard under ``tb_dir`` when one is given.
+
+    As one rank of a data-parallel run (the environment contract of
+    ``parallel.init_distributed``, which this joins; ``trainer.use_mesh``):
+    ``batch.size`` is the global batch, rank 0's data server feeds every rank
+    (``build_data``), rank 0 alone passes a saver and trains the G2P, and every
+    rank returns rank 0's experiment directory."""
     dev = resolve_device(device)
+    init_distributed(device=dev)
     data_cfg = data_config_of(model_cfg, data_cfg)
     cfg = trainer_config(model_cfg)
+    data_parallel_ranks(cfg)
     torch.manual_seed(cfg.seed)
     pipeline, loaders = build_data(data_cfg, model_cfg)
     try:
-        params, model, criterion, batch_processor = build_model(model_cfg, pipeline)
+        with dev:  # initialised on the device it trains on (seconds on a host's CPU)
+            params, model, criterion, batch_processor = build_model(model_cfg, pipeline)
         model = model.to(dev)
-        saver.to_save["pipeline_info"] = pipeline.get_info()
-        saver.to_save["model_params"] = dataclasses.asdict(params)
-        _train_g2p(model_cfg, data_cfg, saver, dev)
+        if saver is not None:
+            saver.to_save["pipeline_info"] = pipeline.get_info()
+            saver.to_save["model_params"] = dataclasses.asdict(params)
+            _train_g2p(model_cfg, data_cfg, saver, dev)
         trainer = Trainer(model, criterion, batch_processor, optimizer_config(model_cfg), cfg,
                           saver=saver, tb_dir=tb_dir)
         apply_resume_warmstart(trainer, model_cfg)
         last = trainer.fit(loaders["train"], loaders.get("test"), callbacks=callbacks)
         LOGGER.info("training done: %s", last)
-        return str(saver.expr_path)
+        return rank_experiment(saver)
     finally:
-        for ld in loaders.values():
-            ld.close()
+        close_data(loaders)
 
 
 def main(argv=None) -> str:
     args = train_arguments("training of the acoustic model", MODEL_CONFIG,
                            DATA_CONFIG).parse_args(argv)
     model_cfg, data_cfg = configs_of_args(args)
-    saver = experiment_saver(model_cfg, data_cfg, args.experiment_dir)
-    return train(model_cfg, data_cfg, saver, device=args.device,
-                 tb_dir=saver.expr_path / "tb" if args.tb else None)
+    rank, world = init_distributed(device=args.device)
+    saver = experiment_saver(model_cfg, data_cfg, args.experiment_dir) if rank == 0 else None
+    try:
+        with experiment_log(saver):
+            return train(model_cfg, data_cfg, saver, device=args.device,
+                         tb_dir=saver.expr_path / "tb" if args.tb and saver else None)
+    finally:
+        if world > 1:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -41,12 +41,17 @@ from speechflow_torch.models.vocoder.criterion import (
 )
 from speechflow_torch.models.vocoder.discriminators import VocoderDiscriminator
 from speechflow_torch.models.vocoder.tts_features import E2EBatchProcessor
+from speechflow_torch.parallel.distributed import init_distributed, shutdown_distributed
 from speechflow_torch.scripts.common import (
     build_data,
+    close_data,
     configs_of_args,
+    data_parallel_ranks,
+    experiment_log,
     experiment_saver,
     model_config_from_info,
     optimizer_config,
+    rank_experiment,
     read_configs,
     train_arguments,
     trainer_config,
@@ -73,20 +78,23 @@ def configs(value_select: tp.Union[str, tp.Sequence[str], None] = "default",
     return read_configs(model_config, data_config, value_select, data_root)
 
 
-def train(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: ExperimentSaver,
+def train(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: tp.Optional[ExperimentSaver],
           device: tp.Union[str, torch.device, None] = None,
           callbacks: tp.Sequence[tp.Callable] = (),
           tb_dir: tp.Optional[tp.Union[str, Path]] = None) -> str:
     """Build and fit the GAN; returns the experiment directory. Scalars go to
     TensorBoard under ``tb_dir`` when one is given (which then needs the
-    ``tensorboard`` package)."""
+    ``tensorboard`` package). As one rank of a data-parallel run: as
+    ``train_tts.train`` (each micro-batch is the rank's slice of the global one)."""
     dev = resolve_device(device)
+    init_distributed(device=dev)
     params = VocosParams.create(model_cfg["model"])
     loss_cfg = dict(model_cfg.get("loss") or {})
     gen_crit = vocoder_gen_criterion(sample_rate=params.sample_rate, n_mels=params.n_mels,
                                      device=dev,
                                      **filter_kwargs(vocoder_gen_criterion, loss_cfg))
     cfg = trainer_config(model_cfg)
+    data_parallel_ranks(cfg)
     pipeline, loaders = build_data(data_cfg, model_cfg)
     try:
         if params.feature_extractor == "tts":
@@ -97,11 +105,13 @@ def train(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: ExperimentSaver,
         else:
             batch_processor = VocoderBatchProcessor(device=dev)
         torch.manual_seed(cfg.seed)
-        generator = Vocos(params).to(dev)
-        discriminator = VocoderDiscriminator(**filter_kwargs(
-            VocoderDiscriminator.__init__, model_cfg.get("discriminator") or {})).to(dev)
-        saver.to_save["pipeline_info"] = pipeline.get_info()
-        saver.to_save["model_params"] = dataclasses.asdict(params)
+        with dev:  # initialised on the device they train on (seconds on a host's CPU)
+            generator = Vocos(params).to(dev)
+            discriminator = VocoderDiscriminator(**filter_kwargs(
+                VocoderDiscriminator.__init__, model_cfg.get("discriminator") or {})).to(dev)
+        if saver is not None:
+            saver.to_save["pipeline_info"] = pipeline.get_info()
+            saver.to_save["model_params"] = dataclasses.asdict(params)
         gan_cfg = model_cfg.get("gan") or {}
         gan = GANTrainer(
             generator, discriminator, gen_crit, vocoder_disc_criterion(),
@@ -127,19 +137,24 @@ def train(model_cfg: tp.Mapping, data_cfg: tp.Mapping, saver: ExperimentSaver,
             gan.warmstart_discriminator(disc_from)
         last = gan.fit(loaders["train"], loaders.get("test"), callbacks=callbacks)
         LOGGER.info("vocoder training done: %s", last)
-        return str(saver.expr_path)
+        return rank_experiment(saver)
     finally:
-        for ld in loaders.values():
-            ld.close()
+        close_data(loaders)
 
 
 def main(argv=None) -> str:
     args = train_arguments("GAN training of a vocoder", MODEL_CONFIG,
                            DATA_CONFIG).parse_args(argv)
     model_cfg, data_cfg = configs_of_args(args)
-    saver = experiment_saver(model_cfg, data_cfg, args.experiment_dir)
-    return train(model_cfg, data_cfg, saver, device=args.device,
-                 tb_dir=saver.expr_path / "tb" if args.tb else None)
+    rank, world = init_distributed(device=args.device)
+    saver = experiment_saver(model_cfg, data_cfg, args.experiment_dir) if rank == 0 else None
+    try:
+        with experiment_log(saver):
+            return train(model_cfg, data_cfg, saver, device=args.device,
+                         tb_dir=saver.expr_path / "tb" if args.tb and saver else None)
+    finally:
+        if world > 1:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

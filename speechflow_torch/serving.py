@@ -184,14 +184,16 @@ def flagship_payload(symbols: tp.Sequence[str]) -> dict:
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights: every matrix or kernel uniform in
     ±1/sqrt(fan_in), every bias zero; other vectors (norm scales, snake
-    parameters, layer scales) keep their constructed constants."""
+    parameters, layer scales) keep their constructed constants. The draws are
+    ``generator``'s, on its device, wherever the module lies."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             if p.ndim >= 2:
                 fan_in = p.shape[0] if isinstance(module.get_submodule(
                     name.rpartition(".")[0]), nn.Embedding) else math.prod(p.shape[1:])
                 bound = 1.0 / math.sqrt(fan_in)
-                p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound - bound)
+                p.copy_(torch.rand(p.shape, generator=generator, device=generator.device)
+                        * 2 * bound - bound)
             elif name.endswith("bias"):
                 p.zero_()
     return module
@@ -200,7 +202,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 def _random_models(tts_p: ParallelTTSParams, voc_p: VocosParams, seed: int
                    ) -> tp.Tuple[ParallelTTSModel, Vocos]:
     """Both models with random weights from one seeded ``torch.Generator`` (on
-    the CPU, float32). The duration predictor's output bias is set to
+    the CPU, float32; the models on torch's default device). The duration predictor's output bias is set to
     log(1 + FRAMES_PER_TOKEN), so that random weights predict utterances of a
     realistic length. The vocoder is folded for inference after the weights
     are drawn (``Vocos.fold_inference``: a BigVGAN head is folded, scattered in
@@ -224,7 +226,8 @@ def build_flagship(value_select: str = "default",
     The vocoder's head is folded, as the bench serves it; ``vm.head.inner`` is
     the unfolded head with the same weights."""
     dev = resolve_device(device)
-    am, vm = _random_models(*flagship_params(value_select), seed)
+    with dev:  # built where they run (their initialisers are overwritten, seconds on a CPU)
+        am, vm = _random_models(*flagship_params(value_select), seed)
     return am.to(dev, dtype).eval(), vm.to(dev, dtype).eval()
 
 
@@ -235,8 +238,9 @@ def build_toy(device: tp.Union[str, torch.device, None] = None,
     (``TOY_TTS_PARAMS``, ``TOY_VOCODER_PARAMS``) with seeded random weights,
     in eval mode, on ``device`` (the GPU unless ``device="cpu"``) in ``dtype``."""
     dev = resolve_device(device)
-    am, vm = _random_models(ParallelTTSParams.create(TOY_TTS_PARAMS),
-                            VocosParams.create(TOY_VOCODER_PARAMS), seed)
+    with dev:
+        am, vm = _random_models(ParallelTTSParams.create(TOY_TTS_PARAMS),
+                                VocosParams.create(TOY_VOCODER_PARAMS), seed)
     return am.to(dev, dtype).eval(), vm.to(dev, dtype).eval()
 
 

@@ -16,6 +16,10 @@ Validation: MCD, SI-SNR and the periodicity metrics of the generated against
 the real waveform, wideband PESQ with ``evaluate_pesq``, and a MOS hook.
 Checkpoints hold both models (the JAX pure-dict layout, ``generator`` and
 ``discriminator``) and both optimizer states.
+
+``use_mesh``: data parallel over the process group's ranks, as ``Trainer``
+has it (``trainer.data_parallel``), for both models and both optimizers; each
+rank's micro-batch is its slice of the global one, and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch.nn as nn
 
 from speechflow_torch.convert import load_nnx_state, nnx_from_module
 from speechflow_torch.models.vocoder.model import split_output
+from speechflow_torch.parallel import distributed as dist
 from speechflow_torch.training.optimizer import OptimizerConfig, build_optimizer
 from speechflow_torch.training.saver import ExperimentSaver
 from speechflow_torch.training.trainer import (
@@ -41,6 +46,8 @@ from speechflow_torch.training.trainer import (
     _sum_losses,
     autocast,
     batch_getter,
+    data_parallel,
+    ranks_mean,
     summary_writer,
 )
 
@@ -80,9 +87,6 @@ class GANTrainer:
         self.disc_criterion = disc_criterion
         self.batch_processor = batch_processor
         self.cfg = config or TrainerConfig()
-        if self.cfg.use_mesh:
-            raise NotImplementedError("use_mesh: data parallel training (DDP) is not "
-                                      "ported yet")
         self.saver = saver
         self.disc_every = disc_every
         self.disc_start_iter = disc_start_iter
@@ -94,6 +98,8 @@ class GANTrainer:
         self.disc_opt = build_optimizer(disc_optimizer or OptimizerConfig(method="adamw",
                                                                           lr=2e-4),
                                         discriminator)
+        self.mesh = data_parallel(self.cfg, [generator, discriminator],
+                                  [self.gen_opt, self.disc_opt])
         self._tb = summary_writer(tb_dir)
         self.device = next(generator.parameters()).device
 
@@ -113,12 +119,13 @@ class GANTrainer:
         self.discriminator.train()
         inputs, targets = _place(self.batch_processor(batch), self.device)
         step = self.global_step
-        gen_out, metrics = self._generator_step(inputs, targets, step)
-        if step >= self.disc_start_iter and step % self.disc_every == 0:
-            fake = split_output(gen_out)[0]
-            metrics.update(self._discriminator_step(fake.detach(), inputs, targets, step))
+        with dist.data_parallel_step(self.mesh is not None):
+            gen_out, metrics = self._generator_step(inputs, targets, step)
+            if step >= self.disc_start_iter and step % self.disc_every == 0:
+                fake = split_output(gen_out)[0]
+                metrics.update(self._discriminator_step(fake.detach(), inputs, targets, step))
         self.global_step += 1
-        return metrics
+        return ranks_mean(metrics) if self.mesh is not None else metrics
 
     def _generator_step(self, inputs, targets, step: int):
         """Gradients of the generator's losses for the generator alone, then
@@ -177,6 +184,8 @@ class GANTrainer:
             mos = [m for m in (self.mos_hook(f, sr) for f in fake) if m is not None]
             if mos:
                 metrics["val/mos"] = float(np.mean(mos))
+        if self.mesh is not None:
+            metrics = {k: float(v) for k, v in ranks_mean(metrics).items()}
         return metrics
 
     def validate(self, val_loader) -> tp.Dict[str, float]:
@@ -235,7 +244,8 @@ class GANTrainer:
         LOGGER.info("warm-started discriminator from %s", ckpt)
 
     def save_checkpoint(self, extra: tp.Optional[dict] = None) -> tp.Optional[Path]:
-        if self.saver is None:
+        """Rank 0 writes (the ranks' states are equal)."""
+        if self.saver is None or dist.process_index() != 0:
             return None
         state = {"generator": nnx_from_module(self.generator),
                  "discriminator": nnx_from_module(self.discriminator)}

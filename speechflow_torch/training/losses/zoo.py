@@ -11,6 +11,7 @@ import typing as tp
 import torch
 import torch.nn.functional as F
 
+from speechflow_torch.parallel.distributed import global_count
 from speechflow_torch.training.losses.base import BaseLoss
 from speechflow_torch.utils.masks import sequence_mask
 
@@ -25,7 +26,7 @@ def _masked_mean(err: torch.Tensor, lengths: tp.Optional[torch.Tensor]) -> torch
     while mask.ndim < err.ndim:
         mask = mask[..., None]
     m = mask.to(err.dtype)
-    return (err * m).sum() / torch.clamp(m.expand_as(err).sum(), min=1e-8)
+    return (err * m).sum() / torch.clamp(global_count(m.expand_as(err).sum()), min=1e-8)
 
 
 class SpectralLoss(BaseLoss):
@@ -107,4 +108,5 @@ class CTCLoss(BaseLoss):
         logp = F.log_softmax(output.float(), dim=-1).transpose(0, 1)
         per_seq = F.ctc_loss(logp, target.long(), lengths.long(), target_lengths.long(),
                              blank=self.blank_id, reduction="none")
-        return torch.mean(per_seq / torch.clamp(target_lengths.to(per_seq.dtype), min=1.0))
+        per_seq = per_seq / torch.clamp(target_lengths.to(per_seq.dtype), min=1.0)
+        return per_seq.sum() / global_count(per_seq.new_tensor(float(b)))

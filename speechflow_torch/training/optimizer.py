@@ -154,6 +154,10 @@ class Optimizer:
         self.mini_step = 0
         self.notfinite_count = 0
         self.acc: tp.Optional[tp.List[torch.Tensor]] = None
+        #: the optimizer step's gradients -> the gradients it applies: data-parallel
+        #: trainers average them over the ranks here, once per optimizer step
+        self.reduce_grads: tp.Optional[tp.Callable[[tp.List[torch.Tensor]],
+                                                   tp.List[torch.Tensor]]] = None
 
     def _grads(self) -> tp.List[torch.Tensor]:
         return [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
@@ -183,6 +187,8 @@ class Optimizer:
             if self.mini_step:
                 return False
             grads, self.acc = self.acc, None
+        if self.reduce_grads is not None:
+            grads = self.reduce_grads(grads)
         finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         if not (finite or self.notfinite_count > MAX_CONSECUTIVE_ERRORS):

@@ -13,8 +13,18 @@ call with dropout; validation only runs it without gradients.
 Mixed precision is ``torch.autocast(bfloat16)`` over the model's call with
 float32 master weights, optimizer state and gradients; the outputs are cast
 to float32 before the criterion, as the JAX trainer casts them
-(``_cast_floats``). The JAX trainer's ``use_mesh`` (data parallel over a
-device mesh) waits for DDP in the port and raises.
+(``_cast_floats``).
+
+``use_mesh`` is data-parallel training over the ranks of a process group
+(``parallel.distributed``; one process, no group: a plain step). Each rank
+holds its slice of the global batch; the parameters and buffers start as rank
+0's (``replicate_state``) and each rank draws its dropout and noise from
+torch's generator seeded by (seed, rank). A step runs inside
+``data_parallel_step``, so the losses divide by the global batch's counts; the
+gradients are averaged over the ranks once per optimizer step (after the last
+micro-batch's backward, ``Optimizer.reduce_grads``), which is the gradient of
+JAX's one program over the global batch, and so are the logged losses. Only
+rank 0 writes TensorBoard and checkpoints.
 """
 
 from __future__ import annotations
@@ -31,7 +41,9 @@ import torch
 import torch.nn as nn
 
 from speechflow_torch.convert import load_nnx_state, nnx_from_module
-from speechflow_torch.training.optimizer import OptimizerConfig, build_optimizer
+from speechflow_torch.parallel import distributed as dist
+from speechflow_torch.parallel.mesh import make_mesh, replicate_state
+from speechflow_torch.training.optimizer import Optimizer, OptimizerConfig, build_optimizer
 from speechflow_torch.training.saver import ExperimentSaver
 
 LOGGER = logging.getLogger("speechflow_torch")
@@ -46,7 +58,7 @@ class TrainerConfig:
     val_every: int = 500
     ckpt_every: int = 1000
     val_batches: int = 8
-    use_mesh: bool = False        # data parallel: not ported (DDP is queued)
+    use_mesh: bool = False        # data parallel over the process group's ranks
     mixed_precision: bool = False  # bf16 compute with fp32 master weights
     seed: int = 0
 
@@ -73,7 +85,7 @@ def _sum_losses(losses: tp.Mapping[str, torch.Tensor]):
 def _place(tree, device: torch.device):
     """Numpy arrays and tensors of a nested dict/list/dataclass onto ``device``."""
     if isinstance(tree, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
+        return torch.from_numpy(np.require(tree, requirements=("C", "W"))).to(device)
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
@@ -102,13 +114,43 @@ def batch_getter(loader) -> tp.Callable:
 
 
 def summary_writer(tb_dir: tp.Optional[tp.Union[str, Path]]):
-    """A TensorBoard writer for ``tb_dir`` (None for None); raises ImportError
-    where the machine has no TensorBoard rather than skip the logging."""
-    if tb_dir is None:
+    """A TensorBoard writer for ``tb_dir`` (None for None, and on ranks other
+    than 0); raises ImportError where the machine has no TensorBoard rather
+    than skip the logging."""
+    if tb_dir is None or dist.process_index() != 0:
         return None
     from torch.utils.tensorboard import SummaryWriter
 
     return SummaryWriter(str(tb_dir))
+
+
+def data_parallel(cfg: TrainerConfig, modules: tp.Sequence[nn.Module],
+                  optimizers: tp.Sequence[Optimizer]):
+    """``use_mesh`` with more than one rank: the modules' state made rank 0's,
+    the optimizers averaging their gradients over the ranks, torch's generator
+    seeded by (seed, rank). Returns the mesh (None without ``use_mesh``)."""
+    if not cfg.use_mesh:
+        return None
+    mesh = make_mesh()
+    if mesh.size > 1:
+        for module in modules:
+            replicate_state(module, mesh)
+        for opt in optimizers:
+            opt.reduce_grads = dist.mean_over_ranks
+        torch.manual_seed(cfg.seed * 100003 + mesh.rank)
+        LOGGER.info("data parallel: rank %d of %d, backend %s", mesh.rank, mesh.size,
+                    dist.backend())
+    return mesh
+
+
+def ranks_mean(metrics: tp.Dict[str, torch.Tensor]) -> tp.Dict[str, torch.Tensor]:
+    """Each 0-d value averaged over the ranks (one all-reduce; as it is on one)."""
+    if not dist.is_distributed():
+        return metrics
+    keys = list(metrics)
+    vals = dist.mean_over_ranks([torch.as_tensor(metrics[k], dtype=torch.float32).reshape(())
+                                 for k in keys])
+    return dict(zip(keys, vals))
 
 
 class Trainer:
@@ -122,13 +164,11 @@ class Trainer:
         self.criterion = criterion
         self.batch_processor = batch_processor
         self.cfg = config or TrainerConfig()
-        if self.cfg.use_mesh:
-            raise NotImplementedError("use_mesh: data parallel training (DDP) is not "
-                                      "ported yet")
         self.opt_cfg = optimizer_config or OptimizerConfig()
         self.saver = saver
         self.global_step = 0
         self.optimizer = build_optimizer(self.opt_cfg, model)
+        self.mesh = data_parallel(self.cfg, [model], [self.optimizer])
         self._tb = summary_writer(tb_dir)
         self.device = next(model.parameters()).device
 
@@ -143,24 +183,27 @@ class Trainer:
         {name: detached 0-d tensor} (``float(v)`` fetches one)."""
         self.model.train()
         inputs, targets = _place(self.batch_processor(batch), self.device)
-        outputs = _cast_floats(self._forward(inputs), torch.float32)
-        losses = self.criterion(outputs, targets, self.global_step)
-        total = _sum_losses(losses)
-        total.backward()
+        with dist.data_parallel_step(self.mesh is not None):
+            outputs = _cast_floats(self._forward(inputs), torch.float32)
+            losses = self.criterion(outputs, targets, self.global_step)
+            total = _sum_losses(losses)
+            total.backward()
         self.optimizer.step()
         self.global_step += 1
         out = {k: v.detach() for k, v in losses.items()}
         out["total_loss"] = total.detach()
-        return out
+        return ranks_mean(out) if self.mesh is not None else out
 
     @torch.no_grad()
     def validation_step(self, batch) -> tp.Dict[str, float]:
         self.model.train()  # the training call, as the JAX trainer validates
         inputs, targets = _place(self.batch_processor(batch), self.device)
-        losses = self.criterion(self._forward(inputs), targets, self.global_step)
-        out = {k: float(v) for k, v in losses.items()}
-        out["total_loss"] = float(_sum_losses(losses))
-        return out
+        with dist.data_parallel_step(self.mesh is not None):
+            losses = self.criterion(self._forward(inputs), targets, self.global_step)
+        losses = dict(losses, total_loss=_sum_losses(losses))
+        if self.mesh is not None:
+            losses = ranks_mean(losses)
+        return {k: float(v) for k, v in losses.items()}
 
     # -- loop -------------------------------------------------------------------
 
@@ -209,7 +252,8 @@ class Trainer:
     # -- persistence ------------------------------------------------------------
 
     def save_checkpoint(self, extra: tp.Optional[dict] = None) -> tp.Optional[Path]:
-        if self.saver is None:
+        """Rank 0 writes (the ranks' states are equal)."""
+        if self.saver is None or dist.process_index() != 0:
             return None
         return self.saver.save(self.global_step, nnx_from_module(self.model),
                                self.optimizer.state_dict(), extra=extra)

@@ -816,3 +816,50 @@ def test_cpc_perceptual_loss_on_the_gpu_matches_the_cpu(cuda_device, tmp_path):
     (l_cpu, g_cpu), (l_gpu, g_gpu) = grads
     assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
     assert (g_gpu - g_cpu).abs().max().item() <= 1e-4 * g_cpu.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_data_parallel_step_on_the_card_equals_one_process(cuda_device, tmp_path):
+    """Two ranks on the one card (gloo, which reduces the CUDA gradients in place),
+    each on half of a global batch whose halves differ in length: the debug CFM
+    acoustic model's ``Trainer`` steps with ``use_mesh`` (SGD, dropout off, injected
+    draws) give one process's losses and weights on the whole batch."""
+    from speechflow_torch import serving
+    from speechflow_torch.models.tts.model import ParallelTTSModel, ParallelTTSParams
+    from speechflow_torch.scripts import train_tts
+    from speechflow_torch.server.worker import take_rows
+    from tests import torch_dp_ranks as R
+
+    params = dict(train_tts.configs("debug")[0]["model"], n_symbols=20, n_speakers=3,
+                  n_langs=2, n_mels=16, decoder_type="cfm")
+    params["variances"] = [dict(v) for v in params["variances"]]
+    model = serving.init_random_(ParallelTTSModel(ParallelTTSParams.create(params)),
+                                 torch.Generator().manual_seed(0))
+    batch = R.tts_batch(4, 13, [13, 12, 7, 5], 16)
+    shape = batch["mel"].shape
+    draws = [tuple(a.numpy() for a in model.decoder.draw(
+        4, shape, torch.device("cpu"), torch.Generator().manual_seed(k))) for k in range(2)]
+    job = dict(kind="tts", params=params, loss=train_tts.configs("debug")[0]["loss"],
+               weights=R._weights(model),
+               opt=dict(method="sgd", lr=0.01, lr_schedule="ConstLR", grad_clip=1.0,
+                        betas=(0.0, 0.999)))
+    halves = [[0, 1], [2, 3]]
+    ranks = R.run_world(2, {"tts": dict(job, batches=[[take_rows(batch, h, 4)] * 2
+                                                      for h in halves],
+                                        draws=[[tuple(a[h] for a in d) for d in draws]
+                                               for h in halves])},
+                        tmp_path, device="cuda")
+    one = R.tts_steps(dict(job, batches=[[batch] * 2], draws=[draws]), 0, "cuda")
+    assert {r["backend"] for r in ranks} == {"gloo"}
+    a, b = ranks[0]["tts"], ranks[1]["tts"]
+    assert a["losses"] == b["losses"]
+    # 1e-4 (the card's f32 tolerance elsewhere): split over the ranks, the card's f32
+    # sums round differently (a loss measured 1.8e-5 apart)
+    for got, want in zip(a["losses"], one["losses"]):
+        for k in want:
+            assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]) + 1e-7, k
+    scale = max(np.abs(v).max() for v in one["weights"].values())
+    for k, v in one["weights"].items():
+        assert np.array_equal(a["weights"][k], b["weights"][k]), k
+        assert np.abs(a["weights"][k] - v).max() <= 1e-4 * scale, k
+

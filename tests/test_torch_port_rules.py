@@ -21,7 +21,7 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 SEGS = REPO / "tests" / "data" / "SEGS"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "speechflow_tpu", "yaml",
-             "tensorstore", "zstandard")
+             "tensorstore", "zstandard", "zmq")
 
 
 def _port_files():
@@ -49,8 +49,9 @@ def test_port_sources_import_no_jax():
 # modules added with the folded head, the DSP ops, the ISTFT vocoder, the
 # vocoder eval interface, the TTS eval interface with its text path, the
 # vocoder's GAN training, the acoustic model's training with its data
-# plane, and XTTS serving with the serving entry points: each must exist and
-# be held to the rules above
+# plane, XTTS serving with the serving entry points, and the data-parallel
+# training with its data server (no pyzmq: the data plane is the standard
+# library's): each must exist and be held to the rules above
 NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "models/vocoder/folded_head.py", "models/vocoder/feature_extractors.py",
                "io/audio.py", "training/saver.py", "utils/state_io.py",
@@ -103,7 +104,13 @@ NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "data/core/parser.py", "annotator/text_alignment.py",
                "annotator/seg_generator.py", "annotator/cloud_asr.py",
                "annotator/prepare_datasets.py", "annotator/runner.py",
-               "examples/mnist/__init__.py", "examples/mnist/train.py")
+               "examples/mnist/__init__.py", "examples/mnist/train.py",
+               "concurrency/__init__.py", "concurrency/process_worker.py",
+               "logging/__init__.py", "logging/server.py", "logging/utils.py",
+               "server/__init__.py", "server/transport.py", "server/server.py",
+               "server/worker.py", "server/loader.py", "server/client.py", "server/proxy.py",
+               "server/helpers.py", "parallel/__init__.py", "parallel/distributed.py",
+               "parallel/mesh.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

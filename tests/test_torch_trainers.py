@@ -191,8 +191,30 @@ def test_trainer_steps_match_jax():
 
 
 def test_trainers_refuse_the_mesh():
-    with pytest.raises(NotImplementedError, match="DDP"):
-        Trainer(TinyModel(), None, None, config=TrainerConfig(use_mesh=True))
+    """``use_mesh`` in one process (no process group) is a one-rank mesh: the
+    trainer no longer refuses it, and its steps are the plain trainer's, bit for
+    bit (the data-parallel steps are in ``test_torch_distributed.py``)."""
+    def crit(out, tgt, step):
+        return {"mse": torch.mean((out - tgt["y"]) ** 2)}
+
+    def bp(batch):
+        return {"x": batch["x"]}, {"y": batch["y"]}
+
+    torch.manual_seed(0)
+    a = TinyModel()
+    b = TinyModel()
+    b.load_state_dict(a.state_dict())
+    plain = Trainer(a, crit, bp, OptimizerConfig(lr=1e-2), TrainerConfig(max_steps=3))
+    mesh = Trainer(b, crit, bp, OptimizerConfig(lr=1e-2), TrainerConfig(max_steps=3,
+                                                                         use_mesh=True))
+    assert mesh.mesh is not None and mesh.mesh.size == 1 and plain.mesh is None
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        x = rng.normal(size=(4, 8)).astype(np.float32)
+        batch = {"x": x, "y": (x[:, :4] * 2.0).astype(np.float32)}
+        assert float(plain.training_step(batch)["mse"]) == float(mesh.training_step(batch)["mse"])
+    for (n, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), n
 
 
 def test_mixed_precision_gan_step():
