@@ -374,19 +374,23 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    ``tests/test_annotator_two_stage.py`` (debug width, ``TONE_STEPS`` a stage) under that
    test's assertions, and the MNIST example (``MNIST_STEPS`` of B``MNIST_BATCH``;
    accuracy above 0.8, as JAX's example requires).
-27. ``ddp``: data-parallel training on ``DDP_WORLD`` ranks of the one card, spawned
-   under the environment contract (``SPEECHFLOW_COORDINATOR``, ``_NUM_PROCESSES``,
-   ``_PROCESS_ID``) with gloo (collectives time out after ``DDP_COLLECTIVE_S``), rank 0's
-   data server feeding both: ``train_tts.train`` on ``configs/tts_model.yml`` default with
-   ``use_mesh`` (global batch ``DDP_TTS_BATCH``, ``DDP_TTS_STEPS`` steps), then
-   ``train_vocoder.train`` on the train phase's recipe (``DDP_GAN_MICRO_BATCHES``, one
-   optimizer step, each micro-batch split over the ranks). Before its first step each rank
+27. ``ddp``: data-parallel training on ``DDP_WORLD`` ranks of the one card (forks of
+   the worker forkserver, ``concurrency.context``) under the environment contract
+   (``SPEECHFLOW_COORDINATOR``, ``_NUM_PROCESSES``, ``_PROCESS_ID``) with gloo
+   (collectives time out after ``DDP_COLLECTIVE_S``), rank 0's data server feeding both:
+   ``train_tts.train`` on ``configs/tts_model.yml`` default with ``use_mesh`` (global
+   batch ``DDP_TTS_BATCH``, ``DDP_TTS_STEPS`` steps), then ``train_vocoder.train`` on the
+   train phase's recipe (``DDP_GAN_MICRO_BATCHES``, one optimizer step, each micro-batch
+   split over the ranks). Before its first step each rank
    takes its gradients on seeded random weights (dropout off, injected draws), averaged over
    the ranks, and rank 0 holds them against one process on the gathered global batch (the
    ReLUs' sides pinned; ``TOL_TTS_GRAD``), as it holds the gradients with each rank's own
-   valid-frame count as the normaliser, which must be rejected; the GAN's gate in float64
-   through the plain versions on ``DDP_GATE_WAVE`` of each rank's rows (kinks pinned;
-   ``TOL_GAN_GRAD``), rank 0's unaveraged gradients the planted fault. Then: each step's
+   valid-frame count as the normaliser, which must be rejected; the GAN's gate:
+   ``GANTrainer``'s own ``use_mesh`` step in float64 through the plain versions on
+   ``DDP_GATE_WAVE`` of each rank's rows (SGD at lr 1; kinks pinned) against one
+   process's updates within ``TOL_DDP_F64``, two planted faults (a rank that skips the
+   all-reduce; the STFT loss's spectral convergence of the rank's own norms) rejected.
+   Then: each step's
    samples disjoint over the ranks and together one process's global batch, the weights
    equal on both ranks, rank 0's experiment the only one, its checkpoint served one request
    through ``TTSEvaluationInterface`` kernels vs plain (186 / 37 / 6 / 18 launches), the
@@ -6641,6 +6645,10 @@ DDP_TTS_STEPS = 3
 DDP_TTS_BATCH = 40  # the global batch: the 40 train utterances of SEGS, 20 a rank
 DDP_GAN_MICRO_BATCHES = 8  # one optimizer step at the recipe's grad_accum 8
 DDP_GATE_WAVE = (1, 8192)  # each rank's rows and samples of the GAN gate (float64)
+# the float64 GAN gate (updates of each tensor's largest, and losses): on an H100 (700 W)
+# the ranks read 4.78e-10 (a bias whose gradient sums to ~1e-6 of its terms), the per-rank
+# STFT normaliser fault 1.15e-2 and a rank that skips the all-reduce 16; the limit lies between
+TOL_DDP_F64 = 1e-6
 DDP_TIMEOUT_S = 300  # both ranks joined within this, else the phase fails
 DDP_COLLECTIVE_S = 60  # a collective waits no longer (gloo's default: 30 minutes)
 
@@ -6676,11 +6684,12 @@ def ddp_draws(torch, model, rows: slice, shape: tuple):
 
 
 def ddp_gather(torch, obj):
-    """Every rank's ``obj`` (pickled through the process group), in rank order."""
+    """Every rank's ``obj`` on rank 0 (pickled through the process group), in rank
+    order; None on the other ranks."""
     import torch.distributed as dist
 
-    out = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
+    out = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+    dist.gather_object(obj, out, dst=0)
     return out
 
 
@@ -6754,44 +6763,82 @@ def ddp_tts_gate(torch, trainer, batch, rank: int, world: int) -> tp.Optional[di
 
 
 def ddp_gan_gate(torch, gan, batch, rank: int, world: int) -> tp.Optional[dict]:
-    """On every rank, before its first micro-batch: ``gan_grads`` of float64 copies of
-    both models through the plain versions (float64 leaves the batch split no
-    rounding to show) on its first ``DDP_GATE_WAVE`` rows and samples, the
-    discriminators' kinks recorded, averaged over the ranks. Rank 0 gathers the
-    rows and masks and computes one process's gradients on them, the kinks replayed;
-    its own unaveraged gradients are the planted fault (a rank that skips the
-    all-reduce). Returns the disagreements on rank 0 (None elsewhere)."""
+    """On every rank, before its first micro-batch: float64 copies of both models
+    through the plain versions take ``GANTrainer``'s own ``use_mesh`` step on the
+    rank's first ``DDP_GATE_WAVE`` rows and samples (SGD at lr 1, no clip: the
+    update is the averaged gradient, whose scale Adam's first step and a clip would
+    hide; float64 everywhere, so the batch split rounds at ~1e-15), the
+    discriminators' kinks recorded. From the same weights, two planted faults: a
+    rank that skips the all-reduce, and the STFT loss's spectral convergence
+    normalised by the rank's own norms. Rank 0 gathers the rows and kinks and takes
+    one process's step (no mesh) on the global rows, kinks replayed. Returns on
+    rank 0 the worst update error of each run, of each tensor's largest update."""
     import copy
+    import dataclasses
 
+    import numpy as np
+
+    from speechflow_torch.models.vocoder import criterion
     from speechflow_torch.parallel import distributed as D
+    from speechflow_torch.training.gan_trainer import GANTrainer
+    from speechflow_torch.training.optimizer import OptimizerConfig
+    from speechflow_torch.training.trainer import TrainerConfig
 
     rows, n = DDP_GATE_WAVE
-    gen = copy.deepcopy(gan.generator).double()
-    disc = copy.deepcopy(gan.discriminator).double()
-    wav = torch.as_tensor(batch.waveform[:rows, :n]).to("cuda", torch.float64)
+    dev = gan.device
+    sgd = OptimizerConfig(method="sgd", lr=1.0, lr_schedule="ConstLR", grad_clip=None,
+                          betas=(0.0, 0.999), grad_accum=1)
+    models = [copy.deepcopy(m).double() for m in (gan.generator, gan.discriminator)]
+    init = [{k: v.clone() for k, v in m.state_dict().items()} for m in models]
+    wav = np.asarray(batch.waveform[:rows, :n], np.float64)
+
+    def trainer(mesh: bool):
+        return GANTrainer(*models, gan.gen_criterion, gan.disc_criterion, gan.batch_processor,
+                          gen_optimizer=sgd, disc_optimizer=sgd,
+                          config=TrainerConfig(use_mesh=mesh, seed=gan.cfg.seed),
+                          disc_every=gan.disc_every, disc_start_iter=gan.disc_start_iter)
+
+    def update(t, rows_wav, pins=None):
+        """One step of ``t`` from the initial weights: (losses, {parameter: update})."""
+        for m, w in zip(models, init):
+            m.load_state_dict(w)
+        with pinned_kinks(torch, pins) if pins is not None else contextlib.nullcontext():
+            losses = t.training_step({"waveform": rows_wav})
+        return ({k: float(v) for k, v in losses.items()},
+                {f"{tag}.{k}": v.detach() - w[k] for tag, m, w in zip(("gen", "disc"), models, init)
+                 for k, v in m.named_parameters()})
+
+    def local_norm_ratio(diff, ref, eps=1e-6):
+        return torch.linalg.norm(diff) / torch.clamp(torch.linalg.norm(ref.detach()), min=eps)
+
     pins: dict = {}
-    with uncounted(), plain_versions():
-        with D.data_parallel_step(), pinned_kinks(torch, pins):
-            losses, grads = gan_grads(torch, gen, disc, gan.gen_criterion,
-                                      gan.disc_criterion, wav)
-        names = list(grads)
-        mean = dict(zip(names, D.mean_over_ranks([grads[k] for k in names])))
-        lv = D.mean_over_ranks([torch.tensor(v, device="cuda") for v in losses.values()])
-        losses = {k: float(v) for k, v in zip(losses, lv)}
-        parts = ddp_gather(torch, (wav.cpu(), [m.cpu() for m in pins["masks"]]))
+    devices = [dev.index or 0] if dev.type == "cuda" else []
+    with uncounted(), plain_versions(), torch.random.fork_rng(devices=devices):
+        t = trainer(True)
+        got = update(t, wav, pins)
+        reduce = t.gen_opt.reduce_grads, t.disc_opt.reduce_grads
+        t.gen_opt.reduce_grads = t.disc_opt.reduce_grads = None
+        skip = update(t, wav)
+        t.gen_opt.reduce_grads, t.disc_opt.reduce_grads = reduce
+        real_ratio, criterion.norm_ratio = criterion.norm_ratio, local_norm_ratio
+        try:
+            local = update(t, wav)
+        finally:
+            criterion.norm_ratio = real_ratio
+        parts = ddp_gather(torch, (wav, [m.cpu() for m in pins["masks"]]))
         out = None
         if rank == 0:
-            ref_pins = {"masks": [torch.cat(ms).to("cuda")
-                                  for ms in zip(*(m for _, m in parts))]}
-            glob = torch.cat([w for w, _ in parts]).to("cuda")
-            with pinned_kinks(torch, ref_pins):
-                ref = gan_grads(torch, gen, disc, gan.gen_criterion, gan.disc_criterion, glob)
-            out = {"shape": tuple(glob.shape), "n": len(ref[1]), "flips": ref_pins["flips"],
-                   "worst": worst_relative(ref[1], mean),
-                   "fails": gan_disagreement(ref, (losses, mean), TOL_GAN_GRAD),
-                   "bad": gan_disagreement(ref, (losses, grads), TOL_GAN_GRAD)}
-    del gen, disc, grads, mean, parts
-    torch.cuda.empty_cache()
+            ref_pins = {"masks": [torch.cat(ms).to(dev) for ms in zip(*(m for _, m in parts))]}
+            glob = np.concatenate([w for w, _ in parts])
+            ref = update(trainer(False), glob, ref_pins)
+            losses = max(abs(got[0][k] - v) / max(abs(v), 1e-30) for k, v in ref[0].items())
+            out = {"shape": glob.shape, "n": len(ref[1]), "flips": ref_pins["flips"],
+                   "losses": losses, "got": worst_relative(ref[1], got[1]),
+                   "skip": worst_relative(ref[1], skip[1]),
+                   "local": worst_relative(ref[1], local[1])}
+    del models, init, t, got, skip, local, parts
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
@@ -6828,7 +6875,13 @@ def ddp_rank_run(torch, kind: str, rank: int, world: int, tmp: Path) -> dict:
             rec["wait_s"] = self.wait_s
         return batch
 
+    owner: list = []  # the trainer that train() built
+
     def step(self, batch):
+        if not owner:
+            owner.append(self)
+        if self is not owner[0]:  # a trainer of the GAN gate's own
+            return real_step(self, batch)
         if "gate" not in rec:
             ddp_mark(rank, f"{kind}: first batch in hand")
             rec["gate"] = gate(torch, self, batch, rank, world)
@@ -6874,14 +6927,15 @@ def ddp_mark(rank: int, what: str) -> None:
     print(f"[ddp] rank {rank} at {t:.1f} s: {what}", flush=True)
 
 
-def ddp_rank(rank: int, world: int, port: int, tmp: str) -> None:
-    """A spawned rank under the environment contract: acoustic model, then vocoder GAN."""
+def ddp_rank(rank: int, world: int, port: int, tmp: str, t0: float) -> None:
+    """A rank under the environment contract: acoustic model, then vocoder GAN."""
     import pickle
 
     import torch
 
     os.environ.update(SPEECHFLOW_COORDINATOR=f"127.0.0.1:{port}",
-                      SPEECHFLOW_NUM_PROCESSES=str(world), SPEECHFLOW_PROCESS_ID=str(rank))
+                      SPEECHFLOW_NUM_PROCESSES=str(world), SPEECHFLOW_PROCESS_ID=str(rank),
+                      SPEECHFLOW_DDP_T0=str(t0))
     sys.path.insert(0, str(REPO))
     from speechflow_torch.parallel import distributed as D
 
@@ -6900,19 +6954,19 @@ def ddp_rank(rank: int, world: int, port: int, tmp: str) -> None:
 
 
 def ddp_spawn(tmp: Path) -> list:
-    """``DDP_WORLD`` ranks spawned and joined within ``DDP_TIMEOUT_S``; when one fails
+    """``DDP_WORLD`` ranks started and joined within ``DDP_TIMEOUT_S``; when one fails
     the others are stopped and the phase fails (its traceback is on stderr)."""
-    import multiprocessing as mp
     import pickle
 
+    from speechflow_torch.concurrency.context import worker_context
     from speechflow_torch.server.transport import find_free_port
 
-    ctx = mp.get_context("spawn")
+    ctx = worker_context()  # forks of a server that imported torch, not of this process
     port = find_free_port()
-    procs = [ctx.Process(target=ddp_rank, args=(r, DDP_WORLD, port, str(tmp)), name=f"rank{r}")
-             for r in range(DDP_WORLD)]
-    deadline = time.time() + DDP_TIMEOUT_S
-    os.environ["SPEECHFLOW_DDP_T0"] = str(time.time())
+    t0 = time.time()
+    procs = [ctx.Process(target=ddp_rank, args=(r, DDP_WORLD, port, str(tmp), t0),
+                         name=f"rank{r}") for r in range(DDP_WORLD)]
+    deadline = t0 + DDP_TIMEOUT_S
     try:
         for p in procs:
             p.start()
@@ -7021,27 +7075,30 @@ def ddp_check_tts(torch, ranks: list, tmp: Path, gpu_line: str) -> dict:
 
 
 def ddp_check_gan(torch, ranks: list, gpu_line: str) -> None:
-    """The GAN gate (rank 0's): the averaged gradients, and its own unaveraged ones
-    (the planted fault), against one process on the ranks' rows, kinks pinned."""
+    """The GAN gate (rank 0's): the ranks' float64 ``GANTrainer`` updates against one
+    process's, within ``TOL_DDP_F64``; both planted faults outside it."""
     runs = [r["gan"] for r in ranks]
     check(runs[0]["digest"] == runs[1]["digest"],
           "ddp: the ranks' generator and discriminator differ after the optimizer step")
     gate = runs[0]["gate"]
-    w, fails, bad = gate["worst"], gate["fails"], gate["bad"]
-    print(f"[ddp] vocoder GAN ({TRAIN_PRESET} recipe; the gate in float64 through the plain "
-          f"versions): {DDP_WORLD} ranks x {DDP_GATE_WAVE}, both models' gradients averaged "
-          f"over the ranks against one process on {gate['shape']} (rank 0): {gate['n']} "
-          f"gradients, worst relative {w[0]:.3g} ({w[1]}; tol {TOL_GAN_GRAD:g}; "
-          f"{gate['flips']} kink elements crossed 0, pinned); planted fault (a rank that "
-          f"skips the all-reduce): {len(bad)} disagreement(s), {bad[:1]} ({gpu_line})",
-          flush=True)
-    check(not fails, "ddp: the GAN gradients disagree with one process: " + "; ".join(fails[:3]))
-    check(bool(bad), "ddp: the GAN gate passes a rank that skips the all-reduce")
+    (err, where), (skip, s_where), (local, l_where) = gate["got"], gate["skip"], gate["local"]
+    print(f"[ddp] vocoder GAN ({TRAIN_PRESET} recipe; GANTrainer's own use_mesh step in "
+          f"float64 through the plain versions, SGD at lr 1): {DDP_WORLD} ranks x "
+          f"{DDP_GATE_WAVE} against one process on {gate['shape']} (rank 0): worst loss "
+          f"error {gate['losses']:.3g}, {gate['n']} updates, worst {err:.3g} of the tensor's "
+          f"largest update ({where}; tol {TOL_DDP_F64:g}; {gate['flips']} kink elements "
+          f"crossed 0, pinned); planted faults: a rank that skips the all-reduce {skip:.3g} "
+          f"({s_where}), the spectral convergence of the rank's own norms {local:.3g} "
+          f"({l_where}) ({gpu_line})", flush=True)
+    check(err <= TOL_DDP_F64 and gate["losses"] <= TOL_DDP_F64,
+          f"ddp: the GAN updates disagree with one process: {where} {err}")
+    check(skip > TOL_DDP_F64, "ddp: the GAN gate passes a rank that skips the all-reduce")
+    check(local > TOL_DDP_F64, "ddp: the GAN gate passes per-rank STFT normalisers")
 
 
 def phase_ddp(torch, gpu_line: str) -> dict:
     """Data-parallel training through ``train_tts.train`` and ``train_vocoder.train`` on
-    ``DDP_WORLD`` ranks of the one card (spawned, the environment contract, gloo), rank
+    ``DDP_WORLD`` ranks of the one card (the environment contract, gloo), rank
     0's data server feeding both."""
     import multiprocessing as mp
     import statistics
@@ -7052,7 +7109,7 @@ def phase_ddp(torch, gpu_line: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     tmp = Path(tempfile.mkdtemp(prefix="ddp_", dir=workdir()))
     ranks = ddp_spawn(tmp)
-    print(f"[ddp] {DDP_WORLD} ranks spawned, trained and joined in "
+    print(f"[ddp] {DDP_WORLD} ranks started, trained and joined in "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     for kind, what in (("tts", "acoustic model, step"), ("gan", "vocoder GAN, micro-batch")):
         for r, rank in enumerate(ranks):
@@ -7236,10 +7293,22 @@ def phase_time(label: str, t0: float) -> float:
     return now
 
 
+def start_worker_server() -> None:
+    """Start the data workers' forkserver now, so that it imports torch and the data
+    modules while the kernels build (``concurrency.context``)."""
+    from multiprocessing import forkserver
+
+    from speechflow_torch.concurrency.context import worker_context
+
+    if worker_context().get_start_method() == "forkserver":
+        forkserver.ensure_running()
+
+
 def run(torch, phases: set) -> int:
     start = t0 = time.perf_counter()
     gpu_line = phase_gpu()
     records = {}
+    start_worker_server()
     phase_build()
     t0 = phase_time("build", t0)
     if "kernels" in phases:

@@ -1,11 +1,12 @@
-"""A spawned worker process with a lifecycle (counterpart of
+"""A worker process with a lifecycle (counterpart of
 ``speechflow_tpu/concurrency/process_worker.py``).
 
 Subclasses implement ``on_start`` / ``do_work_once`` / ``on_finish``; the
 parent sees shared started and finished flags. ``none_stop`` keeps the loop
-going after ``do_work_once`` raises instead of ending it. Children start with
-``spawn``, never ``fork``: a forked child of a process that has initialised
-CUDA fails or hangs. A worker is not daemonic, so it may start children of its
+going after ``do_work_once`` raises instead of ending it. Children start from
+``concurrency.context.worker_context()`` (forks of a forkserver that has
+imported torch, never of a process that has initialised CUDA) with the
+parent's environment at launch. A worker is not daemonic, so it may start children of its
 own (a data server's workers); ``stop`` joins it, and terminates it after
 ``timeout``. A child inherits the parent's log address
 (``speechflow_torch.logging``), so its records reach the experiment's log.
@@ -15,9 +16,12 @@ from __future__ import annotations
 
 import logging
 import multiprocessing as mp
+import os
 import time
 import traceback
 import typing as tp
+
+from speechflow_torch.concurrency.context import adopt_environment, worker_context
 
 LOGGER = logging.getLogger("speechflow_torch")
 
@@ -36,7 +40,7 @@ def stop_all(workers: tp.Sequence["ProcessWorker"], timeout: float = 10.0) -> No
 
 class ProcessWorker:
     def __init__(self, none_stop: bool = False, name: tp.Optional[str] = None):
-        ctx = mp.get_context("spawn")
+        ctx = worker_context()
         self._ctx = ctx
         self.none_stop = none_stop
         self.name = name or type(self).__name__
@@ -44,6 +48,7 @@ class ProcessWorker:
         self._stop = ctx.Event()
         self._finished = ctx.Event()
         self._proc: tp.Optional[mp.process.BaseProcess] = None
+        self._env: tp.Dict[str, str] = {}
 
     # -- lifecycle hooks (override) ---------------------------------------------
 
@@ -66,6 +71,7 @@ class ProcessWorker:
 
     def launch(self) -> "ProcessWorker":
         """Start the child without waiting for it (``wait_started`` waits)."""
+        self._env = dict(os.environ)
         self._proc = self._ctx.Process(target=self._run, name=self.name, daemon=False)
         self._proc.start()
         return self
@@ -128,6 +134,7 @@ class ProcessWorker:
     def _run(self) -> None:
         from speechflow_torch.logging.server import attach_from_env
 
+        adopt_environment(self._env)
         attach_from_env()
         try:
             self.on_start()

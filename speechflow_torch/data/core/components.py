@@ -39,9 +39,12 @@ import functools
 import importlib
 import inspect
 import logging
+import os
 import typing as tp
 
 import torch
+
+from speechflow_torch.concurrency.context import adopt_environment, worker_context
 
 from speechflow_torch.data.collate import COLLATES
 from speechflow_torch.data.core.processor import DumpProcessor
@@ -345,9 +348,9 @@ class _SamplerIndices:
 class AudioLoader:
     """Batches of one subset from a ``torch.utils.data.DataLoader``: the
     sampler runs here and its batches go out as single samples to ``n_workers``
-    spawned worker processes, which run the handlers (a batch's samples on all of
-    them at once, so the first batch waits for a share of it, not for all of it);
-    the collate runs here. Each worker keeps ``prefetch_factor`` batches' share of
+    worker processes (``concurrency.context.worker_context()``), which run the
+    handlers (a batch's samples on all of them at once, so the first batch
+    waits for a share of it, not for all of it); the collate runs here. Each worker keeps ``prefetch_factor`` batches' share of
     samples in flight (everything runs in this process when ``n_workers`` is 0).
     The workers start at the first ``next_batch()``, so a loader never read (a
     validation subset before its first validation) takes no host time from the
@@ -361,7 +364,9 @@ class AudioLoader:
         kwargs = dict(num_workers=n_workers)
         if n_workers > 0:
             kwargs.update(prefetch_factor=max(2, -(-prefetch_factor * batch_size // n_workers)),
-                          multiprocessing_context="spawn")
+                          multiprocessing_context=worker_context(),
+                          worker_init_fn=functools.partial(adopt_environment,
+                                                           dict(os.environ)))
         self._loader = torch.utils.data.DataLoader(
             _SubsetSamples(pipeline.datasets[subset], pipeline.process),
             sampler=self._indices, batch_size=None, collate_fn=_as_is, **kwargs)

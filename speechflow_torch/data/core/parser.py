@@ -4,8 +4,9 @@
 (file -> metadata dicts), each metadata dict through the ``preproc_fns`` in
 order (one returning None drops the record) and the survivors through
 ``to_datasample`` (None drops it too). Files go in chunks of ``chunk_size``;
-with ``n_processes > 1`` and more than one chunk, the chunks run in a spawned
-process pool (the parser and its functions must pickle). A file that raises is
+with ``n_processes > 1`` and more than one chunk, the chunks run in a pool of
+worker processes (``concurrency.context``; the parser and its functions must
+pickle). A file that raises is
 skipped with a warning when ``skip_corrupted``, else the error propagates. With
 ``cache_dir`` the parsed list is pickled there as ``parsed_<key>.pkl``, the key
 JAX's (the sorted files, the preproc functions' names, the parser's class), and
@@ -18,10 +19,12 @@ from __future__ import annotations
 
 import hashlib
 import logging
-import multiprocessing as mp
+import os
 import pickle
 import typing as tp
 from pathlib import Path
+
+from speechflow_torch.concurrency.context import adopt_environment, worker_context
 
 __all__ = ["BaseDSParser", "Metadata"]
 
@@ -92,7 +95,8 @@ class BaseDSParser:
                   for i in range(0, len(files), self.chunk_size)]
         samples: list = []
         if self.n_processes > 1 and len(chunks) > 1:
-            with mp.get_context("spawn").Pool(self.n_processes) as pool:
+            with worker_context().Pool(self.n_processes, initializer=adopt_environment,
+                                       initargs=(dict(os.environ),)) as pool:
                 for part in pool.imap(_process_chunk, [(self, c) for c in chunks]):
                     samples.extend(part)
         else:

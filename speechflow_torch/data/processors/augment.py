@@ -19,6 +19,7 @@ from __future__ import annotations
 import typing as tp
 
 import numpy as np
+from scipy.signal import resample_poly
 
 from speechflow_torch.data.core.datasample import AudioDataSample, SpectrogramDataSample
 from speechflow_torch.data.processors import handler
@@ -29,14 +30,6 @@ __all__ = ["aug_gain", "aug_clipping", "aug_colored_noise", "aug_pitch_shift",
            "aug_change_rhythm", "aug_monotonic_speech", "aug_spec_blur", "aug_spec_noise",
            "aug_spec_augment"]
 
-
-
-def resample_poly(x, up, down, **kwargs):
-    """``scipy.signal.resample_poly``, imported at first use (a data worker that
-    never augments does not pay for scipy.signal)."""
-    from scipy.signal import resample_poly as resample
-
-    return resample(x, up, down, **kwargs)
 
 def _rng(ds, seed):
     if seed is not None:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import typing as tp
 
 import numpy as np
+from scipy.signal import savgol_filter
 
 from speechflow_torch.data.core.datasample import SpectrogramDataSample
 from speechflow_torch.data.processors import handler
@@ -92,8 +93,6 @@ def signal_enhancement(ds: SpectrogramDataSample, attributes: tp.Union[str, tp.L
             opts = dict(window_length=5, polyorder=1, mode="wrap")
             opts.update(smooth_options or {})
             if len(values) > opts["window_length"]:
-                from scipy.signal import savgol_filter
-
                 values = np.clip(savgol_filter(values, **opts), 0.0, None)
 
         if set_zero_in_pauses:

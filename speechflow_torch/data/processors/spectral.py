@@ -11,6 +11,7 @@ from __future__ import annotations
 import typing as tp
 
 import numpy as np
+from scipy import ndimage
 
 from speechflow_torch.data.core.datasample import SpectrogramDataSample
 from speechflow_torch.data.processors import handler, np_dsp
@@ -115,8 +116,6 @@ def pitch(ds: SpectrogramDataSample, f0_min: float = 80.0, f0_max: float = 880.0
     if ds.magnitude is not None and f0.shape[0] != ds.magnitude.shape[0]:
         fmax = f0.max() if len(f0) else 0.0
         zoom = [ds.magnitude.shape[0] / f0.shape[0]] + [1.0] * (f0.ndim - 1)
-        from scipy import ndimage
-
         f0 = ndimage.zoom(f0, zoom, order=1)
         f0 = np.clip(f0, 0.0, fmax)[: ds.magnitude.shape[0]].astype(np.float32)
     ds.pitch = f0

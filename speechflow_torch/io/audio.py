@@ -24,6 +24,8 @@ import wave
 from pathlib import Path
 
 import numpy as np
+from scipy.io import wavfile
+from scipy.signal import resample_poly
 
 __all__ = ["AudioChunk", "AudioFormat"]
 
@@ -45,8 +47,6 @@ def _to_float32(data: np.ndarray) -> np.ndarray:
 def _read(path: Path) -> tp.Tuple[int, np.ndarray]:
     """(rate, samples) of a WAV file or of an Ogg file, by its first packet."""
     if path.suffix.lower() not in _OGG_SUFFIXES:
-        from scipy.io import wavfile
-
         return wavfile.read(str(path))
     from speechflow_torch.io import codecs
 
@@ -96,8 +96,6 @@ class AudioChunk:
         if self.data is None and self.file_path is not None:
             if self.file_path.suffix.lower() in _OGG_SUFFIXES:
                 return self.load().duration
-            from scipy.io import wavfile
-
             sr, data = wavfile.read(str(self.file_path), mmap=True)
             return data.shape[0] / sr - self.begin
         return self.waveform.shape[-1] / self.sr
@@ -131,8 +129,6 @@ class AudioChunk:
     def resample(self, sr: int) -> "AudioChunk":
         if self.sr != sr:
             g = math.gcd(int(sr), int(self.sr))
-            from scipy.signal import resample_poly
-
             self.data = resample_poly(self.waveform, sr // g, self.sr // g,
                                       axis=-1).astype(np.float32)
             self.sr = sr
@@ -153,8 +149,6 @@ class AudioChunk:
             write = codecs.write_ogg_opus if suffix == ".opus" else codecs.write_ogg_vorbis
             write(path, pcm, int(self.sr))
         else:
-            from scipy.io import wavfile
-
             wavfile.write(str(path), int(self.sr), (pcm * 32767.0).astype(np.int16))
         return self
 

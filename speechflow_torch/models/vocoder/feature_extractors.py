@@ -23,7 +23,8 @@ class MelFeatures(nn.Module):
     """``inputs["waveform"]`` (B, N) -> log-mel (B, N//hop + 1, n_mels): all
     centered frames, so the generator's (T-1)·hop crop gives back N samples
     when hop divides N. Computed in float32 (the log of a magnitude clipped
-    at 1e-5); the caller casts the features to the model's dtype."""
+    at 1e-5), or float64 from a float64 waveform; the caller casts the
+    features to the model's dtype."""
 
     def __init__(self, sample_rate: int = 24000, n_fft: int = 1024, hop_length: int = 256,
                  n_mels: int = 100, normalize: bool = False):
@@ -42,7 +43,8 @@ class MelFeatures(nn.Module):
         wav = inputs["waveform"] if isinstance(inputs, dict) else inputs.waveform
         # f32 under a training autocast too, as the JAX package computes it
         with torch.autocast(device_type=wav.device.type, enabled=False):
-            mag = S.magnitude(wav.float(), self.n_fft, self.hop_length)
+            mag = S.magnitude(wav.to(torch.promote_types(wav.dtype, torch.float32)),
+                              self.n_fft, self.hop_length)
             mel = M.amp_to_db(M.linear_to_mel(mag, self.sample_rate, self.n_mels))
             return M.normalize_mel(mel) if self.normalize else mel
 

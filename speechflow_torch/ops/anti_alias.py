@@ -13,7 +13,8 @@ the TPU kernel ``anti_alias_snake_pallas``):
 
 On CPU tensors each runs its plain PyTorch version (``*_reference``), the
 shifted-add composition of ``anti_alias_snake_xla``. The plain versions and
-the kernel compute in f32 and return the input's dtype. Derivation (taps K,
+the kernel compute in f32 (the plain versions in float64 for float64 inputs)
+and return the input's dtype. Derivation (taps K,
 XLA SAME anchoring pad_left p = (K-1)//2):
 
   stage 1: y_even[i] = sum_{k-p even} 2 f[k] x[i + (k-p)/2]
@@ -29,8 +30,8 @@ Each Function saves its inputs only; the fused entry's VJP recomputes stage 1
 with the ``aa_upsample_fir`` kernel (counted as a launch of it). Every FIR is
 a sum of shifted copies with zeros outside [0, T), so its transpose is the
 same sum with the shifts negated; the edge rules follow. The VJPs compute in
-f32 (α and β reduced over (B, T) in f32) and return each gradient in its
-input's dtype. On CPU tensors the plain versions run under PyTorch's own
+f32 (α and β reduced over (B, T) in f32; float64 for float64 inputs) and
+return each gradient in its input's dtype. On CPU tensors the plain versions run under PyTorch's own
 autograd.
 """
 
@@ -79,6 +80,12 @@ def kaiser_sinc_filter(cutoff: float = 0.25, half_width: float = 0.15,
 # -- plain versions -------------------------------------------------------------
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in float64 where it is float64 (the plain versions'
+    compute type: the kernels' f32, never narrower than the input)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _shifter(v: torch.Tensor, m: int):
     t = v.shape[1]
     vp = torch.nn.functional.pad(v, (0, 0, m, m))
@@ -86,15 +93,15 @@ def _shifter(v: torch.Tensor, m: int):
 
 
 def _snake(y: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    a = torch.exp(alpha.float())
-    inv_b = 1.0 / (torch.exp(beta.float()) + 1e-9)
+    a = torch.exp(_wide(alpha))
+    inv_b = 1.0 / (torch.exp(_wide(beta)) + 1e-9)
     return y + inv_b * torch.sin(a * y) ** 2
 
 
 def _phases_f32(x: torch.Tensor, taps: int) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     filt = kaiser_sinc_filter(taps=taps)
     p = (taps - 1) // 2
-    sh = _shifter(x.float(), taps // 2 + 1)
+    sh = _shifter(_wide(x), taps // 2 + 1)
     y_even = y_odd = None
     for k in range(taps):
         w = 2.0 * float(filt[k])
@@ -111,8 +118,8 @@ def _downsample_f32(y_even, y_odd, alpha, beta, taps: int) -> torch.Tensor:
     filt = kaiser_sinc_filter(taps=taps)
     p = (taps - 1) // 2
     m = taps // 2 + 1
-    sh_e = _shifter(_snake(y_even.float(), alpha, beta), m)
-    sh_o = _shifter(_snake(y_odd.float(), alpha, beta), m)
+    sh_e = _shifter(_snake(_wide(y_even), alpha, beta), m)
+    sh_o = _shifter(_snake(_wide(y_odd), alpha, beta), m)
     out = None
     for k in range(taps):
         w = float(filt[k])
@@ -259,8 +266,8 @@ def _snake_vjp(y: torch.Tensor, dz: torch.Tensor, alpha: torch.Tensor, beta: tor
                ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Through z = y + sin²(a·y)/(e^β + 1e-9), a = e^α (f32): dy, and the
     (C,) sums over (B, T) of dα and dβ."""
-    a = torch.exp(alpha.float())
-    e_b = torch.exp(beta.float())
+    a = torch.exp(_wide(alpha))
+    e_b = torch.exp(_wide(beta))
     inv_b = 1.0 / (e_b + 1e-9)
     s2 = torch.sin(2.0 * a * y)
     dy = dz * (1.0 + a * inv_b * s2)
@@ -278,7 +285,7 @@ def aa_upsample_fir_vjp(g_even: tp.Optional[torch.Tensor], g_odd: tp.Optional[to
     dx = None
     for g, key in ((g_even, "up_even"), (g_odd, "up_odd")):
         if g is not None:
-            dx = _fir_transposed(g.float(), terms[key], dx)
+            dx = _fir_transposed(_wide(g), terms[key], dx)
     return dx
 
 
@@ -289,10 +296,10 @@ def aa_snake_downsample_vjp(y_even: torch.Tensor, y_odd: torch.Tensor, alpha: to
                                           torch.Tensor]:
     """(dy_even, dy_odd, dα, dβ) of the snake and stage 2, each in its input's dtype."""
     terms = _fir_terms(taps)
-    g = g.float()
-    dy_e, da_e, db_e = _snake_vjp(y_even.float(), _fir_transposed(g, terms["down_even"]),
+    g = _wide(g)
+    dy_e, da_e, db_e = _snake_vjp(_wide(y_even), _fir_transposed(g, terms["down_even"]),
                                   alpha, beta)
-    dy_o, da_o, db_o = _snake_vjp(y_odd.float(), _fir_transposed(g, terms["down_odd"]),
+    dy_o, da_o, db_o = _snake_vjp(_wide(y_odd), _fir_transposed(g, terms["down_odd"]),
                                   alpha, beta)
     return (dy_e.to(y_even.dtype), dy_o.to(y_odd.dtype), (da_e + da_o).to(alpha.dtype),
             (db_e + db_o).to(beta.dtype))

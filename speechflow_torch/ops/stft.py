@@ -6,7 +6,8 @@ overlap-added squared window. Shapes follow the JAX package: (..., T) ->
 (..., n_frames, n_fft//2 + 1) and back.
 
 The transforms run in float32 (complex64): cuFFT has no bfloat16 transform of
-this kind, so a bf16 input is cast before the FFT. The ISTFT's normaliser
+this kind, so a bf16 input is cast before the FFT (a float64 input stays
+float64). The ISTFT's normaliser
 depends only on the frame count, so it is computed once per length and device
 and cached.
 """
@@ -68,8 +69,9 @@ def _pad_center(x: torch.Tensor, n_fft: int) -> torch.Tensor:
 def stft(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
          win_length: tp.Optional[int] = None, window: tp.Optional[torch.Tensor] = None,
          center: bool = True) -> torch.Tensor:
-    """Complex STFT of (..., T) -> (..., n_frames, n_fft//2 + 1), complex64."""
-    x = x.float()
+    """Complex STFT of (..., T) -> (..., n_frames, n_fft//2 + 1), complex64
+    (complex128 from float64)."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     w = _window(n_fft, win_length, window, x.device)
     if center:
         x = _pad_center(x, n_fft)
@@ -78,7 +80,7 @@ def stft(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
 
 def magnitude(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
               win_length: tp.Optional[int] = None, center: bool = True) -> torch.Tensor:
-    """|STFT| as (..., n_frames, n_bins), float32."""
+    """|STFT| as (..., n_frames, n_bins), float32 (float64 from float64)."""
     return stft(x, n_fft, hop_length, win_length, center=center).abs()
 
 

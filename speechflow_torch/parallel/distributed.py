@@ -9,12 +9,15 @@ set by whoever launches the ranks:
     SPEECHFLOW_NUM_PROCESSES  the number of ranks
     SPEECHFLOW_PROCESS_ID     this process's rank
 
-and is a no-op without it (one process). The backend is ``SPEECHFLOW_BACKEND``
-when set, else ``nccl`` where every rank has a card of its own and ``gloo``
-where ranks share a card (NCCL refuses two ranks on one device; gloo reduces
-CUDA tensors in place on the card) or run on the CPU. Collectives time out
-after ``timeout_s`` (120 s, not gloo's 30 minutes): a rank that raised leaves
-the others waiting no longer than that.
+and is a no-op without it (one process). The ranks first tell each other
+which cards they see (the host name and ``CUDA_VISIBLE_DEVICES``) through the
+rendezvous store, so each knows how many ranks share its cards and which of
+them it is (``local_placement``). The backend is ``nccl`` where every rank has
+a card of its own (the ``i``-th rank on a set of cards takes card ``i``) and
+``gloo`` where ranks outnumber the cards they share (NCCL refuses two ranks
+on one device; gloo reduces CUDA tensors in place on the card) or run on the
+CPU. Collectives time out after ``timeout_s`` (120 s, not gloo's 30
+minutes): a rank that raised leaves the others waiting no longer than that.
 
 A trainer with ``use_mesh`` takes its steps inside ``data_parallel_step()``.
 There the losses' normalizers are those of the global batch, as JAX's one
@@ -33,6 +36,7 @@ import contextlib
 import datetime
 import logging
 import os
+import socket
 import typing as tp
 
 import torch
@@ -42,13 +46,12 @@ LOGGER = logging.getLogger("speechflow_torch")
 __all__ = ["init_distributed", "is_distributed", "process_index", "process_count",
            "backend", "global_batch", "broadcast_bytes", "shutdown_distributed",
            "data_parallel_step", "in_data_parallel_step", "global_count", "norm_ratio",
-           "mean_over_ranks", "ENV_COORDINATOR", "ENV_NUM_PROCESSES", "ENV_PROCESS_ID",
-           "ENV_BACKEND"]
+           "mean_over_ranks", "local_placement", "choose_backend", "ENV_COORDINATOR",
+           "ENV_NUM_PROCESSES", "ENV_PROCESS_ID"]
 
 ENV_COORDINATOR = "SPEECHFLOW_COORDINATOR"
 ENV_NUM_PROCESSES = "SPEECHFLOW_NUM_PROCESSES"
 ENV_PROCESS_ID = "SPEECHFLOW_PROCESS_ID"
-ENV_BACKEND = "SPEECHFLOW_BACKEND"
 _STEP = {"active": False}
 
 
@@ -63,17 +66,29 @@ def _initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def choose_backend(device: tp.Union[str, torch.device, None], world: int) -> str:
-    """``SPEECHFLOW_BACKEND``, else nccl where each of ``world`` ranks can have a
-    card of its own, else gloo."""
-    if os.environ.get(ENV_BACKEND):
-        return os.environ[ENV_BACKEND]
+def local_placement(hosts: tp.Sequence[str], rank: int) -> tp.Tuple[int, int]:
+    """(ranks that see ``rank``'s cards, its index among them in rank order), from
+    what every rank sees (its host and visible cards) in rank order."""
+    mine = [r for r, h in enumerate(hosts) if h == hosts[rank]]
+    return len(mine), mine.index(rank)
+
+
+def choose_backend(device: tp.Union[str, torch.device, None], local_ranks: int,
+                   cards: int) -> str:
+    """nccl where each of the ``local_ranks`` ranks that see these ``cards`` can
+    have one of its own, else gloo (and gloo on the CPU)."""
     dev = torch.device(device) if device is not None else None
-    if dev is not None and dev.type == "cpu":
+    if (dev is not None and dev.type == "cpu") or cards == 0:
         return "gloo"
-    if torch.cuda.is_available() and torch.cuda.device_count() >= world:
-        return "nccl"
-    return "gloo"
+    return "nccl" if local_ranks <= cards else "gloo"
+
+
+def _hosts(store, rank: int, world: int) -> tp.List[str]:
+    """Every rank's host name and visible cards in rank order, exchanged through
+    ``store``."""
+    seen = f"{socket.gethostname()}|{os.environ.get('CUDA_VISIBLE_DEVICES', '*')}"
+    store.set(f"speechflow/host/{rank}", seen)
+    return [store.get(f"speechflow/host/{r}").decode() for r in range(world)]
 
 
 def init_distributed(coordinator: tp.Optional[str] = None,
@@ -82,8 +97,8 @@ def init_distributed(coordinator: tp.Optional[str] = None,
                      device: tp.Union[str, torch.device, None] = None,
                      timeout_s: float = 120.0) -> tp.Tuple[int, int]:
     """Join the process group from the arguments or the environment contract;
-    returns (rank, world size), (0, 1) without a coordinator. On the GPU with
-    nccl each rank takes card ``rank % device_count`` as its current device."""
+    returns (rank, world size), (0, 1) without a coordinator. With nccl each rank
+    takes the card of its index among the ranks that see the same cards."""
     if _initialized():
         return process_index(), process_count()
     coordinator = coordinator or os.environ.get(ENV_COORDINATOR)
@@ -92,12 +107,18 @@ def init_distributed(coordinator: tp.Optional[str] = None,
     world = int(num_processes if num_processes is not None
                 else os.environ.get(ENV_NUM_PROCESSES, 1))
     rank = int(process_id if process_id is not None else os.environ.get(ENV_PROCESS_ID, 0))
-    name = choose_backend(device, world)
+    dist = _dist()
+    host, port = coordinator.rsplit(":", 1)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store = dist.TCPStore(host, int(port), world, is_master=rank == 0, timeout=timeout)
+    local_ranks, local_index = local_placement(_hosts(store, rank, world), rank)
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    name = choose_backend(device, local_ranks, cards)
     if name == "nccl":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
-    _dist().init_process_group(name, init_method=f"tcp://{coordinator}", world_size=world,
-                               rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
-    LOGGER.info("torch.distributed: rank %d of %d, backend %s", rank, world, name)
+        torch.cuda.set_device(local_index)
+    dist.init_process_group(name, store=store, world_size=world, rank=rank, timeout=timeout)
+    LOGGER.info("torch.distributed: rank %d of %d (%d of %d on its cards), backend %s",
+                rank, world, local_index, local_ranks, name)
     return rank, world
 
 

@@ -1,7 +1,7 @@
 """DataServer: the broker of the data plane (counterpart of
 ``speechflow_tpu/server/server.py``), on the standard library.
 
-A spawned process that listens on two addresses: loaders (and clients) on the
+A worker process that listens on two addresses: loaders (and clients) on the
 front, batch workers on the back. It answers ``info`` with the pipeline's info
 (and the number of workers), turns a loader's ``get_batch`` into a task of
 samples drawn by the subset's sampler, hands tasks to idle workers, and routes

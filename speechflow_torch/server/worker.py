@@ -1,7 +1,7 @@
 """BatchWorker / WorkerPool: the data plane's processing (counterpart of
 ``speechflow_tpu/server/worker.py``).
 
-Each worker is a spawned process. It asks the server for the pipeline's info,
+Each worker is a process of its own. It asks the server for the pipeline's info,
 rebuilds its handler chain and collate (``DataPipeline.from_info``, without
 the datasets), announces ``ready``, and then for each task runs the handlers
 over a writable copy of each sample (through the feature cache where the

@@ -64,9 +64,11 @@ class TrainerConfig:
 
 
 def _cast_floats(tree, dtype: torch.dtype):
-    """Cast every floating tensor of a nested dict/list/tuple."""
+    """Cast every floating tensor of a nested dict/list/tuple that is narrower than
+    ``dtype`` up to it (a float64 model's outputs stay float64)."""
     if isinstance(tree, torch.Tensor):
-        return tree.to(dtype) if tree.is_floating_point() else tree
+        wider = tree.is_floating_point() and torch.finfo(tree.dtype).bits < torch.finfo(dtype).bits
+        return tree.to(dtype) if wider else tree
     if isinstance(tree, dict):
         return {k: _cast_floats(v, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -144,12 +146,14 @@ def data_parallel(cfg: TrainerConfig, modules: tp.Sequence[nn.Module],
 
 
 def ranks_mean(metrics: tp.Dict[str, torch.Tensor]) -> tp.Dict[str, torch.Tensor]:
-    """Each 0-d value averaged over the ranks (one all-reduce; as it is on one)."""
+    """Each 0-d value averaged over the ranks in float32, or in its own dtype where
+    that is wider (one all-reduce a dtype; as it is on one)."""
     if not dist.is_distributed():
         return metrics
     keys = list(metrics)
-    vals = dist.mean_over_ranks([torch.as_tensor(metrics[k], dtype=torch.float32).reshape(())
-                                 for k in keys])
+    vals = [torch.as_tensor(metrics[k]).reshape(()) for k in keys]
+    vals = dist.mean_over_ranks([v.to(torch.promote_types(v.dtype, torch.float32))
+                                 for v in vals])
     return dict(zip(keys, vals))
 
 

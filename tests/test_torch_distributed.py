@@ -93,13 +93,16 @@ def runs(tmp_path_factory):
                draws=[[_draw_rows(d, r, t) for d in draws] for r in rows])
     whole = dict(tts, batches=[[arrays] * STEPS],
                  draws=[[_draw_rows(d, slice(None), t) for d in draws]])
-    ranks = R.run_world(WORLD, {"tts_sgd": dict(tts, opt=SGD), "tts_adam": dict(tts, opt=adam),
-                                "data": dict(kind="dataplane", n=30, batch=3, batches=4)},
-                        tmp_path_factory.mktemp("dp"))
-    one = R.tts_steps(dict(whole, opt=SGD), 0)
-    jt = JTrainer(jm, JCrit(**loss), JBP(), JOpt.from_config(adam), JCfg(max_steps=10))
-    jax_losses = [{k: float(v) for k, v in jt.training_step(arrays).items()}
-                  for _ in range(STEPS)]
+    world = R.start_world(WORLD, {"tts_sgd": dict(tts, opt=SGD), "tts_adam": dict(tts, opt=adam),
+                                  "data": dict(kind="dataplane", n=30, batch=3, batches=4)},
+                          tmp_path_factory.mktemp("dp"))
+    try:  # the references while the ranks run
+        one = R.tts_steps(dict(whole, opt=SGD), 0)
+        jt = JTrainer(jm, JCrit(**loss), JBP(), JOpt.from_config(adam), JCfg(max_steps=10))
+        jax_losses = [{k: float(v) for k, v in jt.training_step(arrays).items()}
+                      for _ in range(STEPS)]
+    finally:
+        ranks = R.join_world(world)
     return dict(ranks=ranks, one=one, jax_losses=jax_losses,
                 jax_weights=flatten_nnx(nnx.to_pure_dict(nnx.state(jm, nnx.Param))),
                 before=R._weights(tm), params=params)
@@ -149,6 +152,29 @@ def test_init_distributed_is_a_noop_without_the_contract(monkeypatch):
     with D.data_parallel_step():
         count = torch.tensor(7.0)
         assert D.global_count(count) is count
+
+
+@pytest.mark.parametrize("seen, cards, device, want", [
+    # one host of 8 cards, 8 ranks: each its own card
+    (["a|*"] * 8, 8, "cuda", [("nccl", 8, r) for r in range(8)]),
+    # two hosts of 8 cards, ranks interleaved over them: 8 a host, nccl
+    (["a|*", "b|*"] * 8, 8, "cuda", [("nccl", 8, r // 2) for r in range(16)]),
+    # two ranks on a host of one card: gloo
+    (["a|*"] * 2, 1, "cuda", [("gloo", 2, 0), ("gloo", 2, 1)]),
+    # each rank shown one card of its host: one rank a card
+    (["a|0", "a|1"], 1, "cuda", [("nccl", 1, 0), ("nccl", 1, 0)]),
+    # the CPU, or no card: gloo
+    (["a|*"] * 2, 8, "cpu", [("gloo", 2, 0), ("gloo", 2, 1)]),
+    (["a|*"] * 2, 0, None, [("gloo", 2, 0), ("gloo", 2, 1)]),
+])
+def test_backend_from_the_ranks_that_share_cards(seen, cards, device, want):
+    """nccl wherever the ranks that see one set of cards have a card each, decided
+    from what every rank sees (not the world size), and the card of each rank."""
+    got = []
+    for rank in range(len(seen)):
+        n, index = D.local_placement(seen, rank)
+        got.append((D.choose_backend(device, n, cards), n, index))
+    assert got == want
 
 
 def test_tts_steps_equal_one_process(runs):

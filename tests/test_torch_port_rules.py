@@ -106,6 +106,7 @@ NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "annotator/prepare_datasets.py", "annotator/runner.py",
                "examples/mnist/__init__.py", "examples/mnist/train.py",
                "concurrency/__init__.py", "concurrency/process_worker.py",
+               "concurrency/context.py",
                "logging/__init__.py", "logging/server.py", "logging/utils.py",
                "server/__init__.py", "server/transport.py", "server/server.py",
                "server/worker.py", "server/loader.py", "server/client.py", "server/proxy.py",

@@ -1,5 +1,6 @@
 """The rank processes of ``tests/test_torch_distributed.py`` (and of its GPU
-case): torch and the port only, so that a spawned rank starts quickly.
+case): torch and the port only, so that a rank (a fork of the port's
+forkserver, ``concurrency.context.worker_context``) starts quickly.
 
 ``run_rank`` joins the process group through the environment contract
 (``SPEECHFLOW_COORDINATOR``, ``SPEECHFLOW_NUM_PROCESSES``,
@@ -11,6 +12,7 @@ in one process (no group) for the reference.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import typing as tp
@@ -86,8 +88,46 @@ def tts_steps(job: dict, rank: int, device: str = "cpu") -> dict:
     return {"losses": losses, "weights": _weights(model)}
 
 
+@contextlib.contextmanager
+def kinks(pins: dict):
+    """The discriminators' leaky ReLUs and the hinge losses with each element's
+    side of 0 recorded in call order (``pins["masks"]`` None) or replayed from
+    ``pins["masks"]``; ``pins["flips"]`` counts the elements that fell on the
+    other side here (as ``chip_smoke.py``'s ``pinned_kinks``)."""
+    from speechflow_torch.models.vocoder import criterion
+    from speechflow_torch.models.vocoder import discriminators as D
+
+    record = pins.get("masks") is None
+    if record:
+        pins["masks"] = []
+    pins["flips"], calls = 0, iter(range(len(pins["masks"])))
+
+    def side(on):
+        if record:
+            pins["masks"].append(on)
+            return on
+        mask = pins["masks"][next(calls)]
+        pins["flips"] += int((mask != on).sum())
+        return mask
+
+    def leaky_relu(x, negative_slope=0.1):
+        return torch.where(side(x >= 0), x, x * negative_slope)
+
+    def hinge(x):
+        return x * side(x > 0)
+
+    real = D.leaky_relu, criterion._relu
+    D.leaky_relu, criterion._relu = leaky_relu, hinge
+    try:
+        yield
+    finally:
+        D.leaky_relu, criterion._relu = real
+
+
 def gan_steps(job: dict, rank: int, device: str = "cpu") -> dict:
-    """``GANTrainer`` micro-batches of the vocoder on ``job["batches"][rank]``."""
+    """``GANTrainer`` micro-batches of the vocoder on ``job["batches"][rank]`` in
+    ``job["dtype"]`` (float32 by default), the kinks recorded, or replayed from
+    ``job["masks"]``."""
     from speechflow_torch.models.vocoder import Vocos, VocosParams
     from speechflow_torch.models.vocoder.batch_processor import VocoderBatchProcessor
     from speechflow_torch.models.vocoder.criterion import (
@@ -100,10 +140,13 @@ def gan_steps(job: dict, rank: int, device: str = "cpu") -> dict:
     from speechflow_torch.training.trainer import TrainerConfig
 
     cfg = job["model_cfg"]
+    dtype = getattr(torch, job.get("dtype", "float32"))
     gen = Vocos(VocosParams.create(cfg["model"]))
     disc = VocoderDiscriminator(**cfg["discriminator"])
     _load(gen, job["gen_weights"], device)
     _load(disc, job["disc_weights"], device)
+    gen.to(dtype)
+    disc.to(dtype)
     opt = OptimizerConfig.from_config(job["opt"])
     gan = GANTrainer(gen, disc,
                      vocoder_gen_criterion(n_mels=cfg["model"]["n_mels"], device=device,
@@ -111,9 +154,15 @@ def gan_steps(job: dict, rank: int, device: str = "cpu") -> dict:
                      vocoder_disc_criterion(), VocoderBatchProcessor(device=device),
                      gen_optimizer=opt, disc_optimizer=opt,
                      config=TrainerConfig(max_steps=100, use_mesh=True))
-    losses = [{k: float(v) for k, v in gan.training_step(b).items()}
-              for b in job["batches"][rank]]
-    return {"losses": losses, "gen": _weights(gen), "disc": _weights(disc)}
+    masks = job.get("masks")
+    pins = {"masks": None if masks is None else [torch.from_numpy(m).to(device)
+                                                 for m in masks]}
+    with kinks(pins):
+        losses = [{k: float(v) for k, v in gan.training_step(
+            {n: np.asarray(w, dtype=job.get("dtype", "float32")) for n, w in b.items()}).items()}
+            for b in job["batches"][rank]]
+    return {"losses": losses, "gen": _weights(gen), "disc": _weights(disc),
+            "masks": [m.cpu().numpy() for m in pins["masks"]], "flips": pins["flips"]}
 
 
 def synthetic_pipeline(n: int):
@@ -176,15 +225,13 @@ def run_rank(rank: int, world: int, port: int, job_file: str, out_file: str,
         pickle.dump(out, f)
 
 
-def run_world(world: int, jobs: dict, tmp, device: str = "cpu",
-              timeout_s: float = 60.0) -> tp.List[dict]:
-    """``world`` spawned ranks over ``jobs``; each is joined within ``timeout_s``
-    and killed if it is still alive; a rank that failed raises."""
-    import multiprocessing as mp
-
+def start_world(world: int, jobs: dict, tmp, device: str = "cpu") -> dict:
+    """``world`` ranks started over ``jobs``; ``join_world`` waits for them, so the
+    caller may compute its reference meanwhile."""
+    from speechflow_torch.concurrency.context import worker_context
     from speechflow_torch.server.transport import find_free_port
 
-    ctx = mp.get_context("spawn")
+    ctx = worker_context()
     job_file = os.path.join(str(tmp), "jobs.pkl")
     with open(job_file, "wb") as f:
         pickle.dump(jobs, f)
@@ -192,22 +239,44 @@ def run_world(world: int, jobs: dict, tmp, device: str = "cpu",
     port = find_free_port()
     procs = [ctx.Process(target=run_rank, args=(r, world, port, job_file, outs[r], device))
              for r in range(world)]
+    handle = {"procs": [], "outs": outs}
     try:
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout_s)
-        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        for proc in procs:
+            proc.start()
+            handle["procs"].append(proc)
+    except BaseException:
+        join_world(handle, 0.0)
+        raise
+    return handle
+
+
+def join_world(handle: dict, timeout_s: float = 60.0) -> tp.List[dict]:
+    """Every rank of ``start_world`` joined within ``timeout_s`` together, and
+    killed if it is still alive; a rank that failed or outlived it raises."""
+    import time
+
+    procs = handle["procs"]
+    deadline = time.time() + timeout_s
+    try:
+        for proc in procs:
+            proc.join(max(deadline - time.time(), 0.0))
+        alive = [r for r, proc in enumerate(procs) if proc.is_alive()]
         assert not alive, f"ranks {alive} still running after {timeout_s} s"
-        codes = [p.exitcode for p in procs]
-        assert codes == [0] * world, f"rank exit codes {codes}"
+        codes = [proc.exitcode for proc in procs]
+        assert codes == [0] * len(procs), f"rank exit codes {codes}"
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(5)
     results = []
-    for o in outs:
+    for o in handle["outs"]:
         with open(o, "rb") as f:
             results.append(pickle.load(f))
     return results
+
+
+def run_world(world: int, jobs: dict, tmp, device: str = "cpu",
+              timeout_s: float = 60.0) -> tp.List[dict]:
+    """``world`` ranks over ``jobs``, joined within ``timeout_s`` (``join_world``)."""
+    return join_world(start_world(world, jobs, tmp, device), timeout_s)
