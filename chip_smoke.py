@@ -7,7 +7,7 @@
                                      # vocoder_model_train, tts_forward_train, jax_resume,
                                      # tts_options, e2e_train, vocoder_recipes, aligner,
                                      # aux_models, vocoder_cpc, data_prep, annotator,
-                                     # ddp
+                                     # ddp, adafactor_zoo
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases toy,interface
     python3 chip_smoke.py --phases tts_interface
@@ -28,6 +28,9 @@
     python3 chip_smoke.py --phases build,annotator   # corpus preparation, the 5-step
                                      # annotator, the two-stage recipe, MNIST
     python3 chip_smoke.py --phases build,ddp  # data-parallel training on two ranks
+    python3 chip_smoke.py --phases build,adafactor_zoo  # adafactor, the loss zoo, MixStyle,
+                                     # PreNet, a JAX adafactor run resumed, a pruned
+                                     # checkpoint served
     python3 chip_smoke.py --phases profile   # where a flagship batch's time goes
 
 Phases, in order (any failure ends the run with a non-zero exit code):
@@ -108,7 +111,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    32 channels at strides 4·8·8, 4 quantizers of 1024), f32, seeded weights (flax's
    initialisers) written by the port's saver with the text pipe of
    ``configs/tts_data_24khz.yml`` and loaded by ``XTTSEvaluationInterface``: one
-   greedy request of 128 tokens through the kernels and the plain versions
+   greedy request of ``XTTS_GREEDY_TOKENS`` tokens through the kernels and the plain versions
    (prompt embeddings and prefill logits within ``TOL_F32_REL``, then the first
    differing token, if any, with its top-2 logit margin); ``XTTS_REQUESTS`` text requests of 512
    tokens at temperature 0.8 behind a 448-frame synthetic reference prompt (4
@@ -396,7 +399,30 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    through ``TTSEvaluationInterface`` kernels vs plain (186 / 37 / 6 / 18 launches), the
    anti-alias kernels and VJPs launched in each rank; ms a step, the loader's wait and peak
    memory per rank; no child process left.
-28. ``profile`` (only when asked for): for the flagship and the toy program,
+28. ``adafactor_zoo``: the rest of the training API. ``train_tts.train`` on a copy of
+   ``configs/tts_model.yml`` with ``optimizer.method: adafactor``, read as ``-c`` reads
+   it (default preset: 768 wide, 6 + 6 layers, CFM, f32), ``ADAFACTOR_BATCH`` of the SEGS
+   train utterances, ``ADAFACTOR_STEPS`` steps, under ``DATAPIPE_PROFILING=1`` inside the
+   experiment's ``LoggingServer``: finite losses, the weights unchanged after step 1 (lr 0)
+   and changed after step 2, the server's profiler summary with every handler of the
+   recipe's pipeline once a sample the workers processed; ms a step, peak memory, the
+   optimizer state's bytes against Adam's, the factored leaves. The recipe's chain
+   (clip, adafactor, windows) over the full-width model from seeded gradients, card f32
+   against CPU float64, ``ADAFACTOR_UPDATES`` updates within ``TOL_F32_REL`` of each
+   tensor's largest, and a planted fault (no 1e-3 floor of the parameter scale: the
+   zero-initialised modulations never move) rejected. The committed JAX adafactor run
+   (``tests/data/jax_checkpoints/resume_adafactor``) resumed as ``-r`` resumes it: JAX's
+   next step's losses within ``TOL_F32_REL``, its sampled ``v_row`` / ``v_col`` / ``v``
+   within ``TOL_RESUME_MOMENT`` of their scale, and a planted fault (factored axes from
+   the torch shape) rejected. The loss zoo's eight new losses at a recipe's shapes
+   (``ZOO_SHAPES``), value and gradient, card f32 against CPU float64 (``TOL_F32_REL``,
+   ``TOL_ZOO_GRAD``), the soft-DTW timed forward and backward and its planted fault (the
+   diagonal dropped from the soft-min) rejected; ``MixStyle`` and ``PreNet`` card vs CPU.
+   The run's checkpoint pruned (``utils.misc.prune_checkpoint``: smaller on disk) and
+   served through ``TTSEvaluationInterface`` and the flagship BigVGAN's interface, f32:
+   ``ADAFACTOR_SENTENCES``, 186 / 37 / 6 / 18 launches, the waveform kernels vs plain
+   within ``TOL_F32_REL``, and equal to the full checkpoint's.
+29. ``profile`` (only when asked for): for the flagship and the toy program,
    one batch timed model by model, and one under ``torch.profiler``, with
    device time by kernel family and the device's busy share.
 
@@ -479,7 +505,7 @@ HEAD_STAGES = [(4096, 768), (16384, 384), (32768, 192), (65536, 96), (131072, 48
 # 5.46 s at 24 kHz) behind a reference prompt of 448 mel frames, which the prompt
 # encoder's stride 4 makes 112; its 4 blocks attend with 4 heads of 256
 XTTS_MAX_TOKENS, XTTS_PROMPT_FRAMES, XTTS_REQUESTS, XTTS_BATCH = 512, 448, 2, 2
-XTTS_GREEDY_TOKENS = 128  # the kernels-vs-plain request (two of them: keep it short)
+XTTS_GREEDY_TOKENS = 64  # the kernels-vs-plain request (two of them: keep it short)
 XTTS_DECODE_RUNS = 1  # generates of 512 and of 1 token that time the decode
 # the kernel's dh-256 cases: (B, T, lengths) at B 1 and 8, ragged
 XTTS_PROMPT_CASES = [(b, t, [max(1, t - 13 * i) for i in range(b)])
@@ -2232,7 +2258,7 @@ def phase_train(torch, gpu_line: str) -> dict:
 
 TTS_TRAIN_PRESET = "default"
 TTS_TRAIN_STEPS = 3  # the cut: step 1 at lr 0, then 2 that move the weights
-TTS_G2P_STEPS = 300  # the cut of train_tts's G2P (1200 a member; aux_models gates one of 1200)
+TTS_G2P_STEPS = 100  # the cut of train_tts's G2P (1200 a member; aux_models gates one of 1200)
 # card against CPU, one f32 step (TF32 off): each gradient within this share of its
 # tensor's largest magnitude, or of 1e-3 of the model's largest gradient where that is
 # more (the attention key biases' true gradient is 0, softmax being shift-invariant, so
@@ -3928,6 +3954,44 @@ def _held(rec, prefix: str, module, opt, lr: float) -> dict:
     return worst
 
 
+def resumed_tts_trainer(torch, cfg: dict, run: Path, device: str):
+    """A ``Trainer`` of the acoustic model of the JAX run in ``run`` (its model config
+    ``cfg``) on ``device``, resumed as ``-r`` resumes it (``apply_resume_warmstart``),
+    every dropout rate 0."""
+    from speechflow_torch.models.tts import ParallelTTSModel, ParallelTTSParams, TTSCriterion
+    from speechflow_torch.scripts.common import (
+        apply_resume_warmstart,
+        optimizer_config,
+        trainer_config,
+    )
+    from speechflow_torch.training.saver import ExperimentSaver
+    from speechflow_torch.training.trainer import Trainer
+    from speechflow_torch.utils.init import filter_kwargs
+
+    ckpt = ExperimentSaver.get_last_checkpoint(run)
+    check(ckpt is not None and (ckpt / "_METADATA").is_file(), f"no JAX run in {run}")
+    _, payload = ExperimentSaver.load_checkpoint(ckpt)
+    torch.manual_seed(0)
+    model = ParallelTTSModel(ParallelTTSParams.create(payload["model_params"])).to(device)
+    crit = TTSCriterion(**filter_kwargs(TTSCriterion.__init__, dict(cfg["loss"])))
+    trainer = Trainer(model, crit, lambda batch: batch, optimizer_config(cfg),
+                      trainer_config(cfg))
+    apply_resume_warmstart(trainer, {"resume": {"from": str(run)}})
+    no_dropout(model)
+    return trainer
+
+
+def recorded_tts_batch(torch, rec) -> tuple:
+    """The acoustic model's recorded batch (``tts/in/*``, ``tts/tgt/*``) of a resume record."""
+    from speechflow_torch.models.tts import TTSForwardInput, TTSTarget
+
+    def fields(cls, tag):
+        return cls(**{f: torch.from_numpy(rec[f"tts/{tag}/{f}"])
+                      for f in cls.__dataclass_fields__ if f"tts/{tag}/{f}" in rec.files})
+
+    return fields(TTSForwardInput, "in"), fields(TTSTarget, "tgt")
+
+
 def jax_resume_step(torch, kind: str, device: str) -> dict:
     """The JAX run of ``tests/data/jax_checkpoints/resume/<kind>`` resumed on ``device``
     as ``-r`` resumes it (``apply_resume_warmstart`` for the acoustic model, the GAN
@@ -3937,13 +4001,6 @@ def jax_resume_step(torch, kind: str, device: str) -> dict:
     import numpy as np
 
     from speechflow_torch.io.config import value_select, yaml_load
-    from speechflow_torch.models.tts import (
-        ParallelTTSModel,
-        ParallelTTSParams,
-        TTSCriterion,
-        TTSForwardInput,
-        TTSTarget,
-    )
     from speechflow_torch.models.vocoder import Vocos, VocosParams
     from speechflow_torch.models.vocoder.batch_processor import VocoderBatchProcessor
     from speechflow_torch.models.vocoder.criterion import (
@@ -3951,14 +4008,9 @@ def jax_resume_step(torch, kind: str, device: str) -> dict:
         vocoder_gen_criterion,
     )
     from speechflow_torch.models.vocoder.discriminators import VocoderDiscriminator
-    from speechflow_torch.scripts.common import (
-        apply_resume_warmstart,
-        optimizer_config,
-        trainer_config,
-    )
+    from speechflow_torch.scripts.common import optimizer_config, trainer_config
     from speechflow_torch.training.gan_trainer import GANTrainer
     from speechflow_torch.training.saver import ExperimentSaver
-    from speechflow_torch.training.trainer import Trainer
     from speechflow_torch.utils.init import filter_kwargs
 
     rec = np.load(RESUME_RECORD)
@@ -3970,19 +4022,10 @@ def jax_resume_step(torch, kind: str, device: str) -> dict:
     torch.manual_seed(0)
     t0 = time.perf_counter()
     if kind == "tts":
-        model = ParallelTTSModel(ParallelTTSParams.create(payload["model_params"])).to(device)
-        crit = TTSCriterion(**filter_kwargs(TTSCriterion.__init__, dict(cfg["loss"])))
-        trainer = Trainer(model, crit, lambda batch: batch, optimizer_config(cfg),
-                          trainer_config(cfg))
-        apply_resume_warmstart(trainer, {"resume": {"from": str(run)}})
+        trainer = resumed_tts_trainer(torch, cfg, run, device)
+        model = trainer.model
         step0, count0 = trainer.global_step, trainer.optimizer.count
-        no_dropout(model)
-
-        def fields(cls, tag):
-            return cls(**{f: torch.from_numpy(rec[f"tts/{tag}/{f}"])
-                          for f in cls.__dataclass_fields__ if f"tts/{tag}/{f}" in rec.files})
-
-        losses = trainer.training_step((fields(TTSForwardInput, "in"), fields(TTSTarget, "tgt")))
+        losses = trainer.training_step(recorded_tts_batch(torch, rec))
         opts = (("tts", model, trainer.optimizer),)
         counts = (trainer.global_step, trainer.optimizer.count)
     else:
@@ -6641,8 +6684,8 @@ def phase_annotator(torch, gpu_line: str) -> dict:
 # -- phase 27: data-parallel training ------------------------------------------------
 
 DDP_WORLD = 2
-DDP_TTS_STEPS = 3
-DDP_TTS_BATCH = 40  # the global batch: the 40 train utterances of SEGS, 20 a rank
+DDP_TTS_STEPS = 2  # the cut (was 3): step 1 at lr 0, step 2 moves the weights
+DDP_TTS_BATCH = 8  # the cut (was 40, the whole train split): a global batch of 8, 4 a rank
 DDP_GAN_MICRO_BATCHES = 8  # one optimizer step at the recipe's grad_accum 8
 DDP_GATE_WAVE = (1, 8192)  # each rank's rows and samples of the GAN gate (float64)
 # the float64 GAN gate (updates of each tensor's largest, and losses): on an H100 (700 W)
@@ -7136,6 +7179,576 @@ def phase_ddp(torch, gpu_line: str) -> dict:
     return {"launches": {k: train[k] + served[k] for k in served}, "phase_s": phase_s}
 
 
+# -- phase 26: adafactor, the loss zoo, MixStyle and PreNet, a pruned checkpoint ---------
+
+ADAFACTOR_RECORD = JAX_FIXTURE / "resume_adafactor_record.npz"
+ADAFACTOR_BATCH = 16  # the cut: B16 of the SEGS train utterances
+ADAFACTOR_STEPS = 3  # the cut: step 1 at lr 0, then 2 that move the weights
+ADAFACTOR_G2P_STEPS = 100  # the cut of train_tts's G2P (1200 a member in the recipe)
+ADAFACTOR_UPDATES = 3  # seeded-gradient updates of the full-width model, card vs CPU
+ADAFACTOR_SENTENCES = REQUEST_SENTENCES[:4]  # the pruned checkpoint's request
+# the zoo's losses at the shapes a recipe gives them, each on the card (f32) against the
+# CPU (float64): value within TOL_F32_REL of its magnitude, gradient of its largest
+ZOO_SHAPES = {"GuidedAttention": (16, 1024, 128), "MLE": (16, 1024, 80),
+              "DiffSpectral": (40, 1024, 80), "SSIM": (40, 1024, 80), "Duration": (40, 128),
+              "VAE": (40, 256), "InverseSpeaker": (40, 256), "SoftDTW": (16, 256, 1)}
+MIXSTYLE_SHAPE = (40, 1024, 768)
+PRENET_DIMS = (80, 256, 256)
+# a loss's gradient, card f32 against CPU float64, of its largest magnitude: SSIM's
+# variances (E[x²] - E[x]² over 121-element windows) cancel two digits of f32 (5.7e-5 on
+# the CPU), as TOL_TTS_GRAD holds a training step's gradients
+TOL_ZOO_GRAD = 1e-3
+
+
+def _timed_ms(torch, fn) -> tuple:
+    """(fn's result, its host ms, synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _jax_entries(st: dict, shapes: dict) -> dict:
+    """A parameter's adafactor entries in JAX's layout, whose shapes are ``shapes`` (a
+    faulty run's torch-layout entries reversed back, as such a port would save them)."""
+    return {k: v if tuple(v.shape) == shapes[k] else v.permute(*range(v.ndim)[::-1])
+            for k, v in st.items() if k in shapes}
+
+
+def planted_torch_axes_fault(opt) -> None:
+    """The fault: adafactor's factored axes taken from the torch shape. Every parameter
+    is computed in its torch layout, its loaded JAX entries moved onto that layout by
+    reversing their axes where the shapes differ: the shapes then fit, and only a
+    parameter whose largest axes tie (the (5, 128, 128) conv) factors other axes."""
+    base = opt.base
+    for p in opt.params:
+        st = base.state[p]
+        base.layouts.pop(p, None)
+        for k, shape in base.state_shapes(p).items():
+            v = st[k]
+            st[k] = v if tuple(v.shape) == shape else \
+                v.permute(*range(v.ndim)[::-1]).contiguous()
+            check(tuple(st[k].shape) == shape, f"planted fault: {k} {tuple(v.shape)} vs {shape}")
+
+
+def adafactor_resume_step(torch, device: str, fault: bool = False) -> dict:
+    """The JAX adafactor run of ``tests/data/jax_checkpoints/resume_adafactor`` resumed on
+    ``device`` as ``-r`` resumes it, every dropout rate 0, one step on the recorded batch:
+    losses within TOL_F32_REL of JAX's next step, sampled parameters within two steps'
+    lr and each sampled ``v_row`` / ``v_col`` / ``v`` within TOL_RESUME_MOMENT of its
+    entry's scale. ``fault`` plants ``planted_torch_axes_fault``; returns the worst
+    shares of their limits (a rejection is a share above 1)."""
+    import numpy as np
+
+    from speechflow_torch.convert import flatten_nnx, jax_layouts, nnx_from_module
+    from speechflow_torch.io.config import value_select, yaml_load
+    from speechflow_torch.training.optimizer import Adafactor
+
+    rec = np.load(ADAFACTOR_RECORD)
+    cfg = value_select(yaml_load(str(rec["tts/config_yaml"])), ["debug"])
+    trainer = resumed_tts_trainer(torch, cfg, JAX_FIXTURE / "resume_adafactor" / "tts", device)
+    model = trainer.model
+    check(isinstance(trainer.optimizer.base, Adafactor), "adafactor: the recipe's optimizer")
+    step0, count0 = trainer.global_step, trainer.optimizer.count
+    shapes = {p: trainer.optimizer.base.state_shapes(p) for p in trainer.optimizer.params}
+    if fault:
+        planted_torch_axes_fault(trainer.optimizer)
+    losses = trainer.training_step(recorded_tts_batch(torch, rec))
+    check(all(f"tts/loss/{k}" in rec.files for k in losses),
+          f"adafactor resume: losses {sorted(losses)} not all in the record")
+    loss_err = max(abs(float(losses[k]) - float(rec[f"tts/loss/{k}"]))
+                   / max(abs(float(rec[f"tts/loss/{k}"])), 1e-6) for k in losses)
+    opt = trainer.optimizer
+    lr = opt.schedule(count0)
+    by_src = {src: name for name, (src, _, _) in jax_layouts(model).items()}
+    params = dict(model.named_parameters())
+    trees = {"param": flatten_nnx(nnx_from_module(model))}
+    for name, p in params.items():
+        for k, v in _jax_entries(opt.base.state[p], shapes[p]).items():
+            trees.setdefault(k, {})[name] = v.detach().float().cpu().numpy()
+    worst, factored = {}, 0
+    for entry, tree in trees.items():
+        keys = [k[len(f"tts/{entry}/idx/"):] for k in rec.files
+                if k.startswith(f"tts/{entry}/idx/")]
+        got_keys = set(tree) if entry == "param" else {
+            src for src, name in by_src.items() if name in tree}
+        check(set(keys) == got_keys, f"adafactor resume: the record's {entry} leaves are not "
+                                     f"the optimizer's: {sorted(set(keys) ^ got_keys)[:4]}")
+        scale = max(float(np.abs(rec[f"tts/{entry}/{k}"]).max()) for k in keys)
+        errs = []
+        for k in keys:
+            arr = tree[k] if entry == "param" else tree[by_src[k]]
+            got = arr.reshape(-1)[rec[f"tts/{entry}/idx/{k}"]]
+            lim = 2 * lr if entry == "param" else TOL_RESUME_MOMENT * scale
+            errs.append((float(np.abs(got - rec[f"tts/{entry}/{k}"]).max()) / max(lim, 1e-30),
+                         k))
+        worst[entry] = max(errs)
+        factored += len(keys) if entry == "v_row" else 0
+    return {"loss_err": loss_err, "worst": worst, "step0": step0, "count0": count0,
+            "counts": (trainer.global_step, opt.count), "factored": factored,
+            "leaves": len(params)}
+
+
+def adafactor_resume(torch, gpu_line: str) -> dict:
+    """The committed JAX adafactor run resumed on the card, and with the planted fault."""
+    t0 = time.perf_counter()
+    res = adafactor_resume_step(torch, "cuda")
+    ms = 1e3 * (time.perf_counter() - t0)
+    bad = adafactor_resume_step(torch, "cuda", fault=True)
+    shares = {k: v[0] for k, v in res["worst"].items()}
+    print(f"[adafactor_zoo] the JAX adafactor run (tests/data/jax_checkpoints/resume_adafactor, "
+          f"{res['factored']} of {res['leaves']} leaves factored) resumed at step {res['step0']} "
+          f"on the card ({ms:.1f} ms with the resume): losses against JAX's next step "
+          f"{res['loss_err']:.3g} of the loss (tol {TOL_F32_REL:g}); worst share of the limit "
+          + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in res["worst"].items())
+          + f"; planted fault (factored axes from the torch shape): "
+          + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in bad["worst"].items())
+          + f" ({gpu_line})", flush=True)
+    check(res["step0"] == res["count0"] == 2 and res["counts"] == (3, 3),
+          f"adafactor resume: steps {res['step0']}, {res['count0']} -> {res['counts']}")
+    check(res["loss_err"] <= TOL_F32_REL and max(shares.values()) <= 1,
+          "adafactor resume: the resumed step disagrees with JAX's")
+    check(max(v[0] for v in bad["worst"].values()) > 1,
+          "adafactor resume: the check passed the planted torch-axes fault")
+    return {"loss_err": res["loss_err"], "shares": shares, "ms": ms,
+            "fault_share": max(v[0] for v in bad["worst"].values())}
+
+
+def adafactor_updates(torch, module, cfg, device: str, dtype, ref: tp.Optional[list] = None,
+                      fault: bool = False):
+    """``ADAFACTOR_UPDATES`` updates of ``module`` (a copy, on ``device`` in ``dtype``)
+    from seeded gradients (float64 normals drawn on the card, from one seed) through
+    the recipe's chain. Without ``ref``: each step's updates by name (on ``device``,
+    float64) with their largest magnitude. With ``ref`` (such a list): the worst error
+    of an update against its reference, of the reference's largest, as (error, step,
+    name), each compared where it is made. ``fault`` drops the 1e-3 floor of the
+    parameter scale."""
+    import copy
+
+    from speechflow_torch.training.optimizer import build_optimizer
+
+    model = copy.deepcopy(module).to(device=device, dtype=dtype)
+    opt = build_optimizer(cfg, model)
+    if fault:
+        opt.base.min_scale = 0.0
+    names = {p: n for n, p in model.named_parameters()}
+    steps, worst = [], [0.0, 0, ""]
+    real = opt.base.update
+
+    def update(p, grad, lr):
+        u = real(p, grad, lr)
+        name = names[p]
+        if ref is None:
+            d = u.detach().to(torch.float64)
+            steps[-1][name] = (d, d.abs().max().item())
+        else:
+            r, r_max = ref[len(steps) - 1][name]
+            if r_max > 0:
+                err = (u.double() - r.to(u.device)).abs().max().item() / r_max
+                if err > worst[0]:
+                    worst[:] = [err, len(steps), name]
+        return u
+
+    opt.base.update = update
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(ADAFACTOR_UPDATES):
+        steps.append({})
+        for n, p in model.named_parameters():
+            p.grad = torch.randn(p.shape, generator=gen, dtype=torch.float64,
+                                 device="cuda").to(device, dtype)
+        opt.step()
+    return steps if ref is None else tuple(worst)
+
+
+def adafactor_gate(torch, model_cfg: dict, data_cfg: dict, gpu_line: str) -> dict:
+    """The full-width model's adafactor updates from seeded gradients: the card in f32
+    against the CPU in float64, each within TOL_F32_REL of its tensor's largest; the
+    same gate must reject the planted fault (no floor on the parameter scale: a
+    zero-initialised tensor, as the DiT blocks' modulations, never moves)."""
+    from speechflow_torch.data.core.components import DataPipeline
+    from speechflow_torch.scripts import train_tts as TT
+    from speechflow_torch.scripts.common import optimizer_config
+
+    pipeline = DataPipeline.from_config(data_cfg)
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        _, module, _, _ = TT.build_model(model_cfg, pipeline)
+    cfg = optimizer_config(model_cfg)
+    zeros = [n for n, p in module.named_parameters() if not p.any()]
+    t0 = time.perf_counter()
+    cpu = adafactor_updates(torch, module, cfg, "cpu", torch.float64)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    err = adafactor_updates(torch, module, cfg, "cuda", torch.float32, ref=cpu)
+    card_s = time.perf_counter() - t0
+    bad = adafactor_updates(torch, module, cfg, "cuda", torch.float32, ref=cpu, fault=True)
+    moved = all(cpu[-1][n][1] > 0 for n in zeros)
+    step_ms = optimizer_step_ms(torch, module, cfg)
+    print(f"[adafactor_zoo] the recipe's chain over the full-width model ({len(cpu[0])} "
+          f"tensors, {len(zeros)} zero at init), {ADAFACTOR_UPDATES} updates from seeded "
+          f"gradients, card f32 against CPU float64: worst {err[0]:.3g} of a tensor's largest "
+          f"(update {err[1]}, {err[2]}; tol {TOL_F32_REL:g}); {ADAFACTOR_UPDATES} updates "
+          f"{cpu_s:.1f} s on the CPU, {card_s:.1f} s on the card with the comparison; planted "
+          f"fault (no 1e-3 floor): {bad[0]:.3g} ({bad[2]}); the optimizer step alone "
+          f"(synchronised, median of 3): adafactor {step_ms['adafactor']:.1f} ms, the "
+          f"recipe's adamw {step_ms['adamw']:.1f} ms ({gpu_line})", flush=True)
+    check(moved, "adafactor gate: a zero-initialised tensor never moved on the CPU")
+    check(err[0] <= TOL_F32_REL, "adafactor gate: the card's updates disagree with the CPU's")
+    check(bad[0] > TOL_F32_REL, "adafactor gate: the planted fault (no floor) passed")
+    return {"err": err[0], "fault": bad[0], "cpu_s": cpu_s, "card_s": card_s, **step_ms}
+
+
+def optimizer_step_ms(torch, module, cfg) -> dict:
+    """The chain's step (``Optimizer.step``: the finite check, the clip, the base step,
+    the windows) on the card in f32, median of 3 after one, with adafactor and with
+    the recipe's own adamw, from the same seeded gradients."""
+    import copy
+    import dataclasses
+    import statistics
+
+    from speechflow_torch.training.optimizer import build_optimizer
+
+    out = {}
+    for method in ("adafactor", "adamw"):
+        model = copy.deepcopy(module).float()
+        opt = build_optimizer(dataclasses.replace(cfg, method=method), model)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        grads = [torch.randn(p.shape, generator=gen, device="cuda") for p in model.parameters()]
+        times = []
+        for _ in range(4):
+            for p, g in zip(model.parameters(), grads):
+                p.grad = g
+            times.append(_timed_ms(torch, opt.step)[1])
+        out[method] = statistics.median(times[1:])
+        del model, opt, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_inputs(torch, name: str, gen):
+    """(output, target, call kwargs) of loss ``name`` at its recipe shape, float64 on
+    the CPU (SSIM's values inside its range and the target near the output, away from
+    the clip's and max(., 0)'s kinks)."""
+    shape = ZOO_SHAPES[name]
+
+    def rnd(*s, lo=None, hi=None):
+        if lo is None:
+            return torch.randn(s, generator=gen, dtype=torch.float64)
+        return lo + (hi - lo) * torch.rand(s, generator=gen, dtype=torch.float64)
+
+    b = shape[0]
+    lens = torch.linspace(shape[1], shape[1] // 2, b).long() if len(shape) > 2 else None
+    if name == "GuidedAttention":
+        att = torch.softmax(rnd(*shape), dim=-1)
+        return att, None, {"out_lengths": lens,
+                           "in_lengths": torch.linspace(shape[2], shape[2] // 3, b).long()}
+    if name == "MLE":
+        return (rnd(*shape), rnd(b)), None, {"lengths": lens}
+    if name == "DiffSpectral":
+        return rnd(*shape), rnd(*shape), {"lengths": lens}
+    if name == "SSIM":
+        out = rnd(*shape, lo=-3.0, hi=3.0)
+        return out, (out + 0.3 * rnd(*shape)).clamp(-3.5, 3.5), {"lengths": lens}
+    if name == "Duration":
+        return rnd(*shape), rnd(*shape, lo=0.5, hi=20.0), {}
+    if name == "VAE":
+        return (rnd(*shape), 0.3 * rnd(*shape)), None, {}
+    if name == "InverseSpeaker":
+        return rnd(*shape), torch.randint(0, shape[1], (b,), generator=gen), {}
+    return rnd(*shape), rnd(*shape), {}  # SoftDTW
+
+
+def _loss_and_grads(torch, loss, output, target, kw, device, dtype) -> tuple:
+    """(value, gradients of the output tensors) of ``loss`` on ``device`` in ``dtype``."""
+    def to(x):
+        return x.to(device, dtype if x.is_floating_point() else x.dtype)
+
+    outs = [to(o).requires_grad_() for o in (output if isinstance(output, tuple) else (output,))]
+    tgt = None if target is None else to(target)
+    kwd = {k: (v if v is None else v.to(device)) for k, v in kw.items()}
+    val = loss(tuple(outs) if isinstance(output, tuple) else outs[0], tgt, **kwd)
+    grads = torch.autograd.grad(val, outs)
+    return val.detach(), grads
+
+
+def loss_zoo_gate(torch, gpu_line: str) -> dict:
+    """Each of the zoo's eight new losses, value and gradient, on the card (f32)
+    against the CPU (float64) at its recipe shape; the soft-DTW timed forward and
+    backward, and its planted fault (the diagonal dropped from the soft-min) rejected."""
+    from speechflow_torch.training.losses import build_loss
+    from speechflow_torch.training.losses import zoo
+
+    gen = torch.Generator().manual_seed(0)
+    res = {}
+    for name in ZOO_SHAPES:
+        output, target, kw = _zoo_inputs(torch, name, gen)
+        loss = build_loss(name)
+        ref_v, ref_g = _loss_and_grads(torch, loss, output, target, kw, "cpu", torch.float64)
+        (val, grads), ms = _timed_ms(
+            torch, lambda: _loss_and_grads(torch, loss, output, target, kw, "cuda",
+                                           torch.float32))
+        v_err = abs(val.item() - ref_v.item()) / max(abs(ref_v.item()), 1e-12)
+        g_err = max((g.double().cpu() - r).abs().max().item() / max(r.abs().max().item(), 1e-300)
+                    for g, r in zip(grads, ref_g))
+        res[name] = {"value": ref_v.item(), "value_err": v_err, "grad_err": g_err, "ms": ms}
+        check(bool(torch.isfinite(val)) and v_err <= TOL_F32_REL and g_err <= TOL_ZOO_GRAD,
+              f"loss zoo: {name} on the card disagrees with the CPU: value {v_err:.3g} (tol "
+              f"{TOL_F32_REL:g}), gradient {g_err:.3g} (tol {TOL_ZOO_GRAD:g})")
+    # the soft-DTW's wavefront: forward and backward timed; the planted fault
+    output, target, _ = _zoo_inputs(torch, "SoftDTW", gen)
+    loss = build_loss("SoftDTW")
+    x, y = output.float().cuda().requires_grad_(), target.float().cuda()
+    fwd = cuda_ms(lambda: loss(x, y), iters=3, warmup=1)
+    both = cuda_ms(lambda: torch.autograd.grad(loss(x, y), x), iters=3, warmup=1)
+    ref_v, ref_g = _loss_and_grads(torch, loss, output, target, {}, "cpu", torch.float64)
+    real = zoo._softmin
+    zoo._softmin = lambda a, b, c, gamma: real(a, b, torch.full_like(c, zoo.SOFT_DTW_BIG), gamma)
+    try:
+        bad_v, _ = _loss_and_grads(torch, loss, output, target, {}, "cuda", torch.float32)
+    finally:
+        zoo._softmin = real
+    bad = abs(bad_v.item() - ref_v.item()) / max(abs(ref_v.item()), 1e-12)
+    res["SoftDTW"].update(fwd_ms=fwd, fwd_bwd_ms=both, fault=bad)
+    print(f"[adafactor_zoo] the loss zoo on the card (f32) against the CPU (float64), "
+          f"value (tol {TOL_F32_REL:g}) and gradient (tol {TOL_ZOO_GRAD:g}), worst of the "
+          "largest: "
+          + "; ".join(f"{n} {ZOO_SHAPES[n]} value {r['value_err']:.3g} grad {r['grad_err']:.3g} "
+                      f"({r['ms']:.1f} ms)" for n, r in res.items())
+          + f"; soft-DTW B16 x 256 x 256 ({2 * 256 - 1} anti-diagonals) forward {fwd:.2f} ms, "
+          f"forward and backward {both:.2f} ms; planted fault (no diagonal in the soft-min) "
+          f"{bad:.3g} of the value ({gpu_line})", flush=True)
+    check(bad > TOL_F32_REL, "loss zoo: the planted soft-DTW fault passed")
+    return res
+
+
+def mixstyle_prenet_gate(torch, gpu_line: str) -> dict:
+    """``MixStyle`` on (B40, 1024, 768) and ``PreNet`` 80 -> 256 -> 256, the draws
+    injected: the card (f32) against the CPU (float64), output and input gradient."""
+    from speechflow_torch.models.tts.common import MixStyle, PreNet
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(MIXSTYLE_SHAPE, generator=gen, dtype=torch.float64) * 2.0 + 1.0
+    cot = torch.randn(MIXSTYLE_SHAPE, generator=gen, dtype=torch.float64)
+    mix = MixStyle(p=1.0, alpha=0.1)
+    draws = mix.draw(MIXSTYLE_SHAPE[0], torch.device("cpu"), gen)
+    torch.manual_seed(0)
+    pre = PreNet(*PRENET_DIMS).double()
+    px = torch.randn(40, 1024, PRENET_DIMS[0], generator=gen, dtype=torch.float64)
+    res = {}
+    for name, mod, inp, call in (
+            ("MixStyle", mix, x, lambda m, a, dev: m(a, draws=type(draws)(
+                *(d.to(dev) for d in draws)))),
+            ("PreNet", pre, px, lambda m, a, dev: m(a))):
+        outs = {}
+        for dev, dtype in (("cpu", torch.float64), ("cuda", torch.float32)):
+            m = mod.to(dev, dtype)
+            a = inp.to(dev, dtype).requires_grad_()
+            y = call(m, a, dev)
+            c = cot.to(dev, dtype) if name == "MixStyle" else torch.ones_like(y)
+            (g,) = torch.autograd.grad(y, a, c)
+            outs[dev] = (y.detach().double().cpu(), g.double().cpu())
+        errs = [(outs["cuda"][i] - outs["cpu"][i]).abs().max().item()
+                / outs["cpu"][i].abs().max().item() for i in (0, 1)]
+        res[name] = errs
+        check(max(errs) <= TOL_F32_REL, f"{name}: the card disagrees with the CPU: {errs}")
+    mod = None
+    print(f"[adafactor_zoo] MixStyle {MIXSTYLE_SHAPE} (draws injected, gate on) and PreNet "
+          f"{' -> '.join(map(str, PRENET_DIMS))}, card f32 against CPU float64, output and "
+          f"input gradient of the largest: "
+          + "; ".join(f"{n} {e[0]:.3g}, {e[1]:.3g}" for n, e in res.items())
+          + f" (tol {TOL_F32_REL:g}; {gpu_line})", flush=True)
+    return res
+
+
+def profiler_summary(log_file: Path) -> dict:
+    """The ``LoggingServer``'s profiler summary at the end of an experiment's log:
+    tag -> (count, mean ms)."""
+    text = log_file.read_text()
+    check("=== profiler summary ===" in text, f"adafactor_zoo: no profiler summary in {log_file}")
+    out = {}
+    for line in text.split("=== profiler summary ===", 1)[1].splitlines():
+        tag, _, rest = line.partition(": n=")
+        if rest:
+            n, _, mean = rest.partition(" mean=")
+            out[tag.strip()] = (int(n), float(mean.split("ms")[0]))
+    return out
+
+
+def _state_bytes(opt) -> int:
+    return sum(v.numel() * v.element_size() for st in opt.base.state.values()
+               for v in st.values() if hasattr(v, "numel"))
+
+
+def phase_adafactor_zoo(torch, gpu_line: str) -> dict:
+    """``train_tts.train`` with adafactor (a copy of ``configs/tts_model.yml`` read
+    through ``-c``) under ``DATAPIPE_PROFILING=1``; the recipe chain's updates card vs
+    CPU; the committed JAX adafactor run resumed; the loss zoo, MixStyle and PreNet
+    card vs CPU; the run's checkpoint pruned and served."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from speechflow_torch import serving
+    from speechflow_torch.interface.tts_interface import TTSEvaluationInterface, TTSOptions
+    from speechflow_torch.interface.vocoder_interface import VocoderEvaluationInterface
+    from speechflow_torch.scripts import train_tts as TT
+    from speechflow_torch.scripts.common import experiment_log, experiment_saver
+    from speechflow_torch.training.optimizer import Adafactor
+    from speechflow_torch.training.saver import ExperimentSaver
+    from speechflow_torch.training.trainer import Trainer
+    from speechflow_torch.utils.misc import prune_checkpoint
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tempfile.mkdtemp(prefix="adafactor_", dir=workdir()))
+    text = (REPO / "configs" / "tts_model.yml").read_text()
+    check(text.count("  method: adamw\n") == 1, "adafactor_zoo: the recipe's optimizer line")
+    model_yml = tmp / "tts_model.yml"
+    model_yml.write_text(text.replace("  method: adamw\n", "  method: adafactor\n"))
+    model_cfg, data_cfg = TT.configs("default", model_config=model_yml,
+                                     data_root=REPO / "tests" / "data" / "SEGS")
+    check(model_cfg["optimizer"]["method"] == "adafactor"
+          and model_cfg["model"]["decoder_dim"] == 768, "adafactor_zoo: the copy read as "
+          f"{model_cfg['optimizer']['method']}, decoder {model_cfg['model']['decoder_dim']}")
+    model_cfg["batch"]["size"] = ADAFACTOR_BATCH
+    model_cfg["trainer"]["max_steps"] = ADAFACTOR_STEPS
+    model_cfg["experiment"]["g2p_steps"] = ADAFACTOR_G2P_STEPS
+    res = {"gate": adafactor_gate(torch, model_cfg, data_cfg, gpu_line),
+           "resume": adafactor_resume(torch, gpu_line),
+           "zoo": loss_zoo_gate(torch, gpu_line),
+           "mix": mixstyle_prenet_gate(torch, gpu_line)}
+
+    st = {"ref": None, "steps": [], "losses": [], "trainer": None}
+    real_step = Trainer.training_step
+
+    def step(self, batch):
+        if st["ref"] is None:
+            st["ref"] = [p.detach().clone() for p in self.model.parameters()]
+        out, ms = _timed_ms(torch, lambda: real_step(self, batch))
+        st["steps"].append((ms, tuple(batch.mel.shape)))
+        return out
+
+    def callback(trainer, last):
+        st["trainer"] = trainer
+        vals = {k: float(v) for k, v in last.items()}
+        st["losses"].append(vals)
+        check(all(np.isfinite(v) for v in vals.values()), f"adafactor_zoo: loss {vals}")
+        changed = any(not torch.equal(p, r) for p, r in zip(trainer.model.parameters(),
+                                                            st["ref"]))
+        check(changed == (trainer.global_step >= 2),
+              f"adafactor_zoo: weights {'changed' if changed else 'unchanged'} after step "
+              f"{trainer.global_step} (lr 0 at count 0)")
+
+    saved_env = os.environ.get("DATAPIPE_PROFILING")
+    os.environ["DATAPIPE_PROFILING"] = "1"
+    saver = experiment_saver(model_cfg, data_cfg, tmp)
+    Trainer.training_step = step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with experiment_log(saver):
+            expr = TT.train(model_cfg, data_cfg, saver, device="cuda", callbacks=[callback])
+        t_fit = time.perf_counter() - t0
+    finally:
+        Trainer.training_step = real_step
+        if saved_env is None:
+            os.environ.pop("DATAPIPE_PROFILING", None)
+        else:
+            os.environ["DATAPIPE_PROFILING"] = saved_env
+    peak = torch.cuda.max_memory_allocated()
+    opt = st["trainer"].optimizer
+    check(isinstance(opt.base, Adafactor), "adafactor_zoo: train_tts did not train with adafactor")
+    params = list(st["trainer"].model.parameters())
+    adam_bytes = 2 * sum(p.numel() * p.element_size() for p in params)
+    state_bytes = _state_bytes(opt)
+    factored = sum("v_row" in s for s in opt.base.state.values())
+    summary = profiler_summary(Path(expr) / "experiment.log")
+    pipe = list(data_cfg["preproc"]["pipe"])
+    n = summary.get("datapipe.sample", (0, 0.0))[0]
+    workers = int(model_cfg["data_loaders"]["n_workers"])
+    counts = {h: summary.get(f"handler.{h}", (0, 0.0))[0] for h in pipe}
+    ms = [s[0] for s in st["steps"]]
+    print(f"[adafactor_zoo] train_tts with adafactor ({model_yml.name} via -c, default preset, "
+          f"B{ADAFACTOR_BATCH}): {ADAFACTOR_STEPS} steps in {t_fit:.1f} s with set-up; ms a "
+          f"step " + " ".join(f"{v:.1f}" for v in ms) + f" (median of 2.. "
+          f"{statistics.median(ms[1:]):.1f}); mel {st['steps'][-1][1]}; losses "
+          + ", ".join(f"{k} {v:.4f}" for k, v in st["losses"][-1].items())
+          + f"; peak device memory {peak / 2**30:.2f} GiB; optimizer state "
+          f"{state_bytes / 2**20:.2f} MiB against Adam's {adam_bytes / 2**20:.2f} MiB "
+          f"({state_bytes / adam_bytes:.4f}); {factored} of {len(params)} leaves factored; "
+          f"DATAPIPE_PROFILING: {n} samples through the {len(pipe)} handlers, "
+          + ", ".join(f"{h} {counts[h]} x {summary.get(f'handler.{h}', (0, 0.0))[1]:.2f} ms"
+                      for h in pipe) + f" ({gpu_line})", flush=True)
+    check(n >= ADAFACTOR_BATCH * ADAFACTOR_STEPS
+          and all(n <= c <= n + workers for c in counts.values()),
+          f"adafactor_zoo: the profiler summary's handler counts {counts} against {n} samples "
+          f"(at most one more a worker, in flight when the loader stopped)")
+    check(state_bytes < adam_bytes / 2, "adafactor_zoo: the state is not smaller than Adam's")
+
+    # the run's checkpoint pruned, then served through the eval interfaces (f32)
+    ckpt = ExperimentSaver.get_last_checkpoint(expr)
+    check(ckpt is not None and ckpt.name == f"step_{ADAFACTOR_STEPS:09d}",
+          f"adafactor_zoo: last checkpoint {ckpt}")
+    pruned = prune_checkpoint(ckpt, tmp / "pruned")
+
+    def size(p: Path) -> int:
+        return sum(f.stat().st_size for f in p.rglob("*") if f.is_file())
+
+    check(size(pruned) < size(ckpt), "adafactor_zoo: the pruned checkpoint is not smaller")
+    check(not (pruned / "opt.pt").exists(), "adafactor_zoo: the pruned checkpoint has opt.pt")
+    _, voc_params = serving.flagship_params()
+    vi = VocoderEvaluationInterface(seeded_vocoder(torch, voc_params).to("cuda"))
+    served = {}
+    noise = None
+    for label, path in (("pruned", pruned), ("full", ckpt)):
+        tree, payload = ExperimentSaver.load_checkpoint(path)
+        ti = TTSEvaluationInterface.from_checkpoint(tree, payload, ckpt_path=ckpt,
+                                                    device="cuda")
+        ctx = ti.prepare_embeddings(ti.create_context("EN", ti.get_speakers()[0]))
+        opts = TTSOptions(t_out=T_FRAMES)
+        if noise is None:
+            inputs = ti.prepare_batch(list(ADAFACTOR_SENTENCES), ctx, opts)
+            noise = torch.randn(ti.model.noise_shape(inputs, T_FRAMES), device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(0)
+                                ) * ti.model.decoder.temperature
+        if label == "pruned":
+            reset_counts()
+        served[label] = tts_request(torch, ti, vi, list(ADAFACTOR_SENTENCES), ctx, opts,
+                                    noise=noise)
+        if label == "pruned":
+            request_counts = read_counts()
+            with plain_versions():
+                plain = tts_request(torch, ti, vi, list(ADAFACTOR_SENTENCES), ctx, opts,
+                                    noise=noise)
+    check(request_counts == EXPECTED_LAUNCHES,
+          f"adafactor_zoo: the pruned checkpoint's request launched {request_counts}")
+    wave, ref = served["pruned"]["wave"], plain["wave"]
+    check(wave.shape == ref.shape and bool(np.isfinite(wave).all()),
+          f"adafactor_zoo: waveform {wave.shape} against plain {ref.shape}")
+    wav_err = float(np.abs(wave - ref).max())
+    wav_lim = TOL_F32_REL * float(np.abs(ref).max())
+    same = bool(np.array_equal(wave, served["full"]["wave"]))
+    print(f"[adafactor_zoo] {ckpt.name} pruned ({size(ckpt) / 2**20:.2f} -> "
+          f"{size(pruned) / 2**20:.2f} MiB on disk) and served, f32: {len(ADAFACTOR_SENTENCES)} "
+          f"sentences, frames {served['pruned']['lens']}, {len(wave) / SR:.3f} s; launches "
+          f"{request_counts}; kernels vs plain wave max_abs_err {wav_err:.3g} (tol "
+          f"{wav_lim:.3g}); the full checkpoint's waveform {'equal' if same else 'DIFFERS'} "
+          f"({served['pruned']['ms']['total']:.1f} ms the request; {gpu_line})", flush=True)
+    check(wav_err <= wav_lim, "adafactor_zoo: the served waveform, kernels vs plain")
+    check(same, "adafactor_zoo: the pruned checkpoint serves another waveform than the full")
+    del vi, ti, st["trainer"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[adafactor_zoo] phase wall time {phase_s:.1f} s ({gpu_line})", flush=True)
+    res.update(launches=request_counts, phase_s=phase_s, step_ms=statistics.median(ms[1:]),
+               peak=peak, state_bytes=state_bytes, adam_bytes=adam_bytes, factored=factored)
+    return res
+
+
 # -- profile (opt-in) ----------------------------------------------------------------
 
 # device kernels by family, matched on the kernel's name, first match wins
@@ -7254,12 +7867,12 @@ def main(argv=None) -> int:
                             "train,tts_train,xtts_train,prosody_train,conditioned,jax_ckpt,"
                             "vocoder_model_train,tts_forward_train,jax_resume,tts_options,"
                             "e2e_train,vocoder_recipes,aligner,aux_models,vocoder_cpc,data_prep,"
-                            "annotator,ddp",
+                            "annotator,ddp,adafactor_zoo",
                     help="comma-separated subset of build,kernels,slice,toy,interface,"
                          "tts_interface,xtts,bundle,train,tts_train,xtts_train,prosody_train,"
                          "conditioned,jax_ckpt,vocoder_model_train,tts_forward_train,"
                          "jax_resume,tts_options,e2e_train,vocoder_recipes,aligner,aux_models,"
-                         "vocoder_cpc,data_prep,annotator,ddp,profile "
+                         "vocoder_cpc,data_prep,annotator,ddp,adafactor_zoo,profile "
                          "(the last is not in the default run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -7338,7 +7951,8 @@ def run(torch, phases: set) -> int:
              ("vocoder_cpc", phase_vocoder_cpc, tuple(HEAD_LAUNCHES)),
              ("data_prep", phase_data_prep, ("fused_attention", "anti_alias_snake")),
              ("annotator", phase_annotator, ("fused_attention",)),
-             ("ddp", phase_ddp, tuple(EXPECTED_LAUNCHES)))
+             ("ddp", phase_ddp, tuple(EXPECTED_LAUNCHES)),
+             ("adafactor_zoo", phase_adafactor_zoo, tuple(EXPECTED_LAUNCHES)))
     by_path = {}
     for label, phase, kernels_of_path in paths:
         if label not in phases:

@@ -22,7 +22,8 @@ import torch
 
 from speechflow_torch.io.audio import AudioChunk
 
-__all__ = ["ASRBase", "FileASR", "WhisperASR", "CTCPhonemeASR", "run_audio_transcription"]
+__all__ = ["ASRBase", "FileASR", "WhisperASR", "CTCPhonemeASR", "convert_media_to_opus",
+           "run_audio_transcription"]
 
 
 class ASRBase:
@@ -52,6 +53,22 @@ class WhisperASR(ASRBase):
             f"WhisperASR ({model_name}) needs the transformers package and the model's "
             "weights, which the port does not carry: give precomputed .whisper files "
             "(FileASR) or a CTC checkpoint (CTCPhonemeASR)")
+
+
+def convert_media_to_opus(data_root: tp.Union[str, Path], ext: str = ".wav",
+                          sr: tp.Optional[int] = None, overwrite: bool = False) -> tp.List[Path]:
+    """Every ``ext`` file under ``data_root`` re-encoded as Ogg/Opus beside it (at
+    ``sr`` where given; one already there is kept unless ``overwrite``): the written
+    paths, as JAX's. Needs the Opus libraries (``io.codecs``)."""
+    from speechflow_torch.io.flist import construct_file_list
+
+    out = []
+    for f in construct_file_list(data_root, ext=ext):
+        dst = Path(f).with_suffix(".opus")
+        if overwrite or not dst.exists():
+            AudioChunk(file_path=f).load(sr=sr).save(dst, overwrite=True)
+        out.append(dst)
+    return out
 
 
 def run_audio_transcription(data_root: tp.Union[str, Path], asr: tp.Optional[ASRBase] = None,

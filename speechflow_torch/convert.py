@@ -45,7 +45,7 @@ import torch.nn as nn
 
 from speechflow_torch.models.layers import Conv1d, Conv2d, ConvTranspose1d, MultiHeadAttention
 
-__all__ = ["flatten_nnx", "state_dict_from_nnx", "load_nnx_state", "nnx_path",
+__all__ = ["flatten_nnx", "state_dict_from_nnx", "load_nnx_state", "nnx_path", "jax_layouts",
            "nnx_from_module", "lenet_state_dict", "lenet_to_nnx"]
 
 
@@ -70,13 +70,18 @@ def flatten_nnx(pure: tp.Mapping, prefix: str = "") -> tp.Dict[str, np.ndarray]:
     return out
 
 
-Layout = tp.Callable[[np.ndarray], np.ndarray]
+Layout = tp.Callable[[tp.Any], tp.Any]
+
+
+def _perm(a, axes: tp.Sequence[int]):
+    """``a`` with its axes in the order ``axes`` (a numpy array or a tensor)."""
+    return a.permute(*axes) if isinstance(a, torch.Tensor) else a.transpose(axes)
 
 
 def _mapping(parent: nn.Module, child_name: str, module: nn.Module, leaf: str,
              path: str) -> tp.Tuple[str, Layout, Layout]:
     """(flax leaf path, flax -> port layout, port -> flax layout) for one port
-    parameter."""
+    parameter; the layouts take numpy arrays and tensors alike."""
     ident = (lambda a: a)
 
     def at(name: str) -> str:
@@ -101,11 +106,11 @@ def _mapping(parent: nn.Module, child_name: str, module: nn.Module, leaf: str,
         return (at("kernel"), lambda a: a.T, lambda w: w.T) if leaf == "weight" \
             else (at("bias"), ident, ident)
     if isinstance(module, (Conv1d, ConvTranspose1d)):
-        t = (lambda a: a.transpose(2, 1, 0))
+        t = (lambda a: _perm(a, (2, 1, 0)))
         return (at("kernel"), t, t) if leaf == "weight" else (at("bias"), ident, ident)
     if isinstance(module, Conv2d):
-        return (at("kernel"), lambda a: a.transpose(3, 2, 0, 1),
-                lambda w: w.transpose(2, 3, 1, 0)) if leaf == "weight" \
+        return (at("kernel"), lambda a: _perm(a, (3, 2, 0, 1)),
+                lambda w: _perm(w, (2, 3, 1, 0))) if leaf == "weight" \
             else (at("bias"), ident, ident)
     return at(leaf), ident, ident
 
@@ -123,6 +128,13 @@ def nnx_path(module: nn.Module) -> tp.Dict[str, str]:
     """Port parameter name -> its path in the JAX layout, ``/``-joined (the path
     optax's param-group labels match)."""
     return {name: src.replace(".", "/") for name, _, src, _, _ in _mappings(module)}
+
+
+def jax_layouts(module: nn.Module) -> tp.Dict[str, tp.Tuple[str, Layout, Layout]]:
+    """Port parameter name -> (its dotted flax path, port -> flax layout, flax ->
+    port layout), each layout a function of a tensor (or numpy array)."""
+    return {name: (src, to_flax, to_port)
+            for name, _, src, to_port, to_flax in _mappings(module)}
 
 
 def nnx_from_module(module: nn.Module) -> dict:

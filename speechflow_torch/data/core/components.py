@@ -27,8 +27,9 @@ cache of ``data/core/processor.py``, keyed by each handler's name and its
 config parameters as the JAX package keys them. A handler with a ``ranges``
 parameter (``normalize``) gets the ``StatisticsRange`` singleton.
 
-In training a sample whose handlers fail is dropped with a warning (and
-recorded in the cache's ``skip_samples.txt``), as the JAX data processor drops
+In training a sample whose handlers raise (any exception) is dropped with a
+warning (and recorded in the cache's ``skip_samples.txt``) by
+``data/core/processor.py``'s ``DataProcessor``, as the JAX data processor drops
 it; ``datasample_to_batch`` (inference) raises and never reads the cache.
 """
 
@@ -47,7 +48,7 @@ import torch
 from speechflow_torch.concurrency.context import adopt_environment, worker_context
 
 from speechflow_torch.data.collate import COLLATES
-from speechflow_torch.data.core.processor import DumpProcessor
+from speechflow_torch.data.core.processor import DataProcessor, DumpProcessor
 from speechflow_torch.data.parsers import PARSERS
 from speechflow_torch.data.processors import get_handler
 from speechflow_torch.data.processors.singletons import SINGLETON_HANDLERS, StatisticsRange
@@ -248,10 +249,10 @@ class DataPipeline:
         return self.process.batch(samples)
 
     @property
-    def process(self) -> "_Process":
+    def process(self) -> DataProcessor:
         """The training path's processing of a sample (through the cache)."""
-        return _Process(self.preproc_fns, self.collate_fn,
-                        [self.handler_params[n] for n in self.handler_names], self.dump)
+        return DataProcessor(self.preproc_fns, self.collate_fn, self.handler_params,
+                             dump_processor=self.dump)
 
     def loader(self, subset: str, batch_size: int, n_workers: int = 0,
                prefetch_factor: int = 2) -> "AudioLoader":
@@ -269,51 +270,10 @@ class DataPipeline:
         return self.collate_fn(processed)
 
 
-class _Process:
-    """Copy a sample and run the handlers over it (a cached handler's fields
-    set from ``dump`` instead); drop it with a warning if one fails.
-    Picklable, for the loader's worker processes."""
-
-    def __init__(self, preproc_fns: tp.Sequence[tp.Callable], collate_fn: tp.Callable,
-                 params: tp.Sequence[dict], dump: tp.Optional[DumpProcessor]):
-        self.preproc_fns = list(preproc_fns)
-        self.collate_fn = collate_fn
-        self.params = list(params)  # each handler's config parameters: its cache key
-        self.dump = dump
-
-    def sample(self, ds):
-        dump = self.dump
-        if dump is not None and dump.sample_key(ds) in dump.skip_samples:
-            return None
-        cache = dump.load(ds) if dump is not None else {}
-        dirty = False
-        try:
-            ds = ds.copy()
-            for fn, params in zip(self.preproc_fns, self.params):
-                if dump is not None and dump.is_cached(fn, params, cache):
-                    dump.apply_cached(ds, fn, params, cache)
-                    continue
-                ds = fn(ds)
-                if dump is not None:
-                    dirty |= dump.store_outputs(ds, fn, params, cache)
-        except (OSError, ValueError) as e:
-            LOGGER.warning("sample %s failed in preproc: %r", getattr(ds, "file_path", None), e)
-            if dump is not None:
-                dump.blacklist(ds)
-            return None
-        if dirty:
-            dump.save(ds, cache)
-        return ds
-
-    def batch(self, samples: tp.Sequence) -> tp.Any:
-        kept = [d for d in (self.sample(s) for s in samples) if d is not None]
-        return self.collate_fn(kept) if kept else None
-
-
 class _SubsetSamples(torch.utils.data.Dataset):
     """Index in a subset -> the processed sample (or None)."""
 
-    def __init__(self, samples: tp.Sequence, process: _Process):
+    def __init__(self, samples: tp.Sequence, process: DataProcessor):
         self.samples = samples
         self.process = process
 

@@ -1,5 +1,17 @@
-"""The per-sample feature cache (counterpart of ``DumpProcessor`` in
-``speechflow_tpu/data/core/processor.py``), built from a data config's
+"""The handler chain over a sample and the per-sample feature cache
+(counterpart of ``speechflow_tpu/data/core/processor.py``).
+
+``DataProcessor.process_sample`` runs the handlers over a sample in order (a
+cached handler's fields set from the ``DumpProcessor`` instead). A sample that
+raises in a handler, whatever the exception, is dropped with a warning and
+recorded in the cache's blacklist when ``skip_corrupted_samples`` is on (the
+default, as ``DataPipeline`` builds it), and raises when it is off.
+``process`` collates the survivors into a ``Batch``. Under
+``DATAPIPE_PROFILING=1`` each handler is timed as ``handler.<name>`` and each
+sample as ``datapipe.sample`` (``utils.profiler``; a data worker's timings reach
+the experiment's ``LoggingServer``).
+
+``DumpProcessor`` is the feature cache, built from a data config's
 ``processor.dump`` section.
 
 One pickle a sample, named by the sha256 of its ``file_path`` (else its
@@ -31,11 +43,13 @@ import pickle
 import typing as tp
 from pathlib import Path
 
+from speechflow_torch.data.core.batch import Batch
 from speechflow_torch.data.core.registry import PipeRegistry
+from speechflow_torch.utils.profiler import Profiler, profiling_enabled
 
 LOGGER = logging.getLogger("speechflow_torch")
 
-__all__ = ["DumpProcessor"]
+__all__ = ["DataProcessor", "DumpProcessor"]
 
 
 def _handler_key(fn: tp.Callable, params: tp.Optional[dict] = None) -> str:
@@ -125,3 +139,75 @@ class DumpProcessor:
             self.skip_samples.add(key)
             with self._skip_file.open("a") as f:
                 f.write(key + "\n")
+
+
+class DataProcessor:
+    """The handlers of a pipeline over its samples; see the module docstring.
+    ``handler_params`` maps a handler's name to its config parameters (the key
+    of its cached fields). Picklable, for the loaders' worker processes."""
+
+    def __init__(self, preproc_fns: tp.Sequence[tp.Callable] = (),
+                 collate_fn: tp.Optional[tp.Callable] = None,
+                 handler_params: tp.Optional[tp.Mapping[str, dict]] = None,
+                 skip_corrupted_samples: bool = True,
+                 dump_processor: tp.Optional[DumpProcessor] = None):
+        self.preproc_fns = list(preproc_fns)
+        self.collate_fn = collate_fn
+        self.handler_params = dict(handler_params or {})
+        self.skip_corrupted_samples = skip_corrupted_samples
+        self.dump = dump_processor
+
+    def process_sample(self, ds):
+        """The sample through every handler; None if it is dropped."""
+        dump = self.dump
+        if dump is not None and dump.sample_key(ds) in dump.skip_samples:
+            return None
+        cache = dump.load(ds) if dump is not None else {}
+        dirty = False
+        profile = profiling_enabled("DATAPIPE")
+        try:
+            with Profiler("datapipe.sample", enable=profile):
+                for fn in self.preproc_fns:
+                    name = PipeRegistry.meta(fn)["name"]
+                    params = self.handler_params.get(name)
+                    if dump is not None and dump.is_cached(fn, params, cache):
+                        dump.apply_cached(ds, fn, params, cache)
+                        continue
+                    with Profiler(f"handler.{name}", enable=profile):
+                        ds = fn(ds)
+                    if ds is None:
+                        return None
+                    if dump is not None:
+                        dirty |= dump.store_outputs(ds, fn, params, cache)
+        except Exception as e:
+            LOGGER.warning("sample %s failed in preproc: %r", getattr(ds, "file_path", None), e)
+            if dump is not None:
+                dump.blacklist(ds)
+            if self.skip_corrupted_samples:
+                return None
+            raise
+        if dirty:
+            dump.save(ds, cache)
+        return ds
+
+    def process(self, samples: tp.Sequence, is_last: bool = False,
+                tag: tp.Optional[str] = None) -> tp.Optional[Batch]:
+        """The samples through the handlers, the survivors collated (None if
+        none survives)."""
+        processed = [d for d in (self.process_sample(s) for s in samples) if d is not None]
+        if not processed:
+            return None
+        collated = self.collate_fn(processed) if self.collate_fn else None
+        return Batch(size=len(processed), is_last=is_last, data_samples=processed,
+                     collated_samples=collated, tag=tag)
+
+    def sample(self, ds):
+        """A copy of a dataset's sample through the handlers (the dataset's own
+        stays as it is)."""
+        return self.process_sample(ds.copy())
+
+    def batch(self, samples: tp.Sequence) -> tp.Any:
+        """Copies of ``samples`` through the handlers, collated (None if none
+        survives)."""
+        out = self.process([s.copy() for s in samples])
+        return None if out is None else out.collated_samples

@@ -14,8 +14,8 @@ import numpy as np
 from speechflow_torch.ops.mel import MIN_LEVEL_DB, mel_filterbank
 
 __all__ = ["hann_window_np", "stft_np", "magnitude_np", "linear_to_mel_np",
-           "amp_to_db_np", "normalize_mel_np", "energy_np", "spectral_flatness_np",
-           "yin_f0_np", "yingram_np", "MIN_LEVEL_DB"]
+           "amp_to_db_np", "normalize_mel_np", "denormalize_mel_np", "energy_np",
+           "spectral_flatness_np", "yin_f0_np", "yingram_np", "acf_f0_np", "MIN_LEVEL_DB"]
 
 
 def hann_window_np(win_len: int) -> np.ndarray:
@@ -73,6 +73,14 @@ def normalize_mel_np(mel_db: np.ndarray, max_abs_value: float = 4.0,
                      min_level_db: float = MIN_LEVEL_DB) -> np.ndarray:
     out = (2 * max_abs_value) * ((mel_db - min_level_db) / (-min_level_db)) - max_abs_value
     return np.clip(out, -max_abs_value, None).astype(np.float32)
+
+
+def denormalize_mel_np(mel_norm: np.ndarray, max_abs_value: float = 4.0,
+                       min_level_db: float = MIN_LEVEL_DB) -> np.ndarray:
+    """The inverse of ``normalize_mel_np`` (values below -max_abs_value clipped)."""
+    clipped = np.clip(mel_norm, -max_abs_value, None)
+    return ((clipped + max_abs_value) * (-min_level_db) / (2 * max_abs_value)
+            + min_level_db).astype(np.float32)
 
 
 def energy_np(mag: np.ndarray) -> np.ndarray:
@@ -182,3 +190,44 @@ def yingram_np(x: np.ndarray, sr: int, hop_length: int = 256, frame_length: int 
     frac = (lags - lo) / np.maximum(hi - lo, 1)
     img = (dprime[:, hi] - dprime[:, lo]) * frac + dprime[:, lo]
     return img.astype(np.float32)
+
+
+def acf_f0_np(x: np.ndarray, sr: int, hop_length: int = 256, frame_length: int = 2048,
+              f0_min: float = 80.0, f0_max: float = 880.0, voicing_threshold: float = 0.45,
+              median_width: int = 3) -> np.ndarray:
+    """Autocorrelation F0 (Hz, 0 where unvoiced), independent of YIN: each
+    centred frame's normalised autocorrelation peak in the lags of
+    [f0_min, f0_max], refined by a parabola through its neighbours, taken where
+    it reaches ``voicing_threshold``; then a median over ``median_width`` frames
+    where both the frame and the median are voiced. ``1 + len(x) // hop``
+    frames, as ``yin_f0_np``."""
+    n_frames = 1 + len(x) // hop_length
+    pad = frame_length // 2
+    xp = np.pad(x.astype(np.float64), (pad, pad + frame_length))
+    lag_min = max(2, int(sr / f0_max))
+    lag_max = min(int(sr / f0_min), frame_length - 1)
+    f0 = np.zeros(n_frames)
+    for i in range(n_frames):
+        frame = xp[i * hop_length: i * hop_length + frame_length]
+        frame = frame - frame.mean()
+        e0 = np.sum(frame ** 2)
+        if e0 < 1e-8:
+            continue
+        ac = np.correlate(frame, frame, mode="full")[frame_length - 1:] / (e0 + 1e-12)
+        seg = ac[lag_min: lag_max + 1]
+        k = int(np.argmax(seg))
+        if seg[k] < voicing_threshold:
+            continue
+        lag = float(lag_min + k)
+        if 0 < k < len(seg) - 1:
+            a, b, c = seg[k - 1], seg[k], seg[k + 1]
+            denom = a - 2 * b + c
+            if abs(denom) > 1e-12:
+                lag += 0.5 * (a - c) / denom
+        f0[i] = sr / lag
+    if median_width > 1:
+        from scipy.signal import medfilt
+
+        sm = medfilt(f0, kernel_size=median_width | 1)
+        f0 = np.where((f0 > 0) & (sm > 0), sm, f0)
+    return f0.astype(np.float32)

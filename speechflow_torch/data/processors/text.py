@@ -22,7 +22,8 @@ from speechflow_torch.data.core.datasample import TTSDataSample
 from speechflow_torch.data.processors import handler
 
 __all__ = ["Alphabet", "TTSTextProcessor", "TextParserHook", "G2PParserHook",
-           "phonemize_words", "phonemize", "text_to_transcription", "PAD", "BOS", "EOS", "SIL", "UNK", "SERVICE_TOKENS"]
+           "phonemize_words", "phonemize", "text_to_transcription", "to_ipa", "phonemes_to_ipa",
+           "ARPABET_TO_IPA", "PAD", "BOS", "EOS", "SIL", "UNK", "SERVICE_TOKENS"]
 
 PAD, BOS, EOS, SIL, UNK = "<PAD>", "<BOS>", "<EOS>", "<SIL>", "<UNK>"
 SERVICE_TOKENS = (PAD, BOS, EOS, SIL, UNK)
@@ -189,3 +190,33 @@ def text_to_transcription(ds: TTSDataSample,
         raise ValueError("text_to_transcription needs the pipeline's text processor "
                          "(the payload has no alphabet)")
     return processor.process(ds)
+
+
+#: ARPABET -> IPA: multilingual recipes share one IPA symbol space; the stress
+#: digits become IPA's stress marks, prefixed
+ARPABET_TO_IPA: tp.Dict[str, str] = {
+    "AA": "ɑ", "AE": "æ", "AH": "ʌ", "AO": "ɔ", "AW": "aʊ", "AY": "aɪ",
+    "EH": "ɛ", "ER": "ɝ", "EY": "eɪ", "IH": "ɪ", "IY": "i", "OW": "oʊ",
+    "OY": "ɔɪ", "UH": "ʊ", "UW": "u",
+    "B": "b", "CH": "tʃ", "D": "d", "DH": "ð", "F": "f", "G": "ɡ",
+    "HH": "h", "JH": "dʒ", "K": "k", "L": "l", "M": "m", "N": "n",
+    "NG": "ŋ", "P": "p", "R": "ɹ", "S": "s", "SH": "ʃ", "T": "t",
+    "TH": "θ", "V": "v", "W": "w", "Y": "j", "Z": "z", "ZH": "ʒ",
+}
+_STRESS_MARKS = {"1": "ˈ", "2": "ˌ", "0": ""}
+
+
+def to_ipa(phoneme: str) -> str:
+    """One ARPABET phoneme, with or without its stress digit ("AA1"), in IPA;
+    service tokens and unknown symbols unchanged."""
+    if phoneme in SERVICE_TOKENS:
+        return phoneme
+    base, stress = phoneme, ""
+    if base and base[-1] in _STRESS_MARKS:
+        stress, base = _STRESS_MARKS[base[-1]], base[:-1]
+    ipa = ARPABET_TO_IPA.get(base.upper())
+    return phoneme if ipa is None else stress + ipa
+
+
+def phonemes_to_ipa(phonemes: tp.Sequence[str]) -> tp.List[str]:
+    return [to_ipa(p) for p in phonemes]

@@ -37,7 +37,8 @@ import re
 import typing as tp
 from pathlib import Path
 
-__all__ = ["Config", "ConfigError", "yaml_load", "yaml_dump", "value_select"]
+__all__ = ["Config", "ConfigError", "yaml_load", "yaml_dump", "value_select",
+           "change_config_file"]
 
 
 class ConfigError(ValueError):
@@ -727,3 +728,28 @@ class Config(dict):
 
     def to_yaml(self) -> str:
         return yaml_dump(self.to_dict())
+
+    def to_file(self, path: tp.Union[str, Path]) -> None:
+        Path(path).write_text(self.to_yaml(), encoding="utf-8")
+
+    def set_path(self, dotted: str, value: tp.Any) -> None:
+        """Set the ``a.b.c`` entry, making the sections on the way (a value that
+        is not a mapping on the way is replaced by one)."""
+        keys = dotted.split(".")
+        node: dict = self
+        for k in keys[:-1]:
+            if not isinstance(node.get(k), dict):
+                node[k] = {}
+            node = node[k]
+        node[keys[-1]] = value
+
+
+def change_config_file(path: tp.Union[str, Path], updates: tp.Mapping[str, tp.Any],
+                       value_select: tp.Optional[tp.Sequence[str]] = None) -> Config:
+    """Read ``path`` (with ``value_select``), set each dotted key of ``updates``,
+    write the file back and return the config."""
+    cfg = Config.create_from_file(path, value_select=value_select)
+    for dotted, value in updates.items():
+        cfg.set_path(dotted, value)
+    cfg.to_file(path)
+    return cfg

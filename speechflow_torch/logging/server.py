@@ -5,11 +5,12 @@
 records that ``logging.handlers.SocketHandler`` sends it (the standard
 library's length-prefixed pickles) to the experiment's log file, and keeps
 profiler events (``profiler_event``: a tag and seconds) for a mean / std
-summary at the end. Inside ``with LoggingServer(...)`` this process's root
-logger sends there, and the address is in ``SPEECHFLOW_LOG_ADDR``, which
-spawned children inherit: ``attach_from_env`` (called by every
-``ProcessWorker`` and by a training rank) attaches their handler, so the data
-server's workers and the other ranks log to the same file.
+summary at the end of the file (as JAX's server, not as lines of their own).
+Inside ``with LoggingServer(...)`` this process's root logger sends there, and
+the address is in ``SPEECHFLOW_LOG_ADDR``, which spawned children inherit:
+``attach_from_env`` (called by every ``ProcessWorker`` and by a training rank)
+attaches their handler, so the data server's workers and the other ranks log to
+the same file.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import typing as tp
 from pathlib import Path
 
 __all__ = ["LoggingServer", "attach_socket_handler", "attach_from_env", "profiler_event",
-           "LOG_ADDR_ENV"]
+           "profiler_record", "LOG_ADDR_ENV"]
 
 LOG_ADDR_ENV = "SPEECHFLOW_LOG_ADDR"
 FORMAT = "%(asctime)s %(levelname)s %(processName)s[%(process)d] %(name)s: %(message)s"
@@ -57,8 +58,18 @@ def attach_from_env() -> tp.Optional[logging.Handler]:
 
 def profiler_event(tag: str, seconds: float, logger: str = "speechflow_torch") -> None:
     """A timing the ``LoggingServer`` sums up by ``tag`` (mean and std) at its end."""
-    logging.getLogger(logger).info("profiler %s %.6f s", tag, seconds,
-                                   extra={"sf_profiler": (tag, float(seconds))})
+    lg = logging.getLogger(logger)
+    if lg.isEnabledFor(logging.INFO):
+        lg.handle(profiler_record(tag, seconds, logger))
+
+
+def profiler_record(tag: str, seconds: float, logger: str = "speechflow_torch"
+                    ) -> logging.LogRecord:
+    """``profiler_event``'s record, for a handler to take directly (``utils.profiler``
+    sends it to the server alone, not to the console)."""
+    return logging.getLogger(logger).makeRecord(
+        logger, logging.INFO, __file__, 0, "profiler %s %.6f s", (tag, float(seconds)), None,
+        extra={"sf_profiler": (tag, float(seconds))})
 
 
 class _Receiver(socketserver.StreamRequestHandler):
@@ -115,8 +126,9 @@ class LoggingServer:
         with self._lock:
             self.pids.add(record.process)
             event = getattr(record, "sf_profiler", None)
-            if event is not None:
+            if event is not None:  # summed up at the end, not a line of the log
                 self.profiler_events.setdefault(event[0], []).append(event[1])
+                return
             if self._file is not None:
                 self._file.write(self._formatter.format(record) + "\n")
                 self._file.flush()

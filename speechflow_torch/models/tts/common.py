@@ -5,8 +5,8 @@ Dropout follows the JAX blocks: each block takes ``deterministic`` (True by
 default, the inference call) and drops at its rate only when it is False,
 at the sites the JAX blocks drop (after a conv block's activation, a
 transformer block's attention weights and both residual branches, a DiT
-block's attention weights). The JAX ``PreNet`` and ``MixStyle`` have no caller
-in either package and are not ported.
+block's attention weights). ``PreNet`` and ``MixStyle`` are ported as JAX
+has them, though neither package builds either in a model.
 """
 
 from __future__ import annotations
@@ -18,11 +18,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from speechflow_torch.models.layers import Conv1d, MultiHeadAttention, layer_norm
+from speechflow_torch.models.layers import Conv1d, MultiHeadAttention, flax_init_, layer_norm
 
 __all__ = ["sinusoidal_embedding", "rope_rotate", "gelu", "dropout", "ConvBlock", "ConvStack",
-           "AdaLayerNorm", "FiLM", "ConditionalLayer", "TransformerBlock",
-           "DiTBlock", "VectorQuantizer", "VarianceEmbedding", "grad_reverse"]
+           "PreNet", "AdaLayerNorm", "FiLM", "ConditionalLayer", "TransformerBlock",
+           "DiTBlock", "VectorQuantizer", "VarianceEmbedding", "MixStyle", "MixStyleDraws",
+           "grad_reverse"]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -95,6 +96,21 @@ class ConvStack(nn.Module):
         for blk in self.blocks:
             x = blk(x, deterministic)
         return x
+
+
+class PreNet(nn.Module):
+    """Bottleneck MLP: two Linear + ReLU + dropout layers (flax's initialisers)."""
+
+    def __init__(self, dim_in: int, dim: int = 256, dim_out: int = 256, dropout: float = 0.5):
+        super().__init__()
+        self.l1 = nn.Linear(dim_in, dim)
+        self.l2 = nn.Linear(dim, dim_out)
+        self.dropout = dropout
+        flax_init_(self)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        x = dropout(F.relu(self.l1(x)), self.dropout, deterministic)
+        return dropout(F.relu(self.l2(x)), self.dropout, deterministic)
 
 
 def _modulation(proj: nn.Linear, cond: torch.Tensor, ndim: int):
@@ -278,3 +294,55 @@ class _GradReverse(torch.autograd.Function):
 def grad_reverse(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """The identity whose gradient is -scale times the incoming one."""
     return _GradReverse.apply(x, scale)
+
+
+class MixStyleDraws(tp.NamedTuple):
+    """A ``MixStyle`` call's draws: the Beta(α, α) weights (B, 1, 1), the batch
+    permutation (B,), and whether the call mixes at all (a 0-dim bool)."""
+
+    lmda: torch.Tensor
+    perm: torch.Tensor
+    gate: torch.Tensor
+
+
+class MixStyle(nn.Module):
+    """Feature-statistics mixing (Zhou et al., ICLR 2021): with probability ``p``
+    each sequence of (B, T, C) is normalised by its own time-axis mean and std
+    and takes a Beta(α, α)-weighted mix of its statistics and a shuffled batch
+    partner's; the statistics take no gradient, as JAX's ``stop_gradient``.
+    The identity outside training. The draws come from ``draw`` (a
+    ``torch.Generator`` where given) or are injected as ``draws``."""
+
+    def __init__(self, p: float = 0.5, alpha: float = 0.1, eps: float = 1e-6):
+        super().__init__()
+        self.p, self.alpha, self.eps = p, alpha, eps
+
+    def draw(self, batch: int, device: torch.device,
+             generator: tp.Optional[torch.Generator] = None) -> MixStyleDraws:
+        """A call's draws from ``generator`` (torch's global generator without one;
+        the Beta weights from a seed the generator draws, as torch's Beta sampler
+        takes none)."""
+        with torch.random.fork_rng(devices=[device] if device.type == "cuda" else [],
+                                   enabled=generator is not None):
+            if generator is not None:
+                seed = torch.randint(2 ** 62, (), generator=generator, device=generator.device)
+                torch.manual_seed(int(seed))
+            alpha = torch.tensor(float(self.alpha), device=device)
+            lmda = torch.distributions.Beta(alpha, alpha).sample((batch, 1, 1))
+        perm = torch.randperm(batch, generator=generator, device=device)
+        gate = torch.rand((), generator=generator, device=device) < self.p
+        return MixStyleDraws(lmda, perm, gate)
+
+    def forward(self, x: torch.Tensor, training: bool = True,
+                draws: tp.Optional[MixStyleDraws] = None,
+                generator: tp.Optional[torch.Generator] = None) -> torch.Tensor:
+        if not training:
+            return x
+        lmda, perm, gate = draws if draws is not None else self.draw(x.shape[0], x.device,
+                                                                      generator)
+        mu = x.mean(1, keepdim=True).detach()
+        sig = torch.sqrt(x.var(1, keepdim=True, unbiased=False) + self.eps).detach()
+        lmda = lmda.to(x.dtype)
+        mu_mix = mu * lmda + mu[perm] * (1.0 - lmda)
+        sig_mix = sig * lmda + sig[perm] * (1.0 - lmda)
+        return torch.where(gate, (x - mu) / sig * sig_mix + mu_mix, x)

@@ -14,6 +14,11 @@ onto the port's state by the ``/``-joined parameter paths of
   ``exp_avg`` / ``exp_avg_sq`` (the port's ``Lamb``: ``mu`` / ``nu``) and its
   ``count``, the number of applied steps, each parameter's ``step``;
 - ``sgd``'s momentum ``trace`` becomes ``momentum_buffer``;
+- adafactor's ``FactoredState``: ``v_row`` / ``v_col`` of a factored parameter,
+  ``v`` of another, kept as they are (the port's ``Adafactor`` holds its state
+  in the JAX layout, ``convert.jax_layouts``), each checked against the shape
+  optax gives that parameter; the ``(1,)`` placeholders of the other entries
+  are checked and not stored; its ``count`` becomes each parameter's ``step``;
 - the learning-rate schedule's count (and the windows' gate count) becomes
   ``count``; all these counts must agree;
 - ``MultiSteps``' ``mini_step`` and ``acc_grads`` become ``mini_step`` and
@@ -21,8 +26,8 @@ onto the port's state by the ``/``-joined parameter paths of
 - ``apply_if_finite``'s ``notfinite_count`` becomes ``notfinite_count``.
 
 A tree this map does not cover raises by name (a missing entry, a parameter
-with no moment, a method whose state is not mapped: adafactor); moments are
-never restarted from zero in silence.
+with no moment, an entry of the wrong shape, a method whose state is not
+mapped); moments are never restarted from zero in silence.
 """
 
 from __future__ import annotations
@@ -32,12 +37,13 @@ import typing as tp
 import numpy as np
 import torch
 
-from speechflow_torch.convert import state_dict_from_nnx
+from speechflow_torch.convert import flatten_nnx, state_dict_from_nnx
 
 __all__ = ["is_optax_state", "load_optax_state"]
 
 # the index of the learning-rate scale in each base chain of optax
-_SCHEDULE_INDEX = {"adamw": 2, "adam": 1, "lamb": 3, "sgd": 1}
+_SCHEDULE_INDEX = {"adamw": 2, "adam": 1, "lamb": 3, "sgd": 1, "adafactor": 2}
+_FACTORED = ("v_row", "v_col", "v")
 
 
 def is_optax_state(state: tp.Any) -> bool:
@@ -85,6 +91,41 @@ def _port_layout(module, tree: tp.Mapping, what: str) -> tp.Dict[str, torch.Tens
         raise KeyError(f"optax state {what}: {e}") from e
 
 
+def _factored_state(opt, trees: tp.Mapping[str, tp.Any], path: str
+                    ) -> tp.Dict[str, tp.Dict[str, torch.Tensor]]:
+    """Adafactor's ``v_row`` / ``v_col`` / ``v`` trees -> entry -> port name ->
+    tensor in JAX's layout, only the entries the optimizer keeps for that
+    parameter (the others must be optax's ``(1,)`` placeholders); strict both
+    ways, every entry checked against the shape optax gives it."""
+    from speechflow_torch.convert import jax_layouts
+
+    flat = {k: flatten_nnx(v) for k, v in trees.items()}
+    layouts = jax_layouts(opt.module)
+    out: tp.Dict[str, tp.Dict[str, torch.Tensor]] = {k: {} for k in _FACTORED}
+    used = set()
+    for name, p in opt.module.named_parameters():
+        src = layouts[name][0]
+        want = opt.base.state_shapes(p)
+        for k in _FACTORED:
+            if src not in flat[k]:
+                raise KeyError(f"optax state: no {path}/{k}/{src.replace('.', '/')!r} in the "
+                               "checkpoint's optimizer tree")
+            arr = flat[k][src]
+            shape = want.get(k, (1,))
+            if tuple(arr.shape) != shape:
+                raise ValueError(f"optax state {path}/{k}: {src} is {arr.shape}, optax gives "
+                                 f"{shape} for the parameter {name}")
+            if k in want:
+                out[k][name] = torch.from_numpy(np.ascontiguousarray(arr))
+        used.add(src)
+    for k, leaves in flat.items():
+        unused = sorted(set(leaves) - used)
+        if unused:
+            raise KeyError(f"optax state {path}/{k}: entries with no parameter in the port: "
+                           f"{unused}")
+    return out
+
+
 def load_optax_state(opt, tree: tp.Mapping) -> None:
     """Set ``opt`` (a ``training.optimizer.Optimizer`` over ``opt.module``) to
     the state of the JAX ``nnx.Optimizer`` pure dict ``tree``, built with the
@@ -109,7 +150,10 @@ def load_optax_state(opt, tree: tp.Mapping) -> None:
         node, path = _walk(node, path, 0)
     counts["schedule"] = _int(_walk(node, path, _SCHEDULE_INDEX[cfg.method], "count")[0])
     first, first_path = _walk(node, path, 0)
-    if cfg.method == "sgd":
+    if cfg.method == "adafactor":
+        counts["factored"] = _int(_walk(first, first_path, "count")[0])
+        moments = {k: _walk(first, first_path, k)[0] for k in _FACTORED}
+    elif cfg.method == "sgd":
         moments = {"momentum_buffer": _walk(first, first_path, "trace")[0]}
     else:
         counts["adam"] = _int(_walk(first, first_path, "count")[0])
@@ -120,13 +164,17 @@ def load_optax_state(opt, tree: tp.Mapping) -> None:
         raise ValueError(f"optax state: the step counts disagree: {counts}")
     count = counts["schedule"]
 
-    by_name = {k: _port_layout(opt.module, v, f"{first_path}:{k}")
-               for k, v in moments.items()}
+    if cfg.method == "adafactor":
+        by_name = _factored_state(opt, moments, first_path)
+    else:
+        by_name = {k: _port_layout(opt.module, v, f"{first_path}:{k}")
+                   for k, v in moments.items()}
     with torch.no_grad():
         opt.base.state.clear()
         for name, p in zip(opt.names, opt.params):
-            st = {k: sd[name].to(p.device, p.dtype) for k, sd in by_name.items()}
-            if cfg.method == "lamb":
+            st = {k: sd[name].to(p.device, p.dtype) for k, sd in by_name.items()
+                  if name in sd}
+            if cfg.method in ("lamb", "adafactor"):
                 st["step"] = count
             elif cfg.method != "sgd":
                 st["step"] = torch.tensor(float(count), dtype=torch.float32)

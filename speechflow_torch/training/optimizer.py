@@ -16,8 +16,10 @@ and ``build_optimizer`` gives the same semantics over ``torch.optim``:
 - ``clip_by_global_norm``: the gradient is scaled by max/norm when its global
   norm is not below max.
 - the base step: ``adamw`` (decoupled decay: ``-lr·(adam + wd·p)``), ``adam``,
-  ``sgd`` (momentum = betas[0]) or ``lamb`` (torch has no LAMB: ``Lamb``
-  below). ``adafactor`` raises ``NotImplementedError``.
+  ``sgd`` (momentum = betas[0]), ``lamb`` (torch has no LAMB: ``Lamb`` below)
+  or ``adafactor`` (``optax.adafactor(schedule)``: ``Adafactor`` below, not
+  torch's, which factors other axes; the config's betas, eps and weight decay
+  are ignored, as the JAX package ignores them).
 - the schedule is read at the count of applied steps, from 0;
 - parameter-group windows gate the *updates*: a parameter whose path in the
   JAX layout (``convert.nnx_path``) contains a group's pattern (first match
@@ -36,15 +38,16 @@ from __future__ import annotations
 import dataclasses
 import typing as tp
 
+import numpy as np
 import torch
 import torch.nn as nn
 
-from speechflow_torch.convert import nnx_path
+from speechflow_torch.convert import jax_layouts, nnx_path
 from speechflow_torch.training.lr_schedulers import build_lr_schedule
 from speechflow_torch.training.optax_state import is_optax_state, load_optax_state
 
-__all__ = ["OptimizerConfig", "ParamGroup", "Lamb", "Optimizer", "build_optimizer",
-           "optax_optimizer"]
+__all__ = ["OptimizerConfig", "ParamGroup", "Lamb", "Adafactor", "factored_dims", "Optimizer",
+           "build_optimizer", "optax_optimizer"]
 
 MAX_CONSECUTIVE_ERRORS = 100
 OPTAX_ADAMW_DECAY = 1e-4  # optax.adamw's default weight decay (torch's AdamW: 1e-2)
@@ -113,7 +116,93 @@ class Lamb(torch.optim.Optimizer):
                 p.add_(u * ratio, alpha=-group["lr"])
 
 
-def _base(cfg: OptimizerConfig, groups: list) -> torch.optim.Optimizer:
+def factored_dims(shape: tp.Sequence[int], min_dim_size_to_factor: int = 128
+                  ) -> tp.Optional[tp.Tuple[int, int]]:
+    """optax's ``_factored_dims``: the axes (second largest, largest) of ``shape``
+    in ``np.argsort``'s order (ties by position), or None below 2 dims or when
+    the second largest is under ``min_dim_size_to_factor``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor(lr)`` with its defaults: the chain
+    ``scale_by_factored_rms`` (decay ``1 - (count+1)^-0.8``, eps 1e-30, factored
+    over the two largest axes when both are at least 128) -> ``clip_by_block_rms(1)``
+    -> ``lr`` -> ``scale_by_param_block_rms`` (at least 1e-3) -> ``-1``: no
+    momentum, no weight decay.
+
+    ``layouts`` maps a parameter to (to JAX's layout, back to the port's)
+    (``convert.jax_layouts``): the factored axes are those of the parameter's
+    shape in the JAX package, and the state (``v_row``, ``v_col`` of a factored
+    parameter, ``v`` of another) is kept in that layout, as optax keeps it, so a
+    square Linear or a (K, C, C) conv factors the axes JAX's does. Without one a
+    parameter is taken in its own layout."""
+
+    def __init__(self, params, lr: float = 1e-3, layouts: tp.Optional[tp.Mapping] = None):
+        super().__init__(params, dict(lr=lr))
+        self.layouts = dict(layouts or {})
+        # optax.adafactor's defaults (per instance: a test may plant a fault in one)
+        self.decay_rate, self.eps, self.min_dim_size_to_factor = 0.8, 1e-30, 128
+        self.clipping_threshold, self.min_scale = 1.0, 1e-3
+
+    def _layout(self, p):
+        ident = (lambda a: a)
+        return self.layouts.get(p, (ident, ident))
+
+    def state_shapes(self, p: torch.Tensor) -> tp.Dict[str, tp.Tuple[int, ...]]:
+        """The shapes of a parameter's state in JAX's layout: ``v_row`` and
+        ``v_col`` (its shape without the largest, the second largest axis) where
+        it is factored, else ``v``."""
+        shape = tuple(self._layout(p)[0](p).shape)
+        dims = factored_dims(shape, self.min_dim_size_to_factor)
+        if dims is None:
+            return {"v": shape}
+        d1, d0 = dims
+        return {"v_row": shape[:d0] + shape[d0 + 1:], "v_col": shape[:d1] + shape[d1 + 1:]}
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.sub_(self.update(p, p.grad, group["lr"]))
+
+    @torch.no_grad()
+    def update(self, p: torch.Tensor, grad: torch.Tensor, lr: float) -> torch.Tensor:
+        """The step's change of ``p`` from ``grad`` (to subtract, in the port's
+        layout); advances ``p``'s state."""
+        st = self.state[p]
+        if not st:
+            st["step"] = 0
+            st.update({k: p.new_zeros(shape) for k, shape in self.state_shapes(p).items()})
+        to_jax, to_port = self._layout(p)
+        g, w = to_jax(grad), to_jax(p)
+        t = np.float32(st["step"] + 1)
+        decay = float(np.float32(1.0) - t ** np.float32(-self.decay_rate))
+        g2 = g * g + self.eps
+        if "v" in st:
+            st["v"].mul_(decay).add_(g2, alpha=1.0 - decay)
+            u = g * st["v"].pow(-0.5)
+        else:
+            d1, d0 = factored_dims(tuple(g.shape), self.min_dim_size_to_factor)
+            st["v_row"].mul_(decay).add_(g2.mean(d0), alpha=1.0 - decay)
+            st["v_col"].mul_(decay).add_(g2.mean(d1), alpha=1.0 - decay)
+            row = st["v_row"]
+            row_factor = (row / row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)).pow(-0.5)
+            u = g * row_factor.unsqueeze(d0) * st["v_col"].pow(-0.5).unsqueeze(d1)
+        u = u / torch.clamp(u.pow(2).mean().sqrt() / self.clipping_threshold, min=1.0)
+        rms = w.pow(2).mean().sqrt()
+        u = u * torch.where(rms <= self.min_scale, torch.full_like(rms, self.min_scale), rms)
+        st["step"] += 1
+        return to_port(u * lr)
+
+
+def _base(cfg: OptimizerConfig, groups: list, module: nn.Module) -> torch.optim.Optimizer:
     b1, b2 = cfg.betas
     if cfg.method == "adamw":
         return torch.optim.AdamW(groups, lr=cfg.lr, betas=(b1, b2), eps=cfg.eps,
@@ -126,8 +215,9 @@ def _base(cfg: OptimizerConfig, groups: list) -> torch.optim.Optimizer:
         return Lamb(groups, lr=cfg.lr, betas=(b1, b2), eps=cfg.eps,
                     weight_decay=cfg.weight_decay)
     if cfg.method == "adafactor":
-        raise NotImplementedError("adafactor: torch has none, and the port's is not "
-                                  "written yet")
+        layouts = jax_layouts(module)
+        return Adafactor(groups, lr=cfg.lr, layouts={p: layouts[name][1:] for name, p
+                                                     in module.named_parameters()})
     raise ValueError(f"unknown optimizer method: {cfg.method}")
 
 
@@ -149,7 +239,7 @@ class Optimizer:
         self.names = [name for ps in by_group.values() for name, _ in ps]
         self.params = [p for ps in by_group.values() for _, p in ps]
         self.base = _base(cfg, [{"params": [p for _, p in ps], "sf_group": g}
-                                for g, ps in by_group.items()])
+                                for g, ps in by_group.items()], module)
         self.count = 0
         self.mini_step = 0
         self.notfinite_count = 0

@@ -158,21 +158,30 @@ class ExperimentSaver:
         """Write ``step_<N>``; a step already saved is left as it is (the same
         step is the same state). Written into a temporary directory first, so
         a checkpoint directory is whole or absent."""
-        import torch
-
         path = self.ckpt_dir / f"step_{step:09d}"
         if path.exists():
             return path
+        payload = dict(self.to_save)
+        payload.update(extra or {})
+        return ExperimentSaver.write_checkpoint(path, step, model_state, opt_state, payload)
+
+    @staticmethod
+    def write_checkpoint(path: tp.Union[str, Path], step: int, model_state: tp.Mapping,
+                         opt_state: tp.Any, payload: tp.Mapping) -> Path:
+        """A checkpoint directory in the port's layout at ``path`` (replacing one
+        there), written into a temporary directory first, so it is whole or absent."""
+        import torch
+
+        path = Path(path)
         tmp = path.with_name(path.name + f".tmp{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
-        tmp.mkdir()
+        tmp.mkdir(parents=True)
         flat = {f"model/{k}": v for k, v in _flatten(model_state).items()}
         np.savez(tmp / "model.npz", step=np.asarray(step), **flat)
         if opt_state is not None:
             torch.save(opt_state, tmp / "opt.pt")
-        payload = dict(self.to_save)
-        payload.update(extra or {})
-        (tmp / "payload.pkl").write_bytes(pickle.dumps(payload, protocol=5))
+        (tmp / "payload.pkl").write_bytes(pickle.dumps(dict(payload), protocol=5))
+        shutil.rmtree(path, ignore_errors=True)
         os.replace(tmp, path)
         return path
 

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sequence_mask", "apply_mask", "masked_mean"]
+__all__ = ["sequence_mask", "apply_mask", "masked_mean", "lengths_from_mask"]
 
 
 def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -28,3 +28,8 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None, eps: float = 1e-9
         mask = mask[..., None]
     m = mask.to(x.dtype)
     return (x * m).sum(dim=dim) / (m.expand_as(x).sum(dim=dim) + eps)
+
+
+def lengths_from_mask(mask: torch.Tensor) -> torch.Tensor:
+    """The count of True (non-zero) entries along the last axis, int32."""
+    return mask.to(torch.int32).sum(-1, dtype=torch.int32)

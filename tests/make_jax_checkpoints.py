@@ -5,6 +5,7 @@ and on the GPU. Run it once, by hand, where JAX runs (it is not a test):
 
     JAX_PLATFORMS=cpu python tests/make_jax_checkpoints.py          # all but resume/
     JAX_PLATFORMS=cpu python tests/make_jax_checkpoints.py resume   # resume/ alone
+    JAX_PLATFORMS=cpu python tests/make_jax_checkpoints.py resume_adafactor
 
 It writes:
 
@@ -48,6 +49,18 @@ resumes from, with their optimizer state (optax's), and leaves the rest as it is
 Cuts (the size of a tree with its two moments): the acoustic model 32 wide with
 16-wide variance predictors and 16-wide embeddings of 64 bins; the vocoder 32 wide,
 the discriminators 2 channels over periods 2 and 3 and one resolution.
+
+``python tests/make_jax_checkpoints.py resume_adafactor`` writes
+``resume_adafactor/tts/``, the last checkpoint of ``train_tts.py -c
+configs/tts_forward.yml -vs debug`` with ``optimizer.method: adafactor`` after
+``RESUME_STEPS["tts"]`` steps, at width 128 (``encoder_dim``, ``decoder_dim``,
+``postnet_dim``; the tokens' 96 and the speakers' 32 make the encoder's input
+projection 128 x 128), so that its 128 x 128 Linear and its (5, 128, 128) conv
+kernel are factored (ties included) and its narrower leaves are not (the variance
+predictors cut to 16 wide, as ``resume/``'s, to keep the tree small); and
+``resume_adafactor_record.npz``, JAX's next step as ``resume_record.npz`` records
+it, with up to ``RESUME_SAMPLES`` elements of each parameter and of each of its
+adafactor entries (``v_row`` and ``v_col``, or ``v``; flat indices recorded).
 """
 
 from __future__ import annotations
@@ -275,6 +288,109 @@ def resume_fixture() -> None:
           f"{(OUT / 'resume_record.npz').stat().st_size} bytes")
 
 
+ADAFACTOR_WIDTHS = {"token_emb_dim": 96, "encoder_dim": 128, "decoder_dim": 128,
+                    "postnet_dim": 128}
+
+
+def _adafactor_config(tmp: Path) -> Path:
+    text = (REPO / "configs" / "tts_forward.yml").read_text()
+    edits = [("  method: adamw\n", "  method: adafactor\n")]
+    edits += [(f"{k}: {{default: 256, debug: 64}}", f"{k}: {{default: 256, debug: {w}}}")
+              for k, w in ADAFACTOR_WIDTHS.items()]
+    for name in ("aggregate_pitch", "aggregate_energy"):
+        edits.append((f"- {{name: {name}, as_embedding: true}}",
+                      f"- {{name: {name}, as_embedding: true, dim: 16, emb_dim: 16, n_bins: 64}}"))
+    edits.append(("- {name: durations}", "- {name: durations, dim: 16}"))
+    for a, b in edits:
+        assert text.count(a) == 1, a
+        text = text.replace(a, b)
+    (tmp / "tts_forward.yml").write_text(text)
+    return tmp / "tts_forward.yml"
+
+
+def _factored_state(opt_state) -> dict:
+    """The first adafactor ``FactoredState`` (v_row, v_col, v) in an optax state tree."""
+    if isinstance(opt_state, dict):
+        if {"v_row", "v_col", "v"} <= set(opt_state):
+            return opt_state
+        for v in opt_state.values():
+            found = _factored_state(v)
+            if found:
+                return found
+    return {}
+
+
+def resume_adafactor_fixture() -> None:
+    """``resume_adafactor/`` and ``resume_adafactor_record.npz`` (see the module's
+    docstring)."""
+    import dataclasses
+
+    from flax import nnx
+
+    from speechflow_tpu.models.tts.batch_processor import TTSBatchProcessor
+    from speechflow_tpu.scripts import train_tts
+    from speechflow_tpu.training.trainer import Trainer
+    from speechflow_torch.convert import flatten_nnx
+
+    out_dir = OUT / "resume_adafactor"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    record: tp.Dict[str, np.ndarray] = {}
+    rng = np.random.default_rng(0)
+    here = Path.cwd()
+    seen: dict = {}
+    step_fn = Trainer.training_step
+
+    def recording(self, batch):
+        seen["run"] = (self, batch)
+        return step_fn(self, batch)
+
+    steps = RESUME_STEPS["tts"]
+    with tempfile.TemporaryDirectory(prefix="jax_resume_adafactor_") as td:
+        tmp = Path(td)
+        yml = _adafactor_config(tmp)
+        Trainer.training_step = recording
+        try:
+            os.chdir(tmp)
+            expr = Path(train_tts.main([
+                "-c", str(yml), "-cd", str(REPO / "configs" / "tts_data_24khz.yml"),
+                "-vs", "debug", "--max_steps", str(steps), "--data_root", str(SEGS),
+                "--platform", "cpu"])).resolve()
+        finally:
+            os.chdir(here)
+            Trainer.training_step = step_fn
+        ckpt = expr / "checkpoints" / f"step_{steps:09d}"
+        shutil.copytree(ckpt, out_dir / "tts" / ckpt.name)
+        record["tts/config_yaml"] = np.array(yml.read_text())
+
+    trainer, batch = seen["run"]
+    _no_dropout(trainer.model)
+    inputs, targets = TTSBatchProcessor()(batch)
+    for tag, obj in (("in", inputs), ("tgt", targets)):
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if v is not None and not isinstance(v, (dict, int)):
+                record[f"tts/{tag}/{f.name}"] = np.asarray(v)
+    losses = trainer.training_step(batch)
+    record.update({f"tts/loss/{k}": np.asarray(float(v)) for k, v in losses.items()})
+    params = flatten_nnx(nnx.to_pure_dict(nnx.state(trainer.model, nnx.Param)))
+    state = _factored_state(nnx.to_pure_dict(nnx.state(trainer.optimizer)))
+    entries = {k: flatten_nnx(state[k]) for k in ("v_row", "v_col", "v")}
+    factored = 0
+    for k, v in sorted(params.items()):
+        kept = ("v_row", "v_col") if entries["v_row"][k].shape != (1,) else ("v",)
+        for name, arr in (("param", v), *((e, entries[e][k]) for e in kept)):
+            idx = np.sort(rng.choice(arr.size, min(arr.size, RESUME_SAMPLES), replace=False))
+            record[f"tts/{name}/idx/{k}"] = idx.astype(np.int64)
+            record[f"tts/{name}/{k}"] = arr.reshape(-1)[idx].astype(np.float32)
+        factored += kept != ("v",)
+    np.savez_compressed(OUT / "resume_adafactor_record.npz", **record)
+    size = sum(p.stat().st_size for p in out_dir.rglob("*") if p.is_file())
+    print(f"{out_dir}: {size} bytes, {factored} of {len(params)} leaves factored; "
+          f"{OUT / 'resume_adafactor_record.npz'}: "
+          f"{(OUT / 'resume_adafactor_record.npz').stat().st_size} bytes")
+
+
 def main() -> None:
     from speechflow_tpu.scripts import train_tts, train_vocoder
 
@@ -300,5 +416,7 @@ if __name__ == "__main__":
     sys.path.insert(0, str(REPO))
     if sys.argv[1:] == ["resume"]:
         resume_fixture()
+    elif sys.argv[1:] == ["resume_adafactor"]:
+        resume_adafactor_fixture()
     else:
         main()

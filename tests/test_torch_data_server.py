@@ -41,6 +41,26 @@ from speechflow_torch.server.helpers import server_payload
 torch.set_num_threads(1)
 N_SAMPLES, BATCH, WAIT = 60, 8, 60
 SEGS = os.path.join(os.path.dirname(__file__), "data", "SEGS")
+TOOL = "tests.tools.torch_mutating_handler"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _forget_the_tool_registrations():
+    """The tool module registers ``PayloadCollate`` and ``mutate_payload_inplace`` in
+    the port's process-wide registries when a pipeline here imports it: take them out
+    after this file, so a file that runs next in the same worker sees the port's own
+    (``test_torch_registries.py`` counts them)."""
+    import sys
+
+    from speechflow_torch.data.collate import COLLATES
+    from speechflow_torch.data.core.registry import PipeRegistry
+    from speechflow_torch.data.processors import HANDLERS
+
+    yield
+    COLLATES.pop("PayloadCollate", None)
+    HANDLERS.pop("mutate_payload_inplace", None)
+    PipeRegistry._registry.pop("mutate_payload_inplace", None)
+    sys.modules.pop(TOOL, None)
 
 
 def _pipeline(n: int = N_SAMPLES, pipe=(), speakers=None, prefix: str = "") -> DataPipeline:
@@ -48,7 +68,7 @@ def _pipeline(n: int = N_SAMPLES, pipe=(), speakers=None, prefix: str = "") -> D
     the handlers ``pipe`` and ``PayloadCollate`` (``tests/tools/torch_mutating_handler``),
     a ``SimpleSampler``."""
     cfg = {"dataset": {"subsets": ["train"]}, "collate": {"type": "PayloadCollate"},
-           "preproc": {"imports": ["tests.tools.torch_mutating_handler"], "pipe": list(pipe)}}
+           "preproc": {"imports": [TOOL], "pipe": list(pipe)}}
     samples = [DataSample(label=f"{prefix}{i}", index=i,
                           additional={"payload": np.full((64, 64), float(i), np.float32)})
                for i in range(n)]

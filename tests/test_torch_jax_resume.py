@@ -8,7 +8,8 @@ from the same gradients and the parameters and moments agree:
 - every method the port maps (adam, adamw, sgd, lamb), with and without
   accumulation (saved mid-accumulation), a parameter-group window that is on and
   one that is still off, weight decay, clipping, a non-finite step carried in
-  ``notfinite_count``; adafactor and a tree with a missing entry raise by name;
+  ``notfinite_count``; a tree with a missing entry raises by name (adafactor:
+  ``tests/test_torch_adafactor.py``);
 - the generic ``Trainer`` resumed through ``resume.from`` (``-r``) from a JAX
   ``Trainer`` checkpoint saved mid-accumulation;
 - the GAN trainer's pair of optimizers, from a JAX ``GANTrainer`` checkpoint;
@@ -164,8 +165,9 @@ def test_unmapped_optax_trees_raise_by_name(tmp_path):
     jm = JTiny(nnx.Rngs(0))
     jopt = nnx.Optimizer(jm, jbuild(JCfg(method="adamw")), wrt=nnx.Param)
     tree = nnx.to_pure_dict(nnx.state(jopt, nnx.Not(nnx.RngState)))
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        build_optimizer(OptimizerConfig(method="adafactor"), Tiny())
+    adafactor = build_optimizer(OptimizerConfig(method="adafactor"), Tiny())
+    with pytest.raises(KeyError, match="inner_state/1/0/v_row"):  # an adamw tree
+        adafactor.load_state_dict(tree)
     opt = build_optimizer(OptimizerConfig(method="adamw"), Tiny())
     del tree["opt_state"]["inner_state"][1][0]["mu"]["b"]["bias"]
     with pytest.raises(KeyError, match="b.bias"):

@@ -127,5 +127,12 @@ def test_optimizer_matches_the_optax_chain(case):
 
 
 def test_adafactor_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        build_optimizer(OptimizerConfig(method="adafactor"), Tiny())
+    """adafactor is ported (``tests/test_torch_adafactor.py`` holds it against
+    optax): it builds the port's ``Adafactor``, not torch's, which factors other
+    axes; an unknown method still raises."""
+    from speechflow_torch.training.optimizer import Adafactor
+
+    opt = build_optimizer(OptimizerConfig(method="adafactor"), Tiny())
+    assert type(opt.base) is Adafactor
+    with pytest.raises(ValueError, match="unknown optimizer method"):
+        build_optimizer(OptimizerConfig(method="adagrad"), Tiny())

@@ -49,9 +49,10 @@ def test_port_sources_import_no_jax():
 # modules added with the folded head, the DSP ops, the ISTFT vocoder, the
 # vocoder eval interface, the TTS eval interface with its text path, the
 # vocoder's GAN training, the acoustic model's training with its data
-# plane, XTTS serving with the serving entry points, and the data-parallel
+# plane, XTTS serving with the serving entry points, the data-parallel
 # training with its data server (no pyzmq: the data plane is the standard
-# library's): each must exist and be held to the rules above
+# library's), and the training API's tail (the profiler, the data core, the
+# io and utils helpers): each must exist and be held to the rules above
 NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "models/vocoder/folded_head.py", "models/vocoder/feature_extractors.py",
                "io/audio.py", "training/saver.py", "utils/state_io.py",
@@ -111,7 +112,10 @@ NEW_MODULES = ("ops/stft.py", "ops/mel.py", "ops/folded.py",
                "server/__init__.py", "server/transport.py", "server/server.py",
                "server/worker.py", "server/loader.py", "server/client.py", "server/proxy.py",
                "server/helpers.py", "parallel/__init__.py", "parallel/distributed.py",
-               "parallel/mesh.py")
+               "parallel/mesh.py",
+               "utils/profiler.py", "data/core/batch.py", "data/core/dataset.py",
+               "data/core/singleton.py", "io/serialize.py", "utils/dictutils.py",
+               "utils/seed.py", "utils/misc.py", "utils/masks.py", "ops/signal.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
