@@ -242,7 +242,10 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    t_out the source's frames, a finite, non-silent waveform). Prints each request's
    stages (ECAPA, the host's reference work: wav load and style mel, prosody
    prediction, the rest of the host frontend, acoustic model, vocoder), the first and
-   the median request, x realtime and the ms of ``resynthesize``.
+   the median request, x realtime and the ms of ``resynthesize``. Then a GMVAE style
+   encoder at the model's style width: ``sample_prior`` on the card against the CPU on
+   the same component indices and normals (``TOL_PRIOR`` of scale), and from a card
+   generator alone.
 15. ``jax_ckpt``: the checkpoints ``tests/make_jax_checkpoints.py`` wrote with the JAX
    package (``tests/data/jax_checkpoints``: the debug TTS recipe and the debug BigVGAN
    vocoder, 2 steps each; orbax OCDBT with zstd zarr chunks) read on the card's host
@@ -349,7 +352,10 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    ``configs/tts_data_24khz.yml`` at its default select with ``CONTOUR_HANDLERS`` before
    aggregate_pitch (the whole corpus, the feature cache on), twice: ms an utterance on
    the first and on the cached pass, the cache's hits (every handler of the second
-   pass). ``prosody_annotation.main`` from that dump (the share of words labelled),
+   pass). A data server, 2 workers and a loader from a config path
+   (``init_data_loader(config_path=..., value_select=["debug"])`` over
+   ``configs/tts_data_24khz.yml``): 2 batches equal to the same pipeline's in-process
+   ones. ``prosody_annotation.main`` from that dump (the share of words labelled),
    ``train_prosody`` default on those labels for ``DATA_PREP_PROSODY_STEPS`` steps (4
    attention launches a step, f32). ``train_tts`` with ``configs/tts_model.yml`` default
    (768 x 6 x 6, CFM-DiT, f32) for ``DATA_PREP_TTS_STEPS`` steps over the dump's cache,
@@ -947,7 +953,7 @@ def kernels_vs_plain(torch, am, vm, label: str, features: bool):
     for ctx in (contextlib.nullcontext(), plain_versions()):
         with ctx, torch.inference_mode():
             x = inputs.to("cuda", torch.float32)
-            out = am(x, t_out=T_FRAMES, noise=noise)
+            out = am.inference(x, t_out=T_FRAMES, noise=noise)
             mel = out.spectrogram[-1]
             outs.append((out.attention.sum(1), out.spectrogram_lengths, mel,
                          vm.from_features(mel)))
@@ -1267,7 +1273,7 @@ def phase_tts_interface(torch, gpu_line: str) -> dict:
           "tts_interface f32: kernels disagree with plain")
     out = res[0]["out"]  # interface.evaluate on these inputs and this noise
     with torch.inference_mode():
-        ref = am(inputs.to("cuda", torch.float32), t_out=T_FRAMES, noise=noise)
+        ref = am.inference(inputs.to("cuda", torch.float32), t_out=T_FRAMES, noise=noise)
         wav_s = serving.synthesize(am, vm, inputs, t_out=T_FRAMES, noise=noise)
         err = (out.spectrogram - ref.spectrogram).abs().max().item()
         err_w = (vm.from_features(out.spectrogram[-1]) - wav_s).abs().max().item()
@@ -2221,7 +2227,8 @@ def phase_train(torch, gpu_line: str) -> dict:
               + ", ".join(f"B{b} {t:.1f} ms" for b, t in by_size.items())
               + f"), second optimizer step "
               f"{opt_ms:.1f} ms, {rate:.2f} s of audio trained per s, peak device memory "
-              f"{peak / 2**30:.2f} GiB; anti-alias at B{BATCH}: VJPs {vjp:.1f} ms against "
+              f"{peak / 2**30:.2f} GiB; anti-alias at B{BATCH}: VJPs "
+              f"{vjp:.1f} ms against "
               f"the forward kernels' {fwd:.1f} ms per micro-batch ({vjp / ms:.3f} of a "
               f"micro-batch; {gpu_line})", flush=True)
 
@@ -2983,6 +2990,7 @@ COND_REQUESTS = 1  # timed requests after the first
 COND_OVERRIDES = dict(use_prosody=True, speaker_emb_mode="input", speaker_bio_dim=192,
                       use_style_encoder=True, style_use_vae=True, style_use_gmvae=False)
 TOL_ECAPA = 1e-4  # the ECAPA embedding on the card against the CPU's
+TOL_PRIOR = 1e-6  # GMVAE prior draws on the card against the CPU's, of their scale
 
 
 def prosody_gate(torch, model_cfg: dict) -> dict:
@@ -3264,6 +3272,45 @@ def _check_wave(what: str, wave, lens) -> float:
     return std
 
 
+def gmvae_prior_gate(torch, params, n: int, gpu_line: str) -> float:
+    """A GMVAE style encoder at the acoustic model's style width (seeded, CPU, then a
+    copy on the card): ``sample_prior`` on the card with component indices and normal
+    draws from a card generator, against the CPU's on the same draws (within
+    ``TOL_PRIOR`` of scale), then a draw from the generator alone. Returns the error."""
+    import copy
+
+    from speechflow_torch.models.tts.predictors import StyleEncoder
+
+    torch.manual_seed(3)
+    gm_cpu = StyleEncoder(params.n_mels, emb_dim=params.style_emb_dim, use_gmvae=True,
+                          gmvae_n_components=params.style_gmvae_components).gmvae
+    gm = copy.deepcopy(gm_cpu).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    for sigma in (1.0, 0.5):
+        idx = torch.randint(0, params.style_gmvae_components, (n,), generator=gen,
+                            device="cuda")
+        noise = torch.randn(n, params.style_emb_dim, generator=gen, device="cuda")
+        with torch.no_grad():
+            card = gm.sample_prior(n, sigma, idx=idx, noise=noise)
+            ref = gm_cpu.sample_prior(n, sigma, idx=idx.cpu(), noise=noise.cpu())
+        check(card.is_cuda and card.shape == (n, params.style_emb_dim),
+              f"conditioned: sample_prior gave {tuple(card.shape)} on {card.device}")
+        err = (card.cpu() - ref).abs().max().item()
+        lim = TOL_PRIOR * ref.abs().max().item()
+        check(err <= lim, f"conditioned: sample_prior card vs CPU {err} > {lim}")
+        worst = max(worst, err)
+        with torch.no_grad():
+            drawn = gm.sample_prior(n, sigma, generator=gen)
+        check(drawn.is_cuda and bool(torch.isfinite(drawn).all()),
+              "conditioned: sample_prior from the generator alone")
+        print(f"[conditioned] GMVAE sample_prior ({params.style_gmvae_components} components, "
+              f"{params.style_emb_dim} dims, sigma {sigma}): {n} draws on the card vs the CPU "
+              f"on the same indices and normals max_abs_err {err:.3g} (tol {lim:.3g}); "
+              f"components {sorted(set(idx.tolist()))} ({gpu_line})", flush=True)
+    return worst
+
+
 def phase_conditioned(torch, gpu_line: str) -> dict:
     """The reference's whole inference chain at flagship width: the acoustic model with
     prosody classes, the projected speaker embedding and the style VAE (f32, flax's
@@ -3404,6 +3451,7 @@ def phase_conditioned(torch, gpu_line: str) -> dict:
               f"{len(wave) / SR:.2f} s audio, std {std:.4f}; {res_ms[0]:.1f} ms first, "
               f"{res_ms[1]:.1f} ms second (full pipeline on the host, model, vocoder); "
               f"launches {resynth_counts}", flush=True)
+        prior_err = gmvae_prior_gate(torch, params, len(sentences), gpu_line)
     finally:
         E.set_biometric_model(None)
     del am, vm, ti, vi
@@ -3413,7 +3461,7 @@ def phase_conditioned(torch, gpu_line: str) -> dict:
     launches = {k: request_counts[k] + resynth_counts[k] for k in request_counts}
     return {"launches": launches, "ms": med, "first_ms": runs[0]["ms"], "audio_s": audio_s,
             "resynthesize_ms": res_ms, "ecapa_err": ecapa_err, "ecapa_ms": ecapa_ms,
-            "phase_s": phase_s}
+            "prior_err": prior_err, "phase_s": phase_s}
 
 
 # -- phase 15: checkpoints of the JAX package ---------------------------------------
@@ -6222,6 +6270,42 @@ def prep_vocoder(torch, tmp: Path, gpu_line: str) -> dict:
     return {"voc_ms": res}
 
 
+def prep_loader(tmp: Path, gpu_line: str) -> dict:
+    """The data server, a worker pool and a loader built from a config path, as JAX's
+    ``init_data_loader(config_path=..., value_select=...)`` builds them:
+    ``configs/tts_data_24khz.yml`` (its selectors kept) over the SEGS copy at ``debug``;
+    two batches against the same pipeline's batches drawn in this process."""
+    import re
+
+    import numpy as np
+
+    from speechflow_torch.data.core.components import DataPipeline
+    from speechflow_torch.server import get_dataset_iterator, init_data_loader
+
+    text = (REPO / "configs" / "tts_data_24khz.yml").read_text()
+    path = tmp / "tts_data_selectors.yml"
+    path.write_text(re.sub(r"(?m)^(\s+data_root:).*$", rf"\1 {tmp / 'SEGS'}", text))
+    t0 = time.perf_counter()
+    bundle = init_data_loader(config_path=path, value_select=["debug"], subsets=["train"],
+                              batch_size=2, n_workers=2, prefetch_factor=2)
+    try:
+        got = [bundle["train"].next_item(timeout=120) for _ in range(2)]
+    finally:
+        bundle.shutdown()
+    t_loader = time.perf_counter() - t0
+    pipeline = DataPipeline.init_from_config(path, value_select=["debug"]).init_components()
+    it = get_dataset_iterator(pipeline, "train", 2)
+    want = [next(it) for _ in range(2)]
+    for g, w in zip(got, want):
+        check(g.keys == w.keys and np.array_equal(g.collated.mel, w.collated.mel),
+              f"data_prep: the config-path loader's batch {g.keys} != {w.keys}")
+    print(f"[data_prep] init_data_loader(config_path=tts_data_24khz.yml, value_select="
+          f"['debug']): 2 workers, 2 batches of {[g.size for g in got]} equal to the "
+          f"in-process pipeline's, {t_loader:.1f} s with start and shutdown ({gpu_line})",
+          flush=True)
+    return {"loader_s": t_loader}
+
+
 def prep_check(tmp: Path, gpu_line: str) -> dict:
     """``data_pipeline_check.main`` over the TTS config with every new handler."""
     from speechflow_torch.scripts import data_pipeline_check
@@ -6283,6 +6367,7 @@ def phase_data_prep(torch, gpu_line: str) -> dict:
     shutil.copytree(SEGS, tmp / "SEGS")
     reset_counts()
     res = prep_dump(tmp, gpu_line)
+    res.update(prep_loader(tmp, gpu_line))
     res.update(prep_prosody(torch, tmp, res.pop("cfg"), gpu_line))
     res.update(prep_tts(torch, tmp, gpu_line))
     torch.cuda.empty_cache()
@@ -7804,7 +7889,7 @@ def profile_program(torch, label: str, am, vm, features: bool, gpu_line: str) ->
         x = inputs.to("cuda", torch.bfloat16)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mel = am(x, t_out=T_FRAMES, generator=gen).spectrogram[-1]
+        mel = am.inference(x, t_out=T_FRAMES, generator=gen).spectrogram[-1]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         vm.from_features(mel)

@@ -86,8 +86,8 @@ class Aligner:
 
     def _to_datasample(self, seg_path: Path):
         """The pipeline parser's sample of one file (None when its filters drop it)."""
-        seg = AudioSeg.load(seg_path)
-        return self.parser.to_datasample(seg_path, seg) if self.parser.keep(seg) else None
+        md = self.parser.run_preprocessing(self.parser.reader(seg_path)[0])
+        return None if md is None else self.parser.to_datasample(md)
 
     def align_seg(self, seg_path: tp.Union[str, Path],
                   stage: AlignStage = AlignStage.stage1) -> Path:

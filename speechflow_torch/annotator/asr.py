@@ -72,10 +72,13 @@ def convert_media_to_opus(data_root: tp.Union[str, Path], ext: str = ".wav",
 
 
 def run_audio_transcription(data_root: tp.Union[str, Path], asr: tp.Optional[ASRBase] = None,
-                            ext: str = ".wav", overwrite: bool = False) -> int:
+                            ext: str = ".wav", n_processes: int = 0,
+                            overwrite: bool = False) -> int:
     """Write ``asr``'s transcript (default ``WhisperASR``) as the ``.whisper`` file
     beside every ``ext`` file under ``data_root`` that has none (every one with
-    ``overwrite``); returns the number of files with a transcript."""
+    ``overwrite``); returns the number of files with a transcript. The files go
+    one after another through the one recognizer, whatever ``n_processes``
+    asks (JAX's keyword, which its loop does not use either)."""
     from speechflow_torch.io.flist import construct_file_list
 
     asr = asr or WhisperASR()

@@ -57,6 +57,7 @@ class CollatedAudio:
     speaker_id: Array = None
     lang_id: Array = None
     speaker_emb: Array = None
+    additional: tp.Dict[str, np.ndarray] = field(default_factory=dict)
 
 
 @dataclass

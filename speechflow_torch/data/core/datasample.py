@@ -1,6 +1,7 @@
 """Sample records (counterpart of ``speechflow_tpu/data/core/datasample.py``):
-``DataSample``, the plain record of ``SimpleDSParser`` and ``EasyDSParser``,
-and ``ImageDataSample``, which adds an image (the MNIST example's);
+``DataSample``, the plain record of ``SimpleDSParser`` and ``EasyDSParser``
+and the base of the others (its fields by name, ``get``, ``setdefaults``,
+``get_param_val``, ``serialize``), and ``ImageDataSample``, which adds an image (the MNIST example's);
 ``AudioDataSample``, what the audio handlers read and write (the vocoder's
 training data); ``SpectrogramDataSample``, which adds the spectral handlers'
 fields; and ``TTSDataSample``, which adds what ``TTSDSParser`` reads from a
@@ -18,11 +19,12 @@ from __future__ import annotations
 import copy
 import hashlib
 import typing as tp
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 
 from speechflow_torch.io.audio import AudioChunk
+from speechflow_torch.io.serialize import Serialize
 from speechflow_torch.io.timestamps import Timestamps
 
 __all__ = ["DataSample", "ImageDataSample", "AudioDataSample", "SpectrogramDataSample",
@@ -47,11 +49,42 @@ class DataSample:
     additional: tp.Dict[str, tp.Any] = field(default_factory=dict)
 
     def copy(self):
+        """A deep copy: the handlers change a sample in place."""
         return copy.deepcopy(self)
 
     @property
     def uid(self) -> str:
         return _uid(self.file_path, self.label, self.index)
+
+    def field_names(self) -> tp.List[str]:
+        return [f.name for f in fields(self)]
+
+    def get(self, name: str, default=None):
+        """A field, else an entry of ``additional``."""
+        if hasattr(self, name):
+            return getattr(self, name)
+        return self.additional.get(name, default)
+
+    def setdefaults(self, **kwargs) -> "DataSample":
+        """Set each given field that is None now."""
+        for k, v in kwargs.items():
+            if getattr(self, k, None) is None:
+                setattr(self, k, v)
+        return self
+
+    def get_param_val(self, name: str, default=None):
+        """A parameter an earlier handler recorded in ``transform_params``."""
+        for params in self.transform_params.values():
+            if name in params:
+                return params[name]
+        return default
+
+    def serialize(self) -> bytes:
+        return Serialize.dump(self)
+
+    @staticmethod
+    def deserialize(blob: bytes) -> "DataSample":
+        return Serialize.load(blob)
 
     def __len__(self) -> int:
         return 1
@@ -63,10 +96,7 @@ class ImageDataSample(DataSample):
 
 
 @dataclass
-class AudioDataSample:
-    file_path: tp.Optional[str] = None
-    label: tp.Optional[str] = None
-    index: int = 0
+class AudioDataSample(DataSample):
     audio_chunk: tp.Optional[AudioChunk] = None
     sample_rate: tp.Optional[int] = None
     speaker_name: tp.Optional[str] = None
@@ -78,34 +108,10 @@ class AudioDataSample:
     ssl_feat: Array = None              # (T', D) SSL features
     ac_feat: Array = None               # (T', D) neural-codec features
     mu_law_waveform: Array = None       # (S,) mu-law companded waveform
-    #: each handler's parameters, by handler
-    transform_params: tp.Dict[str, dict] = field(default_factory=dict)
-    #: fields without a slot of their own (SSML words and modifiers)
-    additional: tp.Dict[str, tp.Any] = field(default_factory=dict)
-
-    def copy(self):
-        """A deep copy: the handlers change a sample in place."""
-        return copy.deepcopy(self)
 
     @property
-    def uid(self) -> str:
-        return _uid(self.file_path, self.label, self.index)
-
-    def get(self, name: str, default=None):
-        """A field, else an entry of ``additional``."""
-        if hasattr(self, name):
-            return getattr(self, name)
-        return self.additional.get(name, default)
-
-    def get_param_val(self, name: str, default=None):
-        """A parameter an earlier handler recorded in ``transform_params``."""
-        for params in self.transform_params.values():
-            if name in params:
-                return params[name]
-        return default
-
-    def __len__(self) -> int:
-        return 1
+    def waveform(self) -> Array:
+        return None if self.audio_chunk is None else self.audio_chunk.data
 
 
 @dataclass
@@ -162,18 +168,12 @@ class TTSDataSample(SpectrogramDataSample):
 
 
 @dataclass
-class ProsodyPredictionDataSample:
+class ProsodyPredictionDataSample(DataSample):
     """A word-level prosody sample: the words, their token ids and per-word
     targets (binary has-contour and the contour class; -1 is left out of the
     loss)."""
 
-    file_path: tp.Optional[str] = None
-    label: tp.Optional[str] = None
-    index: int = 0
     words: Labels = None
     token_ids: Array = None             # (N,)
     binary: Array = None                # (N,) 0/1, -1 pad
     category: Array = None              # (N,) contour class, -1 pad
-
-    def __len__(self) -> int:
-        return 1

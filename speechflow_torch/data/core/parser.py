@@ -25,6 +25,7 @@ import typing as tp
 from pathlib import Path
 
 from speechflow_torch.concurrency.context import adopt_environment, worker_context
+from speechflow_torch.data.core.dataset import Dataset
 
 __all__ = ["BaseDSParser", "Metadata"]
 
@@ -83,29 +84,40 @@ class BaseDSParser:
                      type(self).__name__)).encode()
         return hashlib.sha256(blob).hexdigest()[:24]
 
-    def read_datasamples(self, files: tp.Sequence[tp.Union[str, Path]]) -> list:
+    def read_datasamples(self, files: tp.Sequence[tp.Union[str, Path]],
+                         memory_save: bool = False,
+                         progress: bool = False) -> tp.Union[list, Dataset]:
+        """The samples of ``files``: a list, or with ``memory_save`` a
+        ``Dataset`` that keeps each sample pickled until it is read. With
+        ``progress`` each finished chunk is logged."""
         cache_file = None
+        samples: list = []
         if self.cache_dir is not None:
             cache_file = self.cache_dir / f"parsed_{self._cache_key(files)}.pkl"
             if cache_file.exists():
                 LOGGER.info("parser cache hit: %s", cache_file)
-                return pickle.loads(cache_file.read_bytes())
+                samples = pickle.loads(cache_file.read_bytes())
+                return Dataset(samples, memory_save=True) if memory_save else samples
 
         chunks = [list(files[i:i + self.chunk_size])
                   for i in range(0, len(files), self.chunk_size)]
-        samples: list = []
         if self.n_processes > 1 and len(chunks) > 1:
             with worker_context().Pool(self.n_processes, initializer=adopt_environment,
                                        initargs=(dict(os.environ),)) as pool:
-                for part in pool.imap(_process_chunk, [(self, c) for c in chunks]):
+                parts = pool.imap(_process_chunk, [(self, c) for c in chunks])
+                for k, part in enumerate(parts):
                     samples.extend(part)
+                    if progress:
+                        LOGGER.info("parsed %d/%d chunks", k + 1, len(chunks))
         else:
-            for c in chunks:
+            for k, c in enumerate(chunks):
                 samples.extend(_process_chunk((self, c)))
+                if progress:
+                    LOGGER.info("parsed %d/%d chunks", k + 1, len(chunks))
         for i, s in enumerate(samples):
             s.index = i
 
         if cache_file is not None:
             self.cache_dir.mkdir(parents=True, exist_ok=True)
             cache_file.write_bytes(pickle.dumps(samples, protocol=5))
-        return samples
+        return Dataset(samples, memory_save=True) if memory_save else samples

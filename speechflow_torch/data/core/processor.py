@@ -59,16 +59,26 @@ def _handler_key(fn: tp.Callable, params: tp.Optional[dict] = None) -> str:
 
 
 class DumpProcessor:
-    def __init__(self, dump_path: tp.Union[str, Path], handlers: tp.Sequence[str] = (),
-                 update_handlers: tp.Sequence[str] = (), full_dump: bool = False):
+    def __init__(self, dump_path: tp.Union[str, Path], fields: tp.Sequence[str] = (),
+                 handlers: tp.Sequence[str] = (), update_handlers: tp.Sequence[str] = (),
+                 full_dump: bool = False, persist_blacklist: bool = True):
+        """``fields``: JAX's keyword, which selects nothing there or here (a
+        handler's own outputs are what is stored): a value is warned of;
+        ``persist_blacklist``: read and append ``skip_samples.txt`` (else the
+        failed samples are kept in memory only)."""
         self.dump_path = Path(dump_path)
         self.dump_path.mkdir(parents=True, exist_ok=True)
+        self.fields = set(fields)
+        if self.fields:
+            LOGGER.warning("DumpProcessor: fields %s select nothing (as in JAX); a "
+                           "handler's outputs are what is stored", sorted(self.fields))
         self.handlers = set(handlers)
         self.update_handlers = set(update_handlers)
         self.full_dump = full_dump
+        self.persist_blacklist = persist_blacklist
         self._skip_file = self.dump_path / "skip_samples.txt"
         self.skip_samples: tp.Set[str] = set()
-        if self._skip_file.exists():
+        if self.persist_blacklist and self._skip_file.exists():
             self.skip_samples = set(self._skip_file.read_text().splitlines())
         #: handler applications served from the cache, and computed
         self.hits = 0
@@ -105,7 +115,8 @@ class DumpProcessor:
     def _dumps(self, name: str) -> bool:
         return self.full_dump or name in self.handlers
 
-    def is_cached(self, fn: tp.Callable, params: tp.Optional[dict], cache: dict) -> bool:
+    def is_cached(self, ds, fn: tp.Callable, params: tp.Optional[dict], cache: dict) -> bool:
+        """Whether ``cache`` (``ds``'s) holds ``fn``'s outputs under ``params``."""
         name = PipeRegistry.meta(fn)["name"]
         return (name not in self.update_handlers and self._dumps(name)
                 and _handler_key(fn, params) in cache)
@@ -137,6 +148,8 @@ class DumpProcessor:
         key = self.sample_key(ds)
         if key not in self.skip_samples:
             self.skip_samples.add(key)
+            if not self.persist_blacklist:
+                return
             with self._skip_file.open("a") as f:
                 f.write(key + "\n")
 
@@ -170,7 +183,7 @@ class DataProcessor:
                 for fn in self.preproc_fns:
                     name = PipeRegistry.meta(fn)["name"]
                     params = self.handler_params.get(name)
-                    if dump is not None and dump.is_cached(fn, params, cache):
+                    if dump is not None and dump.is_cached(ds, fn, params, cache):
                         dump.apply_cached(ds, fn, params, cache)
                         continue
                     with Profiler(f"handler.{name}", enable=profile):

@@ -1,5 +1,9 @@
 """Dataset parsers (counterpart of ``speechflow_tpu/data/parsers.py``):
 
+Each derives from ``BaseDSParser`` (``data/core/parser.py``): ``reader(path)``
+gives a file's metadata records, ``run_preprocessing(md)`` filters them,
+``to_datasample(md)`` makes the sample.
+
 - ``AudioDSParser``, the vocoder's: a file list -> audio samples whose
   speaker is read from the path;
 - ``TTSDSParser``, the acoustic model's: TextGrid files (``AudioSeg``) ->
@@ -9,8 +13,7 @@
 - ``ProsodyParser``, the prosody model's: TextGrid files -> word-level
   samples with token ids and the ``prosody_targets`` of the ``prosody``
   tier (punctuation-driven where a file has none);
-- on ``BaseDSParser`` (``data/core/parser.py``: preprocessing functions, a
-  process pool, the skip of corrupt files, the pickle cache): ``SimpleDSParser``
+- ``SimpleDSParser``
   (a file list -> ``DataSample``, labelled by the parent directory),
   ``ImageDSParser`` (``.npy`` arrays -> ``ImageDataSample``), ``EasyDSParser``
   (any function over a file list; its result in ``additional["result"]``) and
@@ -30,7 +33,6 @@ from pathlib import Path
 import numpy as np
 
 from speechflow_torch.data.core.datasample import (
-    AudioDataSample,
     DataSample,
     ImageDataSample,
     ProsodyPredictionDataSample,
@@ -48,7 +50,10 @@ __all__ = ["AudioDSParser", "TTSDSParser", "ProsodyParser", "SimpleDSParser", "I
 LOGGER = logging.getLogger("speechflow_torch")
 
 
-class AudioDSParser:
+class AudioDSParser(BaseDSParser):
+    def reader(self, path: tp.Union[str, Path]) -> tp.List[Metadata]:
+        return [{"path": str(path)}]
+
     @staticmethod
     def speaker_from_path(p: Path) -> str:
         """The first ancestor directory that is not a numeric shard or a
@@ -59,30 +64,24 @@ class AudioDSParser:
                 return name
         return p.parent.name
 
-    def to_datasample(self, path: tp.Union[str, Path]) -> SpectrogramDataSample:
+    def to_datasample(self, md: Metadata) -> SpectrogramDataSample:
         """A ``SpectrogramDataSample`` (an audio sample whose spectral fields are
         empty), so spectral handlers such as ``pitch`` run on a raw-audio corpus
         (the NSF vocoder's data)."""
-        p = Path(path)
+        p = Path(md["path"])
         speaker = self.speaker_from_path(p)
         return SpectrogramDataSample(file_path=str(p), label=speaker, speaker_name=speaker,
                                      audio_chunk=AudioChunk(file_path=p))
 
-    def read_datasamples(self, files: tp.Sequence[tp.Union[str, Path]]
-                         ) -> tp.List[AudioDataSample]:
-        samples = [self.to_datasample(f) for f in files]
-        for i, s in enumerate(samples):
-            s.index = i
-        return samples
 
-
-class TTSDSParser:
+class TTSDSParser(BaseDSParser):
     def __init__(self, max_duration: tp.Optional[float] = None,
                  min_duration: tp.Optional[float] = None,
                  max_phoneme_length: tp.Optional[float] = None,
                  audio_strip: bool = False, audio_strip_pad: float = 0.0,
                  languages: tp.Optional[tp.Sequence[str]] = None,
-                 speakers: tp.Optional[tp.Sequence[str]] = None):
+                 speakers: tp.Optional[tp.Sequence[str]] = None, **kwargs):
+        super().__init__(**kwargs)
         self.max_duration = max_duration
         self.min_duration = min_duration
         self.max_phoneme_length = max_phoneme_length
@@ -91,25 +90,32 @@ class TTSDSParser:
         self.languages = set(languages) if languages else None
         self.speakers = set(speakers) if speakers else None
 
-    def keep(self, seg: AudioSeg) -> bool:
-        """The filters: language, speaker, duration bounds, and no phoneme
-        (pauses aside) longer than ``max_phoneme_length``."""
+    def reader(self, path: tp.Union[str, Path]) -> tp.List[Metadata]:
+        return [{"seg": AudioSeg.load(path), "path": str(path)}]
+
+    def run_preprocessing(self, md: Metadata) -> tp.Optional[Metadata]:
+        """The filters (language, speaker, duration bounds, no phoneme but a
+        pause longer than ``max_phoneme_length``), then ``preproc_fns``; None
+        drops the record."""
+        seg: AudioSeg = md["seg"]
         if self.languages and seg.lang not in self.languages:
-            return False
+            return None
         if self.speakers and seg.speaker_name not in self.speakers:
-            return False
+            return None
         if self.max_duration and seg.duration > self.max_duration:
-            return False
+            return None
         if self.min_duration and seg.duration < self.min_duration:
-            return False
+            return None
         if self.max_phoneme_length:
             lens = [e - b for b, e, lab in seg.phonemes()
                     if lab and lab not in ("<SIL>", "undefined_sil")]
             if lens and max(lens) > self.max_phoneme_length:
-                return False
-        return True
+                return None
+        return super().run_preprocessing(md)
 
-    def to_datasample(self, path: tp.Union[str, Path], seg: AudioSeg) -> TTSDataSample:
+    def to_datasample(self, md: Metadata) -> TTSDataSample:
+        seg: AudioSeg = md["seg"]
+        path = md["path"]
         phs, words = seg.phonemes(), seg.words()
         chunk = seg.audio_chunk
         if self.audio_strip and words:
@@ -139,21 +145,6 @@ class TTSDSParser:
             prosody_labels=seg.word_tier_labels("prosody"),
             syntagma_ids=seg.word_syntagma_ids(),
         )
-
-    def read_datasamples(self, files: tp.Sequence[tp.Union[str, Path]]
-                         ) -> tp.List[TTSDataSample]:
-        samples = []
-        for f in files:
-            try:
-                seg = AudioSeg.load(f)
-            except (OSError, ValueError) as e:
-                LOGGER.warning("parser failed on %s: %r", f, e)
-                continue
-            if self.keep(seg):
-                samples.append(self.to_datasample(f, seg))
-        for i, s in enumerate(samples):
-            s.index = i
-        return samples
 
 
 def prosody_targets(words: tp.Sequence[str],
@@ -188,41 +179,34 @@ def seg_prosody_labels(seg: AudioSeg, n_words: int) -> tp.Optional[tp.List[str]]
     return labels if len(labels) == n_words else None
 
 
-class ProsodyParser:
+class ProsodyParser(BaseDSParser):
     """TextGrid files -> ``ProsodyPredictionDataSample``: the words of the text
     tier, their ids (``word_ids``: a WordLM ``vocab`` or the hash vocabulary)
     and their ``prosody_targets``; a file without words gives no sample."""
 
     def __init__(self, vocab_size: int = 8000, vocab: tp.Optional[tp.Dict[str, int]] = None,
-                 n_classes: int = 8):
+                 n_classes: int = 8, **kwargs):
+        super().__init__(**kwargs)
         self.vocab_size = vocab_size
         self.vocab = vocab
         self.n_classes = n_classes
 
-    def to_datasample(self, path: tp.Union[str, Path], seg: AudioSeg
-                      ) -> tp.Optional[ProsodyPredictionDataSample]:
+    def reader(self, path: tp.Union[str, Path]) -> tp.List[Metadata]:
+        return [{"seg": AudioSeg.load(path), "path": str(path)}]
+
+    def to_datasample(self, md: Metadata) -> tp.Optional[ProsodyPredictionDataSample]:
         from speechflow_torch.models.prosody.interface import word_ids
 
+        seg: AudioSeg = md["seg"]
         words = [lab for _, _, lab in seg.words()]
         if not words:
             return None
         binary, category = prosody_targets(words, seg_prosody_labels(seg, len(words)),
                                            self.n_classes)
         return ProsodyPredictionDataSample(
-            file_path=str(path), label=seg.speaker_name, words=words,
+            file_path=md["path"], label=seg.speaker_name, words=words,
             token_ids=word_ids(words, self.vocab, self.vocab_size), binary=binary,
             category=category)
-
-    def read_datasamples(self, files: tp.Sequence[tp.Union[str, Path]]
-                         ) -> tp.List[ProsodyPredictionDataSample]:
-        samples = []
-        for f in files:
-            ds = self.to_datasample(f, AudioSeg.load(f))
-            if ds is not None:
-                samples.append(ds)
-        for i, s in enumerate(samples):
-            s.index = i
-        return samples
 
 
 class SimpleDSParser(BaseDSParser):
@@ -254,8 +238,7 @@ class EasyDSParser(SimpleDSParser):
 
     def to_datasample(self, md: Metadata):
         out = self.fn(md["path"])
-        if out is None or isinstance(out, (DataSample, AudioDataSample,
-                                           ProsodyPredictionDataSample)):
+        if out is None or isinstance(out, DataSample):
             return out
         return DataSample(file_path=md["path"], additional={"result": out})
 

@@ -17,17 +17,43 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["SpeakerIDSetter", "StatisticsRange", "DatasetStatistics", "PhonemeStatistics",
+__all__ = ["BaseSingleton", "SpeakerIDSetter", "StatisticsRange", "DatasetStatistics", "PhonemeStatistics",
            "MeanBioEmbeddings", "SINGLETON_HANDLERS"]
 
 
-class SpeakerIDSetter:
-    """Speaker and language ids in sorted name order; ``apply`` sets a sample's."""
+class BaseSingleton:
+    """A handler fitted once over a dataset (``fit``), applied to each sample
+    (``apply``, by default the sample as it is), carried as a state dict and
+    merged across corpora (``aggregate``, by default this one). A plain object
+    the pipeline owns: the JAX package makes it one instance per process and
+    thread (``data/core/singleton.py::Singleton`` here, for code that wants it)."""
 
-    def __init__(self, min_samples: int = 0):
+    def fit(self, dataset: tp.Iterable) -> "BaseSingleton":
+        raise NotImplementedError
+
+    def apply(self, ds):
+        return ds
+
+    def state_dict(self) -> dict:
+        raise NotImplementedError
+
+    def load_state_dict(self, d: dict) -> None:
+        raise NotImplementedError
+
+    def aggregate(self, other: "BaseSingleton") -> "BaseSingleton":
+        return self
+
+
+class SpeakerIDSetter(BaseSingleton):
+    """Speaker and language ids in sorted name order; ``apply`` sets a sample's.
+    ``resume_from``: a state dict to start from (a checkpoint's ids stay)."""
+
+    def __init__(self, resume_from: tp.Optional[dict] = None, min_samples: int = 0):
         self.speaker2id: tp.Dict[str, int] = {}
         self.lang2id: tp.Dict[str, int] = {}
         self.min_samples = min_samples
+        if resume_from:
+            self.load_state_dict(resume_from)
 
     def fit(self, dataset: tp.Iterable) -> "SpeakerIDSetter":
         counts: tp.Dict[str, int] = {}
@@ -51,6 +77,14 @@ class SpeakerIDSetter:
             ds.lang_id = self.lang2id.get(ds.lang)
         return ds
 
+    @property
+    def n_speakers(self) -> int:
+        return len(self.speaker2id)
+
+    @property
+    def n_langs(self) -> int:
+        return len(self.lang2id)
+
     def state_dict(self) -> dict:
         return {"speaker2id": dict(self.speaker2id), "lang2id": dict(self.lang2id)}
 
@@ -67,7 +101,7 @@ class SpeakerIDSetter:
         return self
 
 
-class StatisticsRange:
+class StatisticsRange(BaseSingleton):
     """Per speaker, per feature (pitch, energy and their token aggregates):
     the 1% and 99% quantiles, mean and std of the values (pitch's voiced
     ones). Fitted at parse time, before any handler ran, it usually sees no
@@ -110,6 +144,14 @@ class StatisticsRange:
             spk = next(iter(self.ranges))
         return self.ranges.get(spk, {}).get(feature) or (0.0, 1.0, 0.0, 1.0)
 
+    def as_arrays(self, feature: str, speaker2id: tp.Dict[str, int]) -> np.ndarray:
+        """(n_speakers, 4) float32 table of ``get(feature, name)`` by speaker id
+        (one row of defaults where there is no speaker)."""
+        out = np.zeros((max(len(speaker2id), 1), 4), dtype=np.float32)
+        for name, sid in speaker2id.items():
+            out[sid] = self.get(feature, name)
+        return out
+
     def state_dict(self) -> dict:
         return {"ranges": self.ranges}
 
@@ -122,7 +164,7 @@ class StatisticsRange:
         return self
 
 
-class DatasetStatistics:
+class DatasetStatistics(BaseSingleton):
     """Sample count, durations (total, longest, per speaker) and lengths."""
 
     def __init__(self):
@@ -167,7 +209,7 @@ class DatasetStatistics:
         return self
 
 
-class PhonemeStatistics:
+class PhonemeStatistics(BaseSingleton):
     """How often each phoneme occurs (an empty label counts as ``<SIL>``)."""
 
     def __init__(self):
@@ -203,7 +245,7 @@ class PhonemeStatistics:
         return self
 
 
-class MeanBioEmbeddings:
+class MeanBioEmbeddings(BaseSingleton):
     """Per-speaker mean of the samples' ``speaker_emb`` (samples without a
     speaker name pool under ``__all__``); ``apply`` gives a sample without an
     embedding its speaker's mean."""

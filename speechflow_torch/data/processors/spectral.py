@@ -19,6 +19,9 @@ from speechflow_torch.data.processors import handler, np_dsp
 __all__ = ["magnitude", "energy", "spectral_flatness", "linear_to_mel", "amp_to_db",
            "normalize_mel", "pitch", "spectral_tilt", "spectral_envelope"]
 
+#: the floor of ``amp_to_db``'s dB scale, under the reference's name
+MIN_LEVEL_DB = np_dsp.MIN_LEVEL_DB
+
 
 @handler(inputs={"audio_chunk"}, outputs={"magnitude", "hop_len"})
 def magnitude(ds: SpectrogramDataSample, n_fft: int = 1024, hop_len: int = 256,

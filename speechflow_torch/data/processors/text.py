@@ -61,6 +61,22 @@ class Alphabet:
         a.index = {s: i for i, s in enumerate(a.symbols)}
         return a
 
+    @property
+    def pad_id(self) -> int:
+        return self.index[PAD]
+
+    @property
+    def sil_id(self) -> int:
+        return self.index[SIL]
+
+    @property
+    def bos_id(self) -> int:
+        return self.index[BOS]
+
+    @property
+    def eos_id(self) -> int:
+        return self.index[EOS]
+
 
 class TextParserHook:
     """Raw text -> phoneme sequence. The built-in fallback is a character

@@ -18,28 +18,43 @@ import typing as tp
 
 import numpy as np
 
-__all__ = ["SimpleSampler", "RandomSampler", "WeightedSampler", "FillingSampler",
+__all__ = ["BaseSampler", "SimpleSampler", "RandomSampler", "WeightedSampler", "FillingSampler",
            "TripletSampler", "SAMPLERS"]
 
 
-class SimpleSampler:
-    def __init__(self, comb_by_len: bool = False, seed: int = 0,
-                 tokens_per_batch: tp.Optional[int] = None):
+class BaseSampler:
+    """A sampler over a list of samples: ``set_dataset`` (which resets the
+    order), ``len``, ``reset`` at an epoch's end, and ``sampling(batch_size)
+    -> (samples, is_last)``, which each sampler defines."""
+
+    def __init__(self):
         self.dataset: tp.Sequence = []
         self.epoch = 0
+
+    def set_dataset(self, dataset: tp.Sequence) -> "BaseSampler":
+        self.dataset = dataset
+        self.reset()
+        return self
+
+    def reset(self) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def sampling(self, batch_size: int) -> tp.Tuple[list, bool]:
+        raise NotImplementedError
+
+
+class SimpleSampler(BaseSampler):
+    def __init__(self, comb_by_len: bool = False, seed: int = 0,
+                 tokens_per_batch: tp.Optional[int] = None):
+        super().__init__()
         self.comb_by_len = comb_by_len
         self.seed = seed
         self.tokens_per_batch = tokens_per_batch
         self._order: tp.List[int] = []
         self._pos = 0
-
-    def set_dataset(self, dataset: tp.Sequence) -> "SimpleSampler":
-        self.dataset = dataset
-        self.reset()
-        return self
-
-    def __len__(self) -> int:
-        return len(self.dataset)
 
     def reset(self) -> None:
         self._order = list(range(len(self.dataset)))
@@ -85,7 +100,7 @@ class RandomSampler(SimpleSampler):
             rng.shuffle(self._order)
 
 
-class WeightedSampler:
+class WeightedSampler(BaseSampler):
     """Draws with replacement, a sample's weight ∝ 1 / count(its value)^alpha for
     each of ``fields`` (normalised per field). Each batch first picks a field by
     ``chunks_ratio`` (even by default), then ``batch_size`` samples by that
@@ -95,8 +110,7 @@ class WeightedSampler:
     def __init__(self, fields: tp.Sequence[str] = ("speaker_name",), alpha: float = 1.0,
                  epoch_size: tp.Optional[int] = None,
                  chunks_ratio: tp.Optional[tp.Sequence[float]] = None, seed: int = 0):
-        self.dataset: tp.Sequence = []
-        self.epoch = 0
+        super().__init__()
         self.fields = list(fields)
         self.alpha = alpha
         self.epoch_size = epoch_size
@@ -145,14 +159,13 @@ class WeightedSampler:
         return [self.dataset[int(i)] for i in idx], is_last
 
 
-class FillingSampler:
+class FillingSampler(BaseSampler):
     """Each draw takes the least-seen combination of ``fields`` (ties broken by a
     uniform draw), then a sample of it, with ``default_rng(seed + epoch·7919 +
     drawn)``; an epoch is a dataset's worth of draws."""
 
     def __init__(self, fields: tp.Sequence[str] = ("speaker_name",), seed: int = 0):
-        self.dataset: tp.Sequence = []
-        self.epoch = 0
+        super().__init__()
         self.fields = list(fields)
         self.seed = seed
         self._seen: tp.Dict[tp.Any, int] = {}
@@ -190,7 +203,7 @@ class FillingSampler:
         return out, is_last
 
 
-class TripletSampler:
+class TripletSampler(BaseSampler):
     """``batch_size`` triplets a draw, flattened as [anchors, positives,
     negatives]: an anchor's positive shares its ``field`` (a label with at
     least two samples), its negative has another. Each draw's generator is
@@ -198,8 +211,7 @@ class TripletSampler:
     ends once a dataset's worth of triplets has been drawn."""
 
     def __init__(self, field: str = "speaker_name", seed: int = 0):
-        self.dataset: tp.Sequence = []
-        self.epoch = 0
+        super().__init__()
         self.field = field
         self.seed = seed
         self._by_label: tp.Dict[tp.Any, tp.List[int]] = {}

@@ -117,6 +117,15 @@ class TTSContext:
     speaker_id: int = 0
     lang_id: int = 0
     prosody_reference: ProsodyReference = dataclasses.field(default_factory=ProsodyReference)
+    #: JAX's fields, which nothing reads there or here: a value is warned of
+    prosody_classes: tp.Optional[tp.Dict[str, np.ndarray]] = None
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.prosody_classes is not None or self.seed != 0:
+            logging.getLogger("speechflow_torch").warning(
+                "TTSContext: prosody_classes and seed are read by nothing (as in JAX); "
+                "pass prosody through prosody_reference and draws through a generator")
 
     @property
     def speaker_emb(self) -> tp.Optional[np.ndarray]:
@@ -131,10 +140,16 @@ class TTSContext:
 class TTSOptions:
     t_out: int = 1024
     cfm_timesteps: tp.Optional[int] = None
+    max_tokens: int = 256           # JAX's field; read by nothing, as there: warned of
     begin_pause: bool = True        # SIL at utterance start
     end_pause: bool = True          # SIL at utterance end
     pause_level: str = "punctuation"  # punctuation | words | none
     use_prosody_model: bool = True
+
+    def __post_init__(self):
+        if self.max_tokens != 256:
+            logging.getLogger("speechflow_torch").warning(
+                "TTSOptions.max_tokens is read by nothing (as in JAX); t_out sets the length")
 
 
 def _with_style_mel(inputs: TTSForwardInput, style_mel: np.ndarray, batch: int
@@ -438,14 +453,15 @@ class TTSEvaluationInterface:
     def evaluate(self, inputs: TTSForwardInput, opts: tp.Optional[TTSOptions] = None,
                  noise: tp.Optional[torch.Tensor] = None,
                  generator: tp.Optional[torch.Generator] = None) -> TTSOutput:
-        """The acoustic model on prepared inputs, ``opts.t_out`` frames.
-        ``noise`` is the CFM's initial state (scaled by the temperature),
-        else it is drawn from ``generator``."""
+        """The acoustic model's ``inference`` on prepared inputs, ``opts.t_out``
+        frames. ``noise`` is the CFM's initial state (scaled by the
+        temperature), else it is drawn from ``generator``."""
         opts = opts or TTSOptions()
         if noise is not None:
             noise = noise.to(self.device)
-        return self.model(inputs.to(self.device, self.dtype), t_out=opts.t_out, noise=noise,
-                          generator=generator, cfm_timesteps=opts.cfm_timesteps)
+        return self.model.inference(inputs.to(self.device, self.dtype), t_out=opts.t_out,
+                                    cfm_timesteps=opts.cfm_timesteps, noise=noise,
+                                    generator=generator)
 
     def synthesize(self, text: str, lang: str = "EN", speaker: tp.Optional[str] = None,
                    ref_audio=None, opts: tp.Optional[TTSOptions] = None,

@@ -14,6 +14,7 @@ either package (the port's, or the JAX trainer's orbax OCDBT one).
 
 from __future__ import annotations
 
+import os
 import typing as tp
 
 import numpy as np
@@ -29,11 +30,34 @@ from speechflow_torch.utils.device import resolve_device
 __all__ = ["VocoderEvaluationInterface"]
 
 
+def _generator(tree: tp.Mapping, payload: tp.Mapping, dev: torch.device,
+               dtype: torch.dtype) -> Vocos:
+    """The generator of a vocoder checkpoint's ``(tree, payload)`` (a GAN
+    checkpoint's ``generator`` or a plain model; legacy layouts are migrated in
+    place), its weights loaded, on ``dev`` in ``dtype``."""
+    model_tree = ExperimentSaver.remap_legacy_keys(tree["model"])
+    if "generator" in model_tree:  # the GAN trainer's layout
+        model_tree = model_tree["generator"]
+    with dev:  # built where it runs: the initialisers it overwrites are cheap there
+        model = Vocos(VocosParams.create(payload["model_params"]))
+    return load_nnx_state(model, model_tree).to(dev, dtype)
+
+
 class VocoderEvaluationInterface:
-    def __init__(self, model: Vocos, fold_inference: bool = True,
-                 payload: tp.Optional[dict] = None):
-        """``model`` with its weights loaded; folding scatters them, so it
-        comes after the load."""
+    def __init__(self, model: tp.Optional[Vocos] = None, fold_inference: bool = True,
+                 payload: tp.Optional[dict] = None,
+                 ckpt_path: tp.Union[str, os.PathLike, None] = None,
+                 device: tp.Union[str, torch.device, None] = None):
+        """``model`` with its weights loaded, or the checkpoint at ``ckpt_path``
+        (either package's, as JAX's interface takes it) on ``device`` (the GPU
+        unless ``device="cpu"``); folding scatters the weights, so it comes after
+        the load."""
+        if model is None:
+            if ckpt_path is None:
+                raise ValueError("pass a model or a ckpt_path")
+            tree, loaded = ExperimentSaver.load_checkpoint(ckpt_path)
+            model, payload = _generator(tree, loaded, resolve_device(device), torch.float32), \
+                dict(loaded)
         self.model = model.eval()
         self.params = model.params
         self.payload = payload or {}
@@ -46,17 +70,9 @@ class VocoderEvaluationInterface:
                         device: tp.Union[str, torch.device, None] = None,
                         dtype: torch.dtype = torch.float32) -> "VocoderEvaluationInterface":
         """Rebuild the generator from ``(tree, payload)`` of a vocoder
-        checkpoint (a GAN checkpoint's ``generator`` or a plain model; legacy
-        layouts are migrated in place), on ``device`` (the GPU unless
-        ``device="cpu"``) in ``dtype``."""
-        dev = resolve_device(device)
-        model_tree = ExperimentSaver.remap_legacy_keys(tree["model"])
-        if "generator" in model_tree:  # the GAN trainer's layout
-            model_tree = model_tree["generator"]
-        with dev:  # built where it runs: the initialisers it overwrites are cheap there
-            model = Vocos(VocosParams.create(payload["model_params"]))
-        model = load_nnx_state(model, model_tree)
-        return cls(model.to(dev, dtype), fold_inference, dict(payload))
+        checkpoint on ``device`` (the GPU unless ``device="cpu"``) in ``dtype``."""
+        return cls(_generator(tree, payload, resolve_device(device), dtype), fold_inference,
+                   dict(payload))
 
     @property
     def sample_rate(self) -> int:

@@ -88,6 +88,11 @@ class AudioChunk:
             self.data = _to_float32(np.asarray(self.data))
 
     @property
+    def empty(self) -> bool:
+        """Whether no waveform is held yet."""
+        return self.data is None
+
+    @property
     def duration(self) -> float:
         """Seconds of audio (a file not yet read: its window, else the file's
         length: a WAV file mapped, not read; a compressed one decoded)."""
@@ -110,8 +115,9 @@ class AudioChunk:
         """Samples (per waveform of a batch); 0 before a file is read."""
         return 0 if self.data is None else self.data.shape[-1]
 
-    def load(self, sr: tp.Optional[int] = None) -> "AudioChunk":
-        """Read the file if there is no waveform yet, then resample to ``sr``."""
+    def load(self, sr: tp.Optional[int] = None, dtype=np.float32) -> "AudioChunk":
+        """Read the file if there is no waveform yet (an open window ends where
+        the file does), resample to ``sr``, cast to ``dtype`` (None: keep)."""
         if self.data is None:
             if self.file_path is None:
                 raise ValueError("AudioChunk has neither data nor file_path")
@@ -122,8 +128,12 @@ class AudioChunk:
             b = int(round(self.begin * file_sr))
             e = len(data) if self.end is None else int(round(self.end * file_sr))
             self.data, self.sr = np.ascontiguousarray(data[b:e]), file_sr
+            if self.end is None:
+                self.end = self.begin + len(self.data) / file_sr
         if sr is not None and sr != self.sr:
             self.resample(sr)
+        if dtype is not None and self.data.dtype != dtype:
+            self.data = self.data.astype(dtype)
         return self
 
     def resample(self, sr: int) -> "AudioChunk":
@@ -151,6 +161,12 @@ class AudioChunk:
         else:
             wavfile.write(str(path), int(self.sr), (pcm * 32767.0).astype(np.int16))
         return self
+
+    def copy(self) -> "AudioChunk":
+        """A chunk of the same window with its own copy of the waveform."""
+        return AudioChunk(file_path=self.file_path,
+                          data=None if self.data is None else self.data.copy(),
+                          sr=self.sr, begin=self.begin, end=self.end)
 
     # -- in-place transforms of a mono waveform (the audio handlers') -------------
 
@@ -190,6 +206,11 @@ class AudioChunk:
         wav = np.clip(self.waveform, -1.0, 1.0)
         return (np.sign(wav) * np.log1p(mu * np.abs(wav)) / np.log1p(mu)).astype(np.float32)
 
+    @staticmethod
+    def mu_law_decode(enc: np.ndarray, mu: int = 255) -> np.ndarray:
+        """The inverse of ``mu_law_encode``."""
+        return (np.sign(enc) * ((1 + mu) ** np.abs(enc) - 1) / mu).astype(np.float32)
+
     def normalize(self, peak: float = 0.95) -> "AudioChunk":
         """Scale the peak magnitude to ``peak`` (silence is left as it is)."""
         wav = self.waveform
@@ -208,3 +229,16 @@ class AudioChunk:
             w.setframerate(int(self.sr))
             w.writeframes(pcm.tobytes())
         return buf.getvalue()
+
+    @staticmethod
+    def from_bytes(blob: bytes) -> "AudioChunk":
+        """A chunk of a 16-bit PCM WAV file's bytes (channels averaged)."""
+        with wave.open(io.BytesIO(blob), "rb") as w:
+            sr, width, ch = w.getframerate(), w.getsampwidth(), w.getnchannels()
+            raw = w.readframes(w.getnframes())
+        if width != 2:
+            raise ValueError("only 16-bit PCM supported in from_bytes")
+        data = np.frombuffer(raw, dtype=np.int16).astype(np.float32) / 32768.0
+        if ch > 1:
+            data = data.reshape(-1, ch).mean(axis=-1)
+        return AudioChunk(data=data, sr=sr, end=len(data) / sr)

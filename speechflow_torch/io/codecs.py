@@ -21,7 +21,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["read_ogg_vorbis", "write_ogg_vorbis", "read_ogg_opus", "write_ogg_opus",
-           "ogg_codec_of", "available"]
+           "ogg_codec_of", "available", "OGG_AVAILABLE", "OPUS_AVAILABLE"]
 
 
 def _load(name: str):
@@ -36,6 +36,10 @@ def _load(name: str):
 
 #: each codec library by its short name (None where ctypes finds none)
 LIBS = {name: _load(name) for name in ("ogg", "vorbis", "vorbisfile", "vorbisenc", "opus")}
+#: whether this machine reads and writes Ogg/Vorbis (all four libraries found)
+OGG_AVAILABLE = all(LIBS[name] is not None for name in ("ogg", "vorbis", "vorbisfile", "vorbisenc"))
+#: whether this machine has libopus
+OPUS_AVAILABLE = LIBS["opus"] is not None
 
 
 def available() -> tp.Dict[str, bool]:

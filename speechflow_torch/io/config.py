@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import copy
 import datetime
+import hashlib
+import json
 import math
 import os
 import re
@@ -707,8 +709,23 @@ _value_select = value_select
 
 
 class Config(dict):
-    """A config file's mapping with one ``value_select`` applied (the JAX
-    package's ``Config``, as far as the training scripts use it)."""
+    """A config file's mapping with one ``value_select`` applied: nested
+    mappings are ``Config`` too, read as items or attributes, with JAX's
+    section helpers (``section``, ``trim``, ``drop``, ``find``, ``get_path``,
+    ``set_path``) and its content ``hash``."""
+
+    def __init__(self, data: tp.Optional[tp.Mapping] = None, **kwargs):
+        super().__init__()
+        data = dict(data or {})
+        data.update(kwargs)
+        for k, v in data.items():
+            self[k] = v
+
+    @staticmethod
+    def _wrap(v: tp.Any) -> tp.Any:
+        if isinstance(v, dict) and not isinstance(v, Config):
+            return Config(v)
+        return v
 
     @classmethod
     def create_from_file(cls, path: tp.Union[str, Path],
@@ -723,14 +740,46 @@ class Config(dict):
             raise ValueError("a config file must hold a mapping at its top")
         return cls(data)
 
-    def to_dict(self) -> dict:
-        return copy.deepcopy(dict(self))
+    def __getattr__(self, name: str) -> tp.Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
 
-    def to_yaml(self) -> str:
-        return yaml_dump(self.to_dict())
+    def __setitem__(self, key, value) -> None:
+        super().__setitem__(key, self._wrap(value))
 
-    def to_file(self, path: tp.Union[str, Path]) -> None:
-        Path(path).write_text(self.to_yaml(), encoding="utf-8")
+    def setdefault(self, key, default=None):
+        if key not in self:
+            self[key] = default
+        return self[key]
+
+    def section(self, name: str, default: tp.Optional[dict] = None) -> "Config":
+        """The section ``name``; ``default`` (or an empty one) where it is
+        absent or None; ``{name: value}`` where it is not a mapping."""
+        val = self.get(name)
+        if val is None:
+            return Config(default or {})
+        return val if isinstance(val, Config) else Config({name: val})
+
+    def trim(self, keep: tp.Sequence[str]) -> "Config":
+        """Only the listed top-level sections."""
+        return Config({k: v for k, v in self.items() if k in keep})
+
+    def drop(self, remove: tp.Sequence[str]) -> "Config":
+        """All but the listed top-level sections."""
+        return Config({k: v for k, v in self.items() if k not in remove})
+
+    def find(self, key: str) -> tp.Any:
+        """The first non-None value of ``key``, depth first (None if none)."""
+        if key in self:
+            return self[key]
+        for v in self.values():
+            if isinstance(v, Config):
+                found = v.find(key)
+                if found is not None:
+                    return found
+        return None
 
     def set_path(self, dotted: str, value: tp.Any) -> None:
         """Set the ``a.b.c`` entry, making the sections on the way (a value that
@@ -739,9 +788,39 @@ class Config(dict):
         node: dict = self
         for k in keys[:-1]:
             if not isinstance(node.get(k), dict):
-                node[k] = {}
+                node[k] = Config()
             node = node[k]
         node[keys[-1]] = value
+
+    def get_path(self, dotted: str, default: tp.Any = None) -> tp.Any:
+        """The ``a.b.c`` entry, else ``default``."""
+        node: tp.Any = self
+        for k in dotted.split("."):
+            if not isinstance(node, dict) or k not in node:
+                return default
+            node = node[k]
+        return node
+
+    def to_dict(self) -> dict:
+        """Plain nested dicts, the values deep-copied."""
+        return {k: v.to_dict() if isinstance(v, Config) else copy.deepcopy(v)
+                for k, v in self.items()}
+
+    def to_yaml(self) -> str:
+        return yaml_dump(self.to_dict())
+
+    def to_file(self, path: tp.Union[str, Path]) -> None:
+        Path(path).write_text(self.to_yaml(), encoding="utf-8")
+
+    def copy(self) -> "Config":
+        return Config(self.to_dict())
+
+    @property
+    def hash(self) -> str:
+        """16 hex digits of the sha256 of the config's sorted JSON (values JSON
+        cannot hold as their ``str``): JAX's digest of the same config."""
+        blob = json.dumps(_plain(self), sort_keys=True, default=str)
+        return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
 
 def change_config_file(path: tp.Union[str, Path], updates: tp.Mapping[str, tp.Any],

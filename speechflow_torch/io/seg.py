@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 
 from speechflow_torch.io.audio import AudioChunk
+from speechflow_torch.io.timestamps import Timestamps
 
 __all__ = ["Tier", "TextGrid", "AudioSeg"]
 
@@ -37,6 +38,19 @@ class Tier:
     @property
     def labels(self) -> tp.List[str]:
         return [iv[2] for iv in self.intervals]
+
+    @property
+    def timestamps(self) -> Timestamps:
+        return Timestamps([[b, e] for b, e, _ in self.intervals])
+
+    def shift(self, offset: float) -> "Tier":
+        return Tier(self.name, [(b + offset, e + offset, t) for b, e, t in self.intervals])
+
+    def window(self, begin: float, end: float) -> "Tier":
+        """Intervals overlapping [begin, end), clipped and re-origined to 0."""
+        return Tier(self.name, [(max(b, begin) - begin, min(e, end) - begin, t)
+                                for b, e, t in self.intervals if e > begin and b < end])
+
 
 class TextGrid:
     """Short-form ooTextFile TextGrid with interval tiers only."""
@@ -185,6 +199,8 @@ class AudioSeg:
     aligned annotation; BOS/EOS are the leading/trailing empty intervals.
     """
 
+    SERVICE_TIERS = ("meta",)
+
     def __init__(self, audio_chunk: AudioChunk, grid: tp.Optional[TextGrid] = None):
         self.audio_chunk = audio_chunk
         self.grid = grid or TextGrid()
@@ -200,15 +216,21 @@ class AudioSeg:
     # -- loading -------------------------------------------------------------
 
     @staticmethod
-    def load(path: tp.Union[str, Path]) -> "AudioSeg":
-        """The TextGrid at ``path`` and the window of its sibling wav with the
-        same stem ("0.TextGridStage3" -> "0.wav"), not read yet."""
+    def load(path: tp.Union[str, Path],
+             audio_path: tp.Optional[tp.Union[str, Path]] = None,
+             load_audio: bool = False) -> "AudioSeg":
+        """The TextGrid at ``path`` and the window of ``audio_path``, by default
+        its sibling wav with the same stem ("0.TextGridStage3" -> "0.wav"); the
+        samples are read only with ``load_audio``."""
         path = Path(path)
         grid = TextGrid.load(path)
         seg = AudioSeg(AudioChunk(file_path=path), grid)  # placeholder chunk
+        if audio_path is None:
+            audio_path = path.parent / f"{path.name.split('.')[0]}.wav"
         chunk = seg.meta.get("audio_chunk", [grid.xmin, grid.xmax])
-        seg.audio_chunk = AudioChunk(file_path=path.parent / f"{path.name.split('.')[0]}.wav",
-                                     begin=chunk[0], end=chunk[1])
+        seg.audio_chunk = AudioChunk(file_path=audio_path, begin=chunk[0], end=chunk[1])
+        if load_audio:
+            seg.audio_chunk.load()
         return seg
 
     @staticmethod
@@ -252,6 +274,9 @@ class AudioSeg:
     @property
     def duration(self) -> float:
         return self.grid.xmax - self.grid.xmin
+
+    def tier(self, name: str) -> Tier:
+        return self.grid[name]
 
     def words(self) -> tp.List[Interval]:
         return self.grid["text"].non_empty().intervals if "text" in self.grid else []
@@ -299,6 +324,12 @@ class AudioSeg:
             out.append(idx)
         return out
 
+    def phoneme_labels(self) -> tp.List[str]:
+        return [lab for _, _, lab in self.phonemes()]
+
+    def phoneme_timestamps(self) -> Timestamps:
+        return Timestamps([[b, e] for b, e, _ in self.phonemes()])
+
     def bos_eos_bounds(self) -> tp.Tuple[float, float]:
         """(leading silence end, trailing silence begin) from the text tier."""
         words = self.words()
@@ -310,3 +341,23 @@ class AudioSeg:
         """Whether the last word's label ends with ``suffix``."""
         words = self.words()
         return bool(words) and words[-1][2].strip().endswith(suffix)
+
+    def split_into_syntagmas(self) -> tp.List["AudioSeg"]:
+        """One utterance a non-empty ``syntagmas`` interval: every tier but the
+        service ones windowed to it and re-origined to 0, the audio window cut to
+        it, the meta dict with ``sent_position`` the syntagma's label. Without a
+        ``syntagmas`` tier, ``[self]``."""
+        if "syntagmas" not in self.grid:
+            return [self]
+        out = []
+        for b, e, lab in self.grid["syntagmas"].non_empty().intervals:
+            sub = TextGrid(0.0, e - b)
+            for t in self.grid.tiers:
+                if t.name not in self.SERVICE_TIERS:
+                    sub.add(t.window(b, e))
+            chunk = AudioChunk(file_path=self.audio_chunk.file_path,
+                               begin=self.audio_chunk.begin + b, end=self.audio_chunk.begin + e)
+            seg = AudioSeg(chunk, sub)
+            seg.meta = dict(self.meta, sent_position=lab)
+            out.append(seg)
+        return out

@@ -1,7 +1,8 @@
-"""Interval timestamps in seconds with frame conversion (counterpart of the
-part of ``speechflow_tpu/io/timestamps.py`` the TTS data plane uses): an
-(N, 2) array of [begin, end) intervals and ``to_frames``, the bridge between
-TextGrid annotations and mel-frame durations. Numpy only."""
+"""Interval timestamps in seconds with frame conversion (counterpart of
+``speechflow_tpu/io/timestamps.py``): an (N, 2) array of [begin, end)
+intervals with shift/scale, slicing, concatenation and duration queries, and
+``to_frames``, the bridge between TextGrid annotations and mel-frame
+durations. Numpy only."""
 
 from __future__ import annotations
 
@@ -32,6 +33,12 @@ class Timestamps:
     def __iter__(self):
         return iter(self.intervals)
 
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Timestamps) and np.array_equal(self.intervals, other.intervals)
+
+    def __repr__(self) -> str:
+        return f"Timestamps({self.intervals.tolist()})"
+
     @property
     def begin(self) -> float:
         return float(self.intervals[0, 0]) if len(self) else 0.0
@@ -39,6 +46,27 @@ class Timestamps:
     @property
     def end(self) -> float:
         return float(self.intervals[-1, 1]) if len(self) else 0.0
+
+    @property
+    def duration(self) -> float:
+        return self.end - self.begin
+
+    @property
+    def durations(self) -> np.ndarray:
+        return self.intervals[:, 1] - self.intervals[:, 0]
+
+    def copy(self) -> "Timestamps":
+        return Timestamps(self.intervals.copy())
+
+    def shift(self, offset: float) -> "Timestamps":
+        return Timestamps(self.intervals + offset)
+
+    def scale(self, factor: float) -> "Timestamps":
+        return Timestamps(self.intervals * factor)
+
+    def append(self, other: "Timestamps") -> "Timestamps":
+        """A new ``Timestamps``: these intervals, then ``other``'s."""
+        return Timestamps(np.concatenate([self.intervals, other.intervals], axis=0))
 
     @staticmethod
     def from_durations(durations: tp.Sequence[float], begin: float = 0.0) -> "Timestamps":

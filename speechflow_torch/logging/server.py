@@ -103,7 +103,13 @@ class _TCPServer(socketserver.ThreadingTCPServer):
 class LoggingServer:
     """Writes every process's records to ``log_file``; a context manager."""
 
-    def __init__(self, log_file: tp.Union[str, Path], host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, log_file: tp.Union[str, Path], host: str = "127.0.0.1", port: int = 0,
+                 address: tp.Optional[str] = None):
+        """Listens on ``host:port`` (port 0: a free one), or on ``address``
+        (``"host:port"`` or ``"tcp://host:port"``, JAX's keyword)."""
+        if address is not None:
+            host, _, port_s = address.split("://")[-1].rpartition(":")
+            port = int(port_s)
         self.log_file = Path(log_file)
         self.log_file.parent.mkdir(parents=True, exist_ok=True)
         self._server = _TCPServer((host, port), _Receiver, bind_and_activate=True)

@@ -7,7 +7,9 @@ import traceback
 import typing as tp
 from pathlib import Path
 
-__all__ = ["trace", "log_to_file"]
+__all__ = ["LOGGER", "trace", "log_to_file"]
+
+LOGGER = logging.getLogger("speechflow_torch")
 
 
 def trace(owner: tp.Any, message: str = "", full: bool = True) -> str:

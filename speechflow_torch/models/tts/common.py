@@ -70,18 +70,34 @@ def rope_rotate(x: torch.Tensor, max_period: float = 10000.0,
 
 
 class ConvBlock(nn.Module):
-    """SAME conv -> LayerNorm -> ReLU (the activation every stack of the slice
-    uses) -> dropout."""
+    """Dilated conv (SAME, or with ``causal`` padded on the left only, flax's
+    ``"CAUSAL"``) -> LayerNorm -> ``activation`` (``relu``, ``gelu`` (flax's
+    tanh form), ``tanh``; any other name: none) -> dropout."""
 
     def __init__(self, dim_in: int, dim_out: int, kernel_size: int = 5,
+                 dilation: int = 1, causal: bool = False, activation: str = "relu",
                  dropout: float = 0.1):
         super().__init__()
-        self.conv = Conv1d(dim_in, dim_out, kernel_size)
+        self.conv = Conv1d(dim_in, dim_out, kernel_size, dilation=dilation)
         self.norm = layer_norm(dim_out)
+        self.causal = causal
+        self.activation = activation
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
-        return dropout(F.relu(self.norm(self.conv(x))), self.dropout, deterministic)
+        if self.causal:
+            pad = (self.conv.kernel_size[0] - 1) * self.conv.dilation[0]
+            x = nn.Conv1d.forward(self.conv, F.pad(x.transpose(1, 2), (pad, 0))).transpose(1, 2)
+        else:
+            x = self.conv(x)
+        x = self.norm(x)
+        if self.activation == "relu":
+            x = F.relu(x)
+        elif self.activation == "gelu":
+            x = gelu(x)
+        elif self.activation == "tanh":
+            x = torch.tanh(x)
+        return dropout(x, self.dropout, deterministic)
 
 
 class ConvStack(nn.Module):
@@ -90,7 +106,8 @@ class ConvStack(nn.Module):
         super().__init__()
         dims = [dim_in] + [dim] * (n_layers - 1) + [dim_out]
         self.blocks = nn.ModuleList(
-            ConvBlock(dims[i], dims[i + 1], kernel_size, dropout) for i in range(n_layers))
+            ConvBlock(dims[i], dims[i + 1], kernel_size, dropout=dropout)
+            for i in range(n_layers))
 
     def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         for blk in self.blocks:

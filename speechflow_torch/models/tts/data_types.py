@@ -1,6 +1,6 @@
-"""Acoustic-model IO (counterpart of ``speechflow_tpu/models/tts/data_types.py``;
-the fields the ported paths read and write): the model's inputs, the
-criterion's targets and the model's output."""
+"""Acoustic-model IO (counterpart of ``speechflow_tpu/models/tts/data_types.py``):
+the model's inputs, the criterion's targets, the model's output, and
+``ComponentState``, JAX's record of the stream between model stages."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import typing as tp
 
 import torch
 
-__all__ = ["TTSForwardInput", "TTSTarget", "TTSOutput"]
+__all__ = ["TTSForwardInput", "TTSTarget", "TTSOutput", "ComponentState"]
 
 Tensor = tp.Optional[torch.Tensor]
 
@@ -32,12 +32,14 @@ class TTSForwardInput:
     mel_lengths: Tensor = None
     pitch: Tensor = None                  # (B, T) frame-level
     energy: Tensor = None
+    ranges: Tensor = None                 # (B, n_feat, 4) speaker stat ranges (read by no mode)
     speech_quality_emb: Tensor = None     # (B, 5), a condition source
     ssl_feat: Tensor = None               # (B, T', D), a condition source
     pitch_modifier: Tensor = None         # (B, N) SSML factors, 1.0 outside a span
     volume_modifier: Tensor = None
     rate_modifier: Tensor = None
     averages: tp.Optional[tp.Dict[str, torch.Tensor]] = None  # name -> (B,) utterance values
+    pad_id: int = 0
 
     def get(self, name: str, default=None):
         return getattr(self, name, default)
@@ -57,6 +59,30 @@ class TTSForwardInput:
             return v.to(device=device)
         return TTSForwardInput(**{f.name: move(f.name, getattr(self, f.name))
                                   for f in dataclasses.fields(self)})
+
+
+@dataclasses.dataclass
+class ComponentState:
+    """The stream between model stages: content (B, L, D), its lengths, the
+    global (B, D) conditions by name, and named extra content and losses."""
+
+    content: Tensor = None
+    lengths: Tensor = None
+    embeddings: tp.Optional[tp.Dict[str, torch.Tensor]] = None
+    additional_content: tp.Optional[tp.Dict[str, torch.Tensor]] = None
+    additional_losses: tp.Optional[tp.Dict[str, torch.Tensor]] = None
+
+    def embedding(self, name: str) -> Tensor:
+        return (self.embeddings or {}).get(name)
+
+    def with_(self, **kwargs) -> "ComponentState":
+        return dataclasses.replace(self, **kwargs)
+
+    def add_content(self, name: str, value: torch.Tensor) -> "ComponentState":
+        return self.with_(additional_content={**(self.additional_content or {}), name: value})
+
+    def add_loss(self, name: str, value: torch.Tensor) -> "ComponentState":
+        return self.with_(additional_losses={**(self.additional_losses or {}), name: value})
 
 
 @dataclasses.dataclass

@@ -140,9 +140,11 @@ class CNNEncoder(nn.Module):
 class RNNEncoder(nn.Module):
     """A bidirectional GRU of one layer: dim_out // 2 forward and the rest
     backward (two modules, so an odd width splits as JAX splits it). The
-    backward GRU starts from the padded tail, as JAX's (no ``seq_lengths``)."""
+    backward GRU starts from the padded tail, as JAX's (no ``seq_lengths``).
+    ``dim`` is the inner width that the builders pass every registered encoder;
+    a one-layer bi-GRU has none, so it takes it and uses none, as JAX's does."""
 
-    def __init__(self, dim_in: int, dim_out: int, **kw):
+    def __init__(self, dim_in: int, dim_out: int, dim: int = 256, **kw):
         super().__init__()
         half = dim_out // 2
         self.fwd = RNN("gru", dim_in, half)

@@ -337,6 +337,17 @@ class ParallelTTSModel(nn.Module):
     def noise_shape(self, inputs: TTSForwardInput, t_out: int) -> tp.Tuple[int, int, int]:
         return (inputs.transcription.shape[0], t_out, self.p.n_mels)
 
+    def inference(self, inputs: TTSForwardInput, t_out: tp.Optional[int] = None,
+                  cfm_timesteps: tp.Optional[int] = None,
+                  noise: tp.Optional[torch.Tensor] = None,
+                  generator: tp.Optional[torch.Generator] = None) -> TTSOutput:
+        """The inference call, whatever the module's mode (JAX's entry the
+        serving paths use): ``t_out`` frames, ``cfm_timesteps`` Euler steps,
+        the CFM's initial state ``noise`` (scaled by the temperature) or drawn
+        from ``generator``."""
+        return self(inputs, training=False, t_out=t_out, noise=noise, generator=generator,
+                    cfm_timesteps=cfm_timesteps)
+
     def forward(self, inputs: TTSForwardInput, training: tp.Optional[bool] = None,
                 t_out: tp.Optional[int] = None,
                 noise: tp.Optional[torch.Tensor] = None,

@@ -18,28 +18,36 @@ import typing as tp
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from speechflow_torch.models.layers import Conv1d, layer_norm
 from speechflow_torch.models.tts.common import ConvStack
 from speechflow_torch.parallel.distributed import global_count
 from speechflow_torch.utils.masks import apply_mask, masked_mean, sequence_mask
 
-__all__ = ["VariancePredictor", "TokenLevelDP", "GaussianMixtureVAE", "StyleEncoder",
+__all__ = ["TTS_VARIANCE_PREDICTORS", "VariancePredictor", "TokenLevelDP", "GaussianMixtureVAE", "StyleEncoder",
            "SignalDiscriminator", "GradTTSFA"]
 
 
 class VariancePredictor(nn.Module):
-    """Conv stack -> per-position scalar."""
+    """Conv stack -> per-position scalar, through ``activation_out``
+    (``softplus``, ``relu``; None: as it is)."""
 
     def __init__(self, dim_in: int, dim: int = 256, n_layers: int = 3,
-                 kernel_size: int = 5, dropout: float = 0.1):
+                 kernel_size: int = 5, dropout: float = 0.1,
+                 activation_out: tp.Optional[str] = None):
         super().__init__()
         self.stack = ConvStack(dim_in, dim, dim, n_layers, kernel_size, dropout)
         self.out = nn.Linear(dim, 1)
+        self.activation_out = activation_out
 
     def forward(self, x: torch.Tensor, lengths: tp.Optional[torch.Tensor] = None,
                 deterministic: bool = True) -> torch.Tensor:
         v = self.out(self.stack(x, deterministic))[..., 0]
+        if self.activation_out == "softplus":
+            v = F.softplus(v)
+        elif self.activation_out == "relu":
+            v = F.relu(v)
         if lengths is not None:
             v = apply_mask(v, sequence_mask(lengths, v.shape[1]))
         return v
@@ -120,6 +128,26 @@ class GaussianMixtureVAE(nn.Module):
         cat = (resp * (torch.log(resp + 1e-8) + math.log(float(k)))).sum(-1).mean()
         return z, {"gmvae_gm": gm, "gmvae_cat": cat}
 
+    def sample_prior(self, n: int = 1, sigma_multiplier: float = 1.0,
+                     generator: tp.Optional[torch.Generator] = None,
+                     idx: tp.Optional[torch.Tensor] = None,
+                     noise: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``n`` style embeddings drawn from the mixture prior, each from a
+        component picked uniformly: mean + ``sigma_multiplier``·std·noise
+        (std from the clipped log-variance). The component indices (``idx``,
+        (n,)) and standard normals (``noise``, (n, latent_dim)) come from
+        ``generator`` unless given."""
+        k, d = self.mean_priors.shape
+        dev = self.mean_priors.device
+        if idx is None:
+            idx = torch.randint(0, k, (n,), generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn(n, d, generator=generator, device=dev,
+                                dtype=self.mean_priors.dtype)
+        idx = torch.as_tensor(idx, device=dev, dtype=torch.long)
+        std = torch.exp(0.5 * torch.clamp(self.logvar_priors[idx], -8.0, 8.0))
+        return self.mean_priors[idx] + sigma_multiplier * std * torch.as_tensor(noise).to(std)
+
 
 class StyleEncoder(nn.Module):
     """Reference mel -> global style embedding: a conv stack, the mean over
@@ -147,7 +175,7 @@ class StyleEncoder(nn.Module):
                 deterministic: bool = True, eps: tp.Optional[torch.Tensor] = None,
                 generator: tp.Optional[torch.Generator] = None):
         h = self.stack(mel, deterministic)
-        pooled = (masked_mean(h, sequence_mask(lengths, mel.shape[1]), dim=1)
+        pooled = (masked_mean(h, sequence_mask(lengths, mel.shape[1]), axis=1)
                   if lengths is not None else h.mean(dim=1))
         if self.use_gmvae:
             return self.gmvae(pooled, deterministic, eps, generator)
@@ -252,3 +280,12 @@ class GradTTSFA(nn.Module):
         prior = (0.5 * ((mel - mu_y) ** 2 + log2pi) * mel_mask).sum()
         prior_loss = prior / torch.clamp(global_count(mel_mask.sum() * c), min=1.0)
         return dura, attn, {"fa_duration": dura_loss, "fa_prior": prior_loss}
+
+
+#: the variance adaptor's predictors by their config names
+TTS_VARIANCE_PREDICTORS: tp.Dict[str, type] = {
+    "variance": VariancePredictor,
+    "token_level_dp": TokenLevelDP,
+    "signal_discriminator": SignalDiscriminator,
+    "gradtts_fa": GradTTSFA,
+}

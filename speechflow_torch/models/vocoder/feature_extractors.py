@@ -50,16 +50,21 @@ class MelFeatures(nn.Module):
 
 
 class AudioFeatures(nn.Module):
-    """Pass through a precomputed feature stream (e.g. ``mel``)."""
+    """Pass through a precomputed feature stream (``mel``, ``ssl_feat``,
+    ``ac_feat``), projected to ``proj_dim`` by a linear layer when one is given;
+    ``dim`` is the width it hands on."""
 
-    def __init__(self, feature: str = "mel", dim_in: int = 100):
+    def __init__(self, feature: str = "mel", dim_in: int = 100,
+                 proj_dim: tp.Optional[int] = None):
         super().__init__()
         self.feature = feature
-        self.dim = dim_in
+        self.dim = proj_dim or dim_in
+        self.proj = flax_init_(nn.Linear(dim_in, proj_dim)) if proj_dim is not None else None
 
     def forward(self, inputs) -> torch.Tensor:
-        return inputs[self.feature] if isinstance(inputs, dict) \
+        feat = inputs[self.feature] if isinstance(inputs, dict) \
             else getattr(inputs, self.feature)
+        return feat if self.proj is None else self.proj(feat)
 
 
 class CodecFeatures(nn.Module):

@@ -12,6 +12,11 @@ multi-receptive-field group every branch's first activation sees the same
 input, so the interpolation FIR (``aa_upsample_fir``) runs once per group
 and each branch applies only its snake and decimation
 (``aa_snake_downsample``) — exact, as in the JAX head.
+
+``remat`` is JAX's keyword (on by default), accepted for its API and its
+params, and it changes nothing: on the GPU the kernels' autograd Functions
+always keep only an activation's inputs and recompute it in the backward
+pass, whatever ``remat`` says.
 """
 
 from __future__ import annotations
@@ -59,11 +64,12 @@ class ISTFTHead(nn.Module):
 class AntiAliasedSnake(nn.Module):
     """upsample 2x (FIR) -> snake-beta -> FIR -> downsample 2x."""
 
-    def __init__(self, channels: int, taps: int = 12):
+    def __init__(self, channels: int, taps: int = 12, remat: bool = True):
         super().__init__()
         self.alpha = nn.Parameter(torch.zeros(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
         self.taps = taps
+        self.remat = remat  # recomputed always (see the module docstring)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return anti_alias_snake(x, self.alpha, self.beta, self.taps)
@@ -77,11 +83,12 @@ class ResBlock(nn.Module):
     """AMP residual block: dilated SAME convs after anti-aliased snakes."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilations: tp.Sequence[int] = (1, 3, 5), taps: int = 12):
+                 dilations: tp.Sequence[int] = (1, 3, 5), taps: int = 12,
+                 remat: bool = True):
         super().__init__()
         self.convs = nn.ModuleList(Conv1d(channels, channels, kernel_size, dilation=d)
                                    for d in dilations)
-        self.acts = nn.ModuleList(AntiAliasedSnake(channels, taps) for _ in dilations)
+        self.acts = nn.ModuleList(AntiAliasedSnake(channels, taps, remat) for _ in dilations)
 
     def forward(self, x: torch.Tensor, shared_stage1=None) -> torch.Tensor:
         for i, (act, conv) in enumerate(zip(self.acts, self.convs)):
@@ -98,7 +105,7 @@ class SnakeUpsampleHead(nn.Module):
     def __init__(self, dim: int = 512, upsample_rates: tp.Sequence[int] = (8, 8, 2, 2),
                  upsample_kernel_sizes: tp.Optional[tp.Sequence[int]] = None,
                  channels: int = 256, resblock_kernel_sizes: tp.Sequence[int] = (3,),
-                 taps: int = 12):
+                 taps: int = 12, remat: bool = True):
         super().__init__()
         upsample_kernel_sizes = upsample_kernel_sizes or [2 * r for r in upsample_rates]
         self.pre = Conv1d(dim, channels, 7)
@@ -109,9 +116,9 @@ class SnakeUpsampleHead(nn.Module):
         for r, k in zip(upsample_rates, upsample_kernel_sizes):
             self.ups.append(ConvTranspose1d(ch, ch // 2, k, r))
             ch //= 2
-            self.resblocks.append(nn.ModuleList(ResBlock(ch, ks, taps=taps)
+            self.resblocks.append(nn.ModuleList(ResBlock(ch, ks, taps=taps, remat=remat)
                                                 for ks in resblock_kernel_sizes))
-        self.post_act = AntiAliasedSnake(ch, taps)
+        self.post_act = AntiAliasedSnake(ch, taps, remat)
         self.post = Conv1d(ch, 1, 7)
         self.total_upsample = int(np.prod(upsample_rates))
         flax_init_(self)  # snake α and β stay 0 (log scale), as in JAX

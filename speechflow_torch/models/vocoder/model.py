@@ -67,6 +67,8 @@ class VocosParams(BaseModelParams):
     upsample_channels: int = 256
     resblock_kernel_sizes: tp.Tuple[int, ...] = (3,)
     snake_taps: int = 12
+    #: activation checkpointing of the head's plain snakes under autograd
+    snake_remat: bool = True
     mdct_frame_len: int = 512
     style_dim: int = 128
     n_harmonics: int = 8
@@ -108,7 +110,7 @@ class Vocos(nn.Module):
         elif p.head == "snake_upsample":
             self.head = SnakeUpsampleHead(bdim, p.upsample_rates, channels=p.upsample_channels,
                                           resblock_kernel_sizes=p.resblock_kernel_sizes,
-                                          taps=p.snake_taps)
+                                          taps=p.snake_taps, remat=p.snake_remat)
         elif p.head == "imdct_symexp":
             self.head = IMDCTSymExpHead(bdim, p.mdct_frame_len)
         elif p.head == "imdct_cos":

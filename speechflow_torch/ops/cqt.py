@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from speechflow_torch.ops.stft import frame_signal
 
-__all__ = ["cqt", "cqt_frequencies"]
+__all__ = ["cqt", "cqt_frequencies", "naive_cqt_np"]
 
 
 def cqt_frequencies(fmin: float, n_bins: int, bins_per_octave: int) -> np.ndarray:
@@ -123,3 +123,38 @@ def cqt(wav: torch.Tensor, sr: int, hop_length: int = 256, fmin: float = 32.7031
                 hop //= 2
         # octaves[0] is the top octave; the output ascends from fmin
         return torch.cat(octaves[::-1], dim=2)
+
+
+def naive_cqt_np(wav: np.ndarray, sr: int, hop_length: int,
+                 fmin: float = 32.703195, n_octaves: int = 9,
+                 bins_per_octave: int = 24, filter_scale: float = 1.0,
+                 upsample: bool = True) -> np.ndarray:
+    """The CQT by its definition, in float64 on the host: a Hann-windowed
+    complex kernel of ``ceil(q·sr/f)`` samples per bin, centred on every
+    ``hop_length``-th sample (zeros outside the signal), after the same
+    half-band 2x upsampling as ``cqt``. O(frames · bins · kernel length): the
+    oracle ``cqt`` is held to. Returns (frames, bins) complex128."""
+    if upsample:
+        up = np.zeros(2 * len(wav), np.float64)
+        up[::2] = wav
+        h = _halfband_fir().astype(np.float64) * 2.0
+        pad = (len(h) - 1) // 2
+        wav = np.convolve(up, h)[pad:pad + len(up)]
+        sr = sr * 2
+    n_bins = n_octaves * bins_per_octave
+    freqs = cqt_frequencies(fmin, n_bins, bins_per_octave)
+    q = filter_scale / (2.0 ** (1.0 / bins_per_octave) - 1.0)
+    n_frames = len(wav) // hop_length + 1
+    out = np.zeros((n_frames, n_bins), np.complex128)
+    for j, f in enumerate(freqs):
+        n = int(np.ceil(q * sr / f))
+        t = (np.arange(n) - (n - 1) / 2) / sr
+        kern = np.hanning(n) * np.exp(2j * np.pi * f * t) / n
+        for fr in range(n_frames):
+            a = fr * hop_length - n // 2
+            seg = np.zeros(n)
+            lo, hi = max(a, 0), min(a + n, len(wav))
+            if hi > lo:
+                seg[lo - a:hi - a] = wav[lo:hi]
+            out[fr, j] = (seg * kern).sum()
+    return out

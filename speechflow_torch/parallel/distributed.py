@@ -150,8 +150,10 @@ def global_batch(tree: tp.Any, mesh=None, axis: str = "data") -> tp.Any:
     return tree
 
 
-def broadcast_bytes(payload: tp.Optional[bytes]) -> bytes:
-    """``payload`` of rank 0 on every rank (the others pass None)."""
+def broadcast_bytes(payload: tp.Optional[bytes], max_len: int = 1024) -> bytes:
+    """``payload`` of rank 0 on every rank (the others pass None). ``max_len``
+    is the JAX package's fixed buffer; the object broadcast here has none, so
+    a payload of any length goes through."""
     if not is_distributed():
         assert payload is not None
         return payload

@@ -100,6 +100,11 @@ def main(argv=None) -> str:
                  tb_dir=saver.expr_path / "tb" if args.tb else None)
 
 
+def cli() -> None:
+    """Console entry point: exit-code semantics want None."""
+    main()
+
+
 if __name__ == "__main__":
     logging.basicConfig(level=logging.INFO)
     main()

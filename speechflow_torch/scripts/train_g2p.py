@@ -95,6 +95,11 @@ def main(argv=None) -> str:
         raise SystemExit(str(e))
 
 
+def cli() -> None:
+    """Console entry point: exit-code semantics want None."""
+    main()
+
+
 if __name__ == "__main__":
     logging.basicConfig(level=logging.INFO)
     main()

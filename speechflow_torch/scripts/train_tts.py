@@ -201,6 +201,11 @@ def main(argv=None) -> str:
             shutdown_distributed()
 
 
+def cli() -> None:
+    """Console entry point: exit-code semantics want None."""
+    main()
+
+
 if __name__ == "__main__":
     logging.basicConfig(level=logging.INFO)
     main()

@@ -44,10 +44,11 @@ class LoaderBundle(dict):
 
     def __init__(self, loaders: tp.Mapping[str, DataLoader], servers: tp.Sequence = (),
                  pools: tp.Sequence[WorkerPool] = (), proxy=None,
-                 addrs: tp.Sequence[str] = ()):
+                 addrs: tp.Sequence[str] = (), server=None, pool=None):
+        """``server`` and ``pool`` (JAX's keywords) add one server and one pool."""
         super().__init__(loaders)
-        self.servers = list(servers)   # empty on ranks other than 0
-        self.pools = list(pools)
+        self.servers = list(servers) + ([server] if server is not None else [])
+        self.pools = list(pools) + ([pool] if pool is not None else [])  # none off rank 0
         self.proxy = proxy
         self.addrs = list(addrs)
 
@@ -117,13 +118,27 @@ def _loaders(front: str, authkey: bytes, subsets: tp.Sequence[str], batch_size: 
     return loaders
 
 
-def init_data_loader(pipeline, subsets: tp.Optional[tp.Sequence[str]] = None,
+def _pipeline_of(config_path, value_select):
+    """The initialised pipeline of a data config file."""
+    from speechflow_torch.data.core.components import DataPipeline
+
+    if config_path is None:
+        raise ValueError("pass a built pipeline or a config_path")
+    return DataPipeline.init_from_config(config_path, value_select=value_select).init_components()
+
+
+def init_data_loader(pipeline=None, subsets: tp.Optional[tp.Sequence[str]] = None,
                      batch_size: int = 8, n_workers: int = 2, prefetch_factor: int = 8,
                      min_prefetch: int = 2, drop_non_full: bool = False,
                      min_batch_size: int = 1, synchronize_loaders: bool = False,
-                     server_addr: tp.Optional[str] = None) -> LoaderBundle:
+                     server_addr: tp.Optional[str] = None,
+                     config_path: tp.Optional[tp.Union[str, os.PathLike]] = None,
+                     value_select: tp.Optional[tp.Sequence[str]] = None) -> LoaderBundle:
     """A server, ``n_workers`` workers and a loader per subset of a built
-    pipeline (``DataPipeline.from_config``)."""
+    pipeline (``DataPipeline.from_config``), or of the pipeline of the data
+    config file ``config_path`` read with ``value_select``."""
+    if pipeline is None:
+        pipeline = _pipeline_of(config_path, value_select)
     subsets = list(subsets or pipeline.samplers)
     authkey = os.urandom(16)
     front, back = server_addr or T.local_addr("front"), T.local_addr("back")
@@ -154,12 +169,15 @@ def init_data_loader_distributed(pipeline=None, subsets: tp.Optional[tp.Sequence
                                  prefetch_factor: int = 8,
                                  min_prefetch: tp.Union[int, tp.Mapping[str, int]] = 2,
                                  drop_non_full: bool = False, min_batch_size: int = 1,
-                                 host: tp.Optional[str] = None) -> LoaderBundle:
-    """Rank 0 (which passes the built pipeline) hosts the server and its workers
-    for every rank; every rank gets loaders that draw ``batch_size`` samples, its
-    share of a global batch of ``batch_size x world``. ``min_prefetch`` may map
-    each subset to its own (0 for a subset it does not name). One process:
-    ``init_data_loader``."""
+                                 host: tp.Optional[str] = None,
+                                 config_path: tp.Optional[tp.Union[str, os.PathLike]] = None,
+                                 value_select: tp.Optional[tp.Sequence[str]] = None
+                                 ) -> LoaderBundle:
+    """Rank 0 (which passes the built pipeline, or a ``config_path`` to build it
+    from) hosts the server and its workers for every rank; every rank gets
+    loaders that draw ``batch_size`` samples, its share of a global batch of
+    ``batch_size x world``. ``min_prefetch`` may map each subset to its own (0
+    for a subset it does not name). One process: ``init_data_loader``."""
     from speechflow_torch.parallel.distributed import (
         broadcast_bytes,
         process_count,
@@ -170,12 +188,16 @@ def init_data_loader_distributed(pipeline=None, subsets: tp.Optional[tp.Sequence
     if world == 1:
         return init_data_loader(pipeline, subsets, batch_size, n_workers, prefetch_factor,
                                 min_prefetch if isinstance(min_prefetch, int) else 2,
-                                drop_non_full, min_batch_size)
+                                drop_non_full, min_batch_size, config_path=config_path,
+                                value_select=value_select)
     servers, pools = [], []
     blob = None
     if rank == 0:
         if pipeline is None:
-            raise ValueError("rank 0 hosts the data server: pass it the pipeline")
+            if config_path is None:
+                raise ValueError("rank 0 hosts the data server: pass it the pipeline "
+                                 "or a config_path")
+            pipeline = _pipeline_of(config_path, value_select)
         authkey = os.urandom(16)
         h = host or _host()
         front, back = T.tcp_addr(h), T.tcp_addr(h)
@@ -200,18 +222,27 @@ def init_data_loader_distributed(pipeline=None, subsets: tp.Optional[tp.Sequence
     return LoaderBundle(loaders, servers, pools)
 
 
-def init_data_loader_from_configs(data_configs: tp.Sequence[tp.Mapping],
+def init_data_loader_from_configs(data_configs: tp.Optional[tp.Sequence[tp.Mapping]] = None,
                                   subsets: tp.Optional[tp.Sequence[str]] = None,
                                   batch_size: int = 8, n_workers_per_server: int = 2,
-                                  prefetch_factor: int = 8) -> LoaderBundle:
-    """One server (and its workers) per data config, a ``Proxy`` in front of
+                                  prefetch_factor: int = 8,
+                                  config_paths: tp.Optional[tp.Sequence] = None,
+                                  value_select: tp.Optional[tp.Sequence[str]] = None
+                                  ) -> LoaderBundle:
+    """One server (and its workers) per data config (``data_configs``, or the
+    files ``config_paths`` read with ``value_select``), a ``Proxy`` in front of
     them, and a loader per subset; the pipelines adopt their merged singleton
     states before their servers start (a speaker's id is the same in every
     corpus's batches)."""
     from speechflow_torch.data.core.components import DataPipeline
     from speechflow_torch.server.proxy import Proxy
 
-    pipelines = [DataPipeline.from_config(cfg) for cfg in data_configs]
+    if data_configs is None:
+        pipelines = [_pipeline_of(path, value_select) for path in config_paths or ()]
+    else:
+        pipelines = [DataPipeline.from_config(cfg) for cfg in data_configs]
+    if not pipelines:
+        raise ValueError("pass data_configs or config_paths")
     if len(pipelines) == 1:
         return init_data_loader(pipelines[0], subsets, batch_size, n_workers_per_server,
                                 prefetch_factor)

@@ -249,13 +249,13 @@ def synthesize(am: ParallelTTSModel, vm: Vocos, inputs: TTSForwardInput,
                t_out: int = T_FRAMES, noise: tp.Optional[torch.Tensor] = None,
                generator: tp.Optional[torch.Generator] = None) -> torch.Tensor:
     """Tokens and features -> waveform (B, (t_out-1)·hop):
-    ``am(...).spectrogram[-1]`` then ``vm.from_features(mel)``. Inputs are
+    ``am.inference(...).spectrogram[-1]`` then ``vm.from_features(mel)``. Inputs are
     moved to the models' device; float inputs take the models' dtype."""
     p = next(am.parameters())
     inputs = inputs.to(p.device, p.dtype)
     if noise is not None:
         noise = noise.to(p.device)
-    mel = am(inputs, t_out=t_out, noise=noise, generator=generator).spectrogram[-1]
+    mel = am.inference(inputs, t_out=t_out, noise=noise, generator=generator).spectrogram[-1]
     return vm.from_features(mel)
 
 

@@ -109,7 +109,11 @@ def _unflatten(flat: tp.Mapping[str, np.ndarray]) -> dict:
 
 
 class ExperimentSaver:
-    def __init__(self, experiment_path: tp.Union[str, Path], expr_suffix: str = ""):
+    def __init__(self, experiment_path: tp.Union[str, Path], expr_suffix: str = "",
+                 dump_sources: bool = False, source_root: tp.Optional[Path] = None):
+        """With ``dump_sources`` the payload's ``sources`` holds the text of every
+        ``.py``, ``.yml`` and ``.md`` file under ``source_root`` (default: the
+        working directory), as the JAX saver's does."""
         stamp = time.strftime("%Y%m%d_%H%M%S")
         name = f"{stamp}{'_' + expr_suffix if expr_suffix else ''}"
         self.expr_path = Path(experiment_path) / name
@@ -123,6 +127,25 @@ class ExperimentSaver:
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.to_save: tp.Dict[str, tp.Any] = {"versions": self._versions(),
                                               "git_commit": self._git_commit()}
+        if dump_sources:
+            self.to_save["sources"] = self._dump_sources(Path(source_root or Path.cwd()))
+
+    @staticmethod
+    def _dump_sources(root: Path) -> tp.Dict[str, str]:
+        """Relative path -> text of the ``.py``, ``.yml`` and ``.md`` files under
+        ``root``, hidden directories, ``__pycache__`` and ``experiments`` left
+        out (an unreadable file too)."""
+        out = {}
+        for ext in ("*.py", "*.yml", "*.md"):
+            for p in root.rglob(ext):
+                if any(part.startswith(".") or part in ("__pycache__", "experiments")
+                       for part in p.parts):
+                    continue
+                try:
+                    out[str(p.relative_to(root))] = p.read_text(encoding="utf-8")
+                except (OSError, UnicodeDecodeError):
+                    pass
+        return out
 
     @staticmethod
     def _versions() -> dict:

@@ -20,14 +20,15 @@ def apply_mask(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return x * mask.to(x.dtype)
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None, eps: float = 1e-9
-                ) -> torch.Tensor:
-    """Mean of x over ``dim`` at the mask's valid positions (eps in the
-    denominator, as the JAX ``masked_mean``)."""
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=None,
+                eps: float = 1e-9) -> torch.Tensor:
+    """sum(x·mask) / (sum(mask) + eps) over ``axis`` (None: all), the mask given
+    trailing axes to x's rank as the JAX ``masked_mean`` does: a mask narrower
+    than x counts each of its positions once."""
     while mask.ndim < x.ndim:
         mask = mask[..., None]
     m = mask.to(x.dtype)
-    return (x * m).sum(dim=dim) / (m.expand_as(x).sum(dim=dim) + eps)
+    return (x * m).sum(dim=axis) / (m.sum(dim=axis) + eps)
 
 
 def lengths_from_mask(mask: torch.Tensor) -> torch.Tensor:

@@ -152,15 +152,16 @@ def test_port_reads_a_jax_dump_directory(dumps):
 
 
 def test_unmapped_jax_class_in_a_dump_is_refused(tmp_path):
-    # a class of the JAX package the port leaves out (ROADMAP §1); JAX's ``Batch`` served
-    # here until the port gained its own (``data/core/batch.py``)
-    from speechflow_tpu.models.tts.data_types import ComponentState
+    # a class of the JAX package the port leaves out (tests/test_torch_api_coverage.py::
+    # LEFT_OUT); JAX's ``Batch`` and then ``ComponentState`` served here until the port
+    # gained its own
+    from speechflow_tpu.logging.server import ZMQPushHandler
 
     cache = DumpProcessor(tmp_path, full_dump=True)
     ds = type("S", (), {"file_path": "x.TextGridStage3", "uid": "u"})()
-    cache.file_for(ds).write_bytes(pickle.dumps({"load_audio|0": {"b": ComponentState()}}))
+    cache.file_for(ds).write_bytes(pickle.dumps({"load_audio|0": {"b": ZMQPushHandler}}))
     with pytest.raises(UnmappedClassError,
-                       match="speechflow_tpu.models.tts.data_types.ComponentState"):
+                       match="speechflow_tpu.logging.server.ZMQPushHandler"):
         cache.load(ds)
     cache.file_for(ds).write_bytes(b"\x80\x05truncated")
     assert cache.load(ds) == {}

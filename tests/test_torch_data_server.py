@@ -76,8 +76,8 @@ def _pipeline(n: int = N_SAMPLES, pipe=(), speakers=None, prefix: str = "") -> D
     if speakers:
         singletons["SpeakerIDSetter"] = {"speaker2id": {s: k for k, s in enumerate(speakers)},
                                          "lang2id": {}}
-    dp = DataPipeline({"config": cfg, "subsets": ["train"], "alphabet": None,
-                       "singletons": singletons, "dataset_sizes": {"train": n}})
+    dp = DataPipeline.from_info({"config": cfg, "subsets": ["train"], "alphabet": None,
+                                 "singletons": singletons, "dataset_sizes": {"train": n}})
     dp.datasets = {"train": samples}
     dp.samplers = {"train": SimpleSampler().set_dataset(samples)}
     return dp

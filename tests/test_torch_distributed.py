@@ -135,11 +135,16 @@ def test_ranks_join_through_the_environment_contract(runs):
 def test_rank_0s_data_server_feeds_every_rank(runs):
     """``init_data_loader_distributed``: rank 0 hosts the server, the address reaches
     rank 1 through the process group, and each step's global batch of 2 x 3 is the
-    sampler's next six samples, rank 0's half first: disjoint over the ranks."""
+    sampler's next six samples, rank 0's half first: disjoint over the ranks. Each
+    rank's collated 64 x 64 payloads are the rows of its own samples."""
     a, b = (r["data"] for r in runs["ranks"])
     assert a["hosts_server"] and not b["hosts_server"]
     steps = [[int(k) for k in x + y] for x, y in zip(a["keys"], b["keys"])]
     assert steps == [list(range(6 * k, 6 * k + 6)) for k in range(4)]
+    for rank in (a, b):
+        for keys, payload in zip(rank["keys"], rank["payloads"]):
+            want = np.stack([np.full((64, 64), float(k), np.float32) for k in keys])
+            np.testing.assert_array_equal(payload, want)
 
 
 def test_init_distributed_is_a_noop_without_the_contract(monkeypatch):

@@ -165,7 +165,7 @@ def test_prosody_targets_and_parser_match_jax():
         ours = P.ProsodyParser(vocab_size=100, vocab=vocab_arg)
         ref = JParser(vocab_size=100, vocab=vocab_arg)
         for f in files:
-            a = ours.to_datasample(f, AudioSeg.load(f))
+            a = ours.to_datasample(ours.reader(f)[0])
             b = ref.to_datasample(ref.reader(f)[0])
             assert a.words == b.words and a.label == b.label
             for k in ("token_ids", "binary", "category"):

@@ -213,7 +213,9 @@ def test_collate_and_batch_processor(with_mods, multiple):
     for f in dataclasses.fields(inputs):
         ours_v, ref_v = getattr(inputs, f.name), getattr(ref, f.name, None)
         assert (ours_v is None) == (ref_v is None), f.name
-        if ours_v is not None:
+        if isinstance(ref_v, int):  # a setting (pad_id), not a batch field
+            assert ours_v == ref_v, f.name
+        elif ours_v is not None:
             assert isinstance(ours_v, torch.Tensor)
             np.testing.assert_array_equal(n(ours_v), np.asarray(ref_v), err_msg=f.name)
             assert ours_v.numpy().dtype == np.asarray(ref_v).dtype, f.name

@@ -177,8 +177,8 @@ def synthetic_pipeline(n: int):
     samples = [DataSample(label=str(i), index=i,
                           additional={"payload": np.full((64, 64), float(i), np.float32)})
                for i in range(n)]
-    dp = DataPipeline({"config": cfg, "subsets": ["train"], "alphabet": None,
-                       "singletons": {}, "dataset_sizes": {"train": n}})
+    dp = DataPipeline.from_info({"config": cfg, "subsets": ["train"], "alphabet": None,
+                                 "singletons": {}, "dataset_sizes": {"train": n}})
     dp.datasets = {"train": samples}
     dp.samplers = {"train": SimpleSampler().set_dataset(samples)}
     return dp
@@ -194,11 +194,13 @@ def dataplane(job: dict, rank: int, device: str = "cpu") -> dict:
     bundle = init_data_loader_distributed(pipeline, batch_size=job["batch"], n_workers=1,
                                           prefetch_factor=2)
     try:
-        keys = [bundle["train"].next_item(timeout=60).keys for _ in range(job["batches"])]
+        items = [bundle["train"].next_item(timeout=60) for _ in range(job["batches"])]
+        keys = [item.keys for item in items]
+        payloads = [np.asarray(item.collated["payload"]) for item in items]
         hosts = bool(bundle.servers)
     finally:
         bundle.shutdown()
-    return {"keys": keys, "hosts_server": hosts}
+    return {"keys": keys, "payloads": payloads, "hosts_server": hosts}
 
 
 RUNNERS = {"tts": tts_steps, "gan": gan_steps, "dataplane": dataplane}
