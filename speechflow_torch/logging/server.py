@@ -123,6 +123,7 @@ class LoggingServer:
         self._saved_env: tp.Optional[str] = None
         self.profiler_events: tp.Dict[str, tp.List[float]] = {}
         self.pids: tp.Set[int] = set()
+        self._drained = threading.Event()
 
     @staticmethod
     def ctx(experiment_path: tp.Union[str, Path]) -> "LoggingServer":
@@ -130,6 +131,9 @@ class LoggingServer:
 
     def _write(self, record: logging.LogRecord) -> None:
         with self._lock:
+            if getattr(record, "sf_drain", None) == self.address:
+                self._drained.set()
+                return
             self.pids.add(record.process)
             event = getattr(record, "sf_profiler", None)
             if event is not None:  # summed up at the end, not a line of the log
@@ -151,9 +155,15 @@ class LoggingServer:
         return self
 
     def __exit__(self, *exc) -> None:
+        from speechflow_torch.utils.profiler import flush_spans
+
+        flush_spans()  # this process's model spans still waiting for the device
         handler = _ATTACHED.pop(self.address, None)
         if handler is not None:
             logging.getLogger().removeHandler(handler)
+            if handler.sock is not None:  # this process's records, in order, then a mark
+                handler.handle(logging.makeLogRecord({"sf_drain": self.address}))
+                self._drained.wait(2.0)
             handler.close()
         if self._saved_env is None:
             os.environ.pop(LOG_ADDR_ENV, None)

@@ -25,6 +25,7 @@ from speechflow_torch.models.tts.common import sinusoidal_embedding
 from speechflow_torch.models.tts.encoders import TTS_ENCODERS, DiTEncoder
 from speechflow_torch.parallel.distributed import global_count
 from speechflow_torch.utils.masks import apply_mask, sequence_mask
+from speechflow_torch.utils.profiler import span
 
 __all__ = ["WrapperDecoder", "CFMDecoder", "CFMDraws", "TTS_DECODERS"]
 
@@ -171,17 +172,18 @@ class CFMDecoder(nn.Module):
             mu_in, lengths_in = mu, lengths
 
         x = noise.to(mu.dtype)
-        for t, dt in zip(ts[:-1].tolist(), dts.tolist()):
-            if self.cfg_scale > 0:
-                tb = torch.full((2 * b,), t, dtype=torch.float32, device=mu.device)
-                v2 = self._dphi(torch.cat([x, x], dim=0), mu_in, content, tb, cond,
-                                lengths_in)
-                v_c, v_un = v2[:b], v2[b:]
-                v = v_c + self.cfg_scale * (v_c - v_un)
-            else:
-                tb = torch.full((b,), t, dtype=torch.float32, device=mu.device)
-                v = self._dphi(x, mu_in, content, tb, cond, lengths_in)
-            x = x + dt * v
+        with span("tts.cfm"):
+            for t, dt in zip(ts[:-1].tolist(), dts.tolist()):
+                if self.cfg_scale > 0:
+                    tb = torch.full((2 * b,), t, dtype=torch.float32, device=mu.device)
+                    v2 = self._dphi(torch.cat([x, x], dim=0), mu_in, content, tb, cond,
+                                    lengths_in)
+                    v_c, v_un = v2[:b], v2[b:]
+                    v = v_c + self.cfg_scale * (v_c - v_un)
+                else:
+                    tb = torch.full((b,), t, dtype=torch.float32, device=mu.device)
+                    v = self._dphi(x, mu_in, content, tb, cond, lengths_in)
+                x = x + dt * v
         return mu, apply_mask(x, sequence_mask(lengths, x.shape[1]))
 
 

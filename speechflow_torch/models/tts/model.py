@@ -71,6 +71,7 @@ from speechflow_torch.models.tts.variance_adaptor import (
 )
 from speechflow_torch.training.base_model import BaseModelParams
 from speechflow_torch.utils.masks import apply_mask, sequence_mask
+from speechflow_torch.utils.profiler import span
 
 __all__ = ["ParallelTTSModel", "ParallelTTSParams"]
 
@@ -345,8 +346,9 @@ class ParallelTTSModel(nn.Module):
         serving paths use): ``t_out`` frames, ``cfm_timesteps`` Euler steps,
         the CFM's initial state ``noise`` (scaled by the temperature) or drawn
         from ``generator``."""
-        return self(inputs, training=False, t_out=t_out, noise=noise, generator=generator,
-                    cfm_timesteps=cfm_timesteps)
+        with span("tts.inference"):
+            return self(inputs, training=False, t_out=t_out, noise=noise,
+                        generator=generator, cfm_timesteps=cfm_timesteps)
 
     def forward(self, inputs: TTSForwardInput, training: tp.Optional[bool] = None,
                 t_out: tp.Optional[int] = None,

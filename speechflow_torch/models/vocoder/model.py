@@ -41,6 +41,7 @@ from speechflow_torch.models.vocoder.heads import (
     SnakeUpsampleHead,
 )
 from speechflow_torch.training.base_model import BaseModelParams
+from speechflow_torch.utils.profiler import span
 
 __all__ = ["Vocos", "VocosParams", "split_output"]
 
@@ -197,17 +198,21 @@ class Vocos(nn.Module):
         exactly (T-1)·hop samples, the JAX package's uniform contract. An NSF
         head takes ``f0`` (B, T') in Hz, padded with zeros or cut to T (all
         zeros, a fully unvoiced source, when None), and the AdaIN ``style``."""
-        h = self.backbone(feats, cond)
-        t = feats.shape[1]
-        if self.nsf_head:
-            if f0 is None:
-                f0 = feats.new_zeros(feats.shape[:2])
-            if f0.shape[1] < t:
-                f0 = F.pad(f0, (0, t - f0.shape[1]))
-            wav = self.head(h, f0[:, :t], style, noise=sine_noise, generator=generator)
-        else:
-            wav = self.head(h)
-        return wav[..., : (t - 1) * self.params.hop_length]
+        with span("vocoder.from_features"):
+            h = self.backbone(feats, cond)
+            t = feats.shape[1]
+            if self.nsf_head:
+                if f0 is None:
+                    f0 = feats.new_zeros(feats.shape[:2])
+                if f0.shape[1] < t:
+                    f0 = F.pad(f0, (0, t - f0.shape[1]))
+                with span("vocoder.head"):
+                    wav = self.head(h, f0[:, :t], style, noise=sine_noise,
+                                    generator=generator)
+            else:
+                with span("vocoder.head"):
+                    wav = self.head(h)
+            return wav[..., : (t - 1) * self.params.hop_length]
 
 
 def split_output(out) -> tp.Tuple[torch.Tensor, tp.Dict[str, torch.Tensor]]:

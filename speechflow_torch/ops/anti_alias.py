@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from speechflow_torch.ops import _build
+from speechflow_torch.utils.profiler import span
 
 __all__ = ["kaiser_sinc_filter", "anti_alias_snake", "aa_upsample_fir",
            "aa_snake_downsample", "anti_alias_snake_reference",
@@ -321,23 +322,27 @@ class _AntiAliasSnakeFn(torch.autograd.Function):
     def forward(ctx, x, alpha, beta, taps):
         ctx.save_for_backward(x, alpha, beta)
         ctx.taps = taps
-        return _launch_fused(x, alpha, beta, taps)
+        with span("op.aa_snake"):
+            return _launch_fused(x, alpha, beta, taps)
 
     @staticmethod
     def backward(ctx, g):
         x, alpha, beta = ctx.saved_tensors
-        return (*anti_alias_snake_vjp(x, alpha, beta, g, ctx.taps), None)
+        with span("op.aa_snake.vjp"):
+            return (*anti_alias_snake_vjp(x, alpha, beta, g, ctx.taps), None)
 
 
 class _UpsampleFirFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, taps):
         ctx.taps, ctx.dtype = taps, x.dtype
-        return _launch_upsample(x, taps)
+        with span("op.aa_upsample"):
+            return _launch_upsample(x, taps)
 
     @staticmethod
     def backward(ctx, g_even, g_odd):
-        return aa_upsample_fir_vjp(g_even, g_odd, ctx.taps).to(ctx.dtype), None
+        with span("op.aa_upsample.vjp"):
+            return aa_upsample_fir_vjp(g_even, g_odd, ctx.taps).to(ctx.dtype), None
 
 
 class _SnakeDownsampleFn(torch.autograd.Function):
@@ -345,12 +350,15 @@ class _SnakeDownsampleFn(torch.autograd.Function):
     def forward(ctx, y_even, y_odd, alpha, beta, taps):
         ctx.save_for_backward(y_even, y_odd, alpha, beta)
         ctx.taps = taps
-        return _launch_downsample(y_even, y_odd, alpha, beta, taps)
+        with span("op.aa_snake_down"):
+            return _launch_downsample(y_even, y_odd, alpha, beta, taps)
 
     @staticmethod
     def backward(ctx, g):
         y_even, y_odd, alpha, beta = ctx.saved_tensors
-        return (*aa_snake_downsample_vjp(y_even, y_odd, alpha, beta, g, ctx.taps), None)
+        with span("op.aa_snake_down.vjp"):
+            return (*aa_snake_downsample_vjp(y_even, y_odd, alpha, beta, g, ctx.taps),
+                    None)
 
 
 # -- entries --------------------------------------------------------------------

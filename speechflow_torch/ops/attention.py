@@ -44,6 +44,7 @@ import typing as tp
 import torch
 
 from speechflow_torch.ops import _build
+from speechflow_torch.utils.profiler import span
 
 __all__ = ["attention_reference", "fused_attention", "fused_attention_vjp",
            "flash_attention_fn"]
@@ -137,13 +138,15 @@ class _FusedAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, valid):
         ctx.save_for_backward(q, k, v, valid)
-        out = _launch(q, k, v, valid)
+        with span("op.attention"):
+            out = _launch(q, k, v, valid)
         fused_attention.launches += 1
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return (*fused_attention_vjp(*ctx.saved_tensors, g), None)
+        with span("op.attention.vjp"):
+            return (*fused_attention_vjp(*ctx.saved_tensors, g), None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,7 +10,11 @@ but the input's); then, every ``disc_every`` micro-batches from
 generator's output, detached, without running the generator again. Both
 optimizers are ``training.optimizer`` chains (accumulation, clip, NaN guard).
 With mixed precision the generator's call and every discriminator call run
-under bf16 autocast, outputs cast to float32 before the losses.
+under bf16 autocast, outputs cast to float32 before the losses. Spans
+(``utils/profiler.py::span``): ``gan.step`` around a micro-batch; inside it
+``gan.gen.forward`` (the generator's call and cast), ``gan.gen.loss`` (its
+criterion and sum), ``gan.gen.backward``, ``gan.disc`` (the discriminator's
+losses and backward), and each optimizer's ``optim.step`` beside them.
 
 Validation: MCD, SI-SNR and the periodicity metrics of the generated against
 the real waveform, wideband PESQ with ``evaluate_pesq``, and a MOS hook.
@@ -50,6 +54,7 @@ from speechflow_torch.training.trainer import (
     ranks_mean,
     summary_writer,
 )
+from speechflow_torch.utils.profiler import span
 
 LOGGER = logging.getLogger("speechflow_torch")
 
@@ -117,13 +122,15 @@ class GANTrainer:
         0-d tensor}."""
         self.generator.train()
         self.discriminator.train()
-        inputs, targets = _place(self.batch_processor(batch), self.device)
-        step = self.global_step
-        with dist.data_parallel_step(self.mesh is not None):
-            gen_out, metrics = self._generator_step(inputs, targets, step)
-            if step >= self.disc_start_iter and step % self.disc_every == 0:
-                fake = split_output(gen_out)[0]
-                metrics.update(self._discriminator_step(fake.detach(), inputs, targets, step))
+        with span("gan.step"):
+            inputs, targets = _place(self.batch_processor(batch), self.device)
+            step = self.global_step
+            with dist.data_parallel_step(self.mesh is not None):
+                gen_out, metrics = self._generator_step(inputs, targets, step)
+                if step >= self.disc_start_iter and step % self.disc_every == 0:
+                    fake = split_output(gen_out)[0]
+                    metrics.update(self._discriminator_step(fake.detach(), inputs, targets,
+                                                            step))
         self.global_step += 1
         return ranks_mean(metrics) if self.mesh is not None else metrics
 
@@ -131,12 +138,15 @@ class GANTrainer:
         """Gradients of the generator's losses for the generator alone, then
         its optimizer; returns (the generator's float32 output, metrics)."""
         with frozen(self.discriminator):
-            with self._autocast():
-                gen_out = self.generator(inputs)
-            gen_out = _cast_floats(gen_out, torch.float32)
-            losses = self.gen_criterion(gen_out, self._disc, inputs, targets, step)
-            total = _sum_losses(losses)
-            total.backward()
+            with span("gan.gen.forward"):
+                with self._autocast():
+                    gen_out = self.generator(inputs)
+                gen_out = _cast_floats(gen_out, torch.float32)
+            with span("gan.gen.loss"):
+                losses = self.gen_criterion(gen_out, self._disc, inputs, targets, step)
+                total = _sum_losses(losses)
+            with span("gan.gen.backward"):
+                total.backward()
         self.gen_opt.step()
         metrics = {f"gen/{k}": v.detach() for k, v in losses.items()}
         metrics["gen/total"] = total.detach()
@@ -145,9 +155,10 @@ class GANTrainer:
     def _discriminator_step(self, gen_out, inputs, targets, step: int):
         """The discriminator's losses on the (detached) generator output and
         the real waveform, then its optimizer; returns the metrics."""
-        losses = self.disc_criterion(gen_out, self._disc, inputs, targets, step)
-        total = _sum_losses(losses)
-        total.backward()
+        with span("gan.disc"):
+            losses = self.disc_criterion(gen_out, self._disc, inputs, targets, step)
+            total = _sum_losses(losses)
+            total.backward()
         self.disc_opt.step()
         metrics = {f"disc/{k}": v.detach() for k, v in losses.items()}
         metrics["disc/total"] = total.detach()

@@ -45,6 +45,7 @@ import torch.nn as nn
 from speechflow_torch.convert import jax_layouts, nnx_path
 from speechflow_torch.training.lr_schedulers import build_lr_schedule
 from speechflow_torch.training.optax_state import is_optax_state, load_optax_state
+from speechflow_torch.utils.profiler import span
 
 __all__ = ["OptimizerConfig", "ParamGroup", "Lamb", "Adafactor", "factored_dims", "Optimizer",
            "build_optimizer", "optax_optimizer"]
@@ -263,40 +264,41 @@ class Optimizer:
     def step(self) -> bool:
         """Take this micro-batch's gradients; returns whether the parameters
         were updated."""
-        grads = self._grads()
-        for p in self.params:
-            p.grad = None
-        k = self.cfg.grad_accum
-        if k > 1:
-            if self.acc is None:
-                self.acc = [torch.zeros_like(p) for p in self.params]
-            n = self.mini_step
-            for a, g in zip(self.acc, grads):
-                a.add_((g - a) / (n + 1))
-            self.mini_step = (n + 1) % k
-            if self.mini_step:
+        with span("optim.step"):
+            grads = self._grads()
+            for p in self.params:
+                p.grad = None
+            k = self.cfg.grad_accum
+            if k > 1:
+                if self.acc is None:
+                    self.acc = [torch.zeros_like(p) for p in self.params]
+                n = self.mini_step
+                for a, g in zip(self.acc, grads):
+                    a.add_((g - a) / (n + 1))
+                self.mini_step = (n + 1) % k
+                if self.mini_step:
+                    return False
+                grads, self.acc = self.acc, None
+            if self.reduce_grads is not None:
+                grads = self.reduce_grads(grads)
+            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+            self.notfinite_count = 0 if finite else self.notfinite_count + 1
+            if not (finite or self.notfinite_count > MAX_CONSECUTIVE_ERRORS):
                 return False
-            grads, self.acc = self.acc, None
-        if self.reduce_grads is not None:
-            grads = self.reduce_grads(grads)
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
-        self.notfinite_count = 0 if finite else self.notfinite_count + 1
-        if not (finite or self.notfinite_count > MAX_CONSECUTIVE_ERRORS):
-            return False
-        if self.cfg.grad_clip:
-            norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
-            if not bool(norm < self.cfg.grad_clip):
-                grads = [g / norm * self.cfg.grad_clip for g in grads]
-        lr = self.schedule(self.count)
-        for group in self.base.param_groups:
-            group["lr"] = lr * self._gate(group["sf_group"])
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        self.base.step()
-        for p in self.params:
-            p.grad = None
-        self.count += 1
-        return True
+            if self.cfg.grad_clip:
+                norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+                if not bool(norm < self.cfg.grad_clip):
+                    grads = [g / norm * self.cfg.grad_clip for g in grads]
+            lr = self.schedule(self.count)
+            for group in self.base.param_groups:
+                group["lr"] = lr * self._gate(group["sf_group"])
+            for p, g in zip(self.params, grads):
+                p.grad = g
+            self.base.step()
+            for p in self.params:
+                p.grad = None
+            self.count += 1
+            return True
 
     def state_dict(self) -> dict:
         return {"base": self.base.state_dict(), "count": self.count,
