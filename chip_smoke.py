@@ -153,9 +153,9 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    after micro-batches 1-15 and changed after the 16th (the first optimizer
    step, at the 8th, runs at the schedule's lr of 0 at count 0, as optax's
    warmup does: it must advance the optimizer's count and moments and leave
-   the weights); the discriminator untouched by every generator step; 37 / 43
-   / 18 anti-alias launches per micro-batch (the VJP of each fused entry
-   recomputes stage 1 with the stage-1 kernel). Prints ms per micro-batch and
+   the weights); the discriminator untouched by every generator step; 37 / 6
+   / 18 anti-alias forward launches and 37 / 6 / 18 VJP kernel launches per
+   micro-batch (the fused VJP recomputes stage 1 in its registers). Prints ms per micro-batch and
    per optimizer step, seconds of audio trained per second, peak device
    memory, the VJPs' share and the phase's wall time. Last, the checkpoint it
    wrote goes through ``ExperimentSaver.load_checkpoint`` ->
@@ -344,7 +344,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    ``TOL_GAN_GRAD``, and the ``cpc`` term's own generator gradients within
    ``TOL_GAN_GRAD``; a planted fault (the fake branch detached) rejected. Then
    ``train_vocoder.train`` for ``CPC_MICRO_BATCHES`` micro-batches: finite losses, the
-   CPC's weights unchanged, 37 / 43 / 18 anti-alias launches (forward and VJP) each. Then
+   CPC's weights unchanged, 37 / 6 / 18 anti-alias launches forward and 37 / 6 / 18 VJP each. Then
    the checkpoint through ``VocoderEvaluationInterface`` (folded) and ``Denoiser`` over its
    model: the bias and a resynthesis (37 / 6 / 18 launches each), denoised, kernels vs
    plain within ``TOL_F32_REL``.
@@ -366,7 +366,7 @@ Phases, in order (any failure ends the run with a non-zero exit code):
    mel frame after the first; one sentence kernels vs plain (f32, mel and the 16-bit wav within
    ``TOL_F32_REL``). ``configs/vocoder_bigvgan.yml`` default (bf16) for
    ``DATA_PREP_VOC_MICRO_BATCHES`` micro-batches without and with
-   ``VOC_AUGMENTATIONS`` (37 / 43 / 18 launches each): ms between micro-batches.
+   ``VOC_AUGMENTATIONS`` (37 / 6 / 18 launches forward and VJP each): ms between micro-batches.
    ``data_pipeline_check.main --profile`` over the TTS config with every new handler
    (``CHECK_AFTER``): the contracts, each handler's host ms. The Ogg fixtures, where
    ctypes finds the codec libraries (which it found is printed).
@@ -490,10 +490,12 @@ EXPECTED_LAUNCHES = {"fused_attention": 6 + 30 * 6, **HEAD_LAUNCHES}
 # toy per-batch launches: encoder 4 + CFM 30 steps x 4 layers (no CFG); ISTFT head
 TOY_LAUNCHES = {"fused_attention": 4 + 30 * 4, "anti_alias_snake": 0, "aa_upsample_fir": 0,
                 "aa_snake_downsample": 0}
-# a training micro-batch of the flagship vocoder recipe: the forward's 37 / 6 / 18, and the
-# VJP of each fused entry recomputes its stage 1 with the stage-1 kernel (37 more)
-TRAIN_LAUNCHES = {"fused_attention": 0, "anti_alias_snake": 37, "aa_upsample_fir": 6 + 37,
+# a training micro-batch of the flagship vocoder recipe: the forward's 37 / 6 / 18, and a
+# VJP kernel of each (the fused one recomputes its stage 1 in registers)
+TRAIN_LAUNCHES = {"fused_attention": 0, "anti_alias_snake": 37, "aa_upsample_fir": 6,
                   "aa_snake_downsample": 18}
+TRAIN_VJP_LAUNCHES = {"anti_alias_snake_vjp": 37, "aa_upsample_fir_vjp": 6,
+                      "aa_snake_downsample_vjp": 18}
 TRAIN_PRESET = "default"
 TRAIN_MICRO_BATCHES = 16  # 2 optimizer steps at grad_accum 8
 TRAIN_FRAMES = 24064 // HOP + 1  # a 1.0 s chunk padded to 94 hops: 95 mel frames
@@ -850,8 +852,16 @@ def _counters():
             "aa_snake_downsample": AA.aa_snake_downsample}
 
 
+def _vjp_counters():
+    """The VJP functions that count their kernel's launches (also while a planted fault
+    or a counting wrapper stands in the module's name)."""
+    from speechflow_torch.ops import anti_alias as AA
+
+    return dict(AA._VJP_COUNTERS)
+
+
 def reset_counts() -> None:
-    for fn in _counters().values():
+    for fn in (*_counters().values(), *_vjp_counters().values()):
         fn.launches = 0
 
 
@@ -859,14 +869,20 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
 
 
+def read_vjp_counts() -> dict:
+    """The anti-alias VJP kernels' launches (kept apart from ``read_counts``: only the
+    training paths run them)."""
+    return {name: fn.launches for name, fn in _vjp_counters().items()}
+
+
 @contextlib.contextmanager
 def uncounted():
     """Launches inside are left out of the path's counts (a comparison with plain)."""
-    saved = read_counts()
+    saved = {**read_counts(), **read_vjp_counts()}
     try:
         yield
     finally:
-        for name, fn in _counters().items():
+        for name, fn in {**_counters(), **_vjp_counters()}.items():
             fn.launches = saved[name]
 
 
@@ -1889,11 +1905,14 @@ def check_vjps(torch, AA) -> dict:
 
 
 def time_vjps(torch, AA) -> dict:
-    """Forward kernel and VJP times of each entry at B=32, bf16, summed over one
-    training micro-batch's calls (per stage: 6 fused, +1 post at the last; 1 stage-1;
-    3 snake + stage 2)."""
+    """Forward kernel, VJP kernel and plain VJP (``*_vjp_reference``) times of each entry
+    at B=32, bf16, summed over one training micro-batch's calls (per stage: 6 fused, +1
+    post at the last; 1 stage-1; 3 snake + stage 2); and each VJP kernel's outputs against
+    the plain VJP's on the same inputs, at the run lengths training gives them, within
+    ``TOL_BF16_GRAD`` of the plain output's largest magnitude (``vjp_err``: the worst
+    error as a share of that magnitude)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
-    res = {n: {"train_fwd_ms": 0.0, "vjp_ms": 0.0}
+    res = {n: {"train_fwd_ms": 0.0, "vjp_ms": 0.0, "vjp_plain_ms": 0.0, "vjp_err": 0.0}
            for n in ("anti_alias_snake", "aa_upsample_fir", "aa_snake_downsample")}
     for i, (t, c) in enumerate(TRAIN_STAGES):
         x = torch.randn(BATCH, t, c, generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -1906,19 +1925,39 @@ def time_vjps(torch, AA) -> dict:
                  "aa_snake_downsample": 3}
         runs = {
             "anti_alias_snake": (lambda: AA.anti_alias_snake(x, a, b),
-                                 lambda: AA.anti_alias_snake_vjp(x, a, b, g)),
+                                 lambda: AA.anti_alias_snake_vjp(x, a, b, g),
+                                 lambda: AA.anti_alias_snake_vjp_reference(x, a, b, g)),
             "aa_upsample_fir": (lambda: AA.aa_upsample_fir(x),
-                                lambda: AA.aa_upsample_fir_vjp(g, g).to(x.dtype)),
+                                lambda: AA.aa_upsample_fir_vjp(g, g),
+                                lambda: AA.aa_upsample_fir_vjp_reference(g, g).to(x.dtype)),
             "aa_snake_downsample": (lambda: AA.aa_snake_downsample(ye, yo, a, b),
-                                    lambda: AA.aa_snake_downsample_vjp(ye, yo, a, b, g)),
+                                    lambda: AA.aa_snake_downsample_vjp(ye, yo, a, b, g),
+                                    lambda: AA.aa_snake_downsample_vjp_reference(
+                                        ye, yo, a, b, g)),
         }
-        for name, (fwd, vjp) in runs.items():
+        for name, (fwd, vjp, plain) in runs.items():
             with torch.no_grad():
-                f_ms, v_ms = cuda_ms(fwd, 5), cuda_ms(vjp, 3, warmup=1)
+                f_ms, v_ms = cuda_ms(fwd, 5), cuda_ms(vjp, 5)
+                p_ms = cuda_ms(plain, 3, warmup=1)
+                got, ref = vjp(), plain()
+            got, ref = (v if isinstance(v, tuple) else (v,) for v in (got, ref))
+            errs = []
+            for j, (u, v) in enumerate(zip(got, ref)):
+                scale = v.float().abs().max().item()
+                err = (u.float() - v.float()).abs().max().item() / max(scale, 1e-30)
+                check(u.dtype == v.dtype and err <= TOL_BF16_GRAD,
+                      f"{name} VJP kernel output {j} B{BATCH} T{t} C{c} bf16: {err} of the "
+                      f"plain VJP's scale > {TOL_BF16_GRAD}")
+                res[name]["vjp_err"] = max(res[name]["vjp_err"], err)
+                errs.append(f"{err:.3g}")
+            del got, ref
             res[name]["train_fwd_ms"] += calls[name] * f_ms
             res[name]["vjp_ms"] += calls[name] * v_ms
+            res[name]["vjp_plain_ms"] += calls[name] * p_ms
             print(f"[train] {name} B{BATCH} T{t} C{c} bf16: forward kernel {f_ms:.4f} ms, "
-                  f"VJP {v_ms:.4f} ms; {calls[name]} calls per micro-batch", flush=True)
+                  f"VJP kernel {v_ms:.4f} ms, plain VJP {p_ms:.4f} ms; {calls[name]} calls "
+                  f"per micro-batch; VJP kernel against plain, of scale: {', '.join(errs)}",
+                  flush=True)
         del x, g, ye, yo
         torch.cuda.empty_cache()
     return res
@@ -1990,6 +2029,7 @@ def planted_dbeta_fault(beta, negate: str = "d_beta"):
     from speechflow_torch.ops import anti_alias as AA
 
     real = AA.anti_alias_snake_vjp
+    before = real.launches
 
     def faulty(x, alpha, b, g, taps=12):
         grads = dict(zip(("dx", "d_alpha", "d_beta"), real(x, alpha, b, g, taps)))
@@ -2002,6 +2042,7 @@ def planted_dbeta_fault(beta, negate: str = "d_beta"):
         yield
     finally:
         AA.anti_alias_snake_vjp = real
+    check(real.launches > before, "planted fault: the fused VJP kernel never ran under it")
 
 
 @contextlib.contextmanager
@@ -2169,7 +2210,7 @@ def phase_train(torch, gpu_line: str) -> dict:
         torch.cuda.synchronize()
         st["times"].append(time.perf_counter())
         st["trainer"] = trainer
-        counts = read_counts()
+        counts, vjp_counts = read_counts(), read_vjp_counts()
         st["launches"].append(counts)
         reset_counts()
         i = trainer.global_step
@@ -2178,6 +2219,8 @@ def phase_train(torch, gpu_line: str) -> dict:
         check(all(np.isfinite(v) for v in vals.values()), f"train: non-finite loss {vals}")
         check(counts == TRAIN_LAUNCHES,
               f"train: launches at micro-batch {i}: {counts} != {TRAIN_LAUNCHES}")
+        check(vjp_counts == TRAIN_VJP_LAUNCHES,
+              f"train: VJP launches at micro-batch {i}: {vjp_counts} != {TRAIN_VJP_LAUNCHES}")
         changed = any(not torch.equal(p, r) for p, r in
                       zip(trainer.generator.parameters(), st["gen_ref"]))
         opt = trainer.gen_opt
@@ -2220,6 +2263,7 @@ def phase_train(torch, gpu_line: str) -> dict:
                   f"{vals['gen/total']:.4f}, disc/total {vals.get('disc/total', 0.0):.4f}",
                   flush=True)
         vjp = sum(r["vjp_ms"] for r in res["times"].values())
+        plain_vjp = sum(r["vjp_plain_ms"] for r in res["times"].values())
         fwd = sum(r["train_fwd_ms"] for r in res["times"].values())
         print(f"[train] {TRAIN_MICRO_BATCHES} micro-batches ({TRAIN_MICRO_BATCHES // k} "
               f"optimizer steps) in {t_fit:.1f} s with set-up; per micro-batch {ms:.1f} ms "
@@ -2227,8 +2271,8 @@ def phase_train(torch, gpu_line: str) -> dict:
               + ", ".join(f"B{b} {t:.1f} ms" for b, t in by_size.items())
               + f"), second optimizer step "
               f"{opt_ms:.1f} ms, {rate:.2f} s of audio trained per s, peak device memory "
-              f"{peak / 2**30:.2f} GiB; anti-alias at B{BATCH}: VJPs "
-              f"{vjp:.1f} ms against "
+              f"{peak / 2**30:.2f} GiB; anti-alias at B{BATCH}: VJP kernels "
+              f"{vjp:.1f} ms (plain VJPs {plain_vjp:.1f} ms) against "
               f"the forward kernels' {fwd:.1f} ms per micro-batch ({vjp / ms:.3f} of a "
               f"micro-batch; {gpu_line})", flush=True)
 
@@ -4727,13 +4771,16 @@ def phase_e2e_train(torch, gpu_line: str) -> dict:
         with counted_vjps() as vjps, tempfile.TemporaryDirectory() as tmp2:
             ft = gan_run(torch, "e2e_train ft", TV.train, ft_cfg, data_cfg, E2E_FT_STEPS, tmp2,
                          audio_s)
+        vjp_kernels = read_vjp_counts()  # since the run's reset_counts
         per_step = {k: v / E2E_FT_STEPS for k, v in ft["launches"].items()}
         print(f"[e2e_train] {E2E_FT_CONFIG} (discriminator warm-started from the E2E run): "
               f"anti-alias launches a step {per_step}, fused VJPs {vjps['vjp']} "
-              f"({vjps['vjp'] / E2E_FT_STEPS:.0f} a step)", flush=True)
-        check(ft["launches"]["anti_alias_snake"] > 0 and vjps["vjp"] > 0,
-              f"e2e_train: the ft recipe ran no anti-alias kernel under autograd: "
-              f"{ft['launches']}, {vjps}")
+              f"({vjps['vjp'] / E2E_FT_STEPS:.0f} a step), VJP kernel launches {vjp_kernels}",
+              flush=True)
+        check(ft["launches"]["anti_alias_snake"] > 0 and vjps["vjp"] > 0
+              and vjp_kernels["anti_alias_snake_vjp"] == vjps["vjp"],
+              f"e2e_train: the ft recipe's fused VJPs did not all run the kernel: "
+              f"{ft['launches']}, {vjps}, {vjp_kernels}")
         res["ft_gate"] = ft_kernel_gate(torch, ft["trainer"].generator, inputs, targets)
         del ft["trainer"]
     torch.cuda.empty_cache()
@@ -5822,7 +5869,7 @@ def phase_vocoder_cpc(torch, gpu_line: str) -> dict:
     def callback(trainer, last):
         torch.cuda.synchronize()
         st["times"].append(time.perf_counter())
-        counts = read_counts()
+        counts, vjp_counts = read_counts(), read_vjp_counts()
         reset_counts()
         st["launches"].append(counts)
         vals = {k: float(v) for k, v in last.items()}
@@ -5830,8 +5877,9 @@ def phase_vocoder_cpc(torch, gpu_line: str) -> dict:
         i = trainer.global_step
         check(all(np.isfinite(v) for v in vals.values()) and vals.get("gen/cpc", 0.0) > 0,
               f"vocoder_cpc: losses at micro-batch {i}: {vals}")
-        check(counts == TRAIN_LAUNCHES,
-              f"vocoder_cpc: launches at micro-batch {i}: {counts} != {TRAIN_LAUNCHES}")
+        check(counts == TRAIN_LAUNCHES and vjp_counts == TRAIN_VJP_LAUNCHES,
+              f"vocoder_cpc: launches at micro-batch {i}: {counts}, {vjp_counts} != "
+              f"{TRAIN_LAUNCHES}, {TRAIN_VJP_LAUNCHES}")
         cpc = made[0].model
         check(all(torch.equal(p, q) for p, q in zip(cpc.parameters(), st["cpc"]))
               and all(p.grad is None for p in cpc.parameters()),
@@ -6249,7 +6297,7 @@ def prep_vocoder(torch, tmp: Path, gpu_line: str) -> dict:
             return real_gen_step(self, inputs, targets, step)
 
         saver = experiment_saver(model_cfg, data_cfg, tmp / f"voc_{len(augs)}")
-        before = read_counts()
+        before, vjp_before = read_counts(), read_vjp_counts()
         GT.GANTrainer._generator_step = gen_step
         try:
             t0 = time.perf_counter()
@@ -6258,8 +6306,11 @@ def prep_vocoder(torch, tmp: Path, gpu_line: str) -> dict:
         finally:
             GT.GANTrainer._generator_step = real_gen_step
         counts = {k: v - before[k] for k, v in read_counts().items()}
-        check(counts == {k: DATA_PREP_VOC_MICRO_BATCHES * v for k, v in TRAIN_LAUNCHES.items()},
-              f"data_prep: vocoder launches {counts}")
+        vjp_counts = {k: v - vjp_before[k] for k, v in read_vjp_counts().items()}
+        check(counts == {k: DATA_PREP_VOC_MICRO_BATCHES * v for k, v in TRAIN_LAUNCHES.items()}
+              and vjp_counts == {k: DATA_PREP_VOC_MICRO_BATCHES * v
+                                 for k, v in TRAIN_VJP_LAUNCHES.items()},
+              f"data_prep: vocoder launches {counts}, VJP launches {vjp_counts}")
         wall = [1e3 * (b - a) for a, b in zip([t0] + ends[:-1], ends)]
         res[label] = [(b, ms) for b, ms in zip(sizes[2:], wall[2:])]
         print(f"[data_prep] vocoder_bigvgan.yml default (bf16) {label} "
@@ -6993,7 +7044,7 @@ def ddp_rank_run(torch, kind: str, rank: int, world: int, tmp: Path) -> dict:
         steps, cls, train, gate = DDP_GAN_MICRO_BATCHES, GANTrainer, TV.train, ddp_gan_gate
     model_cfg["trainer"].update(max_steps=steps, ckpt_every=steps, use_mesh=True)
     saver = experiment_saver(model_cfg, data_cfg, tmp / f"{kind}_exp") if rank == 0 else None
-    rec: dict = {"keys": [], "ms": [], "wait_s": 0.0}
+    rec: dict = {"keys": [], "ms": [], "wait_s": 0.0, "vjp_launches": []}
     real_next, real_step = DataLoader.next_batch, cls.training_step
 
     def next_batch(self, timeout: float = 120.0):
@@ -7015,10 +7066,12 @@ def ddp_rank_run(torch, kind: str, rank: int, world: int, tmp: Path) -> dict:
             rec["gate"] = gate(torch, self, batch, rank, world)
             ddp_mark(rank, f"{kind}: gate done")
         torch.cuda.synchronize()
+        vjp_before = read_vjp_counts()
         t0 = time.perf_counter()
         out = real_step(self, batch)
         torch.cuda.synchronize()
         rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["vjp_launches"].append({k: v - vjp_before[k] for k, v in read_vjp_counts().items()})
         ddp_mark(rank, f"{kind}: step {len(rec['ms'])} in {rec['ms'][-1]:.0f} ms")
         return out
 
@@ -7038,14 +7091,12 @@ def ddp_rank_run(torch, kind: str, rank: int, world: int, tmp: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        with counted_vjps() as vjps:
-            rec["expr"] = train(model_cfg, data_cfg, saver, device="cuda", callbacks=[done])
+        rec["expr"] = train(model_cfg, data_cfg, saver, device="cuda", callbacks=[done])
         rec["fit_s"] = time.perf_counter() - t0
         ddp_mark(rank, f"{kind}: train() returned")
     finally:
         DataLoader.next_batch, cls.training_step = real_next, real_step
-    rec.update(launches=read_counts(), vjps=vjps["vjp"],
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    rec.update(launches=read_counts(), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     return rec
 
 
@@ -7242,21 +7293,26 @@ def phase_ddp(torch, gpu_line: str) -> dict:
     for kind, what in (("tts", "acoustic model, step"), ("gan", "vocoder GAN, micro-batch")):
         for r, rank in enumerate(ranks):
             run = rank[kind]
+            vjp_kernels = {k: sum(v[k] for v in run["vjp_launches"]) for k in TRAIN_VJP_LAUNCHES}
             print(f"[ddp] rank {r} {what}s: {len(run['ms'])}, ms each "
                   + " ".join(f"{v:.1f}" for v in run["ms"])
                   + f" (median of 2.. {statistics.median(run['ms'][1:]):.1f}); train() "
                   f"{run['fit_s']:.1f} s with set-up; waited on its loader {run['wait_s']:.1f} s; "
                   f"peak device memory {run['peak_gib']:.2f} GiB; launches {run['launches']}, "
-                  f"anti-alias VJPs {run['vjps']}; backend {rank['backend']} ({gpu_line})",
+                  f"anti-alias VJP kernels {vjp_kernels}; backend {rank['backend']} ({gpu_line})",
                   flush=True)
     check(all(r["backend"] == "gloo" for r in ranks), "ddp: the ranks' backend is not gloo")
     served = ddp_check_tts(torch, ranks, tmp, gpu_line)
     ddp_check_gan(torch, ranks, gpu_line)
     train = {k: sum(r[kind]["launches"][k] for r in ranks for kind in ("tts", "gan"))
              for k in served}
-    check(all(r["gan"]["launches"][k] > 0 for r in ranks for k in HEAD_LAUNCHES)
-          and all(r["gan"]["vjps"] > 0 for r in ranks),
-          "ddp: a rank's GAN step launched no anti-alias kernel or VJP")
+    check(all(r["gan"]["launches"][k] > 0 for r in ranks for k in HEAD_LAUNCHES),
+          "ddp: a rank's GAN step launched no anti-alias kernel")
+    for r, rank in enumerate(ranks):
+        got = rank["gan"]["vjp_launches"]
+        check(len(got) == DDP_GAN_MICRO_BATCHES and all(v == TRAIN_VJP_LAUNCHES for v in got),
+              f"ddp: rank {r}'s VJP kernel launches a micro-batch {got} != "
+              f"{TRAIN_VJP_LAUNCHES}")
     children = mp.active_children()
     check(not children, f"ddp: processes still alive: {children}")
     phase_s = time.perf_counter() - t_phase

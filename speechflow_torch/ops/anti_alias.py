@@ -23,16 +23,23 @@ XLA SAME anchoring pad_left p = (K-1)//2):
                   + sum_{k-p odd}  f[k] z_odd[i + (k-p-1)/2],  z = snake(y)
 
 Gradients. On the GPU each entry is a ``torch.autograd.Function``: the
-forward is the kernel launch, the backward a closed-form VJP in PyTorch ops
-(``*_vjp``), as the JAX package's custom VJP differentiates the XLA
-composition in its backward (``_make_anti_alias_snake``); no backward kernel.
-Each Function saves its inputs only; the fused entry's VJP recomputes stage 1
-with the ``aa_upsample_fir`` kernel (counted as a launch of it). Every FIR is
-a sum of shifted copies with zeros outside [0, T), so its transpose is the
-same sum with the shifts negated; the edge rules follow. The VJPs compute in
-f32 (α and β reduced over (B, T) in f32; float64 for float64 inputs) and
-return each gradient in its input's dtype. On CPU tensors the plain versions run under PyTorch's own
-autograd.
+forward is the kernel launch, the backward the VJP (``*_vjp``), which on CUDA
+tensors is a hand-written kernel of the same source (the JAX package's custom
+VJP differentiates the XLA composition in its backward,
+``_make_anti_alias_snake``). Each Function saves its inputs only (the fused
+entry its input as the kernel read it, contiguous); the fused VJP kernel
+recomputes stage 1 in f32 registers. Every FIR is a sum of shifted
+copies with zeros outside [0, T), so its transpose is the same sum with the
+shifts negated; the edge rules follow. The VJP kernels compute in f32 and write
+each gradient in its input's dtype (dx in x's, dy in y's, dα and dβ in α's and
+β's); dα and dβ are each (batch, run)'s partial sums reduced by a second
+kernel in a fixed order, so two calls give the same bits. Their launches are
+counted in ``<vjp>.launches``. On CUDA tensors the VJPs always launch the
+kernels: float64 activations are refused, as by the forward, and α and β of
+another dtype reach the kernels as f32 copies, their gradients cast back. On
+CPU tensors the VJPs run their plain versions in torch ops (``*_vjp_reference``:
+f32, float64 for float64 inputs), which the GPU tests hold the kernels against;
+the entries' plain versions on CPU tensors run under PyTorch's own autograd.
 """
 
 from __future__ import annotations
@@ -51,7 +58,9 @@ from speechflow_torch.utils.profiler import span
 __all__ = ["kaiser_sinc_filter", "anti_alias_snake", "aa_upsample_fir",
            "aa_snake_downsample", "anti_alias_snake_reference",
            "aa_upsample_fir_reference", "aa_snake_downsample_reference",
-           "anti_alias_snake_vjp", "aa_upsample_fir_vjp", "aa_snake_downsample_vjp"]
+           "anti_alias_snake_vjp", "aa_upsample_fir_vjp", "aa_snake_downsample_vjp",
+           "anti_alias_snake_vjp_reference", "aa_upsample_fir_vjp_reference",
+           "aa_snake_downsample_vjp_reference"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_TAPS = 16
@@ -233,7 +242,7 @@ def _launch_downsample(y_even, y_odd, alpha, beta, taps: int) -> torch.Tensor:
     return out
 
 
-# -- the VJPs (torch ops; the backward of the Functions below) -------------------
+# -- the VJPs: plain versions (torch ops) ----------------------------------------
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,8 +287,9 @@ def _snake_vjp(y: torch.Tensor, dz: torch.Tensor, alpha: torch.Tensor, beta: tor
 
 
 @torch.no_grad()
-def aa_upsample_fir_vjp(g_even: tp.Optional[torch.Tensor], g_odd: tp.Optional[torch.Tensor],
-                        taps: int = 12) -> torch.Tensor:
+def aa_upsample_fir_vjp_reference(g_even: tp.Optional[torch.Tensor],
+                                  g_odd: tp.Optional[torch.Tensor], taps: int = 12
+                                  ) -> torch.Tensor:
     """dx of stage 1 from the cotangents of its (even, odd) outputs (either may
     be None, i.e. zero), in f32."""
     terms = _fir_terms(taps)
@@ -291,10 +301,11 @@ def aa_upsample_fir_vjp(g_even: tp.Optional[torch.Tensor], g_odd: tp.Optional[to
 
 
 @torch.no_grad()
-def aa_snake_downsample_vjp(y_even: torch.Tensor, y_odd: torch.Tensor, alpha: torch.Tensor,
-                            beta: torch.Tensor, g: torch.Tensor, taps: int = 12
-                            ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                          torch.Tensor]:
+def aa_snake_downsample_vjp_reference(y_even: torch.Tensor, y_odd: torch.Tensor,
+                                      alpha: torch.Tensor, beta: torch.Tensor,
+                                      g: torch.Tensor, taps: int = 12
+                                      ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                    torch.Tensor]:
     """(dy_even, dy_odd, dα, dβ) of the snake and stage 2, each in its input's dtype."""
     terms = _fir_terms(taps)
     g = _wide(g)
@@ -307,22 +318,150 @@ def aa_snake_downsample_vjp(y_even: torch.Tensor, y_odd: torch.Tensor, alpha: to
 
 
 @torch.no_grad()
+def anti_alias_snake_vjp_reference(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                                   g: torch.Tensor, taps: int = 12
+                                   ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dα, dβ) of the fused entry: stage 1 recomputed in f32 by its plain
+    version, then the two plain VJPs above."""
+    y_even, y_odd = aa_upsample_fir_reference(x.float(), taps)
+    dy_e, dy_o, d_alpha, d_beta = aa_snake_downsample_vjp_reference(y_even, y_odd, alpha,
+                                                                    beta, g, taps)
+    return aa_upsample_fir_vjp_reference(dy_e, dy_o, taps).to(x.dtype), d_alpha, d_beta
+
+
+# -- the VJPs: kernel wrappers ----------------------------------------------------
+
+# A VJP thread walks a run of rows and recomputes or rereads a halo of 5-8 rows at each
+# end, so the snake's VJPs waste least with long runs (64 rows); stage 1's transpose has no
+# snake to recompute and runs fastest with short ones (16), as its forward does (measured on
+# the H100, PERF.md). A run is halved, down to one chunk of 8 rows, while it is twice T or
+# the launch would give the card's SMs fewer than 256 threads each.
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _vjp_run_len(b: int, t: int, c: int, sms: int, longest: int = 64) -> int:
+    run = longest
+    while run > 8 and (run // 2 >= t or b * -(-t // run) * -(-c // 2) < 256 * sms):
+        run //= 2
+    return run
+
+
+def _param_grads(alpha: torch.Tensor, beta: torch.Tensor, b: int, t: int, c: int, run: int,
+                 device) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, tuple]:
+    """The buffers the kernels write dα and dβ to (in α's and β's dtypes where the kernels
+    write those, else f32, which the wrappers cast), the kernels' scratch of partial sums,
+    and the C arguments of both dtypes."""
+    d_alpha, d_beta = (torch.empty(c, dtype=v.dtype if v.dtype in _DTYPES else torch.float32,
+                                   device=device) for v in (alpha, beta))
+    partial = torch.empty(2 * b * -(-t // run) * c, dtype=torch.float32, device=device)
+    return d_alpha, d_beta, partial, (_DTYPES[d_alpha.dtype], _DTYPES[d_beta.dtype])
+
+
+def _launch_fused_vjp(x, alpha, beta, g, taps: int):
+    _check("anti_alias_snake_vjp", taps, x, g)
+    b, t, c = x.shape
+    x, g = x.contiguous(), g.contiguous()
+    a, bt = _params(alpha, beta, c, x.device)
+    run = _vjp_run_len(b, t, c, _sm_count(x.device))
+    dx = torch.empty_like(x)
+    d_alpha, d_beta, partial, codes = _param_grads(alpha, beta, b, t, c, run, x.device)
+    fn = _build.function("anti_alias", "sf_aa_snake_fused_vjp",
+                         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    err = fn(x.data_ptr(), g.data_ptr(), a.data_ptr(), bt.data_ptr(),
+             _filter_on(taps, str(x.device)).data_ptr(), dx.data_ptr(), d_alpha.data_ptr(),
+             d_beta.data_ptr(), partial.data_ptr(), b, t, c, taps, run, _DTYPES[x.dtype],
+             *codes, _stream(x))
+    _build.check(err, "sf_aa_snake_fused_vjp")
+    _VJP_COUNTERS["anti_alias_snake_vjp"].launches += 1
+    return dx, d_alpha.to(alpha.dtype), d_beta.to(beta.dtype)
+
+
+def _launch_downsample_vjp(y_even, y_odd, alpha, beta, g, taps: int):
+    _check("aa_snake_downsample_vjp", taps, y_even, y_odd, g)
+    b, t, c = y_even.shape
+    y_even, y_odd, g = y_even.contiguous(), y_odd.contiguous(), g.contiguous()
+    a, bt = _params(alpha, beta, c, g.device)
+    run = _vjp_run_len(b, t, c, _sm_count(g.device))
+    dy_even, dy_odd = torch.empty_like(y_even), torch.empty_like(y_odd)
+    d_alpha, d_beta, partial, codes = _param_grads(alpha, beta, b, t, c, run, g.device)
+    fn = _build.function("anti_alias", "sf_aa_snake_downsample_vjp",
+                         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    err = fn(y_even.data_ptr(), y_odd.data_ptr(), g.data_ptr(), a.data_ptr(), bt.data_ptr(),
+             _filter_on(taps, str(g.device)).data_ptr(), dy_even.data_ptr(),
+             dy_odd.data_ptr(), d_alpha.data_ptr(), d_beta.data_ptr(), partial.data_ptr(),
+             b, t, c, taps, run, _DTYPES[g.dtype], *codes, _stream(g))
+    _build.check(err, "sf_aa_snake_downsample_vjp")
+    _VJP_COUNTERS["aa_snake_downsample_vjp"].launches += 1
+    return dy_even, dy_odd, d_alpha.to(alpha.dtype), d_beta.to(beta.dtype)
+
+
+def _launch_upsample_vjp(g_even, g_odd, taps: int) -> torch.Tensor:
+    g_even, g_odd = (None if v is None else v.contiguous() for v in (g_even, g_odd))
+    present = [v for v in (g_even, g_odd) if v is not None]
+    _check("aa_upsample_fir_vjp", taps, *present)
+    g = present[0]
+    b, t, c = g.shape
+    dx = torch.empty_like(g)
+    fn = _build.function("anti_alias", "sf_aa_upsample_fir_vjp",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    err = fn(None if g_even is None else g_even.data_ptr(),
+             None if g_odd is None else g_odd.data_ptr(),
+             _filter_on(taps, str(g.device)).data_ptr(), dx.data_ptr(), b, t, c, taps,
+             _vjp_run_len(b, t, c, _sm_count(g.device), 16), _DTYPES[g.dtype], _stream(g))
+    _build.check(err, "sf_aa_upsample_fir_vjp")
+    _VJP_COUNTERS["aa_upsample_fir_vjp"].launches += 1
+    return dx
+
+
+# -- the VJPs (the backward of the Functions below) --------------------------------
+
+
+def aa_upsample_fir_vjp(g_even: tp.Optional[torch.Tensor], g_odd: tp.Optional[torch.Tensor],
+                        taps: int = 12) -> torch.Tensor:
+    """dx of stage 1 from the cotangents of its (even, odd) outputs (either may
+    be None, i.e. zero): on CUDA tensors the kernel, in the cotangents' dtype
+    (launches counted in ``aa_upsample_fir_vjp.launches``), else the plain
+    version, in f32."""
+    present = [v for v in (g_even, g_odd) if v is not None]
+    if not present or present[0].device.type != "cuda":
+        return aa_upsample_fir_vjp_reference(g_even, g_odd, taps)
+    return _launch_upsample_vjp(g_even, g_odd, taps)
+
+
+def aa_snake_downsample_vjp(y_even: torch.Tensor, y_odd: torch.Tensor, alpha: torch.Tensor,
+                            beta: torch.Tensor, g: torch.Tensor, taps: int = 12
+                            ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """(dy_even, dy_odd, dα, dβ) of the snake and stage 2, each in its input's
+    dtype: the kernel on CUDA tensors (launches counted in
+    ``aa_snake_downsample_vjp.launches``), else the plain version."""
+    if g.device.type != "cuda":
+        return aa_snake_downsample_vjp_reference(y_even, y_odd, alpha, beta, g, taps)
+    return _launch_downsample_vjp(y_even, y_odd, alpha, beta, g, taps)
+
+
 def anti_alias_snake_vjp(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                          g: torch.Tensor, taps: int = 12
                          ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dx, dα, dβ) of the fused entry: stage 1 recomputed in f32 through
-    ``aa_upsample_fir`` (the kernel on the GPU), then the two VJPs above."""
-    y_even, y_odd = aa_upsample_fir(x.float(), taps)
-    dy_e, dy_o, d_alpha, d_beta = aa_snake_downsample_vjp(y_even, y_odd, alpha, beta, g, taps)
-    return aa_upsample_fir_vjp(dy_e, dy_o, taps).to(x.dtype), d_alpha, d_beta
+    """(dx, dα, dβ) of the fused entry, each in its input's dtype: the kernel on
+    CUDA tensors (stage 1 recomputed in its registers; launches counted in
+    ``anti_alias_snake_vjp.launches``), else the plain version."""
+    if g.device.type != "cuda":
+        return anti_alias_snake_vjp_reference(x, alpha, beta, g, taps)
+    return _launch_fused_vjp(x, alpha, beta, g, taps)
 
 
 class _AntiAliasSnakeFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, alpha, beta, taps):
-        ctx.save_for_backward(x, alpha, beta)
         ctx.taps = taps
         with span("op.aa_snake"):
+            # the kernels read (B, T, C) rows and the head's activations are transposed views
+            # of its convolutions' outputs: x is copied once, and the VJP reads the copy
+            x = x.contiguous()
+            ctx.save_for_backward(x, alpha, beta)
             return _launch_fused(x, alpha, beta, taps)
 
     @staticmethod
@@ -395,3 +534,10 @@ def aa_snake_downsample(y_even: torch.Tensor, y_odd: torch.Tensor,
 anti_alias_snake.launches = 0
 aa_upsample_fir.launches = 0
 aa_snake_downsample.launches = 0
+anti_alias_snake_vjp.launches = 0
+aa_upsample_fir_vjp.launches = 0
+aa_snake_downsample_vjp.launches = 0
+# The VJP launchers count on these function objects, which a caller's patch of the
+# module's names (a planted fault, a counting wrapper) leaves in place.
+_VJP_COUNTERS = {fn.__name__: fn for fn in (anti_alias_snake_vjp, aa_upsample_fir_vjp,
+                                            aa_snake_downsample_vjp)}

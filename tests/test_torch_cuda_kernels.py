@@ -398,7 +398,7 @@ def _grads(fn, inputs, cotangents):
 @pytest.mark.parametrize("taps", [6, 8, 12])
 @pytest.mark.parametrize("shape", [(2, 300, 24), (1, 1000, 33), (2, 130, 70)])
 def test_anti_alias_vjps_match_plain_autograd(cuda_device, rng, dtype, tol, taps, shape):
-    """The three entries' autograd Functions (kernel forward, VJP in torch ops)
+    """The three entries' autograd Functions (kernel forward, VJP kernel)
     against PyTorch autograd of the plain versions: every input's gradient
     within ``tol`` of the plain gradient's largest magnitude (f32: sums in
     another order; bf16: one ulp of the gradient's scale), in the input's dtype."""
@@ -420,6 +420,159 @@ def test_anti_alias_vjps_match_plain_autograd(cuda_device, rng, dtype, tol, taps
         for u, v in zip(got, ref):
             assert u.dtype == v.dtype
             assert (u.float() - v.float()).abs().max().item() <= tol * v.float().abs().max().item()
+
+
+_VJPS = ("anti_alias_snake_vjp", "aa_upsample_fir_vjp", "aa_snake_downsample_vjp")
+
+
+def _vjp_launches():
+    return tuple(getattr(AA, name).launches for name in _VJPS)
+
+
+def _aa_vjp_inputs(rng, device, dtype, shape):
+    c = shape[-1]
+    x, g, h = (_normal(rng, *shape).to(device, dtype) for _ in range(3))
+    a, b = (0.3 * _normal(rng, c)).to(device), (0.3 * _normal(rng, c)).to(device)
+    return x, a, b, g, h
+
+
+def _assert_vjps_match(got, ref, tol):
+    for u, v in zip(got, ref):
+        assert u.dtype == v.dtype and u.shape == v.shape
+        scale = v.float().abs().max().item()
+        assert (u.float() - v.float()).abs().max().item() <= tol * scale
+
+
+def _check_vjp_kernels(device, rng, dtype, tol, taps, shape):
+    """Each VJP kernel against its plain version on the same inputs, each
+    counting one launch."""
+    x, a, b, g, h = _aa_vjp_inputs(rng, device, dtype, shape)
+    ye, yo = AA.aa_upsample_fir_reference(x, taps)
+    before = _vjp_launches()
+    fused = AA.anti_alias_snake_vjp(x, a, b, g, taps)
+    up = AA.aa_upsample_fir_vjp(g, h, taps)
+    down = AA.aa_snake_downsample_vjp(ye, yo, a, b, g, taps)
+    torch.cuda.synchronize()
+    assert tuple(n - m for n, m in zip(_vjp_launches(), before)) == (1, 1, 1)
+    _assert_vjps_match(fused, AA.anti_alias_snake_vjp_reference(x, a, b, g, taps), tol)
+    assert up.dtype == dtype
+    _assert_vjps_match((up,), (AA.aa_upsample_fir_vjp_reference(g, h, taps).to(dtype),), tol)
+    _assert_vjps_match(down, AA.aa_snake_downsample_vjp_reference(ye, yo, a, b, g, taps), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("taps", [6, 8, 12, 16])
+@pytest.mark.parametrize("shape", [(1, 1, 5), (2, 5, 7), (2, 300, 24), (1, 1000, 33),
+                                   (3, 70, 1536), (4, 130, 48)])
+def test_anti_alias_vjp_kernels_match_plain(cuda_device, rng, dtype, tol, taps, shape):
+    """T = 1, T shorter than the filter, T not a multiple of the run length, odd C,
+    C = 24 and 1536, B > 1; taps 16 is the full 16-tap kernel. f32: the kernel sums
+    in another order and takes the reduced sine; bf16: one ulp of the gradient's
+    scale, the kernel rounding once from f32 as the plain version does."""
+    _check_vjp_kernels(cuda_device, rng, dtype, tol, taps, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1.6e-2)])
+def test_anti_alias_vjp_kernels_at_a_training_stage(cuda_device, rng, dtype, tol):
+    """A stage of the flagship head's training batch (B32, 1520 rows, 384 channels),
+    where the threads walk the longest runs (64 rows)."""
+    assert AA._vjp_run_len(32, 1520, 384, AA._sm_count(cuda_device)) == 64
+    _check_vjp_kernels(cuda_device, rng, dtype, tol, 12, (32, 1520, 384))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [8, 16, 32, 64])
+def test_anti_alias_vjp_kernels_at_every_run_length(cuda_device, rng, monkeypatch, run):
+    """Each run length the wrappers may choose, at a T that is a multiple of none of them."""
+    monkeypatch.setattr(AA, "_vjp_run_len", lambda *shape: run)
+    _check_vjp_kernels(cuda_device, rng, torch.float32, 1e-5, 12, (3, 333, 40))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_anti_alias_upsample_vjp_with_one_cotangent(cuda_device, rng, dtype):
+    """A missing cotangent of stage 1 is zero (the kernel reads no tensor for it)."""
+    _, _, _, g, h = _aa_vjp_inputs(rng, cuda_device, dtype, (2, 333, 33))
+    tol = 1e-5 if dtype == torch.float32 else 1.6e-2
+    for ge, go in ((g, None), (None, h)):
+        got = AA.aa_upsample_fir_vjp(ge, go, 12)
+        ref = AA.aa_upsample_fir_vjp_reference(ge, go, 12).to(dtype)
+        _assert_vjps_match((got,), (ref,), tol)
+
+
+@pytest.mark.cuda
+def test_anti_alias_vjps_take_a_non_contiguous_cotangent(cuda_device, rng):
+    x, a, b, g, _ = _aa_vjp_inputs(rng, cuda_device, torch.float32, (2, 200, 24))
+    gt = g.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not gt.is_contiguous()
+    ye, yo = AA.aa_upsample_fir_reference(x, 12)
+    _assert_vjps_match(AA.anti_alias_snake_vjp(x, a, b, gt),
+                       AA.anti_alias_snake_vjp_reference(x, a, b, g), 1e-5)
+    _assert_vjps_match(AA.aa_snake_downsample_vjp(ye, yo, a, b, gt),
+                       AA.aa_snake_downsample_vjp_reference(ye, yo, a, b, g), 1e-5)
+    _assert_vjps_match((AA.aa_upsample_fir_vjp(gt, gt),),
+                       (AA.aa_upsample_fir_vjp_reference(g, g),), 1e-5)
+
+
+@pytest.mark.cuda
+def test_anti_alias_vjps_on_the_card_run_the_kernels_whatever_the_dtypes(cuda_device, rng):
+    """float64 α and β reach the kernels as f32 copies (as in the forward) and their
+    gradients come back in float64; float64 activations are refused, as by the forward."""
+    x, a, b, g, h = _aa_vjp_inputs(rng, cuda_device, torch.float32, (2, 300, 24))
+    a64, b64 = a.double(), b.double()
+    ye, yo = AA.aa_upsample_fir_reference(x, 12)
+    before = _vjp_launches()
+    fused = AA.anti_alias_snake_vjp(x, a64, b64, g)
+    down = AA.aa_snake_downsample_vjp(ye, yo, a64, b64, g)
+    assert tuple(n - m for n, m in zip(_vjp_launches(), before)) == (1, 0, 1)
+    _assert_vjps_match(fused, AA.anti_alias_snake_vjp_reference(x, a64, b64, g), 1e-5)
+    _assert_vjps_match(down, AA.aa_snake_downsample_vjp_reference(ye, yo, a64, b64, g), 1e-5)
+    x64, g64 = x.double(), g.double()
+    for call in (lambda: AA.anti_alias_snake_vjp(x64, a, b, g64),
+                 lambda: AA.aa_upsample_fir_vjp(g64, h.double()),
+                 lambda: AA.aa_snake_downsample_vjp(ye.double(), yo.double(), a, b, g64)):
+        with pytest.raises(TypeError):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_anti_alias_vjp_param_grads_are_bitwise_reproducible(cuda_device, rng, dtype):
+    """dα and dβ come from partial sums reduced in a fixed order: two calls on the
+    same inputs give the same bits (and so do the other gradients)."""
+    x, a, b, g, _ = _aa_vjp_inputs(rng, cuda_device, dtype, (8, 3000, 48))
+    ye, yo = AA.aa_upsample_fir_reference(x, 12)
+    for fn, args in ((AA.anti_alias_snake_vjp, (x, a, b, g)),
+                     (AA.aa_snake_downsample_vjp, (ye, yo, a, b, g))):
+        first, second = fn(*args), fn(*args)
+        assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_anti_alias_vjps_launch_only_their_kernels(cuda_device, rng):
+    """On contiguous inputs a VJP runs its kernel (and, with α and β, the fixed-order
+    reduction) and nothing else on the device: every device event of the trace (the
+    profiler's raw events, as the benchmark reads them; a ctypes launch has no op of
+    its own to hang under in ``prof.events()``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, a, b, g, h = _aa_vjp_inputs(rng, cuda_device, torch.bfloat16, (4, 500, 96))
+    ye, yo = AA.aa_upsample_fir_reference(x, 12)
+    calls = ((lambda: AA.anti_alias_snake_vjp(x, a, b, g), 2),
+             (lambda: AA.aa_upsample_fir_vjp(g, h), 1),
+             (lambda: AA.aa_snake_downsample_vjp(ye, yo, a, b, g), 2))
+    for call, n in calls:
+        call()  # the library is loaded
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA]
+        assert len(kernels) == n and all("aa_vjp" in k for k in kernels), kernels
 
 
 @pytest.mark.cuda

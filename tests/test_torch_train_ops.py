@@ -75,6 +75,26 @@ def test_anti_alias_vjps_keep_the_input_dtype():
     assert AA.aa_upsample_fir_vjp(g, None).dtype == torch.float32
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_anti_alias_vjps_on_cpu_tensors_are_the_plain_versions(dtype):
+    """On CPU tensors each VJP is its plain version, bit for bit, and counts no launch."""
+    gen = torch.Generator().manual_seed(3)
+    x, g, h = (torch.randn(2, 45, 7, generator=gen).to(dtype) for _ in range(3))
+    a, b = 0.3 * torch.randn(7, generator=gen), 0.3 * torch.randn(7, generator=gen)
+    ye, yo = AA.aa_upsample_fir_reference(x)
+    launches = [AA.anti_alias_snake_vjp.launches, AA.aa_upsample_fir_vjp.launches,
+                AA.aa_snake_downsample_vjp.launches]
+    pairs = [(AA.anti_alias_snake_vjp(x, a, b, g), AA.anti_alias_snake_vjp_reference(x, a, b, g)),
+             ((AA.aa_upsample_fir_vjp(g, h),), (AA.aa_upsample_fir_vjp_reference(g, h),)),
+             ((AA.aa_upsample_fir_vjp(None, h),), (AA.aa_upsample_fir_vjp_reference(None, h),)),
+             (AA.aa_snake_downsample_vjp(ye, yo, a, b, g),
+              AA.aa_snake_downsample_vjp_reference(ye, yo, a, b, g))]
+    for got, ref in pairs:
+        assert all(u.dtype == v.dtype and torch.equal(u, v) for u, v in zip(got, ref))
+    assert launches == [AA.anti_alias_snake_vjp.launches, AA.aa_upsample_fir_vjp.launches,
+                        AA.aa_snake_downsample_vjp.launches]
+
+
 # -- loss-side DSP gradients -------------------------------------------------------
 
 
